@@ -4,16 +4,31 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. facts: torch/CUDA versions, the card and its power limit, nvcc, triton;
-  2. build the coupling kernel from nfmc_torch/csrc/ with nvcc;
-  3. kernel vs its plain PyTorch version, both directions, at the sampler's
-     shapes (d=100, H=128, L=4 at B=100 and B=218,400) and a ragged odd
-     shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA events);
+  2. build the coupling kernels from nfmc_torch/csrc/ with nvcc, one process
+     per source, all at once;
+  3. forward kernel vs its plain PyTorch version, both directions, at the
+     sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400), the flow
+     fit's (B=256 training batches, B=3000 validation, and B=512) and a
+     ragged odd shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA
+     events);
+  3b. backward kernel vs its plain version, both directions, at B=512, 256
+     and 100, the ragged shape and B=1001 (many blocks, a partial last one):
+     max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical;
   4. the same three outer iterations with the same injected draws through
      the sampler's chunk runner on the card and on the CPU: they agree;
+  4b. the same Flow.fit on the card and on the CPU: per-epoch validation
+     losses and final weights agree to 1e-4;
   5. the main path through the front door: jump_mala, RealNVP (4 layers,
      hidden 128), 100 chains on a 100-d standard Gaussian, 2184 outer
      iterations of 5 MALA steps, with the kernel launch counts it made;
+  5b. the same with warmup=True and 500 outer iterations: MALA tuning, the
+     flow's MLE fit (every Adam step through the backward kernel), the
+     reshuffle of warmup draws into x0; jump acceptance in [0.010, 0.035],
+     MALA acceptance in [0.55, 0.72], the counter and launch laws;
+  5c. fit_nf=True at 20 outer iterations, on the fixed-effort route and on
+     the host route: the interleaving law, the counters, a trained flow;
   6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50].
+Each path's launch counts are set to 0 just before it and read just after.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no JAX, no network, and exits non-zero without a CUDA device.
@@ -39,6 +54,13 @@ D, H, L, C, INNER_N, OUTER = 100, 128, 4, 100, 5, 2184
 # N(0, 1) noise: log-scales reach about +-1.5, outputs stay O(10), where a
 # float32 difference of 1e-4 is a few ulps of the largest outputs
 PERTURB = 0.05
+# MALA acceptance after the warmup depends on where 100 dual-averaging
+# steps leave the step size: over seeds 0-15 both packages' tuned steps
+# span 0.22-0.29, and the MALA acceptance 0.56-0.71 (JAX) and 0.60-0.72
+# (port) on this target (scripts/warmup_reference_cpu.py), so the band is
+# that spread. The jump acceptance, set by the fitted flow, is tight.
+WARM_MALA_ACC = (0.55, 0.72)
+WARM_JUMP_ACC = (0.010, 0.035)
 
 
 def fail(msg: str) -> None:
@@ -75,15 +97,98 @@ def perturbed_params(d, hidden, n_layers, seed, device):
     return [{k: [t.to(device) for t in v] for k, v in p.items()} for p in params]
 
 
-def stack_cost(d, hidden, n_layers, rows):
-    """(FLOPs of the conditioner products, bytes of input and output)."""
+def stack_cost(d, hidden, n_layers, rows, backward=False):
+    """(FLOPs of the conditioner products, bytes of input and output).
+
+    Forward: x read, y and log-det written, the weights read. Backward: the
+    forward recomputed, then per row the three products with the transposed
+    weights and the three weight-gradient products, 3x the forward's FLOPs;
+    x, gy and gld read, gx written, the weights read and their gradients
+    written."""
     flops, n_weights = 0, 0
     for l in range(n_layers):
         da = (d + 1) // 2 if l % 2 == 0 else d // 2
         db = d - da
         flops += 2 * (da * hidden + hidden * hidden + hidden * 2 * db)
         n_weights += da * hidden + hidden + hidden * hidden + hidden + hidden * 2 * db + 2 * db
+    if backward:
+        return 3 * rows * flops, 4 * (3 * rows * d + rows + 2 * n_weights)
     return rows * flops, 4 * (2 * rows * d + rows + n_weights)
+
+
+def bound(flops, nbytes):
+    """(least ms on the card, what bounds it) at the published peaks."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flat_params(flow):
+    return torch.cat([t.detach().reshape(-1).cpu() for p in flow.params
+                      for v in p.values() for t in v])
+
+
+class RecordingNumpy:
+    """numpy, except that ``isfinite`` records the 1-d arrays it is given:
+    ``Flow.fit`` tests each block's per-epoch validation losses with it."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    def isfinite(self, a):
+        if np.ndim(a) == 1:
+            self.seen.append(np.array(a))
+        return np.isfinite(a)
+
+
+class Instrument:
+    """For the duration of a ``with`` block: wall time (ending in a
+    synchronise) of the inner sampler's warmup and of ``Flow.fit``, the
+    epochs and optimizer steps of flow training, and the inner sampler."""
+
+    def __enter__(self):
+        from nfmc_torch.flows import base as flow_base
+        from nfmc_torch.flows import train as train_mod
+        from nfmc_torch.samplers.mcmc.base import MCMCSampler
+
+        self.inner_s = self.fit_s = 0.0
+        self.epochs = self.steps = 0
+        self.inner = None
+        self._orig = [(MCMCSampler, "warmup", MCMCSampler.warmup),
+                      (flow_base.Flow, "fit", flow_base.Flow.fit),
+                      (train_mod, "_train_epoch", train_mod._train_epoch),
+                      (train_mod, "_train_step", train_mod._train_step)]
+        rec = self
+
+        def timed(fn, attr):
+            def wrapper(*a, **k):
+                if attr == "inner_s":
+                    rec.inner = a[0]
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    setattr(rec, attr, getattr(rec, attr) + time.perf_counter() - t0)
+            return wrapper
+
+        def counted(fn, attr):
+            def wrapper(*a, **k):
+                setattr(rec, attr, getattr(rec, attr) + 1)
+                return fn(*a, **k)
+            return wrapper
+
+        MCMCSampler.warmup = timed(MCMCSampler.warmup, "inner_s")
+        flow_base.Flow.fit = timed(flow_base.Flow.fit, "fit_s")
+        train_mod._train_epoch = counted(train_mod._train_epoch, "epochs")
+        train_mod._train_step = counted(train_mod._train_step, "steps")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
 
 
 def profile_window(headline_iters: int) -> None:
@@ -151,9 +256,10 @@ def main() -> None:
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     ops._library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ops.build_seconds:.2f} s)")
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ops.build_seconds:.2f} s, "
+          f"{len(ops.SOURCES)} sources in parallel)")
     for ln in ops.build_log.splitlines():
-        if "registers" in ln or "spill" in ln:
+        if "registers" in ln or "spill" in ln or ln.startswith("=="):
             print("  ptxas:", ln.strip())
 
     # ---- 3. kernel vs plain ------------------------------------------------------
@@ -162,7 +268,8 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     err = {False: 0.0, True: 0.0}
     timing = {}
-    for d, hid, nl, rows in [(D, H, L, C), (D, H, L, OUTER * C), (7, 16, 3, 37)]:
+    for d, hid, nl, rows in [(D, H, L, C), (D, H, L, OUTER * C), (D, H, L, 256), (D, H, L, 512),
+                             (D, H, L, 3000), (7, 16, 3, 37)]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -177,14 +284,48 @@ def main() -> None:
             reps = 50 if rows <= 1000 else 10
             k_ms = median_ms(lambda: wrapper(params, x, 3.0, packed=packed), reps)
             p_ms = median_ms(lambda: ops.realnvp_stack_plain(params, x, 3.0, inverse), reps)
-            flops, nbytes = stack_cost(d, hid, nl, rows)
-            bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S)
-            bound_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
+            bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows))
             timing[(d, rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by)
             print(f"coupling {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} B={rows}: "
                   f"max|diff| {e:.3e} (max|y| {y_ref.abs().max().item():.2f}), kernel {k_ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
             check(e <= TOL, f"kernel disagrees with the plain version: {e} > {TOL}")
+
+    # ---- 3b. backward kernel vs plain ------------------------------------------------
+    bwd_err, bwd_timing = 0.0, {}
+    for d, hid, nl, rows in [(D, H, L, 512), (D, H, L, 256), (D, H, L, C), (7, 16, 3, 37),
+                             (D, H, L, 1001)]:
+        params = perturbed_params(d, hid, nl, seed=d + rows + 1, device=dev)
+        packed = ops.pack_weights(params)
+        x, gy = (torch.randn((rows, d), generator=g, device=dev) for _ in range(2))
+        gld = torch.randn((rows,), generator=g, device=dev)
+        for inverse in (False, True):
+            got = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse, packed)
+            again = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse, packed)
+            torch.cuda.synchronize()
+            ref = ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)
+            pairs = list(zip([got[0], *ops._leaves(got[1])], [ref[0], *ops._leaves(ref[1])]))
+            e_abs = max((a - b).abs().max().item() for a, b in pairs)
+            scale = max(1.0, max(b.abs().max().item() for _, b in pairs))
+            same = torch.equal(got[0], again[0]) and all(
+                torch.equal(a, b) for a, b in zip(ops._leaves(got[1]), ops._leaves(again[1])))
+            check(all(bool(torch.isfinite(a).all()) for a, _ in pairs), "non-finite gradient")
+            bwd_err = max(bwd_err, e_abs)
+            line = (f"coupling vjp {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
+                    f"B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) = {scale:.2f}), "
+                    f"bit-identical rerun {same}")
+            if d == D and rows in (512, 256):
+                k_ms = median_ms(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse,
+                                                               packed), 30)
+                p_ms = median_ms(lambda: ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0,
+                                                                     inverse), 30)
+                bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows, backward=True))
+                bwd_timing[(rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by)
+                line += f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+            print(line)
+            check(e_abs <= TOL * scale, f"backward kernel disagrees with the plain version: "
+                                        f"{e_abs} > {TOL} * {scale}")
+            check(same, "two launches of the backward kernel gave different gradients")
 
     # ---- 4. chunk runner, card vs CPU, same draws ----------------------------------
     from nfmc_torch.flows import Flow, RealNVP
@@ -207,6 +348,31 @@ def main() -> None:
     e_chunk = (small["cpu"] - small["cuda"]).abs().max().item()
     print(f"chunk runner card vs CPU (3 outer x 2 MALA steps, d=6, C=8): max|diff| {e_chunk:.3e}")
     check(e_chunk <= TOL, "the chunk runner on the card disagrees with the CPU run")
+
+    # ---- 4b. Flow.fit, card vs CPU ---------------------------------------------------
+    from nfmc_torch.flows import train as train_mod
+
+    rng = np.random.default_rng(7)
+    x_fit = (1.3 * rng.standard_normal((70, 6)) + 0.5).astype(np.float32)
+    x_fit_val = (1.3 * rng.standard_normal((30, 6)) + 0.5).astype(np.float32)
+    fits = {}
+    orig_np = train_mod.np
+    try:
+        for device in ("cpu", "cuda"):
+            flow = Flow(RealNVP((6,), n_layers=2, hidden_size=16), seed=0)
+            flow.params = perturbed_params(6, 16, 2, seed=9, device=device)
+            train_mod.np = rec = RecordingNumpy()
+            flow.fit(x_fit, x_val=x_fit_val, shuffle=False, early_stopping=False, n_epochs=5,
+                     batch_size=16, seed=0)
+            fits[device] = (flat_params(flow), np.concatenate(rec.seen))
+    finally:
+        train_mod.np = orig_np
+    e_w = (fits["cpu"][0] - fits["cuda"][0]).abs().max().item()
+    e_vl = float(np.max(np.abs(fits["cpu"][1] - fits["cuda"][1])))
+    print(f"Flow.fit card vs CPU (d=6, 70 rows at batch 16, 5 epochs): weights max|diff| {e_w:.3e}, "
+          f"per-epoch val loss max|diff| {e_vl:.3e} (val losses {np.round(fits['cuda'][1], 5).tolist()})")
+    check(len(fits["cuda"][1]) == 5 and e_w <= TOL and e_vl <= TOL,
+          "Flow.fit on the card disagrees with the CPU fit")
 
     # ---- 5. main path: the headline through the front door ----------------------
     def headline():
@@ -244,6 +410,84 @@ def main() -> None:
           "headline moments are off N(0, I)")
     profile_window(headline_iters=64)
 
+    # ---- 5b. the headline with warmup -----------------------------------------
+    warm_outer = 500
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Instrument() as ins:
+        wout = nfmc_torch.sample(
+            StandardGaussian((D,)), strategy="jump_mala",
+            flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
+            n_chains=C, n_iterations=warm_outer, inner_param_kwargs={"n_iterations": INNER_N},
+            warmup=True, seed=0, show_progress=False)
+        torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    warm_launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+    wst = wout.statistics
+    ik = ins.inner.kernel
+    jacc_w, macc_w = wst.jump_acceptance_rate, wst.acceptance_rate
+    print(f"headline with warmup ({warm_outer} outer it): wall {wall_w:.3f} s, of which inner "
+          f"tuning {ins.inner_s:.3f} s and flow fit {ins.fit_s:.3f} s; fit {ins.epochs} epochs, "
+          f"{ins.steps} optimizer steps; launches {warm_launches}; tuned step size "
+          f"{ik.step_size:.6f} (default {D ** (-1 / 3):.6f}), inverse mass "
+          f"[{ik.inv_mass_diag.min():.4f}, {ik.inv_mass_diag.max():.4f}]")
+    print(f"headline with warmup: jump acc {jacc_w:.4f}, MALA acc {macc_w:.4f}, max|mean| "
+          f"{np.abs(wout.mean).max():.4f}, max|E[x^2]-1| {np.abs(wout.second_moment - 1).max():.4f}")
+    check(ins.steps > 0 and warm_launches["fused_realnvp_vjp"] == ins.steps,
+          "backward launches != optimizer steps")
+    check(warm_launches["fused_realnvp_forward"] == ins.steps + ins.epochs + warm_outer,
+          "forward launches != training steps + validation epochs + jumps")
+    check(warm_launches["fused_realnvp_inverse"] == 1, "proposals not in one inverse launch")
+    check(tuple(wout.samples.shape) == (warm_outer * (INNER_N + 1), C, D), "bad sample shape")
+    check(wst.n_target_calls == warm_outer * (INNER_N * 2 * C + 2 * C), "target-call counter law")
+    check(wst.n_target_gradient_calls == warm_outer * INNER_N * 2 * C, "gradient counter law")
+    check(wst.n_attempted_jumps == warm_outer * C, "attempted-jump counter law")
+    check(abs(ik.step_size - D ** (-1 / 3)) > 1e-4, "the warmup did not tune the step size")
+    check(WARM_JUMP_ACC[0] <= jacc_w <= WARM_JUMP_ACC[1],
+          f"warmup jump acceptance {jacc_w} outside {WARM_JUMP_ACC}")
+    check(WARM_MALA_ACC[0] <= macc_w <= WARM_MALA_ACC[1],
+          f"warmup MALA acceptance {macc_w} outside {WARM_MALA_ACC}")
+    check(np.abs(wout.mean).max() < 0.05 and np.abs(wout.second_moment - 1).max() < 0.1,
+          "moments after warmup are off N(0, I)")
+
+    # ---- 5c. fit_nf=True, both routes -----------------------------------------
+    from nfmc_torch.flows.train import _adaptive_batch_size
+
+    nf_outer, n_before = 20, 2
+    n_fits, rows = nf_outer - n_before, INNER_N * C
+    n_train = int(rows * 0.7)
+    bs = _adaptive_batch_size(n_train)
+    for route, kw, batches in (("fixed-effort", {"n_epochs": 2}, n_train // bs),
+                               ("host", {"n_epochs": 2, "early_stopping": True}, -(-n_train // bs))):
+        flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+        before = flat_params(flow)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with Instrument() as ins:
+            nout = nfmc_torch.sample(
+                StandardGaussian((D,)), strategy="jump_mala", flow=flow, n_chains=C,
+                n_iterations=nf_outer, inner_param_kwargs={"n_iterations": INNER_N},
+                param_kwargs={"fit_nf": True, "flow_fit_kwargs": kw,
+                              "n_jumps_before_training": n_before},
+                seed=0, show_progress=False)
+            torch.cuda.synchronize()
+        nl = {w.__name__: w.launches for w in ops.WRAPPERS}
+        nst = nout.statistics
+        change = (flat_params(flow) - before).abs().max().item()
+        print(f"fit_nf ({route} route, {nf_outer} outer it): wall {time.perf_counter() - t0:.3f} s, "
+              f"{ins.steps} optimizer steps, launches {nl}, jump acc {nst.jump_acceptance_rate:.4f}, "
+              f"max|weight change| {change:.4f}")
+        check(tuple(nout.samples.shape) == (nf_outer * (INNER_N + 1), C, D), "fit_nf shape law")
+        check(bool(torch.isfinite(nout.samples).all()), "fit_nf: non-finite samples")
+        check(nst.n_target_calls == nf_outer * (INNER_N * 2 * C + 2 * C), "fit_nf call counter law")
+        check(nst.n_attempted_jumps == nf_outer * C, "fit_nf jump counter law")
+        check(ins.steps == n_fits * 2 * batches, f"fit_nf: {ins.steps} steps, expected "
+                                                 f"{n_fits} refits x 2 epochs x {batches} batches")
+        check(nl["fused_realnvp_vjp"] == ins.steps, "fit_nf: backward launches != optimizer steps")
+        check(nl["fused_realnvp_inverse"] == nf_outer, "fit_nf: one proposal launch per iteration")
+        check(change > 0, "fit_nf: the flow did not change")
+
     # ---- 6. misfit target -------------------------------------------------------
     mu = 0.12
     t0 = time.perf_counter()
@@ -267,6 +511,14 @@ def main() -> None:
             "max_abs_err": err[inverse], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
         })
+    # the warmup's training batches: 4096 rows at the adaptive batch of 256
+    k_ms, p_ms, bound_ms, bound_by = bwd_timing[(256, False)]
+    kernels.append({
+        "name": "fused_realnvp_vjp", "route": "cuda", "source": "nfmc_torch/csrc/coupling_bwd.cu",
+        "replaces": "nfmc_tpu/ops/coupling_pallas.py:217",
+        "launches": warm_launches["fused_realnvp_vjp"], "max_abs_err": bwd_err, "ms": k_ms,
+        "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,7 +4,8 @@ CUDA kernels for NVIDIA Hopper.
 The port of ``nfmc_tpu`` (JAX on a TPU), which stays the reference. Same
 module layout and public names; entry points run on CUDA unless the caller
 passes ``device="cpu"``. Ported so far: ``sample``/``create_sampler`` for
-``jump_mala`` and ``jump_ula`` with a frozen RealNVP flow.
+``jump_mala`` and ``jump_ula`` with a RealNVP flow (frozen, fitted by the
+warmup, or refitted with ``fit_nf=True``) and for ``mala`` and ``ula``.
 """
 from .api import create_flow_object, create_sampler, parse_flow_string, sample
 from .core import (

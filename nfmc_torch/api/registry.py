@@ -44,11 +44,11 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
 # Strategies of nfmc_tpu's registry that the port does not run yet, with the
 # ROADMAP item that ports each.
 UNPORTED_STRATEGIES = {
-    **{s: "1.10" for s in ("hmc", "uhmc", "ula", "mala", "mh", "ess", "nuts", "pt_mala",
+    **{s: "1.10" for s in ("hmc", "uhmc", "mh", "ess", "nuts", "pt_mala",
                            "pt_mh", "pt_hmc", "aies", "chees_hmc", "dense_hmc", "dense_mala",
                            "jump_hmc", "jump_uhmc", "jump_ess", "jump_mh", "jump_nuts",
                            "jump_aies", "jump_chees")},
     **{s: "1.11" for s in ("imh", "fixed_imh", "adaptive_imh", "neutra_hmc", "neutra_mh",
                            "neutra_chees", "tess", "dlmc")},
 }
-PORTED_STRATEGIES = ("jump_mala", "jump_ula")
+PORTED_STRATEGIES = ("jump_mala", "jump_ula", "mala", "ula")

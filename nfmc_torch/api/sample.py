@@ -13,7 +13,7 @@ from ..core.rng import next_seed
 from ..core.sampler import NFMCKernel, Sampler
 from ..flows import Flow
 from ..potentials import Potential
-from ..samplers.mcmc import LangevinKernel, LangevinParameters
+from ..samplers.mcmc import MALA, ULA, LangevinKernel, LangevinParameters
 from ..samplers.nfmc import JumpMALA, JumpNFMCParameters, JumpULA
 from ..utils import resolve_device
 from .registry import PORTED_STRATEGIES, UNPORTED_STRATEGIES, create_flow_object
@@ -55,6 +55,11 @@ def create_sampler(
     event_shape = tuple(int(s) for s in event_shape)
     event_size = int(np.prod(event_shape))
 
+    if strategy in ("mala", "ula"):
+        cls = MALA if strategy == "mala" else ULA
+        return cls(event_shape, target, LangevinKernel(event_size=event_size, **kernel_kwargs),
+                   LangevinParameters(**param_kwargs), device=device)
+
     if flow is None:
         raise ValueError("Flow object must be provided")
     if isinstance(flow, str):
@@ -91,9 +96,9 @@ def sample(
 ) -> MCMCOutput:
     """One-call sampling entry. The default ``x0`` is drawn from N(0, I) on
     the device; ``seed`` fixes the flow's initial weights (for a flow given
-    by name), ``x0`` and the run."""
-    if warmup:
-        raise NotImplementedError("warmup=True is not ported to nfmc_torch yet (ROADMAP 1.9)")
+    by name), ``x0``, the warmup and the run. With ``warmup=True`` the
+    sampler warms up first and ``x0`` becomes a reshuffle of the warmup's
+    stored draws (its last state when it stores none)."""
     if flow == "None":
         flow = None
     if flow is not None and not isinstance(flow, str):
@@ -107,8 +112,10 @@ def sample(
         "n_iterations": n_iterations,
         "n_warmup_iterations": n_warmup_iterations,
     }
-    seeds = np.random.SeedSequence(seed if seed is not None else next_seed()).generate_state(3)
-    seed_flow, seed_x0, seed_run = (int(s) for s in seeds)
+    # the first three words do not depend on how many are drawn, so runs
+    # without warmup keep their seeds
+    seeds = np.random.SeedSequence(seed if seed is not None else next_seed()).generate_state(5)
+    seed_flow, seed_x0, seed_run, seed_warm, seed_shuffle = (int(s) for s in seeds)
     if isinstance(flow, str):
         kwargs["flow_kwargs"] = {"seed": seed_flow, **(kwargs.get("flow_kwargs") or {})}
 
@@ -118,5 +125,19 @@ def sample(
         g = torch.Generator(device=device)
         g.manual_seed(seed_x0)
         x0 = torch.randn((n_chains, *sampler.event_shape), generator=g, device=device)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    if warmup:
+        warmup_output = sampler.warmup(x0=x0, show_progress=show_progress,
+                                       time_limit_seconds=warmup_time_limit_seconds,
+                                       seed=seed_warm)
+        if warmup_output.store_samples and warmup_output.running_samples.n_samples > 0:
+            flat = warmup_output.samples.reshape(-1, *sampler.event_shape)
+            g = torch.Generator(device=flat.device)
+            g.manual_seed(seed_shuffle)
+            perm = torch.randperm(len(flat), generator=g, device=flat.device)
+            x0 = flat[perm[: x0.shape[0]]].to(device)
+        elif warmup_output.running_samples.last_sample is not None:
+            x0 = warmup_output.running_samples.last_sample.to(device)
+        # else the warmup produced nothing: keep the original x0
     return sampler.sample(x0=x0, show_progress=show_progress,
                           time_limit_seconds=sampling_time_limit_seconds, seed=seed_run)

@@ -1,5 +1,5 @@
-"""The chunked chain driver: accumulators, hoisted flow proposals and the
-chunk-loop policy.
+"""The chunked chain driver: accumulators, hoisted flow proposals, the
+chunk-loop policy and the standalone MCMC runner (``ChunkedDriver``).
 
 The JAX package compiles each chunk of iterations into one ``lax.scan``.
 Here a chunk is a plain Python loop of eager device operations, with the
@@ -186,6 +186,92 @@ def run_chunk_loop(
     if unflushed:
         flush(unflushed)
     return iters_done
+
+
+class ChunkedDriver:
+    """Runs a sampler's step for N iterations in chunks (the counterpart of
+    ``nfmc_tpu/core/driver.py::ChunkedScanDriver``, for standalone MCMC
+    runs).
+
+    ``make_step(tuning)`` gives ``step(x, kstate, draws) -> (x', kstate',
+    StepInfo)`` and ``make_draws(generator, prefix, n_chains)`` a chunk's
+    per-iteration randomness with leading dims ``prefix``. A chunk draws its
+    randomness up front, then loops the step eagerly; the accumulators stay
+    on the device.
+    """
+
+    def __init__(self, event_shape: Tuple[int, ...], make_step: Callable[[bool], Callable],
+                 make_draws: Callable):
+        self.event_shape = tuple(event_shape)
+        self.make_step = make_step
+        self.make_draws = make_draws
+
+    def run(self, x0: torch.Tensor, kstate, generator: torch.Generator, n_iterations: int, *,
+            stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
+            tuning: bool = False, collect: bool = True,
+            time_limit_seconds: Optional[float] = None, show_progress: bool = False,
+            desc: str = "MCMC"):
+        """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``."""
+        step = self.make_step(tuning)
+        device = x0.device
+        st = {"x": x0.clone(), "kstate": kstate, "acc": StatsAccum.zeros(self.event_shape, device)}
+        n_chains = x0.shape[0]
+        event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
+        collect = collect and samples is not None
+        # a pipelined run keeps its draws on the device and stores them after
+        # the one end-of-run synchronisation
+        defer_store = (collect and time_limit_seconds is None and not show_progress
+                       and n_iterations * n_chains * event_elems <= RNG_HOIST_ELEMENT_LIMIT)
+        deferred = []
+
+        def dispatch(chunk, _iters_done):
+            draws = self.make_draws(generator, (chunk,), n_chains)
+            x, ks, acc = st["x"], st["kstate"], st["acc"]
+            ys = torch.empty((chunk, *x.shape), dtype=x.dtype, device=device) if collect else None
+            with torch.no_grad():
+                for i in range(chunk):
+                    x, ks, info = step(x, ks, tuple(d[i] for d in draws))
+                    acc = acc.add(info, x)
+                    if collect:
+                        ys[i].copy_(x)
+            st.update(x=x, kstate=ks, acc=acc)
+            if collect:
+                if defer_store:
+                    deferred.append(ys)
+                else:
+                    samples.add(ys)
+
+        def flush(iters):
+            acc = st["acc"]
+            sum_x, sum_x2 = acc.moment_sums()
+            counts = torch.stack([acc.n_accepted, acc.n_divergences]).to(torch.float64)
+            host = torch.cat([counts, sum_x.reshape(-1).to(torch.float64),
+                              sum_x2.reshape(-1).to(torch.float64)]).cpu().numpy()
+            stats.update_counters(
+                n_accepted_trajectories=int(host[0]),
+                n_attempted_trajectories=iters * n_chains,
+                n_divergences=int(host[1]),
+                n_target_calls=iters * calls_per_iter,
+                n_target_gradient_calls=iters * grads_per_iter,
+            )
+            s_x, s_x2 = np.split(host[2:], 2)
+            stats.update_moments_from_sums(s_x.reshape(self.event_shape),
+                                           s_x2.reshape(self.event_shape), iters * n_chains)
+            st["acc"] = StatsAccum.zeros(self.event_shape, device)
+
+        # the chunk's hoisted draws and its emitted-draw buffer are each
+        # about (chunk, C, *event)
+        cap = max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * event_elems))
+        iters_done = run_chunk_loop(
+            n_iterations, dispatch=dispatch, sync=lambda: synchronize(device), stats=stats,
+            flush=flush, time_limit_seconds=time_limit_seconds, show_progress=show_progress,
+            desc=desc, sync_max_chunk=64, single_chunk_cap=cap,
+        )
+        if deferred:
+            samples.add(deferred[0] if len(deferred) == 1 else torch.cat(deferred, 0))
+        if samples is not None and not collect and iters_done > 0:
+            samples.add(st["x"])
+        return st["x"], st["kstate"]
 
 
 def hoist_cap(n_chains: int, event_elems: int, inner_n: int, per_proposal: int,

@@ -6,7 +6,7 @@ a separate object owned by each sampler.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -29,12 +29,19 @@ class MCMCParameters:
 
     n_iterations: int = 100
     n_warmup_iterations: int = 100
+    tuning: bool = False
     store_samples: bool = True
     # keep stored draws on the device instead of copying them to host memory
     store_samples_on_device: bool = False
 
     def __post_init__(self):
         pass
+
+    def tuning_mode(self):
+        self.tuning = True
+
+    def sampling_mode(self):
+        self.tuning = False
 
 
 def _default_flow(event_shape):
@@ -59,7 +66,20 @@ class NFMCKernel(MCMCKernel):
 
 @dataclass
 class NFMCParameters(MCMCParameters):
-    pass
+    train_pct: float = 0.7
+    max_train_size: int = 4096
+    max_val_size: int = 4096
+    flow_fit_kwargs: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.flow_fit_kwargs is None:
+            self.flow_fit_kwargs = {
+                "early_stopping": True,
+                "early_stopping_threshold": 50,
+                "batch_size": "adaptive",
+                "show_progress": False,
+            }
 
 
 class Sampler:

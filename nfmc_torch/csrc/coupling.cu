@@ -31,52 +31,13 @@
 // FMAs, accurate tanhf/expf (no fast-math), no tensor cores.
 #include <cuda_runtime.h>
 
+#include "coupling_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB a block can opt into
-
-__device__ __forceinline__ int cond_size(int l, int d) {
-  return (l % 2 == 0) ? (d + 1) / 2 : d / 2;
-}
-
-__device__ size_t layer_offset(int l, int d, int H) {
-  size_t off = 0;
-  for (int m = 0; m < l; ++m) {
-    const size_t da = cond_size(m, d);
-    const size_t db = d - da;
-    off += da * H + H + (size_t)H * H + H + (size_t)H * 2 * db + 2 * db;
-  }
-  return off;
-}
-
-// out[r][j] = tanh(b[j] + sum_k in[r][start + k * step] * W[k][j]) for the
-// warp's RPW rows; in and out rows are in shared memory.
-template <int RPW>
-__device__ void dense_tanh(const float* in_s, int in_stride, int start, int step,
-                           int K, const float* __restrict__ W,
-                           const float* __restrict__ b, float* out_s, int N,
-                           int lane) {
-  for (int j0 = 0; j0 < N; j0 += 32) {
-    const int j = j0 + lane;
-    const bool ok = j < N;
-    float acc[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const float w = ok ? __ldg(W + (size_t)k * N + j) : 0.f;
-      const float* col = in_s + start + k * step;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) acc[i] = fmaf(col[i * in_stride], w, acc[i]);
-    }
-    if (ok) {
-      const float bj = __ldg(b + j);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) out_s[i * N + j] = tanhf(acc[i] + bj);
-    }
-  }
-}
 
 template <int RPW>
 __global__ void __launch_bounds__(kThreads)

@@ -151,5 +151,9 @@ class Flow:
         with torch.no_grad():
             return self.sample_fn(self.params, g, int(n), return_log_prob)
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("flow training is not ported yet (ROADMAP 1.9)")
+    # ---- training --------------------------------------------------------------
+    def fit(self, x_train, **kwargs):
+        """Forward-KL MLE on samples (:func:`nfmc_torch.flows.train.fit`)."""
+        from .train import fit as _fit
+
+        return _fit(self, x_train, **kwargs)

@@ -1,7 +1,7 @@
-"""Carry flow parameters across from the JAX package.
+"""Carry flow parameters and kernel state across from the JAX package.
 
-Takes the JAX per-layer pytree as numpy arrays (or anything ``np.asarray``
-reads) and needs no JAX itself.
+Takes the JAX objects' arrays as numpy (anything ``np.asarray`` reads) and
+needs no JAX itself.
 """
 from __future__ import annotations
 
@@ -18,3 +18,19 @@ def from_jax_params(params, device="cpu"):
          for k in ("w", "b")}
         for p in params
     ]
+
+
+def from_jax_metropolis_state(state, device="cpu"):
+    """A JAX ``MetropolisState`` (``step_size``, ``inv_mass_diag`` and its
+    ``DualAveragingState`` ``da``) -> the port's ``MetropolisState``."""
+    from ..core.tuning import DualAveragingState
+    from ..samplers.mcmc.base import MetropolisState
+
+    def t(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    da = state.da
+    return MetropolisState(
+        step_size=t(state.step_size), inv_mass_diag=t(state.inv_mass_diag),
+        da=DualAveragingState(t=t(da.t), error_sum=t(da.error_sum),
+                              log_step_averaged=t(da.log_step_averaged), mu=t(da.mu)))

@@ -58,25 +58,28 @@ class RealNVP(Coupling):
     """Affine coupling flow (Dinh et al. 2017).
 
     Both directions run the whole stack through
-    :mod:`nfmc_torch.ops.coupling`: the CUDA kernel on a CUDA tensor, its
-    plain PyTorch version on a CPU tensor.
+    :mod:`nfmc_torch.ops.coupling`: the CUDA kernels on a CUDA tensor, their
+    plain PyTorch versions on a CPU tensor. Both are differentiable in the
+    input and the weights, with the backward kernel as the gradient.
     """
 
     def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
         super().__init__(event_shape, AffineTransform(clamp=clamp), n_layers=n_layers, **kwargs)
         self.clamp = float(clamp)
-        self._packed_key = None
+        self._packed_src = ()
         self._packed = None
 
     def _packed_weights(self, params, device):
-        """The kernel's weight buffer, rebuilt only when a parameter tensor
-        changes (another tensor, or an in-place update)."""
+        """The kernels' weight buffer, rebuilt only when a parameter tensor
+        changes (another tensor, or an in-place update). The key holds the
+        tensors themselves, so a freed tensor's address cannot alias it."""
         if device.type != "cuda":
             return None
-        key = tuple((t.data_ptr(), t._version) for p in params for v in p.values() for t in v)
-        if key != self._packed_key:
+        src = tuple((t, t._version) for p in params for v in p.values() for t in v)
+        if (len(src) != len(self._packed_src)
+                or any(a is not b or va != vb for (a, va), (b, vb) in zip(src, self._packed_src))):
             self._packed = coupling_ops.pack_weights(params)
-            self._packed_key = key
+            self._packed_src = src
         return self._packed
 
     def _run(self, params, v, inverse: bool):

@@ -1,0 +1,307 @@
+"""Flow training: forward-KL MLE ``fit`` and the fixed-effort
+``make_scan_fit`` (counterpart of ``nfmc_tpu/flows/train.py``).
+
+Adam (``optax.adam``: b1 0.9, b2 0.999, eps 1e-8) runs on one flat
+parameter vector in the packed order of the coupling kernels. A batch whose
+loss or any gradient is non-finite changes neither the parameters nor the
+moments, through ``torch.where`` and with no host synchronisation; the best
+weights and loss are tracked on the device per epoch. ``fit`` synchronises
+with the host once per block of ``check_every`` epochs, where it applies the
+early-stopping count, the time limit and the ``ValueError`` contract that
+lets callers roll back. Each training step goes forward through the
+coupling kernel and back through the backward kernel (``RealNVPStack``).
+
+``variational_fit`` and the data-parallel ``mesh`` option are not ported yet
+(ROADMAP 1.12, 1.13).
+"""
+from __future__ import annotations
+
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.rng import resolve_generator
+from ..ops.coupling import _leaves, unpack_like
+from ..utils import Progress, as_numpy
+
+
+def _finite_update(loss: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
+    """True iff the loss AND every gradient are finite: a finite loss does
+    not imply finite gradients, and NaN gradients would poison the Adam
+    moments."""
+    return torch.isfinite(loss) & torch.isfinite(grads).all()
+
+
+def _adaptive_batch_size(n_train: int) -> int:
+    """'adaptive' rule: ~n/10 clamped to [32, 4096], rounded to a power of two."""
+    if n_train <= 32:
+        return max(n_train, 1)
+    target = max(32, min(4096, n_train // 10 if n_train >= 320 else n_train))
+    return 1 << int(math.floor(math.log2(target)))
+
+
+def _pad_to_multiple(x: np.ndarray, multiple: int):
+    n = len(x)
+    n_pad = (-n) % multiple
+    if n_pad:
+        pad = np.repeat(x[-1:], n_pad, axis=0)
+        x = np.concatenate([x, pad], axis=0)
+    weights = np.ones(len(x), dtype=np.float32)
+    weights[n:] = 0.0
+    return x, weights
+
+
+def fixed_effort_fit_config(fit_kwargs):
+    """Static config tuple when ``fit_kwargs`` describe a fixed-effort fit (no
+    early stopping, no time limit, no unknown kwargs) that can run inside a
+    chunk runner, else ``None``."""
+    kw = dict(fit_kwargs or {})
+    if kw.get("early_stopping", False) or kw.get("time_limit_seconds") is not None:
+        return None
+    allowed = {
+        "n_epochs", "lr", "batch_size", "keep_best_weights", "shuffle",
+        "early_stopping", "early_stopping_threshold", "show_progress",
+        "check_for_divergences", "time_limit_seconds",  # explicit None is fixed-effort
+    }
+    if set(kw) - allowed:
+        return None
+    return (
+        int(kw.get("n_epochs", 500)),
+        float(kw.get("lr", 5e-3)),
+        kw.get("batch_size", "adaptive"),
+        bool(kw.get("keep_best_weights", True)),
+        bool(kw.get("shuffle", True)),
+    )
+
+
+def _flatten(params) -> torch.Tensor:
+    return torch.cat([t.detach().reshape(-1) for t in _leaves(params)]).to(torch.float32)
+
+
+class _Adam:
+    """``optax.adam(lr)`` on a flat parameter vector, with the masked skip."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, theta: torch.Tensor, lr: float):
+        self.lr = lr
+        self.mu = torch.zeros_like(theta)
+        self.nu = torch.zeros_like(theta)
+        self.count = torch.zeros((), dtype=torch.float32, device=theta.device)
+
+    def step(self, theta, g, finite):
+        count = self.count + 1.0
+        mu = (1.0 - self.b1) * g + self.b1 * self.mu
+        nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu
+        mu_hat = mu / (1.0 - torch.pow(self.b1, count))
+        nu_hat = nu / (1.0 - torch.pow(self.b2, count))
+        theta_new = theta + (-self.lr) * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        self.mu = torch.where(finite, mu, self.mu)
+        self.nu = torch.where(finite, nu, self.nu)
+        self.count = torch.where(finite, count, self.count)
+        return torch.where(finite, theta_new, theta)
+
+
+def _nll(flow, params, x, w=None) -> torch.Tensor:
+    """Negative mean log-likelihood, weighted when ``w`` is given (padding
+    rows carry weight 0)."""
+    lp = flow.log_prob_fn(params, x)
+    if w is None:
+        return -lp.mean()
+    return -(lp * w).sum() / w.sum().clamp_min(1.0)
+
+
+def _train_step(flow, like, theta, adam, xb, wb):
+    """One Adam step on a batch; returns ``(theta, loss)``."""
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        loss = _nll(flow, unpack_like(th, like), xb, wb)
+        (g,) = torch.autograd.grad(loss, th)
+    loss = loss.detach()
+    with torch.no_grad():
+        return adam.step(theta, g, _finite_update(loss, g)), loss
+
+
+def _train_epoch(flow, like, theta, adam, xs, ws):
+    """Adam steps over the batches ``xs`` (n_batches, bs, *event) with
+    weights ``ws`` (or None); returns ``(theta, losses)``."""
+    losses = []
+    for i in range(xs.shape[0]):
+        theta, loss = _train_step(flow, like, theta, adam, xs[i], None if ws is None else ws[i])
+        losses.append(loss)
+    return theta, torch.stack(losses)
+
+
+def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
+                  batch_size="adaptive", shuffle: bool = True,
+                  keep_best_weights: bool = False, train_pct: float = None,
+                  max_train_size: int = 4096, max_val_size: int = 4096):
+    """Fixed-effort MLE fit with no host synchronisation:
+    ``fit(params, data, generator) -> params`` with ``data: (n_rows, *event)``.
+
+    Mirrors :func:`fit` without host control flow: a fresh Adam per call,
+    ``n_epochs`` of minibatch steps, optional per-epoch best-weight tracking
+    and a rollback to the input params when the fitted ones give a
+    non-finite loss. With ``train_pct`` set the data shuffles into a
+    train/val split (capped at the max sizes) and best weights track the
+    val loss. As in the JAX package, the train set truncates to a multiple
+    of the batch size instead of padding the last batch."""
+    event_shape = flow.event_shape
+    if train_pct is not None:
+        n_train = max(1, min(int(n_rows * train_pct), max_train_size))
+        n_val = min(n_rows - n_train, max_val_size)
+    else:
+        n_train = n_rows
+        n_val = 0
+    if batch_size in ("adaptive", None):
+        bs = _adaptive_batch_size(n_train)
+    else:
+        bs = min(int(batch_size), n_train)
+    n_eff = max(bs, (n_train // bs) * bs)
+    n_batches = n_eff // bs
+    keep_best = keep_best_weights and n_val > 0
+
+    def scan_fit(params, data, generator):
+        device = data.device
+        with torch.no_grad():
+            if train_pct is not None:
+                perm = torch.randperm(data.shape[0], generator=generator, device=device)
+                xt = data[perm[:n_eff]]
+                xv = data[perm[n_train:n_train + n_val]] if n_val else data[perm[:bs]]
+            else:
+                xt = data
+                xv = data[:bs]
+        theta0 = _flatten(params)
+        theta, adam = theta0, _Adam(theta0, lr)
+        best, best_loss = theta0, torch.tensor(math.inf, device=device)
+        for _ in range(n_epochs):
+            if shuffle:
+                xs = xt[torch.randperm(xt.shape[0], generator=generator, device=device)[:n_eff]]
+            else:
+                xs = xt[:n_eff]
+            theta, losses = _train_epoch(flow, params, theta, adam,
+                                         xs.reshape(n_batches, bs, *event_shape), None)
+            with torch.no_grad():
+                vl = _nll(flow, unpack_like(theta, params), xv) if keep_best else losses.mean()
+                better = vl < best_loss
+                best_loss = torch.where(better, vl, best_loss)
+                if keep_best:
+                    best = torch.where(better, theta, best)
+        with torch.no_grad():
+            fitted = best if keep_best else theta
+            ok = torch.isfinite(_nll(flow, unpack_like(fitted, params), xv))
+            return unpack_like(torch.where(ok, fitted, theta0), params)
+
+    return scan_fit
+
+
+def fit(
+    flow,
+    x_train,
+    x_val=None,
+    n_epochs: int = 500,
+    lr: float = 0.005,  # the reference's 0.05 diverges with He-init tanh conditioners
+    batch_size="adaptive",
+    shuffle: bool = True,
+    early_stopping: bool = False,
+    early_stopping_threshold: int = 50,
+    keep_best_weights: bool = True,
+    show_progress: bool = False,
+    time_limit_seconds: Optional[float] = None,
+    check_for_divergences: bool = False,
+    mesh=None,
+    generator: Optional[torch.Generator] = None,
+    seed: Optional[int] = None,
+) -> None:
+    """Forward-KL MLE on samples; replaces ``flow.params``. Raises
+    ``ValueError`` when training diverges (non-finite validation loss)."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel flow training (mesh) is not ported yet "
+                                  "(ROADMAP 1.13)")
+    t_start = time.time()
+    device = flow.get_device()
+    generator = resolve_generator(device, generator, seed)
+    event_shape = flow.event_shape
+
+    x_train = as_numpy(x_train).astype(np.float32)
+    x_train = x_train.reshape(len(x_train), *event_shape)
+    n_train = len(x_train)
+    if n_train == 0:
+        raise ValueError("empty training set")
+    if batch_size == "adaptive" or batch_size is None:
+        bs = _adaptive_batch_size(n_train)
+    else:
+        bs = min(int(batch_size), n_train)
+    x_train_p, w_train = _pad_to_multiple(x_train, bs)
+    n_batches = len(x_train_p) // bs
+    data = torch.as_tensor(x_train_p, device=device)
+    w_data = torch.as_tensor(w_train, device=device)
+
+    if x_val is not None and len(x_val) > 0:
+        # JAX pads the validation set to a power-of-two bucket only so that
+        # refits reuse one compiled trainer; the weighted mean is the same,
+        # so here it stays unpadded (weight None: the plain mean)
+        x_val = as_numpy(x_val).astype(np.float32)
+        val_data = torch.as_tensor(x_val.reshape(len(x_val), *event_shape), device=device)
+        val_weights = None
+    else:
+        val_data, val_weights = data, w_data
+
+    like = flow.params
+    theta = _flatten(like)
+    adam = _Adam(theta, lr)
+    best_theta = theta
+    best_loss = torch.tensor(math.inf, device=device)
+    check_every = max(1, min(64, early_stopping_threshold if early_stopping else 64, n_epochs))
+    epochs_done = 0
+    epochs_since_best = 0
+    global_best = math.inf
+
+    bar = Progress(total=n_epochs, desc="Fitting NF", disable=not show_progress)
+    try:
+        while epochs_done < n_epochs:
+            if time_limit_seconds is not None and time.time() - t_start > time_limit_seconds:
+                break
+            block = min(check_every, n_epochs - epochs_done)
+            vls = []
+            for _ in range(block):
+                if shuffle:
+                    perm = torch.randperm(len(data), generator=generator, device=device)
+                    xs, ws = data[perm], w_data[perm]
+                else:
+                    xs, ws = data, w_data
+                theta, _ = _train_epoch(flow, like, theta, adam,
+                                        xs.reshape(n_batches, bs, *event_shape),
+                                        ws.reshape(n_batches, bs))
+                with torch.no_grad():
+                    vl = _nll(flow, unpack_like(theta, like), val_data, val_weights)
+                    better = vl < best_loss
+                    best_loss = torch.where(better, vl, best_loss)
+                    if keep_best_weights:
+                        best_theta = torch.where(better, theta, best_theta)
+                vls.append(vl)
+            vls = torch.stack(vls).cpu().numpy()  # the block's one synchronisation
+            epochs_done += block
+            bar.update(block)
+            if not np.all(np.isfinite(vls)):
+                # the ValueError contract: callers roll the weights back
+                if check_for_divergences or not np.isfinite(vls[-1]):
+                    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
+                    raise ValueError("flow training diverged (non-finite loss)")
+            for vl in vls:
+                if vl < global_best:
+                    global_best = float(vl)
+                    epochs_since_best = 0
+                else:
+                    epochs_since_best += 1
+            if show_progress:
+                bar.set_postfix_str(f"val loss: {vls[-1]:.4f} (best {global_best:.4f})")
+            if early_stopping and epochs_since_best >= early_stopping_threshold:
+                break
+    finally:
+        bar.close()
+
+    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)

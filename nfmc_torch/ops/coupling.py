@@ -1,25 +1,30 @@
-"""RealNVP coupling stack: the hand-written CUDA kernel, its wrapper and its
-plain PyTorch version.
+"""RealNVP coupling stack: the hand-written CUDA kernels, their wrappers,
+their plain PyTorch versions and the ``torch.autograd.Function`` that ties
+the two directions of the forward kernel to the backward one.
 
-Replaces the Pallas TPU kernel ``nfmc_tpu/ops/coupling_pallas.py::_kernel``
-(launched by ``_fused_call``; entries ``fused_realnvp_forward`` and
-``fused_realnvp_inverse``). The kernel (``nfmc_torch/csrc/coupling.cu``)
-runs every coupling layer of a row block in one launch, with the rows'
-state and hidden activations in shared memory.
+* ``nfmc_torch/csrc/coupling.cu`` replaces the Pallas TPU kernel
+  ``nfmc_tpu/ops/coupling_pallas.py::_kernel`` (launched by ``_fused_call``;
+  entries ``fused_realnvp_forward`` and ``fused_realnvp_inverse``). It runs
+  every coupling layer of a row block in one launch, with the rows' state
+  and hidden activations in shared memory. What bounds it on an H100: FP32
+  arithmetic. At the jump sampler's hoisted shape (d=100, H=128, L=4) a row
+  costs about 285 kFLOP, so one chunk of 218,400 proposal rows is about
+  62 GFLOP against about 175 MB of input and output; at one jump's 100 rows
+  the bound is launch latency.
+* ``nfmc_torch/csrc/coupling_bwd.cu`` replaces ``_kernel_bwd`` (launched by
+  ``_fused_bwd_call``, wired as the custom VJP of ``_fused_dir``): the VJP in
+  either direction, gx and every weight gradient summed over the batch,
+  deterministically (see the note in the source). Entry
+  ``fused_realnvp_vjp``; ``RealNVPStack`` makes it the gradient of the two
+  forward entries, so every flow training step runs it once.
 
-What bounds it on an H100: FP32 arithmetic. At the jump sampler's hoisted
-shape (d=100, H=128, L=4) a row costs about 285 kFLOP, so one chunk of
-218,400 proposal rows is about 62 GFLOP against about 175 MB of input and
-output; at one jump's 100 rows the bound is launch latency. The kernel
-keeps the state out of device memory between layers and reuses each weight
-load across several rows held in registers (see the note in the source).
-
-On a CPU tensor the wrappers compute the plain version. On a CUDA tensor
+On a CPU tensor the wrappers compute the plain versions. On a CUDA tensor
 they launch the kernel or raise: they never fall back. Each wrapper counts
 its launches in ``.launches``.
 
-The kernel is built with ``nvcc`` at first use into ``nfmc_torch/_build/``
-(git-ignored), keyed by the source's hash, and loaded with ``ctypes``.
+The kernels are built with ``nvcc`` at first use into ``nfmc_torch/_build/``
+(git-ignored), one shared library per source, keyed by the sources' hash,
+and loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -34,14 +39,18 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "coupling.cu"
+CSRC = _PKG / "csrc"
+# each source becomes its own shared library; the builds run in parallel
+SOURCES = {"coupling": CSRC / "coupling.cu", "coupling_bwd": CSRC / "coupling_bwd.cu"}
+HEADERS = [CSRC / "coupling_common.cuh"]
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lib = None
+_libs = None
 build_log = ""
 build_seconds: Optional[float] = None
 
@@ -52,81 +61,130 @@ def _find_nvcc() -> str:
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the coupling kernel is built with the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the coupling kernels are built with the CUDA toolkit")
 
 
-def build_library() -> Path:
-    """Compile ``csrc/coupling.cu`` into a shared library (once per source
-    hash) and return its path. Records the compiler's output in
-    ``build_log`` and the time taken in ``build_seconds``."""
+def build_library() -> dict:
+    """Compile each source of ``SOURCES`` into a shared library (once per
+    hash of the sources, the shared header and the flags), all ``nvcc``
+    processes at once, and return ``{name: path}``. Records the compilers'
+    output in ``build_log`` and the time taken in ``build_seconds``."""
     global build_log, build_seconds
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"coupling-{tag}.so"
-    if out.exists():
-        build_seconds = 0.0
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    common = b"".join(h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+    outs, jobs = {}, {}
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    for name, src in SOURCES.items():
+        tag = hashlib.sha256(src.read_bytes() + common).hexdigest()[:16]
+        outs[name] = BUILD_DIR / f"{name}-{tag}.so"
+        if outs[name].exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp)
+    logs, failed = [], []
     try:
-        r = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                           capture_output=True, text=True)
-        build_log = r.stdout + r.stderr
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{build_log}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees a whole file or none
+        for name, (proc, tmp) in jobs.items():
+            log = proc.communicate()[0]
+            logs.append(f"== {SOURCES[name].name}\n{log}")
+            if proc.returncode != 0:
+                failed.append(SOURCES[name].name)
+            else:
+                os.replace(tmp, outs[name])  # atomic: a concurrent build sees a whole file or none
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_seconds = time.perf_counter() - t0
-    return out
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{build_log}")
+    build_seconds = time.perf_counter() - t0 if jobs else 0.0
+    return outs
 
 
 def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.nfmc_coupling_stack
+    """The loaded kernel libraries, ``{name: ctypes.CDLL}``."""
+    global _libs
+    if _libs is None:
+        libs = {name: ctypes.CDLL(str(path)) for name, path in build_library().items()}
+        fn = libs["coupling"].nfmc_coupling_stack
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        fn = libs["coupling_bwd"].nfmc_coupling_stack_vjp
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = libs["coupling_bwd"].nfmc_coupling_vjp_scratch_floats
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        _libs = libs
+    return _libs
 
 
 def pack_weights(params) -> torch.Tensor:
     """One contiguous f32 buffer holding, per layer in order, w1, b1, w2, b2,
     w3, b3 in the canonical layout of the parameter pytree (``w`` is
     ``(in, out)`` row-major; w3's columns are dim-major ``(shift_j,
-    raw_logscale_j)``). This is the kernel's weight argument."""
+    raw_logscale_j)``). This is the kernels' weight argument, and the
+    backward kernel writes the weight gradients in the same layout."""
     parts = []
     for p in params:
         if len(p["w"]) != 3:
             raise ValueError("the coupling kernel needs exactly 2 hidden layers "
                              f"per conditioner, got {len(p['w']) - 1}")
         for w, b in zip(p["w"], p["b"]):
-            parts += [w.reshape(-1), b.reshape(-1)]
+            parts += [w.detach().reshape(-1), b.detach().reshape(-1)]
     return torch.cat(parts).to(torch.float32).contiguous()
+
+
+def _leaves(params) -> List[torch.Tensor]:
+    """The parameter tensors in packed order (per layer w1, b1, w2, ...)."""
+    return [t for p in params for w, b in zip(p["w"], p["b"]) for t in (w, b)]
+
+
+def _from_leaves(leaves, depths) -> list:
+    """Inverse of ``_leaves``; ``depths[l]`` is layer l's number of dense
+    layers."""
+    params, i = [], 0
+    for n in depths:
+        params.append({"w": list(leaves[i:i + 2 * n:2]), "b": list(leaves[i + 1:i + 2 * n:2])})
+        i += 2 * n
+    return params
+
+
+def unpack_like(flat: torch.Tensor, params) -> list:
+    """Split a packed buffer into views shaped like ``params``."""
+    leaves = _leaves(params)
+    parts = flat.split([t.numel() for t in leaves])
+    return _from_leaves([v.view(t.shape) for v, t in zip(parts, leaves)],
+                        [len(p["w"]) for p in params])
+
+
+def _layer_sets(d: int, l: int, device):
+    ids = torch.arange(d, device=device)
+    return ids[(ids + l) % 2 == 0], ids[(ids + l) % 2 == 1]
 
 
 def realnvp_stack_plain(params, x: torch.Tensor, clamp: float,
                         inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the kernel: ``(B, d) -> (y, log_det)``.
-    Layer l conditions on the dims with ``(i + l) % 2 == 0``
+    """The plain PyTorch version of the forward kernel: ``(B, d) -> (y,
+    log_det)``. Layer l conditions on the dims with ``(i + l) % 2 == 0``
     (``nfmc_tpu/flows/coupling.py:55-61``)."""
     from ..flows.conditioners import mlp_apply
     from ..flows.transforms import AffineTransform
 
     transform = AffineTransform(clamp)
     n, d = x.shape
-    ids = torch.arange(d, device=x.device)
     ld = torch.zeros(n, dtype=x.dtype, device=x.device)
     layers = range(len(params) - 1, -1, -1) if inverse else range(len(params))
     for l in layers:
-        a = ids[(ids + l) % 2 == 0]
-        b = ids[(ids + l) % 2 == 1]
+        a, b = _layer_sets(d, l, x.device)
         raw = mlp_apply(params[l], x[:, a]).reshape(n, b.numel(), 2)
         step = transform.inverse if inverse else transform.forward
         vb, ld_elem = step(x[:, b], raw)
@@ -135,21 +193,71 @@ def realnvp_stack_plain(params, x: torch.Tensor, clamp: float,
     return x, ld
 
 
+def realnvp_stack_vjp_plain(params, x: torch.Tensor, gy: torch.Tensor, gld: torch.Tensor,
+                            clamp: float, inverse: bool):
+    """The plain PyTorch version of the backward kernel, written out
+    analytically as the kernel computes it: recompute the forward, then go
+    back through the affine map, the soft clamp (factor ``1 - s^2``) and the
+    tanh MLP. Returns ``(gx, grads)`` with ``grads`` shaped like
+    ``params``."""
+    n, d = x.shape
+    order = list(range(len(params) - 1, -1, -1)) if inverse else list(range(len(params)))
+    saved = []
+    for l in order:
+        a, b = _layer_sets(d, l, x.device)
+        ws, bs = params[l]["w"], params[l]["b"]
+        hs = [x[:, a]]
+        for w, bias in zip(ws[:-1], bs[:-1]):
+            hs.append(torch.tanh(hs[-1] @ w + bias))
+        raw = (hs[-1] @ ws[-1] + bs[-1]).reshape(n, b.numel(), 2)
+        t, s = raw[..., 0], torch.tanh(raw[..., 1] / clamp)
+        ls = clamp * s
+        vb = x[:, b]
+        vb_new = vb * torch.exp(ls) + t if inverse else (vb - t) * torch.exp(-ls)
+        saved.append((l, a, b, hs, s, ls, vb, vb_new))
+        x = x.index_copy(1, b, vb_new)
+
+    gx = gy
+    grads = [None] * len(params)
+    g_ld = gld[:, None]
+    for l, a, b, hs, s, ls, vb, vb_new in reversed(saved):
+        g_vbn = gx[:, b]
+        if inverse:
+            e = torch.exp(ls)
+            g_t, g_ls, g_vb = g_vbn, g_vbn * vb * e + g_ld, g_vbn * e
+        else:
+            em = torch.exp(-ls)
+            g_vb, g_t, g_ls = g_vbn * em, -g_vbn * em, -g_vbn * vb_new - g_ld
+        g = torch.stack([g_t, g_ls * (1.0 - s * s)], -1).reshape(n, -1)  # g_raw
+        ws = params[l]["w"]
+        gws, gbs = [None] * len(ws), [None] * len(ws)
+        for k in range(len(ws) - 1, -1, -1):
+            gws[k], gbs[k] = hs[k].T @ g, g.sum(0)
+            g = g @ ws[k].T
+            if k:
+                g = g * (1.0 - hs[k] * hs[k])
+        grads[l] = {"w": gws, "b": gbs}
+        gx = gx.index_copy(1, b, g_vb).index_add(1, a, g)
+    return gx, grads
+
+
+def _check_rows(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"expected (batch, d) {what}, got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"the coupling kernels take a contiguous float32 {what}")
+
+
+def _check_params(params, x: torch.Tensor, packed: Optional[torch.Tensor]) -> torch.Tensor:
+    if any(t.device != x.device for t in _leaves(params)):
+        raise ValueError("flow parameters and input are on different devices")
+    return pack_weights(params) if packed is None else packed
+
+
 def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
             packed: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    if x.dim() != 2:
-        raise ValueError(f"expected (batch, d) input, got shape {tuple(x.shape)}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("the coupling kernel takes a contiguous float32 input")
-    leaves = [t for p in params for t in (*p["w"], *p["b"])]
-    if x.requires_grad or any(t.requires_grad for t in leaves):
-        raise NotImplementedError(
-            "no backward kernel yet (ROADMAP 2.2): call the coupling stack "
-            "under torch.no_grad() on inputs that do not require grad")
-    if any(t.device != x.device for t in leaves):
-        raise ValueError("flow parameters and input are on different devices")
-    if packed is None:
-        packed = pack_weights(params)
+    _check_rows(x, "input")
+    packed = _check_params(params, x, packed)
     n, d = x.shape
     hidden = int(params[0]["w"][1].shape[0])
     y = torch.empty_like(x)
@@ -158,7 +266,7 @@ def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
         return y, ld
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().nfmc_coupling_stack(
+        err = _library()["coupling"].nfmc_coupling_stack(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(),
             n, d, hidden, len(params), float(clamp), int(inverse), stream)
     if err != 0:
@@ -167,32 +275,116 @@ def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
     return y, ld
 
 
-def _dispatch(wrapper, params, x, clamp, inverse, packed):
-    if x.device.type == "cpu":
-        return realnvp_stack_plain(params, x, clamp, inverse)
-    if x.device.type != "cuda":
+def _launch_vjp(params, x, gy, gld, clamp: float, inverse: bool,
+                packed: Optional[torch.Tensor]):
+    _check_rows(x, "input")
+    _check_rows(gy, "output cotangent")
+    if gy.shape != x.shape or gld.shape != (x.shape[0],) or gld.dtype != torch.float32:
+        raise ValueError(f"cotangents {tuple(gy.shape)}, {tuple(gld.shape)} do not match "
+                         f"the input {tuple(x.shape)}")
+    if gy.device != x.device or gld.device != x.device:
+        raise ValueError("input and cotangents are on different devices")
+    packed = _check_params(params, x, packed)
+    gld = gld.contiguous()
+    n, d = x.shape
+    hidden = int(params[0]["w"][1].shape[0])
+    gx = torch.empty_like(x)
+    grads = torch.empty_like(packed)
+    if n == 0:
+        return gx, unpack_like(grads.zero_(), params)
+    lib = _library()["coupling_bwd"]
+    scratch = torch.empty(lib.nfmc_coupling_vjp_scratch_floats(n, d, hidden, len(params)),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nfmc_coupling_stack_vjp(
+            x.data_ptr(), gy.data_ptr(), gld.data_ptr(), packed.data_ptr(), gx.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), n, d, hidden, len(params), float(clamp),
+            int(inverse), stream)
+    if err != 0:
+        raise RuntimeError(f"coupling backward kernel launch failed: cudaError {err}")
+    fused_realnvp_vjp.launches += 1
+    return gx, unpack_like(grads, params)
+
+
+def _on_device(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (the
+    plain version); raises for any other device."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
+    return x.device.type == "cuda"
+
+
+def _stack(params, x, clamp, inverse, packed):
+    if not _on_device(x):
+        return realnvp_stack_plain(params, x, clamp, inverse)
+    wrapper = fused_realnvp_inverse if inverse else fused_realnvp_forward
     return _launch(wrapper, params, x, clamp, inverse, packed)
+
+
+class RealNVPStack(torch.autograd.Function):
+    """The coupling stack with the backward kernel as its gradient, on both
+    devices: the kernels on CUDA tensors, their plain versions on CPU ones.
+    Saves x and the weights, not activations: the backward recomputes them.
+
+    ``apply(x, packed, clamp, inverse, depths, *leaves)`` with ``leaves`` the
+    parameter tensors in packed order (``_leaves``)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, clamp, inverse, depths, *leaves):
+        params = _from_leaves(leaves, depths)
+        ctx.save_for_backward(x, *leaves)
+        ctx.packed, ctx.clamp, ctx.inverse, ctx.depths = packed, clamp, inverse, depths
+        return _stack(params, x, clamp, inverse, packed)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy, gld):
+        x, *leaves = ctx.saved_tensors
+        params = _from_leaves(leaves, ctx.depths)
+        gx, grads = fused_realnvp_vjp(params, x, gy.contiguous(), gld.contiguous(),
+                                      ctx.clamp, ctx.inverse, ctx.packed)
+        return (gx if ctx.needs_input_grad[0] else None, None, None, None, None,
+                *_leaves(grads))
+
+
+def _apply(params, x, clamp, inverse, packed):
+    leaves = _leaves(params)
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in leaves)):
+        return RealNVPStack.apply(x, packed, float(clamp), bool(inverse),
+                                  tuple(len(p["w"]) for p in params), *leaves)
+    return _stack(params, x, clamp, inverse, packed)
 
 
 def fused_realnvp_forward(params, x: torch.Tensor, clamp: float,
                           packed: Optional[torch.Tensor] = None):
-    """Data -> latent through the whole stack: ``(B, d) -> (z, log_det)``.
-    ``packed`` is ``pack_weights(params)``, built once per parameter version
-    by the caller (packed here when omitted)."""
-    return _dispatch(fused_realnvp_forward, params, x, clamp, False, packed)
+    """Data -> latent through the whole stack: ``(B, d) -> (z, log_det)``,
+    differentiable in ``x`` and the weights. ``packed`` is
+    ``pack_weights(params)``, built once per parameter version by the caller
+    (packed here when omitted)."""
+    return _apply(params, x, clamp, False, packed)
 
 
 def fused_realnvp_inverse(params, z: torch.Tensor, clamp: float,
                           packed: Optional[torch.Tensor] = None):
     """Latent -> data, layers in reverse: ``(B, d) -> (x, log_det)``."""
-    return _dispatch(fused_realnvp_inverse, params, z, clamp, True, packed)
+    return _apply(params, z, clamp, True, packed)
+
+
+def fused_realnvp_vjp(params, x: torch.Tensor, gy: torch.Tensor, gld: torch.Tensor,
+                      clamp: float, inverse: bool, packed: Optional[torch.Tensor] = None):
+    """The VJP of the stack in either direction: ``(gx, grads)`` with
+    ``grads`` shaped like ``params`` (on CUDA, views of one packed buffer)."""
+    if not _on_device(x):
+        return realnvp_stack_vjp_plain(params, x, gy, gld, clamp, inverse)
+    return _launch_vjp(params, x, gy, gld, clamp, inverse, packed)
 
 
 fused_realnvp_forward.launches = 0
 fused_realnvp_inverse.launches = 0
+fused_realnvp_vjp.launches = 0
 
-WRAPPERS: List = [fused_realnvp_forward, fused_realnvp_inverse]
+WRAPPERS: List = [fused_realnvp_forward, fused_realnvp_inverse, fused_realnvp_vjp]
 
 
 def reset_launch_counts() -> None:

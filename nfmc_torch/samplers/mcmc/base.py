@@ -1,16 +1,32 @@
-"""Metropolis-family kernel state and the MCMC sampler hooks the jump runner
-calls. Standalone MCMC runs and kernel adaptation (warmup) are not ported
-yet (ROADMAP 1.9, 1.10)."""
+"""Metropolis-family kernel state, Metropolis adaptation and the standalone
+MCMC runner (counterpart of ``nfmc_tpu/samplers/mcmc/base.py``).
+
+* ``warmup`` runs ``n_warmup_iterations`` in tuning mode and keeps the tuned
+  kernel; ``sample`` runs ``n_iterations`` (tuning if ``params.tuning``);
+* Metropolis adaptation: an EMA of the per-dimension chain variance into
+  ``inv_mass_diag`` and dual averaging of the step size, as tensor updates
+  on the device.
+"""
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ...core.driver import ChunkedDriver
+from ...core.output import MCMCOutput
 from ...core.sampler import MCMCKernel, MCMCParameters, Sampler
+from ...core.tuning import (
+    DualAveragingParams,
+    DualAveragingState,
+    da_init,
+    da_update_step_size,
+    ema_inv_mass_diag,
+)
 
 
 @dataclasses.dataclass
@@ -19,6 +35,7 @@ class MetropolisState:
 
     step_size: torch.Tensor  # f32 scalar
     inv_mass_diag: torch.Tensor  # (event_size,)
+    da: DualAveragingState
 
 
 @dataclass
@@ -28,6 +45,7 @@ class MetropolisKernel(MCMCKernel):
     event_size: int = 0
     inv_mass_diag: Optional[np.ndarray] = None
     step_size: float = 0.01
+    da_params: Optional[DualAveragingParams] = None
 
     def __post_init__(self):
         super().__post_init__()
@@ -39,25 +57,41 @@ class MetropolisKernel(MCMCKernel):
                 raise ValueError(
                     f"inv_mass_diag shape {self.inv_mass_diag.shape} != ({self.event_size},)"
                 )
+        if self.da_params is None:
+            self.da_params = DualAveragingParams()
 
     def make_state(self, device) -> MetropolisState:
+        da = getattr(self, "_resume_da", None)
         return MetropolisState(
             step_size=torch.tensor(self.step_size, dtype=torch.float32, device=device),
             inv_mass_diag=torch.as_tensor(self.inv_mass_diag, dtype=torch.float32, device=device),
+            da=da.to(device) if da is not None else da_init(self.step_size, self.da_params, device),
         )
 
     def sync_from_state(self, state: MetropolisState) -> None:
-        self.step_size = float(state.step_size)
-        self.inv_mass_diag = state.inv_mass_diag.cpu().numpy()
+        host = torch.cat([state.step_size.reshape(1), state.inv_mass_diag.reshape(-1)]).cpu().numpy()
+        self.step_size = float(host[0])
+        self.inv_mass_diag = host[1:]
+        # carry the dual-averaging state across runs, so a later warmup
+        # continues the adaptation instead of restarting it
+        self._resume_da = state.da
+
+    def __repr__(self):
+        return (f"log step: {math.log(self.step_size):.2f}, "
+                f"mass norm: {float(np.max(np.abs(self.inv_mass_diag))):.2f}")
 
 
 @dataclass
 class MetropolisParameters(MCMCParameters):
+    tune_inv_mass_diag: bool = True
+    tune_step_size: bool = True
     adjustment: bool = True
+    imd_adjustment: float = 1e-3
 
 
 class MCMCSampler(Sampler):
-    """Hooks a composite runner (the jump sampler) drives."""
+    """Standalone runs (``warmup``/``sample``) and the hooks a composite
+    runner (the jump sampler) drives."""
 
     @property
     def name(self) -> str:
@@ -86,9 +120,57 @@ class MCMCSampler(Sampler):
         """``(x, state, draws) -> (x', state', StepInfo)``."""
         return None
 
-    def sample(self, x0, **kwargs):
-        raise NotImplementedError(
-            f"standalone {self.name} runs are not ported yet (ROADMAP 1.10)")
+    # ---- kernel adaptation -------------------------------------------------
+    def make_update_kernel(self) -> Callable:
+        """The tuning update ``(mstate, x, mask) -> mstate``."""
+        p = self.params
+        tune_imd = getattr(p, "tune_inv_mass_diag", False)
+        tune_step = getattr(p, "tune_step_size", False) and getattr(p, "adjustment", False)
+        imd_adjustment = getattr(p, "imd_adjustment", 1e-3)
+        da_params = getattr(self.kernel, "da_params", None) or DualAveragingParams()
 
-    def warmup(self, x0, **kwargs):
-        raise NotImplementedError(f"{self.name} warmup is not ported yet (ROADMAP 1.9)")
+        def update(mstate: MetropolisState, x: torch.Tensor, mask: torch.Tensor) -> MetropolisState:
+            n_chains = x.shape[0]
+            inv_mass_diag = mstate.inv_mass_diag
+            if tune_imd and n_chains > 1:
+                inv_mass_diag = ema_inv_mass_diag(inv_mass_diag, x.reshape(n_chains, -1),
+                                                  imd_adjustment)
+            da, step_size = mstate.da, mstate.step_size
+            if tune_step:
+                da, step_size = da_update_step_size(da, mask.to(torch.float32).mean(), da_params)
+            return MetropolisState(step_size=step_size, inv_mass_diag=inv_mass_diag, da=da)
+
+        return update
+
+    # ---- public API ----------------------------------------------------------
+    def warmup(self, x0, show_progress: bool = True, time_limit_seconds=None,
+               generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
+        """Tuning run of ``n_warmup_iterations``; keeps the tuned kernel."""
+        return self._run(x0, self.params.n_warmup_iterations, tuning=True,
+                         show_progress=show_progress, time_limit_seconds=time_limit_seconds,
+                         generator=self._generator(generator, seed), desc=f"{self.name} (tuning)")
+
+    def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
+               generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
+        return self._run(x0, self.params.n_iterations, tuning=self.params.tuning,
+                         show_progress=show_progress, time_limit_seconds=time_limit_seconds,
+                         generator=self._generator(generator, seed), desc=self.name)
+
+    def _run(self, x0, n_iterations: int, tuning: bool, show_progress: bool,
+             time_limit_seconds, generator: torch.Generator, desc: str) -> MCMCOutput:
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
+        n_chains = x0.shape[0]
+        out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
+                         on_device=self.params.store_samples_on_device)
+        mstate = self._augment_state(self.kernel.make_state(self.device), x0)
+        driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws())
+        _, mstate = driver.run(
+            x0, mstate, generator, n_iterations, stats=out.statistics,
+            samples=out.running_samples, calls_per_iter=self.calls_per_iter(n_chains),
+            grads_per_iter=self.grads_per_iter(n_chains), tuning=tuning,
+            collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
+            show_progress=show_progress, desc=desc,
+        )
+        self.kernel.sync_from_state(self._extract_mstate(mstate))
+        out.kernel = self.kernel
+        return out

@@ -92,8 +92,6 @@ class Langevin(MCMCSampler):
         return draws
 
     def _make_step_aux(self, tuning: bool):
-        if tuning:
-            raise NotImplementedError("Langevin kernel adaptation is not ported yet (ROADMAP 1.9)")
         target = self.target
         event_shape = self.event_shape
         event_ndim = len(event_shape)
@@ -101,6 +99,7 @@ class Langevin(MCMCSampler):
         u_and_grad = value_and_batched_grad(target)
         drift_noise = self._drift_noise
         prop_potential = self._proposal_potential
+        update_kernel = self.make_update_kernel()
 
         def step(x, state, draws):
             mstate, u_x, g_x = state
@@ -130,6 +129,8 @@ class Langevin(MCMCSampler):
             x_new = torch.where(bmask, x_prime, x)
             u_new = torch.where(mask, u_xp, u_x)
             g_new = torch.where(bmask, g_xp, g_x)
+            if tuning:
+                mstate = update_kernel(mstate, x_new, mask)
             info = StepInfo(n_accepted=mask.sum().to(torch.int32), diverged=diverged)
             return x_new, (mstate, u_new, g_new), info
 

@@ -5,18 +5,27 @@ then the chains make a Metropolis-adjusted jump to a flow proposal
 (unadjusted jumps accept every finite proposal). Output law:
 ``(n_iterations * (inner_n + 1), C, *event)``.
 
-With a frozen flow (``fit_nf=False``, the only mode ported so far) the
-proposals do not depend on the chain state, so a chunk of outer iterations
-is run as ``draws = make_chunk_draws(generator, chunk, n_chains)`` (all of
-the chunk's randomness, drawn on the device up front) followed by
-``run_chunk(state, draws)``, which makes every proposal of the chunk in
-ONE batched coupling inverse and then loops over the iterations with no
-host synchronisation. Flow refits during sampling and warmup are ROADMAP
-1.9.
+A chunk of outer iterations is run as ``draws = make_chunk_draws(generator,
+chunk, n_chains)`` (all of the chunk's randomness, drawn on the device up
+front) followed by ``run_chunk(state, draws)``. With a frozen flow
+(``fit_nf=False``) the proposals do not depend on the chain state, so the
+chunk makes every proposal in ONE batched coupling inverse and then loops
+over the iterations with no host synchronisation. With ``fit_nf=True`` and
+fixed-effort ``flow_fit_kwargs`` each outer iteration from
+``n_jumps_before_training`` on refits the flow on its inner draws
+(``make_scan_fit``) inside the chunk, and the proposals are made per
+iteration; any other ``flow_fit_kwargs`` run the outer loop on the host
+(``_sample_host``), calling ``inner_sampler.sample`` and ``Flow.fit`` each
+iteration.
+
+``warmup`` tunes the inner sampler, then fits the flow by maximum
+likelihood on the tuning draws (70/30 train/val split), rolling the weights
+back if the fit raises ``ValueError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -35,7 +44,9 @@ from ...core.driver import (
 )
 from ...core.output import JumpNFMCOutput, MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
-from ...utils import metropolis_acceptance_log_ratio, unevaluable_current_mask
+from ...core.tuning import train_val_split
+from ...flows.train import fixed_effort_fit_config, make_scan_fit
+from ...utils import Progress, metropolis_acceptance_log_ratio, unevaluable_current_mask
 from ..mcmc.langevin import MALA, ULA
 
 
@@ -43,6 +54,19 @@ from ..mcmc.langevin import MALA, ULA
 class JumpNFMCParameters(NFMCParameters):
     adjusted_jumps: bool = True
     fit_nf: bool = False
+    warmup_fit_kwargs: Optional[dict] = None
+    n_jumps_before_training: int = 10
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.warmup_fit_kwargs is None:
+            self.warmup_fit_kwargs = {
+                "early_stopping": True,
+                "early_stopping_threshold": 50,
+                "keep_best_weights": True,
+                "n_epochs": 500,
+                "lr": 0.005,  # the reference's 0.05 diverges
+            }
 
 
 @dataclasses.dataclass
@@ -82,6 +106,7 @@ class ChunkState:
     inner_state: object
     acc: StatsAccum
     jump_acc: _JumpAccum
+    flow_params: list
 
 
 class JumpNFMC(Sampler):
@@ -105,9 +130,37 @@ class JumpNFMC(Sampler):
     def name(self):
         return "Jump MCMC"
 
-    def warmup(self, x0, **kwargs) -> MCMCOutput:
-        raise NotImplementedError("jump NFMC warmup (inner warmup + flow fit) is not "
-                                  "ported yet (ROADMAP 1.9)")
+    def _sub_seeds(self, generator: torch.Generator, n: int):
+        return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
+    # ------------------------------------------------------------------ warmup
+    def warmup(self, x0, show_progress: bool = True, time_limit_seconds=None,
+               generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
+        """Tune the inner sampler on 70% of the time budget, then fit the flow
+        on its draws. As in the JAX package, the fit takes
+        ``params.flow_fit_kwargs`` (not ``warmup_fit_kwargs``)."""
+        seed_inner, seed_fit = self._sub_seeds(self._generator(generator, seed), 2)
+        inner_time_limit = 0.7 * time_limit_seconds if time_limit_seconds is not None else None
+        t0 = time.time()
+        self.inner_sampler.params.store_samples = True
+        warmup_output = self.inner_sampler.warmup(
+            x0, show_progress=show_progress, time_limit_seconds=inner_time_limit, seed=seed_inner)
+        x_train, x_val = train_val_split(
+            warmup_output.samples, train_pct=self.params.train_pct,
+            max_train_size=self.params.max_train_size, max_val_size=self.params.max_val_size,
+            seed=seed_fit)
+        flow_params = self.kernel.flow.state_dict()
+        elapsed = time.time() - t0
+        fit_limit = (time_limit_seconds - elapsed) if time_limit_seconds is not None else None
+        try:
+            self.kernel.flow.fit(x_train, x_val=x_val,
+                                 **{**self.params.flow_fit_kwargs,
+                                    **dict(show_progress=show_progress, time_limit_seconds=fit_limit)},
+                                 seed=seed_fit)
+        except ValueError:
+            self.kernel.flow.load_state_dict(flow_params)
+        # the caller prefers MCMC warmup draws as x0 (flow draws can be outliers)
+        return warmup_output
 
     # ---------------------------------------------------------------- jump step
     def _make_jump_accept_core(self):
@@ -153,6 +206,7 @@ class JumpNFMC(Sampler):
             inner_state=inner._augment_state(inner.kernel.make_state(self.device), x0),
             acc=StatsAccum.zeros(self.event_shape, self.device),
             jump_acc=_JumpAccum.zeros(self.event_shape, self.device),
+            flow_params=self.kernel.flow.params,
         )
 
     def make_chunk_draws(self, generator: torch.Generator, chunk: int, n_chains: int) -> dict:
@@ -170,28 +224,34 @@ class JumpNFMC(Sampler):
         return {"noise": noise, "log_u": log_u,
                 "z": z.reshape(chunk, n_chains, *z.shape[1:]), "jump_log_u": jump_log_u}
 
-    def run_chunk(self, state: ChunkState, draws: dict):
+    def run_chunk(self, state: ChunkState, draws: dict, refit=None):
         """Run ``chunk`` outer iterations from ``state`` with ``draws``.
         Returns ``(state, ys)``; ``ys`` is the chunk's emitted draws
         ``(chunk * (inner_n + 1), C, *event)``, or None when
-        ``params.store_samples`` is off."""
+        ``params.store_samples`` is off.
+
+        ``refit = (scan_fit, generator, gate)``: outer iteration i refits the
+        flow on its inner draws when ``gate[i]`` is set and then jumps with
+        the refitted params, so its proposal is made after the refit."""
         collect = self.params.store_samples
         inner = self.inner_sampler
         inner_step = inner._make_step_aux(False)
         accept_core = self._make_jump_accept_core()
         flow = self.kernel.flow
-        params = flow.params
-        adjusted = self.params.adjusted_jumps
+        params = state.flow_params
+        target = self.target if self.params.adjusted_jumps else None
         noise, log_u = draws["noise"], draws["log_u"]
         chunk, inner_n = noise.shape[:2]
         x, ks, acc, jacc = state.x, state.inner_state, state.acc, state.jump_acc
         ys = None
         if collect:
             ys = torch.empty((chunk * (inner_n + 1), *x.shape), dtype=x.dtype, device=x.device)
+        if refit is not None:
+            inner_ys = torch.empty((inner_n, *x.shape), dtype=x.dtype, device=x.device)
         row = 0
         with torch.no_grad():
-            xp, flp, up = hoisted_flow_proposals(
-                flow, params, draws["z"], target=self.target if adjusted else None)
+            if refit is None:
+                xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
             for i in range(chunk):
                 for s in range(inner_n):
                     x, ks, info = inner_step(x, ks, (noise[i, s], log_u[i, s]))
@@ -199,31 +259,47 @@ class JumpNFMC(Sampler):
                     if collect:
                         ys[row].copy_(x)
                         row += 1
-                x, jmask = accept_core(params, x, xp[i], flp[i], up[i], draws["jump_log_u"][i])
+                    if refit is not None:
+                        inner_ys[s].copy_(x)
+                if refit is None:
+                    prop = (xp[i], flp[i], up[i])
+                else:
+                    scan_fit, generator, gate = refit
+                    if gate[i]:
+                        params = scan_fit(params, inner_ys.reshape(-1, *self.event_shape), generator)
+                    prop = tuple(t[0] for t in hoisted_flow_proposals(
+                        flow, params, draws["z"][i:i + 1], target=target))
+                x, jmask = accept_core(params, x, *prop, draws["jump_log_u"][i])
                 # the carried U / grad U are stale for chains that jumped
                 ks = inner._augment_state(inner._extract_mstate(ks), x)
                 jacc = jacc.add_jump(jmask, x)
                 if collect:
                     ys[row].copy_(x)
                     row += 1
-        return ChunkState(x=x, inner_state=ks, acc=acc, jump_acc=jacc), ys
+        return ChunkState(x=x, inner_state=ks, acc=acc, jump_acc=jacc, flow_params=params), ys
 
     # ------------------------------------------------------------------- sample
     def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
-        if self.params.fit_nf:
-            raise NotImplementedError("flow refits during sampling (fit_nf=True) are not "
-                                      "ported yet (ROADMAP 1.9)")
         if not self.inner_sampler.params.store_samples:
             raise ValueError("Inner sampler in jump NFMC must store samples")
         generator = self._generator(generator, seed)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device).clone()
+        self.kernel.flow.to(self.device)
+        out = JumpNFMCOutput(event_shape=self.event_shape, store_samples=self.params.store_samples,
+                             on_device=self.params.store_samples_on_device)
+        fit_cfg = fixed_effort_fit_config(self.params.flow_fit_kwargs) if self.params.fit_nf else None
+        if self.params.fit_nf and fit_cfg is None:
+            self._sample_host(x0, out, generator, time_limit_seconds, show_progress)
+        else:
+            self._sample_chunked(x0, out, generator, time_limit_seconds, show_progress, fit_cfg)
+        out.kernel = self.kernel
+        return out
+
+    def _sample_chunked(self, x0, out, generator, time_limit_seconds, show_progress, fit_cfg):
         n_chains = x0.shape[0]
         inner_n = self.inner_sampler.params.n_iterations
-        self.kernel.flow.to(self.device)
         store = self.params.store_samples
-        out = JumpNFMCOutput(event_shape=self.event_shape, store_samples=store,
-                             on_device=self.params.store_samples_on_device)
         event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
         pipelined = time_limit_seconds is None and not show_progress
         # a pipelined run keeps its draws on the device and stores them after
@@ -232,10 +308,24 @@ class JumpNFMC(Sampler):
                        * n_chains * event_elems <= RNG_HOIST_ELEMENT_LIMIT)
         deferred = []
         st = {"state": self.init_chunk_state(x0)}
+        if fit_cfg is not None:
+            n_epochs, lr, batch_size, keep_best, shuffle = fit_cfg
+            scan_fit = make_scan_fit(
+                self.kernel.flow, inner_n * n_chains, n_epochs=n_epochs, lr=lr,
+                batch_size=batch_size, shuffle=shuffle, keep_best_weights=keep_best,
+                train_pct=self.params.train_pct, max_train_size=self.params.max_train_size,
+                max_val_size=self.params.max_val_size)
+            fit_generator = torch.Generator(device=self.device)
+            fit_generator.manual_seed(self._sub_seeds(generator, 1)[0])
 
-        def dispatch(chunk, _iters_done):
+        def dispatch(chunk, iters_done):
             draws = self.make_chunk_draws(generator, chunk, n_chains)
-            st["state"], ys = self.run_chunk(st["state"], draws)
+            refit = None
+            if fit_cfg is not None:
+                # gated by the absolute outer index
+                gate = [iters_done + i >= self.params.n_jumps_before_training for i in range(chunk)]
+                refit = (scan_fit, fit_generator, gate)
+            st["state"], ys = self.run_chunk(st["state"], draws, refit)
             if store:
                 if defer_store:
                     deferred.append(ys)
@@ -248,8 +338,10 @@ class JumpNFMC(Sampler):
             s.acc = StatsAccum.zeros(self.event_shape, self.device)
             s.jump_acc = _JumpAccum.zeros(self.event_shape, self.device)
 
-        cap = hoist_cap(n_chains, event_elems, inner_n,
-                        flow_proposal_footprint_per_draw(self.kernel.flow, event_elems), store)
+        # refits make their proposals per iteration: only the draws are hoisted
+        per_proposal = 0 if fit_cfg is not None else flow_proposal_footprint_per_draw(
+            self.kernel.flow, event_elems)
+        cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store)
         iters_done = run_chunk_loop(
             self.params.n_iterations,
             dispatch=dispatch,
@@ -266,10 +358,76 @@ class JumpNFMC(Sampler):
             out.running_samples.add(blk)
         if not store and iters_done > 0:
             out.running_samples.add(st["state"].x)
+        if fit_cfg is not None:
+            self.kernel.flow.params = st["state"].flow_params
         self.inner_sampler.kernel.sync_from_state(
             self.inner_sampler._extract_mstate(st["state"].inner_state))
-        out.kernel = self.kernel
-        return out
+
+    def _sample_host(self, x0, out, generator, time_limit_seconds, show_progress):
+        """The outer loop on the host, for refits that are not fixed-effort:
+        per outer iteration a standalone inner run, then (from
+        ``n_jumps_before_training`` on) ``Flow.fit`` on its draws with
+        rollback, then one jump."""
+        flow = self.kernel.flow
+        inner = self.inner_sampler
+        accept_core = self._make_jump_accept_core()
+        adjusted = self.params.adjusted_jumps
+        n_chains = x0.shape[0]
+        x = x0
+        stats = out.statistics
+        bar = Progress(total=self.params.n_iterations, desc=self.name, disable=not show_progress)
+        for i in range(self.params.n_iterations):
+            if time_limit_seconds is not None and stats.elapsed_time_seconds >= time_limit_seconds:
+                break
+            seed_inner, seed_fit = self._sub_seeds(generator, 2)
+            mcmc_output = inner.sample(x0=x, show_progress=False, seed=seed_inner)
+            ist = mcmc_output.statistics
+            stats.update_counters(
+                n_accepted_trajectories=ist.n_accepted_trajectories,
+                n_attempted_trajectories=ist.n_attempted_trajectories,
+                n_divergences=ist.n_divergences,
+                n_target_calls=ist.n_target_calls,
+                n_target_gradient_calls=ist.n_target_gradient_calls,
+            )
+            stats.update_elapsed_time(ist.elapsed_time_seconds)
+            draws = mcmc_output.samples.to(self.device)
+            self._add_draws(out, draws)
+
+            t0 = time.time()
+            if self.params.fit_nf and i >= self.params.n_jumps_before_training:
+                x_train, x_val = train_val_split(
+                    draws, train_pct=self.params.train_pct,
+                    max_train_size=self.params.max_train_size,
+                    max_val_size=self.params.max_val_size, seed=seed_fit)
+                snapshot = flow.state_dict()
+                try:
+                    flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit)
+                except ValueError:
+                    flow.load_state_dict(snapshot)
+
+            x = mcmc_output.running_samples.last_sample.to(self.device)
+            with torch.no_grad():
+                z = flow.sample_base_fn(generator, n_chains)
+                prop = hoisted_flow_proposals(flow, flow.params, z[None],
+                                              target=self.target if adjusted else None)
+                log_u = (torch.log(torch.rand(n_chains, generator=generator, device=self.device))
+                         if adjusted else torch.zeros(n_chains, device=self.device))
+                x, jmask = accept_core(flow.params, x, *(t[0] for t in prop), log_u)
+            stats.update_counters(n_target_calls=self._jump_calls_per_iter(n_chains),
+                                  n_attempted_jumps=n_chains, n_accepted_jumps=int(jmask.sum()))
+            stats.update_elapsed_time(time.time() - t0)
+            self._add_draws(out, x[None])
+            bar.update(1)
+            if show_progress:
+                bar.set_postfix_str(f"{stats}")
+        bar.close()
+
+    def _add_draws(self, out, block):
+        """Store a ``(k, C, *event)`` block and fold it into the moments."""
+        xf = block.to(torch.float64)
+        n = block.shape[0] * block.shape[1]
+        out.statistics.update_moments_from_sums(xf.sum((0, 1)), (xf * xf).sum((0, 1)), n)
+        out.running_samples.add(block)
 
     def _account_outer_iters(self, out, n_outer, n_chains, inner_n, acc, jump_acc):
         """Fold the device accumulators into the host statistics with ONE

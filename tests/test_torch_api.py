@@ -57,12 +57,29 @@ def test_unported_strategies_name_their_roadmap_item(strategy, item):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
         _run(flow="maf")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        _run(warmup=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        _run(param_kwargs={"fit_nf": True})
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.13"):
+        nfmc_torch.Flow(nfmc_torch.RealNVP((3,)), seed=0).fit(np.zeros((4, 3), np.float32),
+                                                              mesh=object())
     with pytest.raises(ValueError, match="Unsupported sampling strategy"):
         _run(strategy="no_such_sampler")
+
+
+@pytest.mark.parametrize("strategy,calls", [("mala", 2), ("ula", 1)])
+def test_front_door_standalone_langevin(strategy, calls):
+    """Standalone MALA/ULA through the front door, with and without warmup:
+    the draws' shape, the counters and the seeded stream."""
+    def run(**kw):
+        return nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy, n_chains=6,
+                                 n_iterations=5, n_warmup_iterations=4, device="cpu", seed=0,
+                                 show_progress=False, **kw)
+
+    out = run()
+    assert out.samples.shape == (5, 6, 3) and torch.isfinite(out.samples).all()
+    assert out.statistics.n_target_gradient_calls == 5 * calls * 6
+    assert torch.equal(out.samples, run().samples)
+    warm = run(warmup=True)
+    assert warm.samples.shape == (5, 6, 3)
+    assert not np.allclose(warm.kernel.inv_mass_diag, 1.0)  # tuned by the warmup
 
 
 def test_import_pulls_in_no_jax():

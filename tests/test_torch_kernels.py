@@ -1,7 +1,12 @@
-"""The CUDA coupling kernel against its plain PyTorch version. These need an
-NVIDIA card (and nvcc to build the kernel) and skip without one; run them
-on the card with ``python -m pytest tests/test_torch_kernels.py``.
-``chip_smoke.py`` covers the same ground at the sampler's shapes."""
+"""The CUDA coupling kernels (forward and backward) against their plain
+PyTorch versions. These need an NVIDIA card (and nvcc to build the kernels)
+and skip without one; run them on the card with
+``python -m pytest tests/test_torch_kernels.py``. ``chip_smoke.py`` covers
+the same ground at the sampler's shapes.
+
+The backward is held to 1e-4 * max(1, max|reference|): its weight
+gradients sum products over the batch in another order than the plain
+version's matrix products."""
 import pytest
 import torch
 
@@ -51,9 +56,52 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         ops.fused_realnvp_forward(params, x.double(), 3.0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.fused_realnvp_forward(params, torch.randn((6, 5), device=cuda).t(), 3.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP 2.2"):
-        ops.fused_realnvp_forward(params, x.clone().requires_grad_(True), 3.0)
+    # an input that needs a gradient goes through the backward kernel
+    before = ops.fused_realnvp_vjp.launches
+    xg = x.clone().requires_grad_(True)
+    z, ld = ops.fused_realnvp_forward(params, xg, 3.0)
+    (gx,) = torch.autograd.grad((z * z).sum() + ld.sum(), xg)
+    assert ops.fused_realnvp_vjp.launches == before + 1
+    xc = x.cpu().requires_grad_(True)
+    zc, ldc = ops.realnvp_stack_plain([{k: [t.cpu() for t in v] for k, v in p.items()}
+                                       for p in params], xc, 3.0, False)
+    (gxc,) = torch.autograd.grad((zc * zc).sum() + ldc.sum(), xc)
+    assert float((gx.cpu() - gxc).abs().max()) <= TOL * max(1.0, float(gxc.abs().max()))
     three_hidden = Flow(RealNVP((6,), n_layers=2, hidden_size=8, n_hidden_layers=3), seed=0)
     three_hidden.to(cuda)
     with pytest.raises(ValueError, match="2 hidden layers"):
         ops.fused_realnvp_forward(three_hidden.params, x, 3.0)
+
+
+def _grad_err(got, want):
+    gx, grads = got
+    rx, rgrads = want
+    pairs = list(zip([gx, *ops._leaves(grads)], [rx, *ops._leaves(rgrads)]))
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in pairs)
+
+
+@pytest.mark.parametrize("d,hidden,n_layers,rows", [(100, 128, 4, 512), (100, 128, 4, 256),
+                                                    (100, 128, 4, 100), (7, 16, 3, 37),
+                                                    (100, 128, 4, 9001)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_backward_kernel_matches_plain(cuda, d, hidden, n_layers, rows, inverse):
+    params = _params(d, hidden, n_layers, cuda, seed=3)
+    g = torch.Generator(cuda).manual_seed(4)
+    x, gy = (torch.randn((rows, d), device=cuda, generator=g) for _ in range(2))
+    gld = torch.randn((rows,), device=cuda, generator=g)
+    before = ops.fused_realnvp_vjp.launches
+    got = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse)
+    torch.cuda.synchronize()
+    assert ops.fused_realnvp_vjp.launches == before + 1
+    assert _grad_err(got, ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)) <= TOL
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    params = _params(100, 128, 4, cuda, seed=5)
+    g = torch.Generator(cuda).manual_seed(6)
+    x, gy = (torch.randn((1000, 100), device=cuda, generator=g) for _ in range(2))
+    gld = torch.randn((1000,), device=cuda, generator=g)
+    a = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
+    b = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(u, v) for u, v in zip(ops._leaves(a[1]), ops._leaves(b[1])))
