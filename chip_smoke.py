@@ -4,8 +4,9 @@
 
 Phases, in order; any failure exits non-zero before the last line:
   1. facts: torch/CUDA versions, the card and its power limit, nvcc, triton;
-  2. build the coupling kernels from nfmc_torch/csrc/ with nvcc, one process
-     per source, all at once;
+  2. build the kernels from nfmc_torch/csrc/ with nvcc (the RealNVP coupling
+     forward and backward, the spline coupling forward and backward), one
+     process per source, all at once;
   3. forward kernel vs its plain PyTorch version, both directions, at the
      sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400), the flow
      fit's (B=256 training batches, B=3000 validation, and B=512) and a
@@ -27,7 +28,26 @@ Phases, in order; any failure exits non-zero before the last line:
      MALA acceptance in [0.55, 0.72], the counter and launch laws;
   5c. fit_nf=True at 20 outer iterations, on the fixed-effort route and on
      the host route: the interleaving law, the counters, a trained flow;
-  6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50].
+  6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50];
+  7. the spline forward kernel (RQS and LRS, both directions) vs its plain
+     version at d=100, H=128, L=4, K=8 with B=100, 256, 3000 and 50,000, and
+     a ragged (d=7, H=16, L=3, K=4, B=37), inputs 3 N(0, 1) so that the
+     tails are hit: max |diff| <= 1e-4 * max(1, max |ref|), with timings;
+  7b. the spline backward kernel vs the autograd VJP of the plain version,
+     both kinds and directions, at B=256, 100, 1001 and the ragged shape:
+     within SPLINE_BWD_TOL * max(1, max |ref|), two launches bit-identical;
+  7c. Flow.fit of each spline flow on the card and on the CPU (as 4b);
+  8. the slice's path through the front door, per spline kind: jump_mala
+     with c-rqnsf / c-lrsnsf (4 layers, hidden 128, 8 bins), warmup=True,
+     500 outer iterations: the counter and launch laws, moments, MALA
+     acceptance, the fitted flow's training NLL below the identity's (it is
+     above it on the validation rows: the fit overfits), jump acceptance
+     <= 0.01;
+  8b. a frozen identity-init spline flow against N(0.12 * 1, I): jump
+     acceptance in [0.30, 0.50], one forward launch per jump;
+  8c. self-target: a frozen perturbed spline flow is the proposal and the
+     target (U = -log q): jump acceptance >= 0.99, MALA acceptance in
+     SELF_MALA_ACC, backward launches = the sampler's gradient passes.
 Each path's launch counts are set to 0 just before it and read just after.
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -61,6 +81,22 @@ PERTURB = 0.05
 # that spread. The jump acceptance, set by the fitted flow, is tight.
 WARM_MALA_ACC = (0.55, 0.72)
 WARM_JUMP_ACC = (0.010, 0.035)
+# the spline flows of the slice: 8 bins on [-5, 5]
+N_BINS, TAIL = 8, 5.0
+SPLINE_FLOWS = {"rqs": "c-rqnsf", "lrs": "c-lrsnsf"}
+REPLACES = {"fwd": "nfmc_tpu/ops/experimental_spline_pallas.py:308",
+            "bwd": "nfmc_tpu/ops/experimental_spline_pallas.py:323"}
+# The spline backward kernel against the autograd VJP of the plain version,
+# relative to max(1, max|ref|) at PERTURB: the steep splines amplify
+# rounding (the JAX package measured two exact paths 3e-5 apart at 0.05,
+# tests/test_pallas.py:175-180); on an H100 this kernel measured at most
+# 3.14e-5 (PERF.md).
+SPLINE_BWD_TOL = 2e-4
+# Self-target (phase 8c): weights perturbed SELF_PERTURB from the identity,
+# and the MALA acceptance band around the JAX package's on the same numpy
+# weights (scripts/warmup_reference_cpu.py --self-target).
+SELF_PERTURB, SELF_SEED = 0.01, 11
+SELF_MALA_ACC = (0.03, 0.30)
 
 
 def fail(msg: str) -> None:
@@ -97,8 +133,47 @@ def perturbed_params(d, hidden, n_layers, seed, device):
     return [{k: [t.to(device) for t in v] for k, v in p.items()} for p in params]
 
 
-def stack_cost(d, hidden, n_layers, rows, backward=False):
-    """(FLOPs of the conditioner products, bytes of input and output).
+def spline_params(kind, d, hidden, n_layers, n_bins, seed, device):
+    """A spline flow's weights, PERTURB N(0, 1) away from its identity init."""
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow
+
+    cls = CouplingRQNSF if kind == "rqs" else CouplingLRS
+    flow = Flow(cls((d,), n_layers=n_layers, hidden_size=hidden, n_bins=n_bins), seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    return [{k: [(t + PERTURB * torch.randn(t.shape, generator=g)).to(device) for t in v]
+             for k, v in p.items()} for p in flow.params]
+
+
+def self_target_params(kind, d=D, hidden=H, n_layers=L, n_bins=N_BINS, seed=SELF_SEED,
+                       pert=SELF_PERTURB):
+    """The self-target flow's weights from a numpy seed alone, as float32
+    arrays in the canonical layout (per layer ``{"w": [w1, w2, w3], "b":
+    [b1, b2, b3]}``, ``w`` (in, out)): He-initialised hidden layers and a
+    zero output layer (the identity), then every array moved by pert N(0,
+    1). ``scripts/warmup_reference_cpu.py --self-target`` loads the same
+    arrays into both packages."""
+    from nfmc_torch.flows.spline import n_params_per_dim
+
+    rng = np.random.default_rng(seed)
+    n_par = n_params_per_dim(kind, n_bins)
+    params = []
+    for l in range(n_layers):
+        da = (d + 1) // 2 if l % 2 == 0 else d // 2
+        sizes = [da, hidden, hidden, n_par * (d - da)]
+        ws = [rng.standard_normal(sizes[i:i + 2]) * np.sqrt(2.0 / sizes[i]) if i < 2
+              else np.zeros(sizes[i:i + 2]) for i in range(3)]
+        bs = [np.zeros(sizes[i + 1]) for i in range(3)]
+        params.append({k: [(a + pert * rng.standard_normal(a.shape)).astype(np.float32)
+                           for a in v] for k, v in (("w", ws), ("b", bs))})
+    return params
+
+
+def stack_cost(d, hidden, n_layers, rows, backward=False, n_par=2):
+    """(FLOPs of the conditioner products, bytes of input and output), with
+    n_par conditioner outputs per transformed dim (2 for the affine
+    coupling, 3K - 1 or 4K - 1 for the splines). The splines' elementwise
+    work (tens of FLOP per element and K exponentials, against the
+    conditioner's 2 H P FLOP) is left out.
 
     Forward: x read, y and log-det written, the weights read. Backward: the
     forward recomputed, then per row the three products with the transposed
@@ -109,8 +184,9 @@ def stack_cost(d, hidden, n_layers, rows, backward=False):
     for l in range(n_layers):
         da = (d + 1) // 2 if l % 2 == 0 else d // 2
         db = d - da
-        flops += 2 * (da * hidden + hidden * hidden + hidden * 2 * db)
-        n_weights += da * hidden + hidden + hidden * hidden + hidden + hidden * 2 * db + 2 * db
+        flops += 2 * (da * hidden + hidden * hidden + hidden * n_par * db)
+        n_weights += (da * hidden + hidden + hidden * hidden + hidden + hidden * n_par * db
+                      + n_par * db)
     if backward:
         return 3 * rows * flops, 4 * (3 * rows * d + rows + 2 * n_weights)
     return rows * flops, 4 * (2 * rows * d + rows + n_weights)
@@ -162,10 +238,14 @@ class Instrument:
                       (train_mod, "_train_step", train_mod._train_step)]
         rec = self
 
+        self.x_train = self.x_val = None
+
         def timed(fn, attr):
             def wrapper(*a, **k):
                 if attr == "inner_s":
                     rec.inner = a[0]
+                if attr == "fit_s":
+                    rec.x_train, rec.x_val = a[1], k.get("x_val")
                 t0 = time.perf_counter()
                 try:
                     return fn(*a, **k)
@@ -225,10 +305,243 @@ def profile_window(headline_iters: int) -> None:
         print(f"  {a.key[:60]:60s} device {a.self_device_time_total / 1e3:9.2f} ms  calls {a.count}")
 
 
+def run_spline_phases(dev, g) -> dict:
+    """Phases 7-8c: the spline kernels against their plain versions, the
+    card-vs-CPU fit, and the slice's paths through the front door. Returns
+    the kernels' errors, timings and the main path's launch counts."""
+    import nfmc_torch
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow
+    from nfmc_torch.flows import train as train_mod
+    from nfmc_torch.flows.spline import n_params_per_dim
+    from nfmc_torch.ops import build
+    from nfmc_torch.ops import coupling as cops
+    from nfmc_torch.ops import spline as sops
+    from nfmc_torch.potentials import CallablePotential, DiagonalGaussian, StandardGaussian
+
+    classes = {"rqs": CouplingRQNSF, "lrs": CouplingLRS}
+    out = {"fwd_err": {}, "fwd_timing": {}, "bwd_err": {}, "bwd_timing": {}, "launches": {}}
+
+    # ---- 7. spline forward kernel vs plain ------------------------------------
+    for kind in SPLINE_FLOWS:
+        out["fwd_err"][kind] = 0.0
+        for d, hid, nl, nb, rows in [(D, H, L, N_BINS, C), (D, H, L, N_BINS, 256),
+                                     (D, H, L, N_BINS, 3000), (D, H, L, N_BINS, 500 * C),
+                                     (7, 16, 3, 4, 37)]:
+            params = spline_params(kind, d, hid, nl, nb, seed=d + rows, device=dev)
+            packed = cops.pack_weights(params)
+            x = 3 * torch.randn((rows, d), generator=g, device=dev)
+            for inverse in (False, True):
+                wrapper = getattr(sops, f"fused_{kind}_{'inverse' if inverse else 'forward'}")
+                y, ld = wrapper(params, x, nb, TAIL, packed=packed)
+                torch.cuda.synchronize()
+                y_ref, ld_ref = sops.spline_stack_plain(params, x, kind, nb, TAIL, inverse)
+                check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
+                      "non-finite spline kernel output")
+                e = max((y - y_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
+                scale = max(1.0, y_ref.abs().max().item(), ld_ref.abs().max().item())
+                out["fwd_err"][kind] = max(out["fwd_err"][kind], e)
+                reps = 20 if rows <= 3000 else 5
+                k_ms = median_ms(lambda: wrapper(params, x, nb, TAIL, packed=packed), reps)
+                p_ms = median_ms(lambda: sops.spline_stack_plain(params, x, kind, nb, TAIL,
+                                                                 inverse), reps)
+                bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows,
+                                                       n_par=n_params_per_dim(kind, nb)))
+                out["fwd_timing"][(kind, rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by, e)
+                print(f"spline {kind} {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
+                      f"K={nb} B={rows}: max|diff| {e:.3e} (scale {scale:.2f}), kernel {k_ms:.4f} "
+                      f"ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+                check(e <= TOL * scale, f"spline kernel disagrees with the plain version: "
+                                        f"{e} > {TOL} * {scale}")
+
+    # ---- 7b. spline backward kernel vs plain -------------------------------------
+    for kind in SPLINE_FLOWS:
+        out["bwd_err"][kind] = 0.0
+        for d, hid, nl, nb, rows in [(D, H, L, N_BINS, 256), (D, H, L, N_BINS, C),
+                                     (D, H, L, N_BINS, 1001), (7, 16, 3, 4, 37)]:
+            params = spline_params(kind, d, hid, nl, nb, seed=d + rows + 1, device=dev)
+            packed = cops.pack_weights(params)
+            x = 3 * torch.randn((rows, d), generator=g, device=dev)
+            gy = torch.randn((rows, d), generator=g, device=dev)
+            gld = torch.randn((rows,), generator=g, device=dev)
+            for inverse in (False, True):
+                def vjp():
+                    return sops.fused_spline_vjp(params, x, gy, gld, kind, nb, TAIL, inverse,
+                                                 packed=packed)
+                got, again = vjp(), vjp()
+                torch.cuda.synchronize()
+                ref = sops.spline_stack_vjp_plain(params, x, gy, gld, kind, nb, TAIL, inverse)
+                pairs = list(zip([got[0], *cops._leaves(got[1])], [ref[0], *cops._leaves(ref[1])]))
+                e_abs = max((a - b).abs().max().item() for a, b in pairs)
+                scale = max(1.0, max(b.abs().max().item() for _, b in pairs))
+                same = torch.equal(got[0], again[0]) and all(
+                    torch.equal(a, b) for a, b in zip(cops._leaves(got[1]), cops._leaves(again[1])))
+                check(all(bool(torch.isfinite(a).all()) for a, _ in pairs), "non-finite gradient")
+                out["bwd_err"][kind] = max(out["bwd_err"][kind], e_abs)
+                line = (f"spline vjp {kind} {'inverse' if inverse else 'forward'} d={d} H={hid} "
+                        f"L={nl} K={nb} B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) "
+                        f"= {scale:.2f}, relative {e_abs / scale:.2e}), bit-identical rerun {same}")
+                if d == D and rows == 256 and not inverse:
+                    k_ms = median_ms(vjp, 30)
+                    p_ms = median_ms(lambda: sops.spline_stack_vjp_plain(
+                        params, x, gy, gld, kind, nb, TAIL, inverse), 10)
+                    bound_ms, bound_by = bound(*stack_cost(
+                        d, hid, nl, rows, backward=True, n_par=n_params_per_dim(kind, nb)))
+                    out["bwd_timing"][kind] = (k_ms, p_ms, bound_ms, bound_by)
+                    line += (f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                             f"({bound_by})")
+                print(line)
+                check(e_abs <= SPLINE_BWD_TOL * scale,
+                      f"spline backward kernel disagrees with the plain version: {e_abs} > "
+                      f"{SPLINE_BWD_TOL} * {scale}")
+                check(same, "two launches of the spline backward kernel gave different gradients")
+
+    # ---- 7c. Flow.fit of each spline flow, card vs CPU -----------------------------
+    rng = np.random.default_rng(7)
+    x_fit = (1.3 * rng.standard_normal((70, 6)) + 0.5).astype(np.float32)
+    x_fit_val = (1.3 * rng.standard_normal((30, 6)) + 0.5).astype(np.float32)
+    orig_np = train_mod.np
+    for kind, cls in classes.items():
+        fits = {}
+        try:
+            for device in ("cpu", "cuda"):
+                flow = Flow(cls((6,), n_layers=2, hidden_size=16), seed=0)
+                flow.params = spline_params(kind, 6, 16, 2, N_BINS, seed=9, device=device)
+                train_mod.np = rec = RecordingNumpy()
+                flow.fit(x_fit, x_val=x_fit_val, shuffle=False, early_stopping=False, n_epochs=5,
+                         batch_size=16, seed=0)
+                fits[device] = (flat_params(flow), np.concatenate(rec.seen))
+        finally:
+            train_mod.np = orig_np
+        e_w = (fits["cpu"][0] - fits["cuda"][0]).abs().max().item()
+        e_vl = float(np.max(np.abs(fits["cpu"][1] - fits["cuda"][1])))
+        print(f"{SPLINE_FLOWS[kind]} Flow.fit card vs CPU (d=6, 70 rows at batch 16, 5 epochs): "
+              f"weights max|diff| {e_w:.3e}, per-epoch val loss max|diff| {e_vl:.3e} "
+              f"(val losses {np.round(fits['cuda'][1], 5).tolist()})")
+        check(len(fits["cuda"][1]) == 5 and e_w <= TOL and e_vl <= TOL,
+              f"{SPLINE_FLOWS[kind]}: Flow.fit on the card disagrees with the CPU fit")
+
+    def dsl(kind):
+        return f'{SPLINE_FLOWS[kind]}%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": {N_BINS}}}'
+
+    # ---- 8. the slice's path: warmup=True through the front door ------------------
+    warm_outer = 500
+    for kind, cls in classes.items():
+        fwd, inv = f"fused_{kind}_forward", f"fused_{kind}_inverse"
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Instrument() as ins:
+            wout = nfmc_torch.sample(
+                StandardGaussian((D,)), strategy="jump_mala", flow=dsl(kind), n_chains=C,
+                n_iterations=warm_outer, inner_param_kwargs={"n_iterations": INNER_N},
+                warmup=True, seed=0, show_progress=False)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl_ = {w.__name__: w.launches for w in build.WRAPPERS}
+        out["launches"][kind] = nl_
+        wst = wout.statistics
+        flow = wout.kernel.flow
+        check(type(flow.bijection) is cls, f"{dsl(kind)} built {type(flow.bijection).__name__}")
+        identity = Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS), seed=0).to(dev)
+        nll = {}
+        for part, rows in (("train", ins.x_train), ("validation", ins.x_val)):
+            rows = torch.as_tensor(np.asarray(rows), device=dev)
+            nll[part] = (-flow.log_prob(rows).mean().item(), -identity.log_prob(rows).mean().item(),
+                         len(rows))
+        jacc_w, macc_w = wst.jump_acceptance_rate, wst.acceptance_rate
+        print(f"{SPLINE_FLOWS[kind]} with warmup ({warm_outer} outer it): wall {wall:.3f} s, of "
+              f"which inner tuning {ins.inner_s:.3f} s and flow fit {ins.fit_s:.3f} s; fit "
+              f"{ins.epochs} epochs, {ins.steps} optimizer steps; launches {nl_}; NLL fitted vs "
+              f"identity: " + ", ".join(f"{k} ({v[2]} rows) {v[0]:.4f} vs {v[1]:.4f}"
+                                        for k, v in nll.items()))
+        print(f"{SPLINE_FLOWS[kind]} with warmup: jump acc {jacc_w:.4f} (JAX package, CPU: "
+              f"0.0000-0.0002), MALA acc {macc_w:.4f}, max|mean| {np.abs(wout.mean).max():.4f}, "
+              f"max|E[x^2]-1| {np.abs(wout.second_moment - 1).max():.4f}")
+        check(ins.steps > 0 and nl_["fused_spline_vjp"] == ins.steps,
+              "spline backward launches != optimizer steps")
+        check(nl_[fwd] == ins.steps + ins.epochs + warm_outer,
+              "spline forward launches != training steps + validation epochs + jumps")
+        check(nl_[inv] == 1, "spline proposals not in one inverse launch")
+        check(all(v == 0 for k, v in nl_.items() if k not in (fwd, inv, "fused_spline_vjp")),
+              f"another kernel ran on the {SPLINE_FLOWS[kind]} path: {nl_}")
+        check(tuple(wout.samples.shape) == (warm_outer * (INNER_N + 1), C, D), "bad sample shape")
+        check(bool(torch.isfinite(wout.samples).all()), "non-finite samples")
+        check(wst.n_target_calls == warm_outer * (INNER_N * 2 * C + 2 * C), "target-call counter law")
+        check(wst.n_target_gradient_calls == warm_outer * INNER_N * 2 * C, "gradient counter law")
+        check(wst.n_attempted_jumps == warm_outer * C, "attempted-jump counter law")
+        check(np.abs(wout.mean).max() < 0.05 and np.abs(wout.second_moment - 1).max() < 0.1,
+              "moments after warmup are off N(0, I)")
+        check(WARM_MALA_ACC[0] <= macc_w <= WARM_MALA_ACC[1],
+              f"warmup MALA acceptance {macc_w} outside {WARM_MALA_ACC}")
+        # the fit learned its training rows; on the validation rows it is
+        # worse than the identity in both packages (it overfits: PERF.md),
+        # which is why the jump acceptance is ~0
+        check(nll["train"][0] < nll["train"][1],
+              "the fitted spline flow's training NLL is not below the identity's")
+        check(jacc_w <= 0.01, f"jump acceptance {jacc_w} after the spline fit above 0.01")
+
+    # ---- 8b. misfit with a frozen identity-init spline flow --------------------------
+    mu = 0.12
+    for kind, cls in classes.items():
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        mis = nfmc_torch.sample(
+            DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)), strategy="jump_mala",
+            flow=Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS), seed=0),
+            n_chains=C, n_iterations=500, inner_param_kwargs={"n_iterations": INNER_N},
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
+        nl_ = {w.__name__: w.launches for w in build.WRAPPERS}
+        jacc = mis.statistics.jump_acceptance_rate
+        print(f"{SPLINE_FLOWS[kind]} misfit N({mu}*1, I): jump acc {jacc:.4f} (JAX package, CPU: "
+              f"0.3929), MALA acc {mis.statistics.acceptance_rate:.4f}, launches {nl_}, wall "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(0.30 <= jacc <= 0.50, f"spline misfit jump acceptance {jacc} outside [0.30, 0.50]")
+        check(nl_[f"fused_{kind}_forward"] == 500, "spline misfit: one forward launch per jump")
+        check(nl_[f"fused_{kind}_inverse"] == 1, "spline misfit: proposals not in one launch")
+
+    # ---- 8c. self-target: the flow is the proposal and the target ---------------------
+    from nfmc_torch.flows import from_jax_params
+
+    self_outer = 100
+    for kind, cls in classes.items():
+        flow = Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS))
+        flow.params = from_jax_params(self_target_params(kind), device=dev)
+        frozen = flow.params  # the sampler leaves a flow it does not fit as it is
+        grad_passes = [0]
+
+        def u(x, flow=flow, frozen=frozen):
+            grad_passes[0] += int(x.requires_grad and torch.is_grad_enabled())
+            return -flow.log_prob_fn(frozen, x)
+
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sout = nfmc_torch.sample(
+            CallablePotential(u, (D,)), strategy="jump_mala", flow=flow, n_chains=C,
+            n_iterations=self_outer, inner_param_kwargs={"n_iterations": INNER_N},
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
+        torch.cuda.synchronize()
+        nl_ = {w.__name__: w.launches for w in build.WRAPPERS}
+        sst = sout.statistics
+        print(f"{SPLINE_FLOWS[kind]} self-target (perturbation {SELF_PERTURB}, {self_outer} outer "
+              f"it): jump acc {sst.jump_acceptance_rate:.4f}, MALA acc {sst.acceptance_rate:.4f} "
+              f"(JAX package, CPU: RQS 0.132, LRS 0.0955), gradient passes {grad_passes[0]}, "
+              f"launches {nl_}, wall {time.perf_counter() - t0:.3f} s")
+        check(bool(torch.isfinite(sout.samples).all()), "self-target: non-finite samples")
+        check(sst.jump_acceptance_rate >= 0.99,
+              f"self-target jump acceptance {sst.jump_acceptance_rate} < 0.99: the kernels' "
+              "forward, inverse and log-det disagree")
+        check(SELF_MALA_ACC[0] <= sst.acceptance_rate <= SELF_MALA_ACC[1],
+              f"self-target MALA acceptance {sst.acceptance_rate} outside {SELF_MALA_ACC}")
+        check(grad_passes[0] > 0 and nl_["fused_spline_vjp"] == grad_passes[0],
+              "self-target: backward launches != the sampler's gradient passes")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     import nfmc_torch
+    from nfmc_torch.ops import build
     from nfmc_torch.ops import coupling as ops
     from nfmc_torch.potentials import DiagonalGaussian, StandardGaussian
 
@@ -240,7 +553,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     print(f"device {name} capability {cap} count {torch.cuda.device_count()}")
     check(cap == (9, 0), f"expected a Hopper card (9, 0), got {cap}")
-    nvcc = subprocess.run([ops._find_nvcc(), "--version"], capture_output=True, text=True)
+    nvcc = subprocess.run([build.find_nvcc(), "--version"], capture_output=True, text=True)
     print("nvcc:", [ln for ln in nvcc.stdout.splitlines() if "release" in ln][-1])
     try:
         import triton
@@ -255,10 +568,10 @@ def main() -> None:
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    ops._library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {ops.build_seconds:.2f} s, "
-          f"{len(ops.SOURCES)} sources in parallel)")
-    for ln in ops.build_log.splitlines():
+    build.library("coupling")  # builds and loads every source
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s, "
+          f"{len(build.SOURCES)} sources in parallel: {', '.join(build.SOURCES)})")
+    for ln in build.build_log.splitlines():
         if "registers" in ln or "spill" in ln or ln.startswith("=="):
             print("  ptxas:", ln.strip())
 
@@ -384,13 +697,13 @@ def main() -> None:
             seed=0, show_progress=False)
 
     headline()  # warm run: allocator, library, cuBLAS handles
-    ops.reset_launch_counts()
+    build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = headline()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+    launches = {w.__name__: w.launches for w in build.WRAPPERS}
     st = out.statistics
     samples = out.samples
     n_chunks = launches["fused_realnvp_inverse"]
@@ -412,7 +725,7 @@ def main() -> None:
 
     # ---- 5b. the headline with warmup -----------------------------------------
     warm_outer = 500
-    ops.reset_launch_counts()
+    build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with Instrument() as ins:
@@ -423,7 +736,7 @@ def main() -> None:
             warmup=True, seed=0, show_progress=False)
         torch.cuda.synchronize()
     wall_w = time.perf_counter() - t0
-    warm_launches = {w.__name__: w.launches for w in ops.WRAPPERS}
+    warm_launches = {w.__name__: w.launches for w in build.WRAPPERS}
     wst = wout.statistics
     ik = ins.inner.kernel
     jacc_w, macc_w = wst.jump_acceptance_rate, wst.acceptance_rate
@@ -462,7 +775,7 @@ def main() -> None:
                                ("host", {"n_epochs": 2, "early_stopping": True}, -(-n_train // bs))):
         flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
         before = flat_params(flow)
-        ops.reset_launch_counts()
+        build.reset_launch_counts()
         t0 = time.perf_counter()
         with Instrument() as ins:
             nout = nfmc_torch.sample(
@@ -472,7 +785,7 @@ def main() -> None:
                               "n_jumps_before_training": n_before},
                 seed=0, show_progress=False)
             torch.cuda.synchronize()
-        nl = {w.__name__: w.launches for w in ops.WRAPPERS}
+        nl = {w.__name__: w.launches for w in build.WRAPPERS}
         nst = nout.statistics
         change = (flat_params(flow) - before).abs().max().item()
         print(f"fit_nf ({route} route, {nf_outer} outer it): wall {time.perf_counter() - t0:.3f} s, "
@@ -501,6 +814,8 @@ def main() -> None:
           f"max|mean - mu| {np.abs(mis.mean - mu).max():.4f}, wall {time.perf_counter() - t0:.3f} s")
     check(0.30 <= jacc <= 0.50, f"misfit jump acceptance {jacc} outside [0.30, 0.50]")
 
+    spline = run_spline_phases(dev, g)
+
     kernels = []
     for inverse, rows in ((False, C), (True, OUTER * C)):
         k_ms, p_ms, bound_ms, bound_by = timing[(D, rows, inverse)]
@@ -519,6 +834,26 @@ def main() -> None:
         "launches": warm_launches["fused_realnvp_vjp"], "max_abs_err": bwd_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     })
+    for kind in SPLINE_FLOWS:
+        for inverse, rows in ((False, C), (True, 500 * C)):
+            k_ms, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
+            name_ = f"fused_{kind}_{'inverse' if inverse else 'forward'}"
+            kernels.append({
+                "name": name_, "route": "cuda", "source": "nfmc_torch/csrc/spline.cu",
+                "replaces": REPLACES["fwd"], "launches": spline["launches"][kind][name_],
+                "max_abs_err": spline["fwd_err"][kind], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            })
+    for kind in SPLINE_FLOWS:
+        # the warmup's training batches: 4096 rows at the adaptive batch of 256
+        k_ms, p_ms, bound_ms, bound_by = spline["bwd_timing"][kind]
+        kernels.append({
+            "name": f"fused_spline_vjp ({kind})", "route": "cuda",
+            "source": "nfmc_torch/csrc/spline_bwd.cu", "replaces": REPLACES["bwd"],
+            "launches": spline["launches"][kind]["fused_spline_vjp"],
+            "max_abs_err": spline["bwd_err"][kind], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

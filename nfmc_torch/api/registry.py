@@ -1,14 +1,22 @@
 """Flow registry and the ``"<name>%<json kwargs>"`` flow-string DSL
-(e.g. ``'realnvp%{"n_layers": 10}'``). Only RealNVP is ported so far; every
-other flow of ``nfmc_tpu``'s registry is ROADMAP 1.12."""
+(e.g. ``'realnvp%{"n_layers": 10}'``). Ported so far: RealNVP and the coupling
+spline flows ``c-rqnsf`` and ``c-lrsnsf`` (with the aliases of
+``nfmc_tpu/api/registry.py``); every other flow of ``nfmc_tpu``'s registry is
+ROADMAP 1.12."""
 from __future__ import annotations
 
 import hashlib
 import json
 
-from ..flows import Flow, RealNVP
+from ..flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
 
 REALNVP_NAMES = ("realnvp", "real_nvp", "rnvp")
+# name (and its aliases) -> bijection class
+FLOWS = {
+    **{n: RealNVP for n in REALNVP_NAMES},
+    **{n: CouplingRQNSF for n in ("c-rqnsf", "c-rqsnsf")},
+    **{n: CouplingLRS for n in ("c-lrsnsf", "c-lrnsf")},
+}
 
 
 def _stable_hash(s: str) -> int:
@@ -33,12 +41,12 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
     kwargs = {**kwargs, **flow_data["kwargs"]}
     if not isinstance(flow_name, str):
         raise ValueError(f"bad flow name: {flow_name!r}")
-    if flow_name not in REALNVP_NAMES:
+    if flow_name not in FLOWS:
         raise NotImplementedError(
             f"flow {flow_name!r} is not ported to nfmc_torch yet (ROADMAP 1.12); "
-            f"ported: {', '.join(REALNVP_NAMES)}")
+            f"ported: {', '.join(FLOWS)}")
     seed = kwargs.pop("seed", None)
-    return Flow(RealNVP(event_shape, **kwargs), seed=seed)
+    return Flow(FLOWS[flow_name](event_shape, **kwargs), seed=seed)
 
 
 # Strategies of nfmc_tpu's registry that the port does not run yet, with the

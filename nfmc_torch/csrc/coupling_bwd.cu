@@ -46,7 +46,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB a block can opt into
-constexpr int kTile = 32;                   // weight-gradient tile, both ways
 
 // Scratch layout: per layer l, seven row-major (B, width) matrices:
 //   0 x_in (d)   the layer's input      1 h1 (H)     2 h2 (H)
@@ -303,8 +302,6 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
 __global__ void __launch_bounds__(256)
 coupling_vjp_weights_kernel(const float* __restrict__ stash, float* __restrict__ grads,
                             int B, int d, int H) {
-  __shared__ float a_s[kTile][kTile + 1];
-  __shared__ float g_t[kTile][kTile + 1];
   const int l = blockIdx.y / 3;
   const int kind = blockIdx.y % 3;
   const int da = cond_size(l, d);
@@ -338,44 +335,10 @@ coupling_vjp_weights_kernel(const float* __restrict__ stash, float* __restrict__
     N = 2 * db;
     gw = gw1 + (size_t)da * H + H + (size_t)H * H + H;
   }
-  float* gb = gw + (size_t)K * N;
   const int tiles_n = (N + kTile - 1) / kTile;
-  const int tiles_k = (K + kTile - 1) / kTile;
-  if ((int)blockIdx.x >= tiles_n * tiles_k) return;
-  const int kt = blockIdx.x / tiles_n;
-  const int nt = blockIdx.x % tiles_n;
-  const int tx = threadIdx.x % 32;  // output column within the tile
-  const int ty = threadIdx.x / 32;  // 4 output rows each: ty * 4 ... + 3
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  float bacc = 0.f;
-  for (long long r0 = 0; r0 < B; r0 += kTile) {
-    for (int e = threadIdx.x; e < kTile * kTile; e += 256) {
-      const int rr = e / kTile, cc = e % kTile;
-      const long long r = r0 + rr;
-      const int k = kt * kTile + cc;
-      const int n = nt * kTile + cc;
-      a_s[rr][cc] = (r < B && k < K) ? A[r * lda + a_off + (size_t)k * a_step] : 0.f;
-      g_t[rr][cc] = (r < B && n < N) ? G[r * N + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kTile; ++rr) {
-      const float g = g_t[rr][tx];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c] = fmaf(a_s[rr][ty * 4 + c], g, acc[c]);
-      bacc += g;
-    }
-    __syncthreads();
-  }
-  const int n = nt * kTile + tx;
-  if (n < N) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = kt * kTile + ty * 4 + c;
-      if (k < K) gw[(size_t)k * N + n] = acc[c];
-    }
-    if (kt == 0 && ty == 0) gb[n] = bacc;
-  }
+  if ((int)blockIdx.x >= n_tiles(K, N)) return;
+  weight_grad_tile(A, lda, a_off, a_step, K, G, N, B, gw, gw + (size_t)K * N,
+                   blockIdx.x / tiles_n, blockIdx.x % tiles_n);
 }
 
 template <int RPW>
@@ -437,10 +400,7 @@ extern "C" int nfmc_coupling_stack_vjp(const void* x, const void* gy, const void
   int max_tiles = 0;
   for (int l = 0; l < L; ++l) {
     const int da = cond_size(l, d), db = d - da;
-    const int tk = (H + kTile - 1) / kTile;
-    const int t0 = ((da + kTile - 1) / kTile) * tk;
-    const int t2 = tk * ((2 * db + kTile - 1) / kTile);
-    max_tiles = std::max({max_tiles, t0, tk * tk, t2});
+    max_tiles = std::max({max_tiles, n_tiles(da, H), n_tiles(H, H), n_tiles(H, 2 * db)});
   }
   coupling_vjp_weights_kernel<<<dim3(max_tiles, 3 * L), 256, 0, s>>>(
       st, static_cast<float*>(grads), B, d, H);

@@ -1,8 +1,9 @@
-"""Coupling flows: RealNVP.
+"""Coupling flows: RealNVP and the coupling spline flows (RQS and LRS).
 
 Layer l conditions on the flattened-event indices with ``(i + l) % 2 == 0``
 and transforms the rest; its conditioner's output columns are dim-major
-``(shift_j, raw_logscale_j)`` (``nfmc_tpu/flows/coupling.py:55-80``).
+(``nfmc_tpu/flows/coupling.py:55-80``): ``(shift_j, raw_logscale_j)`` for
+RealNVP, the spline's P raw parameters of dim j for the spline flows.
 """
 from __future__ import annotations
 
@@ -12,9 +13,10 @@ import numpy as np
 import torch
 
 from ..ops import coupling as coupling_ops
+from ..ops import spline as spline_ops
 from .base import Bijection
 from .conditioners import mlp_init
-from .transforms import AffineTransform
+from .transforms import AffineTransform, LRSplineTransform, RQSplineTransform
 
 
 class Coupling(Bijection):
@@ -46,28 +48,14 @@ class Coupling(Bijection):
         ids = np.arange(d)
         self.layer_idx = [(ids[(ids + l) % 2 == 0], ids[(ids + l) % 2 == 1])
                           for l in range(self.n_layers)]
+        self._packed_src = ()
+        self._packed = None
 
     def init(self, generator: torch.Generator):
         return [
             mlp_init(generator, len(a), self.hidden, len(b) * self.transform.n_params_per_dim)
             for a, b in self.layer_idx
         ]
-
-
-class RealNVP(Coupling):
-    """Affine coupling flow (Dinh et al. 2017).
-
-    Both directions run the whole stack through
-    :mod:`nfmc_torch.ops.coupling`: the CUDA kernels on a CUDA tensor, their
-    plain PyTorch versions on a CPU tensor. Both are differentiable in the
-    input and the weights, with the backward kernel as the gradient.
-    """
-
-    def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
-        super().__init__(event_shape, AffineTransform(clamp=clamp), n_layers=n_layers, **kwargs)
-        self.clamp = float(clamp)
-        self._packed_src = ()
-        self._packed = None
 
     def _packed_weights(self, params, device):
         """The kernels' weight buffer, rebuilt only when a parameter tensor
@@ -82,11 +70,14 @@ class RealNVP(Coupling):
             self._packed_src = src
         return self._packed
 
+    def _stack(self, params, flat, inverse: bool, packed):
+        """The whole stack on ``(B, event_size)`` rows: ``(y, log_det)``."""
+        raise NotImplementedError
+
     def _run(self, params, v, inverse: bool):
         batch_shape = v.shape[: v.dim() - len(self.event_shape)]
         flat = v.reshape(-1, self.event_size)
-        fn = coupling_ops.fused_realnvp_inverse if inverse else coupling_ops.fused_realnvp_forward
-        y, ld = fn(params, flat, self.clamp, packed=self._packed_weights(params, flat.device))
+        y, ld = self._stack(params, flat, inverse, self._packed_weights(params, flat.device))
         return y.reshape(v.shape), ld.reshape(batch_shape)
 
     def forward_fn(self, params, x):
@@ -94,3 +85,63 @@ class RealNVP(Coupling):
 
     def inverse_fn(self, params, z):
         return self._run(params, z, inverse=True)
+
+
+class RealNVP(Coupling):
+    """Affine coupling flow (Dinh et al. 2017).
+
+    Both directions run the whole stack through
+    :mod:`nfmc_torch.ops.coupling`: the CUDA kernels on a CUDA tensor, their
+    plain PyTorch versions on a CPU tensor. Both are differentiable in the
+    input and the weights, with the backward kernel as the gradient.
+    """
+
+    def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
+        super().__init__(event_shape, AffineTransform(clamp=clamp), n_layers=n_layers, **kwargs)
+        self.clamp = float(clamp)
+
+    def _stack(self, params, flat, inverse, packed):
+        fn = coupling_ops.fused_realnvp_inverse if inverse else coupling_ops.fused_realnvp_forward
+        return fn(params, flat, self.clamp, packed=packed)
+
+
+class _CouplingSpline(Coupling):
+    """Coupling flow whose layers apply an elementwise monotone spline with
+    ``n_bins`` bins on ``[-tail_bound, tail_bound]`` and identity tails.
+
+    Both directions run the whole stack through :mod:`nfmc_torch.ops.spline`:
+    the CUDA kernels on a CUDA tensor, their plain PyTorch versions on a CPU
+    tensor, differentiable in the input and the weights with the backward
+    kernel as the gradient. The JAX package's ``use_pallas`` is accepted
+    (for the flow-string DSL) and ignored, as by ``Coupling``: on CUDA the
+    kernel always runs."""
+
+    _transform = None
+
+    def __init__(self, event_shape, n_layers: int = 2, n_bins: int = 8,
+                 tail_bound: float = 5.0, **kwargs):
+        super().__init__(event_shape, self._transform(n_bins=n_bins, tail_bound=tail_bound),
+                         n_layers=n_layers, **kwargs)
+        self.n_bins = int(n_bins)
+        self.tail_bound = float(tail_bound)
+
+    def _stack(self, params, flat, inverse, packed):
+        fn = {("rqs", False): spline_ops.fused_rqs_forward,
+              ("rqs", True): spline_ops.fused_rqs_inverse,
+              ("lrs", False): spline_ops.fused_lrs_forward,
+              ("lrs", True): spline_ops.fused_lrs_inverse}[self.transform.kind, inverse]
+        return fn(params, flat, self.n_bins, self.tail_bound, packed=packed)
+
+
+class CouplingRQNSF(_CouplingSpline):
+    """Coupling rational-quadratic neural spline flow (``c-rqnsf``, Durkan
+    et al. 2019)."""
+
+    _transform = RQSplineTransform
+
+
+class CouplingLRS(_CouplingSpline):
+    """Coupling linear-rational spline flow (``c-lrsnsf``, Dolatabadi et
+    al. 2020)."""
+
+    _transform = LRSplineTransform

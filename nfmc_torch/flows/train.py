@@ -8,8 +8,9 @@ moments, through ``torch.where`` and with no host synchronisation; the best
 weights and loss are tracked on the device per epoch. ``fit`` synchronises
 with the host once per block of ``check_every`` epochs, where it applies the
 early-stopping count, the time limit and the ``ValueError`` contract that
-lets callers roll back. Each training step goes forward through the
-coupling kernel and back through the backward kernel (``RealNVPStack``).
+lets callers roll back. Each training step goes forward through the flow's
+coupling kernel and back through its backward kernel (``RealNVPStack`` or
+``SplineStack``).
 
 ``variational_fit`` and the data-parallel ``mesh`` option are not ported yet
 (ROADMAP 1.12, 1.13).

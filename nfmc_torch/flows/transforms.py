@@ -5,6 +5,8 @@ from typing import Tuple
 
 import torch
 
+from .spline import linear_rational_spline, n_params_per_dim, rational_quadratic_spline
+
 
 class AffineTransform:
     """z = (x - shift) * exp(-log_scale), with the soft clamp
@@ -28,3 +30,42 @@ class AffineTransform:
     def inverse(self, z, raw) -> Tuple[torch.Tensor, torch.Tensor]:
         shift, log_scale = self._split(raw)
         return z * torch.exp(log_scale) + shift, log_scale
+
+
+class _SplineTransform:
+    """Elementwise monotone spline with identity tails outside
+    ``[-tail_bound, tail_bound]`` (:mod:`nfmc_torch.flows.spline`)."""
+
+    kind = ""
+
+    def __init__(self, n_bins: int = 8, tail_bound: float = 5.0):
+        self.n_bins = int(n_bins)
+        self.tail_bound = float(tail_bound)
+
+    @property
+    def n_params_per_dim(self) -> int:
+        return n_params_per_dim(self.kind, self.n_bins)
+
+    def _apply(self, v, raw, inverse: bool):
+        fn = rational_quadratic_spline if self.kind == "rqs" else linear_rational_spline
+        return fn(v, raw, inverse, n_bins=self.n_bins, tail_bound=self.tail_bound)
+
+    def forward(self, x, raw) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._apply(x, raw, False)
+
+    def inverse(self, z, raw) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._apply(z, raw, True)
+
+
+class RQSplineTransform(_SplineTransform):
+    """Monotone rational-quadratic spline (Durkan et al. 2019), 3K - 1 raw
+    parameters per dim: K widths, K heights, K - 1 interior derivatives."""
+
+    kind = "rqs"
+
+
+class LRSplineTransform(_SplineTransform):
+    """Monotone linear-rational spline (Dolatabadi et al. 2020), 4K - 1 raw
+    parameters per dim: the RQS ones and K interior points lambda."""
+
+    kind = "lrs"

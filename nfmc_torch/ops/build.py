@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels, and count their launches.
+
+Each source of ``SOURCES`` is compiled with ``nvcc`` for ``sm_90a`` at first
+use into its own shared library under ``nfmc_torch/_build/`` (git-ignored),
+keyed by the hash of the source, the shared headers and the flags. All
+``nvcc`` processes run at once. The libraries have a plain C interface and
+are loaded with ``ctypes``.
+
+Every kernel wrapper of :mod:`nfmc_torch.ops` registers itself in
+``WRAPPERS`` and adds one to its ``.launches`` where it launches its kernel;
+``reset_launch_counts()`` sets them all to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, Optional
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("coupling", "coupling_bwd", "spline", "spline_bwd")}
+HEADERS = sorted(CSRC.glob("*.cuh"))
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (library, symbol) -> (argument types, return type)
+SIGNATURES = {
+    ("coupling", "nfmc_coupling_stack"): ([_P] * 4 + [_I] * 4 + [_F, _I, _P], _I),
+    ("coupling_bwd", "nfmc_coupling_stack_vjp"): ([_P] * 7 + [_I] * 4 + [_F, _I, _P], _I),
+    ("coupling_bwd", "nfmc_coupling_vjp_scratch_floats"): ([_I] * 4, ctypes.c_longlong),
+    # x, weights, y, ld, B, d, H, L, n_bins, tail_bound, inverse, lrs, stream
+    ("spline", "nfmc_spline_stack"): ([_P] * 4 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # x, gy, gld, weights, gx, grads, scratch, B, d, H, L, n_bins, tail_bound,
+    # inverse, lrs, stream
+    ("spline_bwd", "nfmc_spline_stack_vjp"): ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    ("spline_bwd", "nfmc_spline_vjp_scratch_floats"): ([_I] * 5, ctypes.c_longlong),
+}
+
+_libs = None
+build_log = ""
+build_seconds: Optional[float] = None
+
+WRAPPERS: List = []
+
+
+def register(*wrappers) -> None:
+    """Give each wrapper a launch count of 0 and list it in ``WRAPPERS``."""
+    for w in wrappers:
+        w.launches = 0
+        WRAPPERS.append(w)
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS:
+        w.launches = 0
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the kernels are built with the CUDA toolkit")
+
+
+def build_library() -> dict:
+    """Compile each source of ``SOURCES`` into a shared library (once per
+    hash), all ``nvcc`` processes at once, and return ``{name: path}``.
+    Records the compilers' output in ``build_log`` and the time taken in
+    ``build_seconds``."""
+    global build_log, build_seconds
+    common = b"".join(h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+    outs, jobs = {}, {}
+    t0 = time.perf_counter()
+    for name, src in SOURCES.items():
+        tag = hashlib.sha256(src.read_bytes() + common).hexdigest()[:16]
+        outs[name] = BUILD_DIR / f"{name}-{tag}.so"
+        if outs[name].exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp)
+    logs, failed = [], []
+    try:
+        for name, (proc, tmp) in jobs.items():
+            log = proc.communicate()[0]
+            logs.append(f"== {SOURCES[name].name}\n{log}")
+            if proc.returncode != 0:
+                failed.append(SOURCES[name].name)
+            else:
+                os.replace(tmp, outs[name])  # atomic: a concurrent build sees a whole file or none
+    finally:
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{build_log}")
+    build_seconds = time.perf_counter() - t0 if jobs else 0.0
+    return outs
+
+
+def library(name: str):
+    """The loaded kernel library ``name`` (a key of ``SOURCES``); the first
+    call builds and loads them all."""
+    global _libs
+    if _libs is None:
+        libs = {n: ctypes.CDLL(str(path)) for n, path in build_library().items()}
+        for (lib, sym), (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(libs[lib], sym)
+            fn.argtypes, fn.restype = argtypes, restype
+        _libs = libs
+    return _libs[name]
+

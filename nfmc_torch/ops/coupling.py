@@ -22,109 +22,16 @@ On a CPU tensor the wrappers compute the plain versions. On a CUDA tensor
 they launch the kernel or raise: they never fall back. Each wrapper counts
 its launches in ``.launches``.
 
-The kernels are built with ``nvcc`` at first use into ``nfmc_torch/_build/``
-(git-ignored), one shared library per source, keyed by the sources' hash,
-and loaded with ``ctypes``.
+The kernels are built and loaded by :mod:`nfmc_torch.ops.build`.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import List, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-_PKG = Path(__file__).resolve().parents[1]
-CSRC = _PKG / "csrc"
-# each source becomes its own shared library; the builds run in parallel
-SOURCES = {"coupling": CSRC / "coupling.cu", "coupling_bwd": CSRC / "coupling_bwd.cu"}
-HEADERS = [CSRC / "coupling_common.cuh"]
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_libs = None
-build_log = ""
-build_seconds: Optional[float] = None
-
-
-def _find_nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the coupling kernels are built with the CUDA toolkit")
-
-
-def build_library() -> dict:
-    """Compile each source of ``SOURCES`` into a shared library (once per
-    hash of the sources, the shared header and the flags), all ``nvcc``
-    processes at once, and return ``{name: path}``. Records the compilers'
-    output in ``build_log`` and the time taken in ``build_seconds``."""
-    global build_log, build_seconds
-    common = b"".join(h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
-    outs, jobs = {}, {}
-    t0 = time.perf_counter()
-    for name, src in SOURCES.items():
-        tag = hashlib.sha256(src.read_bytes() + common).hexdigest()[:16]
-        outs[name] = BUILD_DIR / f"{name}-{tag}.so"
-        if outs[name].exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.Popen([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp)
-    logs, failed = [], []
-    try:
-        for name, (proc, tmp) in jobs.items():
-            log = proc.communicate()[0]
-            logs.append(f"== {SOURCES[name].name}\n{log}")
-            if proc.returncode != 0:
-                failed.append(SOURCES[name].name)
-            else:
-                os.replace(tmp, outs[name])  # atomic: a concurrent build sees a whole file or none
-    finally:
-        for proc, tmp in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    build_log = "\n".join(logs)
-    if failed:
-        raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{build_log}")
-    build_seconds = time.perf_counter() - t0 if jobs else 0.0
-    return outs
-
-
-def _library():
-    """The loaded kernel libraries, ``{name: ctypes.CDLL}``."""
-    global _libs
-    if _libs is None:
-        libs = {name: ctypes.CDLL(str(path)) for name, path in build_library().items()}
-        fn = libs["coupling"].nfmc_coupling_stack
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = libs["coupling_bwd"].nfmc_coupling_stack_vjp
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = libs["coupling_bwd"].nfmc_coupling_vjp_scratch_floats
-        fn.argtypes = [ctypes.c_int] * 4
-        fn.restype = ctypes.c_longlong
-        _libs = libs
-    return _libs
+from .build import library, register
 
 
 def pack_weights(params) -> torch.Tensor:
@@ -266,7 +173,7 @@ def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
         return y, ld
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library()["coupling"].nfmc_coupling_stack(
+        err = library("coupling").nfmc_coupling_stack(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(),
             n, d, hidden, len(params), float(clamp), int(inverse), stream)
     if err != 0:
@@ -292,7 +199,7 @@ def _launch_vjp(params, x, gy, gld, clamp: float, inverse: bool,
     grads = torch.empty_like(packed)
     if n == 0:
         return gx, unpack_like(grads.zero_(), params)
-    lib = _library()["coupling_bwd"]
+    lib = library("coupling_bwd")
     scratch = torch.empty(lib.nfmc_coupling_vjp_scratch_floats(n, d, hidden, len(params)),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
@@ -380,13 +287,4 @@ def fused_realnvp_vjp(params, x: torch.Tensor, gy: torch.Tensor, gld: torch.Tens
     return _launch_vjp(params, x, gy, gld, clamp, inverse, packed)
 
 
-fused_realnvp_forward.launches = 0
-fused_realnvp_inverse.launches = 0
-fused_realnvp_vjp.launches = 0
-
-WRAPPERS: List = [fused_realnvp_forward, fused_realnvp_inverse, fused_realnvp_vjp]
-
-
-def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+register(fused_realnvp_forward, fused_realnvp_inverse, fused_realnvp_vjp)

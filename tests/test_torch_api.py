@@ -39,12 +39,54 @@ def test_flow_dsl_and_ula():
     assert out.statistics.n_target_gradient_calls == 4 * 2 * 6  # ULA: one per chain
 
 
+@pytest.mark.parametrize("name,cls", [("c-rqnsf", "CouplingRQNSF"), ("c-lrsnsf", "CouplingLRS"),
+                                      ("c-rqsnsf", "CouplingRQNSF"), ("c-lrnsf", "CouplingLRS")])
+def test_spline_flows_through_the_front_door(name, cls):
+    """The coupling spline flows by name and alias, with DSL kwargs (the
+    aliases with the JAX package's ``use_pallas``, accepted and ignored), at
+    d=6: the shape law and the flow built."""
+    extra = ', "use_pallas": true' if name in ("c-rqsnsf", "c-lrnsf") else ""
+    flow = f'{name}%{{"n_layers": 3, "hidden_size": 8, "n_bins": 4{extra}}}'
+    out = nfmc_torch.sample(StandardGaussian((6,)), strategy="jump_mala", flow=flow, n_chains=6,
+                            n_iterations=4, inner_param_kwargs={"n_iterations": 2}, device="cpu",
+                            seed=0, show_progress=False)
+    bij = out.kernel.flow.bijection
+    assert type(bij).__name__ == cls and bij.n_bins == 4 and bij.tail_bound == 5.0
+    n_par = (3 if cls == "CouplingRQNSF" else 4) * 4 - 1
+    assert out.kernel.flow.params[0]["w"][2].shape == (8, 3 * n_par)
+    assert out.samples.shape == (4 * 3, 6, 6) and torch.isfinite(out.samples).all()
+    assert out.statistics.jump_acceptance_rate > 0.9  # an identity-init flow on N(0, I)
+
+
+def test_package_data_ships_every_kernel_header():
+    """An installed nfmc_torch builds its kernels from the packaged sources:
+    every file a .cu source includes must match a package-data glob."""
+    import fnmatch
+    import re
+    import tomllib
+
+    globs = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]["nfmc_torch"]
+    csrc = REPO / "nfmc_torch" / "csrc"
+    sources = sorted(csrc.glob("*.cu"))
+    assert len(sources) >= 4
+    for src in sources + sorted(csrc.glob("*.cuh")):
+        rel = src.relative_to(REPO / "nfmc_torch").as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+        for inc in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M):
+            assert (csrc / inc).exists(), (src.name, inc)
+            assert any(fnmatch.fnmatch(f"csrc/{inc}", g) for g in globs), (src.name, inc)
+
+
 def test_without_a_card_the_default_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         nfmc_torch.sample(StandardGaussian((3,)), strategy="jump_mala", show_progress=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _run(device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nfmc_torch.sample(StandardGaussian((3,)), strategy="jump_mala", flow="c-lrsnsf",
+                          show_progress=False)
 
 
 @pytest.mark.parametrize("strategy,item", [("imh", "1.11"), ("hmc", "1.10"),
@@ -83,7 +125,8 @@ def test_front_door_standalone_langevin(strategy, calls):
 
 
 def test_import_pulls_in_no_jax():
-    check = ("import sys, nfmc_torch, nfmc_torch.api, nfmc_torch.ops.coupling; "
+    check = ("import sys, nfmc_torch, nfmc_torch.api, nfmc_torch.ops.coupling, "
+             "nfmc_torch.ops.spline; "
              "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nfmc_tpu')]; "
              "assert not bad, bad; print('CLEAN')")
     r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,

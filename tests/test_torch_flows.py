@@ -10,6 +10,7 @@ import torch
 from nfmc_tpu.flows import Flow as JFlow
 from nfmc_tpu.flows import RealNVP as JRealNVP
 from nfmc_torch.flows import Flow, RealNVP, from_jax_params
+from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as ops
 
 TOL = 1e-5  # float32, as tests/test_pallas.py holds the Pallas kernel to XLA
@@ -43,7 +44,7 @@ def _close(a_torch, b_jax, scaled=False):
 
 @pytest.mark.parametrize("event_shape,n_layers,hidden,scaled", CASES)
 def test_flow_matches_jax(event_shape, n_layers, hidden, scaled):
-    ops.reset_launch_counts()
+    build.reset_launch_counts()
     jflow, flow = _pair(event_shape, n_layers, hidden)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((37, *event_shape)).astype(np.float32)

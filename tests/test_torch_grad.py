@@ -15,6 +15,7 @@ import torch
 from nfmc_tpu.flows import Flow as JFlow
 from nfmc_tpu.flows import RealNVP as JRealNVP
 from nfmc_torch.flows import Flow, RealNVP, from_jax_params
+from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as ops
 
 TOL = 1e-5
@@ -118,7 +119,7 @@ def test_flow_is_differentiable_through_the_function():
     """``Flow.log_prob_fn`` goes through ``RealNVPStack`` when the weights
     need a gradient; on the CPU its backward is the plain VJP, which gives
     autograd's gradient and launches nothing."""
-    ops.reset_launch_counts()
+    build.reset_launch_counts()
     _, params = _pair(7, 3, 16, seed=6)
     flow = Flow(RealNVP((7,), n_layers=3, hidden_size=16))
     x = torch.from_numpy(_inputs(11, 7)[0])
@@ -132,4 +133,4 @@ def test_flow_is_differentiable_through_the_function():
     lp2 = flow.base_log_prob_fn(z) + ld
     want = torch.cat([t.reshape(-1) for t in torch.autograd.grad(lp2.sum(), leaves)])
     _assert_close(g.numpy(), want.numpy())
-    assert all(w.launches == 0 for w in ops.WRAPPERS)
+    assert all(w.launches == 0 for w in build.WRAPPERS)

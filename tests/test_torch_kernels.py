@@ -105,3 +105,105 @@ def test_backward_kernel_is_deterministic(cuda):
     b = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
     assert torch.equal(a[0], b[0])
     assert all(torch.equal(u, v) for u, v in zip(ops._leaves(a[1]), ops._leaves(b[1])))
+
+
+# ---- the spline coupling kernels (spline.cu, spline_bwd.cu) ----------------------
+
+def _spline_params(kind, d, hidden, n_layers, n_bins, device, seed=0):
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF
+
+    cls = CouplingRQNSF if kind == "rqs" else CouplingLRS
+    flow = Flow(cls((d,), n_layers=n_layers, hidden_size=hidden, n_bins=n_bins), seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    return [{k: [(t + 0.05 * torch.randn(t.shape, generator=g)).to(device) for t in v]
+             for k, v in p.items()} for p in flow.params]
+
+
+SPLINE_SHAPES = [(100, 128, 4, 8, 100), (100, 128, 4, 8, 256), (100, 128, 4, 8, 3000),
+                 (7, 16, 3, 4, 37)]
+
+
+@pytest.mark.parametrize("d,hidden,n_layers,n_bins,rows", SPLINE_SHAPES)
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_spline_kernel_matches_plain(cuda, kind, inverse, d, hidden, n_layers, n_bins, rows):
+    """Inputs 3 N(0, 1), so that the tails are hit; 1e-4 * max(1, max|ref|)."""
+    from nfmc_torch.ops import spline as sops
+
+    params = _spline_params(kind, d, hidden, n_layers, n_bins, cuda)
+    x = 3 * torch.randn((rows, d), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    wrapper = getattr(sops, f"fused_{kind}_{'inverse' if inverse else 'forward'}")
+    before = wrapper.launches
+    y, ld = wrapper(params, x, n_bins, 5.0)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    y_ref, ld_ref = sops.spline_stack_plain(params, x, kind, n_bins, 5.0, inverse)
+    scale = max(1.0, float(y_ref.abs().max()), float(ld_ref.abs().max()))
+    assert float((y - y_ref).abs().max()) <= TOL * scale
+    assert float((ld - ld_ref).abs().max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("d,hidden,n_layers,n_bins,rows", [(100, 128, 4, 8, 256),
+                                                           (100, 128, 4, 8, 100),
+                                                           (100, 128, 4, 8, 1001),
+                                                           (7, 16, 3, 4, 37)])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_spline_backward_kernel_matches_plain(cuda, kind, inverse, d, hidden, n_layers, n_bins,
+                                              rows):
+    """Against the autograd VJP of the plain version, to 1e-3 * max(1,
+    max|ref|): the steep splines amplify rounding (chip_smoke.py phase 7b
+    measures the margin)."""
+    from nfmc_torch.ops import spline as sops
+
+    params = _spline_params(kind, d, hidden, n_layers, n_bins, cuda, seed=3)
+    g = torch.Generator(cuda).manual_seed(4)
+    x = 3 * torch.randn((rows, d), device=cuda, generator=g)
+    gy = torch.randn((rows, d), device=cuda, generator=g)
+    gld = torch.randn((rows,), device=cuda, generator=g)
+    before = sops.fused_spline_vjp.launches
+    got = sops.fused_spline_vjp(params, x, gy, gld, kind, n_bins, 5.0, inverse)
+    torch.cuda.synchronize()
+    assert sops.fused_spline_vjp.launches == before + 1
+    want = sops.spline_stack_vjp_plain(params, x, gy, gld, kind, n_bins, 5.0, inverse)
+    pairs = list(zip([got[0], *ops._leaves(got[1])], [want[0], *ops._leaves(want[1])]))
+    scale = max(1.0, max(float(b.abs().max()) for _, b in pairs))
+    assert max(float((a - b).abs().max()) for a, b in pairs) <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_spline_backward_kernel_is_deterministic(cuda, kind):
+    from nfmc_torch.ops import spline as sops
+
+    params = _spline_params(kind, 100, 128, 4, 8, cuda, seed=5)
+    g = torch.Generator(cuda).manual_seed(6)
+    x, gy = (torch.randn((1000, 100), device=cuda, generator=g) for _ in range(2))
+    gld = torch.randn((1000,), device=cuda, generator=g)
+    a = sops.fused_spline_vjp(params, x, gy, gld, kind, 8, 5.0, False)
+    b = sops.fused_spline_vjp(params, x, gy, gld, kind, 8, 5.0, False)
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(u, v) for u, v in zip(ops._leaves(a[1]), ops._leaves(b[1])))
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_spline_flow_on_cuda_never_runs_the_plain_version(cuda, kind, monkeypatch):
+    """Forward, inverse and a gradient of a spline flow on the card go
+    through the kernels; a configuration whose shared memory does not fit
+    raises and names its sizes instead of falling back."""
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF
+    from nfmc_torch.ops import spline as sops
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(sops, "spline_stack_plain", refuse)
+    monkeypatch.setattr(sops, "spline_stack_vjp_plain", refuse)
+    cls = CouplingRQNSF if kind == "rqs" else CouplingLRS
+    flow = Flow(cls((10,), n_layers=2, hidden_size=16), seed=0).to(cuda)
+    x = torch.randn((5, 10), device=cuda).requires_grad_(True)
+    z, ld = flow.bijection.forward(x)
+    flow.bijection.inverse(z.detach())
+    torch.autograd.grad(z.sum() + ld.sum(), x)
+    wide = Flow(cls((700,), n_layers=1, hidden_size=128), seed=0).to(cuda)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        wide.bijection.forward(torch.randn((2, 700), device=cuda))

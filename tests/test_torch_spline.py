@@ -1,0 +1,280 @@
+"""The coupling spline flows in nfmc_torch (``CouplingRQNSF``, ``c-rqnsf``;
+``CouplingLRS``, ``c-lrsnsf``) against nfmc_tpu on the CPU, with the same
+numpy weights carried across by ``from_jax_params``: the plain version of
+the forward kernel (``spline_stack_plain``) against the JAX XLA flow and
+against the Pallas kernel itself (interpret mode); the plain VJP
+(``spline_stack_vjp_plain``) against ``jax.grad`` and the Pallas backward
+kernel; the ``SplineStack`` Function's wiring; sampling from a base draw;
+and the self-target check.
+
+Tolerances, relative to max(1, max|reference|):
+* values 2e-5: float32, the same terms in another order (a float32 value of
+  magnitude m rounds by ~m * 6e-8 an operation), amplified by the slopes of
+  the splines at a weight perturbation of 0.1;
+* gradients 5e-4 at a perturbation of 0.1: the JAX package measured two
+  exact paths 2e-4 apart there (``tests/test_pallas.py:175-180``), the
+  steepness of the splines amplifying rounding;
+* the round trip 5e-4 absolute, as the JAX package holds its own
+  (``tests/test_pallas.py:217-222``): the RQS inverse solves a quadratic.
+Inputs are 4 N(0, 1), so that both tails and every bin are hit."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nfmc_tpu.flows import CouplingLRS as JCouplingLRS
+from nfmc_tpu.flows import CouplingRQNSF as JCouplingRQNSF
+from nfmc_tpu.flows import Flow as JFlow
+from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow, from_jax_params
+from nfmc_torch.ops import build
+from nfmc_torch.ops import coupling as cops
+from nfmc_torch.ops import spline as ops
+
+TOL = 2e-5
+GRAD_TOL = 5e-4
+KINDS = {"rqs": (JCouplingRQNSF, CouplingRQNSF), "lrs": (JCouplingLRS, CouplingLRS)}
+# (event_shape, n_layers, hidden, n_bins)
+CASES = [((6,), 2, 16, 8), ((9,), 3, 16, 4), ((4, 4), 2, 16, 8)]
+
+
+def _pair(kind, event_shape, n_layers, hidden, n_bins, pert=0.1, seed=0):
+    """A JAX spline flow with every parameter perturbed by pert N(0, 1)
+    (numpy; at zero init the flow is the identity) and its port."""
+    jcls, tcls = KINDS[kind]
+    jflow = JFlow(jcls(event_shape, n_layers=n_layers, hidden_size=hidden, n_bins=n_bins,
+                       use_pallas=False), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    jflow.params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + pert * rng.standard_normal(p.shape).astype(np.float32),
+        jflow.params)
+    flow = Flow(tcls(event_shape, n_layers=n_layers, hidden_size=hidden, n_bins=n_bins))
+    flow.params = from_jax_params(jflow.params)
+    return jflow, flow
+
+
+def _close(got, want, tol=TOL):
+    want = np.asarray(want)
+    err = float(np.max(np.abs(np.asarray(got) - want)))
+    bound = tol * max(1.0, float(np.max(np.abs(want))))
+    assert err <= bound, (err, bound)
+
+
+def _x(n, event_shape, seed=2):
+    return (4.0 * np.random.default_rng(seed).standard_normal((n, *event_shape))).astype(np.float32)
+
+
+@pytest.mark.parametrize("event_shape,n_layers,hidden,n_bins", CASES)
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_flow_matches_jax(kind, event_shape, n_layers, hidden, n_bins):
+    """Forward, inverse and log_prob of the flow, and the plain stack on
+    the flattened rows, against the JAX XLA flow; the CPU path launches no
+    kernel."""
+    build.reset_launch_counts()
+    jflow, flow = _pair(kind, event_shape, n_layers, hidden, n_bins)
+    x = _x(37, event_shape)
+    xt = torch.from_numpy(x)
+    assert float(np.mean(np.abs(x) > 5.0)) > 0.1  # both tails are hit
+    for inverse in (False, True):
+        jfn = jflow.bijection.inverse_fn if inverse else jflow.bijection.forward_fn
+        tfn = flow.bijection.inverse_fn if inverse else flow.bijection.forward_fn
+        y_j, ld_j = jfn(jflow.params, jnp.asarray(x))
+        y_t, ld_t = tfn(flow.params, xt)
+        assert y_t.shape == xt.shape and ld_t.shape == (37,)
+        _close(y_t, y_j)
+        _close(ld_t, ld_j)
+        y_p, ld_p = ops.spline_stack_plain(flow.params, xt.reshape(37, -1), kind, n_bins, 5.0,
+                                           inverse)
+        assert torch.equal(y_p.reshape(xt.shape), y_t) and torch.equal(ld_p, ld_t)
+    _close(flow.log_prob(xt), jflow.log_prob(jnp.asarray(x)))
+    assert all(w.launches == 0 for w in build.WRAPPERS)
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_push_base_matches_jax_sampling(kind):
+    """The JAX base draw for a key, pushed through both flows."""
+    jflow, flow = _pair(kind, (6,), 2, 16, 8, seed=3)
+    key = jax.random.key(4)
+    z = jflow.sample_base_fn(key, 11)
+    x_j, lq_j = jflow.sample_fn(jflow.params, key, 11, return_log_prob=True)
+    x_t, lq_t = flow.push_base_fn(flow.params, torch.from_numpy(np.array(z)))
+    _close(x_t, x_j)
+    _close(lq_t, lq_j)
+
+
+@pytest.fixture()
+def interpret_spline(monkeypatch):
+    import jax.experimental.pallas as pl
+
+    import nfmc_tpu.ops.experimental_spline_pallas as sp
+
+    orig = pl.pallas_call
+
+    def interp_call(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(sp.pl, "pallas_call", interp_call)
+    return sp
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_plain_stack_matches_pallas_kernel(interpret_spline, kind):
+    """The port's plain version against the TPU kernel itself (interpret
+    mode), odd d so that the kernel's packed [even | odd] halves differ in
+    size."""
+    sp = interpret_spline
+    jflow, flow = _pair(kind, (9,), 2, 16, 8, seed=5)
+    x = _x(21, (9,), seed=6)
+    for inverse in (False, True):
+        fused = getattr(sp, f"fused_{kind}_{'inverse' if inverse else 'forward'}")
+        y_j, ld_j = fused(jflow.params, jnp.asarray(x), 9, 2, 8, 5.0)
+        y_t, ld_t = ops.spline_stack_plain(flow.params, torch.from_numpy(x), kind, 8, 5.0,
+                                           inverse)
+        _close(y_t, y_j)
+        _close(ld_t, ld_j)
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_roundtrip_and_identity_init(kind):
+    flow = Flow(KINDS[kind][1]((6,), n_layers=3, hidden_size=16, n_bins=8), seed=0)
+    x = torch.from_numpy(_x(9, (6,), seed=7))
+    z, ld = flow.bijection.forward(x)
+    # zero final layer: uniform bins, unit derivatives, the identity
+    assert float((z - x).abs().max()) <= 1e-5 and float(ld.abs().max()) <= 1e-5
+    _, pert = _pair(kind, (6,), 3, 16, 8, seed=8)
+    z, ld = pert.bijection.forward(x)
+    assert float((z - x).abs().max()) > 0.1  # the perturbed flow is not the identity
+    x_back, ld_inv = pert.bijection.inverse(z)
+    assert float((x_back - x).abs().max()) < 5e-4
+    assert float((ld + ld_inv).abs().max()) < 5e-4
+
+
+def _cotangents(n, d, seed=9):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.standard_normal(n).astype(np.float32))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_plain_vjp_matches_jax_grad(kind, inverse):
+    """``spline_stack_vjp_plain`` against ``jax.grad`` of the XLA flow, for
+    the input and every weight, at a weight perturbation of 0.1."""
+    jflow, flow = _pair(kind, (9,), 2, 16, 8, seed=10)
+    x = _x(13, (9,), seed=11)
+    gy, gld = _cotangents(13, 9)
+    fn = jflow.bijection.inverse_fn if inverse else jflow.bijection.forward_fn
+
+    def loss(params, xx):
+        y, ld = fn(params, xx)
+        return jnp.sum(y * gy) + jnp.sum(ld * gld)
+
+    gp_j, gx_j = jax.grad(loss, argnums=(0, 1))(jflow.params, jnp.asarray(x))
+    gx_t, gp_t = ops.spline_stack_vjp_plain(flow.params, torch.from_numpy(x),
+                                            torch.from_numpy(gy), torch.from_numpy(gld), kind,
+                                            8, 5.0, inverse)
+    _close(gx_t, gx_j, GRAD_TOL)
+    for got, want in zip(cops._leaves(gp_t), cops._leaves(from_jax_params(gp_j))):
+        assert got.shape == want.shape
+        _close(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_plain_vjp_matches_pallas_backward_kernel(interpret_spline, kind, inverse):
+    """Against ``_fused_bwd_call`` (the TPU backward kernel, interpret mode),
+    odd d and B = 20 over row blocks of 8 (a partial last block)."""
+    sp = interpret_spline
+    from nfmc_tpu.ops.coupling_pallas import _perm
+
+    jflow, flow = _pair(kind, (9,), 2, 16, 4, seed=12)
+    x = _x(20, (9,), seed=13)
+    gy, gld = _cotangents(20, 9, seed=14)
+    n_par = (3 if kind == "rqs" else 4) * 4 - 1
+    pack, unpack = _perm(9)
+    gx_p, gflat = sp._fused_bwd_call(
+        jnp.take(jnp.asarray(x), pack, axis=-1), jnp.take(jnp.asarray(gy), pack, axis=-1),
+        jnp.asarray(gld), sp._flatten_weights(jflow.params, n_par), 2, 4, 5.0, inverse, kind,
+        block_b=8)
+    gp_j = sp._unflatten_weight_grads(gflat, jflow.params, n_par)
+    gx_t, gp_t = ops.spline_stack_vjp_plain(flow.params, torch.from_numpy(x),
+                                            torch.from_numpy(gy), torch.from_numpy(gld), kind,
+                                            4, 5.0, inverse)
+    _close(gx_t, jnp.take(gx_p, unpack, axis=-1), GRAD_TOL)
+    for got, want in zip(cops._leaves(gp_t), cops._leaves(from_jax_params(gp_j))):
+        _close(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_spline_stack_gradcheck(kind, inverse):
+    """``SplineStack`` in float64: its backward (the plain VJP on the CPU)
+    against finite differences, in the input and every weight."""
+    _, flow = _pair(kind, (4,), 2, 4, 3, pert=0.3, seed=15)
+    leaves = [t.double().requires_grad_(True) for t in cops._leaves(flow.params)]
+    x = torch.from_numpy(_x(3, (4,), seed=16) / 2).double().requires_grad_(True)
+    depths = tuple(len(p["w"]) for p in flow.params)
+
+    def fn(x, *leaves):
+        return ops.SplineStack.apply(x, None, kind, 3, 5.0, inverse, depths, *leaves)
+
+    assert torch.autograd.gradcheck(fn, (x, *leaves), eps=1e-6, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_gradient_goes_through_spline_stack(kind):
+    """A flow's loss gradient runs ``SplineStack``'s backward, and on the
+    CPU the plain VJP, never a kernel."""
+    build.reset_launch_counts()
+    _, flow = _pair(kind, (6,), 2, 16, 8, seed=17)
+    x = torch.from_numpy(_x(5, (6,), seed=18)).requires_grad_(True)
+    z, ld = getattr(ops, f"fused_{kind}_forward")(flow.params, x, 8, 5.0)
+    assert type(z.grad_fn).__name__ == "SplineStackBackward"
+    z, ld = flow.bijection.forward(x)
+    (gx,) = torch.autograd.grad((z * z).sum() + ld.sum(), x)
+    xc = x.detach().requires_grad_(True)
+    zc, ldc = ops.spline_stack_plain(flow.params, xc, kind, 8, 5.0, False)
+    (want,) = torch.autograd.grad((zc * zc).sum() + ldc.sum(), xc)
+    assert torch.equal(gx, want)
+    assert all(w.launches == 0 for w in build.WRAPPERS)
+
+
+def test_from_jax_params_carries_spline_weights():
+    """The layout is canonical on both sides: W3 is (H, P db), dim-major."""
+    jflow, flow = _pair("lrs", (7,), 2, 16, 4)
+    for jp, tp in zip(jflow.params, flow.params):
+        for k in ("w", "b"):
+            for a, b in zip(jp[k], tp[k]):
+                assert b.dtype == torch.float32 and np.array_equal(np.asarray(a), b.numpy())
+    assert flow.params[0]["w"][2].shape == (16, 15 * 3)  # P = 4 K - 1 = 15, db = 3
+    assert cops.pack_weights(flow.params).numel() == flow.bijection.n_parameters()
+
+
+def test_kernel_launcher_names_the_shared_memory_it_needs():
+    assert ops.shared_bytes("rqs", 8, 100, 128, backward=False) == 8 * 4 * (100 + 256 + 50 * 23)
+    ops._check_fits("lrs", 8, 100, 128, backward=True)  # the slice's configuration fits
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        ops._check_fits("lrs", 8, 500, 128, backward=False)
+    with pytest.raises(ValueError, match="unknown spline kind"):
+        ops.fused_spline_vjp(None, torch.zeros(1, 2), torch.zeros(1, 2), torch.zeros(1),
+                             "cubic", 8, 5.0, False)
+
+
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_self_target_jump_accepts_every_proposal(kind):
+    """A frozen perturbed spline flow as both the jump proposal and the
+    target, U = -log q: the Metropolis ratio of a jump is 1 when the
+    forward, inverse and log-det agree, so every jump is accepted."""
+    import nfmc_torch
+    from nfmc_torch.potentials import CallablePotential
+
+    _, flow = _pair(kind, (6,), 2, 16, 8, pert=0.05, seed=19)
+    frozen = flow.state_dict()
+    target = CallablePotential(lambda x: -flow.log_prob_fn(frozen, x), (6,))
+    out = nfmc_torch.sample(target, strategy="jump_mala", flow=flow, n_chains=16,
+                            n_iterations=6, inner_param_kwargs={"n_iterations": 2},
+                            device="cpu", seed=0, show_progress=False)
+    assert out.statistics.jump_acceptance_rate >= 0.99
+    assert 0.0 < out.statistics.acceptance_rate < 1.0  # MALA moves the chains
+    assert torch.isfinite(out.samples).all()
