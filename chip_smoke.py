@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero before the last line:
      sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400), the flow
      fit's (B=256 training batches, B=3000 validation, and B=512) and a
      ragged odd shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA
-     events);
+     events around the wrapper, and the kernel's own device time from
+     torch.profiler);
   3b. backward kernel vs its plain version, both directions, at B=512, 256
      and 100, the ragged shape and B=1001 (many blocks, a partial last one):
-     max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical;
+     max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical; at
+     B=256 the device time of its two kernels (rows, weight gradients);
   4. the same three outer iterations with the same injected draws through
      the sampler's chunk runner on the card and on the CPU: they agree;
   4b. the same Flow.fit on the card and on the CPU: per-epoch validation
@@ -25,7 +27,8 @@ Phases, in order; any failure exits non-zero before the last line:
   5b. the same with warmup=True and 500 outer iterations: MALA tuning, the
      flow's MLE fit (every Adam step through the backward kernel), the
      reshuffle of warmup draws into x0; jump acceptance in [0.010, 0.035],
-     MALA acceptance in [0.55, 0.72], the counter and launch laws;
+     MALA acceptance in [0.55, 0.72], the counter and launch laws; ms per
+     Adam step (the fit's wall over its steps);
   5c. fit_nf=True at 20 outer iterations, on the fixed-effort route and on
      the host route: the interleaving law, the counters, a trained flow;
   6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50];
@@ -49,13 +52,17 @@ Phases, in order; any failure exits non-zero before the last line:
      target (U = -log q): jump acceptance >= 0.99, MALA acceptance in
      SELF_MALA_ACC, backward launches = the sampler's gradient passes.
 Each path's launch counts are set to 0 just before it and read just after.
-Prints the kernels' JSON line, then as its last line
+Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
+around its wrapper's call at the main path's shape, host included, as in every
+earlier run; "device_ms" its kernels' device time a call from torch.profiler,
+null where the profiler saw none), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no JAX, no network, and exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -121,6 +128,39 @@ def median_ms(fn, reps: int) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_us(fn, calls: int = 20) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches, in us, from
+    torch.profiler after a warm call; empty if the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):  # "void (anonymous namespace)::kernel<8>(float const*, ...)" -> "kernel"
+        m = re.search(r"(\w+)(?:<[^<>]*>)?\(", key)
+        return m.group(1) if m else key
+
+    return {name(a.key): a.self_device_time_total / calls
+            for a in prof.key_averages() if a.self_device_time_total > 0}
+
+
+def kernel_ms(fn, reps: int) -> tuple:
+    """(the wrapper's ms a call: the median of CUDA events around the call,
+    the host's Python included; the device ms a call of the kernels ``fn``
+    launches, from torch.profiler, None where the profiler saw no device
+    time; text giving both)."""
+    wrapper = median_ms(fn, reps)
+    dev = device_us(fn, reps)
+    if not dev:
+        return wrapper, None, f"{wrapper:.4f} ms (device time not measured)"
+    ms = sum(dev.values()) / 1e3
+    return wrapper, ms, f"{wrapper:.4f} ms (device {ms:.4f} ms)"
 
 
 def perturbed_params(d, hidden, n_layers, seed, device):
@@ -271,10 +311,23 @@ class Instrument:
             setattr(owner, name, fn)
 
 
+def device_busy_us(prof) -> float:
+    """The time, in us, in which the device ran at least one of the kernels,
+    copies or sets of a torch.profiler trace: the union of their intervals."""
+    from torch.autograd import DeviceType
+
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy
+
+
 def profile_window(headline_iters: int) -> None:
     """Device busy share of the headline configuration over a short run
-    (torch.profiler): device kernel time over host wall time, and the
-    operators that take the most device time."""
+    (torch.profiler): the union of the device's kernel intervals over the
+    host's wall time, and the operators that take the most device time."""
     import nfmc_torch
     from nfmc_torch.flows import Flow, RealNVP
     from nfmc_torch.potentials import StandardGaussian
@@ -294,13 +347,15 @@ def profile_window(headline_iters: int) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avgs = prof.key_averages()
-    device_s = sum(a.self_device_time_total for a in avgs) / 1e6
+    device_s = device_busy_us(prof) / 1e6
     if device_s == 0:
         print(f"profile ({headline_iters} outer it): wall {wall:.3f} s, device time not measured")
         return
+    summed_s = sum(a.self_device_time_total for a in avgs) / 1e6
     print(f"profile ({headline_iters} outer it): wall {wall:.3f} s, device busy {device_s:.3f} s "
-          f"({100 * device_s / wall:.1f}%), {sum(a.count for a in avgs if a.key == 'cudaLaunchKernel')} "
-          "kernel launches")
+          f"({100 * device_s / wall:.1f}%; the operators' and kernels' device times summed, "
+          f"which counts a kernel twice: {summed_s:.3f} s), "
+          f"{sum(a.count for a in avgs if a.key == 'cudaLaunchKernel')} kernel launches")
     for a in sorted(avgs, key=lambda a: -a.self_device_time_total)[:6]:
         print(f"  {a.key[:60]:60s} device {a.self_device_time_total / 1e3:9.2f} ms  calls {a.count}")
 
@@ -341,15 +396,15 @@ def run_spline_phases(dev, g) -> dict:
                 scale = max(1.0, y_ref.abs().max().item(), ld_ref.abs().max().item())
                 out["fwd_err"][kind] = max(out["fwd_err"][kind], e)
                 reps = 20 if rows <= 3000 else 5
-                k_ms = median_ms(lambda: wrapper(params, x, nb, TAIL, packed=packed), reps)
+                k_ms, k_dev, k_txt = kernel_ms(lambda: wrapper(params, x, nb, TAIL, packed=packed), reps)
                 p_ms = median_ms(lambda: sops.spline_stack_plain(params, x, kind, nb, TAIL,
                                                                  inverse), reps)
                 bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows,
                                                        n_par=n_params_per_dim(kind, nb)))
-                out["fwd_timing"][(kind, rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by, e)
+                out["fwd_timing"][(kind, rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by, e)
                 print(f"spline {kind} {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
-                      f"K={nb} B={rows}: max|diff| {e:.3e} (scale {scale:.2f}), kernel {k_ms:.4f} "
-                      f"ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+                      f"K={nb} B={rows}: max|diff| {e:.3e} (scale {scale:.2f}), kernel {k_txt}, "
+                      f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
                 check(e <= TOL * scale, f"spline kernel disagrees with the plain version: "
                                         f"{e} > {TOL} * {scale}")
 
@@ -381,13 +436,13 @@ def run_spline_phases(dev, g) -> dict:
                         f"L={nl} K={nb} B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) "
                         f"= {scale:.2f}, relative {e_abs / scale:.2e}), bit-identical rerun {same}")
                 if d == D and rows == 256 and not inverse:
-                    k_ms = median_ms(vjp, 30)
+                    k_ms, k_dev, k_txt = kernel_ms(vjp, 30)
                     p_ms = median_ms(lambda: sops.spline_stack_vjp_plain(
                         params, x, gy, gld, kind, nb, TAIL, inverse), 10)
                     bound_ms, bound_by = bound(*stack_cost(
                         d, hid, nl, rows, backward=True, n_par=n_params_per_dim(kind, nb)))
-                    out["bwd_timing"][kind] = (k_ms, p_ms, bound_ms, bound_by)
-                    line += (f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                    out["bwd_timing"][kind] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
+                    line += (f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
                              f"({bound_by})")
                 print(line)
                 check(e_abs <= SPLINE_BWD_TOL * scale,
@@ -595,12 +650,12 @@ def main() -> None:
             check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()), "non-finite kernel output")
             err[inverse] = max(err[inverse], e)
             reps = 50 if rows <= 1000 else 10
-            k_ms = median_ms(lambda: wrapper(params, x, 3.0, packed=packed), reps)
+            k_ms, k_dev, k_txt = kernel_ms(lambda: wrapper(params, x, 3.0, packed=packed), reps)
             p_ms = median_ms(lambda: ops.realnvp_stack_plain(params, x, 3.0, inverse), reps)
             bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows))
-            timing[(d, rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by)
+            timing[(d, rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
             print(f"coupling {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} B={rows}: "
-                  f"max|diff| {e:.3e} (max|y| {y_ref.abs().max().item():.2f}), kernel {k_ms:.4f} ms, "
+                  f"max|diff| {e:.3e} (max|y| {y_ref.abs().max().item():.2f}), kernel {k_txt}, "
                   f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
             check(e <= TOL, f"kernel disagrees with the plain version: {e} > {TOL}")
 
@@ -628,13 +683,19 @@ def main() -> None:
                     f"B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) = {scale:.2f}), "
                     f"bit-identical rerun {same}")
             if d == D and rows in (512, 256):
-                k_ms = median_ms(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse,
-                                                               packed), 30)
+                k_ms, k_dev, k_txt = kernel_ms(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0,
+                                                                      inverse, packed), 30)
                 p_ms = median_ms(lambda: ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0,
                                                                      inverse), 30)
                 bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows, backward=True))
-                bwd_timing[(rows, inverse)] = (k_ms, p_ms, bound_ms, bound_by)
-                line += f", kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+                bwd_timing[(rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
+                line += f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+                if rows == 256 and not inverse:
+                    # where the backward's time goes: its two kernels on the device
+                    split = device_us(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse,
+                                                                    packed))
+                    line += ("; device per launch: " + ", ".join(
+                        f"{k} {v:.2f} us" for k, v in split.items() if "coupling_vjp" in k))
             print(line)
             check(e_abs <= TOL * scale, f"backward kernel disagrees with the plain version: "
                                         f"{e_abs} > {TOL} * {scale}")
@@ -742,7 +803,8 @@ def main() -> None:
     jacc_w, macc_w = wst.jump_acceptance_rate, wst.acceptance_rate
     print(f"headline with warmup ({warm_outer} outer it): wall {wall_w:.3f} s, of which inner "
           f"tuning {ins.inner_s:.3f} s and flow fit {ins.fit_s:.3f} s; fit {ins.epochs} epochs, "
-          f"{ins.steps} optimizer steps; launches {warm_launches}; tuned step size "
+          f"{ins.steps} optimizer steps, {1e3 * ins.fit_s / max(ins.steps, 1):.3f} ms per Adam step "
+          f"(fit wall / steps); launches {warm_launches}; tuned step size "
           f"{ik.step_size:.6f} (default {D ** (-1 / 3):.6f}), inverse mass "
           f"[{ik.inv_mass_diag.min():.4f}, {ik.inv_mass_diag.max():.4f}]")
     print(f"headline with warmup: jump acc {jacc_w:.4f}, MALA acc {macc_w:.4f}, max|mean| "
@@ -818,41 +880,42 @@ def main() -> None:
 
     kernels = []
     for inverse, rows in ((False, C), (True, OUTER * C)):
-        k_ms, p_ms, bound_ms, bound_by = timing[(D, rows, inverse)]
+        k_ms, k_dev, p_ms, bound_ms, bound_by = timing[(D, rows, inverse)]
         wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
         kernels.append({
             "name": wrapper.__name__, "route": "cuda", "source": "nfmc_torch/csrc/coupling.cu",
             "replaces": "nfmc_tpu/ops/coupling_pallas.py:60", "launches": launches[wrapper.__name__],
-            "max_abs_err": err[inverse], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": err[inverse], "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     # the warmup's training batches: 4096 rows at the adaptive batch of 256
-    k_ms, p_ms, bound_ms, bound_by = bwd_timing[(256, False)]
+    k_ms, k_dev, p_ms, bound_ms, bound_by = bwd_timing[(256, False)]
     kernels.append({
         "name": "fused_realnvp_vjp", "route": "cuda", "source": "nfmc_torch/csrc/coupling_bwd.cu",
         "replaces": "nfmc_tpu/ops/coupling_pallas.py:217",
         "launches": warm_launches["fused_realnvp_vjp"], "max_abs_err": bwd_err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
     })
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
-            k_ms, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
+            k_ms, k_dev, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
             name_ = f"fused_{kind}_{'inverse' if inverse else 'forward'}"
             kernels.append({
                 "name": name_, "route": "cuda", "source": "nfmc_torch/csrc/spline.cu",
                 "replaces": REPLACES["fwd"], "launches": spline["launches"][kind][name_],
-                "max_abs_err": spline["fwd_err"][kind], "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                "max_abs_err": spline["fwd_err"][kind], "ms": k_ms, "device_ms": k_dev,
+                "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             })
     for kind in SPLINE_FLOWS:
         # the warmup's training batches: 4096 rows at the adaptive batch of 256
-        k_ms, p_ms, bound_ms, bound_by = spline["bwd_timing"][kind]
+        k_ms, k_dev, p_ms, bound_ms, bound_by = spline["bwd_timing"][kind]
         kernels.append({
             "name": f"fused_spline_vjp ({kind})", "route": "cuda",
             "source": "nfmc_torch/csrc/spline_bwd.cu", "replaces": REPLACES["bwd"],
             "launches": spline["launches"][kind]["fused_spline_vjp"],
-            "max_abs_err": spline["bwd_err"][kind], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "max_abs_err": spline["bwd_err"][kind], "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,146 +13,174 @@
 //
 // The weights arrive as one contiguous f32 buffer in the canonical layout of
 // the parameter pytree: per layer w1, b1, w2, b2, w3, b3, each row-major.
-// The TPU kernel's packed [even | odd] event layout and de-interleaved W3
-// exist only because Mosaic has no strided gather; here the conditioning
-// half is read with stride 2 from shared memory and W3's (shift, log-scale)
-// columns are read in pairs, so the caller permutes nothing.
+// The TPU kernel takes its input in a packed [even | odd] event layout and
+// W3 de-interleaved, permuted by the caller, because Mosaic has no strided
+// gather; here the kernel lays each row out as [even | odd] in shared
+// memory as it loads it, and reads W3's (shift, log-scale) columns in
+// pairs, so the caller permutes nothing.
 //
-// What bounds it on an H100: FP32 arithmetic. A row costs
-// 2 (da H + H H + 2 db H) FLOP per layer, ~285 kFLOP at d=100, H=128, L=4,
-// against 804 bytes of input and output, so at the hoisted batch of
-// 218,400 rows it is ~62 GFLOP against ~175 MB. At one jump's 100 rows the
-// launch latency dominates. Design: every warp owns RPW rows for the whole
-// stack, keeping the rows' state and both hidden activations in shared
-// memory (no device-memory traffic between layers, no block-wide barrier),
-// and each lane accumulates RPW rows of one output column in registers, so
-// one weight load (from L1/L2: the ~575 KB of weights stay in L2) feeds RPW
-// FMAs and the activation reads are shared-memory broadcasts. Plain FP32
-// FMAs, accurate tanhf/expf (no fast-math), no tensor cores.
+// What bounds it on an H100. A row costs 2 (da H + H H + 2 db H) FLOP a
+// layer, ~285 kFLOP at d=100, H=128, L=4, against 804 bytes of input and
+// output: FP32 arithmetic on paper (62 GFLOP, 0.93 ms, at the hoisted
+// 218,400 rows). At the path's small batches (100 rows a jump, 256 a fit
+// step, 3000 a validation) the bound is 0.4-13 us and the time goes to
+// latency: each product of a layer waits for its weights (~575 KB for the
+// stack, resident in L2) and the layers run one after another.
+//
+// Design (coupling_tile.cuh): a block of 256 threads owns R rows (8, 32
+// or 64) for the whole stack. The rows' state (R x perm_width(d), in the
+// [even | odd] layout, so a layer's conditioning half is the left operand
+// of W1 as it stands) and two activation buffers (R x max(H, 128) each)
+// stay in shared memory, and each of the three products of a layer is an
+// (R x K) . (K x N) tile product. The weights stream through a ring of
+// three 64 x 128 shared-memory slabs (34 KB each) with cp.async, two slabs
+// ahead of the FMAs and across products and layers, so no FMA waits on an
+// L2 load of its own; the next layer's biases come the same way. Each
+// thread sums an 8-row x 4-column register tile: per 4 k it reads 12 float4
+// from shared memory for 128 FMAs. Below R=64 the 64 / R warps of a row
+// group split each slab's k, and their partial tiles are summed in a fixed
+// order. The output layer's raw values go to an activation buffer 128
+// columns (64 transformed dims) at a time; after each chunk a pass over
+// (row, dim) applies the shift and clamped log-scale, and one warp a row
+// adds the chunk's log-scales to the row's log-det, in a fixed order.
+// Shared memory a block: (R (perm_width(d) + 2 max(H, 128) + 1) +
+// 2 (2 round4(H) + round4(d + 1)) + 64 * 128 (split-k, R < 64) +
+// 3 * 128 * 68) * 4 bytes: 148 KB at R=8, 195 KB at R=64 for d=100, H=128,
+// so one block an SM; a tile of 8 rows fits up to d = 2121 at H=128. R is
+// 8 or 32, the smaller whose blocks all run at once, else 64: on the
+// H100's 132 SMs, B=100 and 256 take R=8 (13 and 32 blocks), B=3000 R=32
+// (94 blocks), B=218,400 R=64 (3413 blocks, where arithmetic, not latency,
+// sets the pace). Plain FP32 FMAs, accurate tanhf/expf (no fast-math), no
+// tensor cores.
 #include <cuda_runtime.h>
 
 #include "coupling_common.cuh"
+#include "coupling_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB a block can opt into
-
-template <int RPW>
-__global__ void __launch_bounds__(kThreads)
+// One block an SM (its shared memory sees to that), so ptxas may give a
+// thread up to 255 registers; without the hint it held the kernel to 128 and
+// spilled.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts,
-                      float* __restrict__ y, float* __restrict__ ld_out, int B,
-                      int d, int H, int L, float clamp, int inverse) {
+                      float* __restrict__ y, float* __restrict__ ld_out, int B, int d, int H,
+                      int L, float clamp, int inverse) {
   extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // this warp's slice of shared memory: RPW rows of state, h1 and h2
-  float* x_s = smem + (size_t)warp * RPW * (d + 2 * H);
-  float* h1_s = x_s + RPW * d;
-  float* h2_s = h1_s + RPW * H;
+  const int xs = perm_width(d), aw = act_width(H), odd = perm_slot(1, d);
+  float* x_s = smem;          // R x xs: the rows' state, [even | odd]
+  float* ha = x_s + R * xs;   // R x aw: h1, then a chunk of the raw output
+  float* hb = ha + R * aw;    // R x aw: h2
+  float* ld_s = hb + R * aw;  // R: the log-dets
+  const int bw = bias_floats(d, H);
+  float* bias_s = ld_s + R;   // 2 x bw: the biases of this layer and the next
+  float* red = bias_s + 2 * bw;  // split-k partial tiles
+  // per layer in the order of application: W1 (da, H), W2 (H, H), W3 (H, 2 db)
+  auto sched = [=](int q) {
+    const int l = inverse ? L - 1 - q / 3 : q / 3;
+    const int da = cond_size(l, d);
+    const float* w1 = wts + layer_offset(l, d, H);
+    const float* w2 = w1 + (size_t)da * H + H;
+    if (q % 3 == 0) return Gemm{w1, da, H, false};
+    if (q % 3 == 1) return Gemm{w2, H, H, false};
+    return Gemm{w2 + (size_t)H * H + H, H, 2 * (d - da), false};
+  };
+  auto biases = [&](int step) {  // of layer step, into buffer step % 2
+    const int l = inverse ? L - 1 - step : step;
+    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), d - cond_size(l, d), H,
+                bias_s + (step % 2) * bw);
+  };
+  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, 3 * L};
+  biases(0);
+  ws.start();
 
-  const long long row0 = ((long long)blockIdx.x * kWarps + warp) * RPW;
-  if (row0 >= B) return;
-  const int n_rows = (int)min((long long)RPW, (long long)B - row0);
-
-  // the warp's rows are contiguous in x: a coalesced copy, zero-padded
-  const float* xg = x + row0 * d;
-  for (int e = lane; e < RPW * d; e += 32) x_s[e] = e < n_rows * d ? xg[e] : 0.f;
-  __syncwarp();
-
-  float ld[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) ld[i] = 0.f;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int n_rows = (int)min((long long)R, (long long)B - row0);
+  // zero the padding (rows past B, the halves' padding), then copy the
+  // block's rows, which are contiguous in x
+  for (int e = threadIdx.x; e < R * (xs + 2 * aw + 1); e += kThreads) smem[e] = 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    x_s[(e / d) * xs + perm_slot(e % d, d)] = x[row0 * d + e];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int step = 0; step < L; ++step) {
     const int l = inverse ? L - 1 - step : step;
     const int parity = l % 2;
     const int da = cond_size(l, d);
     const int db = d - da;
-    const float* w1 = wts + layer_offset(l, d, H);
-    const float* b1 = w1 + (size_t)da * H;
-    const float* w2 = b1 + H;
-    const float* b2 = w2 + (size_t)H * H;
-    const float* w3 = b2 + H;
-    const float* b3 = w3 + (size_t)H * 2 * db;
+    const float* b1 = bias_s + (step % 2) * bw;
+    const float* b2 = b1 + round4(H);
+    const float* b3 = b2 + round4(H);
+    float* vb_s = x_s + (parity ? 0 : odd);  // transformed dim j at slot j
 
-    // conditioning dims are parity, parity + 2, ...: stride 2 in x_s
-    dense_tanh<RPW>(x_s, d, parity, 2, da, w1, b1, h1_s, H, lane);
-    __syncwarp();
-    dense_tanh<RPW>(h1_s, H, 0, 1, H, w2, b2, h2_s, H, lane);
-    __syncwarp();
-
-    // output layer fused with the affine update of transformed dim j,
-    // which sits at 2 j + 1 - parity; the writes touch no conditioning dim
-    const int n_out = 2 * db;
-    for (int j0 = 0; j0 < db; j0 += 32) {
-      const int j = j0 + lane;
-      const bool ok = j < db;
-      float acc_t[RPW], acc_s[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) acc_t[i] = acc_s[i] = 0.f;
-      for (int k = 0; k < H; ++k) {
-        const float wt = ok ? __ldg(w3 + (size_t)k * n_out + 2 * j) : 0.f;
-        const float ws = ok ? __ldg(w3 + (size_t)k * n_out + 2 * j + 1) : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float h = h2_s[i * H + k];
-          acc_t[i] = fmaf(h, wt, acc_t[i]);
-          acc_s[i] = fmaf(h, ws, acc_s[i]);
-        }
-      }
-      if (ok) {
-        const float bt = __ldg(b3 + 2 * j);
-        const float bs = __ldg(b3 + 2 * j + 1);
-        const int dim = 2 * j + 1 - parity;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float t = acc_t[i] + bt;
-          const float ls = clamp * tanhf((acc_s[i] + bs) / clamp);
-          float* v = x_s + i * d + dim;
-          if (inverse) {
-            *v = *v * expf(ls) + t;
-            ld[i] += ls;
-          } else {
-            *v = (*v - t) * expf(-ls);
-            ld[i] -= ls;
+    __syncthreads();
+    if (step + 1 < L) biases(step + 1);
+    tile_gemm<R>(ws, x_s + (parity ? odd : 0), xs, red,
+                 [&](int r, int n, float v) { ha[r * aw + n] = tanhf(v + b1[n]); });
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) { hb[r * aw + n] = tanhf(v + b2[n]); });
+    // the conditioner output, 128 columns (64 transformed dims) a chunk, each
+    // applied before the next: transformed dim j from its (shift, raw
+    // log-scale) pair; the log-scale replaces the raw value, and each row's
+    // log-det gains the chunk's sum
+    tile_gemm<R>(
+        ws, hb, aw, red, [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + b3[n]; },
+        [&](int n0) {
+          const int j0 = n0 / 2, nj = min(kChunkN / 2, db - j0);
+          for (int e = threadIdx.x; e < R * nj; e += kThreads) {
+            const int r = e / nj, jj = e % nj;
+            float* raw = ha + r * aw + 2 * jj;
+            const float ls = clamp * tanhf(raw[1] / clamp);
+            float* v = vb_s + r * xs + j0 + jj;
+            *v = inverse ? *v * expf(ls) + raw[0] : (*v - raw[0]) * expf(-ls);
+            raw[1] = ls;
           }
-        }
-      }
-    }
-    __syncwarp();
+          __syncthreads();
+          for (int r = warp; r < R; r += kThreads / 32) {
+            float sum = 0.f;
+            for (int jj = lane; jj < nj; jj += 32) sum += ha[r * aw + 2 * jj + 1];
+            for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            if (lane == 0) ld_s[r] += inverse ? sum : -sum;
+          }
+        });
   }
 
-  float* yg = y + row0 * d;
-  for (int e = lane; e < n_rows * d; e += 32) yg[e] = x_s[e];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    float v = ld[i];
-    for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0 && i < n_rows) ld_out[row0 + i] = v;
-  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    y[row0 * d + e] = x_s[(e / d) * xs + perm_slot(e % d, d)];
+  if (threadIdx.x < n_rows) ld_out[row0 + threadIdx.x] = ld_s[threadIdx.x];
 }
 
-template <int RPW>
-int launch(const float* x, const float* w, float* y, float* ld, int B, int d,
-           int H, int L, float clamp, int inverse, cudaStream_t stream,
-           size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      coupling_stack_kernel<RPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+size_t shared_bytes(int rows, int d, int H) {
+  return ((size_t)rows * (perm_width(d) + 2 * act_width(H) + 1) + 2 * bias_floats(d, H) +
+          red_floats(rows) + ring_floats()) * sizeof(float);
+}
+
+template <int R>
+int launch(const float* x, const float* w, float* y, float* ld, int B, int d, int H, int L,
+           float clamp, int inverse, cudaStream_t stream) {
+  const size_t smem = shared_bytes(R, d, H);
+  const cudaError_t err = cudaFuncSetAttribute(
+      coupling_stack_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long rows_per_block = (long long)kWarps * RPW;
-  const unsigned grid = (unsigned)((B + rows_per_block - 1) / rows_per_block);
-  coupling_stack_kernel<RPW><<<grid, kThreads, smem, stream>>>(
-      x, w, y, ld, B, d, H, L, clamp, inverse);
+  const unsigned grid = (unsigned)((B + R - 1) / R);
+  coupling_stack_kernel<R><<<grid, kThreads, smem, stream>>>(x, w, y, ld, B, d, H, L, clamp,
+                                                              inverse);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted. Launches on `stream`
-// and neither synchronises nor allocates.
+// Shared bytes a block of the smallest row tile (8 rows) needs: above
+// 232448 the launcher refuses with kErrTileTooLarge.
+extern "C" long long nfmc_coupling_tile_bytes(int d, int H) {
+  return (long long)shared_bytes(8, d, H);
+}
+
+// Returns a cudaError_t: 0 when the launch was accepted, kErrTileTooLarge
+// (cudaErrorInvalidConfiguration) without a launch when no row tile fits a
+// block. Launches on `stream` and neither synchronises nor allocates.
 extern "C" int nfmc_coupling_stack(const void* x, const void* weights, void* y,
                                    void* ld, int B, int d, int H, int L,
                                    float clamp, int inverse, void* stream) {
@@ -163,21 +191,13 @@ extern "C" int nfmc_coupling_stack(const void* x, const void* weights, void* y,
   float* yf = static_cast<float*>(y);
   float* lf = static_cast<float*>(ld);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t per_row = (size_t)(d + 2 * H) * sizeof(float);
-  // The most rows per warp (more reuse of each weight load) whose shared
-  // memory fits one block and that still gives the 132 SMs two blocks each;
-  // a small batch (one jump's 100 rows) takes one row per warp instead.
-  auto fits = [&](int rpw) {
-    return kWarps * rpw * per_row <= kMaxSharedBytes &&
-           (long long)B >= 2LL * 132 * kWarps * rpw;
-  };
-  if (fits(8))
-    return launch<8>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s, kWarps * 8 * per_row);
-  if (fits(4))
-    return launch<4>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s, kWarps * 4 * per_row);
-  if (fits(2))
-    return launch<2>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s, kWarps * 2 * per_row);
-  if (kWarps * per_row <= kMaxSharedBytes)
-    return launch<1>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s, kWarps * per_row);
-  return (int)cudaErrorInvalidValue;
+  int n_sm = 0;
+  const cudaError_t err = sm_count(&n_sm);
+  if (err != cudaSuccess) return (int)err;
+  switch (row_tile(B, n_sm, [&](int rows) { return shared_bytes(rows, d, H); })) {
+    case 64: return launch<64>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
+    case 32: return launch<32>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
+    case 8: return launch<8>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
+  }
+  return kErrTileTooLarge;
 }

@@ -19,33 +19,52 @@
 // The TPU kernel walks its grid in order and adds each row block's weight
 // gradients into outputs it zeroes at the first block. Hopper blocks run
 // concurrently, so the work is split in two:
-//   1. coupling_vjp_rows_kernel: each warp owns RPW rows for the whole stack,
-//      as the forward kernel does. It recomputes the forward pass, stashing
-//      each layer's input, h1, h2 and (t, s) in a device scratch buffer, then
-//      goes back through the layers and writes gx and each layer's g_raw,
-//      g_a2 and g_a1 rows to the scratch buffer. Row-local work only.
+//   1. coupling_vjp_rows_kernel: a block owns R rows for the whole
+//      stack. It recomputes the forward pass, stashing each layer's input,
+//      h1, h2 and (t, s) in a device scratch buffer, then goes back through
+//      the layers and writes gx and each layer's g_raw, g_a2 and g_a1 rows to
+//      the scratch buffer. Row-local work only.
 //   2. coupling_vjp_weights_kernel: each block computes a 32 x 32 tile of one
 //      weight gradient (and, in the tiles of the first row, its bias) as a
 //      sum over the batch rows in a fixed order. No atomics: the gradients
 //      are bit-identical from run to run.
-// The scratch buffer holds about 13 KB a row at d=100, H=128, L=4 (6.7 MB at
-// the training batch of 512); the caller allocates it.
+// The scratch buffer holds about 13 KB a row at d=100, H=128, L=4 (3.4 MB at
+// the training batch of 256); the caller allocates it.
 //
-// What bounds it on an H100: FP32 arithmetic on paper, about 3x the forward's
-// 285 kFLOP a row, but at a training batch of a few hundred rows it is bound
-// by latency: one warp walks each row through every layer serially. Plain
-// FP32 FMAs, accurate tanhf/expf (no fast-math), no tensor cores.
+// What bounds it on an H100: FP32 arithmetic on paper, 3x the forward's
+// 285 kFLOP a row (0.22 GFLOP, 3.3 us at the training batch of 256), but at
+// a few hundred rows the time goes to latency: each of the 24 products of
+// the rows kernel (6 a layer) waits for its weights from L2, one after the
+// other.
+//
+// Design of the rows kernel (coupling_tile.cuh): the six row-local products
+// of a layer (va W1, h1 W2, h2 W3 in the recompute; g_raw W3^T, g_a2 W2^T,
+// g_a1 W1^T in the backward) are each an (R x K) . (K x N) tile product
+// with the operand rows in shared memory. All 6 L products draw their
+// weights from one stream of 64 x 128 slabs through a ring of three
+// shared-memory stages, filled with cp.async two slabs ahead of the FMAs
+// (the transposed products copy W along its rows, which are contiguous, and
+// store the slab [n][k] with a row of 68 floats: conflict-free float4 reads
+// along k). Each thread sums an 8 x 4 register tile; below R=64 the warps
+// of a row group split k and sum their partials in a fixed order. The
+// state and its cotangent (R x max(perm_width(d), round4(d + 1)) each, in
+// the [even | odd] layout; in the backward the state buffer holds a layer's
+// g_raw of 2 db <= d + 1) and two activation buffers (R x max(H, 128)) stay
+// in shared memory, and the recompute's output layer is applied 128
+// columns at a time, as in coupling.cu: 151 KB a block at R=8, 221 KB at
+// R=64 for d=100, H=128; a tile of 8 rows fits up to d = 1177 at H=128. R
+// as in coupling.cu: the training batch of 256 takes R=8, 32 blocks. The
+// weights kernel (2. above) takes about a tenth of the time at B=256
+// (chip_smoke.py phase 3b prints the split).
+// Plain FP32 FMAs, accurate tanhf/expf (no fast-math), no tensor cores.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "coupling_common.cuh"
+#include "coupling_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB a block can opt into
 
 // Scratch layout: per layer l, seven row-major (B, width) matrices:
 //   0 x_in (d)   the layer's input      1 h1 (H)     2 h2 (H)
@@ -64,38 +83,67 @@ __host__ __device__ inline size_t stash_offset(int l, int q, long long B, int d,
   return off;
 }
 
-template <int RPW>
-__global__ void __launch_bounds__(kThreads)
+// Floats of a row's state (and of its cotangent) in shared memory: the
+// [even | odd] layout, or a layer's g_raw (2 db <= d + 1) if wider.
+__host__ __device__ inline int state_width(int d) {
+  return perm_width(d) > round4(d + 1) ? perm_width(d) : round4(d + 1);
+}
+
+// One block an SM, as in coupling.cu: up to 255 registers a thread.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
 coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                          const float* __restrict__ gld, const float* __restrict__ wts,
                          float* __restrict__ gx, float* stash, int B, int d, int H,
                          int L, float clamp, int inverse) {
   extern __shared__ float smem[];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // this warp's slice: RPW rows of state (d + 1 wide, so that it can hold a
-  // layer's g_raw of 2 db <= d + 1 in the backward), h1, h2 and the
-  // cotangent of the state
-  const int dp = d + 1;
-  float* x_s = smem + (size_t)warp * RPW * (dp + 2 * H + d);
-  float* h1_s = x_s + RPW * dp;
-  float* h2_s = h1_s + RPW * H;
-  float* g_s = h2_s + RPW * H;
+  const int xs = state_width(d), aw = act_width(H), odd = perm_slot(1, d);
+  float* x_s = smem;           // R x xs: the state, [even | odd]; in the backward, g_raw
+  float* g_s = x_s + R * xs;   // R x xs: the cotangent of the state, [even | odd]
+  float* ha = g_s + R * xs;    // R x aw: h1, a chunk of the raw output; g_a2
+  float* hb = ha + R * aw;     // R x aw: h2; g_a1
+  float* gl = hb + R * aw;     // R: the log-det cotangent
+  const int bw = bias_floats(d, H);
+  float* bias_s = gl + R;      // 2 x bw: the biases of this layer and the next
+  float* red = bias_s + 2 * bw;  // split-k partial tiles
+  // the recompute's W1, W2, W3 per layer in the order of application, then
+  // the backward's W3^T, W2^T, W1^T per layer in the reverse order
+  auto sched = [=](int q) {
+    const int step = q < 3 * L ? q / 3 : L - 1 - (q - 3 * L) / 3;
+    const int l = inverse ? L - 1 - step : step;
+    const int da = cond_size(l, d);
+    const float* w1 = wts + layer_offset(l, d, H);
+    const float* w2 = w1 + (size_t)da * H + H;
+    const float* w3 = w2 + (size_t)H * H + H;
+    const int db2 = 2 * (d - da);
+    switch (q < 3 * L ? q % 3 : 3 + (q - 3 * L) % 3) {
+      case 0: return Gemm{w1, da, H, false};
+      case 1: return Gemm{w2, H, H, false};
+      case 2: return Gemm{w3, H, db2, false};
+      case 3: return Gemm{w3, db2, H, true};
+      case 4: return Gemm{w2, H, H, true};
+      default: return Gemm{w1, H, da, true};
+    }
+  };
+  auto biases = [&](int step) {  // of recompute layer step, into buffer step % 2
+    const int l = inverse ? L - 1 - step : step;
+    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), d - cond_size(l, d), H,
+                bias_s + (step % 2) * bw);
+  };
+  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, 6 * L};
+  biases(0);
+  ws.start();
 
-  const long long row0 = ((long long)blockIdx.x * kWarps + warp) * RPW;
-  if (row0 >= B) return;
-  const int n_rows = (int)min((long long)RPW, (long long)B - row0);
-
-  for (int e = lane; e < RPW * d; e += 32) {
-    const int r = e / d, c = e % d;
-    const bool in = e < n_rows * d;
-    x_s[r * dp + c] = in ? x[row0 * d + e] : 0.f;
-    g_s[e] = in ? gy[row0 * d + e] : 0.f;
+  const long long row0 = (long long)blockIdx.x * R;
+  const int n_rows = (int)min((long long)R, (long long)B - row0);
+  for (int e = threadIdx.x; e < R * (2 * xs + 2 * aw + 1); e += kThreads) smem[e] = 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads) {
+    const int at = (e / d) * xs + perm_slot(e % d, d);
+    x_s[at] = x[row0 * d + e];
+    g_s[at] = gy[row0 * d + e];
   }
-  float gl[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) gl[i] = i < n_rows ? gld[row0 + i] : 0.f;
-  __syncwarp();
+  if (threadIdx.x < n_rows) gl[threadIdx.x] = gld[row0 + threadIdx.x];
 
   // ---- forward recompute, stashing what the backward and kernel 2 read ----
   for (int step = 0; step < L; ++step) {
@@ -104,77 +152,58 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int da = cond_size(l, d);
     const int db = d - da;
     const int n_out = 2 * db;
-    const float* w1 = wts + layer_offset(l, d, H);
-    const float* b1 = w1 + (size_t)da * H;
-    const float* w2 = b1 + H;
-    const float* b2 = w2 + (size_t)H * H;
-    const float* w3 = b2 + H;
-    const float* b3 = w3 + (size_t)H * n_out;
+    const float* b1 = bias_s + (step % 2) * bw;
+    const float* b2 = b1 + round4(H);
+    const float* b3 = b2 + round4(H);
     float* xin = stash + stash_offset(l, 0, B, d, H);
     float* h1g = stash + stash_offset(l, 1, B, d, H);
     float* h2g = stash + stash_offset(l, 2, B, d, H);
     float* tsg = stash + stash_offset(l, 3, B, d, H);
+    float* vb_s = x_s + (parity ? 0 : odd);  // transformed dim j at slot j
 
-    for (int e = lane; e < n_rows * d; e += 32) xin[row0 * d + e] = x_s[(e / d) * dp + e % d];
-    dense_tanh<RPW>(x_s, dp, parity, 2, da, w1, b1, h1_s, H, lane);
-    __syncwarp();
-    dense_tanh<RPW>(h1_s, H, 0, 1, H, w2, b2, h2_s, H, lane);
-    __syncwarp();
-    for (int e = lane; e < n_rows * H; e += 32) {
-      h1g[row0 * H + e] = h1_s[e];
-      h2g[row0 * H + e] = h2_s[e];
-    }
-
-    for (int j0 = 0; j0 < db; j0 += 32) {
-      const int j = j0 + lane;
-      const bool ok = j < db;
-      float acc_t[RPW], acc_s[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) acc_t[i] = acc_s[i] = 0.f;
-      for (int k = 0; k < H; ++k) {
-        const float wt = ok ? __ldg(w3 + (size_t)k * n_out + 2 * j) : 0.f;
-        const float ws = ok ? __ldg(w3 + (size_t)k * n_out + 2 * j + 1) : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float h = h2_s[i * H + k];
-          acc_t[i] = fmaf(h, wt, acc_t[i]);
-          acc_s[i] = fmaf(h, ws, acc_s[i]);
-        }
-      }
-      if (ok) {
-        const float bt = __ldg(b3 + 2 * j);
-        const float bs = __ldg(b3 + 2 * j + 1);
-        const int dim = 2 * j + 1 - parity;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float t = acc_t[i] + bt;
-          const float s = tanhf((acc_s[i] + bs) / clamp);
-          const float ls = clamp * s;
-          float* v = x_s + i * dp + dim;
-          *v = inverse ? *v * expf(ls) + t : (*v - t) * expf(-ls);
-          if (i < n_rows) {
-            tsg[(row0 + i) * n_out + 2 * j] = t;
-            tsg[(row0 + i) * n_out + 2 * j + 1] = s;
+    __syncthreads();
+    if (step + 1 < L) biases(step + 1);
+    for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+      xin[row0 * d + e] = x_s[(e / d) * xs + perm_slot(e % d, d)];
+    tile_gemm<R>(ws, x_s + (parity ? odd : 0), xs, red, [&](int r, int n, float v) {
+      const float h = tanhf(v + b1[n]);
+      ha[r * aw + n] = h;
+      if (r < n_rows) h1g[(row0 + r) * H + n] = h;
+    });
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) {
+      const float h = tanhf(v + b2[n]);
+      hb[r * aw + n] = h;
+      if (r < n_rows) h2g[(row0 + r) * H + n] = h;
+    });
+    // the conditioner output 128 columns a chunk, as in coupling.cu: the
+    // affine update of transformed dim j, stashing (t_j, s_j)
+    tile_gemm<R>(
+        ws, hb, aw, red, [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + b3[n]; },
+        [&](int n0) {
+          const int j0 = n0 / 2, nj = min(kChunkN / 2, db - j0);
+          for (int e = threadIdx.x; e < R * nj; e += kThreads) {
+            const int r = e / nj, jj = e % nj, j = j0 + jj;
+            const float t = ha[r * aw + 2 * jj];
+            const float s = tanhf(ha[r * aw + 2 * jj + 1] / clamp);
+            const float ls = clamp * s;
+            float* v = vb_s + r * xs + j;
+            *v = inverse ? *v * expf(ls) + t : (*v - t) * expf(-ls);
+            if (r < n_rows) {
+              tsg[(row0 + r) * n_out + 2 * j] = t;
+              tsg[(row0 + r) * n_out + 2 * j + 1] = s;
+            }
           }
-        }
-      }
-    }
-    __syncwarp();
+        });
   }
 
   // ---- backward, layers in the reverse order of application ----------------
   float* graw_s = x_s;  // the state is not needed any more
-  float* ga2_s = h1_s;
-  float* ga1_s = h2_s;
   for (int step = L - 1; step >= 0; --step) {
     const int l = inverse ? L - 1 - step : step;
     const int parity = l % 2;
     const int da = cond_size(l, d);
     const int db = d - da;
     const int n_out = 2 * db;
-    const float* w1 = wts + layer_offset(l, d, H);
-    const float* w2 = w1 + (size_t)da * H + H;
-    const float* w3 = w2 + (size_t)H * H + H;
     const float* xin = stash + stash_offset(l, 0, B, d, H);
     const float* h1g = stash + stash_offset(l, 1, B, d, H);
     const float* h2g = stash + stash_offset(l, 2, B, d, H);
@@ -182,119 +211,70 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
     float* ga1g = stash + stash_offset(l, 4, B, d, H);
     float* ga2g = stash + stash_offset(l, 5, B, d, H);
     float* grawg = stash + stash_offset(l, 6, B, d, H);
+    float* gvb_s = g_s + (parity ? 0 : odd);  // the transformed half's cotangent
+    float* gva_s = g_s + (parity ? odd : 0);  // the conditioning half's
 
-    // through the affine map and the soft clamp, per transformed dim
-    for (int j0 = 0; j0 < db; j0 += 32) {
-      const int j = j0 + lane;
-      if (j < db) {
-        const int dim = 2 * j + 1 - parity;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float g_t = 0.f, g_u = 0.f, g_vb = 0.f;
-          if (i < n_rows) {
-            const long long r = row0 + i;
-            const float t = tsg[r * n_out + 2 * j];
-            const float s = tsg[r * n_out + 2 * j + 1];
-            const float ls = clamp * s;
-            const float vb = xin[r * d + dim];
-            const float g_vbn = g_s[i * d + dim];
-            float g_ls;
-            if (inverse) {
-              const float e = expf(ls);
-              g_t = g_vbn;
-              g_ls = g_vbn * vb * e + gl[i];
-              g_vb = g_vbn * e;
-            } else {
-              const float em = expf(-ls);
-              const float vb_new = (vb - t) * em;
-              g_vb = g_vbn * em;
-              g_t = -g_vbn * em;
-              g_ls = -g_vbn * vb_new - gl[i];
-            }
-            g_u = g_ls * (1.f - s * s);
-            grawg[r * n_out + 2 * j] = g_t;
-            grawg[r * n_out + 2 * j + 1] = g_u;
-          }
-          graw_s[i * dp + 2 * j] = g_t;
-          graw_s[i * dp + 2 * j + 1] = g_u;
-          g_s[i * d + dim] = g_vb;
+    // through the affine map and the soft clamp, per (row, transformed dim);
+    // rows past B get a zero g_raw
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * db; e += kThreads) {
+      const int r = e / db, j = e % db;
+      float g_t = 0.f, g_u = 0.f;
+      if (r < n_rows) {
+        const long long row = row0 + r;
+        const float t = tsg[row * n_out + 2 * j];
+        const float s = tsg[row * n_out + 2 * j + 1];
+        const float ls = clamp * s;
+        const float vb = xin[row * d + 2 * j + 1 - parity];
+        const float g_vbn = gvb_s[r * xs + j];
+        float g_ls, g_vb;
+        if (inverse) {
+          const float ex = expf(ls);
+          g_t = g_vbn;
+          g_ls = g_vbn * vb * ex + gl[r];
+          g_vb = g_vbn * ex;
+        } else {
+          const float em = expf(-ls);
+          const float vb_new = (vb - t) * em;
+          g_vb = g_vbn * em;
+          g_t = -g_vbn * em;
+          g_ls = -g_vbn * vb_new - gl[r];
         }
+        g_u = g_ls * (1.f - s * s);
+        grawg[row * n_out + 2 * j] = g_t;
+        grawg[row * n_out + 2 * j + 1] = g_u;
+        gvb_s[r * xs + j] = g_vb;
       }
+      graw_s[r * xs + 2 * j] = g_t;
+      graw_s[r * xs + 2 * j + 1] = g_u;
     }
-    __syncwarp();
 
-    // g_a2 = (g_raw W3^T) (1 - h2^2); lane k reads row k of W3
-    for (int k0 = 0; k0 < H; k0 += 32) {
-      const int k = k0 + lane;
-      if (k < H) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int n = 0; n < n_out; ++n) {
-          const float w = __ldg(w3 + (size_t)k * n_out + n);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(graw_s[i * dp + n], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float v = 0.f;
-          if (i < n_rows) {
-            const float h = h2g[(row0 + i) * H + k];
-            v = acc[i] * (1.f - h * h);
-            ga2g[(row0 + i) * H + k] = v;
-          }
-          ga2_s[i * H + k] = v;
-        }
+    // g_a2 = (g_raw W3^T) (1 - h2^2)
+    tile_gemm<R>(ws, graw_s, xs, red, [&](int r, int n, float v) {
+      float g = 0.f;
+      if (r < n_rows) {
+        const float h = h2g[(row0 + r) * H + n];
+        g = v * (1.f - h * h);
+        ga2g[(row0 + r) * H + n] = g;
       }
-    }
-    __syncwarp();
-
+      ha[r * aw + n] = g;
+    });
     // g_a1 = (g_a2 W2^T) (1 - h1^2)
-    for (int k0 = 0; k0 < H; k0 += 32) {
-      const int k = k0 + lane;
-      if (k < H) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int m = 0; m < H; ++m) {
-          const float w = __ldg(w2 + (size_t)k * H + m);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(ga2_s[i * H + m], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float v = 0.f;
-          if (i < n_rows) {
-            const float h = h1g[(row0 + i) * H + k];
-            v = acc[i] * (1.f - h * h);
-            ga1g[(row0 + i) * H + k] = v;
-          }
-          ga1_s[i * H + k] = v;
-        }
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) {
+      float g = 0.f;
+      if (r < n_rows) {
+        const float h = h1g[(row0 + r) * H + n];
+        g = v * (1.f - h * h);
+        ga1g[(row0 + r) * H + n] = g;
       }
-    }
-    __syncwarp();
-
-    // g_va = g_a1 W1^T, added into the conditioning dims parity + 2 m
-    for (int m0 = 0; m0 < da; m0 += 32) {
-      const int m = m0 + lane;
-      if (m < da) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int k = 0; k < H; ++k) {
-          const float w = __ldg(w1 + (size_t)m * H + k);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(ga1_s[i * H + k], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) g_s[i * d + parity + 2 * m] += acc[i];
-      }
-    }
-    __syncwarp();
+      hb[r * aw + n] = g;
+    });
+    // g_va = g_a1 W1^T, added into the conditioning half
+    tile_gemm<R>(ws, hb, aw, red, [&](int r, int m, float v) { gva_s[r * xs + m] += v; });
   }
 
-  for (int e = lane; e < n_rows * d; e += 32) gx[row0 * d + e] = g_s[e];
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    gx[row0 * d + e] = g_s[(e / d) * xs + perm_slot(e % d, d)];
 }
 
 // One tile of one weight gradient: grid.y = 3 L jobs (per layer W1, W2, W3
@@ -341,17 +321,22 @@ coupling_vjp_weights_kernel(const float* __restrict__ stash, float* __restrict__
                    blockIdx.x / tiles_n, blockIdx.x % tiles_n);
 }
 
-template <int RPW>
+size_t rows_shared_bytes(int rows, int d, int H) {
+  const size_t per_row = 2 * (size_t)state_width(d) + 2 * act_width(H) + 1;
+  return ((size_t)rows * per_row + 2 * bias_floats(d, H) + red_floats(rows) + ring_floats()) *
+         sizeof(float);
+}
+
+template <int R>
 int launch_rows(const float* x, const float* gy, const float* gld, const float* w,
                 float* gx, float* stash, int B, int d, int H, int L, float clamp,
-                int inverse, cudaStream_t stream, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(coupling_vjp_rows_kernel<RPW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                int inverse, cudaStream_t stream) {
+  const size_t smem = rows_shared_bytes(R, d, H);
+  const cudaError_t err = cudaFuncSetAttribute(
+      coupling_vjp_rows_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long rows_per_block = (long long)kWarps * RPW;
-  const unsigned grid = (unsigned)((B + rows_per_block - 1) / rows_per_block);
-  coupling_vjp_rows_kernel<RPW><<<grid, kThreads, smem, stream>>>(
+  const unsigned grid = (unsigned)((B + R - 1) / R);
+  coupling_vjp_rows_kernel<R><<<grid, kThreads, smem, stream>>>(
       x, gy, gld, w, gx, stash, B, d, H, L, clamp, inverse);
   return (int)cudaGetLastError();
 }
@@ -363,9 +348,17 @@ extern "C" long long nfmc_coupling_vjp_scratch_floats(int B, int d, int H, int L
   return (long long)stash_offset(L, 0, B, d, H);
 }
 
-// Returns a cudaError_t: 0 when both launches were accepted. Launches on
-// `stream` and neither synchronises nor allocates: `stash` holds
-// nfmc_coupling_vjp_scratch_floats(B, d, H, L) floats.
+// Shared bytes a block of the rows kernel's smallest row tile (8 rows)
+// needs: above 232448 the launcher refuses with kErrTileTooLarge.
+extern "C" long long nfmc_coupling_vjp_tile_bytes(int d, int H) {
+  return (long long)rows_shared_bytes(8, d, H);
+}
+
+// Returns a cudaError_t: 0 when both launches were accepted,
+// kErrTileTooLarge (cudaErrorInvalidConfiguration) without a launch when no
+// row tile fits a block. Launches on `stream` and neither synchronises nor
+// allocates: `stash` holds nfmc_coupling_vjp_scratch_floats(B, d, H, L)
+// floats.
 extern "C" int nfmc_coupling_stack_vjp(const void* x, const void* gy, const void* gld,
                                        const void* weights, void* gx, void* grads,
                                        void* stash, int B, int d, int H, int L,
@@ -379,22 +372,16 @@ extern "C" int nfmc_coupling_stack_vjp(const void* x, const void* gy, const void
   float* gxf = static_cast<float*>(gx);
   float* st = static_cast<float*>(stash);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t per_row = (size_t)(2 * d + 1 + 2 * H) * sizeof(float);
-  // as in the forward kernel: the most rows per warp whose shared memory fits
-  // one block and that still gives the 132 SMs two blocks each
-  auto fits = [&](int rpw) {
-    return kWarps * rpw * per_row <= kMaxSharedBytes &&
-           (long long)B >= 2LL * 132 * kWarps * rpw;
-  };
+  int n_sm = 0;
+  const cudaError_t cerr = sm_count(&n_sm);
+  if (cerr != cudaSuccess) return (int)cerr;
   int err;
-  if (fits(4))
-    err = launch_rows<4>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s, kWarps * 4 * per_row);
-  else if (fits(2))
-    err = launch_rows<2>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s, kWarps * 2 * per_row);
-  else if (kWarps * per_row <= kMaxSharedBytes)
-    err = launch_rows<1>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s, kWarps * per_row);
-  else
-    return (int)cudaErrorInvalidValue;
+  switch (row_tile(B, n_sm, [&](int rows) { return rows_shared_bytes(rows, d, H); })) {
+    case 64: err = launch_rows<64>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
+    case 32: err = launch_rows<32>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
+    case 8: err = launch_rows<8>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
+    default: return kErrTileTooLarge;
+  }
   if (err != 0) return err;
 
   int max_tiles = 0;

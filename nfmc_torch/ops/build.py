@@ -26,7 +26,6 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("coupling", "coupling_bwd", "spline", "spline_bwd")}
-HEADERS = sorted(CSRC.glob("*.cuh"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -37,6 +36,9 @@ SIGNATURES = {
     ("coupling", "nfmc_coupling_stack"): ([_P] * 4 + [_I] * 4 + [_F, _I, _P], _I),
     ("coupling_bwd", "nfmc_coupling_stack_vjp"): ([_P] * 7 + [_I] * 4 + [_F, _I, _P], _I),
     ("coupling_bwd", "nfmc_coupling_vjp_scratch_floats"): ([_I] * 4, ctypes.c_longlong),
+    # d, H: shared bytes of a row tile of 8 rows
+    ("coupling", "nfmc_coupling_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
+    ("coupling_bwd", "nfmc_coupling_vjp_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
     # x, weights, y, ld, B, d, H, L, n_bins, tail_bound, inverse, lrs, stream
     ("spline", "nfmc_spline_stack"): ([_P] * 4 + [_I] * 5 + [_F, _I, _I, _P], _I),
     # x, gy, gld, weights, gx, grads, scratch, B, d, H, L, n_bins, tail_bound,
@@ -73,22 +75,25 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the kernels are built with the CUDA toolkit")
 
 
-def build_library() -> dict:
-    """Compile each source of ``SOURCES`` into a shared library (once per
-    hash), all ``nvcc`` processes at once, and return ``{name: path}``.
-    Records the compilers' output in ``build_log`` and the time taken in
-    ``build_seconds``."""
+def build_sources(sources: dict, build_dir: Path = BUILD_DIR) -> dict:
+    """Compile each ``{name: path of a .cu}`` of ``sources`` into a shared
+    library in ``build_dir`` (once per hash of the source, the ``.cuh``
+    headers beside it and the flags), all ``nvcc`` processes at once, and
+    return ``{name: path}``. Records the compilers' output in ``build_log``
+    and the time taken in ``build_seconds``."""
     global build_log, build_seconds
-    common = b"".join(h.read_bytes() for h in HEADERS) + " ".join(NVCC_FLAGS).encode()
+    flags = " ".join(NVCC_FLAGS).encode()
     outs, jobs = {}, {}
     t0 = time.perf_counter()
-    for name, src in SOURCES.items():
-        tag = hashlib.sha256(src.read_bytes() + common).hexdigest()[:16]
-        outs[name] = BUILD_DIR / f"{name}-{tag}.so"
+    for name, src in sources.items():
+        src = Path(src)
+        headers = b"".join(h.read_bytes() for h in sorted(src.parent.glob("*.cuh")))
+        tag = hashlib.sha256(src.read_bytes() + headers + flags).hexdigest()[:16]
+        outs[name] = build_dir / f"{name}-{tag}.so"
         if outs[name].exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        build_dir.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
         os.close(fd)
         proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -97,9 +102,9 @@ def build_library() -> dict:
     try:
         for name, (proc, tmp) in jobs.items():
             log = proc.communicate()[0]
-            logs.append(f"== {SOURCES[name].name}\n{log}")
+            logs.append(f"== {Path(sources[name]).name}\n{log}")
             if proc.returncode != 0:
-                failed.append(SOURCES[name].name)
+                failed.append(Path(sources[name]).name)
             else:
                 os.replace(tmp, outs[name])  # atomic: a concurrent build sees a whole file or none
     finally:
@@ -116,15 +121,21 @@ def build_library() -> dict:
     return outs
 
 
+def load(sources: dict, build_dir: Path = BUILD_DIR) -> dict:
+    """``build_sources``, then each library loaded with ``ctypes`` and the
+    ``SIGNATURES`` of the symbols it has set: ``{name: CDLL}``."""
+    libs = {n: ctypes.CDLL(str(path)) for n, path in build_sources(sources, build_dir).items()}
+    for (lib, sym), (argtypes, restype) in SIGNATURES.items():
+        if lib in libs and hasattr(libs[lib], sym):
+            fn = getattr(libs[lib], sym)
+            fn.argtypes, fn.restype = argtypes, restype
+    return libs
+
+
 def library(name: str):
     """The loaded kernel library ``name`` (a key of ``SOURCES``); the first
     call builds and loads them all."""
     global _libs
     if _libs is None:
-        libs = {n: ctypes.CDLL(str(path)) for n, path in build_library().items()}
-        for (lib, sym), (argtypes, restype) in SIGNATURES.items():
-            fn = getattr(libs[lib], sym)
-            fn.argtypes, fn.restype = argtypes, restype
-        _libs = libs
+        _libs = load(SOURCES)
     return _libs[name]
-

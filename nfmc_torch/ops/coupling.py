@@ -33,6 +33,11 @@ from torch.autograd.function import once_differentiable
 
 from .build import library, register
 
+# What the launchers return, without launching, when not even a row tile of
+# 8 rows fits a block's shared memory (cudaErrorInvalidConfiguration;
+# kErrTileTooLarge in csrc/coupling_tile.cuh).
+TILE_TOO_LARGE = 9
+
 
 def pack_weights(params) -> torch.Tensor:
     """One contiguous f32 buffer holding, per layer in order, w1, b1, w2, b2,
@@ -155,6 +160,21 @@ def _check_rows(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"the coupling kernels take a contiguous float32 {what}")
 
 
+def check_launch(err: int, d: int, hidden: int, backward: bool, lib) -> None:
+    """Raise for a launcher's nonzero return ``err``: a ValueError naming
+    the bytes when the stack's row tile does not fit a block's shared memory
+    (the launcher's own count, ``nfmc_coupling{,_vjp}_tile_bytes``), else a
+    RuntimeError with the CUDA error."""
+    what = "backward kernel" if backward else "kernel"
+    if err == TILE_TOO_LARGE:
+        need = (lib.nfmc_coupling_vjp_tile_bytes if backward else lib.nfmc_coupling_tile_bytes)(
+            d, hidden)
+        raise ValueError(f"the coupling {what} needs {need} bytes of shared memory a block "
+                         f"(8 rows of d={d}, H={hidden}), more than a block can hold")
+    if err != 0:
+        raise RuntimeError(f"coupling {what} launch failed: cudaError {err}")
+
+
 def _check_params(params, x: torch.Tensor, packed: Optional[torch.Tensor]) -> torch.Tensor:
     if any(t.device != x.device for t in _leaves(params)):
         raise ValueError("flow parameters and input are on different devices")
@@ -171,13 +191,13 @@ def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
     ld = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return y, ld
+    lib = library("coupling")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = library("coupling").nfmc_coupling_stack(
+        err = lib.nfmc_coupling_stack(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(),
             n, d, hidden, len(params), float(clamp), int(inverse), stream)
-    if err != 0:
-        raise RuntimeError(f"coupling kernel launch failed: cudaError {err}")
+    check_launch(err, d, hidden, False, lib)
     wrapper.launches += 1
     return y, ld
 
@@ -208,8 +228,7 @@ def _launch_vjp(params, x, gy, gld, clamp: float, inverse: bool,
             x.data_ptr(), gy.data_ptr(), gld.data_ptr(), packed.data_ptr(), gx.data_ptr(),
             grads.data_ptr(), scratch.data_ptr(), n, d, hidden, len(params), float(clamp),
             int(inverse), stream)
-    if err != 0:
-        raise RuntimeError(f"coupling backward kernel launch failed: cudaError {err}")
+    check_launch(err, d, hidden, True, lib)
     fused_realnvp_vjp.launches += 1
     return gx, unpack_like(grads, params)
 

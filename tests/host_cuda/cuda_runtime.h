@@ -5,7 +5,8 @@
 // barrier of the warp's 32 threads, __syncthreads one of the block's, and a
 // warp shuffle goes through a per-warp exchange array between two such
 // barriers. Shared memory is one buffer, filled with garbage before each
-// block starts.
+// block starts. cp.async copies are synchronous. The device reports 2 SMs,
+// and each launch's grid is logged (emu_grid_x).
 //
 // The test rewrites two spellings of a .cu source before compiling it:
 // `extern __shared__ float smem[];` becomes a pointer to that buffer, and
@@ -14,6 +15,7 @@
 #pragma once
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 
 #include <algorithm>
 #include <barrier>
@@ -25,12 +27,21 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-struct float2 {
+struct alignas(8) float2 {
   float x, y;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
 };
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaErrorInvalidConfiguration = 9
+};
+enum { cudaDevAttrMultiProcessorCount = 16 };
 
 #define __device__
 #define __host__
@@ -71,6 +82,28 @@ inline int cudaFuncSetAttribute(F, int, int) {
   return cudaSuccess;
 }
 inline int cudaGetLastError() { return cudaSuccess; }
+// cp.async as synchronous copies: a copy lands when it is issued, so
+// committing and waiting are no-ops.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) { memcpy(dst, src, n); }
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// A card of 2 SMs: launchers that size their blocks by the SM count reach
+// their larger row tiles at a few hundred rows.
+inline int cudaDeviceGetAttribute(int* value, int attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? 2 : 0;
+  return cudaSuccess;
+}
+
+// grid.x of each launch since the caller last set emu_launches to 0 (the
+// first 16), for the tests to read the block counts a launcher chose.
+extern "C" {
+unsigned emu_grid_x[16];
+int emu_launches = 0;
+}
 
 struct EmuCfg {
   dim3 grid;
@@ -82,6 +115,8 @@ struct EmuCfg {
 template <class F, class... Args>
 void emu_launch(EmuCfg c, F kernel, Args... args) {
   const unsigned nt = c.block.x;
+  if (emu_launches < 16) emu_grid_x[emu_launches] = c.grid.x;
+  ++emu_launches;
   std::vector<char> smem(c.smem + 16);
   emu_smem = smem.data();
   std::vector<std::unique_ptr<std::barrier<>>> bars;

@@ -33,8 +33,10 @@ def _params(d, hidden, n_layers, device, seed=0):
 
 
 @pytest.mark.parametrize("d,hidden,n_layers,rows", [(7, 16, 3, 37), (100, 128, 4, 100),
+                                                    (100, 128, 4, 256), (100, 128, 4, 3000),
                                                     (100, 128, 4, 5000), (2, 8, 1, 1),
-                                                    (33, 300, 2, 70)])
+                                                    (33, 300, 2, 70), (784, 128, 2, 300),
+                                                    (1024, 128, 2, 40)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_kernel_matches_plain(cuda, d, hidden, n_layers, rows, inverse):
     params = _params(d, hidden, n_layers, cuda)
@@ -71,6 +73,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     three_hidden.to(cuda)
     with pytest.raises(ValueError, match="2 hidden layers"):
         ops.fused_realnvp_forward(three_hidden.params, x, 3.0)
+    # a stack whose row tile does not fit a block's shared memory is refused
+    # before the launch, with its sizes, and counts no launch
+    wide = _params(1400, 128, 1, cuda)
+    xw = torch.randn((2, 1400), device=cuda)
+    before = ops.fused_realnvp_vjp.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        ops.fused_realnvp_vjp(wide, xw, xw, torch.zeros(2, device=cuda), 3.0, False)
+    assert ops.fused_realnvp_vjp.launches == before
 
 
 def _grad_err(got, want):
@@ -82,7 +92,8 @@ def _grad_err(got, want):
 
 @pytest.mark.parametrize("d,hidden,n_layers,rows", [(100, 128, 4, 512), (100, 128, 4, 256),
                                                     (100, 128, 4, 100), (7, 16, 3, 37),
-                                                    (100, 128, 4, 9001)])
+                                                    (100, 128, 4, 9001), (784, 128, 2, 300),
+                                                    (1024, 128, 2, 40)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_backward_kernel_matches_plain(cuda, d, hidden, n_layers, rows, inverse):
     params = _params(d, hidden, n_layers, cuda, seed=3)
@@ -96,11 +107,12 @@ def test_backward_kernel_matches_plain(cuda, d, hidden, n_layers, rows, inverse)
     assert _grad_err(got, ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)) <= TOL
 
 
-def test_backward_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("rows", [1000, 256])
+def test_backward_kernel_is_deterministic(cuda, rows):
     params = _params(100, 128, 4, cuda, seed=5)
     g = torch.Generator(cuda).manual_seed(6)
-    x, gy = (torch.randn((1000, 100), device=cuda, generator=g) for _ in range(2))
-    gld = torch.randn((1000,), device=cuda, generator=g)
+    x, gy = (torch.randn((rows, 100), device=cuda, generator=g) for _ in range(2))
+    gld = torch.randn((rows,), device=cuda, generator=g)
     a = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
     b = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
     assert torch.equal(a[0], b[0])
