@@ -17,6 +17,8 @@ Phases, in order; any failure exits non-zero before the last line:
      and 100, the ragged shape and B=1001 (many blocks, a partial last one):
      max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical; at
      B=256 the device time of its two kernels (rows, weight gradients);
+  3c. RealNVP at d=3000 and 3500, H=128 (the kernels' ring of 2 stages):
+     forward, inverse and VJP against the plain version;
   4. the same three outer iterations with the same injected draws through
      the sampler's chunk runner on the card and on the CPU: they agree;
   4b. the same Flow.fit on the card and on the CPU: per-epoch validation
@@ -37,9 +39,19 @@ Phases, in order; any failure exits non-zero before the last line:
      a ragged (d=7, H=16, L=3, K=4, B=37), inputs 3 N(0, 1) so that the
      tails are hit: max |diff| <= 1e-4 * max(1, max |ref|), with timings;
   7b. the spline backward kernel vs the autograd VJP of the plain version,
-     both kinds and directions, at B=256, 100, 1001 and the ragged shape:
-     within SPLINE_BWD_TOL * max(1, max |ref|), two launches bit-identical;
+     both kinds and directions, at B=256, 100, 1001, 3000 and the ragged
+     shape: within SPLINE_BWD_TOL * max(1, max |ref|), two launches
+     bit-identical. Where the VJP misses the gate, the rows with an element
+     within float32 drift of a branch point of its spline (where the VJP
+     jumps, so float32 may take the other bin) are left out by zeroing
+     their cotangents in a rerun, and every row off the gate must be one
+     of them (ops.spline.compare_spline_vjp); each is printed with its
+     witness;
   7c. Flow.fit of each spline flow on the card and on the CPU (as 4b);
+  7d. both spline kinds at d=784 (B=300) and d=1024 (B=40), H=128, L=4,
+     K=8: forward, inverse and VJP against the plain version (the VJP's in
+     float64, under 7b's rule), then a stack above the width limit refused
+     with its bytes;
   8. the slice's path through the front door, per spline kind: jump_mala
      with c-rqnsf / c-lrsnsf (4 layers, hidden 128, 8 bins), warmup=True,
      500 outer iterations: the counter and launch laws, moments, MALA
@@ -50,12 +62,17 @@ Phases, in order; any failure exits non-zero before the last line:
      acceptance in [0.30, 0.50], one forward launch per jump;
   8c. self-target: a frozen perturbed spline flow is the proposal and the
      target (U = -log q): jump acceptance >= 0.99, MALA acceptance in
-     SELF_MALA_ACC, backward launches = the sampler's gradient passes.
+     SELF_MALA_ACC, backward launches = the sampler's gradient passes;
+  9. the repaired faults: a strided input (a column slice) gives the
+     contiguous rows' log_prob; a flow with 3 hidden layers a conditioner
+     runs with no kernel launch, one with 2 launches; MCMCStatistics folds
+     CUDA draws through its data_transform.
 Each path's launch counts are set to 0 just before it and read just after.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
-earlier run; "device_ms" its kernels' device time a call from torch.profiler,
-null where the profiler saw none), then as its last line
+earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
+over the launches the profiler recorded, null where it recorded none), then
+as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no JAX, no network, and exits non-zero without a CUDA device.
 """
@@ -131,23 +148,31 @@ def median_ms(fn, reps: int) -> float:
 
 
 def device_us(fn, calls: int = 20) -> dict:
-    """Device time per call of each CUDA kernel ``fn`` launches, in us, from
-    torch.profiler after a warm call; empty if the profiler saw no device
-    time."""
+    """Device time per launch of each CUDA kernel ``fn`` launches, in us,
+    from torch.profiler after a warm call: the kernel's recorded time over
+    the launches it recorded. The profiler does not always record every
+    launch of these kernels (scripts/coupling_kernels_ab.py --family spline
+    counted 0.3-1.0 records a call in one call, all in another), so a total
+    over the calls undercounts, and a window that recorded none is tried
+    again, up to three windows. Empty if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     def name(key):  # "void (anonymous namespace)::kernel<8>(float const*, ...)" -> "kernel"
         m = re.search(r"(\w+)(?:<[^<>]*>)?\(", key)
         return m.group(1) if m else key
 
-    return {name(a.key): a.self_device_time_total / calls
-            for a in prof.key_averages() if a.self_device_time_total > 0}
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {name(a.key): a.self_device_time_total / a.count
+                for a in prof.key_averages() if a.self_device_time_total > 0 and a.count > 0}
+        if seen:
+            return seen
+    return {}
 
 
 def kernel_ms(fn, reps: int) -> tuple:
@@ -412,43 +437,38 @@ def run_spline_phases(dev, g) -> dict:
     for kind in SPLINE_FLOWS:
         out["bwd_err"][kind] = 0.0
         for d, hid, nl, nb, rows in [(D, H, L, N_BINS, 256), (D, H, L, N_BINS, C),
-                                     (D, H, L, N_BINS, 1001), (7, 16, 3, 4, 37)]:
+                                     (D, H, L, N_BINS, 1001), (D, H, L, N_BINS, 3000),
+                                     (7, 16, 3, 4, 37)]:
             params = spline_params(kind, d, hid, nl, nb, seed=d + rows + 1, device=dev)
             packed = cops.pack_weights(params)
             x = 3 * torch.randn((rows, d), generator=g, device=dev)
             gy = torch.randn((rows, d), generator=g, device=dev)
             gld = torch.randn((rows,), generator=g, device=dev)
             for inverse in (False, True):
-                def vjp():
-                    return sops.fused_spline_vjp(params, x, gy, gld, kind, nb, TAIL, inverse,
-                                                 packed=packed)
-                got, again = vjp(), vjp()
-                torch.cuda.synchronize()
-                ref = sops.spline_stack_vjp_plain(params, x, gy, gld, kind, nb, TAIL, inverse)
-                pairs = list(zip([got[0], *cops._leaves(got[1])], [ref[0], *cops._leaves(ref[1])]))
-                e_abs = max((a - b).abs().max().item() for a, b in pairs)
-                scale = max(1.0, max(b.abs().max().item() for _, b in pairs))
-                same = torch.equal(got[0], again[0]) and all(
-                    torch.equal(a, b) for a, b in zip(cops._leaves(got[1]), cops._leaves(again[1])))
-                check(all(bool(torch.isfinite(a).all()) for a, _ in pairs), "non-finite gradient")
-                out["bwd_err"][kind] = max(out["bwd_err"][kind], e_abs)
-                line = (f"spline vjp {kind} {'inverse' if inverse else 'forward'} d={d} H={hid} "
-                        f"L={nl} K={nb} B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) "
-                        f"= {scale:.2f}, relative {e_abs / scale:.2e}), bit-identical rerun {same}")
+                def vjp(keep=None, inverse=inverse, params=params, packed=packed, x=x, gy=gy,
+                        gld=gld, kind=kind, nb=nb):
+                    return sops.fused_spline_vjp(params, x, *masked(gy, gld, keep), kind, nb, TAIL,
+                                                 inverse, packed=packed)
+
+                def plain(keep=None, inverse=inverse, params=params, x=x, gy=gy, gld=gld,
+                          kind=kind, nb=nb):
+                    return sops.spline_stack_vjp_plain(params, x, *masked(gy, gld, keep), kind, nb,
+                                                       TAIL, inverse)
+
+                what = (f"spline vjp {kind} {'inverse' if inverse else 'forward'} d={d} H={hid} "
+                        f"L={nl} K={nb} B={rows}")
+                rel, scale = check_vjp(what, vjp, plain(), SPLINE_BWD_TOL,
+                                       (lambda keep, vjp=vjp, plain=plain: (vjp(keep), plain(keep)),
+                                        params, x, kind, nb, inverse))
+                out["bwd_err"][kind] = max(out["bwd_err"][kind], rel * scale)
                 if d == D and rows == 256 and not inverse:
                     k_ms, k_dev, k_txt = kernel_ms(vjp, 30)
-                    p_ms = median_ms(lambda: sops.spline_stack_vjp_plain(
-                        params, x, gy, gld, kind, nb, TAIL, inverse), 10)
+                    p_ms = median_ms(plain, 10)
                     bound_ms, bound_by = bound(*stack_cost(
                         d, hid, nl, rows, backward=True, n_par=n_params_per_dim(kind, nb)))
                     out["bwd_timing"][kind] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
-                    line += (f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                             f"({bound_by})")
-                print(line)
-                check(e_abs <= SPLINE_BWD_TOL * scale,
-                      f"spline backward kernel disagrees with the plain version: {e_abs} > "
-                      f"{SPLINE_BWD_TOL} * {scale}")
-                check(same, "two launches of the spline backward kernel gave different gradients")
+                    print(f"{what}: kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                          f"({bound_by})")
 
     # ---- 7c. Flow.fit of each spline flow, card vs CPU -----------------------------
     rng = np.random.default_rng(7)
@@ -592,6 +612,169 @@ def run_spline_phases(dev, g) -> dict:
     return out
 
 
+def masked(gy, gld, keep):
+    """The cotangents with the rows where ``keep`` is False set to zero."""
+    return (gy, gld) if keep is None else (gy * keep[:, None], gld * keep)
+
+
+def check_vjp(what, vjp, ref, tol, spline=None) -> tuple:
+    """Run ``vjp()`` twice, hold it to ``ref`` (gx, grads) within tol *
+    max(1, max|ref|) and the rerun to bit-identity; returns the relative
+    error and its scale. A spline VJP passes ``spline = (rerun, params, x,
+    kind, n_bins, inverse)`` and is held to the spline rule
+    (``ops.spline.compare_spline_vjp``): where it misses the gate, the rows
+    with an element within float32 drift of a branch point of its spline
+    are left out, ``rerun(keep)`` giving (the kernel's VJP, the reference's)
+    with their cotangents zero; every row off the gate must be one of them."""
+    from nfmc_torch.ops import coupling as cops
+    from nfmc_torch.ops import spline as sops
+
+    got, again = vjp(), vjp()
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], again[0]) and all(
+        torch.equal(a, b) for a, b in zip(cops._leaves(got[1]), cops._leaves(again[1])))
+    if spline is None:
+        rel, scale, rows = cops.vjp_error(got, ref)
+        text = (f"max|diff| {rel * scale:.3e} (scale max(1, max|ref|) = {scale:.2f}, relative "
+                f"{rel:.2e}), rows of gx off the gate {int((rows > tol * scale).sum())}")
+    else:
+        rerun, params, x, kind, n_bins, inverse = spline
+        rel, scale, text = sops.compare_spline_vjp(got, ref, rerun, params, x, kind, n_bins,
+                                                   TAIL, inverse, tol)
+    print(f"{what}: {text}, bit-identical rerun {same}")
+    check(rel <= tol, f"{what} disagrees with the plain version (or is not finite): relative "
+                      f"{rel} > {tol}")
+    check(same, f"{what}: two launches gave different gradients")
+    return rel, scale
+
+
+def run_wide_realnvp(dev, g) -> None:
+    """Phase 3c: RealNVP at d=3000 and 3500, H=128 (a ring of 2 stages),
+    both directions and the VJP, against the plain version."""
+    from nfmc_torch.ops import coupling as ops
+
+    for d, rows in ((3000, 300), (3500, 100)):
+        params = perturbed_params(d, H, 2, seed=d, device=dev)
+        x, gy = (torch.randn((rows, d), generator=g, device=dev) for _ in range(2))
+        gld = torch.randn((rows,), generator=g, device=dev)
+        for inverse in (False, True):
+            wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
+            y, ld = wrapper(params, x, 3.0)
+            y_ref, ld_ref = ops.realnvp_stack_plain(params, x, 3.0, inverse)
+            torch.cuda.synchronize()
+            e = max((y - y_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
+            scale = max(1.0, ld_ref.abs().max().item())
+            print(f"wide coupling {'inverse' if inverse else 'forward'} d={d} H={H} L=2 B={rows}: "
+                  f"max|diff| {e:.3e} (max|ld| {ld_ref.abs().max().item():.2f})")
+            check(e <= TOL * scale, f"wide coupling kernel disagrees: {e} > {TOL} * {scale}")
+            check_vjp(f"wide coupling vjp {'inverse' if inverse else 'forward'} d={d} B={rows}",
+                      lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse),
+                      ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse), TOL)
+
+
+def run_wide_spline(dev, g) -> None:
+    """Phase 7d: c-rqnsf and c-lrsnsf at d=784 (a 28 x 28 image target) and
+    1024, H=128, L=4, K=8: forward, inverse and VJP against the plain
+    version; then a stack above the kernels' width limit, refused before
+    the launch with its bytes."""
+    from nfmc_torch.flows import CouplingRQNSF, Flow
+    from nfmc_torch.ops import build
+    from nfmc_torch.ops import coupling as cops
+    from nfmc_torch.ops import spline as sops
+
+    for kind in SPLINE_FLOWS:
+        for d, rows in ((784, 300), (1024, 40)):
+            params = spline_params(kind, d, H, L, N_BINS, seed=d, device=dev)
+            x = 3 * torch.randn((rows, d), generator=g, device=dev)
+            gy = torch.randn((rows, d), generator=g, device=dev)
+            gld = torch.randn((rows,), generator=g, device=dev)
+            for inverse in (False, True):
+                wrapper = getattr(sops, f"fused_{kind}_{'inverse' if inverse else 'forward'}")
+                y, ld = wrapper(params, x, N_BINS, TAIL)
+                y_ref, ld_ref = sops.spline_stack_plain(params, x, kind, N_BINS, TAIL, inverse)
+                torch.cuda.synchronize()
+                e = max((y - y_ref).abs().max().item(), (ld - ld_ref).abs().max().item())
+                scale = max(1.0, y_ref.abs().max().item(), ld_ref.abs().max().item())
+                print(f"wide spline {kind} {'inverse' if inverse else 'forward'} d={d} H={H} L={L} "
+                      f"K={N_BINS} B={rows}: max|diff| {e:.3e} (scale {scale:.2f})")
+                check(e <= TOL * scale, f"wide spline kernel disagrees: {e} > {TOL} * {scale}")
+                # the plain VJP in float64: its float32 run differs from it by
+                # more than the gate at d=784 (printed below; PERF.md)
+                p64 = [{k: [t.double() for t in v] for k, v in p.items()} for p in params]
+
+                def vjp(keep=None, inverse=inverse, params=params, x=x, gy=gy, gld=gld):
+                    return sops.fused_spline_vjp(params, x, *masked(gy, gld, keep), kind, N_BINS,
+                                                 TAIL, inverse)
+
+                def plain64(keep=None, inverse=inverse, p64=p64, x=x, gy=gy, gld=gld):
+                    return sops.spline_stack_vjp_plain(p64, x.double(), *masked(gy.double(),
+                                                                               gld.double(), keep),
+                                                       kind, N_BINS, TAIL, inverse)
+
+                ref = plain64()
+                f32 = sops.spline_stack_vjp_plain(params, x, gy, gld, kind, N_BINS, TAIL, inverse)
+                e32, scale, rows32 = cops.vjp_error(f32, ref)
+                n_off = int((rows32 > SPLINE_BWD_TOL * scale).sum())
+                print(f"wide spline plain vjp {kind} {'inverse' if inverse else 'forward'} d={d} "
+                      f"B={rows}: float32 against float64 max|diff| {e32 * scale:.3e} (relative "
+                      f"{e32:.2e}, rows of gx off the gate {n_off})")
+                check_vjp(f"wide spline vjp {kind} {'inverse' if inverse else 'forward'} d={d} "
+                          f"B={rows} (against the float64 plain version)", vjp, ref,
+                          SPLINE_BWD_TOL, (lambda keep, vjp=vjp, plain64=plain64: (vjp(keep),
+                                                                                 plain64(keep)),
+                                           params, x, kind, N_BINS, inverse))
+    d = 2800  # above the smallest tile's limit at H=128 (d = 2713)
+    flow = Flow(CouplingRQNSF((d,), n_layers=1, hidden_size=H, n_bins=N_BINS), seed=0).to(dev)
+    build.reset_launch_counts()
+    try:
+        flow.bijection.forward(torch.randn((2, d), device=dev))
+        fail(f"a spline stack at d={d} was not refused")
+    except ValueError as e:
+        print(f"wide spline d={d}: refused: {e}")
+        check(bool(re.search(r"needs \d+ bytes of shared memory", str(e))),
+              "the refusal does not name the bytes")
+    check(all(w.launches == 0 for w in build.WRAPPERS), "the refused stack counted a launch")
+
+
+def run_fault_checks(dev) -> None:
+    """Phase 9: the port's repaired faults on the card. Strided rows reach
+    the kernels as contiguous rows; a flow whose conditioners have 3 hidden
+    layers runs the plain stack (no kernel launch) while a depth-2 flow
+    launches; the statistics fold CUDA draws in as the JAX package does."""
+    from nfmc_torch.core.statistics import MCMCStatistics
+    from nfmc_torch.flows import CouplingRQNSF, Flow, RealNVP
+    from nfmc_torch.ops import build
+
+    big = torch.randn((C, D + 30), device=dev, generator=torch.Generator(dev).manual_seed(5))
+    view = big[:, :D]
+    for cls in (RealNVP, CouplingRQNSF):
+        flow = Flow(cls((D,), n_layers=L, hidden_size=H), seed=0).to(dev)
+        flow.params = [{k: [t + 0.01 for t in v] for k, v in p.items()} for p in flow.params]
+        same = torch.equal(flow.log_prob(view), flow.log_prob(view.contiguous()))
+        print(f"{cls.__name__}: log_prob of a column slice (strided) equals the contiguous rows': "
+              f"{same}")
+        check(same, f"{cls.__name__}: a strided input gave another log_prob")
+        for depth, want_launches in ((3, False), (2, True)):
+            f = Flow(cls((D,), n_layers=L, hidden_size=H, n_hidden_layers=depth), seed=0).to(dev)
+            build.reset_launch_counts()
+            lp = f.log_prob(view)
+            z = f.sample(C, seed=0)
+            torch.cuda.synchronize()
+            n = sum(w.launches for w in build.WRAPPERS)
+            print(f"{cls.__name__} with {depth} hidden layers on the card: {n} kernel launches, "
+                  f"finite {bool(torch.isfinite(lp).all() and torch.isfinite(z).all())}")
+            check(bool(torch.isfinite(lp).all() and torch.isfinite(z).all()),
+                  f"{cls.__name__} depth {depth}: non-finite output")
+            check((n > 0) == want_launches, f"{cls.__name__} depth {depth}: {n} kernel launches")
+    draws = torch.randn((3, C, D), device=dev, generator=torch.Generator(dev).manual_seed(6))
+    st = MCMCStatistics((D,), data_transform=lambda v: 2 * v)
+    st.expectations.update(draws)
+    want = (2 * draws.double()).mean((0, 1)).cpu().numpy()
+    e = float(np.abs(st.running_first_moment - want).max())
+    print(f"MCMCStatistics.expectations.update on CUDA draws (data_transform 2x): max|diff| {e:.2e}")
+    check(e <= 1e-12, "the statistics' update disagrees with the mean of the draws")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -700,6 +883,9 @@ def main() -> None:
             check(e_abs <= TOL * scale, f"backward kernel disagrees with the plain version: "
                                         f"{e_abs} > {TOL} * {scale}")
             check(same, "two launches of the backward kernel gave different gradients")
+
+    # ---- 3c. RealNVP at d=3000 and 3500 -------------------------------------------
+    run_wide_realnvp(dev, g)
 
     # ---- 4. chunk runner, card vs CPU, same draws ----------------------------------
     from nfmc_torch.flows import Flow, RealNVP
@@ -877,6 +1063,8 @@ def main() -> None:
     check(0.30 <= jacc <= 0.50, f"misfit jump acceptance {jacc} outside [0.30, 0.50]")
 
     spline = run_spline_phases(dev, g)
+    run_wide_spline(dev, g)
+    run_fault_checks(dev)
 
     kernels = []
     for inverse, rows in ((False, C), (True, OUTER * C)):

@@ -7,7 +7,7 @@ flush: once per run, or per chunk under a live progress bar.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -23,6 +23,20 @@ class MCMCExpectation:
     f: Callable = lambda v: v
     n_seen: int = 0
     running_value: np.ndarray | float = 0.0
+
+    def update(self, x) -> None:
+        """Fold in draws ``x`` shaped (iterations, chains, *event) or
+        (chains, *event), a torch tensor or an array, in float64."""
+        x = as_numpy(x)
+        if x.ndim == len(self.event_shape) + 1:
+            x = x[None]
+        elif x.ndim != len(self.event_shape) + 2:
+            raise ValueError(f"bad shape {x.shape} for event {self.event_shape}")
+        n_new = x.shape[0] * x.shape[1]
+        mean_new = np.mean(self.f(x.astype(np.float64)), axis=(0, 1))
+        total = self.n_seen + n_new
+        self.running_value = self.n_seen / total * self.running_value + n_new / total * mean_new
+        self.n_seen = total
 
     def update_from_sums(self, value_sum, n_new: int) -> None:
         """Fold in a pre-reduced sum of f(x) over (iterations x chains)."""
@@ -42,10 +56,25 @@ class MCMCExpectation:
 
 
 class MCMCExpectationDict:
-    """Named expectations."""
+    """Named expectations with a shared data transform, applied to the draws
+    before each expectation's ``f`` (NeuTra sets it)."""
 
-    def __init__(self, expectations: Dict[str, MCMCExpectation]):
+    def __init__(self, expectations: Dict[str, MCMCExpectation],
+                 data_transform: Callable = lambda v: v):
         self.expectations = expectations
+        self.data_transform = data_transform
+
+    def update(self, x) -> None:
+        x_t = self.data_transform(x)
+        for exp in self.expectations.values():
+            exp.update(x_t)
+
+    def reset(self) -> None:
+        for exp in self.expectations.values():
+            exp.reset()
+
+    def as_tensor(self):
+        return {k: v.as_tensor() for k, v in self.expectations.items()}
 
     def __getitem__(self, key):
         return self.expectations[key]
@@ -62,6 +91,7 @@ class MCMCStatistics:
     n_target_gradient_calls: int = 0
     n_target_calls: int = 0
     elapsed_time_seconds: float = 0.0
+    data_transform: Callable = field(default=lambda v: v)
     expectations: Optional[MCMCExpectationDict] = None
 
     def __post_init__(self):
@@ -71,7 +101,8 @@ class MCMCStatistics:
                 {
                     "first_moment": MCMCExpectation(self.event_shape, f=lambda v: v),
                     "second_moment": MCMCExpectation(self.event_shape, f=lambda v: v**2),
-                }
+                },
+                data_transform=self.data_transform,
             )
 
     def update_counters(self, n_accepted_trajectories: int = 0, n_attempted_trajectories: int = 0,

@@ -35,7 +35,8 @@
 // (R x K) . (K x N) tile product. The weights stream through a ring of
 // three 64 x 128 shared-memory slabs (34 KB each) with cp.async, two slabs
 // ahead of the FMAs and across products and layers, so no FMA waits on an
-// L2 load of its own; the next layer's biases come the same way. Each
+// L2 load of its own; the next layer's hidden biases come the same way (the
+// output layer's are read from L2 in its epilogue). Each
 // thread sums an 8-row x 4-column register tile: per 4 k it reads 12 float4
 // from shared memory for 128 FMAs. Below R=64 the 64 / R warps of a row
 // group split each slab's k, and their partial tiles are summed in a fixed
@@ -43,10 +44,12 @@
 // columns (64 transformed dims) at a time; after each chunk a pass over
 // (row, dim) applies the shift and clamped log-scale, and one warp a row
 // adds the chunk's log-scales to the row's log-det, in a fixed order.
-// Shared memory a block: (R (perm_width(d) + 2 max(H, 128) + 1) +
-// 2 (2 round4(H) + round4(d + 1)) + 64 * 128 (split-k, R < 64) +
-// 3 * 128 * 68) * 4 bytes: 148 KB at R=8, 195 KB at R=64 for d=100, H=128,
-// so one block an SM; a tile of 8 rows fits up to d = 2121 at H=128. R is
+// Shared memory a block (coupling_tile.cuh::tile_shared_bytes):
+// (R (perm_width(d) + 2 max(H, 128) + 1) + 4 round4(H) + 64 * 128 (split-k,
+// R < 64) + S * 128 * 68) * 4 bytes with a ring of S = 3 stages: 147 KB at
+// R=8, 194 KB at R=64 for d=100, H=128, so one block an SM. A tile of 8 rows
+// fits up to d = 2649 at H=128 with 3 stages; wider stacks run a ring of 2
+// stages, up to d = 3737 (H=128), 2777 (H=512) or 1497 (H=1024). R is
 // 8 or 32, the smaller whose blocks all run at once, else 64: on the
 // H100's 132 SMs, B=100 and 256 take R=8 (13 and 32 blocks), B=3000 R=32
 // (94 blocks), B=218,400 R=64 (3413 blocks, where arithmetic, not latency,
@@ -66,15 +69,15 @@ template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
 coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts,
                       float* __restrict__ y, float* __restrict__ ld_out, int B, int d, int H,
-                      int L, float clamp, int inverse) {
+                      int L, float clamp, int inverse, int stages) {
   extern __shared__ float smem[];
   const int xs = perm_width(d), aw = act_width(H), odd = perm_slot(1, d);
   float* x_s = smem;          // R x xs: the rows' state, [even | odd]
   float* ha = x_s + R * xs;   // R x aw: h1, then a chunk of the raw output
   float* hb = ha + R * aw;    // R x aw: h2
   float* ld_s = hb + R * aw;  // R: the log-dets
-  const int bw = bias_floats(d, H);
-  float* bias_s = ld_s + R;   // 2 x bw: the biases of this layer and the next
+  const int bw = bias_floats(H);
+  float* bias_s = ld_s + R;   // 2 x bw: the hidden biases of this layer and the next
   float* red = bias_s + 2 * bw;  // split-k partial tiles
   // per layer in the order of application: W1 (da, H), W2 (H, H), W3 (H, 2 db)
   auto sched = [=](int q) {
@@ -88,10 +91,9 @@ coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts
   };
   auto biases = [&](int step) {  // of layer step, into buffer step % 2
     const int l = inverse ? L - 1 - step : step;
-    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), d - cond_size(l, d), H,
-                bias_s + (step % 2) * bw);
+    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), H, bias_s + (step % 2) * bw);
   };
-  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, 3 * L};
+  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, 3 * L, stages};
   biases(0);
   ws.start();
 
@@ -112,7 +114,7 @@ coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts
     const int db = d - da;
     const float* b1 = bias_s + (step % 2) * bw;
     const float* b2 = b1 + round4(H);
-    const float* b3 = b2 + round4(H);
+    const float* b3 = wts + layer_offset(l, d, H) + (size_t)(da + H + 2) * H + (size_t)H * 2 * db;
     float* vb_s = x_s + (parity ? 0 : odd);  // transformed dim j at slot j
 
     __syncthreads();
@@ -125,7 +127,8 @@ coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts
     // log-scale) pair; the log-scale replaces the raw value, and each row's
     // log-det gains the chunk's sum
     tile_gemm<R>(
-        ws, hb, aw, red, [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + b3[n]; },
+        ws, hb, aw, red,
+        [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + __ldg(b3 + n); },
         [&](int n0) {
           const int j0 = n0 / 2, nj = min(kChunkN / 2, db - j0);
           for (int e = threadIdx.x; e < R * nj; e += kThreads) {
@@ -152,30 +155,25 @@ coupling_stack_kernel(const float* __restrict__ x, const float* __restrict__ wts
   if (threadIdx.x < n_rows) ld_out[row0 + threadIdx.x] = ld_s[threadIdx.x];
 }
 
-size_t shared_bytes(int rows, int d, int H) {
-  return ((size_t)rows * (perm_width(d) + 2 * act_width(H) + 1) + 2 * bias_floats(d, H) +
-          red_floats(rows) + ring_floats()) * sizeof(float);
-}
-
 template <int R>
 int launch(const float* x, const float* w, float* y, float* ld, int B, int d, int H, int L,
-           float clamp, int inverse, cudaStream_t stream) {
-  const size_t smem = shared_bytes(R, d, H);
+           float clamp, int inverse, int stages, cudaStream_t stream) {
+  const size_t smem = tile_shared_bytes(R, stages, d, H);
   const cudaError_t err = cudaFuncSetAttribute(
       coupling_stack_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((B + R - 1) / R);
-  coupling_stack_kernel<R><<<grid, kThreads, smem, stream>>>(x, w, y, ld, B, d, H, L, clamp,
-                                                              inverse);
+  coupling_stack_kernel<R><<<grid, kThreads, smem, stream>>>(
+      x, w, y, ld, B, d, H, L, clamp, inverse, stages);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared bytes a block of the smallest row tile (8 rows) needs: above
-// 232448 the launcher refuses with kErrTileTooLarge.
+// Shared bytes a block of the smallest tile (8 rows, a ring of 2 stages)
+// needs: above 232448 the launcher refuses with kErrTileTooLarge.
 extern "C" long long nfmc_coupling_tile_bytes(int d, int H) {
-  return (long long)shared_bytes(8, d, H);
+  return (long long)tile_shared_bytes(8, 2, d, H);
 }
 
 // Returns a cudaError_t: 0 when the launch was accepted, kErrTileTooLarge
@@ -194,10 +192,12 @@ extern "C" int nfmc_coupling_stack(const void* x, const void* weights, void* y,
   int n_sm = 0;
   const cudaError_t err = sm_count(&n_sm);
   if (err != cudaSuccess) return (int)err;
-  switch (row_tile(B, n_sm, [&](int rows) { return shared_bytes(rows, d, H); })) {
-    case 64: return launch<64>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
-    case 32: return launch<32>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
-    case 8: return launch<8>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, s);
+  const TileConfig t = row_tile(
+      B, n_sm, [&](int rows, int stages) { return tile_shared_bytes(rows, stages, d, H); });
+  switch (t.rows) {
+    case 64: return launch<64>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, t.stages, s);
+    case 32: return launch<32>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, t.stages, s);
+    case 8: return launch<8>(xf, wf, yf, lf, B, d, H, L, clamp, inverse, t.stages, s);
   }
   return kErrTileTooLarge;
 }

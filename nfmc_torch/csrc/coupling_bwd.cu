@@ -46,13 +46,18 @@
 // (the transposed products copy W along its rows, which are contiguous, and
 // store the slab [n][k] with a row of 68 floats: conflict-free float4 reads
 // along k). Each thread sums an 8 x 4 register tile; below R=64 the warps
-// of a row group split k and sum their partials in a fixed order. The
-// state and its cotangent (R x max(perm_width(d), round4(d + 1)) each, in
-// the [even | odd] layout; in the backward the state buffer holds a layer's
-// g_raw of 2 db <= d + 1) and two activation buffers (R x max(H, 128)) stay
-// in shared memory, and the recompute's output layer is applied 128
-// columns at a time, as in coupling.cu: 151 KB a block at R=8, 221 KB at
-// R=64 for d=100, H=128; a tile of 8 rows fits up to d = 1177 at H=128. R
+// of a row group split k and sum their partials in a fixed order. One
+// buffer holds the state in the recompute and its cotangent after it
+// (R x perm_width(d), the [even | odd] layout); two activation buffers
+// (R x max(H, 128)) hold h1 and h2, a chunk of the conditioner output, and
+// in the backward a chunk of g_raw, g_a2 and g_a1. The recompute's output
+// layer is applied 128 columns at a time, as in coupling.cu, and the
+// backward's W3^T takes g_raw 128 columns at a time, each chunk's product
+// added to the sum of those before it in order (one product where
+// 2 db <= 128, as at d=100). Shared memory as coupling.cu's
+// (coupling_tile.cuh::tile_shared_bytes): 147 KB a block at R=8, 194 KB at
+// R=64 for d=100, H=128; a tile of 8 rows fits up to d = 2649 at H=128 with
+// a ring of 3 stages, 3737 with 2. R
 // as in coupling.cu: the training batch of 256 takes R=8, 32 blocks. The
 // weights kernel (2. above) takes about a tenth of the time at B=256
 // (chip_smoke.py phase 3b prints the split).
@@ -83,10 +88,11 @@ __host__ __device__ inline size_t stash_offset(int l, int q, long long B, int d,
   return off;
 }
 
-// Floats of a row's state (and of its cotangent) in shared memory: the
-// [even | odd] layout, or a layer's g_raw (2 db <= d + 1) if wider.
-__host__ __device__ inline int state_width(int d) {
-  return perm_width(d) > round4(d + 1) ? perm_width(d) : round4(d + 1);
+// Column chunks of layer l's conditioner output (2 db columns): 128 columns
+// (64 transformed dims) each. The recompute applies them one at a time, and
+// the backward's W3^T takes g_raw one chunk at a time.
+__host__ __device__ inline int out_chunks(int l, int d) {
+  return (2 * (d - cond_size(l, d)) + kChunkN - 1) / kChunkN;
 }
 
 // One block an SM, as in coupling.cu: up to 255 registers a thread.
@@ -95,54 +101,66 @@ __global__ void __launch_bounds__(kThreads, 1)
 coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                          const float* __restrict__ gld, const float* __restrict__ wts,
                          float* __restrict__ gx, float* stash, int B, int d, int H,
-                         int L, float clamp, int inverse) {
+                         int L, float clamp, int inverse, int stages) {
   extern __shared__ float smem[];
-  const int xs = state_width(d), aw = act_width(H), odd = perm_slot(1, d);
-  float* x_s = smem;           // R x xs: the state, [even | odd]; in the backward, g_raw
-  float* g_s = x_s + R * xs;   // R x xs: the cotangent of the state, [even | odd]
-  float* ha = g_s + R * xs;    // R x aw: h1, a chunk of the raw output; g_a2
-  float* hb = ha + R * aw;     // R x aw: h2; g_a1
+  const int xs = perm_width(d), aw = act_width(H), odd = perm_slot(1, d);
+  float* x_s = smem;           // R x xs: the state, [even | odd]; after the
+                               // recompute, its cotangent
+  float* ha = x_s + R * xs;    // R x aw: h1, a chunk of the raw output; a chunk of g_raw, g_a1
+  float* hb = ha + R * aw;     // R x aw: h2; g_a2
   float* gl = hb + R * aw;     // R: the log-det cotangent
-  const int bw = bias_floats(d, H);
-  float* bias_s = gl + R;      // 2 x bw: the biases of this layer and the next
+  const int bw = bias_floats(H);
+  float* bias_s = gl + R;      // 2 x bw: the hidden biases of this layer and the next
   float* red = bias_s + 2 * bw;  // split-k partial tiles
   // the recompute's W1, W2, W3 per layer in the order of application, then
-  // the backward's W3^T, W2^T, W1^T per layer in the reverse order
+  // per layer in the reverse order the backward's W3^T (one product a
+  // 128-column chunk of g_raw), W2^T, W1^T
   auto sched = [=](int q) {
-    const int step = q < 3 * L ? q / 3 : L - 1 - (q - 3 * L) / 3;
+    int step, kind;  // 0, 1, 2: W1, W2, W3; 3 + c: W3^T chunk c; then W2^T, W1^T
+    if (q < 3 * L) {
+      step = q / 3;
+      kind = q % 3;
+    } else {
+      q -= 3 * L;
+      for (step = L - 1; step > 0; --step) {
+        const int n = out_chunks(inverse ? L - 1 - step : step, d) + 2;
+        if (q < n) break;
+        q -= n;
+      }
+      kind = 3 + q;
+    }
     const int l = inverse ? L - 1 - step : step;
     const int da = cond_size(l, d);
     const float* w1 = wts + layer_offset(l, d, H);
     const float* w2 = w1 + (size_t)da * H + H;
     const float* w3 = w2 + (size_t)H * H + H;
-    const int db2 = 2 * (d - da);
-    switch (q < 3 * L ? q % 3 : 3 + (q - 3 * L) % 3) {
-      case 0: return Gemm{w1, da, H, false};
-      case 1: return Gemm{w2, H, H, false};
-      case 2: return Gemm{w3, H, db2, false};
-      case 3: return Gemm{w3, db2, H, true};
-      case 4: return Gemm{w2, H, H, true};
-      default: return Gemm{w1, H, da, true};
+    const int db2 = 2 * (d - da), nch = out_chunks(l, d);
+    if (kind == 0) return Gemm{w1, da, H, false};
+    if (kind == 1) return Gemm{w2, H, H, false};
+    if (kind == 2) return Gemm{w3, H, db2, false};
+    if (kind < 3 + nch) {
+      const int c0 = (kind - 3) * kChunkN;
+      return Gemm{w3 + c0, min(kChunkN, db2 - c0), H, true, db2};
     }
+    if (kind == 3 + nch) return Gemm{w2, H, H, true};
+    return Gemm{w1, H, da, true};
   };
+  int n_gemms = 3 * L;
+  for (int l = 0; l < L; ++l) n_gemms += out_chunks(l, d) + 2;
   auto biases = [&](int step) {  // of recompute layer step, into buffer step % 2
     const int l = inverse ? L - 1 - step : step;
-    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), d - cond_size(l, d), H,
-                bias_s + (step % 2) * bw);
+    copy_biases(wts + layer_offset(l, d, H), cond_size(l, d), H, bias_s + (step % 2) * bw);
   };
-  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, 6 * L};
+  WeightStream<decltype(sched)> ws{red + red_floats(R), sched, n_gemms, stages};
   biases(0);
   ws.start();
 
   const long long row0 = (long long)blockIdx.x * R;
   const int n_rows = (int)min((long long)R, (long long)B - row0);
-  for (int e = threadIdx.x; e < R * (2 * xs + 2 * aw + 1); e += kThreads) smem[e] = 0.f;
+  for (int e = threadIdx.x; e < R * (xs + 2 * aw + 1); e += kThreads) smem[e] = 0.f;
   __syncthreads();
-  for (int e = threadIdx.x; e < n_rows * d; e += kThreads) {
-    const int at = (e / d) * xs + perm_slot(e % d, d);
-    x_s[at] = x[row0 * d + e];
-    g_s[at] = gy[row0 * d + e];
-  }
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    x_s[(e / d) * xs + perm_slot(e % d, d)] = x[row0 * d + e];
   if (threadIdx.x < n_rows) gl[threadIdx.x] = gld[row0 + threadIdx.x];
 
   // ---- forward recompute, stashing what the backward and kernel 2 read ----
@@ -154,7 +172,7 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
     const int n_out = 2 * db;
     const float* b1 = bias_s + (step % 2) * bw;
     const float* b2 = b1 + round4(H);
-    const float* b3 = b2 + round4(H);
+    const float* b3 = wts + layer_offset(l, d, H) + (size_t)(da + H + 2) * H + (size_t)H * n_out;
     float* xin = stash + stash_offset(l, 0, B, d, H);
     float* h1g = stash + stash_offset(l, 1, B, d, H);
     float* h2g = stash + stash_offset(l, 2, B, d, H);
@@ -178,7 +196,8 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
     // the conditioner output 128 columns a chunk, as in coupling.cu: the
     // affine update of transformed dim j, stashing (t_j, s_j)
     tile_gemm<R>(
-        ws, hb, aw, red, [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + b3[n]; },
+        ws, hb, aw, red,
+        [&](int r, int n, float v) { ha[r * aw + n % kChunkN] = v + __ldg(b3 + n); },
         [&](int n0) {
           const int j0 = n0 / 2, nj = min(kChunkN / 2, db - j0);
           for (int e = threadIdx.x; e < R * nj; e += kThreads) {
@@ -196,14 +215,20 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
         });
   }
 
+  // the state is not needed any more: its buffer takes the cotangent
+  for (int e = threadIdx.x; e < R * xs; e += kThreads) x_s[e] = 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    x_s[(e / d) * xs + perm_slot(e % d, d)] = gy[row0 * d + e];
+
   // ---- backward, layers in the reverse order of application ----------------
-  float* graw_s = x_s;  // the state is not needed any more
   for (int step = L - 1; step >= 0; --step) {
     const int l = inverse ? L - 1 - step : step;
     const int parity = l % 2;
     const int da = cond_size(l, d);
     const int db = d - da;
     const int n_out = 2 * db;
+    const int nch = out_chunks(l, d);
     const float* xin = stash + stash_offset(l, 0, B, d, H);
     const float* h1g = stash + stash_offset(l, 1, B, d, H);
     const float* h2g = stash + stash_offset(l, 2, B, d, H);
@@ -211,70 +236,77 @@ coupling_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ 
     float* ga1g = stash + stash_offset(l, 4, B, d, H);
     float* ga2g = stash + stash_offset(l, 5, B, d, H);
     float* grawg = stash + stash_offset(l, 6, B, d, H);
-    float* gvb_s = g_s + (parity ? 0 : odd);  // the transformed half's cotangent
-    float* gva_s = g_s + (parity ? odd : 0);  // the conditioning half's
+    float* gvb_s = x_s + (parity ? 0 : odd);  // the transformed half's cotangent
+    float* gva_s = x_s + (parity ? odd : 0);  // the conditioning half's
 
-    // through the affine map and the soft clamp, per (row, transformed dim);
-    // rows past B get a zero g_raw
-    __syncthreads();
-    for (int e = threadIdx.x; e < R * db; e += kThreads) {
-      const int r = e / db, j = e % db;
-      float g_t = 0.f, g_u = 0.f;
-      if (r < n_rows) {
-        const long long row = row0 + r;
-        const float t = tsg[row * n_out + 2 * j];
-        const float s = tsg[row * n_out + 2 * j + 1];
-        const float ls = clamp * s;
-        const float vb = xin[row * d + 2 * j + 1 - parity];
-        const float g_vbn = gvb_s[r * xs + j];
-        float g_ls, g_vb;
-        if (inverse) {
-          const float ex = expf(ls);
-          g_t = g_vbn;
-          g_ls = g_vbn * vb * ex + gl[r];
-          g_vb = g_vbn * ex;
-        } else {
-          const float em = expf(-ls);
-          const float vb_new = (vb - t) * em;
-          g_vb = g_vbn * em;
-          g_t = -g_vbn * em;
-          g_ls = -g_vbn * vb_new - gl[r];
+    for (int c = 0; c < nch; ++c) {
+      // through the affine map and the soft clamp, per (row, transformed dim)
+      // of the chunk: g_raw into ha; rows past B get a zero g_raw
+      const int j0 = c * (kChunkN / 2), nj = min(kChunkN / 2, db - j0);
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * nj; e += kThreads) {
+        const int r = e / nj, jj = e % nj, j = j0 + jj;
+        float g_t = 0.f, g_u = 0.f;
+        if (r < n_rows) {
+          const long long row = row0 + r;
+          const float t = tsg[row * n_out + 2 * j];
+          const float s = tsg[row * n_out + 2 * j + 1];
+          const float ls = clamp * s;
+          const float vb = xin[row * d + 2 * j + 1 - parity];
+          const float g_vbn = gvb_s[r * xs + j];
+          float g_ls, g_vb;
+          if (inverse) {
+            const float ex = expf(ls);
+            g_t = g_vbn;
+            g_ls = g_vbn * vb * ex + gl[r];
+            g_vb = g_vbn * ex;
+          } else {
+            const float em = expf(-ls);
+            const float vb_new = (vb - t) * em;
+            g_vb = g_vbn * em;
+            g_t = -g_vbn * em;
+            g_ls = -g_vbn * vb_new - gl[r];
+          }
+          g_u = g_ls * (1.f - s * s);
+          grawg[row * n_out + 2 * j] = g_t;
+          grawg[row * n_out + 2 * j + 1] = g_u;
+          gvb_s[r * xs + j] = g_vb;
         }
-        g_u = g_ls * (1.f - s * s);
-        grawg[row * n_out + 2 * j] = g_t;
-        grawg[row * n_out + 2 * j + 1] = g_u;
-        gvb_s[r * xs + j] = g_vb;
+        ha[r * aw + 2 * jj] = g_t;
+        ha[r * aw + 2 * jj + 1] = g_u;
       }
-      graw_s[r * xs + 2 * j] = g_t;
-      graw_s[r * xs + 2 * j + 1] = g_u;
+      // g_a2 = (g_raw W3^T) (1 - h2^2): each chunk's product added to the
+      // chunks' before it, in order; the last one applies the factor
+      tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) {
+        float g = c == 0 ? v : hb[r * aw + n] + v;
+        if (c == nch - 1) {
+          float sum = g;
+          g = 0.f;
+          if (r < n_rows) {
+            const float h = h2g[(row0 + r) * H + n];
+            g = sum * (1.f - h * h);
+            ga2g[(row0 + r) * H + n] = g;
+          }
+        }
+        hb[r * aw + n] = g;
+      });
     }
-
-    // g_a2 = (g_raw W3^T) (1 - h2^2)
-    tile_gemm<R>(ws, graw_s, xs, red, [&](int r, int n, float v) {
-      float g = 0.f;
-      if (r < n_rows) {
-        const float h = h2g[(row0 + r) * H + n];
-        g = v * (1.f - h * h);
-        ga2g[(row0 + r) * H + n] = g;
-      }
-      ha[r * aw + n] = g;
-    });
     // g_a1 = (g_a2 W2^T) (1 - h1^2)
-    tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) {
+    tile_gemm<R>(ws, hb, aw, red, [&](int r, int n, float v) {
       float g = 0.f;
       if (r < n_rows) {
         const float h = h1g[(row0 + r) * H + n];
         g = v * (1.f - h * h);
         ga1g[(row0 + r) * H + n] = g;
       }
-      hb[r * aw + n] = g;
+      ha[r * aw + n] = g;
     });
     // g_va = g_a1 W1^T, added into the conditioning half
-    tile_gemm<R>(ws, hb, aw, red, [&](int r, int m, float v) { gva_s[r * xs + m] += v; });
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int m, float v) { gva_s[r * xs + m] += v; });
   }
 
   for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
-    gx[row0 * d + e] = g_s[(e / d) * xs + perm_slot(e % d, d)];
+    gx[row0 * d + e] = x_s[(e / d) * xs + perm_slot(e % d, d)];
 }
 
 // One tile of one weight gradient: grid.y = 3 L jobs (per layer W1, W2, W3
@@ -321,23 +353,17 @@ coupling_vjp_weights_kernel(const float* __restrict__ stash, float* __restrict__
                    blockIdx.x / tiles_n, blockIdx.x % tiles_n);
 }
 
-size_t rows_shared_bytes(int rows, int d, int H) {
-  const size_t per_row = 2 * (size_t)state_width(d) + 2 * act_width(H) + 1;
-  return ((size_t)rows * per_row + 2 * bias_floats(d, H) + red_floats(rows) + ring_floats()) *
-         sizeof(float);
-}
-
 template <int R>
 int launch_rows(const float* x, const float* gy, const float* gld, const float* w,
                 float* gx, float* stash, int B, int d, int H, int L, float clamp,
-                int inverse, cudaStream_t stream) {
-  const size_t smem = rows_shared_bytes(R, d, H);
+                int inverse, int stages, cudaStream_t stream) {
+  const size_t smem = tile_shared_bytes(R, stages, d, H);
   const cudaError_t err = cudaFuncSetAttribute(
       coupling_vjp_rows_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((B + R - 1) / R);
   coupling_vjp_rows_kernel<R><<<grid, kThreads, smem, stream>>>(
-      x, gy, gld, w, gx, stash, B, d, H, L, clamp, inverse);
+      x, gy, gld, w, gx, stash, B, d, H, L, clamp, inverse, stages);
   return (int)cudaGetLastError();
 }
 
@@ -348,10 +374,11 @@ extern "C" long long nfmc_coupling_vjp_scratch_floats(int B, int d, int H, int L
   return (long long)stash_offset(L, 0, B, d, H);
 }
 
-// Shared bytes a block of the rows kernel's smallest row tile (8 rows)
-// needs: above 232448 the launcher refuses with kErrTileTooLarge.
+// Shared bytes a block of the rows kernel's smallest tile (8 rows, a ring
+// of 2 stages) needs: above 232448 the launcher refuses with
+// kErrTileTooLarge.
 extern "C" long long nfmc_coupling_vjp_tile_bytes(int d, int H) {
-  return (long long)rows_shared_bytes(8, d, H);
+  return (long long)tile_shared_bytes(8, 2, d, H);
 }
 
 // Returns a cudaError_t: 0 when both launches were accepted,
@@ -376,10 +403,18 @@ extern "C" int nfmc_coupling_stack_vjp(const void* x, const void* gy, const void
   const cudaError_t cerr = sm_count(&n_sm);
   if (cerr != cudaSuccess) return (int)cerr;
   int err;
-  switch (row_tile(B, n_sm, [&](int rows) { return rows_shared_bytes(rows, d, H); })) {
-    case 64: err = launch_rows<64>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
-    case 32: err = launch_rows<32>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
-    case 8: err = launch_rows<8>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, s); break;
+  const TileConfig t = row_tile(
+      B, n_sm, [&](int rows, int stages) { return tile_shared_bytes(rows, stages, d, H); });
+  switch (t.rows) {
+    case 64:
+      err = launch_rows<64>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, t.stages, s);
+      break;
+    case 32:
+      err = launch_rows<32>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, t.stages, s);
+      break;
+    case 8:
+      err = launch_rows<8>(xf, gyf, gldf, wf, gxf, st, B, d, H, L, clamp, inverse, t.stages, s);
+      break;
     default: return kErrTileTooLarge;
   }
   if (err != 0) return err;

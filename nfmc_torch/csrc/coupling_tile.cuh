@@ -19,7 +19,14 @@
 // memory (L2) into a ring of kStages = 3 shared-memory stages (34 KB each)
 // with cp.async (16-byte copies where W is aligned), kStages - 1 slabs ahead
 // of the FMAs, across product and layer boundaries. A slab costs one block
-// barrier.
+// barrier. Where a tile of 8 rows does not fit a block with 3 stages (wide
+// stacks), the launchers run a ring of 2 stages, one slab ahead
+// (row_tile). A product may take a block of columns of a wider matrix
+// (Gemm::ld, the row stride of W): the output layer's columns one chunk at
+// a time, each chunk a product of its own. A product whose reduction dim
+// is the output layer's (the backward's W3^T) then runs one chunk of its
+// left operand at a time, each chunk's epilogue adding into the sum of the
+// chunks before it, in the chunks' order.
 //   normal      out[r][n] = sum_k A[r][k] W[k][n],  W (K, N) row-major;
 //               stored [k][n], a row of 128 floats;
 //   transposed  out[r][n] = sum_k A[r][k] W[n][k],  W (N, K) row-major
@@ -51,7 +58,7 @@ constexpr int kSlabK = 64;                          // reduction rows a slab
 constexpr int kChunkN = 128;                        // output columns a slab
 constexpr int kTStride = kSlabK + 4;                // row of a transposed slab
 constexpr int kStageFloats = kChunkN * kTStride;    // 8704 (a normal slab: 8192)
-constexpr int kStages = 3;                          // ring depth
+constexpr int kStages = 3;                          // ring depth (2 for wide stacks)
 constexpr int kRedFloats = 64 * kChunkN;            // split-k partial tiles
 constexpr size_t kMaxSharedBytes = 232448;          // 227 KB a block can opt into
 // What a launcher returns, before launching, when not even a tile of 8 rows
@@ -61,16 +68,22 @@ constexpr int kErrTileTooLarge = cudaErrorInvalidConfiguration;
 
 __host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
-// One product's weights: W (K, N) row-major, or (N, K) when trans.
+// One product's weights: W (K, N) row-major, or (N, K) when trans, each row
+// ld floats apart (0: dense, N or K); a block of columns of a wider matrix
+// has the wider matrix's row stride.
 struct Gemm {
   const float* W;
   int K, N;
   bool trans;
+  int ld = 0;
+  __host__ __device__ int stride() const { return ld ? ld : (trans ? K : N); }
 };
 
 // Copy slab (k0, n0) of g into a stage; elements outside (K, N) are zeroed.
 __device__ __forceinline__ void copy_slab(const Gemm& g, int k0, int n0, float* stage) {
-  const bool vec = reinterpret_cast<size_t>(g.W) % 16 == 0 && (g.trans ? g.K : g.N) % 4 == 0;
+  const size_t ld = g.stride();
+  const bool vec = reinterpret_cast<size_t>(g.W) % 16 == 0 && ld % 4 == 0 &&
+                   (g.trans ? g.K : g.N) % 4 == 0;
   if (vec) {
     for (int e = threadIdx.x; e < kSlabK * kChunkN / 4; e += kThreads) {
       const int kk = g.trans ? (e % (kSlabK / 4)) * 4 : e / (kChunkN / 4);
@@ -78,7 +91,7 @@ __device__ __forceinline__ void copy_slab(const Gemm& g, int k0, int n0, float* 
       const int k = k0 + kk, n = n0 + nn;
       float* dst = stage + (g.trans ? nn * kTStride + kk : kk * kChunkN + nn);
       if (k < g.K && n < g.N)
-        __pipeline_memcpy_async(dst, g.W + (g.trans ? (size_t)n * g.K + k : (size_t)k * g.N + n), 16);
+        __pipeline_memcpy_async(dst, g.W + (g.trans ? n * ld + k : k * ld + n), 16);
       else
         *reinterpret_cast<float4*>(dst) = float4{0.f, 0.f, 0.f, 0.f};
     }
@@ -89,7 +102,7 @@ __device__ __forceinline__ void copy_slab(const Gemm& g, int k0, int n0, float* 
       const int k = k0 + kk, n = n0 + nn;
       float* dst = stage + (g.trans ? nn * kTStride + kk : kk * kChunkN + nn);
       if (k < g.K && n < g.N)
-        __pipeline_memcpy_async(dst, g.W + (g.trans ? (size_t)n * g.K + k : (size_t)k * g.N + n), 4);
+        __pipeline_memcpy_async(dst, g.W + (g.trans ? n * ld + k : k * ld + n), 4);
       else
         *dst = 0.f;
     }
@@ -100,13 +113,15 @@ __device__ __forceinline__ void copy_slab(const Gemm& g, int k0, int n0, float* 
 // kernel (q < n_gemms). Every thread of the block holds the same state.
 template <class Schedule>
 struct WeightStream {
-  float* ring;  // kStages * kStageFloats floats of shared memory, 16-byte aligned
+  float* ring;  // stages * kStageFloats floats of shared memory, 16-byte aligned
   Schedule sched;
   int n_gemms;
+  int stages;  // 3, or 2 (wide stacks)
   int q = -1;  // the product being issued, its geometry and next slab
   Gemm cur{nullptr, 0, 0, false};
   int k_slabs = 0, kt = 0, nt = 0;
-  int issued = 0, consumed = 0, gemms_consumed = 0;
+  int issue_slot = 0, read_slot = 0;  // the ring's stages to fill and to read next
+  int gemms_consumed = 0;
 
   // Issue the next slab, if any, as one cp.async group (an empty group
   // after the last, so that the groups stay counted).
@@ -122,25 +137,28 @@ struct WeightStream {
       }
     }
     if (q < n_gemms) {
-      copy_slab(cur, kt * kSlabK, nt * kChunkN, ring + (issued % kStages) * kStageFloats);
+      copy_slab(cur, kt * kSlabK, nt * kChunkN, ring + issue_slot * kStageFloats);
       ++kt;
     }
     __pipeline_commit();
-    ++issued;
+    issue_slot = issue_slot + 1 == stages ? 0 : issue_slot + 1;
   }
 
   __device__ __forceinline__ void start() {
-    for (int s = 0; s < kStages - 1; ++s) issue();
+    for (int s = 0; s < stages - 1; ++s) issue();
   }
 
   // The stage holding the next slab, once every thread's copies of it have
   // landed; refills the stage consumed before it, which every thread has
   // finished reading by the barrier.
   __device__ __forceinline__ const float* next() {
-    __pipeline_wait_prior(kStages - 2);
+    if (stages == 3)
+      __pipeline_wait_prior(1);
+    else
+      __pipeline_wait_prior(0);
     __syncthreads();
-    const float* stage = ring + (consumed % kStages) * kStageFloats;
-    ++consumed;
+    const float* stage = ring + read_slot * kStageFloats;
+    read_slot = read_slot + 1 == stages ? 0 : read_slot + 1;
     issue();
     return stage;
   }
@@ -252,28 +270,24 @@ __device__ __forceinline__ void tile_gemm(Stream& ws, const float* a_s, int lda,
   __syncthreads();
 }
 
-// Floats of a layer's biases (b1, b2, b3, each from a 16-byte boundary).
-__host__ __device__ inline int bias_floats(int d, int H) { return 2 * round4(H) + round4(d + 1); }
+// Floats of a layer's hidden biases in shared memory (b1, b2, each from a
+// 16-byte boundary); the output layer's b3 is read from device memory (L2)
+// in its epilogue, so that its width does not cost shared memory.
+__host__ __device__ inline int bias_floats(int H) { return 2 * round4(H); }
 
-// Copy the biases of the layer at weights w1 (da x H) into dst with
+// Copy the hidden biases of the layer at weights w1 (da x H) into dst with
 // cp.async. They join the next cp.async group the stream commits, which
-// has landed once the stream has consumed kStages - 1 more slabs: before
+// has landed once the stream has consumed stages - 1 more slabs: before
 // the epilogue of the next layer's first product when they are issued at
 // the start of a layer for the next one.
-__device__ __forceinline__ void copy_biases(const float* w1, int da, int db, int H, float* dst) {
+__device__ __forceinline__ void copy_biases(const float* w1, int da, int H, float* dst) {
   const float* b1 = w1 + (size_t)da * H;
   const float* b2 = b1 + H + (size_t)H * H;
-  const float* b3 = b2 + H + (size_t)H * 2 * db;
   for (int e = threadIdx.x; e < H; e += kThreads) {
     __pipeline_memcpy_async(dst + e, b1 + e, 4);
     __pipeline_memcpy_async(dst + round4(H) + e, b2 + e, 4);
   }
-  for (int e = threadIdx.x; e < 2 * db; e += kThreads)
-    __pipeline_memcpy_async(dst + 2 * round4(H) + e, b3 + e, 4);
 }
-
-// Shared floats of the weight ring.
-__host__ __device__ inline size_t ring_floats() { return (size_t)kStages * kStageFloats; }
 
 // Width of the activation buffers: H, or one column chunk of the output
 // layer's raw values if wider.
@@ -289,20 +303,39 @@ __host__ __device__ __forceinline__ int perm_slot(int i, int d) {
 // Shared floats of the split-k partial tiles a block of R rows needs.
 __host__ __device__ inline size_t red_floats(int rows) { return rows < 64 ? kRedFloats : 0; }
 
-// Rows a block for B rows on a card of n_sm SMs: 8 or 32, the smaller whose
-// blocks all run at once, one an SM (the fewer rows a block, the shorter
-// its chain of products), else 64 (the most FMAs for each weight read);
-// only tiles whose shared memory (bytes(rows)) fits a block. 0 if none
+// Shared bytes of a block of `rows` rows with a ring of `stages` stages, in
+// the layout every kernel on this engine keeps: per row the state
+// (perm_width(d): the rows' values, or after a backward's recompute their
+// cotangents), two activation buffers (act_width(H)) and one float (the
+// log-det, or its cotangent); two layers' hidden biases; the split-k
+// partial tiles; the ring.
+inline size_t tile_shared_bytes(int rows, int stages, int d, int H) {
+  return ((size_t)rows * (perm_width(d) + 2 * act_width(H) + 1) + 2 * bias_floats(H) +
+          red_floats(rows) + (size_t)stages * kStageFloats) * sizeof(float);
+}
+
+// A launch's row tile and ring depth.
+struct TileConfig {
+  int rows, stages;
+};
+
+// The tile of a block for B rows on a card of n_sm SMs: 8 or 32 rows, the
+// smaller whose blocks all run at once, one an SM (the fewer rows a block,
+// the shorter its chain of products), else the largest up to max_rows (64:
+// the most FMAs for each weight read); only tiles whose shared memory with
+// a ring of kStages stages (bytes(rows, stages)) fits a block. Where none
+// fits, 8 rows with a ring of 2 stages, if that fits. rows = 0 if nothing
 // fits.
 template <class Bytes>
-int row_tile(long long B, int n_sm, Bytes bytes) {
+TileConfig row_tile(long long B, int n_sm, Bytes bytes, int max_rows = 64) {
   constexpr int kTiles[] = {8, 32, 64};
-  int fit = 0;
+  TileConfig fit{0, kStages};
   for (const int rows : kTiles) {
-    if (bytes(rows) > kMaxSharedBytes) continue;
-    fit = rows;
-    if ((B + rows - 1) / rows <= n_sm) return rows;
+    if (rows > max_rows || bytes(rows, kStages) > kMaxSharedBytes) continue;
+    fit.rows = rows;
+    if ((B + rows - 1) / rows <= n_sm) return fit;
   }
+  if (fit.rows == 0 && bytes(8, 2) <= kMaxSharedBytes) fit = TileConfig{8, 2};
   return fit;
 }
 

@@ -23,36 +23,52 @@
 // As in coupling_bwd.cu the work is split in two, so that the weight
 // gradients are summed in a fixed order (no atomics: reruns are
 // bit-identical):
-//   1. spline_vjp_rows_kernel: each warp owns RPW rows for the whole stack.
+//   1. spline_vjp_rows_kernel: a block owns R = 8 rows for the whole
+//      stack, on the block row-tile engine of spline.cu (coupling_tile.cuh).
 //      It recomputes the forward pass, stashing each layer's input, h1, h2
 //      and conditioner output in a device scratch buffer, then goes back
 //      through the layers, overwriting each stashed conditioner output with
 //      its cotangent g_raw and writing g_a2 and g_a1. Row-local work only.
 //   2. spline_vjp_weights_kernel: each block computes a 32 x 32 tile of one
 //      weight gradient as a sum over the batch rows in a fixed order
-//      (coupling_common.cuh::weight_grad_tile).
+//      (coupling_common.cuh::weight_grad_tile), in the canonical layout. It
+//      took 1.4% of the VJP at B=256 when the rows kernel had one warp a row
+//      (scripts/coupling_kernels_ab.py), and ~4% now: it stays as it was.
 // The scratch buffer holds, per row and layer, d + 4 H + P db floats: at
 // d=100, H=128, L=4 that is 28.5 KB a row for RQS (P=23) and 34.6 KB for LRS
 // (P=31), so 7.3 MB and 8.9 MB at the training batch of 256. The caller
 // allocates it.
 //
 // What bounds it on an H100: FP32 arithmetic on paper (the forward's products
-// three times over, W3 the widest), but at the training batch of 256 rows it
-// is bound by latency: one warp walks each row through every layer serially,
-// and only B / 8 blocks exist. Plain FP32 FMAs, accurate expf/logf/sqrtf (no
-// fast-math), no tensor cores.
+// three times over, W3 the widest), but at the training batch of 256 rows
+// the time goes to latency, as in the forward.
+//
+// Design of the rows kernel: the recompute is spline.cu's, W3 one chunk of
+// nd = floor(128 / P) whole dims at a time (eight chunks a group at R=8).
+// The backward takes each layer's chunks in the same layout: a group's raw
+// values come back from the stash into the group buffer, one thread a
+// (row, dim) runs spline_vjp on them (g_raw in place of the raw values, the
+// input's cotangent into the state's), the g_raw goes to the stash for
+// kernel 2, and
+// g_a2 = (g_raw W3^T) (1 - h2^2) is a product whose reduction dim is W3's
+// columns, taken one chunk at a time: each chunk's product (W3^T's block of
+// columns, Gemm::ld) is added to the sum of the chunks before it in order,
+// the last applying the factor. Then g_a1 = (g_a2 W2^T) (1 - h1^2) and
+// g_va += g_a1 W1^T are the engine's transposed products. One buffer holds
+// the state in the recompute and its cotangent after it, so shared memory
+// is spline.cu's, its group buffer too: a tile of 8 rows fits up to
+// d = 1625 at H=128 with a ring of 3 stages and 2713 with 2. Plain FP32
+// FMAs, accurate expf/logf/sqrtf (no fast-math), no tensor cores.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
 #include "coupling_common.cuh"
+#include "coupling_tile.cuh"
 #include "spline_common.cuh"
+#include "spline_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr size_t kMaxSharedBytes = 232448;  // 227 KB a block can opt into
 
 // Scratch layout: per layer l, six row-major (B, width) matrices:
 //   0 x_in (d)   the layer's input      1 h1 (H)     2 h2 (H)
@@ -70,38 +86,76 @@ __host__ __device__ inline size_t stash_offset(int l, int q, long long B, int d,
   return off;
 }
 
-template <bool LRS, int RPW>
-__global__ void __launch_bounds__(kThreads)
+// The rows kernel's products: the recompute's (SplineForwardSchedule), then
+// per layer in the reverse order of application W3^T one chunk of g_raw
+// (nd whole dims) at a time, W2^T and W1^T.
+struct SplineBackwardSchedule {
+  SplineForwardSchedule fwd;
+
+  __host__ __device__ int total() const { return 2 * fwd.total(); }
+  __device__ Gemm operator()(int q) const {
+    const int n_fwd = fwd.total();
+    if (q < n_fwd) return fwd(q);
+    q -= n_fwd;
+    const int d = fwd.d, H = fwd.H, L = fwd.L, P = fwd.P;
+    int step = L - 1;
+    while (step > 0 && q >= fwd.count(step)) q -= fwd.count(step--);
+    const int l = fwd.inverse ? L - 1 - step : step;
+    const int da = cond_size(l, d), n_out = P * (d - da), nch = fwd.count(step) - 2;
+    const float* w1 = fwd.wts + layer_offset(l, d, H, P);
+    const float* w2 = w1 + (size_t)da * H + H;
+    if (q < nch) {
+      const int c0 = q * chunk_dims(P) * P;
+      return Gemm{w2 + (size_t)H * H + H + c0, min(chunk_dims(P) * P, n_out - c0), H, true, n_out};
+    }
+    if (q == nch) return Gemm{w2, H, H, true};
+    return Gemm{w1, H, da, true};
+  }
+};
+
+// One block an SM: up to 255 registers a thread, as in coupling.cu.
+template <bool LRS, int R>
+__global__ void __launch_bounds__(kThreads, 1)
 spline_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                        const float* __restrict__ gld, const float* __restrict__ wts,
                        float* __restrict__ gx, float* stash, int B, int d, int H, int L, int K,
-                       float T, int inverse) {
+                       float T, int inverse, int stages) {
   extern __shared__ float smem[];
-  const int P = (LRS ? 4 : 3) * K - 1;
-  const int n_raw = ((d + 1) / 2) * P;  // the widest conditioner output
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // this warp's slice: RPW rows of state, h1, h2, the conditioner output and
-  // the cotangent of the state
-  float* x_s = smem + (size_t)warp * RPW * (2 * d + 2 * H + n_raw);
-  float* h1_s = x_s + RPW * d;
-  float* h2_s = h1_s + RPW * H;
-  float* raw_s = h2_s + RPW * H;
-  float* g_s = raw_s + RPW * n_raw;
+  const int P = spline_params(LRS, K), nd = chunk_dims(P);
+  const int xs = perm_width(d), aw = act_width(H), odd = perm_slot(1, d);
+  float* x_s = smem;           // R x xs: the state, [even | odd]; after the
+                               // recompute, its cotangent
+  float* ha = x_s + R * xs;    // R x aw: h1; g_a1
+  float* hb = ha + R * aw;     // R x aw: h2; g_a2
+  float* gl = hb + R * aw;     // R: the log-det cotangent
+  const int bw = bias_floats(H);
+  float* bias_s = gl + R;      // 2 x bw: the hidden biases of this layer and the next
+  float* red = bias_s + 2 * bw;  // split-k partial tiles
+  constexpr int G = chunk_group(R);
+  float* grp = red + red_floats(R);  // R x G x 128 (G > 1): a group of chunks' raw values
+  float* raw_s = G > 1 ? grp : ha;   // where the raw values land, rows rs floats apart
+  const int rs = G > 1 ? G * kChunkN : aw;
+  const SplineBackwardSchedule sched{{wts, d, H, L, P, inverse}};
+  auto biases = [&](int step) {  // of recompute layer step, into buffer step % 2
+    const int l = inverse ? L - 1 - step : step;
+    copy_biases(wts + layer_offset(l, d, H, P), cond_size(l, d), H, bias_s + (step % 2) * bw);
+  };
+  WeightStream<SplineBackwardSchedule> ws{grp + group_floats(R), sched, sched.total(), stages};
+  biases(0);
+  ws.start();
 
-  const long long row0 = ((long long)blockIdx.x * kWarps + warp) * RPW;
-  if (row0 >= B) return;
-  const int n_rows = (int)min((long long)RPW, (long long)B - row0);
-
-  for (int e = lane; e < RPW * d; e += 32) {
-    const bool in = e < n_rows * d;
-    x_s[e] = in ? x[row0 * d + e] : 0.f;
-    g_s[e] = in ? gy[row0 * d + e] : 0.f;
-  }
-  float gl[RPW];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) gl[i] = i < n_rows ? gld[row0 + i] : 0.f;
-  __syncwarp();
+  const long long row0 = (long long)blockIdx.x * R;
+  const int n_rows = (int)min((long long)R, (long long)B - row0);
+  for (int e = threadIdx.x; e < R * (xs + 2 * aw + 1); e += kThreads) smem[e] = 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    x_s[(e / d) * xs + perm_slot(e % d, d)] = x[row0 * d + e];
+  if (threadIdx.x < n_rows) gl[threadIdx.x] = gld[row0 + threadIdx.x];
+  // the group buffer is the W3^T products' left operand: its columns past a
+  // chunk's must be finite
+  for (int e = threadIdx.x; e < (int)group_floats(R); e += kThreads) grp[e] = 0.f;
+  // dim jj of a group: its raw values in chunk jj / nd, at (jj % nd) P
+  auto raw_of = [&](int r, int jj) { return raw_s + r * rs + (jj / nd) * kChunkN + (jj % nd) * P; };
 
   // ---- forward recompute, stashing what the backward and kernel 2 read ----
   for (int step = 0; step < L; ++step) {
@@ -110,179 +164,133 @@ spline_vjp_rows_kernel(const float* __restrict__ x, const float* __restrict__ gy
     const int da = cond_size(l, d);
     const int db = d - da;
     const int n_out = P * db;
-    const float* w1 = wts + layer_offset(l, d, H, P);
-    const float* b1 = w1 + (size_t)da * H;
-    const float* w2 = b1 + H;
-    const float* b2 = w2 + (size_t)H * H;
-    const float* w3 = b2 + H;
-    const float* b3 = w3 + (size_t)H * n_out;
+    const float* b1 = bias_s + (step % 2) * bw;
+    const float* b2 = b1 + round4(H);
+    const float* b3 = wts + layer_offset(l, d, H, P) + (size_t)(da + H + 2) * H + (size_t)H * n_out;
     float* xin = stash + stash_offset(l, 0, B, d, H, P);
     float* h1g = stash + stash_offset(l, 1, B, d, H, P);
     float* h2g = stash + stash_offset(l, 2, B, d, H, P);
     float* rawg = stash + stash_offset(l, 5, B, d, H, P);
+    float* vb_s = x_s + (parity ? 0 : odd);  // transformed dim j at slot j
 
-    for (int e = lane; e < n_rows * d; e += 32) xin[row0 * d + e] = x_s[e];
-    dense_tanh<RPW>(x_s, d, parity, 2, da, w1, b1, h1_s, H, lane);
-    __syncwarp();
-    dense_tanh<RPW>(h1_s, H, 0, 1, H, w2, b2, h2_s, H, lane);
-    __syncwarp();
-    for (int e = lane; e < n_rows * H; e += 32) {
-      h1g[row0 * H + e] = h1_s[e];
-      h2g[row0 * H + e] = h2_s[e];
-    }
-
-    // raw = h2 W3 + b3, lanes on consecutive columns
-    for (int c0 = 0; c0 < n_out; c0 += 32) {
-      const int c = c0 + lane;
-      const bool ok = c < n_out;
-      float acc[RPW];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-      for (int k = 0; k < H; ++k) {
-        const float w = ok ? __ldg(w3 + (size_t)k * n_out + c) : 0.f;
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = fmaf(h2_s[i * H + k], w, acc[i]);
-      }
-      if (ok) {
-        const float bc = __ldg(b3 + c);
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          raw_s[i * n_raw + c] = acc[i] + bc;
-          if (i < n_rows) rawg[(row0 + i) * n_out + c] = acc[i] + bc;
-        }
-      }
-    }
-    __syncwarp();
-
-    for (int j = lane; j < db; j += 32) {
-      const int dim = 2 * j + 1 - parity;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float* v = x_s + i * d + dim;
-        if (i < n_rows && fabsf(*v) <= T)
-          *v = spline_apply<LRS>(raw_s + i * n_raw + j * P, K, T, *v, inverse).x;
+    __syncthreads();
+    if (step + 1 < L) biases(step + 1);
+    for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+      xin[row0 * d + e] = x_s[(e / d) * xs + perm_slot(e % d, d)];
+    tile_gemm<R>(ws, x_s + (parity ? odd : 0), xs, red, [&](int r, int n, float v) {
+      const float h = tanhf(v + b1[n]);
+      ha[r * aw + n] = h;
+      if (r < n_rows) h1g[(row0 + r) * H + n] = h;
+    });
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int n, float v) {
+      const float h = tanhf(v + b2[n]);
+      hb[r * aw + n] = h;
+      if (r < n_rows) h2g[(row0 + r) * H + n] = h;
+    });
+    // the conditioner output one chunk of whole dims at a time, as in
+    // spline.cu, stashed for the backward; then each (row, dim)'s spline
+    for (int j0 = 0; j0 < db; j0 += G * nd) {
+      const int nj = min(G * nd, db - j0);
+      for (int g = 0; g * nd < nj; ++g)
+        tile_gemm<R>(ws, hb, aw, red, [&](int r, int n, float v) {
+          const size_t col = (size_t)(j0 + g * nd) * P + n;
+          const float raw = v + __ldg(b3 + col);
+          raw_s[r * rs + g * kChunkN + n] = raw;
+          if (r < n_rows) rawg[(row0 + r) * n_out + col] = raw;
+        });
+      for (int e = threadIdx.x; e < R * nj; e += kThreads) {
+        const int r = e / nj, jj = e % nj;
+        float* v = vb_s + r * xs + j0 + jj;
+        if (r < n_rows && fabsf(*v) <= T) *v = spline_apply<LRS>(raw_of(r, jj), K, T, *v, inverse).x;
       }
     }
-    __syncwarp();
   }
 
+  // the state is not needed any more: its buffer takes the cotangent
+  __syncthreads();
+  for (int e = threadIdx.x; e < R * xs; e += kThreads) x_s[e] = 0.f;
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    x_s[(e / d) * xs + perm_slot(e % d, d)] = gy[row0 * d + e];
+
   // ---- backward, layers in the reverse order of application ----------------
-  float* ga2_s = h1_s;  // the hidden activations are read from the stash now
-  float* ga1_s = h2_s;
   for (int step = L - 1; step >= 0; --step) {
     const int l = inverse ? L - 1 - step : step;
     const int parity = l % 2;
     const int da = cond_size(l, d);
     const int db = d - da;
     const int n_out = P * db;
-    const float* w1 = wts + layer_offset(l, d, H, P);
-    const float* w2 = w1 + (size_t)da * H + H;
-    const float* w3 = w2 + (size_t)H * H + H;
     const float* xin = stash + stash_offset(l, 0, B, d, H, P);
     const float* h1g = stash + stash_offset(l, 1, B, d, H, P);
     const float* h2g = stash + stash_offset(l, 2, B, d, H, P);
     float* ga1g = stash + stash_offset(l, 3, B, d, H, P);
     float* ga2g = stash + stash_offset(l, 4, B, d, H, P);
     float* rawg = stash + stash_offset(l, 5, B, d, H, P);
+    float* gvb_s = x_s + (parity ? 0 : odd);  // the transformed half's cotangent
+    float* gva_s = x_s + (parity ? odd : 0);  // the conditioning half's
 
-    for (int e = lane; e < RPW * n_out; e += 32) {
-      const int i = e / n_out, c = e % n_out;
-      raw_s[i * n_raw + c] = i < n_rows ? rawg[(row0 + i) * n_out + c] : 0.f;
-    }
-    __syncwarp();
-
-    // through the spline of each transformed dim: its input's cotangent into
-    // g_s, its parameters' over their raw values in raw_s; the tails are the
-    // identity and give the parameters no gradient
-    for (int j = lane; j < db; j += 32) {
-      const int dim = 2 * j + 1 - parity;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        float* r = raw_s + i * n_raw + j * P;
-        const float v = i < n_rows ? xin[(row0 + i) * d + dim] : 0.f;
-        if (i < n_rows && fabsf(v) <= T) {
-          g_s[i * d + dim] = spline_vjp<LRS>(r, K, T, v, inverse, g_s[i * d + dim], gl[i]);
+    for (int j0 = 0; j0 < db; j0 += G * nd) {
+      const int nj = min(G * nd, db - j0);
+      // the group's raw values from the stash (rows past B: zeros)
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * nj * P; e += kThreads) {
+        const int r = e / (nj * P), jj = e % (nj * P) / P, p = e % P;
+        raw_of(r, jj)[p] = r < n_rows ? rawg[(row0 + r) * n_out + (size_t)(j0 + jj) * P + p] : 0.f;
+      }
+      __syncthreads();
+      // through the spline of each (row, dim): its input's cotangent into
+      // the state's cotangent, its parameters' over their raw values; the
+      // tails are the identity and give the parameters no gradient
+      for (int e = threadIdx.x; e < R * nj; e += kThreads) {
+        const int r = e / nj, jj = e % nj, j = j0 + jj;
+        float* raw = raw_of(r, jj);
+        const float v = r < n_rows ? xin[(row0 + r) * d + 2 * j + 1 - parity] : 0.f;
+        if (r < n_rows && fabsf(v) <= T) {
+          gvb_s[r * xs + j] = spline_vjp<LRS>(raw, K, T, v, inverse, gvb_s[r * xs + j], gl[r]);
         } else {
-          for (int p = 0; p < P; ++p) r[p] = 0.f;
+          for (int p = 0; p < P; ++p) raw[p] = 0.f;
         }
       }
-    }
-    __syncwarp();
-    for (int e = lane; e < n_rows * n_out; e += 32)
-      rawg[row0 * n_out + e] = raw_s[(e / n_out) * n_raw + e % n_out];
-
-    // g_a2 = (g_raw W3^T) (1 - h2^2); lane k reads row k of W3
-    for (int k0 = 0; k0 < H; k0 += 32) {
-      const int k = k0 + lane;
-      if (k < H) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int n = 0; n < n_out; ++n) {
-          const float w = __ldg(w3 + (size_t)k * n_out + n);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(raw_s[i * n_raw + n], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float v = 0.f;
-          if (i < n_rows) {
-            const float h = h2g[(row0 + i) * H + k];
-            v = acc[i] * (1.f - h * h);
-            ga2g[(row0 + i) * H + k] = v;
+      __syncthreads();
+      for (int e = threadIdx.x; e < n_rows * nj * P; e += kThreads) {
+        const int r = e / (nj * P), jj = e % (nj * P) / P, p = e % P;
+        rawg[(row0 + r) * n_out + (size_t)(j0 + jj) * P + p] = raw_of(r, jj)[p];
+      }
+      // g_a2 = (g_raw W3^T) (1 - h2^2): each chunk's product added to the
+      // chunks' before it, in order; the layer's last one applies the factor
+      for (int g = 0; g * nd < nj; ++g) {
+        const bool first = j0 == 0 && g == 0, last = j0 + (g + 1) * nd >= db;
+        tile_gemm<R>(ws, raw_s + g * kChunkN, rs, red, [&](int r, int n, float v) {
+          float sum = first ? v : hb[r * aw + n] + v;
+          if (last) {
+            float ga2 = 0.f;
+            if (r < n_rows) {
+              const float h = h2g[(row0 + r) * H + n];
+              ga2 = sum * (1.f - h * h);
+              ga2g[(row0 + r) * H + n] = ga2;
+            }
+            sum = ga2;
           }
-          ga2_s[i * H + k] = v;
-        }
+          hb[r * aw + n] = sum;
+        });
       }
     }
-    __syncwarp();
-
     // g_a1 = (g_a2 W2^T) (1 - h1^2)
-    for (int k0 = 0; k0 < H; k0 += 32) {
-      const int k = k0 + lane;
-      if (k < H) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int m = 0; m < H; ++m) {
-          const float w = __ldg(w2 + (size_t)k * H + m);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(ga2_s[i * H + m], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          float v = 0.f;
-          if (i < n_rows) {
-            const float h = h1g[(row0 + i) * H + k];
-            v = acc[i] * (1.f - h * h);
-            ga1g[(row0 + i) * H + k] = v;
-          }
-          ga1_s[i * H + k] = v;
-        }
+    tile_gemm<R>(ws, hb, aw, red, [&](int r, int n, float v) {
+      float g = 0.f;
+      if (r < n_rows) {
+        const float h = h1g[(row0 + r) * H + n];
+        g = v * (1.f - h * h);
+        ga1g[(row0 + r) * H + n] = g;
       }
-    }
-    __syncwarp();
-
-    // g_va = g_a1 W1^T, added into the conditioning dims parity + 2 m
-    for (int m0 = 0; m0 < da; m0 += 32) {
-      const int m = m0 + lane;
-      if (m < da) {
-        float acc[RPW];
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) acc[i] = 0.f;
-        for (int k = 0; k < H; ++k) {
-          const float w = __ldg(w1 + (size_t)m * H + k);
-#pragma unroll
-          for (int i = 0; i < RPW; ++i) acc[i] = fmaf(ga1_s[i * H + k], w, acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) g_s[i * d + parity + 2 * m] += acc[i];
-      }
-    }
-    __syncwarp();
+      ha[r * aw + n] = g;
+    });
+    // g_va = g_a1 W1^T, added into the conditioning half
+    tile_gemm<R>(ws, ha, aw, red, [&](int r, int m, float v) { gva_s[r * xs + m] += v; });
   }
 
-  for (int e = lane; e < n_rows * d; e += 32) gx[row0 * d + e] = g_s[e];
+  for (int e = threadIdx.x; e < n_rows * d; e += kThreads)
+    gx[row0 * d + e] = x_s[(e / d) * xs + perm_slot(e % d, d)];
 }
 
 // One tile of one weight gradient: grid.y = 3 L jobs (per layer W1, W2, W3
@@ -329,41 +337,37 @@ spline_vjp_weights_kernel(const float* __restrict__ stash, float* __restrict__ g
                    blockIdx.x / tiles_n, blockIdx.x % tiles_n);
 }
 
-template <bool LRS, int RPW>
+template <bool LRS, int R>
 int launch_rows(const float* x, const float* gy, const float* gld, const float* w, float* gx,
                 float* stash, int B, int d, int H, int L, int K, float T, int inverse,
-                cudaStream_t stream, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(spline_vjp_rows_kernel<LRS, RPW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                int stages, cudaStream_t stream) {
+  const size_t smem = spline_shared_bytes(R, stages, d, H);
+  const cudaError_t err = cudaFuncSetAttribute(
+      spline_vjp_rows_kernel<LRS, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long rows_per_block = (long long)kWarps * RPW;
-  const unsigned grid = (unsigned)((B + rows_per_block - 1) / rows_per_block);
-  spline_vjp_rows_kernel<LRS, RPW><<<grid, kThreads, smem, stream>>>(
-      x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse);
+  const unsigned grid = (unsigned)((B + R - 1) / R);
+  spline_vjp_rows_kernel<LRS, R><<<grid, kThreads, smem, stream>>>(
+      x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse, stages);
   return (int)cudaGetLastError();
 }
 
+// Only R=8 is instantiated: the paths' backward batches (a fit's 256 rows,
+// a MALA step's 100) take it, and so would any batch up to 8 x the SM count
+// under row_tile's rule; larger batches run more blocks of 8 rows.
 template <bool LRS>
 int dispatch_rows(const float* x, const float* gy, const float* gld, const float* w, float* gx,
                   float* stash, int B, int d, int H, int L, int K, float T, int inverse,
                   cudaStream_t s) {
-  const int P = (LRS ? 4 : 3) * K - 1;
-  const size_t per_row = (size_t)(2 * d + 2 * H + ((d + 1) / 2) * P) * sizeof(float);
-  // as in the forward kernel: the most rows per warp whose shared memory fits
-  // one block and that still gives the 132 SMs two blocks each
-  auto fits = [&](int rpw) {
-    return kWarps * rpw * per_row <= kMaxSharedBytes && (long long)B >= 2LL * 132 * kWarps * rpw;
-  };
-  if (fits(4))
-    return launch_rows<LRS, 4>(x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse, s,
-                               kWarps * 4 * per_row);
-  if (fits(2))
-    return launch_rows<LRS, 2>(x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse, s,
-                               kWarps * 2 * per_row);
-  if (kWarps * per_row <= kMaxSharedBytes)
-    return launch_rows<LRS, 1>(x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse, s,
-                               kWarps * per_row);
-  return (int)cudaErrorInvalidValue;
+  int n_sm = 0;
+  const cudaError_t err = sm_count(&n_sm);
+  if (err != cudaSuccess) return (int)err;
+  const TileConfig t = row_tile(
+      B, n_sm, [&](int rows, int stages) { return spline_shared_bytes(rows, stages, d, H); }, 8);
+  switch (t.rows) {
+    case 8:
+      return launch_rows<LRS, 8>(x, gy, gld, w, gx, stash, B, d, H, L, K, T, inverse, t.stages, s);
+  }
+  return kErrTileTooLarge;
 }
 
 }  // namespace
@@ -374,16 +378,26 @@ extern "C" long long nfmc_spline_vjp_scratch_floats(int B, int d, int H, int L, 
   return (long long)stash_offset(L, 0, B, d, H, P);
 }
 
-// Returns a cudaError_t: 0 when both launches were accepted. Launches on
-// `stream` and neither synchronises nor allocates: `stash` holds
-// nfmc_spline_vjp_scratch_floats(B, d, H, L, P) floats. lrs selects the
-// spline kind.
+// Shared bytes a block of the rows kernel's smallest tile (8 rows, a ring
+// of 2 stages) needs: above 232448 the launcher refuses with
+// kErrTileTooLarge.
+extern "C" long long nfmc_spline_vjp_tile_bytes(int d, int H) {
+  return (long long)spline_shared_bytes(8, 2, d, H);
+}
+
+// Returns a cudaError_t: 0 when both launches were accepted;
+// kErrTileTooLarge (cudaErrorInvalidConfiguration) without a launch when no
+// row tile fits a block; cudaErrorInvalidValue when P > 128 (as spline.cu).
+// Launches on `stream` and neither synchronises nor allocates: `stash`
+// holds nfmc_spline_vjp_scratch_floats(B, d, H, L, P) floats. lrs selects
+// the spline kind.
 extern "C" int nfmc_spline_stack_vjp(const void* x, const void* gy, const void* gld,
                                      const void* weights, void* gx, void* grads, void* stash,
                                      int B, int d, int H, int L, int n_bins, float tail_bound,
                                      int inverse, int lrs, void* stream) {
   if (B <= 0) return 0;
-  if (d < 2 || H < 1 || L < 1 || n_bins < 1) return (int)cudaErrorInvalidValue;
+  if (d < 2 || H < 1 || L < 1 || n_bins < 1 || spline_params(lrs, n_bins) > kChunkN)
+    return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
   const float* gyf = static_cast<const float*>(gy);
   const float* gldf = static_cast<const float*>(gld);
@@ -397,7 +411,7 @@ extern "C" int nfmc_spline_stack_vjp(const void* x, const void* gy, const void* 
                                              tail_bound, inverse, s);
   if (err != 0) return err;
 
-  const int P = (lrs ? 4 : 3) * n_bins - 1;
+  const int P = spline_params(lrs, n_bins);
   int max_tiles = 0;
   for (int l = 0; l < L; ++l) {
     const int da = cond_size(l, d), db = d - da;

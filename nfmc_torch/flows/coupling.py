@@ -20,7 +20,18 @@ from .transforms import AffineTransform, LRSplineTransform, RQSplineTransform
 
 
 class Coupling(Bijection):
-    """Stack of coupling layers with a shared elementwise transform type."""
+    """Stack of coupling layers with a shared elementwise transform type.
+
+    The conditioner's depth decides, once at construction, how the stack
+    runs, as in the JAX package (``len(self.hidden) != 2`` sends a flow to
+    its XLA path, ``nfmc_tpu/flows/coupling.py:148`` and ``:213``): with
+    exactly 2 hidden layers through the kernel wrappers of
+    :mod:`nfmc_torch.ops`, which launch the CUDA kernels on a CUDA tensor
+    (or raise) and run their plain versions on a CPU one; with any other
+    depth through the plain PyTorch stack on whatever device the tensors
+    are on. That is a choice by configuration, as the reference makes it,
+    not a fallback: a depth-2 flow on CUDA never runs the plain version.
+    """
 
     def __init__(
         self,
@@ -44,6 +55,7 @@ class Coupling(Bijection):
         if hidden_size is None:
             hidden_size = int(min(max(32, 2 ** int(np.ceil(np.log2(max(4 * d, 32))))), 128))
         self.hidden = [int(hidden_size)] * int(n_hidden_layers)
+        self.fused = len(self.hidden) == 2  # the kernels take 2 hidden layers
         # (conditioning ids, transformed ids) per layer
         ids = np.arange(d)
         self.layer_idx = [(ids[(ids + l) % 2 == 0], ids[(ids + l) % 2 == 1])
@@ -61,7 +73,7 @@ class Coupling(Bijection):
         """The kernels' weight buffer, rebuilt only when a parameter tensor
         changes (another tensor, or an in-place update). The key holds the
         tensors themselves, so a freed tensor's address cannot alias it."""
-        if device.type != "cuda":
+        if device.type != "cuda" or not self.fused:
             return None
         src = tuple((t, t._version) for p in params for v in p.values() for t in v)
         if (len(src) != len(self._packed_src)
@@ -71,13 +83,26 @@ class Coupling(Bijection):
         return self._packed
 
     def _stack(self, params, flat, inverse: bool, packed):
-        """The whole stack on ``(B, event_size)`` rows: ``(y, log_det)``."""
+        """The whole stack on ``(B, event_size)`` rows through the kernel
+        wrappers: ``(y, log_det)``."""
+        raise NotImplementedError
+
+    def _plain_stack(self, params, flat, inverse: bool):
+        """The whole stack in plain PyTorch, for conditioners whose depth the
+        kernels do not take."""
         raise NotImplementedError
 
     def _run(self, params, v, inverse: bool):
         batch_shape = v.shape[: v.dim() - len(self.event_shape)]
         flat = v.reshape(-1, self.event_size)
-        y, ld = self._stack(params, flat, inverse, self._packed_weights(params, flat.device))
+        if not self.fused:
+            y, ld = self._plain_stack(params, flat, inverse)
+        else:
+            if flat.device.type == "cuda":
+                # the kernels take contiguous float32 rows: a strided view
+                # (a column slice) or another float type is copied here
+                flat = flat.to(torch.float32).contiguous()
+            y, ld = self._stack(params, flat, inverse, self._packed_weights(params, flat.device))
         return y.reshape(v.shape), ld.reshape(batch_shape)
 
     def forward_fn(self, params, x):
@@ -90,10 +115,11 @@ class Coupling(Bijection):
 class RealNVP(Coupling):
     """Affine coupling flow (Dinh et al. 2017).
 
-    Both directions run the whole stack through
-    :mod:`nfmc_torch.ops.coupling`: the CUDA kernels on a CUDA tensor, their
-    plain PyTorch versions on a CPU tensor. Both are differentiable in the
-    input and the weights, with the backward kernel as the gradient.
+    With 2 hidden layers a conditioner (the default), both directions run
+    the whole stack through :mod:`nfmc_torch.ops.coupling`: the CUDA kernels
+    on a CUDA tensor, their plain PyTorch versions on a CPU tensor. Both are
+    differentiable in the input and the weights, with the backward kernel as
+    the gradient. Other depths run the plain stack (``Coupling``).
     """
 
     def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
@@ -104,17 +130,21 @@ class RealNVP(Coupling):
         fn = coupling_ops.fused_realnvp_inverse if inverse else coupling_ops.fused_realnvp_forward
         return fn(params, flat, self.clamp, packed=packed)
 
+    def _plain_stack(self, params, flat, inverse):
+        return coupling_ops.realnvp_stack_plain(params, flat, self.clamp, inverse)
+
 
 class _CouplingSpline(Coupling):
     """Coupling flow whose layers apply an elementwise monotone spline with
     ``n_bins`` bins on ``[-tail_bound, tail_bound]`` and identity tails.
 
-    Both directions run the whole stack through :mod:`nfmc_torch.ops.spline`:
-    the CUDA kernels on a CUDA tensor, their plain PyTorch versions on a CPU
-    tensor, differentiable in the input and the weights with the backward
-    kernel as the gradient. The JAX package's ``use_pallas`` is accepted
-    (for the flow-string DSL) and ignored, as by ``Coupling``: on CUDA the
-    kernel always runs."""
+    With 2 hidden layers a conditioner, both directions run the whole stack
+    through :mod:`nfmc_torch.ops.spline`: the CUDA kernels on a CUDA tensor,
+    their plain PyTorch versions on a CPU tensor, differentiable in the
+    input and the weights with the backward kernel as the gradient. Other
+    depths run the plain stack (``Coupling``). The JAX package's
+    ``use_pallas`` is accepted (for the flow-string DSL) and ignored, as by
+    ``Coupling``: on CUDA a depth-2 flow always runs the kernels."""
 
     _transform = None
 
@@ -131,6 +161,10 @@ class _CouplingSpline(Coupling):
               ("lrs", False): spline_ops.fused_lrs_forward,
               ("lrs", True): spline_ops.fused_lrs_inverse}[self.transform.kind, inverse]
         return fn(params, flat, self.n_bins, self.tail_bound, packed=packed)
+
+    def _plain_stack(self, params, flat, inverse):
+        return spline_ops.spline_stack_plain(params, flat, self.transform.kind, self.n_bins,
+                                             self.tail_bound, inverse)
 
 
 class CouplingRQNSF(_CouplingSpline):

@@ -174,3 +174,27 @@ def linear_rational_spline(inputs: torch.Tensor, raw: torch.Tensor, inverse: boo
     dydx = torch.where(seg1, dydx1, dydx2)
     return (torch.where(inside, out, inputs),
             torch.where(inside, sign * torch.log(dydx), torch.zeros_like(inputs)))
+
+
+def branch_points(raw: torch.Tensor, kind: str, n_bins: int, tail_bound: float,
+                  inverse: bool) -> torch.Tensor:
+    """Where the spline's branches switch, ``(..., M)``, in the coordinate
+    the transform searches (x forward, y inverse): the K + 1 knots, whose
+    outer two are the tails' edges, and for LRS each bin's interior point
+    (x0 + lam w forward, yc inverse). An input within rounding of one of
+    them can take either branch; the value is continuous there, the VJP of
+    the log-det is not."""
+    K, T = n_bins, tail_bound
+    cumw, cumh = _make_knots(raw[..., :K], raw[..., K:2 * K], K, T)
+    points = cumh if inverse else cumw
+    if kind == "lrs":
+        lam = 0.025 + 0.95 * torch.sigmoid(raw[..., 3 * K - 1:])
+        if inverse:
+            derivs = _derivs(raw[..., 2 * K:3 * K - 1])
+            wb = torch.sqrt(derivs[..., :-1] / derivs[..., 1:])
+            inner = (((1.0 - lam) * cumh[..., :-1] + lam * wb * cumh[..., 1:])
+                     / ((1.0 - lam) + lam * wb))
+        else:
+            inner = cumw[..., :-1] + lam * (cumw[..., 1:] - cumw[..., :-1])
+        points = torch.cat([points, inner], dim=-1)
+    return points

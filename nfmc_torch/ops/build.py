@@ -45,6 +45,8 @@ SIGNATURES = {
     # inverse, lrs, stream
     ("spline_bwd", "nfmc_spline_stack_vjp"): ([_P] * 7 + [_I] * 5 + [_F, _I, _I, _P], _I),
     ("spline_bwd", "nfmc_spline_vjp_scratch_floats"): ([_I] * 5, ctypes.c_longlong),
+    ("spline", "nfmc_spline_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
+    ("spline_bwd", "nfmc_spline_vjp_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
 }
 
 _libs = None

@@ -153,6 +153,18 @@ def realnvp_stack_vjp_plain(params, x: torch.Tensor, gy: torch.Tensor, gld: torc
     return gx, grads
 
 
+def vjp_error(got, want):
+    """max|got - want| over gx and every weight gradient relative to max(1,
+    max|want|), the scale, and each row's max|gx - want gx|."""
+    pairs = [(a.to(b.dtype), b) for a, b in
+             zip([got[0], *_leaves(got[1])], [want[0], *_leaves(want[1])])]
+    if not all(bool(torch.isfinite(a).all()) for a, _ in pairs):
+        return float("inf"), 1.0, torch.full(got[0].shape[:1], float("inf"))
+    scale = max(1.0, max(float(b.abs().max()) for _, b in pairs))
+    return (max(float((a - b).abs().max()) for a, b in pairs) / scale, scale,
+            (pairs[0][0] - pairs[0][1]).abs().amax(1).cpu())
+
+
 def _check_rows(x: torch.Tensor, what: str) -> None:
     if x.dim() != 2:
         raise ValueError(f"expected (batch, d) {what}, got shape {tuple(x.shape)}")

@@ -31,21 +31,25 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..flows.spline import n_params_per_dim
+from ..flows.spline import branch_points, n_params_per_dim
 from .build import library, register
-from .coupling import (_check_params, _check_rows, _from_leaves, _layer_sets, _leaves, _on_device,
-                       unpack_like)
+from .coupling import (TILE_TOO_LARGE, _check_params, _check_rows, _from_leaves, _layer_sets,
+                       _leaves, _on_device, unpack_like, vjp_error)
 
-_MAX_SHARED_BYTES = 232448  # what one block can opt into on an H100
-_WARPS = 8  # the kernels' warps per block
+INVALID_VALUE = 1  # cudaErrorInvalidValue: a launcher's refusal of its arguments
+_CHUNK_COLUMNS = 128  # the output columns the kernels produce at a time
 
 
 def spline_stack_plain(params, x: torch.Tensor, kind: str, n_bins: int, tail_bound: float,
-                       inverse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                       inverse: bool, branches: Optional[list] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the forward kernel: ``(B, d) -> (y,
     log_det)``, layer by layer as ``nfmc_tpu/flows/coupling.py:76-106``.
     Layer l conditions on the dims with ``(i + l) % 2 == 0``; its raw output
-    is reshaped dim-major to ``(B, db, P)``."""
+    is reshaped dim-major to ``(B, db, P)``. With a list ``branches``, each
+    layer appends ``(l, b, s)``: its transformed dims b and the signed
+    distances ``s (B, db, M)`` from their inputs to the spline's branch
+    points (``flows.spline.branch_points``)."""
     from ..flows.conditioners import mlp_apply
     from ..flows.transforms import LRSplineTransform, RQSplineTransform
 
@@ -56,6 +60,9 @@ def spline_stack_plain(params, x: torch.Tensor, kind: str, n_bins: int, tail_bou
     for l in layers:
         a, b = _layer_sets(d, l, x.device)
         raw = mlp_apply(params[l], x[:, a]).reshape(n, b.numel(), transform.n_params_per_dim)
+        if branches is not None:
+            branches.append((l, b, x[:, b, None] - branch_points(raw, kind, n_bins, tail_bound,
+                                                                  inverse)))
         step = transform.inverse if inverse else transform.forward
         vb, ld_elem = step(x[:, b], raw)
         x = x.index_copy(1, b, vb)
@@ -78,22 +85,93 @@ def spline_stack_vjp_plain(params, x: torch.Tensor, gy: torch.Tensor, gld: torch
     return gx, _from_leaves(grads, [len(p["w"]) for p in params])
 
 
-def shared_bytes(kind: str, n_bins: int, d: int, hidden: int, backward: bool) -> int:
-    """Shared memory a kernel block needs at one row per warp: the rows'
-    state (and, backward, its cotangent), both hidden activations and the
-    widest conditioner output."""
-    width = (2 if backward else 1) * d + 2 * hidden + ((d + 1) // 2) * n_params_per_dim(kind, n_bins)
-    return _WARPS * 4 * width
+def knot_witness(params, x: torch.Tensor, kind: str, n_bins: int, tail_bound: float,
+                 inverse: bool):
+    """For each row of ``x``, the transformed element that the stack brings
+    closest to a branch point of its spline, measured against float32
+    rounding. Layer by layer: each element's float64 distance to its nearest
+    branch point, and the layer's float32 drift, the largest change of that
+    distance over the batch when the plain version runs in float32. Returns
+    ``(dist, drift, layer, dim)``, each ``(B,)``: for the row's element with
+    the smallest dist / drift. Where ``dist <= drift`` a float32 evaluation
+    of the row can take the other branch."""
+    found = {}
+    for dt in (torch.float64, torch.float32):
+        found[dt] = []
+        spline_stack_plain([{k: [t.to(dt) for t in v] for k, v in p.items()} for p in params],
+                           x.to(dt), kind, n_bins, tail_bound, inverse, found[dt])
+    rows = torch.arange(x.shape[0], device=x.device)
+    per_layer = []
+    for (l, b, s64), (_, _, s32) in zip(found[torch.float64], found[torch.float32]):
+        near = s64.abs().argmin(-1, keepdim=True)
+        s64 = s64.gather(-1, near)[..., 0]
+        dist = s64.abs()
+        drift = (s32.double().gather(-1, near)[..., 0] - s64).abs().max()
+        j = dist.argmin(1)
+        per_layer.append((dist[rows, j], drift.expand(len(rows)), torch.full_like(j, l), b[j]))
+    dist, drift, layer, dim = (torch.stack(t) for t in zip(*per_layer))
+    k = (dist / drift.clamp_min(1e-300)).argmin(0)
+    return tuple(t[k, rows] for t in (dist, drift, layer, dim))
 
 
-def _check_fits(kind, n_bins, d, hidden, backward):
-    need = shared_bytes(kind, n_bins, d, hidden, backward)
-    if need > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the spline {'backward ' if backward else ''}kernel needs {need} bytes of shared "
-            f"memory a block ({_WARPS} rows of d={d}, H={hidden}, "
-            f"{n_params_per_dim(kind, n_bins)} raw parameters per dim), more than the "
-            f"{_MAX_SHARED_BYTES} an H100 block can hold")
+def compare_spline_vjp(got, want, rerun, params, x: torch.Tensor, kind: str, n_bins: int,
+                       tail_bound: float, inverse: bool, tol: float) -> Tuple[float, float, str]:
+    """The acceptance rule of the spline VJP against a reference: ``got``
+    and ``want`` are ``(gx, grads)`` for the rows of ``x``; the error is
+    max|got - want| over gx and every weight gradient relative to max(1,
+    max|want|). The VJP of the log-det jumps where an element meets a branch
+    point, so a float32 evaluation near one may take the other branch and
+    differ by O(1) in its row's gx and in its share of the weight gradients.
+    Where the error exceeds ``tol``, the rows that ``knot_witness`` finds
+    with an element within float32 drift of a branch point are left out:
+    ``rerun(keep)`` gives ``(got, want)`` again with the cotangents of the
+    rows where ``keep`` is False set to zero (the same launch shape, those
+    rows' shares exactly zero), held to ``tol``. Not excused (inf): a row of
+    gx off ``tol`` without a witness, more than one row in 100 off, or more
+    than one row in 10 with a witness. Returns the relative error, its scale
+    and a report naming the rows off (the first 10) and their witnesses."""
+    rel, scale, row_err = vjp_error(got, want)
+    off = row_err > tol * scale
+    text = (f"max|diff| {rel * scale:.3e} (scale max(1, max|ref|) = {scale:.2f}, relative "
+            f"{rel:.2e}), rows of gx off the gate {int(off.sum())}")
+    if rel <= tol:
+        return rel, scale, text
+    dist, drift, layer, dim = (t.cpu() for t in knot_witness(params, x, kind, n_bins,
+                                                             tail_bound, inverse))
+    near = dist <= drift
+    rows = off.nonzero()[:, 0].tolist()
+    for r in rows[:10]:
+        text += (f"; row {r}: gx {float(row_err[r]):.3e} off, its layer {int(layer[r])} dim "
+                 f"{int(dim[r])} lies {float(dist[r]):.3e} from a branch point (the layer's "
+                 f"float32 drift {float(drift[r]):.3e})")
+    n = len(off)
+    text += (f"; {len(rows) - 10} more rows off" if len(rows) > 10 else "") + (
+        f"; rows with such a witness: {int(near.sum())} of {n}")
+    if (not bool(near.any()) or bool((off & ~near).any()) or int(off.sum()) > n // 100
+            or int(near.sum()) > n // 10):
+        return float("inf"), scale, text + "; not excused"
+    rel, scale, _ = vjp_error(*rerun(~near.to(x.device)))
+    return rel, scale, text + f"; without them: relative {rel:.2e}"
+
+
+def _check_launch(err: int, kind: str, n_bins: int, d: int, hidden: int, backward: bool,
+                  lib) -> None:
+    """Raise for a launcher's nonzero return ``err``: a ValueError naming
+    the bytes when the stack's row tile does not fit a block's shared memory
+    (the launcher's own count, ``nfmc_spline{,_vjp}_tile_bytes``), or when a
+    dim's raw values exceed an output chunk of 128 columns; else a
+    RuntimeError with the CUDA error."""
+    what = "backward kernel" if backward else "kernel"
+    if err == TILE_TOO_LARGE:
+        need = (lib.nfmc_spline_vjp_tile_bytes if backward else lib.nfmc_spline_tile_bytes)(
+            d, hidden)
+        raise ValueError(f"the spline {what} needs {need} bytes of shared memory a block "
+                         f"(8 rows of d={d}, H={hidden}), more than a block can hold")
+    if err == INVALID_VALUE and n_params_per_dim(kind, n_bins) > _CHUNK_COLUMNS:
+        raise ValueError(f"the spline {what} takes at most {_CHUNK_COLUMNS} raw values a dim, "
+                         f"got {n_params_per_dim(kind, n_bins)} ({kind}, n_bins={n_bins})")
+    if err != 0:
+        raise RuntimeError(f"spline {what} launch failed: cudaError {err}")
 
 
 def _launch(wrapper, params, x: torch.Tensor, kind: str, n_bins: int, tail_bound: float,
@@ -102,18 +180,17 @@ def _launch(wrapper, params, x: torch.Tensor, kind: str, n_bins: int, tail_bound
     packed = _check_params(params, x, packed)
     n, d = x.shape
     hidden = int(params[0]["w"][1].shape[0])
-    _check_fits(kind, n_bins, d, hidden, backward=False)
     y = torch.empty_like(x)
     ld = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return y, ld
+    lib = library("spline")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = library("spline").nfmc_spline_stack(
+        err = lib.nfmc_spline_stack(
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d, hidden,
             len(params), int(n_bins), float(tail_bound), int(inverse), int(kind == "lrs"), stream)
-    if err != 0:
-        raise RuntimeError(f"spline kernel launch failed: cudaError {err}")
+    _check_launch(err, kind, n_bins, d, hidden, False, lib)
     wrapper.launches += 1
     return y, ld
 
@@ -130,7 +207,6 @@ def _launch_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed):
     gld = gld.contiguous()
     n, d = x.shape
     hidden = int(params[0]["w"][1].shape[0])
-    _check_fits(kind, n_bins, d, hidden, backward=True)
     gx = torch.empty_like(x)
     grads = torch.empty_like(packed)
     if n == 0:
@@ -145,8 +221,7 @@ def _launch_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed):
             x.data_ptr(), gy.data_ptr(), gld.data_ptr(), packed.data_ptr(), gx.data_ptr(),
             grads.data_ptr(), scratch.data_ptr(), n, d, hidden, len(params), int(n_bins),
             float(tail_bound), int(inverse), int(kind == "lrs"), stream)
-    if err != 0:
-        raise RuntimeError(f"spline backward kernel launch failed: cudaError {err}")
+    _check_launch(err, kind, n_bins, d, hidden, True, lib)
     fused_spline_vjp.launches += 1
     return gx, unpack_like(grads, params)
 

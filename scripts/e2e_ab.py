@@ -1,5 +1,6 @@
-"""Time the RealNVP main path end to end in two checkouts on one NVIDIA card,
-in alternating turns, each turn a fresh process.
+"""Time the main path end to end (RealNVP, and the spline flows' warmups)
+in two checkouts on one NVIDIA card, in alternating turns, each turn a
+fresh process.
 
     python3 scripts/e2e_ab.py --base DIR [--turns 3]
 
@@ -13,6 +14,9 @@ new, new, base, base, new, ...), ``--turns`` of each. A turn imports the
   - the headline with ``warmup=True`` and 500 outer iterations (phase 5b):
     wall, the flow fit's wall (ending in a synchronise), its Adam steps and
     the fit wall per step;
+  - the same warmup with each spline flow (phase 8: ``c-rqnsf`` and
+    ``c-lrsnsf`` at L=4, H=128, K=8): wall, fit wall, Adam steps and the fit
+    wall per step, keys prefixed ``rqs_`` and ``lrs_``;
   - a trace (torch.profiler, CPU and CUDA) of 64 RealNVP Adam steps at batch
     256 (``flows.train._train_step``, each in a ``record_function`` span):
     the host's time a step (the span on the host's clock, the profiler's
@@ -54,10 +58,10 @@ def turn(checkout: Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
 
-    def headline(n_iter, **kw):
+    def headline(n_iter, flow=None, **kw):
         return nfmc_torch.sample(
             StandardGaussian((D,)), strategy="jump_mala",
-            flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0), n_chains=C,
+            flow=flow or Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0), n_chains=C,
             n_iterations=n_iter, inner_param_kwargs={"n_iterations": INNER_N}, seed=0,
             show_progress=False, **kw)
 
@@ -88,11 +92,16 @@ def turn(checkout: Path) -> dict:
 
     flow_base.Flow.fit, train._train_step = fit, step
     try:
-        _, wall = timed(lambda: headline(WARM_OUTER, warmup=True))
+        for prefix, flow in (("", None),
+                             ("rqs_", f'c-rqnsf%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": 8}}'),
+                             ("lrs_", f'c-lrsnsf%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": 8}}')):
+            fit_s[0], steps[0] = 0.0, 0
+            _, wall = timed(lambda: headline(WARM_OUTER, flow=flow, warmup=True))
+            out.update({f"{prefix}warmup_wall_s": wall, f"{prefix}fit_s": fit_s[0],
+                        f"{prefix}fit_steps": steps[0],
+                        f"{prefix}fit_ms_per_step": 1e3 * fit_s[0] / max(steps[0], 1)})
     finally:
         flow_base.Flow.fit, train._train_step = orig_fit, orig_step
-    out.update(warmup_wall_s=wall, fit_s=fit_s[0], fit_steps=steps[0],
-               fit_ms_per_step=1e3 * fit_s[0] / max(steps[0], 1))
 
     flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
     flow.to(dev)
@@ -164,7 +173,7 @@ def main() -> None:
     results = {"base": [], "new": []}
     for i, tag in enumerate(order):
         proc = subprocess.run([sys.executable, __file__, "--turn", str(checkouts[tag])],
-                              capture_output=True, text=True, timeout=600)
+                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("E2E ")]
         if proc.returncode != 0 or not lines:
             sys.exit(f"turn {i} ({tag}) failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")

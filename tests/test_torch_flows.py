@@ -135,19 +135,3 @@ def test_overridden_base_needs_paired_sampler():
     flow.set_base_log_prob(lambda z: -z.pow(2).sum(-1))
     with pytest.raises(ValueError, match="paired base sampler"):
         flow.sample(3, seed=0)
-
-
-@pytest.mark.parametrize("event_shape", [(5,), (100,), (8, 8)])
-@pytest.mark.parametrize("name", ["c-rqnsf", "c-lrsnsf"])
-def test_registry_flows_fit_the_kernels_shared_memory(name, event_shape):
-    """No spline flow of the registry, at its default widths, reaches the
-    kernels' shared-memory refusal (RealNVP's launchers count their own bytes:
-    tests/test_torch_kernels_host.py)."""
-    from nfmc_torch.api.registry import create_flow_object
-    from nfmc_torch.ops import spline as sops
-
-    flow = create_flow_object(name, event_shape, seed=0)
-    d, hidden = int(np.prod(event_shape)), int(flow.params[0]["w"][1].shape[0])
-    kind = "rqs" if name == "c-rqnsf" else "lrs"
-    for backward in (False, True):
-        sops._check_fits(kind, flow.bijection.n_bins, d, hidden, backward)

@@ -5,8 +5,8 @@ there against their plain PyTorch versions.
 kernels use (threads, warp barriers, shuffles, shared memory), so the
 kernels' indexing, layouts, row blocking and the spline's hand-written VJP
 are checked on every CPU run, without a card. The emulated card has 2 SMs,
-so the RealNVP launchers, which size their row tiles by the SM count, reach
-every tile size below a few hundred rows. The card's own compiler,
+so the launchers, which size their row tiles by the SM count, reach every
+tile size below a few hundred rows. The card's own compiler,
 timing and memory model are not: ``tests/test_torch_kernels.py`` and
 ``chip_smoke.py`` cover those on an H100. The kernels run through their
 C entry points, with the same arguments the wrappers pass.
@@ -40,16 +40,18 @@ def _host_source(src) -> str:
     return text.replace('#include "', f'#include "{build.CSRC}/')
 
 
-@pytest.fixture(scope="module")
-def host_libs(tmp_path_factory):
+def host_build(names, out) -> dict:
+    """Compile the sources ``names`` (keys of ``build.SOURCES``) for the CPU
+    into ``out``, all g++ processes at once, and load them with the
+    ``build.SIGNATURES`` of their symbols: ``{name: CDLL}``. Skips the
+    calling test without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernels for the CPU")
-    out = tmp_path_factory.mktemp("host_kernels")
     procs = {}
-    for name, src in build.SOURCES.items():
+    for name in names:
         cpp = out / f"{name}.cpp"
-        cpp.write_text(_host_source(src))
+        cpp.write_text(_host_source(build.SOURCES[name]))
         procs[name] = subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", f"-I{SHIM}", "-o",
              str(out / f"{name}.so"), str(cpp), "-lpthread"],
@@ -57,11 +59,17 @@ def host_libs(tmp_path_factory):
     logs = {name: p.communicate()[0] for name, p in procs.items()}
     for name, p in procs.items():
         assert p.returncode == 0, logs[name]
-    libs = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in build.SOURCES}
+    libs = {name: ctypes.CDLL(str(out / f"{name}.so")) for name in names}
     for (lib, sym), (argtypes, restype) in build.SIGNATURES.items():
-        fn = getattr(libs[lib], sym)
-        fn.argtypes, fn.restype = argtypes, restype
+        if lib in libs:
+            fn = getattr(libs[lib], sym)
+            fn.argtypes, fn.restype = argtypes, restype
     return libs
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    return host_build(build.SOURCES, tmp_path_factory.mktemp("host_kernels"))
 
 
 def _params(n_par, d, hidden, n_layers, seed):
@@ -172,6 +180,12 @@ def _tile_bytes(libs, d, hidden, backward):
     return libs["coupling"].nfmc_coupling_tile_bytes(d, hidden)
 
 
+def _spline_tile_bytes(libs, d, hidden, backward):
+    if backward:
+        return libs["spline_bwd"].nfmc_spline_vjp_tile_bytes(d, hidden)
+    return libs["spline"].nfmc_spline_tile_bytes(d, hidden)
+
+
 def _launch_one_row(libs, d, hidden, backward):
     """The launcher's return for one row of a one-layer stack."""
     params = _params(2, d, hidden, 1, seed=1)
@@ -207,28 +221,40 @@ def test_host_kernels_refuse_where_the_wrapper_does(host_libs, backward):
 
 
 def test_kernel_launcher_names_the_shared_memory_it_needs(host_libs):
-    """The launchers' count of a tile's bytes: 8 rows of state ([even | odd],
-    52 + 52 floats at d=100; backward the state and its cotangent, 2 x 104),
-    two activation buffers (128 each) and a log-det; two layers' biases
-    (128 + 128 + 104); three weight slabs of 128 x 68 and the split-k partial
-    tiles (64 x 128). Wide targets still fit: d=1024 at H=128, both ways."""
-    fixed = 2 * 360 + 3 * 128 * 68 + 64 * 128
-    assert _tile_bytes(host_libs, 100, 128, False) == 4 * (8 * (104 + 256 + 1) + fixed)
-    assert _tile_bytes(host_libs, 100, 128, True) == 4 * (8 * (2 * 104 + 256 + 1) + fixed)
+    """The launchers' count of their smallest tile's bytes, the one a
+    refusal names: 8 rows of state ([even | odd], 52 + 52 floats at d=100;
+    the backward's cotangent takes the state's buffer after its recompute),
+    two activation buffers (128 each) and a log-det; two layers' hidden
+    biases (128 + 128); a ring of two weight slabs of 128 x 68 and the
+    split-k partial tiles (64 x 128). The spline launchers keep the same
+    layout and add a group buffer of eight output chunks (8 x 8 x 128).
+    Wide targets fit: d=3500 (RealNVP) and 2700 (splines) at H=128."""
+    fixed = 2 * 256 + 2 * 128 * 68 + 64 * 128
     for backward in (False, True):
-        assert _tile_bytes(host_libs, 1024, 128, backward) <= H100_BLOCK_BYTES
+        assert _tile_bytes(host_libs, 100, 128, backward) == 4 * (8 * (104 + 256 + 1) + fixed)
+        assert _tile_bytes(host_libs, 3500, 128, backward) <= H100_BLOCK_BYTES
+        for d in (100, 1024, 2700):
+            assert (_spline_tile_bytes(host_libs, d, 128, backward)
+                    == _tile_bytes(host_libs, d, 128, backward) + 4 * 8 * 8 * 128
+                    <= H100_BLOCK_BYTES)
 
 
 @pytest.mark.parametrize("event_shape", [(5,), (100,), (8, 8)])
-def test_registry_flows_fit_the_kernels_shared_memory(host_libs, event_shape):
-    """The registry's RealNVP at its default widths fits the launchers' row
-    tile, both ways (the spline flows: tests/test_torch_flows.py)."""
+@pytest.mark.parametrize("name", ["realnvp", "c-rqnsf", "c-lrsnsf"])
+def test_registry_flows_fit_the_kernels_shared_memory(host_libs, name, event_shape):
+    """The registry's coupling flows at their default widths fit the
+    launchers' row tile, both ways, by the launchers' own count of their
+    smallest tile's bytes; a spline's raw values a dim fit an output chunk."""
     from nfmc_torch.api.registry import create_flow_object
 
-    flow = create_flow_object("realnvp", event_shape, seed=0)
+    flow = create_flow_object(name, event_shape, seed=0)
     d, hidden = math.prod(event_shape), int(flow.params[0]["w"][1].shape[0])
+    if name != "realnvp":
+        kind = "rqs" if name == "c-rqnsf" else "lrs"
+        assert n_params_per_dim(kind, flow.bijection.n_bins) <= 128
+    tile_bytes = _tile_bytes if name == "realnvp" else _spline_tile_bytes
     for backward in (False, True):
-        assert _tile_bytes(host_libs, d, hidden, backward) <= H100_BLOCK_BYTES
+        assert tile_bytes(host_libs, d, hidden, backward) <= H100_BLOCK_BYTES
 
 
 @pytest.mark.parametrize("inverse", [False, True])
@@ -240,24 +266,84 @@ def test_host_realnvp_wide_target(host_libs, inverse):
     _check(_run(host_libs, "affine", 0, params, x, inverse), "affine")
 
 
-@pytest.mark.parametrize("kind,rows,tile", [
-    pytest.param("affine", 10, 8, id="affine-r8"),
-    pytest.param("affine", 60, 32, id="affine-r32"),
-    pytest.param("affine", 200, 64, id="affine"),
-    pytest.param("rqs", 4300, None, id="rqs"),
-    pytest.param("lrs", 4300, None, id="lrs"),
+@pytest.mark.parametrize("kind,rows,tile,bwd_tile", [
+    pytest.param("affine", 10, 8, 8, id="affine-r8"),
+    pytest.param("affine", 60, 32, 32, id="affine-r32"),
+    pytest.param("affine", 200, 64, 64, id="affine"),
+    pytest.param("rqs", 10, 8, 8, id="rqs-r8"),
+    pytest.param("lrs", 60, 32, 8, id="lrs-r32"),
+    pytest.param("rqs", 200, 64, 8, id="rqs"),
+    pytest.param("lrs", 200, 64, 8, id="lrs"),
 ])
-def test_host_kernels_with_several_rows_a_warp(host_libs, kind, rows, tile):
-    """The splines: enough rows that the launchers give each warp 2 rows
-    (RQS: 4), the branch the larger batches on the card take. RealNVP: each
-    row tile its launchers pick on the emulated 2 SMs (8 or 32 rows a block
-    while 2 blocks hold the batch, else 64), checked from the launches'
+def test_host_kernels_with_several_rows_a_warp(host_libs, kind, rows, tile, bwd_tile):
+    """Each row tile the launchers pick on the emulated 2 SMs (8 or 32 rows
+    a block while 2 blocks hold the batch, else 64; the spline backward
+    takes 8 rows a block at every batch), checked from the launches'
     grids."""
     n_par = 2 if kind == "affine" else n_params_per_dim(kind, 4)
     params = _params(n_par, 5, 8, 2, seed=3)
     x = 3 * torch.randn((rows, 5), generator=torch.Generator().manual_seed(2))
     _check(_run(host_libs, kind, 4, params, x, False), kind)
-    if kind == "affine":
-        blocks = -(-rows // tile)
-        assert _grids(host_libs["coupling"]) == [blocks]
-        assert _grids(host_libs["coupling_bwd"])[0] == blocks
+    fwd, bwd = ("coupling", "coupling_bwd") if kind == "affine" else ("spline", "spline_bwd")
+    assert _grids(host_libs[fwd]) == [-(-rows // tile)]
+    assert _grids(host_libs[bwd])[0] == -(-rows // bwd_tile)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind,n_bins,d,hidden,n_layers,rows", [
+    ("rqs", 8, 13, 16, 2, 9),    # 5 dims a chunk (115 columns): chunks of 5 + 2 and 5 + 1
+    ("lrs", 8, 15, 24, 3, 40),   # 4 dims a chunk (124 columns), R=32; odd d
+    ("rqs", 4, 25, 16, 2, 16),   # 11 dims a chunk (121 columns): 11 + 2 and 11 + 1
+    ("lrs", 4, 36, 8, 2, 3),     # 8 dims a chunk (120 columns): 8 + 8 + 2, one row
+])
+def test_host_spline_chunk_edges(host_libs, kind, n_bins, d, hidden, n_layers, rows, inverse):
+    """The spline kernels where a layer's output layer takes several chunks
+    of whole dims and the last chunk is partial, forward and VJP."""
+    params = _params(n_params_per_dim(kind, n_bins), d, hidden, n_layers, seed=d + n_bins)
+    x = 3 * torch.randn((rows, d), generator=torch.Generator().manual_seed(6))
+    _check(_run(host_libs, kind, n_bins, params, x, inverse), kind)
+
+
+def _launch_spline_one_row(libs, d, backward, n_bins=4):
+    """The spline launcher's return for one row of a one-layer RQS stack at
+    H=8."""
+    params = _params(n_params_per_dim("rqs", n_bins), d, 8, 1, seed=1)
+    packed = cops.pack_weights(params)
+    x = torch.randn((1, d), generator=torch.Generator().manual_seed(0))
+    gx, y, ld = torch.empty_like(x), torch.empty_like(x), torch.empty(1)
+    grads = torch.empty_like(packed)
+    if backward:
+        lib = libs["spline_bwd"]
+        scratch = torch.empty((lib.nfmc_spline_vjp_scratch_floats(
+            1, d, 8, 1, n_params_per_dim("rqs", n_bins)),))
+        return lib.nfmc_spline_stack_vjp(
+            x.data_ptr(), x.data_ptr(), ld.fill_(1.0).data_ptr(), packed.data_ptr(), gx.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), 1, d, 8, 1, n_bins, 5.0, 0, 0, None)
+    return libs["spline"].nfmc_spline_stack(
+        x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(), 1, d, 8, 1, n_bins, 5.0, 0,
+        0, None)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_host_spline_kernels_refuse_where_the_wrapper_does(host_libs, backward):
+    """At the widest d whose smallest tile fits an H100 block the spline
+    launcher runs (a ring of 2 stages); one wider it refuses without a
+    launch, and the wrapper's error names the bytes. A dim of more than 128
+    raw values is refused too."""
+    d = max(n for n in range(2000, 4000)
+            if _spline_tile_bytes(host_libs, n, 8, backward) <= H100_BLOCK_BYTES)
+    lib = host_libs["spline_bwd" if backward else "spline"]
+    ctypes.c_int.in_dll(lib, "emu_launches").value = 0
+    assert _launch_spline_one_row(host_libs, d, backward) == 0
+    assert ctypes.c_int.in_dll(lib, "emu_launches").value == 1 + backward
+    ctypes.c_int.in_dll(lib, "emu_launches").value = 0
+    err = _launch_spline_one_row(host_libs, d + 1, backward)
+    assert err == cops.TILE_TOO_LARGE
+    assert ctypes.c_int.in_dll(lib, "emu_launches").value == 0
+    with pytest.raises(ValueError, match=f"{_spline_tile_bytes(host_libs, d + 1, 8, backward)} "
+                                         "bytes of shared memory"):
+        sops._check_launch(err, "rqs", 4, d + 1, 8, backward, lib)
+    err = _launch_spline_one_row(host_libs, 20, backward, n_bins=44)
+    assert err == sops.INVALID_VALUE and ctypes.c_int.in_dll(lib, "emu_launches").value == 0
+    with pytest.raises(ValueError, match="at most 128 raw values"):
+        sops._check_launch(err, "rqs", 44, 20, 8, backward, lib)

@@ -240,6 +240,49 @@ def test_gradient_goes_through_spline_stack(kind):
     assert all(w.launches == 0 for w in build.WRAPPERS)
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("kind", ["rqs", "lrs"])
+def test_vjp_rule_leaves_out_only_a_row_at_a_branch_point(kind, inverse):
+    """``compare_spline_vjp`` excuses a VJP off the gate only by leaving
+    out the rows in which ``knot_witness`` finds an element within float32
+    drift of a branch point: rows 0-2 have an input set onto an interior
+    knot of the first layer applied. An error in row 1 is excused; the same
+    error in row 3, which has no such element, is not, nor are three rows
+    off of 200 (at most one in 100)."""
+    _, flow = _pair(kind, (6,), 2, 16, 8)
+    params = [{k: [t.double() for t in v] for k, v in p.items()} for p in flow.params]
+    x = torch.from_numpy(_x(200, (6,))).double()
+    found = []
+    ops.spline_stack_plain(params, x, kind, 8, 5.0, inverse, found)
+    l, b, s = found[0]
+    for r in range(3):  # knot 3 of dim b[r], which depends on the other half only
+        x[r, b[r]] = x[r, b[r]] - s[r, r, 3]
+    x = x.float()
+    dist, drift, layer, dim = ops.knot_witness(flow.params, x, kind, 8, 5.0, inverse)
+    for r in range(3):
+        assert float(dist[r]) <= float(drift[r]) and int(layer[r]) == l and int(dim[r]) == int(b[r])
+    assert int((dist <= drift).sum()) <= 5
+    gy, gld = (torch.from_numpy(a) for a in _cotangents(200, 6))
+
+    def plain(keep):
+        return ops.spline_stack_vjp_plain(flow.params, x, gy * keep[:, None], gld * keep, kind, 8,
+                                          5.0, inverse)
+
+    want = plain(torch.ones(200, dtype=torch.bool))
+
+    def off_in(rows):
+        gx = want[0].clone()
+        gx[rows] += 1.0
+        return ops.compare_spline_vjp((gx, want[1]), want, lambda keep: (plain(keep), plain(keep)),
+                                      flow.params, x, kind, 8, 5.0, inverse, GRAD_TOL)
+
+    e, _, report = off_in([1])
+    assert e == 0.0 and "row 1:" in report and "without them" in report
+    assert off_in([0, 1])[0] == 0.0
+    assert off_in([3])[0] == float("inf")
+    assert off_in([0, 1, 2])[0] == float("inf")
+
+
 def test_from_jax_params_carries_spline_weights():
     """The layout is canonical on both sides: W3 is (H, P db), dim-major."""
     jflow, flow = _pair("lrs", (7,), 2, 16, 4)
@@ -252,10 +295,24 @@ def test_from_jax_params_carries_spline_weights():
 
 
 def test_kernel_launcher_names_the_shared_memory_it_needs():
-    assert ops.shared_bytes("rqs", 8, 100, 128, backward=False) == 8 * 4 * (100 + 256 + 50 * 23)
-    ops._check_fits("lrs", 8, 100, 128, backward=True)  # the slice's configuration fits
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        ops._check_fits("lrs", 8, 500, 128, backward=False)
+    """The launcher counts its own bytes (nfmc_spline{,_vjp}_tile_bytes;
+    tests/test_torch_kernels_host.py runs it); the wrapper turns its
+    refusals into errors that name the bytes or the raw values a dim."""
+
+    class Lib:
+        def nfmc_spline_tile_bytes(self, d, hidden):
+            return 1000 * d + hidden
+
+        nfmc_spline_vjp_tile_bytes = nfmc_spline_tile_bytes
+
+    ops._check_launch(0, "lrs", 8, 100, 128, True, Lib())  # accepted
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="needs 4000128 bytes of shared memory"):
+            ops._check_launch(cops.TILE_TOO_LARGE, "lrs", 8, 4000, 128, backward, Lib())
+    with pytest.raises(ValueError, match="at most 128 raw values a dim, got 131"):
+        ops._check_launch(ops.INVALID_VALUE, "rqs", 44, 100, 128, False, Lib())
+    with pytest.raises(RuntimeError, match="cudaError 2"):
+        ops._check_launch(2, "rqs", 8, 100, 128, False, Lib())
     with pytest.raises(ValueError, match="unknown spline kind"):
         ops.fused_spline_vjp(None, torch.zeros(1, 2), torch.zeros(1, 2), torch.zeros(1),
                              "cubic", 8, 5.0, False)
