@@ -8,13 +8,18 @@ Phases, in order; any failure exits non-zero before the last line:
      forward and backward, the spline coupling forward and backward), one
      process per source, all at once;
   3. forward kernel vs its plain PyTorch version, both directions, at the
-     sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400), the flow
+     sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400; IMH's
+     hoisted chunks B=100, 400, ..., 102,400 and, at the chunk cap,
+     B=313,500;
+     variational_fit's B=128 and AdaptiveIMH's refit batch B=64), the flow
      fit's (B=256 training batches, B=3000 validation, and B=512) and a
      ragged odd shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA
      events around the wrapper, and the kernel's own device time from
      torch.profiler);
-  3b. backward kernel vs its plain version, both directions, at B=512, 256
-     and 100, the ragged shape and B=1001 (many blocks, a partial last one):
+  3b. backward kernel vs its plain version, both directions, at B=512, 256,
+     128 (variational_fit's batch, in the inverse direction), 100 and 64
+     (AdaptiveIMH's refit batch), the ragged shape and B=1001 (many blocks,
+     a partial last one):
      max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical; at
      B=256 the device time of its two kernels (rows, weight gradients);
   3c. RealNVP at d=3000 and 3500, H=128 (the kernels' ring of 2 stages):
@@ -25,7 +30,9 @@ Phases, in order; any failure exits non-zero before the last line:
      losses and final weights agree to 1e-4;
   5. the main path through the front door: jump_mala, RealNVP (4 layers,
      hidden 128), 100 chains on a 100-d standard Gaussian, 2184 outer
-     iterations of 5 MALA steps, with the kernel launch counts it made;
+     iterations of 5 MALA steps, with the kernel launch counts it made and
+     its ESS/s (mean ESS over the dims of the 13,104 stored draws, on the
+     card, max_window 16384, over the wall);
   5b. the same with warmup=True and 500 outer iterations: MALA tuning, the
      flow's MLE fit (every Adam step through the backward kernel), the
      reshuffle of warmup draws into x0; jump acceptance in [0.010, 0.035],
@@ -66,8 +73,41 @@ Phases, in order; any failure exits non-zero before the last line:
   9. the repaired faults: a strided input (a column slice) gives the
      contiguous rows' log_prob; a flow with 3 hidden layers a conditioner
      runs with no kernel launch, one with 2 launches; MCMCStatistics folds
-     CUDA draws through its data_transform.
-Each path's launch counts are set to 0 just before it and read just after.
+     CUDA draws through its data_transform;
+  10. IMH, the default strategy, through the front door: 100 chains on a
+     100-d standard Gaussian, 8000 iterations, the RealNVP frozen at its
+     identity init: acceptance >= 0.999, moments as phase 5, the counters
+     (2 C target calls an iteration, no gradient call), one forward launch
+     and one inverse launch a chunk; its ESS/s (max_window 4096) and its
+     device busy share over 1000 iterations (torch.profiler);
+  10a. the same frozen flow against N(0.12 * 1, I): acceptance in [0.30,
+     0.50] (analytic 2 Phi(-|mu| / sqrt 2) = 0.396);
+  10b. IMH with warmup=True on DiagonalGaussian1(100): the reverse-KL fit
+     (one backward launch, in the inverse direction, an epoch), then 4000
+     iterations: acceptance in IMH_WARM_ACC and above the identity flow's,
+     the moments within IMH_WARM_MOMENTS (medians over the dims, and the
+     extremes of the variance ratio, so that a collapsed dim fails), the
+     inverse and backward launches at B=128 one an epoch;
+  10c. adaptive_imh through the front door on the same target (100
+     iterations, the reference's quirk): the gradient-call counter quirk,
+     the draws, backward launches at B=64 = the refits' Adam steps; its
+     first and last refits replayed on the card and run on the CPU from the
+     same weights and rows: the gradient agrees to 1e-4 max|g|, and every
+     weight more than 1e-4 apart has a gradient within float32 error of 0,
+     apart by what Adam's first step makes of it (check_refit); then 5
+     fused iterations with
+     the same injected draws, schedule and refit shuffles on the card and
+     on the CPU (d=6, as 4b): states, flow log-probs and refit weights
+     agree to 1e-4;
+  10d. self-target IMH: a frozen perturbed flow (RealNVP, c-rqnsf,
+     c-lrsnsf) is the proposal and the target (U = -log q): acceptance
+     >= 0.99;
+  10e. variational_fit on the card and on the CPU, 20 epochs with the same
+     injected base draws and weights (d=6, as 4b): per-epoch losses and the
+     final weights agree to 1e-4.
+Each path's launch counts are set to 0 just before it and read just after;
+every shape the IMH path (10-10c) launched must be one phase 3 or 3b held
+against the plain version, and has its own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
@@ -78,6 +118,7 @@ Needs no JAX, no network, and exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import statistics
@@ -121,6 +162,33 @@ SPLINE_BWD_TOL = 2e-4
 # weights (scripts/warmup_reference_cpu.py --self-target).
 SELF_PERTURB, SELF_SEED = 0.01, 11
 SELF_MALA_ACC = (0.03, 0.30)
+# IMH (phase 10): bench.py's north-star length, and the largest hoisted
+# chunk of that run (the pipelined loop's 1024) and of any run (the
+# footprint cap: 2^27 elements over C * (3 d + H) a draw = 3135 iterations)
+IMH_ITERS, IMH_CHUNK, IMH_CAP = 8000, 1024, (1 << 27) // (C * (3 * D + H))
+# the rows of FixedIMH's hoisted chunks up to IMH_CHUNK iterations
+# (core.driver.chunk_schedule: 1, 4, 16, ... iterations)
+IMH_CHUNK_ROWS = [4 ** i * C for i in range(6)]
+# IMH with the reverse-KL warmup on DiagonalGaussian1(100), 4000 iterations
+# (phase 10b). scripts/warmup_reference_cpu.py --imh over seeds 0-7 on the
+# CPU: the JAX package's acceptance spans 0.0454-0.1176 (mean 0.0875), the
+# port's 0.0478-0.1495 (mean 0.0723); the identity flow's stays under
+# 0.0037. The band is the JAX span from half its low to 1.5 times its high.
+# The moments over the 100 dims, in either package over those seeds: the
+# median of |var / sigma^2 - 1| reaches 0.0531 and of |mean| / sigma
+# 0.0448, and the gate is 1.5 times those; the variance ratio spans
+# 0.2979-1.1650 (the extremes of poorly mixing chains in the widest
+# dims), and the gate is half the lowest and 1.5 times the highest excess,
+# so that a dim whose variance collapses fails.
+IMH_WARM_ITERS = 4000
+# AdaptiveIMH's refit: make_scan_fit over the C = 100 rows of a history row,
+# one Adam step on the adaptive batch of 64 (phase 10c)
+REFIT_B = 64
+IMH_WARM_ACC_JAX = "0.0454-0.1176"
+IMH_WARM_ACC = (0.0227, 0.1764)
+IMH_WARM_MOMENTS = {"median|var/sigma^2 - 1|": (0.0, 0.080), "median|mean|/sigma": (0.0, 0.067),
+                    "min var/sigma^2": (0.149, float("inf")),
+                    "max var/sigma^2": (0.0, 1.248)}
 
 
 def fail(msg: str) -> None:
@@ -263,9 +331,16 @@ def bound(flops, nbytes):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def flat_params(flow):
-    return torch.cat([t.detach().reshape(-1).cpu() for p in flow.params
-                      for v in p.values() for t in v])
+def flat_params(params):
+    return torch.cat([t.detach().reshape(-1).cpu() for p in params for v in p.values() for t in v])
+
+
+def packed_flat(params):
+    """The weights flat on the CPU in the kernels' packed order, the order
+    of a training step's flat gradient."""
+    from nfmc_torch.ops.coupling import _leaves
+
+    return torch.cat([t.detach().reshape(-1).cpu() for t in _leaves(params)])
 
 
 class RecordingNumpy:
@@ -286,21 +361,24 @@ class RecordingNumpy:
 
 class Instrument:
     """For the duration of a ``with`` block: wall time (ending in a
-    synchronise) of the inner sampler's warmup and of ``Flow.fit``, the
-    epochs and optimizer steps of flow training, and the inner sampler."""
+    synchronise) of the inner sampler's warmup, of ``Flow.fit`` and of
+    ``Flow.variational_fit``, the epochs and optimizer steps of flow
+    training (a variational epoch is one step), and the inner sampler."""
 
     def __enter__(self):
         from nfmc_torch.flows import base as flow_base
         from nfmc_torch.flows import train as train_mod
         from nfmc_torch.samplers.mcmc.base import MCMCSampler
 
-        self.inner_s = self.fit_s = 0.0
-        self.epochs = self.steps = 0
+        self.inner_s = self.fit_s = self.vfit_s = 0.0
+        self.epochs = self.steps = self.vfit_epochs = 0
         self.inner = None
         self._orig = [(MCMCSampler, "warmup", MCMCSampler.warmup),
                       (flow_base.Flow, "fit", flow_base.Flow.fit),
+                      (flow_base.Flow, "variational_fit", flow_base.Flow.variational_fit),
                       (train_mod, "_train_epoch", train_mod._train_epoch),
-                      (train_mod, "_train_step", train_mod._train_step)]
+                      (train_mod, "_train_step", train_mod._train_step),
+                      (train_mod, "_reverse_kl", train_mod._reverse_kl)]
         rec = self
 
         self.x_train = self.x_val = None
@@ -327,13 +405,100 @@ class Instrument:
 
         MCMCSampler.warmup = timed(MCMCSampler.warmup, "inner_s")
         flow_base.Flow.fit = timed(flow_base.Flow.fit, "fit_s")
+        flow_base.Flow.variational_fit = timed(flow_base.Flow.variational_fit, "vfit_s")
         train_mod._train_epoch = counted(train_mod._train_epoch, "epochs")
         train_mod._train_step = counted(train_mod._train_step, "steps")
+        train_mod._reverse_kl = counted(train_mod._reverse_kl, "vfit_epochs")
         return self
 
     def __exit__(self, *exc):
         for owner, name, fn in self._orig:
             setattr(owner, name, fn)
+
+
+class ShapeLaunches:
+    """For the duration of a ``with`` block: the RealNVP kernels' launches by
+    (kernel, direction, rows), e.g. ``("vjp", "inverse", 128)``; the
+    wrappers' own counts go on as before."""
+
+    def __enter__(self):
+        from nfmc_torch.ops import coupling as ops
+
+        self.n = collections.Counter()
+        self._ops, self._orig = ops, (ops._launch, ops._launch_vjp)
+        launch, launch_vjp = self._orig
+
+        def stack(wrapper, params, x, clamp, inverse, packed):
+            out = launch(wrapper, params, x, clamp, inverse, packed)
+            self.n["stack", "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
+            return out
+
+        def vjp(params, x, gy, gld, clamp, inverse, packed):
+            out = launch_vjp(params, x, gy, gld, clamp, inverse, packed)
+            self.n["vjp", "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
+            return out
+
+        ops._launch, ops._launch_vjp = stack, vjp
+        return self
+
+    def __exit__(self, *exc):
+        self._ops._launch, self._ops._launch_vjp = self._orig
+
+
+class RefitRecorder:
+    """For the duration of a ``with`` block, the fits that ``module``'s
+    ``make_scan_fit`` makes record their first and their last call: the
+    weights, the data and the generator's state each was given, and the
+    fitted weights (``packed_flat``)."""
+
+    def __init__(self, module):
+        self.module, self.first, self.last, self.n = module, None, None, 0
+
+    def __enter__(self):
+        self._orig = make = self.module.make_scan_fit
+
+        def factory(*a, **k):
+            fit = make(*a, **k)
+
+            def recording(params, data, generator):
+                inputs = ([{k_: [t.detach().clone() for t in v] for k_, v in p.items()}
+                           for p in params], data.clone(), generator.get_state())
+                out = fit(params, data, generator)
+                self.last = (*inputs, packed_flat(out))
+                self.first = self.first or self.last
+                self.n += 1
+                return out
+            return recording
+
+        self.module.make_scan_fit = factory
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_scan_fit = self._orig
+
+
+def cpu_shuffled(scan_fit, seed: int):
+    """A ``make_scan_fit(..., shuffle=False)`` fit whose data is shuffled by
+    permutations drawn on the CPU from ``seed``, whatever the data's device:
+    the same refits on the card and on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+
+    def fit(params, data, generator):
+        return scan_fit(params, data[torch.randperm(data.shape[0], generator=g).to(data.device)],
+                        None)
+    return fit
+
+
+def flat_grad(flow, params, x, dtype=torch.float32) -> torch.Tensor:
+    """The MLE loss's gradient in the flat weights (the refit's Adam step's
+    gradient), in ``dtype``, on ``x``'s device."""
+    from nfmc_torch.flows import train as train_mod
+    from nfmc_torch.ops.coupling import _leaves, unpack_like
+
+    th = torch.cat([t.detach().reshape(-1) for t in _leaves(params)]).to(dtype)
+    th.requires_grad_(True)
+    loss = train_mod._nll(flow, unpack_like(th, params), x.to(dtype))
+    return torch.autograd.grad(loss, th)[0].detach()
 
 
 def device_busy_us(prof) -> float:
@@ -349,21 +514,12 @@ def device_busy_us(prof) -> float:
     return busy
 
 
-def profile_window(headline_iters: int) -> None:
-    """Device busy share of the headline configuration over a short run
-    (torch.profiler): the union of the device's kernel intervals over the
-    host's wall time, and the operators that take the most device time."""
-    import nfmc_torch
-    from nfmc_torch.flows import Flow, RealNVP
-    from nfmc_torch.potentials import StandardGaussian
+def profile_window(run, what: str) -> None:
+    """Device busy share of ``run()`` (a short run of a path through the
+    front door, profiled after a warm call with torch.profiler): the union
+    of the device's kernel intervals over the host's wall time, and the
+    operators that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
-
-    def run():
-        nfmc_torch.sample(StandardGaussian((D,)), strategy="jump_mala",
-                          flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
-                          n_chains=C, n_iterations=headline_iters,
-                          inner_param_kwargs={"n_iterations": INNER_N},
-                          param_kwargs={"store_samples_on_device": True}, seed=1, show_progress=False)
 
     run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -374,15 +530,36 @@ def profile_window(headline_iters: int) -> None:
     avgs = prof.key_averages()
     device_s = device_busy_us(prof) / 1e6
     if device_s == 0:
-        print(f"profile ({headline_iters} outer it): wall {wall:.3f} s, device time not measured")
+        print(f"profile ({what}): wall {wall:.3f} s, device time not measured")
         return
     summed_s = sum(a.self_device_time_total for a in avgs) / 1e6
-    print(f"profile ({headline_iters} outer it): wall {wall:.3f} s, device busy {device_s:.3f} s "
+    print(f"profile ({what}): wall {wall:.3f} s, device busy {device_s:.3f} s "
           f"({100 * device_s / wall:.1f}%; the operators' and kernels' device times summed, "
           f"which counts a kernel twice: {summed_s:.3f} s), "
           f"{sum(a.count for a in avgs if a.key == 'cudaLaunchKernel')} kernel launches")
     for a in sorted(avgs, key=lambda a: -a.self_device_time_total)[:6]:
         print(f"  {a.key[:60]:60s} device {a.self_device_time_total / 1e3:9.2f} ms  calls {a.count}")
+
+
+def ess_per_second(out, wall: float, max_window: int, what: str) -> float:
+    """The mean over the dims of the ESS (summed over chains) of ``out``'s
+    stored draws, computed where they are stored, on the card (``dim_slab``
+    25, as bench.py), over ``wall``; printed with the window's extrapolation
+    factor."""
+    dev = out.samples.device
+    check(dev.type == "cuda", f"{what}: the draws are not on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ess, factor = out.effective_sample_size(max_window=max_window, dim_slab=25,
+                                            return_extrapolation=True)
+    ess_mean = float(ess.mean())
+    check(ess.device == dev and bool(torch.isfinite(ess).all()) and ess_mean > 0,
+          f"{what}: bad ESS")
+    print(f"{what}: ESS mean {ess_mean:.1f} min {float(ess.min()):.1f} over "
+          f"{out.samples.shape[0]} x {out.samples.shape[1]} draws (window {max_window}, "
+          f"extrapolation factor {factor:.4f}), {ess_mean / wall:.1f} ESS/s over the "
+          f"{wall:.3f} s wall (the ESS itself took {time.perf_counter() - t0:.3f} s)")
+    return ess_mean / wall
 
 
 def run_spline_phases(dev, g) -> dict:
@@ -484,7 +661,7 @@ def run_spline_phases(dev, g) -> dict:
                 train_mod.np = rec = RecordingNumpy()
                 flow.fit(x_fit, x_val=x_fit_val, shuffle=False, early_stopping=False, n_epochs=5,
                          batch_size=16, seed=0)
-                fits[device] = (flat_params(flow), np.concatenate(rec.seen))
+                fits[device] = (flat_params(flow.params), np.concatenate(rec.seen))
         finally:
             train_mod.np = orig_np
         e_w = (fits["cpu"][0] - fits["cuda"][0]).abs().max().item()
@@ -775,6 +952,291 @@ def run_fault_checks(dev) -> None:
     check(e <= 1e-12, "the statistics' update disagrees with the mean of the draws")
 
 
+def check_refit(call, what: str, dev) -> None:
+    """Phase 10c's witness at full width: one of AdaptiveIMH's refits
+    (``call`` as ``RefitRecorder`` records it) replayed on the card and run
+    on the CPU from the same weights and rows, one Adam step on REFIT_B
+    rows. The
+    gradient (one VJP) agrees to TOL * max|g|. Adam's first step moves each
+    weight by lr g / (|g| + eps), +-lr whatever the gradient's size, so where
+    float32 rounding flips a gradient element's sign the weights come out 2
+    lr apart, and where |g| is near eps they come out apart by a fraction
+    of lr: every weight more than TOL apart must be one whose float64
+    gradient lies within the float32 error measured here
+    (scripts/refit_gradient_floor.py measures it the same way), apart by
+    what Adam's step makes of the card's and the CPU's gradients (to TOL)."""
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.flows import train as train_mod
+
+    p0, data, gstate, w_card = call
+    g_perm = torch.Generator(device=dev)
+    g_perm.set_state(gstate)
+    rows_ = data[torch.randperm(data.shape[0], generator=g_perm, device=dev)[:REFIT_B]]
+    flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+    replay = train_mod.make_scan_fit(flow, REFIT_B, n_epochs=1, shuffle=False)
+    w_replay = packed_flat(replay(p0, rows_, None))
+    p0_cpu = [{k: [t.cpu() for t in v] for k, v in p.items()} for p in p0]
+    w_cpu = packed_flat(replay(p0_cpu, rows_.cpu(), None))
+    g_card = flat_grad(flow, p0, rows_).cpu().double()
+    g_cpu = flat_grad(flow, p0_cpu, rows_.cpu()).double()
+    g64 = flat_grad(flow, p0_cpu, rows_.cpu(), torch.float64)
+    e_g, g_max = (g_card - g_cpu).abs().max().item(), g64.abs().max().item()
+    e32 = max((g_card - g64).abs().max().item(), (g_cpu - g64).abs().max().item())
+    dw = (w_card.double() - w_cpu.double()).abs()
+    off = dw > TOL
+    lr = 0.005  # make_scan_fit's default, as AdaptiveIMH calls it
+
+    def step(g):
+        return lr * g / (g.abs() + train_mod._Adam.eps)
+
+    flipped = torch.sign(g_card) != torch.sign(g_cpu)
+    witnessed = (g64.abs() <= e32) & ((dw - (step(g_card) - step(g_cpu)).abs()).abs() <= TOL)
+    print(f"AdaptiveIMH {what} refit card vs CPU (d={D}, H={H}, L={L}, {REFIT_B} rows): gradient "
+          f"max|diff| {e_g:.3e} (max|g| {g_max:.4g}, float32 error against float64 {e32:.3e}, "
+          f"{int((g64.abs() <= e32).sum())} of {g64.numel()} elements within it, "
+          f"{int(flipped.sum())} signs flipped); weights max|diff| {dw.max().item():.3e}, "
+          f"{int(off.sum())} more than {TOL} apart, each witnessed: "
+          f"{bool(witnessed[off].all())}; the card's replay against its own refit "
+          f"{(w_replay - w_card).abs().max().item():.3e}")
+    for i in off.nonzero().flatten().tolist():
+        print(f"  weight {i}: card {w_card[i].item():.6f} cpu {w_cpu[i].item():.6f}, gradient "
+              f"card {g_card[i].item():.3e} cpu {g_cpu[i].item():.3e} float64 {g64[i].item():.3e}, "
+              f"Adam's steps apart {(step(g_card[i]) - step(g_cpu[i])).abs().item():.3e}")
+    check(bool(torch.isfinite(g_card).all()) and e_g <= TOL * g_max,
+          f"the {what} refit's gradient on the card disagrees with the CPU's")
+    check((w_replay - w_card).abs().max().item() <= 1e-6,
+          f"the {what} refit replayed differs from the run's own: wrong rows")
+    check(bool(witnessed[off].all()), f"{what} refit: weights apart on the card and the CPU "
+                                      "that no gradient within float32 error of 0 explains")
+
+
+def run_imh_phases(dev) -> dict:
+    """Phases 10-10e: IMH through the front door (frozen, misfit, with the
+    reverse-KL warmup, adaptive), the fused adaptive chunk and
+    variational_fit on the card against the CPU, and the self-target.
+    Returns the launch counts and numbers the kernels' line needs."""
+    import nfmc_torch
+    from nfmc_torch.core.driver import chunk_schedule
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP, from_jax_params
+    from nfmc_torch.flows import train as train_mod
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import (CallablePotential, DiagonalGaussian, DiagonalGaussian1,
+                                       StandardGaussian)
+    from nfmc_torch.samplers.nfmc import AdaptiveIMH, IMHKernel, IMHParameters
+    from nfmc_torch.samplers.nfmc import imh as imh_mod
+
+    res = {}
+
+    def counts():
+        return {w.__name__: w.launches for w in build.WRAPPERS}
+
+    def frozen_imh(target, n_iterations):
+        return nfmc_torch.sample(target, flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
+                                 n_chains=C, n_iterations=n_iterations,
+                                 param_kwargs={"store_samples_on_device": True}, seed=0,
+                                 show_progress=False)
+
+    # ---- 10. FixedIMH through the front door, the flow frozen at identity -------
+    frozen_imh(StandardGaussian((D,)), IMH_ITERS)  # warm run
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ShapeLaunches() as shapes:
+        out = frozen_imh(StandardGaussian((D,)), IMH_ITERS)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nl = counts()
+    st = out.statistics
+    n_chunks = len(list(chunk_schedule(IMH_ITERS, max_chunk=IMH_CHUNK)))
+    print(f"IMH (default strategy, identity flow, {IMH_ITERS} it): wall {wall:.3f} s, "
+          f"{IMH_ITERS / wall:.1f} it/s, launches {nl} ({n_chunks} chunks; by shape "
+          f"{dict(shapes.n)}), acc "
+          f"{st.acceptance_rate:.6f}, max|mean| {np.abs(out.mean).max():.4f}, max|E[x^2]-1| "
+          f"{np.abs(out.second_moment - 1).max():.4f}")
+    res["imh_ess_per_s"] = ess_per_second(out, wall, max_window=4096, what="IMH")
+    profile_window(lambda: frozen_imh(StandardGaussian((D,)), 1000), "IMH, 1000 it")
+    res["imh_shapes"] = shapes.n
+    check(type(out.kernel) is IMHKernel, "the default strategy did not run IMH")
+    check(tuple(out.samples.shape) == (IMH_ITERS, C, D), "IMH sample shape")
+    check(bool(torch.isfinite(out.samples).all()), "IMH: non-finite samples")
+    check(st.acceptance_rate >= 0.999, f"IMH acceptance {st.acceptance_rate} < 0.999 with the "
+                                       "proposal equal to the target")
+    check(np.abs(out.mean).max() < 0.05 and np.abs(out.second_moment - 1).max() < 0.1,
+          "IMH moments are off N(0, I)")
+    check(st.n_target_calls == 2 * C * IMH_ITERS and st.n_target_gradient_calls == 0,
+          "IMH counter contract")
+    check(nl["fused_realnvp_forward"] == 1, "IMH: the current state's log q is one forward launch")
+    check(nl["fused_realnvp_inverse"] == n_chunks, f"IMH: one inverse launch a chunk ({n_chunks})")
+    check(all(v == 0 for k, v in nl.items()
+              if k not in ("fused_realnvp_forward", "fused_realnvp_inverse")),
+          f"IMH: another kernel ran: {nl}")
+
+    # ---- 10a. misfit ----------------------------------------------------------------
+    mu = 0.12
+    t0 = time.perf_counter()
+    mis = frozen_imh(DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)), 2000)
+    acc = mis.statistics.acceptance_rate
+    print(f"IMH misfit N({mu}*1, I), 2000 it: acc {acc:.4f} (analytic 2 Phi(-|mu|/sqrt 2) = "
+          f"0.396), max|mean - mu| {np.abs(mis.mean - mu).max():.4f}, wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(0.30 <= acc <= 0.50, f"IMH misfit acceptance {acc} outside [0.30, 0.50]")
+
+    # ---- 10b. IMH with the reverse-KL warmup -------------------------------------------
+    target = DiagonalGaussian1(D)
+    sigma = target.sigma.astype(np.float64)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Instrument() as ins, ShapeLaunches() as shapes:
+        wout = nfmc_torch.sample(target, flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H),
+                                                   seed=0),
+                                 n_chains=C, n_iterations=IMH_WARM_ITERS, warmup=True,
+                                 param_kwargs={"store_samples_on_device": True}, seed=0,
+                                 show_progress=False)
+        torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    nl = counts()
+    res["vfit_shapes"] = shapes.n
+    acc_w = wout.statistics.acceptance_rate
+    ratio = wout.variance / sigma ** 2
+    z = np.abs(wout.mean) / sigma
+    moments = {"median|var/sigma^2 - 1|": float(np.median(np.abs(ratio - 1))),
+               "min var/sigma^2": float(ratio.min()), "max var/sigma^2": float(ratio.max()),
+               "median|mean|/sigma": float(np.median(z)),
+               "max|var/sigma^2 - 1|": float(np.max(np.abs(ratio - 1))),
+               "max|mean|/sigma": float(z.max())}
+    ident = frozen_imh(target, IMH_WARM_ITERS).statistics.acceptance_rate
+    print(f"IMH with warmup on DiagonalGaussian1({D}), {IMH_WARM_ITERS} it: wall {wall_w:.3f} s, "
+          f"of which variational fit {ins.vfit_s:.3f} s, {ins.vfit_epochs} epochs, "
+          f"{1e3 * ins.vfit_s / max(ins.vfit_epochs, 1):.3f} ms per Adam step (fit wall / "
+          f"steps); launches {nl}, by shape {dict(shapes.n)}; acc {acc_w:.4f} (JAX package, CPU, "
+          f"seeds 0-7: {IMH_WARM_ACC_JAX}), identity flow {ident:.6f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in moments.items()))
+    check(ins.vfit_epochs > 0 and nl["fused_realnvp_vjp"] == ins.vfit_epochs
+          and shapes.n["vjp", "inverse", 128] == ins.vfit_epochs
+          and shapes.n["stack", "inverse", 128] == ins.vfit_epochs,
+          "variational fit: inverse and backward launches at B=128 != epochs")
+    check(IMH_WARM_ACC[0] <= acc_w <= IMH_WARM_ACC[1],
+          f"IMH acceptance after warmup {acc_w} outside {IMH_WARM_ACC}")
+    check(acc_w > ident, f"IMH acceptance after warmup {acc_w} not above the identity's {ident}")
+    for k, (lo, hi) in IMH_WARM_MOMENTS.items():
+        check(lo <= moments[k] <= hi, f"IMH after warmup: {k} {moments[k]} outside [{lo}, {hi}]")
+
+    # ---- 10c. AdaptiveIMH through the front door --------------------------------------
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Instrument() as ins, ShapeLaunches() as shapes, RefitRecorder(imh_mod) as refit:
+        aout = nfmc_torch.sample(target, strategy="adaptive_imh",
+                                 flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
+                                 n_chains=C, n_iterations=IMH_WARM_ITERS, seed=0,
+                                 show_progress=False)
+        torch.cuda.synchronize()
+    nl = counts()
+    res["refit_shapes"] = shapes.n
+    ast = aout.statistics
+    print(f"adaptive_imh ({aout.samples.shape[0]} it, the reference ignores n_iterations): wall "
+          f"{time.perf_counter() - t0:.3f} s, refit Adam steps {ins.steps}, launches {nl}, by "
+          f"shape {dict(shapes.n)}, acc {ast.acceptance_rate:.4f}, gradient calls "
+          f"{ast.n_target_gradient_calls}, target calls {ast.n_target_calls}")
+    check(tuple(aout.samples.shape) == (100, C, D) and bool(torch.isfinite(aout.samples).all()),
+          "adaptive_imh draws")
+    check(ast.n_target_gradient_calls == 2 * C * 100 and ast.n_target_calls == 0,
+          "adaptive_imh counter quirk")
+    check(ins.steps > 0 and nl["fused_realnvp_vjp"] == ins.steps
+          and shapes.n["vjp", "forward", REFIT_B] == ins.steps,
+          f"adaptive_imh: backward launches at B={REFIT_B} != the refits' Adam steps")
+    check(refit.first is not None, "adaptive_imh did not take the fused path")
+    check(train_mod._adaptive_batch_size(C) == REFIT_B, "the refit batch is not REFIT_B")
+
+    # the first refit starts from the identity init, where the gradient of
+    # every weight but the conditioners' output layers is exactly 0; the
+    # last from weights the earlier refits moved
+    print(f"adaptive_imh: {refit.n} refits")
+    check_refit(refit.first, "first", dev)
+    check_refit(refit.last, "last", dev)
+
+    # the fused chunk on the card and on the CPU, same draws, schedule and
+    # refit shuffles, at 4b's size, where no refit gradient lies within
+    # float32 error of 0 and every weight agrees to TOL
+    d6, c8 = 6, 8
+    target6 = DiagonalGaussian1(d6)
+    params_np = [{k: [t.numpy() for t in v] for k, v in p.items()}
+                 for p in perturbed_params(d6, 16, 2, seed=21, device="cpu")]
+    draws = AdaptiveIMH((d6,), target6, kernel=IMHKernel((d6,), flow=Flow(RealNVP((d6,)), seed=0)),
+                        device="cpu").make_draws(torch.Generator().manual_seed(22), (5,), c8)
+    x0 = torch.randn((c8, d6), generator=torch.Generator().manual_seed(23)) * torch.from_numpy(
+        target6.sigma)
+    do_fit, k_idx = np.array([True, False, True, True, False]), np.array([0, 0, 1, 0, 2])
+    fused = {}
+    for device in ("cpu", dev):
+        flow = Flow(RealNVP((d6,), n_layers=2, hidden_size=16), seed=0)
+        flow.params = from_jax_params(params_np, device=device)
+        s = AdaptiveIMH((d6,), target6, kernel=IMHKernel((d6,), flow=flow),
+                        params=IMHParameters(n_iterations=5), device=device)
+        build.reset_launch_counts()
+        stt = s.run_fused_chunk(s.make_fused_state(x0.to(device), 5), 0,
+                                tuple(d.to(device) for d in draws), do_fit, k_idx,
+                                cpu_shuffled(train_mod.make_scan_fit(flow, c8, n_epochs=1,
+                                                                     shuffle=False), 24),
+                                None)
+        fused[device] = [stt["x"], stt["flp"], stt["u"], flat_params(stt["params"])]
+    check(counts()["fused_realnvp_vjp"] == 3, "the fused chunk's 3 refits did not run on the card")
+    errs = [(a - b.cpu()).abs().max().item() for a, b in zip(fused["cpu"], fused[dev])]
+    print(f"AdaptiveIMH fused chunk card vs CPU (5 it, 3 refits, d={d6}, H=16, L=2, C={c8}): "
+          f"max|diff| states {errs[0]:.3e}, log q {errs[1]:.3e}, U {errs[2]:.3e}, refit weights "
+          f"{errs[3]:.3e}")
+    check(max(errs) <= TOL, "the fused adaptive chunk on the card disagrees with the CPU run")
+
+    # ---- 10d. self-target IMH ------------------------------------------------------------
+    flows_ = {"realnvp": Flow(RealNVP((D,), n_layers=L, hidden_size=H))}
+    flows_["realnvp"].params = perturbed_params(D, H, L, seed=31, device=dev)
+    for kind, cls in (("rqs", CouplingRQNSF), ("lrs", CouplingLRS)):
+        flows_[SPLINE_FLOWS[kind]] = Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS))
+        flows_[SPLINE_FLOWS[kind]].params = from_jax_params(
+            self_target_params(kind, d=D, hidden=H), device=dev)
+    for name_, flow in flows_.items():
+        frozen = flow.params
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        sout = nfmc_torch.sample(
+            CallablePotential(lambda x, flow=flow, frozen=frozen: -flow.log_prob_fn(frozen, x),
+                              (D,)),
+            flow=flow, n_chains=C, n_iterations=200, seed=0, show_progress=False,
+            param_kwargs={"store_samples_on_device": True})
+        torch.cuda.synchronize()
+        sacc = sout.statistics.acceptance_rate
+        print(f"{name_} self-target IMH (200 it): acc {sacc:.4f}, launches {counts()}, wall "
+              f"{time.perf_counter() - t0:.3f} s")
+        check(bool(torch.isfinite(sout.samples).all()), f"{name_} self-target IMH: non-finite")
+        check(sacc >= 0.99, f"{name_} self-target IMH acceptance {sacc} < 0.99: the kernels' "
+                            "forward, inverse and log-det disagree")
+
+    # ---- 10e. variational_fit, card vs CPU ------------------------------------------------
+    vt = DiagonalGaussian(np.full(6, 0.3, np.float32), np.float32(1.2))
+    zs = torch.randn((20, 32, 6), generator=torch.Generator().manual_seed(41))
+    fits = {}
+    orig_np = train_mod.np
+    try:
+        for device in ("cpu", dev):
+            flow = Flow(RealNVP((6,), n_layers=2, hidden_size=16), seed=0)
+            flow.params = perturbed_params(6, 16, 2, seed=9, device=device)
+            it = iter(zs.to(device))
+            train_mod.np = rec = RecordingNumpy()
+            flow.variational_fit(lambda x: -vt(x), n_samples=32, n_epochs=20, lr=0.01, seed=0,
+                                 keep_best_weights=False, base_draws=lambda g, n, it=it: next(it))
+            fits[device] = (flat_params(flow.params), np.concatenate(rec.seen))
+    finally:
+        train_mod.np = orig_np
+    e_w = (fits["cpu"][0] - fits[dev][0]).abs().max().item()
+    e_l = float(np.max(np.abs(fits["cpu"][1] - fits[dev][1])))
+    print(f"variational_fit card vs CPU (d=6, 20 epochs of 32 injected draws): weights max|diff| "
+          f"{e_w:.3e}, per-epoch loss max|diff| {e_l:.3e} (losses "
+          f"{np.round(fits[dev][1], 4).tolist()})")
+    check(len(fits[dev][1]) == 20 and e_w <= TOL and e_l <= TOL,
+          "variational_fit on the card disagrees with the CPU fit")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -819,8 +1281,11 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     err = {False: 0.0, True: 0.0}
     timing = {}
-    for d, hid, nl, rows in [(D, H, L, C), (D, H, L, OUTER * C), (D, H, L, 256), (D, H, L, 512),
-                             (D, H, L, 3000), (7, 16, 3, 37)]:
+    # the IMH path adds FixedIMH's chunks, variational_fit's inverse at its
+    # batch of 128 and AdaptiveIMH's refit forward at its batch of 64
+    for d, hid, nl, rows in [*((D, H, L, b) for b in IMH_CHUNK_ROWS), (D, H, L, OUTER * C),
+                             (D, H, L, IMH_CAP * C), (D, H, L, REFIT_B), (D, H, L, 128),
+                             (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37)]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -836,7 +1301,7 @@ def main() -> None:
             k_ms, k_dev, k_txt = kernel_ms(lambda: wrapper(params, x, 3.0, packed=packed), reps)
             p_ms = median_ms(lambda: ops.realnvp_stack_plain(params, x, 3.0, inverse), reps)
             bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows))
-            timing[(d, rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
+            timing[(d, rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by, e)
             print(f"coupling {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} B={rows}: "
                   f"max|diff| {e:.3e} (max|y| {y_ref.abs().max().item():.2f}), kernel {k_txt}, "
                   f"plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
@@ -844,8 +1309,8 @@ def main() -> None:
 
     # ---- 3b. backward kernel vs plain ------------------------------------------------
     bwd_err, bwd_timing = 0.0, {}
-    for d, hid, nl, rows in [(D, H, L, 512), (D, H, L, 256), (D, H, L, C), (7, 16, 3, 37),
-                             (D, H, L, 1001)]:
+    for d, hid, nl, rows in [(D, H, L, 512), (D, H, L, 256), (D, H, L, 128), (D, H, L, C),
+                             (D, H, L, REFIT_B), (7, 16, 3, 37), (D, H, L, 1001)]:
         params = perturbed_params(d, hid, nl, seed=d + rows + 1, device=dev)
         packed = ops.pack_weights(params)
         x, gy = (torch.randn((rows, d), generator=g, device=dev) for _ in range(2))
@@ -865,13 +1330,13 @@ def main() -> None:
             line = (f"coupling vjp {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
                     f"B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) = {scale:.2f}), "
                     f"bit-identical rerun {same}")
-            if d == D and rows in (512, 256):
+            if d == D and rows in (512, 256, 128, REFIT_B):
                 k_ms, k_dev, k_txt = kernel_ms(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0,
                                                                       inverse, packed), 30)
                 p_ms = median_ms(lambda: ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0,
                                                                      inverse), 30)
                 bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows, backward=True))
-                bwd_timing[(rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
+                bwd_timing[(rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by, e_abs)
                 line += f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
                 if rows == 256 and not inverse:
                     # where the backward's time goes: its two kernels on the device
@@ -924,7 +1389,7 @@ def main() -> None:
             train_mod.np = rec = RecordingNumpy()
             flow.fit(x_fit, x_val=x_fit_val, shuffle=False, early_stopping=False, n_epochs=5,
                      batch_size=16, seed=0)
-            fits[device] = (flat_params(flow), np.concatenate(rec.seen))
+            fits[device] = (flat_params(flow.params), np.concatenate(rec.seen))
     finally:
         train_mod.np = orig_np
     e_w = (fits["cpu"][0] - fits["cuda"][0]).abs().max().item()
@@ -968,7 +1433,13 @@ def main() -> None:
     check(st.n_attempted_trajectories == OUTER * INNER_N * C, "attempted-trajectory counter law")
     check(np.abs(out.mean).max() < 0.05 and np.abs(out.second_moment - 1).max() < 0.1,
           "headline moments are off N(0, I)")
-    profile_window(headline_iters=64)
+    headline_ess = ess_per_second(out, wall, max_window=16384, what="headline")
+    profile_window(lambda: nfmc_torch.sample(
+        StandardGaussian((D,)), strategy="jump_mala",
+        flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0), n_chains=C,
+        n_iterations=64, inner_param_kwargs={"n_iterations": INNER_N},
+        param_kwargs={"store_samples_on_device": True}, seed=1, show_progress=False),
+        "headline, 64 outer it")
 
     # ---- 5b. the headline with warmup -----------------------------------------
     warm_outer = 500
@@ -1022,7 +1493,7 @@ def main() -> None:
     for route, kw, batches in (("fixed-effort", {"n_epochs": 2}, n_train // bs),
                                ("host", {"n_epochs": 2, "early_stopping": True}, -(-n_train // bs))):
         flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
-        before = flat_params(flow)
+        before = flat_params(flow.params)
         build.reset_launch_counts()
         t0 = time.perf_counter()
         with Instrument() as ins:
@@ -1035,7 +1506,7 @@ def main() -> None:
             torch.cuda.synchronize()
         nl = {w.__name__: w.launches for w in build.WRAPPERS}
         nst = nout.statistics
-        change = (flat_params(flow) - before).abs().max().item()
+        change = (flat_params(flow.params) - before).abs().max().item()
         print(f"fit_nf ({route} route, {nf_outer} outer it): wall {time.perf_counter() - t0:.3f} s, "
               f"{ins.steps} optimizer steps, launches {nl}, jump acc {nst.jump_acceptance_rate:.4f}, "
               f"max|weight change| {change:.4f}")
@@ -1065,26 +1536,41 @@ def main() -> None:
     spline = run_spline_phases(dev, g)
     run_wide_spline(dev, g)
     run_fault_checks(dev)
+    imh = run_imh_phases(dev)
 
     kernels = []
-    for inverse, rows in ((False, C), (True, OUTER * C)):
-        k_ms, k_dev, p_ms, bound_ms, bound_by = timing[(D, rows, inverse)]
-        wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
+
+    def realnvp_row(name_, source, replaces, launches_, max_err, t):
+        k_ms, k_dev, p_ms, bound_ms, bound_by = t[:5]
         kernels.append({
-            "name": wrapper.__name__, "route": "cuda", "source": "nfmc_torch/csrc/coupling.cu",
-            "replaces": "nfmc_tpu/ops/coupling_pallas.py:60", "launches": launches[wrapper.__name__],
-            "max_abs_err": err[inverse], "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "name": name_, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches_, "max_abs_err": max_err, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+
+    fwd_src, fwd_tpu = "nfmc_torch/csrc/coupling.cu", "nfmc_tpu/ops/coupling_pallas.py:60"
+    bwd_src, bwd_tpu = "nfmc_torch/csrc/coupling_bwd.cu", "nfmc_tpu/ops/coupling_pallas.py:217"
+    for inverse, rows in ((False, C), (True, OUTER * C)):
+        wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
+        realnvp_row(wrapper.__name__, fwd_src, fwd_tpu, launches[wrapper.__name__], err[inverse],
+                    timing[(D, rows, inverse)])
     # the warmup's training batches: 4096 rows at the adaptive batch of 256
-    k_ms, k_dev, p_ms, bound_ms, bound_by = bwd_timing[(256, False)]
-    kernels.append({
-        "name": "fused_realnvp_vjp", "route": "cuda", "source": "nfmc_torch/csrc/coupling_bwd.cu",
-        "replaces": "nfmc_tpu/ops/coupling_pallas.py:217",
-        "launches": warm_launches["fused_realnvp_vjp"], "max_abs_err": bwd_err, "ms": k_ms,
-        "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
-    })
+    realnvp_row("fused_realnvp_vjp", bwd_src, bwd_tpu, warm_launches["fused_realnvp_vjp"], bwd_err,
+                bwd_timing[(256, False)])
+    # the IMH path (phases 10-10c): a row for each shape it launched, with
+    # its launches at that shape and its error there; every such shape must
+    # have been held against the plain version in phase 3 or 3b
+    imh_shapes = imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"]
+    for (kind, direction, rows), n in sorted(imh_shapes.items()):
+        inverse = direction == "inverse"
+        if kind == "stack":
+            t = timing.get((D, rows, inverse))
+            name_, src, tpu = f"fused_realnvp_{direction} (IMH, B={rows})", fwd_src, fwd_tpu
+        else:
+            t = bwd_timing.get((rows, inverse))
+            name_, src, tpu = f"fused_realnvp_vjp ({direction}, IMH, B={rows})", bwd_src, bwd_tpu
+        check(t is not None, f"the IMH path launched {name_}, a shape phases 3/3b do not check")
+        realnvp_row(name_, src, tpu, n, t[5], t)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
             k_ms, k_dev, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
@@ -1105,6 +1591,8 @@ def main() -> None:
             "max_abs_err": spline["bwd_err"][kind], "ms": k_ms, "device_ms": k_dev,
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    print(f"ESS/s: headline {headline_ess:.1f}, IMH {imh['imh_ess_per_s']:.1f} "
+          f"({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

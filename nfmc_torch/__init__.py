@@ -4,10 +4,12 @@ CUDA kernels for NVIDIA Hopper.
 The port of ``nfmc_tpu`` (JAX on a TPU), which stays the reference. Same
 module layout and public names; entry points run on CUDA unless the caller
 passes ``device="cpu"``. Ported so far: ``sample``/``create_sampler`` for
-``jump_mala`` and ``jump_ula`` with a RealNVP, rational-quadratic spline
-(``c-rqnsf``) or linear-rational spline (``c-lrsnsf``) coupling flow (frozen,
-fitted by the warmup, or refitted with ``fit_nf=True``) and for ``mala`` and
-``ula``.
+``imh`` (the default; ``fixed_imh``) and ``adaptive_imh``, with the
+reverse-KL warmup, for ``jump_mala`` and ``jump_ula`` with a RealNVP,
+rational-quadratic spline (``c-rqnsf``) or linear-rational spline
+(``c-lrsnsf``) coupling flow (frozen, fitted by the warmup, or refitted with
+``fit_nf=True``) and for ``mala`` and ``ula``; the ESS and R-hat
+diagnostics; every potential of ``nfmc_tpu.potentials``.
 """
 from .api import create_flow_object, create_sampler, parse_flow_string, sample
 from .core import (
@@ -23,8 +25,17 @@ from .core import (
     Sampler,
     set_seed,
 )
+from . import diagnostics, potentials
 from .flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
-from .samplers.nfmc import JumpMALA, JumpNFMCParameters, JumpULA
+from .samplers.nfmc import (
+    AdaptiveIMH,
+    FixedIMH,
+    IMHKernel,
+    IMHParameters,
+    JumpMALA,
+    JumpNFMCParameters,
+    JumpULA,
+)
 
 __version__ = "0.1.0"
 
@@ -33,4 +44,5 @@ __all__ = [
     "MCMCOutput", "JumpNFMCOutput", "MCMCStatistics", "JumpNFMCStatistics", "MCMCSamples",
     "MCMCKernel", "MCMCParameters", "NFMCKernel", "NFMCParameters", "Sampler",
     "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "JumpMALA", "JumpULA", "JumpNFMCParameters",
+    "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
 ]

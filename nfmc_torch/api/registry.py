@@ -2,7 +2,7 @@
 (e.g. ``'realnvp%{"n_layers": 10}'``). Ported so far: RealNVP and the coupling
 spline flows ``c-rqnsf`` and ``c-lrsnsf`` (with the aliases of
 ``nfmc_tpu/api/registry.py``); every other flow of ``nfmc_tpu``'s registry is
-ROADMAP 1.12."""
+ROADMAP 1.7."""
 from __future__ import annotations
 
 import hashlib
@@ -43,7 +43,7 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
         raise ValueError(f"bad flow name: {flow_name!r}")
     if flow_name not in FLOWS:
         raise NotImplementedError(
-            f"flow {flow_name!r} is not ported to nfmc_torch yet (ROADMAP 1.12); "
+            f"flow {flow_name!r} is not ported to nfmc_torch yet (ROADMAP 1.7); "
             f"ported: {', '.join(FLOWS)}")
     seed = kwargs.pop("seed", None)
     return Flow(FLOWS[flow_name](event_shape, **kwargs), seed=seed)
@@ -52,11 +52,10 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
 # Strategies of nfmc_tpu's registry that the port does not run yet, with the
 # ROADMAP item that ports each.
 UNPORTED_STRATEGIES = {
-    **{s: "1.10" for s in ("hmc", "uhmc", "mh", "ess", "nuts", "pt_mala",
-                           "pt_mh", "pt_hmc", "aies", "chees_hmc", "dense_hmc", "dense_mala",
-                           "jump_hmc", "jump_uhmc", "jump_ess", "jump_mh", "jump_nuts",
-                           "jump_aies", "jump_chees")},
-    **{s: "1.11" for s in ("imh", "fixed_imh", "adaptive_imh", "neutra_hmc", "neutra_mh",
-                           "neutra_chees", "tess", "dlmc")},
+    **{s: "1.5" for s in ("hmc", "uhmc", "mh", "ess", "nuts", "pt_mala",
+                          "pt_mh", "pt_hmc", "aies", "chees_hmc", "dense_hmc", "dense_mala",
+                          "jump_hmc", "jump_uhmc", "jump_ess", "jump_mh", "jump_nuts",
+                          "jump_aies", "jump_chees")},
+    **{s: "1.6" for s in ("neutra_hmc", "neutra_mh", "neutra_chees", "tess", "dlmc")},
 }
-PORTED_STRATEGIES = ("jump_mala", "jump_ula", "mala", "ula")
+PORTED_STRATEGIES = ("imh", "fixed_imh", "adaptive_imh", "jump_mala", "jump_ula", "mala", "ula")

@@ -14,7 +14,15 @@ from ..core.sampler import NFMCKernel, Sampler
 from ..flows import Flow
 from ..potentials import Potential
 from ..samplers.mcmc import MALA, ULA, LangevinKernel, LangevinParameters
-from ..samplers.nfmc import JumpMALA, JumpNFMCParameters, JumpULA
+from ..samplers.nfmc import (
+    AdaptiveIMH,
+    FixedIMH,
+    IMHKernel,
+    IMHParameters,
+    JumpMALA,
+    JumpNFMCParameters,
+    JumpULA,
+)
 from ..utils import resolve_device
 from .registry import PORTED_STRATEGIES, UNPORTED_STRATEGIES, create_flow_object
 
@@ -68,6 +76,17 @@ def create_sampler(
         flow_object = flow
     else:
         raise ValueError(f"Unknown type for normalizing flow: {type(flow)}")
+
+    if strategy in ("imh", "fixed_imh"):
+        return FixedIMH(event_shape, target,
+                        IMHKernel(event_shape, flow=flow_object, **kernel_kwargs),
+                        IMHParameters(**param_kwargs), device=device)
+    if strategy == "adaptive_imh":
+        # reference quirk parity: AdaptiveIMH ignores param_kwargs
+        # (``nfmc_tpu/api/sample.py:213-216``), so it always runs 100 iterations
+        return AdaptiveIMH(event_shape, target,
+                           IMHKernel(event_shape, flow=flow_object, **kernel_kwargs),
+                           IMHParameters(), device=device)
 
     kernel = NFMCKernel(event_shape, flow=flow_object, **kernel_kwargs)
     params = JumpNFMCParameters(**param_kwargs)

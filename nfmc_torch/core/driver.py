@@ -190,21 +190,34 @@ def run_chunk_loop(
 
 class ChunkedDriver:
     """Runs a sampler's step for N iterations in chunks (the counterpart of
-    ``nfmc_tpu/core/driver.py::ChunkedScanDriver``, for standalone MCMC
-    runs).
+    ``nfmc_tpu/core/driver.py::ChunkedScanDriver``).
 
     ``make_step(tuning)`` gives ``step(x, kstate, draws) -> (x', kstate',
     StepInfo)`` and ``make_draws(generator, prefix, n_chains)`` a chunk's
     per-iteration randomness with leading dims ``prefix``. A chunk draws its
     randomness up front, then loops the step eagerly; the accumulators stay
     on the device.
+
+    Work that does not depend on the chain state can be hoisted out of the
+    loop: ``make_precompute(tuning)`` gives ``precompute(x, kstate, draws)
+    -> aux`` (tensors with leading dim ``chunk``, or None to decline, e.g.
+    above a footprint cap) and the iterations then run ``make_step_aux
+    (tuning)``'s ``step(x, kstate, draws_i, aux_i)``; a chunk whose
+    precompute declines runs ``make_step``'s step. ``hoist_per_iter(x)``,
+    one iteration's hoisted f32 elements, caps the chunk so that the default
+    footprint limit admits it.
     """
 
     def __init__(self, event_shape: Tuple[int, ...], make_step: Callable[[bool], Callable],
-                 make_draws: Callable):
+                 make_draws: Callable, make_precompute: Optional[Callable] = None,
+                 make_step_aux: Optional[Callable] = None,
+                 hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None):
         self.event_shape = tuple(event_shape)
         self.make_step = make_step
         self.make_draws = make_draws
+        self.make_precompute = make_precompute
+        self.make_step_aux = make_step_aux
+        self.hoist_per_iter = hoist_per_iter
 
     def run(self, x0: torch.Tensor, kstate, generator: torch.Generator, n_iterations: int, *,
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
@@ -213,6 +226,8 @@ class ChunkedDriver:
             desc: str = "MCMC"):
         """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``."""
         step = self.make_step(tuning)
+        precompute = self.make_precompute(tuning) if self.make_precompute else None
+        step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
         st = {"x": x0.clone(), "kstate": kstate, "acc": StatsAccum.zeros(self.event_shape, device)}
         n_chains = x0.shape[0]
@@ -229,8 +244,13 @@ class ChunkedDriver:
             x, ks, acc = st["x"], st["kstate"], st["acc"]
             ys = torch.empty((chunk, *x.shape), dtype=x.dtype, device=device) if collect else None
             with torch.no_grad():
+                aux = precompute(x, ks, draws) if precompute is not None else None
                 for i in range(chunk):
-                    x, ks, info = step(x, ks, tuple(d[i] for d in draws))
+                    draws_i = tuple(d[i] for d in draws)
+                    if aux is None:
+                        x, ks, info = step(x, ks, draws_i)
+                    else:
+                        x, ks, info = step_aux(x, ks, draws_i, tuple(a[i] for a in aux))
                     acc = acc.add(info, x)
                     if collect:
                         ys[i].copy_(x)
@@ -262,6 +282,10 @@ class ChunkedDriver:
         # the chunk's hoisted draws and its emitted-draw buffer are each
         # about (chunk, C, *event)
         cap = max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * event_elems))
+        if precompute is not None and self.hoist_per_iter is not None:
+            # the default limit, not a sampler's own: forcing the in-loop
+            # step must not change the chunk schedule
+            cap = min(cap, max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, int(self.hoist_per_iter(x0)))))
         iters_done = run_chunk_loop(
             n_iterations, dispatch=dispatch, sync=lambda: synchronize(device), stats=stats,
             flush=flush, time_limit_seconds=time_limit_seconds, show_progress=show_progress,

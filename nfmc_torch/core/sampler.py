@@ -109,6 +109,10 @@ class Sampler:
                    seed: Optional[int] = None) -> torch.Generator:
         return resolve_generator(self.device, generator, seed)
 
+    def _sub_seeds(self, generator: torch.Generator, n: int):
+        """``n`` seeds drawn from ``generator``, for the streams a call splits off."""
+        return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
     def warmup(self, x0, show_progress: bool = True, time_limit_seconds=None,
                generator=None, seed=None) -> MCMCOutput:
         raise NotImplementedError

@@ -157,3 +157,9 @@ class Flow:
         from .train import fit as _fit
 
         return _fit(self, x_train, **kwargs)
+
+    def variational_fit(self, target_log_prob, **kwargs):
+        """Reverse-KL fit to ``target_log_prob`` (:func:`nfmc_torch.flows.train.variational_fit`)."""
+        from .train import variational_fit as _vfit
+
+        return _vfit(self, target_log_prob, **kwargs)

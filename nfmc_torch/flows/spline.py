@@ -154,19 +154,25 @@ def linear_rational_spline(inputs: torch.Tensor, raw: torch.Tensor, inverse: boo
     if not inverse:
         phi = (x - x0) / w
         seg1 = phi <= lam
-        d_1 = (lam - phi) + wc * phi
-        y1 = (ya * (lam - phi) + wc * yc * phi) / d_1
-        d_2 = wc * (1.0 - phi) + wb * (phi - lam)
-        y2 = (wc * yc * (1.0 - phi) + wb * yb * (phi - lam)) / d_2
-        out = torch.where(seg1, y1, y2)
-        sign = 1.0
     else:
         seg1 = x <= yc
         phi1 = lam * (x - ya) / _guard((x - ya) - wc * (x - yc))
         phi2 = (wc * (x - yc) + lam * wb * (yb - x)) / _guard(wc * (x - yc) + wb * (yb - x))
         phi = torch.where(seg1, phi1, phi2).clamp(0.0, 1.0)
-        d_1 = (lam - phi) + wc * phi
-        d_2 = wc * (1.0 - phi) + wb * (phi - lam)
+    # each segment's terms at a phi of its own segment: the other segment's
+    # denominator can be exactly 0 there (d_1 beyond lam, d_2 before it),
+    # and its branch, discarded by the where, would still give autograd
+    # 0 / 0; at lam both are positive
+    phi_1 = torch.where(seg1, phi, lam)
+    phi_2 = torch.where(seg1, lam, phi)
+    d_1 = (lam - phi_1) + wc * phi_1
+    d_2 = wc * (1.0 - phi_2) + wb * (phi_2 - lam)
+    if not inverse:
+        y1 = (ya * (lam - phi_1) + wc * yc * phi_1) / d_1
+        y2 = (wc * yc * (1.0 - phi_2) + wb * yb * (phi_2 - lam)) / d_2
+        out = torch.where(seg1, y1, y2)
+        sign = 1.0
+    else:
         out = x0 + w * phi
         sign = -1.0
     dydx1 = lam * wc * (yc - ya) / (d_1 * d_1 * w)

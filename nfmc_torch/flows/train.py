@@ -1,5 +1,6 @@
-"""Flow training: forward-KL MLE ``fit`` and the fixed-effort
-``make_scan_fit`` (counterpart of ``nfmc_tpu/flows/train.py``).
+"""Flow training: forward-KL MLE ``fit``, the fixed-effort ``make_scan_fit``
+and the reverse-KL ``variational_fit`` (counterpart of
+``nfmc_tpu/flows/train.py``).
 
 Adam (``optax.adam``: b1 0.9, b2 0.999, eps 1e-8) runs on one flat
 parameter vector in the packed order of the coupling kernels. A batch whose
@@ -10,16 +11,16 @@ with the host once per block of ``check_every`` epochs, where it applies the
 early-stopping count, the time limit and the ``ValueError`` contract that
 lets callers roll back. Each training step goes forward through the flow's
 coupling kernel and back through its backward kernel (``RealNVPStack`` or
-``SplineStack``).
+``SplineStack``); a ``variational_fit`` step goes through the flow's inverse
+and back through the backward kernel in the inverse direction.
 
-``variational_fit`` and the data-parallel ``mesh`` option are not ported yet
-(ROADMAP 1.12, 1.13).
+The data-parallel ``mesh`` option is not ported yet (ROADMAP 1.8).
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -221,7 +222,7 @@ def fit(
     ``ValueError`` when training diverges (non-finite validation loss)."""
     if mesh is not None:
         raise NotImplementedError("data-parallel flow training (mesh) is not ported yet "
-                                  "(ROADMAP 1.13)")
+                                  "(ROADMAP 1.8)")
     t_start = time.time()
     device = flow.get_device()
     generator = resolve_generator(device, generator, seed)
@@ -300,6 +301,104 @@ def fit(
                     epochs_since_best += 1
             if show_progress:
                 bar.set_postfix_str(f"val loss: {vls[-1]:.4f} (best {global_best:.4f})")
+            if early_stopping and epochs_since_best >= early_stopping_threshold:
+                break
+    finally:
+        bar.close()
+
+    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
+
+
+def _reverse_kl(flow, params, z, target_log_prob) -> torch.Tensor:
+    """``mean(-target_log_prob(x) - log_det_inv)`` with ``x = inverse(z)``;
+    the base entropy is constant and dropped."""
+    x, log_det_inv = flow.bijection.inverse_fn(params, z)
+    return (-target_log_prob(x) - log_det_inv).mean()
+
+
+def variational_fit(
+    flow,
+    target_log_prob: Callable,
+    n_samples: int = 128,
+    n_epochs: int = 500,
+    lr: float = 0.005,  # the reference's 0.05 diverges with He-init tanh conditioners
+    early_stopping: bool = False,
+    early_stopping_threshold: int = 50,
+    keep_best_weights: bool = True,
+    show_progress: bool = False,
+    time_limit_seconds: Optional[float] = None,
+    check_for_divergences: bool = False,
+    mesh=None,
+    generator: Optional[torch.Generator] = None,
+    seed: Optional[int] = None,
+    base_draws: Optional[Callable] = None,
+) -> None:
+    """Reverse-KL fit to an unnormalised ``target_log_prob`` (= -U); replaces
+    ``flow.params``. An epoch is one Adam step on ``n_samples`` base draws
+    ``base_draws(generator, n_samples)`` (default ``flow.sample_base_fn``).
+
+    As in the JAX package: the best weights are those the best finite loss
+    was measured at (taken before the step's update, gated on the loss
+    alone); a step whose loss or gradient is not finite changes neither the
+    parameters nor Adam's moments; the host looks at the losses once per
+    block of ``min(128, n_epochs)`` epochs, counts early stopping per epoch,
+    and with ``check_for_divergences`` stops once more than a block's worth
+    of losses were not finite."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel flow training (mesh) is not ported yet "
+                                  "(ROADMAP 1.8)")
+    t_start = time.time()
+    device = flow.get_device()
+    generator = resolve_generator(device, generator, seed)
+    base_draws = base_draws or flow.sample_base_fn
+    n_samples = max(1, int(n_samples))
+
+    like = flow.params
+    theta = _flatten(like)
+    adam = _Adam(theta, lr)
+    best_theta = theta
+    best_loss = torch.tensor(math.inf, device=device)
+    check_every = max(1, min(128, n_epochs))
+    epochs_done = 0
+    epochs_since_best = 0
+    global_best = math.inf
+    n_nonfinite = 0
+
+    bar = Progress(total=n_epochs, desc="Fitting NF (variational)", disable=not show_progress)
+    try:
+        while epochs_done < n_epochs:
+            if time_limit_seconds is not None and time.time() - t_start > time_limit_seconds:
+                break
+            block = min(check_every, n_epochs - epochs_done)
+            losses = []
+            for _ in range(block):
+                z = base_draws(generator, n_samples)
+                with torch.enable_grad():
+                    th = theta.detach().requires_grad_(True)
+                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob)
+                    (g,) = torch.autograd.grad(loss, th)
+                with torch.no_grad():
+                    loss = loss.detach()
+                    better = torch.isfinite(loss) & (loss < best_loss)
+                    best_loss = torch.where(better, loss, best_loss)
+                    if keep_best_weights:
+                        best_theta = torch.where(better, theta, best_theta)
+                    theta = adam.step(theta, g, _finite_update(loss, g))
+                losses.append(loss)
+            losses = torch.stack(losses).cpu().numpy()  # the block's one synchronisation
+            epochs_done += block
+            bar.update(block)
+            n_nonfinite += int(np.sum(~np.isfinite(losses)))
+            if check_for_divergences and n_nonfinite > block:
+                break  # persistent divergence: stop, keep the best weights
+            for loss in losses:
+                if np.isfinite(loss) and loss < global_best:
+                    global_best = float(loss)
+                    epochs_since_best = 0
+                else:
+                    epochs_since_best += 1
+            if show_progress:
+                bar.set_postfix_str(f"loss: {losses[-1]:.4f} (best {global_best:.4f})")
             if early_stopping and epochs_since_best >= early_stopping_threshold:
                 break
     finally:

@@ -130,9 +130,6 @@ class JumpNFMC(Sampler):
     def name(self):
         return "Jump MCMC"
 
-    def _sub_seeds(self, generator: torch.Generator, n: int):
-        return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
-
     # ------------------------------------------------------------------ warmup
     def warmup(self, x0, show_progress: bool = True, time_limit_seconds=None,
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:

@@ -20,10 +20,18 @@ Correctness numbers, not speed: for each seed it runs
      weights come from ``chip_smoke.self_target_params`` (a numpy seed
      alone) is both the jump proposal and the target, U = -log q, 100
      chains, --self-outer outer iterations of 5 MALA steps, printing both
-     acceptances.
+     acceptances;
+  4. with --imh, IMH through both front doors (the default strategy) on
+     ``DiagonalGaussian1(100)`` (sigma 1..10 tiled): a RealNVP (4 layers,
+     hidden 128) fitted by the reverse-KL warmup with the default
+     ``warmup_fit_kwargs``, 100 chains, IMH_ITERS iterations, printing the
+     acceptance and the moment statistics of IMH_MOMENTS (the median and
+     the extremes over the dims of the variance ratio and of |mean| / sigma);
+     then the identity-init flow without warmup on the same target (``chip_smoke.py`` phase 10b), and the spread over
+     the seeds.
 
     JAX_PLATFORMS=cpu python scripts/warmup_reference_cpu.py --seeds 0 1 2 [--full]
-        [--flow realnvp|c-rqnsf|c-lrsnsf] [--self-target] [--no-inner]
+        [--flow realnvp|c-rqnsf|c-lrsnsf] [--self-target] [--no-inner] [--imh]
 """
 import argparse
 import sys
@@ -37,6 +45,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo root
 
 D, C, H, L, INNER_N, OUTER, N_BINS = 100, 100, 128, 4, 5, 500, 8
+IMH_ITERS = 4000
 
 
 def inner_spread(seed: int) -> dict:
@@ -154,6 +163,52 @@ def self_target(seed: int, flow: str, n_outer: int) -> None:
               f"{st.acceptance_rate:.4f} ({time.time() - t0:.0f} s)")
 
 
+IMH_MOMENTS = ("median|var/sigma^2 - 1|", "min var/sigma^2", "max var/sigma^2",
+               "median|mean|/sigma", "max|var/sigma^2 - 1|", "max|mean|/sigma")
+
+
+def imh_moments(mean, variance, sigma2) -> tuple:
+    """The moment statistics of IMH_MOMENTS over the dims of a run."""
+    ratio = np.asarray(variance, np.float64) / sigma2
+    z = np.abs(np.asarray(mean, np.float64)) / np.sqrt(sigma2)
+    return (float(np.median(np.abs(ratio - 1))), float(ratio.min()), float(ratio.max()),
+            float(np.median(z)), float(np.max(np.abs(ratio - 1))), float(z.max()))
+
+
+def imh(seed: int) -> dict:
+    """IMH with the reverse-KL warmup on DiagonalGaussian1(100) in both
+    packages, and the identity flow without warmup; returns the
+    acceptances and variance errors by package."""
+    import nfmc_torch
+    import nfmc_torch.flows
+    import nfmc_tpu
+    import nfmc_tpu.flows
+    from nfmc_torch.potentials import DiagonalGaussian1 as TDiagonalGaussian1
+    from nfmc_tpu.potentials import DiagonalGaussian1
+
+    sigma2 = DiagonalGaussian1(D).sigma.astype(np.float64) ** 2
+    res = {}
+    for name, pkg, target, extra in (
+            ("jax", nfmc_tpu, DiagonalGaussian1(D), {}),
+            ("torch cpu", nfmc_torch, TDiagonalGaussian1(D), {"device": "cpu"})):
+        def flow():
+            return pkg.flows.Flow(flows("realnvp")[0 if name == "jax" else 1], seed=0)
+
+        t0 = time.time()
+        out = pkg.sample(target, flow=flow(), n_chains=C, n_iterations=IMH_ITERS, warmup=True,
+                         seed=seed, show_progress=False, **extra)
+        acc = out.statistics.acceptance_rate
+        moments = imh_moments(out.mean, out.variance, sigma2)
+        ident = pkg.sample(target, flow=flow(), n_chains=C, n_iterations=IMH_ITERS, seed=seed,
+                           show_progress=False, **extra)
+        res[name] = (acc, *moments, ident.statistics.acceptance_rate)
+        print(f"{name} IMH with warmup on DiagonalGaussian1({D}) seed {seed}: acc {acc:.4f}, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in zip(IMH_MOMENTS, moments))
+              + f"; identity flow without warmup: acc {ident.statistics.acceptance_rate:.6f} "
+              f"({time.time() - t0:.0f} s)")
+    return res
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
@@ -162,6 +217,7 @@ def main() -> None:
     ap.add_argument("--self-target", action="store_true")
     ap.add_argument("--self-outer", type=int, default=100)
     ap.add_argument("--no-inner", action="store_true", help="skip the inner warmups")
+    ap.add_argument("--imh", action="store_true")
     args = ap.parse_args()
     torch.set_num_threads(4)
     if not args.no_inner:
@@ -177,7 +233,15 @@ def main() -> None:
             ap.error("--self-target takes a spline flow")
         for seed in args.seeds:
             self_target(seed, args.flow, args.self_outer)
-
+    if args.imh:
+        runs = [imh(seed) for seed in args.seeds]
+        for name in ("jax", "torch cpu"):
+            v = np.array([r[name] for r in runs])
+            print(f"{name} IMH over {len(v)} seeds: acc [{v[:, 0].min():.4f}, "
+                  f"{v[:, 0].max():.4f}] mean {v[:, 0].mean():.4f}; "
+                  + "; ".join(f"{k} [{v[:, i].min():.4f}, {v[:, i].max():.4f}]"
+                              for i, k in enumerate(IMH_MOMENTS, start=1))
+                  + f"; identity acc max {v[:, -1].max():.6f}")
 
 if __name__ == "__main__":
     main()

@@ -33,6 +33,7 @@ def _params(d, hidden, n_layers, device, seed=0):
 
 
 @pytest.mark.parametrize("d,hidden,n_layers,rows", [(7, 16, 3, 37), (100, 128, 4, 100),
+                                                    (100, 128, 4, 64), (100, 128, 4, 128),
                                                     (100, 128, 4, 256), (100, 128, 4, 3000),
                                                     (100, 128, 4, 5000), (2, 8, 1, 1),
                                                     (33, 300, 2, 70), (784, 128, 2, 300),
@@ -134,7 +135,8 @@ def _grad_err(got, want):
 
 
 @pytest.mark.parametrize("d,hidden,n_layers,rows", [(100, 128, 4, 512), (100, 128, 4, 256),
-                                                    (100, 128, 4, 100), (7, 16, 3, 37),
+                                                    (100, 128, 4, 128), (100, 128, 4, 100),
+                                                    (100, 128, 4, 64), (7, 16, 3, 37),
                                                     (100, 128, 4, 9001), (784, 128, 2, 300),
                                                     (1024, 128, 2, 40)])
 @pytest.mark.parametrize("inverse", [False, True])
@@ -280,3 +282,49 @@ def test_spline_flow_on_cuda_never_runs_the_plain_version(cuda, kind, monkeypatc
     wide = Flow(cls((3800,), n_layers=1, hidden_size=128), seed=0).to(cuda)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         wide.bijection.forward(torch.randn((2, 3800), device=cuda))
+
+
+@pytest.mark.parametrize("rows", [128, 1024 * 100, 3135 * 100])
+def test_imh_path_inverse_shapes_match_plain(cuda, rows):
+    """The coupling kernel in the inverse direction at IMH's shapes:
+    variational_fit's batch (128), FixedIMH's hoisted chunk at the
+    north-star length (1024 iterations x 100 chains) and at the footprint
+    cap (3135 x 100)."""
+    params = _params(100, 128, 4, cuda)
+    x = torch.randn((rows, 100), device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    y, ld = ops.fused_realnvp_inverse(params, x, 3.0)
+    torch.cuda.synchronize()
+    y_ref, ld_ref = ops.realnvp_stack_plain(params, x, 3.0, True)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(ld).all())
+    assert float((y - y_ref).abs().max()) <= TOL
+    assert float((ld - ld_ref).abs().max()) <= TOL
+
+
+def test_reverse_kl_gradient_through_the_inverse_vjp(cuda):
+    """One variational_fit gradient at d=100, B=128 on the card: one inverse
+    launch and one backward launch in the inverse direction, against the
+    same gradient on the CPU's plain stack. The target reads x through a
+    transpose, so its cotangent reaches the backward strided, and the mean
+    gives the log-det an expanded cotangent."""
+    from nfmc_torch.flows import train as ttrain
+
+    def neg_u(x):
+        return -0.5 * (x.t() ** 2).sum(0)
+
+    flow = Flow(RealNVP((100,), n_layers=4, hidden_size=128), seed=0)
+    flow.params = _params(100, 128, 4, "cpu")
+    z = torch.randn((128, 100), generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for device in ("cpu", cuda):
+        params = [{k: [t.to(device).requires_grad_(True) for t in v] for k, v in p.items()}
+                  for p in flow.params]
+        before = (ops.fused_realnvp_inverse.launches, ops.fused_realnvp_vjp.launches)
+        loss = ttrain._reverse_kl(flow, params, z.to(device), neg_u)
+        leaves = [t for p in params for k in ("w", "b") for t in p[k]]
+        grads[str(device)] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        after = (ops.fused_realnvp_inverse.launches, ops.fused_realnvp_vjp.launches)
+        launched = tuple(a - b for a, b in zip(after, before))
+        assert launched == ((0, 0) if device == "cpu" else (1, 1))
+    scale = max(1.0, max(float(g.abs().max()) for g in grads["cpu"]))
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        assert float((a - b).abs().max()) <= TOL * scale

@@ -335,3 +335,88 @@ def test_self_target_jump_accepts_every_proposal(kind):
     assert out.statistics.jump_acceptance_rate >= 0.99
     assert 0.0 < out.statistics.acceptance_rate < 1.0  # MALA moves the chains
     assert torch.isfinite(out.samples).all()
+
+
+def _lrs_zero_denominator(inverse, discarded, n_bins=8, tail=5.0):
+    """Raw conditioner outputs ``(1, 4 K - 1)`` and one input ``(1,)`` (x
+    forward, y inverse) of the LRS transform where segment ``discarded`` (1
+    or 2) of the input's bin is not the one taken and its denominator
+    (``d_1 ** 2 w`` or ``d_2 ** 2 w``) is exactly 0 in float32, the other
+    segment's terms taken at the input's phi: float32 neighbours of the
+    root of that denominator, over numpy-seeded conditioner outputs."""
+    from nfmc_torch.flows import spline as sp
+
+    rng = np.random.default_rng(17)
+    K = n_bins
+    for _ in range(2000):
+        raw = torch.from_numpy(rng.standard_normal((1, 4 * K - 1)).astype(np.float32))
+        cumw, cumh = sp._make_knots(raw[..., :K], raw[..., K:2 * K], K, tail)
+        derivs = sp._derivs(raw[..., 2 * K:3 * K - 1])
+        lams = 0.025 + 0.95 * torch.sigmoid(raw[..., 3 * K - 1:])
+        for k in range(K):
+            x0, w = cumw[0, k], cumw[0, k + 1] - cumw[0, k]
+            ya, h = cumh[0, k], cumh[0, k + 1] - cumh[0, k]
+            yb = ya + h  # as the transform forms it, which may round off the knot
+            d0, d1, lam = derivs[0, k], derivs[0, k + 1], lams[0, k]
+            wb = torch.sqrt(d0 / d1)
+            wc = (lam * d0 + (1.0 - lam) * wb * d1) / (h / w)
+            yc = ((1.0 - lam) * ya + lam * wb * yb) / ((1.0 - lam) + lam * wb)
+            # d_1 = (lam - phi) + wc phi vanishes beyond lam, d_2 = wc (1 -
+            # phi) + wb (phi - lam) before it
+            root = lam / (1.0 - wc) if discarded == 1 else (wb * lam - wc) / (wb - wc)
+            if not (lam < root < 1.0 if discarded == 1 else 0.0 < root < lam):
+                continue
+            x_root = (x0 + w * root).reshape(1)
+            centre = (sp.linear_rational_spline(x_root, raw, False)[0] if inverse else x_root)
+            bits = centre.numpy().view(np.int32) + np.arange(-3000, 3000, dtype=np.int32)
+            v = torch.from_numpy(bits.view(np.float32).copy())
+            if inverse:
+                # the inverse's phi in the segment taken
+                if discarded == 1:
+                    phi = ((wc * (v - yc) + lam * wb * (yb - v))
+                           / (wc * (v - yc) + wb * (yb - v))).clamp(0.0, 1.0)
+                else:
+                    phi = (lam * (v - ya) / ((v - ya) - wc * (v - yc))).clamp(0.0, 1.0)
+                taken = (v > yc) if discarded == 1 else (v <= yc)
+                in_bin = (v >= ya) & (v < cumh[0, k + 1])
+            else:
+                phi = (v - x0) / w
+                taken = (phi > lam) if discarded == 1 else (phi <= lam)
+                in_bin = (v >= x0) & (v < cumw[0, k + 1])
+            den = ((lam - phi) + wc * phi if discarded == 1
+                   else wc * (1.0 - phi) + wb * (phi - lam))
+            hit = (den * den * w == 0) & taken & in_bin
+            if hit.any():
+                i = int(hit.nonzero()[0, 0])
+                return raw, v[i:i + 1]
+    raise AssertionError("no input with a vanishing denominator found")
+
+
+@pytest.mark.parametrize("discarded", [1, 2])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_lrs_vjp_is_finite_where_the_discarded_segment_divides_by_zero(inverse, discarded):
+    """Where the LRS segment not taken has a denominator of exactly 0 at the
+    input's phi, the transform's VJP is finite (the JAX package's, which
+    evaluates both segments at that phi, is NaN there, and a batch holding
+    such an element spread NaN into every weight gradient of the plain
+    spline VJP): the values equal the JAX package's (TOL) and
+    the gradients in the input and the raw outputs equal the float64
+    ones (1e-4 relative)."""
+    from nfmc_torch.flows.spline import linear_rational_spline
+    from nfmc_tpu.flows.spline import linear_rational_spline as jax_lrs
+
+    raw, v = _lrs_zero_denominator(inverse, discarded)
+    y_j, ld_j = jax_lrs(jnp.asarray(v.numpy()), jnp.asarray(raw.numpy()), inverse)
+
+    def grads(dtype):
+        vv, rr = v.to(dtype).requires_grad_(True), raw.to(dtype).requires_grad_(True)
+        y, ld = linear_rational_spline(vv, rr, inverse)
+        return (y, ld, *torch.autograd.grad(y.sum() + ld.sum(), (vv, rr)))
+
+    y, ld, gv, graw = grads(torch.float32)
+    _close(y.detach(), y_j)
+    _close(ld.detach(), ld_j)
+    assert bool(torch.isfinite(gv).all() and torch.isfinite(graw).all())
+    _, _, gv64, graw64 = grads(torch.float64)
+    _close(gv, gv64, 1e-4)
+    _close(graw, graw64, 1e-4)
