@@ -11,17 +11,19 @@ Phases, in order; any failure exits non-zero before the last line:
      sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400; IMH's
      hoisted chunks B=100, 400, ..., 102,400 and, at the chunk cap,
      B=313,500;
-     variational_fit's B=128 and AdaptiveIMH's refit batch B=64), the flow
-     fit's (B=256 training batches, B=3000 validation, and B=512) and a
+     variational_fit's B=128 and AdaptiveIMH's refit batch B=64; jump_hmc's
+     and DLMC's B=1024, DLMC's refit validation B=308 and TESS's B=30), the
+     flow fit's (B=256 training batches, B=3000 validation, and B=512) and a
      ragged odd shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA
      events around the wrapper, and the kernel's own device time from
      torch.profiler);
   3b. backward kernel vs its plain version, both directions, at B=512, 256,
-     128 (variational_fit's batch, in the inverse direction), 100 and 64
-     (AdaptiveIMH's refit batch), the ragged shape and B=1001 (many blocks,
-     a partial last one):
+     128 (variational_fit's batch, in the inverse direction), 100 (NeuTra's
+     input gradient), 64 (AdaptiveIMH's refit batch), 1024 (DLMC's drift),
+     the ragged shape and B=1001 (many blocks, a partial last one):
      max |diff| <= 1e-4 * max(1, max |ref|); two launches bit-identical; at
-     B=256 the device time of its two kernels (rows, weight gradients);
+     B=256 forward and B=100 inverse the device time of its two kernels
+     (rows, weight gradients) and the weight-gradient kernel's share;
   3c. RealNVP at d=3000 and 3500, H=128 (the kernels' ring of 2 stages):
      forward, inverse and VJP against the plain version;
   4. the same three outer iterations with the same injected draws through
@@ -105,9 +107,46 @@ Phases, in order; any failure exits non-zero before the last line:
   10e. variational_fit on the card and on the CPU, 20 epochs with the same
      injected base draws and weights (d=6, as 4b): per-epoch losses and the
      final weights agree to 1e-4.
+  11. neutra_hmc through the front door (bench.py's north-star cell): 100
+     chains on a 100-d standard Gaussian, the identity-init RealNVP frozen,
+     HMC step 0.1 with 20 leapfrog steps, 1000 iterations: acceptance and
+     data-space moments in bands from the JAX package's CPU runs
+     (scripts/flow_samplers_reference_cpu.py), the counters (2 L B
+     gradient calls), the launch law (an iteration: 21 gradient passes, each
+     one inverse and one inverse-direction VJP at B=100, and the data
+     transform's inverse); its ESS/s (max_window 4096, of the data-space
+     draws), it/s and device busy share;
+  11a. neutra_mh on Funnel(100) with warmup=True (the reverse-KL fit capped
+     at NEUTRA_MH_FIT_EPOCHS), the random walk's scale 2.38 / sqrt(d), 1000
+     iterations: acceptance in a JAX band, finite data-space moments, the
+     counters and the launch law;
+  11b. self-target neutra_hmc: a frozen perturbed RealNVP, c-rqnsf and
+     c-lrsnsf, each its own target (U = -log q, so U~ is N(0, I) in the
+     latent space): acceptance >= 0.99, the latent medians over the dims of
+     |mean| and |var - 1| within bounds from the JAX package's CPU runs, the
+     launch law (both directions of the kernel and of its VJP at B=100);
+  11c. tess (bench.py:641-643): 100 chains, the identity-init flow, 2000
+     iterations: acceptance exactly 1 (the flow's base is the target), the
+     counters ((5 + 1) B target calls), moments, the launch law, ESS/s; then
+     20 warmup iterations with fixed-effort refits (10 epochs): counters,
+     launches, finite refit weights that moved;
+  11d. jump_hmc (bench.py:682-722): 1024 chains, 5 inner HMC iterations,
+     100 outer iterations: the interleaving law, counters, moments, one
+     hoisted chunk of 102,400 proposals and one forward at B=1024 a jump;
+     leapfrog gradients/s and outer it/s;
+  11e. dlmc (bench.py:726-743): 1024 chains, DLMC_ITERS iterations with
+     fixed-effort refits (10 epochs of 11 Adam steps at B=64): the counter
+     contract, the moment error in a JAX band, the launch law; it/s;
+  11f. card against CPU with the same injected draws and weights: one
+     NeuTraHMC iteration at d=100 through a perturbed flow (the gradient of
+     U~ within 1e-4 max|g|, the end states within 1e-4), one tess_step,
+     DLMC's first refit (its first Adam step by check_adam_step's witness
+     rule, the whole refit replayed on the card) and one drift + accept from
+     its weights (masks apart only within 1e-3 of their threshold).
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) launched must be one phase 3 or 3b held
-against the plain version, and has its own row in the kernels' line.
+every shape the IMH path (10-10c) and the paths of phase 11 launched must be
+one phase 3, 3b, 7 or 7b held against the plain version, and has its own row
+in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
@@ -189,6 +228,56 @@ IMH_WARM_ACC = (0.0227, 0.1764)
 IMH_WARM_MOMENTS = {"median|var/sigma^2 - 1|": (0.0, 0.080), "median|mean|/sigma": (0.0, 0.067),
                     "min var/sigma^2": (0.149, float("inf")),
                     "max var/sigma^2": (0.0, 1.248)}
+# The flow-reparameterised samplers (phases 11-11f), at bench.py's sizes.
+# 11: neutra_hmc, 100 chains, the identity-init RealNVP frozen, HMC step
+# 0.1 and 20 leapfrog steps (bench.py:508, 600-604).
+NEUTRA_ITERS, NEUTRA_STEP = 1000, 0.1
+# Its bands, from scripts/flow_samplers_reference_cpu.py --neutra-hmc (the
+# JAX package on the CPU, seeds 0-7): acceptance 0.990310-0.991440, so a
+# rejection rate of 0.008560-0.009690, and the band is that rate from half
+# its low to 1.5 times its high (as phase 10b widens its acceptance);
+# max|mean| 0.004606-0.006969 and max|E[x^2] - 1| 0.012318-0.019147 over
+# the dims, and the gates are 1.5 times the highest
+NEUTRA_ACC_JAX, NEUTRA_ACC = "0.990310-0.991440", (0.985465, 0.995720)
+NEUTRA_MOMENTS = (0.010453, 0.028720)
+# 11a: neutra_mh on Funnel(100) with warmup=True: the reverse-KL fit capped
+# at NEUTRA_MH_FIT_EPOCHS epochs (the default's 50,000 with early stopping
+# after 5000 is a depth the script's time limit cannot hold), the random
+# walk's scale 2.38 / sqrt(d) (the optimal scale for a Gaussian latent)
+NEUTRA_MH_ITERS, NEUTRA_MH_FIT_EPOCHS = 1000, 500
+NEUTRA_MH_SCALE = 2.38 / D ** 0.5
+# --neutra-mh over seeds 0-7: acceptance 0.220540-0.233640, the band from
+# half the low to 1.5 times the high
+NEUTRA_MH_ACC_JAX, NEUTRA_MH_ACC = "0.220540-0.233640", (0.110270, 0.350460)
+NEUTRA_MH_FIT_KWARGS = {"early_stopping": True, "early_stopping_threshold": 5000,
+                        "keep_best_weights": True, "n_samples": 128,
+                        "n_epochs": NEUTRA_MH_FIT_EPOCHS, "lr": 0.005}
+# 11b: neutra_hmc with each self-target flow, NEUTRA_SELF_ITERS iterations
+# at half phase 11's step: U~ is N(0, I) in 100-d, where a step of 0.1
+# rejects ~0.9% of the trajectories for their integration error alone (the
+# JAX package's 100-iteration runs read 0.9896-0.9897 at seed 0), and 0.05
+# puts the acceptance well above the gate of 0.99 whatever the flow, while
+# a wrong input gradient still wrecks the energy
+NEUTRA_SELF_ITERS, NEUTRA_SELF_STEP = 100, 0.05
+# --self-target over seeds 0-7, all three flows: acceptance 0.9970-0.9985;
+# over the dims of the latent draws the median of |mean| 0.009629-0.013036
+# and of |var - 1| 0.010473-0.016864; the bounds are 1.5 times the highest
+NEUTRA_SELF_MOMENTS = (0.019554, 0.025296)
+# 11c: tess at bench.py:641-643, then 20 warmup iterations with
+# fixed-effort refits
+TESS_ITERS, TESS_FIT_KWARGS = 2000, {"n_epochs": 10, "lr": 5e-3}
+# 11d: jump_hmc at bench.py:682-722: 1024 chains, 5 inner HMC iterations
+JUMP_HMC_C, JUMP_HMC_OUTER, JUMP_HMC_INNER = 1024, 100, 5
+# 11e: dlmc at bench.py:726-743, 1024 chains, cut from 200 iterations to
+# DLMC_ITERS: each iteration refits the flow with 110 Adam steps (10 epochs
+# of 11 batches of 64), host-bound at ~2-3 ms a step on the card
+DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 100, {"n_epochs": 10, "lr": 5e-3}
+# Its bands, from scripts/flow_samplers_reference_cpu.py --dlmc (the JAX
+# package on the CPU at the same depth, seeds 0-7): the moment error
+# max|mean| 0.029988-0.047894 and the acceptance 0.158877-0.164131, each
+# band from half the low to 1.5 times the high
+DLMC_ERR_JAX, DLMC_ERR = "0.029988-0.047894", (0.014994, 0.071842)
+DLMC_ACC_JAX, DLMC_ACC = "0.158877-0.164131", (0.079438, 0.246196)
 
 
 def fail(msg: str) -> None:
@@ -283,12 +372,14 @@ def self_target_params(kind, d=D, hidden=H, n_layers=L, n_bins=N_BINS, seed=SELF
     arrays in the canonical layout (per layer ``{"w": [w1, w2, w3], "b":
     [b1, b2, b3]}``, ``w`` (in, out)): He-initialised hidden layers and a
     zero output layer (the identity), then every array moved by pert N(0,
-    1). ``scripts/warmup_reference_cpu.py --self-target`` loads the same
-    arrays into both packages."""
+    1). ``kind`` is "rqs", "lrs" or "realnvp" (a shift and a log-scale a
+    transformed dim). ``scripts/warmup_reference_cpu.py --self-target`` and
+    ``scripts/flow_samplers_reference_cpu.py`` load the same arrays into
+    both packages."""
     from nfmc_torch.flows.spline import n_params_per_dim
 
     rng = np.random.default_rng(seed)
-    n_par = n_params_per_dim(kind, n_bins)
+    n_par = 2 if kind == "realnvp" else n_params_per_dim(kind, n_bins)
     params = []
     for l in range(n_layers):
         da = (d + 1) // 2 if l % 2 == 0 else d // 2
@@ -417,32 +508,50 @@ class Instrument:
 
 
 class ShapeLaunches:
-    """For the duration of a ``with`` block: the RealNVP kernels' launches by
-    (kernel, direction, rows), e.g. ``("vjp", "inverse", 128)``; the
-    wrappers' own counts go on as before."""
+    """For the duration of a ``with`` block: the kernels' launches by
+    (kernel, direction, rows), e.g. ``("vjp", "inverse", 128)``, with the
+    kernel "stack" or "vjp" for RealNVP and "rqs", "lrs", "rqs vjp" or "lrs
+    vjp" for the spline flows; the wrappers' own counts go on as before."""
 
     def __enter__(self):
         from nfmc_torch.ops import coupling as ops
+        from nfmc_torch.ops import spline as sops
 
         self.n = collections.Counter()
-        self._ops, self._orig = ops, (ops._launch, ops._launch_vjp)
-        launch, launch_vjp = self._orig
+        self._orig = [(m, m._launch, m._launch_vjp) for m in (ops, sops)]
+        launch, launch_vjp = ops._launch, ops._launch_vjp
+        s_launch, s_launch_vjp = sops._launch, sops._launch_vjp
+
+        def count(kernel, inverse, x):
+            self.n[kernel, "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
 
         def stack(wrapper, params, x, clamp, inverse, packed):
             out = launch(wrapper, params, x, clamp, inverse, packed)
-            self.n["stack", "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
+            count("stack", inverse, x)
             return out
 
         def vjp(params, x, gy, gld, clamp, inverse, packed):
             out = launch_vjp(params, x, gy, gld, clamp, inverse, packed)
-            self.n["vjp", "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
+            count("vjp", inverse, x)
+            return out
+
+        def s_stack(wrapper, params, x, kind, n_bins, tail_bound, inverse, packed):
+            out = s_launch(wrapper, params, x, kind, n_bins, tail_bound, inverse, packed)
+            count(kind, inverse, x)
+            return out
+
+        def s_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed):
+            out = s_launch_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed)
+            count(f"{kind} vjp", inverse, x)
             return out
 
         ops._launch, ops._launch_vjp = stack, vjp
+        sops._launch, sops._launch_vjp = s_stack, s_vjp
         return self
 
     def __exit__(self, *exc):
-        self._ops._launch, self._ops._launch_vjp = self._orig
+        for m, launch, launch_vjp in self._orig:
+            m._launch, m._launch_vjp = launch, launch_vjp
 
 
 class RefitRecorder:
@@ -541,17 +650,24 @@ def profile_window(run, what: str) -> None:
         print(f"  {a.key[:60]:60s} device {a.self_device_time_total / 1e3:9.2f} ms  calls {a.count}")
 
 
-def ess_per_second(out, wall: float, max_window: int, what: str) -> float:
+def ess_per_second(out, wall: float, max_window: int, what: str, transform=None) -> float:
     """The mean over the dims of the ESS (summed over chains) of ``out``'s
     stored draws, computed where they are stored, on the card (``dim_slab``
     25, as bench.py), over ``wall``; printed with the window's extrapolation
-    factor."""
-    dev = out.samples.device
+    factor. ``transform`` maps the stored draws first (NeuTra's latent draws
+    to the data space, its ``data_transform``)."""
+    from nfmc_torch.diagnostics import effective_sample_size
+
+    draws = out.samples
+    dev = draws.device
     check(dev.type == "cuda", f"{what}: the draws are not on the card")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ess, factor = out.effective_sample_size(max_window=max_window, dim_slab=25,
-                                            return_extrapolation=True)
+    if transform is not None:
+        draws = transform(draws.reshape(-1, *draws.shape[2:])).reshape(draws.shape)
+    ess = effective_sample_size(draws.reshape(*draws.shape[:2], -1), max_window=max_window,
+                                dim_slab=25)
+    factor = draws.shape[0] / min(max_window, draws.shape[0])
     ess_mean = float(ess.mean())
     check(ess.device == dev and bool(torch.isfinite(ess).all()) and ess_mean > 0,
           f"{what}: bad ESS")
@@ -638,12 +754,15 @@ def run_spline_phases(dev, g) -> dict:
                                        (lambda keep, vjp=vjp, plain=plain: (vjp(keep), plain(keep)),
                                         params, x, kind, nb, inverse))
                 out["bwd_err"][kind] = max(out["bwd_err"][kind], rel * scale)
-                if d == D and rows == 256 and not inverse:
+                # timed: the fit's batch of 256, and B=100 in both directions
+                # (NeuTra-HMC's gradient passes through a spline flow, 11b)
+                if d == D and (rows == 256 and not inverse or rows == C):
                     k_ms, k_dev, k_txt = kernel_ms(vjp, 30)
                     p_ms = median_ms(plain, 10)
                     bound_ms, bound_by = bound(*stack_cost(
                         d, hid, nl, rows, backward=True, n_par=n_params_per_dim(kind, nb)))
-                    out["bwd_timing"][kind] = (k_ms, k_dev, p_ms, bound_ms, bound_by)
+                    out["bwd_timing"][(kind, rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms,
+                                                                bound_by, rel * scale)
                     print(f"{what}: kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms "
                           f"({bound_by})")
 
@@ -954,27 +1073,35 @@ def run_fault_checks(dev) -> None:
 
 def check_refit(call, what: str, dev) -> None:
     """Phase 10c's witness at full width: one of AdaptiveIMH's refits
-    (``call`` as ``RefitRecorder`` records it) replayed on the card and run
-    on the CPU from the same weights and rows, one Adam step on REFIT_B
-    rows. The
-    gradient (one VJP) agrees to TOL * max|g|. Adam's first step moves each
-    weight by lr g / (|g| + eps), +-lr whatever the gradient's size, so where
-    float32 rounding flips a gradient element's sign the weights come out 2
-    lr apart, and where |g| is near eps they come out apart by a fraction
-    of lr: every weight more than TOL apart must be one whose float64
-    gradient lies within the float32 error measured here
-    (scripts/refit_gradient_floor.py measures it the same way), apart by
-    what Adam's step makes of the card's and the CPU's gradients (to TOL)."""
-    from nfmc_torch.flows import Flow, RealNVP
-    from nfmc_torch.flows import train as train_mod
-
+    (``call`` as ``RefitRecorder`` records it), one Adam step on REFIT_B rows
+    drawn by the recorded generator, held by ``check_adam_step``."""
     p0, data, gstate, w_card = call
     g_perm = torch.Generator(device=dev)
     g_perm.set_state(gstate)
     rows_ = data[torch.randperm(data.shape[0], generator=g_perm, device=dev)[:REFIT_B]]
+    check_adam_step(p0, rows_, w_card, f"AdaptiveIMH {what}", dev)
+
+
+def check_adam_step(p0, rows_, w_run, what: str, dev) -> None:
+    """One Adam step of a refit (REFIT_B rows, a fresh Adam, lr 0.005)
+    replayed on the card and run on the CPU from the same weights and rows;
+    ``w_run``, where given, is the run's own refit (a one-step refit), which
+    the replay must reproduce. The gradient (one VJP) agrees to TOL *
+    max|g|. Adam's first step moves each weight by lr g / (|g| + eps), +-lr
+    whatever the gradient's size, so where float32 rounding flips a gradient
+    element's sign the weights come out 2 lr apart, and where |g| is near eps
+    they come out apart by a fraction of lr: every weight more than TOL apart
+    must be one whose float64 gradient lies within the float32 error
+    measured here (scripts/refit_gradient_floor.py measures it the same
+    way), apart by what Adam's step makes of the card's and the CPU's
+    gradients (to TOL)."""
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.flows import train as train_mod
+
     flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
     replay = train_mod.make_scan_fit(flow, REFIT_B, n_epochs=1, shuffle=False)
     w_replay = packed_flat(replay(p0, rows_, None))
+    w_card = w_replay if w_run is None else w_run
     p0_cpu = [{k: [t.cpu() for t in v] for k, v in p.items()} for p in p0]
     w_cpu = packed_flat(replay(p0_cpu, rows_.cpu(), None))
     g_card = flat_grad(flow, p0, rows_).cpu().double()
@@ -984,14 +1111,14 @@ def check_refit(call, what: str, dev) -> None:
     e32 = max((g_card - g64).abs().max().item(), (g_cpu - g64).abs().max().item())
     dw = (w_card.double() - w_cpu.double()).abs()
     off = dw > TOL
-    lr = 0.005  # make_scan_fit's default, as AdaptiveIMH calls it
+    lr = 0.005  # make_scan_fit's default, as AdaptiveIMH calls it, and DLMC's
 
     def step(g):
         return lr * g / (g.abs() + train_mod._Adam.eps)
 
     flipped = torch.sign(g_card) != torch.sign(g_cpu)
     witnessed = (g64.abs() <= e32) & ((dw - (step(g_card) - step(g_cpu)).abs()).abs() <= TOL)
-    print(f"AdaptiveIMH {what} refit card vs CPU (d={D}, H={H}, L={L}, {REFIT_B} rows): gradient "
+    print(f"{what} refit card vs CPU (d={D}, H={H}, L={L}, {REFIT_B} rows): gradient "
           f"max|diff| {e_g:.3e} (max|g| {g_max:.4g}, float32 error against float64 {e32:.3e}, "
           f"{int((g64.abs() <= e32).sum())} of {g64.numel()} elements within it, "
           f"{int(flipped.sum())} signs flipped); weights max|diff| {dw.max().item():.3e}, "
@@ -1237,6 +1364,412 @@ def run_imh_phases(dev) -> dict:
     return res
 
 
+def run_flow_sampler_phases(dev) -> dict:
+    """Phases 11-11f: the flow-reparameterised samplers (neutra_hmc,
+    neutra_mh, tess, dlmc) and jump_hmc through the front door at bench.py's
+    sizes, then one step of each on the card against the CPU. Returns the
+    launches by shape of each path and the numbers the summary prints."""
+    import nfmc_torch
+    from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP, from_jax_params
+    from nfmc_torch.flows import train as train_mod
+    from nfmc_torch.ops import build
+    from nfmc_torch.ops.coupling import unpack_like
+    from nfmc_torch.potentials import CallablePotential, DiagonalGaussian, Funnel, StandardGaussian
+    from nfmc_torch.samplers.mcmc import HMCKernel
+    from nfmc_torch.samplers.nfmc import (DLMC, DLMCKernel, NeuTraHMC, NeuTraKernel,
+                                          make_tess_step)
+    from nfmc_torch.samplers.nfmc import dlmc as dlmc_mod
+
+    res = {"shapes": {}}
+    target = StandardGaussian((D,))
+    t_last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[{what}: {now - t_last[0]:.1f} s]")
+        t_last[0] = now
+
+    def identity_flow():
+        return Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+
+    def timed(what, run):
+        """``run()`` with the launch counts set to 0 just before it and read
+        just after, its launches by shape and its wall (ending in a
+        synchronise)."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Instrument() as ins, ShapeLaunches() as shapes:
+            out = run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["shapes"][what] = shapes.n
+        return out, wall, {w.__name__: w.launches for w in build.WRAPPERS}, shapes.n, ins
+
+    # ---- 11. neutra_hmc, the identity-init flow frozen ---------------------------------
+    def neutra(n_iterations, seed=0):
+        return nfmc_torch.sample(target, strategy="neutra_hmc", flow=identity_flow(), n_chains=C,
+                                 n_iterations=n_iterations,
+                                 inner_kernel_kwargs={"step_size": NEUTRA_STEP},
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    neutra(5)  # warm: autograd through the kernels' Functions
+    out, wall, nl, sh, _ = timed("neutra_hmc", lambda: neutra(NEUTRA_ITERS))
+    st = out.statistics
+    acc = st.acceptance_rate
+    m1, m2 = float(np.abs(out.mean).max()), float(np.abs(out.second_moment - 1).max())
+    print(f"neutra_hmc (identity flow, step {NEUTRA_STEP}, 20 leapfrogs, {NEUTRA_ITERS} it): wall "
+          f"{wall:.3f} s, {NEUTRA_ITERS / wall:.1f} it/s, {st.n_target_gradient_calls / wall:.0f} "
+          f"gradient calls/s (2LB counted), launches {nl}, by shape {dict(sh)}, acc {acc:.6f} "
+          f"(JAX package, CPU, seeds 0-7: {NEUTRA_ACC_JAX}), max|mean| {m1:.4f}, max|E[x^2]-1| "
+          f"{m2:.4f}")
+    flow = out.kernel.flow
+    res["neutra_ess_per_s"] = ess_per_second(
+        out, wall, max_window=4096, what="neutra_hmc (data space)",
+        transform=lambda z: flow.bijection.inverse_fn(flow.params, z)[0])
+    res["neutra_it_per_s"] = NEUTRA_ITERS / wall
+    profile_window(lambda: neutra(20, seed=1), "neutra_hmc, 20 it")
+    check(tuple(out.samples.shape) == (NEUTRA_ITERS, C, D), "neutra_hmc sample shape")
+    check(bool(torch.isfinite(out.samples).all()), "neutra_hmc: non-finite draws")
+    check(NEUTRA_ACC[0] <= acc <= NEUTRA_ACC[1], f"neutra_hmc acceptance {acc} outside {NEUTRA_ACC}")
+    check(m1 <= NEUTRA_MOMENTS[0] and m2 <= NEUTRA_MOMENTS[1],
+          f"neutra_hmc data-space moments {m1}, {m2} above {NEUTRA_MOMENTS}")
+    check(st.n_target_gradient_calls == 2 * 20 * C * NEUTRA_ITERS
+          and st.n_target_calls == (2 * 20 + 2) * C * NEUTRA_ITERS, "neutra_hmc counter contract")
+    # a gradient pass a position (21 an iteration, each an inverse and an
+    # inverse VJP), and the data transform's inverse for the moments
+    check(sh == {("stack", "inverse", C): 22 * NEUTRA_ITERS, ("vjp", "inverse", C): 21 * NEUTRA_ITERS},
+          f"neutra_hmc launch law: {dict(sh)}")
+
+    lap("phase 11")
+
+    # ---- 11a. neutra_mh on the funnel, with warmup ---------------------------------------
+    def neutra_mh():
+        return nfmc_torch.sample(
+            Funnel(D), strategy="neutra_mh", flow=identity_flow(), n_chains=C,
+            n_iterations=NEUTRA_MH_ITERS, warmup=True,
+            inner_kernel_kwargs={"inv_mass_diag": np.full(D, NEUTRA_MH_SCALE, np.float32)},
+            param_kwargs={"warmup_fit_kwargs": dict(NEUTRA_MH_FIT_KWARGS),
+                          "store_samples_on_device": True}, seed=0, show_progress=False)
+
+    out, wall, nl, sh, ins = timed("neutra_mh", neutra_mh)
+    st = out.statistics
+    acc = st.acceptance_rate
+    var = out.variance
+    n_warm = 100  # the front door's n_warmup_iterations
+    print(f"neutra_mh on Funnel({D}) with warmup ({NEUTRA_MH_FIT_EPOCHS} reverse-KL epochs at most, "
+          f"{NEUTRA_MH_ITERS} it): wall {wall:.3f} s, of which variational fit {ins.vfit_s:.3f} s "
+          f"({ins.vfit_epochs} epochs), launches {nl}, by shape {dict(sh)}, acc {acc:.6f} (JAX "
+          f"package, CPU, seeds 0-7: {NEUTRA_MH_ACC_JAX}), var x_0 {var[0]:.4f} (exact 9), "
+          f"median var x_1.. {np.median(var[1:]):.4f}, max|mean| {np.abs(out.mean).max():.4f}")
+    check(bool(torch.isfinite(out.samples).all()) and np.isfinite(out.mean).all()
+          and np.isfinite(var).all(), "neutra_mh: non-finite draws or moments")
+    check(NEUTRA_MH_ACC[0] <= acc <= NEUTRA_MH_ACC[1],
+          f"neutra_mh acceptance {acc} outside {NEUTRA_MH_ACC}")
+    check(st.n_target_calls == 2 * C * NEUTRA_MH_ITERS and st.n_target_gradient_calls == 0,
+          "neutra_mh counter contract")
+    check(0 < ins.vfit_epochs <= NEUTRA_MH_FIT_EPOCHS
+          and sh["vjp", "inverse", 128] == sh["stack", "inverse", 128] == ins.vfit_epochs,
+          "neutra_mh: the variational fit's launches at B=128 != its epochs")
+    # U~ at the start of the warmup and of the run, then a proposal and the
+    # data transform an iteration
+    check(sh["stack", "inverse", C] == 2 + 2 * (n_warm + NEUTRA_MH_ITERS),
+          f"neutra_mh launch law at B={C}: {dict(sh)}")
+
+    lap("phase 11a")
+
+    # ---- 11b. self-target neutra_hmc: U~ is N(0, I) whatever the flow ------------------
+    res["self"] = {}
+    for name_, cls, kind in (("realnvp", RealNVP, "realnvp"), ("c-rqnsf", CouplingRQNSF, "rqs"),
+                             ("c-lrsnsf", CouplingLRS, "lrs")):
+        kw = {} if cls is RealNVP else {"n_bins": N_BINS}
+        sflow = Flow(cls((D,), n_layers=L, hidden_size=H, **kw))
+        sflow.params = from_jax_params(self_target_params(kind, d=D, hidden=H, n_layers=L),
+                                       device=dev)
+        frozen = sflow.params
+
+        def run(sflow=sflow, frozen=frozen):
+            return nfmc_torch.sample(
+                CallablePotential(lambda x: -sflow.log_prob_fn(frozen, x), (D,)),
+                strategy="neutra_hmc", flow=sflow, n_chains=C, n_iterations=NEUTRA_SELF_ITERS,
+                inner_kernel_kwargs={"step_size": NEUTRA_SELF_STEP},
+                param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
+
+        out, wall, nl, sh, _ = timed(f"self {name_}", run)
+        z = out.samples.reshape(-1, D).double()
+        sacc = out.statistics.acceptance_rate
+        med_mean = float(z.mean(0).abs().median())
+        med_var = float((z.var(0) - 1).abs().median())
+        print(f"{name_} self-target neutra_hmc ({NEUTRA_SELF_ITERS} it, step {NEUTRA_SELF_STEP}): "
+              f"acc {sacc:.6f}, latent "
+              f"median|mean| {med_mean:.4f}, median|var - 1| {med_var:.4f} (bounds "
+              f"{NEUTRA_SELF_MOMENTS}), wall {wall:.3f} s, launches by shape {dict(sh)}")
+        k_stack, k_vjp = ("stack", "vjp") if kind == "realnvp" else (kind, f"{kind} vjp")
+        n = NEUTRA_SELF_ITERS
+        check(bool(torch.isfinite(z).all()), f"{name_} self-target neutra_hmc: non-finite")
+        check(sacc >= 0.99, f"{name_} self-target neutra_hmc acceptance {sacc} < 0.99: the "
+                            "input gradient through the flow's inverse is wrong")
+        check(med_mean <= NEUTRA_SELF_MOMENTS[0] and med_var <= NEUTRA_SELF_MOMENTS[1],
+              f"{name_} self-target neutra_hmc: latent moments off N(0, I)")
+        # a gradient pass: the inverse, the target's forward (log q), and
+        # both VJPs; the data transform's inverse
+        check(sh == {(k_stack, "inverse", C): 22 * n, (k_stack, "forward", C): 21 * n,
+                     (k_vjp, "inverse", C): 21 * n, (k_vjp, "forward", C): 21 * n},
+              f"{name_} self-target neutra_hmc launch law: {dict(sh)}")
+        res["self"][name_] = sacc
+
+    lap("phase 11b")
+
+    # ---- 11c. tess, the identity-init flow, then its warmup --------------------------------
+    def tess(n_iterations, seed=0):
+        return nfmc_torch.sample(target, strategy="tess", negative_log_likelihood=target,
+                                 flow=identity_flow(), n_chains=C, n_iterations=n_iterations,
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    tess(5)  # warm
+    out, wall, nl, sh, _ = timed("tess", lambda: tess(TESS_ITERS))
+    st = out.statistics
+    m1, m2 = float(np.abs(out.mean).max()), float(np.abs(out.second_moment - 1).max())
+    print(f"tess (identity flow, {TESS_ITERS} it): wall {wall:.3f} s, {TESS_ITERS / wall:.1f} it/s, "
+          f"launches {nl}, by shape {dict(sh)}, acc {st.acceptance_rate:.6f} "
+          f"({st.n_attempted_trajectories - st.n_accepted_trajectories} of "
+          f"{st.n_attempted_trajectories} rejected), max|mean| {m1:.4f}, max|E[x^2]-1| {m2:.4f}")
+    res["tess_ess_per_s"] = ess_per_second(out, wall, max_window=4096, what="tess")
+    res["tess_it_per_s"] = TESS_ITERS / wall
+    profile_window(lambda: tess(50, seed=1), "tess, 50 it")
+    check(tuple(out.samples.shape) == (TESS_ITERS, C, D) and bool(torch.isfinite(out.samples).all()),
+          "tess draws")
+    # the flow's base is the target, so the first point of every ellipse
+    # passes in exact arithmetic: a rotation keeps |u|^2 + |v|^2, and the
+    # point's log pi^ + log phi equals the threshold's before its log w < 0.
+    # In float32 both sums carry rounding of ~1e-5 (values ~ -142 over 100
+    # dims), so a point fails only where log w lies within that rounding of
+    # 0, a chance of that size a draw
+    n_rej = st.n_attempted_trajectories - st.n_accepted_trajectories
+    check(n_rej <= 1e-4 * st.n_attempted_trajectories,
+          f"tess: {n_rej} of {st.n_attempted_trajectories} first ellipse points rejected, more "
+          "than float32 rounding of the threshold explains")
+    check(m1 < 0.05 and m2 < 0.1, "tess moments are off N(0, I)")
+    check(st.n_target_calls == 6 * C * TESS_ITERS and st.n_target_gradient_calls == 0,
+          "tess counter contract")
+    check(sh == {("stack", "inverse", C): 1 + 5 * TESS_ITERS}, f"tess launch law: {dict(sh)}")
+
+    n_warm = 20
+
+    def tess_warmup():
+        s = nfmc_torch.create_sampler(target, strategy="tess", negative_log_likelihood=target,
+                                      flow=identity_flow(), device=dev,
+                                      param_kwargs={"n_warmup_iterations": n_warm,
+                                                    "flow_fit_kwargs": dict(TESS_FIT_KWARGS)})
+        return s, s.warmup(torch.zeros(C, D, device=dev), show_progress=False, seed=0)
+
+    before = flat_params(identity_flow().params)
+    (s, wout), wall, nl, sh, ins = timed("tess warmup", tess_warmup)
+    after = flat_params(s.kernel.flow.params)
+    n_val, bs = C - int(0.7 * C), train_mod._adaptive_batch_size(int(0.7 * C))
+    print(f"tess warmup ({n_warm} it, fixed-effort refits {TESS_FIT_KWARGS}): wall {wall:.3f} s, "
+          f"{ins.steps} Adam steps, launches {nl}, by shape {dict(sh)}, acc "
+          f"{wout.statistics.acceptance_rate:.4f}, max|weight change| "
+          f"{(after - before).abs().max().item():.4f}")
+    check(tuple(wout.samples.shape) == (n_warm, C, D) and bool(torch.isfinite(wout.samples).all()),
+          "tess warmup draws")
+    check(wout.statistics.n_target_calls == 6 * C * n_warm, "tess warmup counter contract")
+    check(bool(torch.isfinite(after).all()) and (after - before).abs().max().item() > 0,
+          "tess warmup: the refit weights are not finite or did not move")
+    # each iteration: the start's and 5 bracket inverses, 10 epochs of one
+    # Adam step on 64 of the 70 training rows, the validation rows each
+    # epoch and at the end
+    check(ins.steps == n_warm * 10 and sh["vjp", "forward", bs] == ins.steps
+          and sh["stack", "forward", bs] == ins.steps
+          and sh["stack", "forward", n_val] == n_warm * 11
+          and sh["stack", "inverse", C] == n_warm * 6, f"tess warmup launch law: {dict(sh)}")
+
+    lap("phase 11c")
+
+    # ---- 11d. jump_hmc at 1024 chains ---------------------------------------------------
+    def jump_hmc(n_outer, seed=0):
+        return nfmc_torch.sample(target, strategy="jump_hmc", flow=identity_flow(),
+                                 n_chains=JUMP_HMC_C, n_iterations=n_outer,
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    jump_hmc(2)  # warm
+    out, wall, nl, sh, _ = timed("jump_hmc", lambda: jump_hmc(JUMP_HMC_OUTER))
+    st = out.statistics
+    m1, m2 = float(np.abs(out.mean).max()), float(np.abs(out.second_moment - 1).max())
+    res["jump_hmc_it_per_s"] = JUMP_HMC_OUTER / wall
+    res["jump_hmc_grads_per_s"] = st.n_target_gradient_calls / wall
+    print(f"jump_hmc ({JUMP_HMC_C} chains, {JUMP_HMC_INNER} inner HMC it, {JUMP_HMC_OUTER} outer it): "
+          f"wall {wall:.3f} s, {res['jump_hmc_it_per_s']:.2f} outer it/s, "
+          f"{res['jump_hmc_grads_per_s']:.0f} leapfrog gradients/s (counted, 2LB), "
+          f"{JUMP_HMC_OUTER * JUMP_HMC_INNER * 20 * JUMP_HMC_C / wall:.0f} chain leapfrogs/s, "
+          f"launches {nl}, by shape {dict(sh)}, HMC acc {st.acceptance_rate:.4f}, jump acc "
+          f"{st.jump_acceptance_rate:.4f}, max|mean| {m1:.4f}, max|E[x^2]-1| {m2:.4f}")
+    profile_window(lambda: jump_hmc(5, seed=1), "jump_hmc, 5 outer it")
+    per_outer = JUMP_HMC_INNER * (2 * 20 + 2) * JUMP_HMC_C + 2 * JUMP_HMC_C
+    check(tuple(out.samples.shape) == (JUMP_HMC_OUTER * (JUMP_HMC_INNER + 1), JUMP_HMC_C, D)
+          and bool(torch.isfinite(out.samples).all()), "jump_hmc: the interleaving law")
+    check(st.n_target_calls == JUMP_HMC_OUTER * per_outer
+          and st.n_target_gradient_calls == JUMP_HMC_OUTER * JUMP_HMC_INNER * 40 * JUMP_HMC_C
+          and st.n_attempted_jumps == JUMP_HMC_OUTER * JUMP_HMC_C
+          and st.n_attempted_trajectories == JUMP_HMC_OUTER * JUMP_HMC_INNER * JUMP_HMC_C,
+          "jump_hmc counter contract")
+    check(m1 < 0.05 and m2 < 0.1, "jump_hmc moments are off N(0, I)")
+    # one hoisted chunk of proposals, one forward (the current state's
+    # log q) a jump
+    check(sh == {("stack", "inverse", JUMP_HMC_OUTER * JUMP_HMC_C): 1,
+                 ("stack", "forward", JUMP_HMC_C): JUMP_HMC_OUTER},
+          f"jump_hmc launch law: {dict(sh)}")
+
+    lap("phase 11d")
+
+    # ---- 11e. dlmc at 1024 chains ----------------------------------------------------------
+    def dlmc(n_iterations, seed=0):
+        return nfmc_torch.sample(target, strategy="dlmc", negative_log_likelihood=target,
+                                 flow=identity_flow(), n_chains=DLMC_C, n_iterations=n_iterations,
+                                 param_kwargs={"flow_fit_kwargs": dict(DLMC_FIT_KWARGS),
+                                               "store_samples_on_device": True},
+                                 seed=seed, show_progress=False)
+
+    with RefitRecorder(dlmc_mod) as refit:
+        dlmc(1)  # warm; its refit is the timed run's first (11f holds it)
+    out, wall, nl, sh, ins = timed("dlmc", lambda: dlmc(DLMC_ITERS))
+    st = out.statistics
+    err = float(np.abs(out.mean).max())
+    res["dlmc_it_per_s"] = DLMC_ITERS / wall
+    n_train = int(0.7 * DLMC_C)
+    bs = train_mod._adaptive_batch_size(n_train)
+    n_batches, n_val = n_train // bs, DLMC_C - n_train
+    print(f"dlmc ({DLMC_C} chains, {DLMC_ITERS} it, refits {DLMC_FIT_KWARGS}): wall {wall:.3f} s, "
+          f"{res['dlmc_it_per_s']:.3f} it/s, {ins.steps} Adam steps "
+          f"({1e3 * wall / max(ins.steps, 1):.3f} ms of wall a step), launches {nl}, by shape "
+          f"{dict(sh)}, acc {st.acceptance_rate:.4f} (JAX package, CPU, seeds 0-7: "
+          f"{DLMC_ACC_JAX}), moment err max|mean| {err:.4f} (JAX: {DLMC_ERR_JAX}), max|E[x^2]-1| "
+          f"{np.abs(out.second_moment - 1).max():.4f}")
+    profile_window(lambda: dlmc(2, seed=1), "dlmc, 2 it")
+    check(tuple(out.samples.shape) == (DLMC_ITERS, DLMC_C, D) and bool(torch.isfinite(out.samples).all()),
+          "dlmc draws")
+    check(st.n_target_calls == DLMC_C + 3 * DLMC_C * DLMC_ITERS
+          and st.n_target_gradient_calls == DLMC_C + DLMC_C * DLMC_ITERS, "dlmc counter contract")
+    check(DLMC_ERR[0] <= err <= DLMC_ERR[1], f"dlmc moment error {err} outside {DLMC_ERR}")
+    check(DLMC_ACC[0] <= st.acceptance_rate <= DLMC_ACC[1],
+          f"dlmc acceptance {st.acceptance_rate} outside {DLMC_ACC}")
+    steps = DLMC_ITERS * 10 * n_batches
+    check(ins.steps == steps and sh["vjp", "forward", bs] == steps
+          and sh["stack", "forward", bs] == steps
+          and sh["stack", "forward", n_val] == DLMC_ITERS * 11
+          and sh["vjp", "forward", DLMC_C] == DLMC_ITERS
+          and sh["stack", "forward", DLMC_C] == 2 * DLMC_ITERS
+          and sh["stack", "inverse", DLMC_C] == DLMC_ITERS, f"dlmc launch law: {dict(sh)}")
+
+    lap("phase 11e")
+
+    # ---- 11f. card against CPU, the same draws and weights ---------------------------------
+    # NeuTra-HMC: U~'s gradient and one iteration through a perturbed flow
+    pert = perturbed_params(D, H, L, seed=51, device="cpu")
+    g11 = torch.Generator().manual_seed(52)
+    z0 = torch.randn((C, D), generator=g11)
+    draws = (torch.randn((C, D), generator=g11), torch.log(torch.rand(C, generator=g11)),
+             torch.ones(C))
+    got = {}
+    for device in ("cpu", dev):
+        f = Flow(RealNVP((D,), n_layers=L, hidden_size=H))
+        f.params = [{k: [t.to(device) for t in v] for k, v in p.items()} for p in pert]
+        s = NeuTraHMC((D,), target, inner_kernel=HMCKernel(event_size=D, step_size=NEUTRA_STEP),
+                      kernel=NeuTraKernel((D,), flow=f), device=device)
+        inner = s.inner_sampler
+        z = z0.to(device).requires_grad_(True)
+        (g_z,) = torch.autograd.grad(s.adjusted_target(z).sum(), z)
+        with torch.no_grad():
+            mstate = inner._augment_state(inner.kernel.make_state(device), z0.to(device))
+            z1, _, info = inner._make_step_aux(False)(z0.to(device), mstate,
+                                                      tuple(d.to(device) for d in draws))
+        got[device] = (g_z.cpu(), z1.cpu(), int(info.n_accepted))
+    e_g = (got["cpu"][0] - got[dev][0]).abs().max().item()
+    g_max = got["cpu"][0].abs().max().item()
+    e_z = (got["cpu"][1] - got[dev][1]).abs().max().item()
+    print(f"neutra_hmc card vs CPU (d={D}, perturbed flow, 1 iteration of 20 leapfrogs): gradient "
+          f"of U~ max|diff| {e_g:.3e} (max|g| {g_max:.4g}), end states max|diff| {e_z:.3e}, "
+          f"accepted {got[dev][2]} / {got['cpu'][2]} of {C}")
+    check(e_g <= TOL * g_max and e_z <= TOL and got[dev][2] == got["cpu"][2],
+          "neutra_hmc on the card disagrees with the CPU")
+
+    # one tess_step through a perturbed flow, on a target it does not fit
+    g11 = torch.Generator().manual_seed(53)
+    u0 = torch.randn((C, D), generator=g11)
+    tdraws = (torch.randn((C, D), generator=g11), torch.rand(C, generator=g11),
+              torch.randn((C, 1), generator=g11), torch.rand((5, C, 1), generator=g11))
+    mis = DiagonalGaussian(np.full(D, 0.3, np.float32), np.float32(1.2))
+    got = {}
+    for device in ("cpu", dev):
+        f = Flow(RealNVP((D,), n_layers=L, hidden_size=H))
+        f.params = [{k: [t.to(device) for t in v] for k, v in p.items()} for p in pert]
+        t_init, t_step, _ = make_tess_step(f, mis, (D,), 5)
+        with torch.no_grad():
+            lp, x = t_init(f.params, u0.to(device))
+            got[device] = [t.cpu() for t in t_step(f.params, u0.to(device), lp, x,
+                                                   tuple(d.to(device) for d in tdraws))]
+    errs = [(a.double() - b.double()).abs().max().item() / max(1.0, b.abs().max().item())
+            for a, b in zip(got[dev][:3], got["cpu"][:3])]
+    same = torch.equal(got[dev][3], got["cpu"][3])
+    print(f"tess_step card vs CPU (d={D}, perturbed flow, misfit target): x, u, log pi^ max|diff| / "
+          f"max(1, max|ref|) {errs[0]:.3e}, {errs[1]:.3e}, {errs[2]:.3e}; accepted "
+          f"{int(got[dev][3].sum())} / {int(got['cpu'][3].sum())} of {C}, masks equal {same}")
+    check(max(errs) <= TOL and same, "tess_step on the card disagrees with the CPU")
+
+    # DLMC: the run's first refit (identity init, the particles after the
+    # start's gradient step) held by the witness rule on its first Adam step
+    # and replayed whole on the card, then one drift and accept from its
+    # weights with the same draws
+    check(bs == REFIT_B, "DLMC's refit batch is not REFIT_B")
+    p0, data, gstate, w_first = refit.first
+    g_perm = torch.Generator(device=dev)
+    g_perm.set_state(gstate)
+    xt = data[torch.randperm(DLMC_C, generator=g_perm, device=dev)[:n_batches * bs]]
+    rows_ = xt[torch.randperm(xt.shape[0], generator=g_perm, device=dev)[:bs]]
+    check_adam_step(p0, rows_, None, "DLMC first (its first Adam step)", dev)
+    flow = identity_flow().to(dev)
+    replay = dlmc_mod.make_scan_fit(flow, DLMC_C, n_epochs=10, lr=5e-3, train_pct=0.7,
+                                    keep_best_weights=True)
+    g_perm.set_state(gstate)
+    w_replay = packed_flat(replay(p0, data, g_perm))
+    check((w_replay - w_first).abs().max().item() <= 1e-6,
+          "DLMC's first refit replayed differs from the run's own")
+    fitted = unpack_like(w_first, p0)  # the refit's weights, on the CPU
+    g11 = torch.Generator().manual_seed(54)
+    ddraws = (torch.randn((DLMC_C, D), generator=g11), torch.log(torch.rand(DLMC_C, generator=g11)))
+    x_cpu = data.cpu()
+    got = {}
+    for device in ("cpu", dev):
+        f = Flow(RealNVP((D,), n_layers=L, hidden_size=H))
+        f.params = [{k: [t.to(device) for t in v] for k, v in p.items()} for p in fitted]
+        s = DLMC((D,), target, target, kernel=DLMCKernel((D,), flow=f), device=device)
+        drift, accept = s._make_drift_accept()
+        with torch.no_grad():
+            xd = drift(f.params, x_cpu.to(device))
+            x1, mask, _ = accept(f.params, xd, tuple(d.to(device) for d in ddraws))
+            z_tilde = ddraws[0].to(device)
+            xp, flp_p = f.push_base_fn(f.params, z_tilde)
+            log_alpha = (-target(xp) + target(xd)) + f.log_prob_fn(f.params, xd) - flp_p
+        got[device] = (xd.cpu(), x1.cpu(), mask.cpu(), log_alpha.cpu())
+    e_d = (got[dev][0] - got["cpu"][0]).abs().max().item()
+    diff = got[dev][2] != got["cpu"][2]
+    margin = (got["cpu"][3] - ddraws[1]).abs()
+    witnessed = bool((margin[diff] <= 1e-3).all())
+    agree = ~diff
+    e_x = (got[dev][1][agree] - got["cpu"][1][agree]).abs().max().item()
+    print(f"dlmc drift + accept card vs CPU ({DLMC_C} chains, d={D}, the first refit's weights): "
+          f"drift max|diff| {e_d:.3e}, accepted {int(got[dev][2].sum())} / "
+          f"{int(got['cpu'][2].sum())}, {int(diff.sum())} masks apart (each within 1e-3 of its "
+          f"threshold: {witnessed}), states max|diff| {e_x:.3e} where the masks agree")
+    check(e_d <= TOL and e_x <= TOL and witnessed, "dlmc drift + accept on the card disagrees "
+                                                   "with the CPU")
+    lap("phase 11f")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1282,10 +1815,14 @@ def main() -> None:
     err = {False: 0.0, True: 0.0}
     timing = {}
     # the IMH path adds FixedIMH's chunks, variational_fit's inverse at its
-    # batch of 128 and AdaptiveIMH's refit forward at its batch of 64
+    # batch of 128 and AdaptiveIMH's refit forward at its batch of 64; the
+    # flow-reparameterised paths (11-11e) jump_hmc's and DLMC's 1024 chains,
+    # DLMC's refit validation rows (1024 - 716) and TESS's (100 - 70)
     for d, hid, nl, rows in [*((D, H, L, b) for b in IMH_CHUNK_ROWS), (D, H, L, OUTER * C),
                              (D, H, L, IMH_CAP * C), (D, H, L, REFIT_B), (D, H, L, 128),
-                             (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37)]:
+                             (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37),
+                             (D, H, L, DLMC_C), (D, H, L, DLMC_C - int(0.7 * DLMC_C)),
+                             (D, H, L, C - int(0.7 * C))]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -1310,7 +1847,8 @@ def main() -> None:
     # ---- 3b. backward kernel vs plain ------------------------------------------------
     bwd_err, bwd_timing = 0.0, {}
     for d, hid, nl, rows in [(D, H, L, 512), (D, H, L, 256), (D, H, L, 128), (D, H, L, C),
-                             (D, H, L, REFIT_B), (7, 16, 3, 37), (D, H, L, 1001)]:
+                             (D, H, L, REFIT_B), (7, 16, 3, 37), (D, H, L, 1001),
+                             (D, H, L, DLMC_C)]:
         params = perturbed_params(d, hid, nl, seed=d + rows + 1, device=dev)
         packed = ops.pack_weights(params)
         x, gy = (torch.randn((rows, d), generator=g, device=dev) for _ in range(2))
@@ -1330,7 +1868,7 @@ def main() -> None:
             line = (f"coupling vjp {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
                     f"B={rows}: max|diff| {e_abs:.3e} (scale max(1, max|ref|) = {scale:.2f}), "
                     f"bit-identical rerun {same}")
-            if d == D and rows in (512, 256, 128, REFIT_B):
+            if d == D and rows in (512, 256, 128, REFIT_B, C, DLMC_C):
                 k_ms, k_dev, k_txt = kernel_ms(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0,
                                                                       inverse, packed), 30)
                 p_ms = median_ms(lambda: ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0,
@@ -1338,12 +1876,20 @@ def main() -> None:
                 bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows, backward=True))
                 bwd_timing[(rows, inverse)] = (k_ms, k_dev, p_ms, bound_ms, bound_by, e_abs)
                 line += f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
-                if rows == 256 and not inverse:
-                    # where the backward's time goes: its two kernels on the device
+                if rows == 256 and not inverse or rows == C and inverse:
+                    # where the backward's time goes: its two kernels on the
+                    # device; at B=100 in the inverse direction (NeuTra's
+                    # input gradient) the weights kernel's share is work
+                    # whose result the caller drops
                     split = device_us(lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse,
                                                                     packed))
+                    vjp_us = {k: v for k, v in split.items() if "coupling_vjp" in k}
                     line += ("; device per launch: " + ", ".join(
-                        f"{k} {v:.2f} us" for k, v in split.items() if "coupling_vjp" in k))
+                        f"{k} {v:.2f} us" for k, v in vjp_us.items()))
+                    w_us = sum(v for k, v in vjp_us.items() if "weights" in k)
+                    if vjp_us:
+                        line += (f" (the weight-gradient kernel {100 * w_us / sum(vjp_us.values()):.1f}"
+                                 "% of the VJP's device time)")
             print(line)
             check(e_abs <= TOL * scale, f"backward kernel disagrees with the plain version: "
                                         f"{e_abs} > {TOL} * {scale}")
@@ -1368,7 +1914,9 @@ def main() -> None:
         if draws is None:
             draws = s.make_chunk_draws(torch.Generator().manual_seed(3), 3, 8)
         x0 = torch.randn((8, 6), generator=torch.Generator().manual_seed(4)).to(device)
-        st, ys = s.run_chunk(s.init_chunk_state(x0), {k: v.to(device) for k, v in draws.items()})
+        st, ys = s.run_chunk(s.init_chunk_state(x0), {
+            k: tuple(t.to(device) for t in v) if k == "inner" else v.to(device)
+            for k, v in draws.items()})
         small[device] = ys.cpu()
     e_chunk = (small["cpu"] - small["cuda"]).abs().max().item()
     print(f"chunk runner card vs CPU (3 outer x 2 MALA steps, d=6, C=8): max|diff| {e_chunk:.3e}")
@@ -1537,10 +2085,11 @@ def main() -> None:
     run_wide_spline(dev, g)
     run_fault_checks(dev)
     imh = run_imh_phases(dev)
+    flows11 = run_flow_sampler_phases(dev)
 
     kernels = []
 
-    def realnvp_row(name_, source, replaces, launches_, max_err, t):
+    def kernel_row(name_, source, replaces, launches_, max_err, t):
         k_ms, k_dev, p_ms, bound_ms, bound_by = t[:5]
         kernels.append({
             "name": name_, "route": "cuda", "source": source, "replaces": replaces,
@@ -1552,25 +2101,42 @@ def main() -> None:
     bwd_src, bwd_tpu = "nfmc_torch/csrc/coupling_bwd.cu", "nfmc_tpu/ops/coupling_pallas.py:217"
     for inverse, rows in ((False, C), (True, OUTER * C)):
         wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
-        realnvp_row(wrapper.__name__, fwd_src, fwd_tpu, launches[wrapper.__name__], err[inverse],
-                    timing[(D, rows, inverse)])
+        kernel_row(wrapper.__name__, fwd_src, fwd_tpu, launches[wrapper.__name__], err[inverse],
+                   timing[(D, rows, inverse)])
     # the warmup's training batches: 4096 rows at the adaptive batch of 256
-    realnvp_row("fused_realnvp_vjp", bwd_src, bwd_tpu, warm_launches["fused_realnvp_vjp"], bwd_err,
-                bwd_timing[(256, False)])
-    # the IMH path (phases 10-10c): a row for each shape it launched, with
-    # its launches at that shape and its error there; every such shape must
-    # have been held against the plain version in phase 3 or 3b
-    imh_shapes = imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"]
-    for (kind, direction, rows), n in sorted(imh_shapes.items()):
-        inverse = direction == "inverse"
-        if kind == "stack":
-            t = timing.get((D, rows, inverse))
-            name_, src, tpu = f"fused_realnvp_{direction} (IMH, B={rows})", fwd_src, fwd_tpu
-        else:
-            t = bwd_timing.get((rows, inverse))
-            name_, src, tpu = f"fused_realnvp_vjp ({direction}, IMH, B={rows})", bwd_src, bwd_tpu
-        check(t is not None, f"the IMH path launched {name_}, a shape phases 3/3b do not check")
-        realnvp_row(name_, src, tpu, n, t[5], t)
+    kernel_row("fused_realnvp_vjp", bwd_src, bwd_tpu, warm_launches["fused_realnvp_vjp"], bwd_err,
+               bwd_timing[(256, False)])
+
+    def path_rows(label, shapes):
+        """A row for each shape a path launched, with its launches at that
+        shape and its error there; every such shape must have been held
+        against the plain version in phase 3, 3b, 7 or 7b."""
+        for (kernel, direction, rows), n in sorted(shapes.items()):
+            inverse = direction == "inverse"
+            if kernel == "stack":
+                t = timing.get((D, rows, inverse))
+                name_, src, tpu = f"fused_realnvp_{direction} ({label}, B={rows})", fwd_src, fwd_tpu
+            elif kernel == "vjp":
+                t = bwd_timing.get((rows, inverse))
+                name_, src, tpu = (f"fused_realnvp_vjp ({direction}, {label}, B={rows})", bwd_src,
+                                   bwd_tpu)
+            elif kernel.endswith(" vjp"):
+                kind = kernel.split()[0]
+                t = spline["bwd_timing"].get((kind, rows, inverse))
+                name_, src, tpu = (f"fused_spline_vjp ({kind}, {direction}, {label}, B={rows})",
+                                   "nfmc_torch/csrc/spline_bwd.cu", REPLACES["bwd"])
+            else:
+                t = spline["fwd_timing"].get((kernel, rows, inverse))
+                name_, src, tpu = (f"fused_{kernel}_{direction} ({label}, B={rows})",
+                                   "nfmc_torch/csrc/spline.cu", REPLACES["fwd"])
+            check(t is not None, f"the {label} path launched {name_}, a shape phases 3/3b/7/7b "
+                                 "do not check")
+            kernel_row(name_, src, tpu, n, t[5], t)
+
+    # the IMH path (phases 10-10c) and the flow-reparameterised paths (11-11e)
+    path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
+    for label, shapes in flows11["shapes"].items():
+        path_rows(label, shapes)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
             k_ms, k_dev, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
@@ -1583,7 +2149,7 @@ def main() -> None:
             })
     for kind in SPLINE_FLOWS:
         # the warmup's training batches: 4096 rows at the adaptive batch of 256
-        k_ms, k_dev, p_ms, bound_ms, bound_by = spline["bwd_timing"][kind]
+        k_ms, k_dev, p_ms, bound_ms, bound_by = spline["bwd_timing"][(kind, 256, False)][:5]
         kernels.append({
             "name": f"fused_spline_vjp ({kind})", "route": "cuda",
             "source": "nfmc_torch/csrc/spline_bwd.cu", "replaces": REPLACES["bwd"],
@@ -1591,8 +2157,12 @@ def main() -> None:
             "max_abs_err": spline["bwd_err"][kind], "ms": k_ms, "device_ms": k_dev,
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    print(f"ESS/s: headline {headline_ess:.1f}, IMH {imh['imh_ess_per_s']:.1f} "
-          f"({smi.stdout.strip().splitlines()[0]})")
+    print(f"ESS/s: headline {headline_ess:.1f}, IMH {imh['imh_ess_per_s']:.1f}, neutra_hmc "
+          f"{flows11['neutra_ess_per_s']:.1f}, tess {flows11['tess_ess_per_s']:.1f}; it/s: "
+          f"neutra_hmc {flows11['neutra_it_per_s']:.2f}, tess {flows11['tess_it_per_s']:.2f}, "
+          f"jump_hmc@{JUMP_HMC_C} outer {flows11['jump_hmc_it_per_s']:.3f} "
+          f"({flows11['jump_hmc_grads_per_s']:.0f} leapfrog gradients/s), dlmc@{DLMC_C} "
+          f"{flows11['dlmc_it_per_s']:.3f} ({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

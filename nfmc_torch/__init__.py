@@ -8,7 +8,9 @@ passes ``device="cpu"``. Ported so far: ``sample``/``create_sampler`` for
 reverse-KL warmup, for ``jump_mala`` and ``jump_ula`` with a RealNVP,
 rational-quadratic spline (``c-rqnsf``) or linear-rational spline
 (``c-lrsnsf``) coupling flow (frozen, fitted by the warmup, or refitted with
-``fit_nf=True``) and for ``mala`` and ``ula``; the ESS and R-hat
+``fit_nf=True``), for ``jump_hmc``, ``jump_uhmc`` and ``jump_mh``, for the
+flow-reparameterised ``neutra_hmc`` and ``neutra_mh``, ``tess`` and ``dlmc``,
+and for ``mala``, ``ula``, ``hmc``, ``uhmc`` and ``mh``; the ESS and R-hat
 diagnostics; every potential of ``nfmc_tpu.potentials``.
 """
 from .api import create_flow_object, create_sampler, parse_flow_string, sample
@@ -27,14 +29,22 @@ from .core import (
 )
 from . import diagnostics, potentials
 from .flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
+from .samplers.mcmc import HMC, MALA, MH, UHMC, ULA
 from .samplers.nfmc import (
+    DLMC,
+    TESS,
     AdaptiveIMH,
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpHMC,
     JumpMALA,
+    JumpMH,
     JumpNFMCParameters,
+    JumpUHMC,
     JumpULA,
+    NeuTraHMC,
+    NeuTraMH,
 )
 
 __version__ = "0.1.0"
@@ -45,4 +55,6 @@ __all__ = [
     "MCMCKernel", "MCMCParameters", "NFMCKernel", "NFMCParameters", "Sampler",
     "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "JumpMALA", "JumpULA", "JumpNFMCParameters",
     "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
+    "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
+    "NeuTraMH", "TESS", "DLMC",
 ]

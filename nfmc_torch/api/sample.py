@@ -13,15 +13,40 @@ from ..core.rng import next_seed
 from ..core.sampler import NFMCKernel, Sampler
 from ..flows import Flow
 from ..potentials import Potential
-from ..samplers.mcmc import MALA, ULA, LangevinKernel, LangevinParameters
+from ..samplers.mcmc import (
+    HMC,
+    MALA,
+    MH,
+    UHMC,
+    ULA,
+    HMCKernel,
+    HMCParameters,
+    LangevinKernel,
+    LangevinParameters,
+    MHKernel,
+    MHParameters,
+)
 from ..samplers.nfmc import (
+    DLMC,
+    TESS,
     AdaptiveIMH,
+    DLMCKernel,
+    DLMCParameters,
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpHMC,
     JumpMALA,
+    JumpMH,
     JumpNFMCParameters,
+    JumpUHMC,
     JumpULA,
+    NeuTraHMC,
+    NeuTraKernel,
+    NeuTraMH,
+    NeuTraParameters,
+    TESSKernel,
+    TESSParameters,
 )
 from ..utils import resolve_device
 from .registry import PORTED_STRATEGIES, UNPORTED_STRATEGIES, create_flow_object
@@ -67,6 +92,13 @@ def create_sampler(
         cls = MALA if strategy == "mala" else ULA
         return cls(event_shape, target, LangevinKernel(event_size=event_size, **kernel_kwargs),
                    LangevinParameters(**param_kwargs), device=device)
+    if strategy in ("hmc", "uhmc"):
+        cls = HMC if strategy == "hmc" else UHMC
+        return cls(event_shape, target, HMCKernel(event_size=event_size, **kernel_kwargs),
+                   HMCParameters(**param_kwargs), device=device)
+    if strategy == "mh":
+        return MH(event_shape, target, MHKernel(event_size=event_size, **kernel_kwargs),
+                  MHParameters(**param_kwargs), device=device)
 
     if flow is None:
         raise ValueError("Flow object must be provided")
@@ -88,12 +120,50 @@ def create_sampler(
                            IMHKernel(event_shape, flow=flow_object, **kernel_kwargs),
                            IMHParameters(), device=device)
 
-    kernel = NFMCKernel(event_shape, flow=flow_object, **kernel_kwargs)
-    params = JumpNFMCParameters(**param_kwargs)
-    cls = JumpMALA if strategy == "jump_mala" else JumpULA
-    return cls(event_shape, target, kernel=kernel, params=params,
-               inner_kernel=LangevinKernel(event_size=event_size, **inner_kernel_kwargs),
-               inner_params=LangevinParameters(**inner_param_kwargs), device=device)
+    if strategy.startswith("jump_"):
+        kernel = NFMCKernel(event_shape, flow=flow_object, **kernel_kwargs)
+        params = JumpNFMCParameters(**param_kwargs)
+        inner = strategy[len("jump_"):]
+        if inner in ("mala", "ula"):
+            cls = JumpMALA if inner == "mala" else JumpULA
+            inner_kernel = LangevinKernel(event_size=event_size, **inner_kernel_kwargs)
+            inner_params = LangevinParameters(**inner_param_kwargs)
+        elif inner in ("hmc", "uhmc"):
+            cls = JumpHMC if inner == "hmc" else JumpUHMC
+            if inner == "hmc" and "n_iterations" not in inner_param_kwargs:
+                inner_param_kwargs["n_iterations"] = 5  # the reference's default for jump_hmc
+            inner_kernel = HMCKernel(event_size=event_size, **inner_kernel_kwargs)
+            inner_params = HMCParameters(**inner_param_kwargs)
+        else:
+            cls = JumpMH
+            inner_kernel = MHKernel(event_size=event_size, **inner_kernel_kwargs)
+            inner_params = MHParameters(**inner_param_kwargs)
+        return cls(event_shape, target, kernel=kernel, params=params, inner_kernel=inner_kernel,
+                   inner_params=inner_params, device=device)
+
+    if strategy in ("tess", "dlmc"):
+        if negative_log_likelihood is None:
+            raise ValueError("Negative log likelihood must be provided")
+        if strategy == "tess":
+            return TESS(event_shape, target, negative_log_likelihood,
+                        TESSKernel(event_shape, flow=flow_object, **kernel_kwargs),
+                        TESSParameters(**param_kwargs), device=device)
+        return DLMC(event_shape, target, negative_log_likelihood,
+                    DLMCKernel(event_shape, flow=flow_object, **kernel_kwargs),
+                    DLMCParameters(**param_kwargs), device=device)
+
+    # neutra_hmc, neutra_mh
+    kernel = NeuTraKernel(event_shape, flow=flow_object, **kernel_kwargs)
+    params = NeuTraParameters(**param_kwargs)
+    if strategy == "neutra_hmc":
+        return NeuTraHMC(event_shape, target,
+                         inner_kernel=HMCKernel(event_size=event_size, **inner_kernel_kwargs),
+                         inner_params=HMCParameters(**inner_param_kwargs), kernel=kernel,
+                         params=params, device=device)
+    return NeuTraMH(event_shape, target,
+                    inner_kernel=MHKernel(event_size=event_size, **inner_kernel_kwargs),
+                    inner_params=MHParameters(**inner_param_kwargs), kernel=kernel,
+                    params=params, device=device)
 
 
 def sample(
@@ -149,6 +219,7 @@ def sample(
         warmup_output = sampler.warmup(x0=x0, show_progress=show_progress,
                                        time_limit_seconds=warmup_time_limit_seconds,
                                        seed=seed_warm)
+        x0_is_warmup_draw = True
         if warmup_output.store_samples and warmup_output.running_samples.n_samples > 0:
             flat = warmup_output.samples.reshape(-1, *sampler.event_shape)
             g = torch.Generator(device=flat.device)
@@ -157,6 +228,13 @@ def sample(
             x0 = flat[perm[: x0.shape[0]]].to(device)
         elif warmup_output.running_samples.last_sample is not None:
             x0 = warmup_output.running_samples.last_sample.to(device)
-        # else the warmup produced nothing: keep the original x0
+        else:  # the warmup produced nothing: keep the original data-space x0
+            x0_is_warmup_draw = False
+        if (x0_is_warmup_draw and getattr(sampler, "warmup_draws_are_latent", False)
+                and sampler.params.transport_x0):
+            # NeuTra's warmup draws are latent, and with transport_x0 its
+            # sample() maps x0 forward as a data-space point: hand it the
+            # data-space points so that the transport gives the draws back
+            x0 = sampler._latent_to_data(x0)
     return sampler.sample(x0=x0, show_progress=show_progress,
                           time_limit_seconds=sampling_time_limit_seconds, seed=seed_run)

@@ -204,20 +204,24 @@ class ChunkedDriver:
     above a footprint cap) and the iterations then run ``make_step_aux
     (tuning)``'s ``step(x, kstate, draws_i, aux_i)``; a chunk whose
     precompute declines runs ``make_step``'s step. ``hoist_per_iter(x)``,
-    one iteration's hoisted f32 elements, caps the chunk so that the default
-    footprint limit admits it.
+    one iteration's hoisted f32 elements (its draws, and its precompute's
+    output), caps the chunk so that the default footprint limit admits it.
+    ``data_transform`` maps each new state before it enters the moment sums
+    (the stored draws stay as they are).
     """
 
     def __init__(self, event_shape: Tuple[int, ...], make_step: Callable[[bool], Callable],
                  make_draws: Callable, make_precompute: Optional[Callable] = None,
                  make_step_aux: Optional[Callable] = None,
-                 hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None):
+                 hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None,
+                 data_transform: Optional[Callable] = None):
         self.event_shape = tuple(event_shape)
         self.make_step = make_step
         self.make_draws = make_draws
         self.make_precompute = make_precompute
         self.make_step_aux = make_step_aux
         self.hoist_per_iter = hoist_per_iter
+        self.data_transform = data_transform or (lambda v: v)
 
     def run(self, x0: torch.Tensor, kstate, generator: torch.Generator, n_iterations: int, *,
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
@@ -226,6 +230,7 @@ class ChunkedDriver:
             desc: str = "MCMC"):
         """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``."""
         step = self.make_step(tuning)
+        data_transform = self.data_transform
         precompute = self.make_precompute(tuning) if self.make_precompute else None
         step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
@@ -251,7 +256,7 @@ class ChunkedDriver:
                         x, ks, info = step(x, ks, draws_i)
                     else:
                         x, ks, info = step_aux(x, ks, draws_i, tuple(a[i] for a in aux))
-                    acc = acc.add(info, x)
+                    acc = acc.add(info, data_transform(x))
                     if collect:
                         ys[i].copy_(x)
             st.update(x=x, kstate=ks, acc=acc)
@@ -282,7 +287,7 @@ class ChunkedDriver:
         # the chunk's hoisted draws and its emitted-draw buffer are each
         # about (chunk, C, *event)
         cap = max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * event_elems))
-        if precompute is not None and self.hoist_per_iter is not None:
+        if self.hoist_per_iter is not None:
             # the default limit, not a sampler's own: forcing the in-loop
             # step must not change the chunk schedule
             cap = min(cap, max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, int(self.hoist_per_iter(x0)))))

@@ -17,7 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ...core.driver import ChunkedDriver
+from ...core.driver import ChunkedDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import MCMCKernel, MCMCParameters, Sampler
 from ...core.tuning import (
@@ -91,7 +91,11 @@ class MetropolisParameters(MCMCParameters):
 
 class MCMCSampler(Sampler):
     """Standalone runs (``warmup``/``sample``) and the hooks a composite
-    runner (the jump sampler) drives."""
+    runner (the jump sampler) drives. ``data_transform`` maps the chain
+    state to what the moment accumulators see (NeuTra's latent -> data map);
+    stored draws stay untransformed."""
+
+    data_transform: Optional[Callable] = None
 
     @property
     def name(self) -> str:
@@ -116,9 +120,29 @@ class MCMCSampler(Sampler):
     def _extract_mstate(self, state):
         return state[0] if isinstance(state, tuple) else state
 
-    def _make_step_aux(self, tuning: bool) -> Optional[Callable]:
-        """``(x, state, draws) -> (x', state', StepInfo)``."""
+    def make_propose_aux(self) -> Optional[Callable]:
+        """``(x, mstate, draws) -> (x', mask, diverged)``."""
         return None
+
+    def _make_step_aux(self, tuning: bool) -> Optional[Callable]:
+        """``(x, state, draws) -> (x', state', StepInfo)``: by default the
+        proposal of ``make_propose_aux``, accepted through its mask, then the
+        tuning update."""
+        propose_aux = self.make_propose_aux()
+        if propose_aux is None:
+            return None
+        update_kernel = self.make_update_kernel()
+        event_ndim = len(self.event_shape)
+
+        def step(x, mstate, draws):
+            x_prime, mask, diverged = propose_aux(x, mstate, draws)
+            x_new = torch.where(mask.reshape(mask.shape + (1,) * event_ndim), x_prime, x)
+            if tuning:
+                mstate = update_kernel(mstate, x_new, mask)
+            info = StepInfo(n_accepted=mask.sum().to(torch.int32), diverged=diverged.to(torch.int32))
+            return x_new, mstate, info
+
+        return step
 
     # ---- kernel adaptation -------------------------------------------------
     def make_update_kernel(self) -> Callable:
@@ -163,7 +187,8 @@ class MCMCSampler(Sampler):
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         mstate = self._augment_state(self.kernel.make_state(self.device), x0)
-        driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws())
+        driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws(),
+                               data_transform=self.data_transform)
         _, mstate = driver.run(
             x0, mstate, generator, n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self.calls_per_iter(n_chains),

@@ -47,7 +47,9 @@ from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
 from ...core.tuning import train_val_split
 from ...flows.train import fixed_effort_fit_config, make_scan_fit
 from ...utils import Progress, metropolis_acceptance_log_ratio, unevaluable_current_mask
+from ..mcmc.hmc import HMC, UHMC
 from ..mcmc.langevin import MALA, ULA
+from ..mcmc.mh import MH
 
 
 @dataclass
@@ -207,19 +209,20 @@ class JumpNFMC(Sampler):
         )
 
     def make_chunk_draws(self, generator: torch.Generator, chunk: int, n_chains: int) -> dict:
-        """All of a chunk's randomness: the inner steps' ``(noise, log_u)``
-        shaped ``(chunk, inner_n, C, ...)``, the proposals' base draws ``z``
-        ``(chunk, C, *event)`` and the jumps' ``log_u`` ``(chunk, C)``."""
+        """All of a chunk's randomness: the inner steps' draws (the tuple the
+        inner sampler's ``make_draws`` gives, e.g. MALA's ``(noise, log_u)``)
+        with leading dims ``(chunk, inner_n)``, the proposals' base draws
+        ``z`` ``(chunk, C, *event)`` and the jumps' ``log_u`` ``(chunk, C)``."""
         inner_n = self.inner_sampler.params.n_iterations
-        noise, log_u = self.inner_sampler.make_draws()(generator, (chunk, inner_n), n_chains)
+        inner = self.inner_sampler.make_draws()(generator, (chunk, inner_n), n_chains)
         z = self.kernel.flow.sample_base_fn(generator, chunk * n_chains)
         if self.params.adjusted_jumps:
             jump_log_u = torch.log(torch.rand((chunk, n_chains), generator=generator,
                                               device=generator.device))
         else:
             jump_log_u = torch.zeros((chunk, n_chains), device=generator.device)
-        return {"noise": noise, "log_u": log_u,
-                "z": z.reshape(chunk, n_chains, *z.shape[1:]), "jump_log_u": jump_log_u}
+        return {"inner": tuple(inner), "z": z.reshape(chunk, n_chains, *z.shape[1:]),
+                "jump_log_u": jump_log_u}
 
     def run_chunk(self, state: ChunkState, draws: dict, refit=None):
         """Run ``chunk`` outer iterations from ``state`` with ``draws``.
@@ -237,8 +240,8 @@ class JumpNFMC(Sampler):
         flow = self.kernel.flow
         params = state.flow_params
         target = self.target if self.params.adjusted_jumps else None
-        noise, log_u = draws["noise"], draws["log_u"]
-        chunk, inner_n = noise.shape[:2]
+        inner_draws = draws["inner"]
+        chunk, inner_n = inner_draws[0].shape[:2]
         x, ks, acc, jacc = state.x, state.inner_state, state.acc, state.jump_acc
         ys = None
         if collect:
@@ -251,7 +254,7 @@ class JumpNFMC(Sampler):
                 xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
             for i in range(chunk):
                 for s in range(inner_n):
-                    x, ks, info = inner_step(x, ks, (noise[i, s], log_u[i, s]))
+                    x, ks, info = inner_step(x, ks, tuple(d[i, s] for d in inner_draws))
                     acc = acc.add(info, x)
                     if collect:
                         ys[row].copy_(x)
@@ -465,4 +468,28 @@ class JumpULA(JumpNFMC):
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
                          ULA(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpHMC(JumpNFMC):
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         HMC(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpUHMC(JumpNFMC):
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         UHMC(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpMH(JumpNFMC):
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         MH(event_shape, target, inner_kernel, inner_params, device=device),
                          kernel, params, device=device)

@@ -46,6 +46,11 @@ def flatten_event(x: torch.Tensor, event_shape: Sequence[int]) -> torch.Tensor:
     return x.reshape(*get_batch_shape(x, event_shape), event_size_of(event_shape))
 
 
+def unflatten_event(x: torch.Tensor, event_shape: Sequence[int]) -> torch.Tensor:
+    """Inverse of :func:`flatten_event`."""
+    return x.reshape(*x.shape[:-1], *event_shape)
+
+
 def metropolis_acceptance_log_ratio(
     log_prob_target_curr,
     log_prob_target_prime,
@@ -71,6 +76,16 @@ def unevaluable_current_mask(u_curr, logq_curr):
     return torch.isnan(u_curr) | ~torch.isfinite(logq_curr)
 
 
+def batched_grad(fn_batched: Callable[[torch.Tensor], torch.Tensor]):
+    """Returns ``x -> dU/dx`` for a batched potential ``U: (B, *event) ->
+    (B,)``: one autograd pass over the summed potential, taken with respect
+    to ``x`` alone (``torch.autograd.grad``, never ``.backward()``), so
+    tensors inside ``U`` that require grad (a flow's weights) accumulate
+    nothing."""
+    u_and_grad = value_and_batched_grad(fn_batched)
+    return lambda x: u_and_grad(x)[1]
+
+
 def value_and_batched_grad(fn_batched: Callable[[torch.Tensor], torch.Tensor]):
     """Returns ``x -> (U(x), dU/dx)``: one autograd pass over the summed
     potential gives every row's gradient."""
@@ -83,6 +98,20 @@ def value_and_batched_grad(fn_batched: Callable[[torch.Tensor], torch.Tensor]):
         return u.detach(), g
 
     return fn
+
+
+def multivariate_normal_sample(generator: torch.Generator, batch_shape: Shape,
+                               event_shape: Shape, cov=None, chol=None) -> torch.Tensor:
+    """Draws from N(0, cov), N(0, I) when ``cov`` and ``chol`` are None; a
+    precomputed Cholesky factor ``chol`` saves the factorisation."""
+    dev = generator.device
+    if cov is None and chol is None:
+        return torch.randn((*batch_shape, *event_shape), generator=generator, device=dev)
+    d = event_size_of(event_shape)
+    if chol is None:
+        chol = torch.linalg.cholesky(torch.as_tensor(cov, dtype=torch.float32, device=dev))
+    z = torch.randn((*batch_shape, d), generator=generator, device=dev)
+    return (z @ chol.T).reshape(*batch_shape, *event_shape)
 
 
 def std_normal_log_prob(x: torch.Tensor, event_shape: Sequence[int]) -> torch.Tensor:

@@ -89,11 +89,28 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
                           show_progress=False)
 
 
-@pytest.mark.parametrize("strategy,item", [("tess", "1.6"), ("hmc", "1.5"),
-                                           ("jump_hmc", "1.5"), ("neutra_hmc", "1.6")])
+@pytest.mark.parametrize("strategy,item", [
+    *((s, "1.5") for s in ("ess", "nuts", "pt_mala", "pt_mh", "pt_hmc", "aies", "chees_hmc",
+                           "dense_hmc", "dense_mala", "jump_ess", "jump_nuts", "jump_aies",
+                           "jump_chees", "neutra_chees"))])
 def test_unported_strategies_name_their_roadmap_item(strategy, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _run(strategy=strategy)
+
+
+@pytest.mark.parametrize("strategy", list(nfmc_torch.api.registry.PORTED_STRATEGIES))
+def test_every_ported_strategy_runs_on_the_cpu(strategy):
+    """Each ported strategy through the front door with ``device="cpu"``:
+    finite draws on the CPU and a counted run."""
+    kw = {"negative_log_likelihood": StandardGaussian((3,))} if strategy in ("tess", "dlmc") else {}
+    if strategy == "dlmc":
+        kw["param_kwargs"] = {"flow_fit_kwargs": {"n_epochs": 1}}
+    out = nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy,
+                            flow='realnvp%{"n_layers": 2, "hidden_size": 8}', n_chains=6,
+                            n_iterations=3, device="cpu", seed=0, show_progress=False,
+                            inner_param_kwargs={"n_iterations": 2}, **kw)
+    assert out.samples.device.type == "cpu" and torch.isfinite(out.samples).all()
+    assert out.samples.shape[1:] == (6, 3) and out.statistics.n_attempted_trajectories > 0
 
 
 def test_unported_options_raise():

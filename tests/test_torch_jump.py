@@ -103,7 +103,7 @@ def test_three_outer_iterations_match_jax():
         jacc = jacc.add_jump(jmask, x)
         emitted.append(np.asarray(x))
 
-    draws = {"noise": torch.from_numpy(noise), "log_u": torch.from_numpy(log_u),
+    draws = {"inner": (torch.from_numpy(noise), torch.from_numpy(log_u)),
              "z": torch.from_numpy(z), "jump_log_u": torch.from_numpy(jump_log_u)}
     state, ys = ts.run_chunk(ts.init_chunk_state(torch.from_numpy(x0)), draws)
 

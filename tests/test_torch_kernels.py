@@ -328,3 +328,49 @@ def test_reverse_kl_gradient_through_the_inverse_vjp(cuda):
     scale = max(1.0, max(float(g.abs().max()) for g in grads["cpu"]))
     for a, b in zip(grads["cpu"], grads["cuda"]):
         assert float((a - b).abs().max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("rows", [30, 308, 1024])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_flow_sampler_shapes_match_plain(cuda, rows, inverse):
+    """The coupling kernel and its VJP at the shapes the flow-reparameterised
+    samplers add: TESS's refit validation rows (30), DLMC's (308) and its
+    1024 chains (jump_hmc's current states too)."""
+    params = _params(100, 128, 4, cuda, seed=7)
+    g = torch.Generator(cuda).manual_seed(8)
+    x, gy = (torch.randn((rows, 100), device=cuda, generator=g) for _ in range(2))
+    gld = torch.randn((rows,), device=cuda, generator=g)
+    wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
+    y, ld = wrapper(params, x, 3.0)
+    got = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse)
+    torch.cuda.synchronize()
+    y_ref, ld_ref = ops.realnvp_stack_plain(params, x, 3.0, inverse)
+    assert float((y - y_ref).abs().max()) <= TOL and float((ld - ld_ref).abs().max()) <= TOL
+    assert _grad_err(got, ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)) <= TOL
+
+
+def test_neutra_input_gradient_through_the_inverse_vjp(cuda):
+    """NeuTra's gradient of U~ with respect to the latent input at d=100,
+    B=100 on the card: one inverse launch and one inverse-direction VJP
+    launch, against the CPU's plain stack (1e-4 of the largest), and no
+    gradient left on weights that require grad."""
+    from nfmc_torch.potentials import StandardGaussian
+    from nfmc_torch.samplers.nfmc import NeuTraHMC, NeuTraKernel
+
+    params = _params(100, 128, 4, "cpu", seed=9)
+    z = torch.randn((100, 100), generator=torch.Generator().manual_seed(10))
+    grads = {}
+    for device in ("cpu", cuda):
+        flow = Flow(RealNVP((100,), n_layers=4, hidden_size=128))
+        flow.params = [{k: [t.detach().to(device).requires_grad_(True) for t in v]
+                        for k, v in p.items()} for p in params]
+        s = NeuTraHMC((100,), StandardGaussian((100,)), kernel=NeuTraKernel((100,), flow=flow),
+                      device=device)
+        before = (ops.fused_realnvp_inverse.launches, ops.fused_realnvp_vjp.launches)
+        zd = z.to(device).requires_grad_(True)
+        (grads[str(device)],) = torch.autograd.grad(s.adjusted_target(zd).sum(), zd)
+        after = (ops.fused_realnvp_inverse.launches, ops.fused_realnvp_vjp.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == ((0, 0) if device == "cpu" else (1, 1))
+        assert all(t.grad is None for p in flow.params for v in p.values() for t in v)
+    want = grads["cpu"]
+    assert float((grads["cuda"].cpu() - want).abs().max()) <= TOL * float(want.abs().max())
