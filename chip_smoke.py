@@ -143,10 +143,46 @@ Phases, in order; any failure exits non-zero before the last line:
      DLMC's first refit (its first Adam step by check_adam_step's witness
      rule, the whole refit replayed on the card) and one drift + accept from
      its weights (masks apart only within 1e-3 of their threshold).
+  12. nuts through the front door (bench.py's nuts_1024): 1024 chains on a
+     100-d standard Gaussian, max_tree_depth 10, warmup=True (85 dual-
+     averaging iterations), 100 iterations: acceptance, the tuned step size
+     and the moment error in bands from the JAX package's CPU runs
+     (scripts/mcmc_reference_cpu.py), the counter law (the statistics'
+     calls = gradient calls = what the steps reported: the sum of their
+     leapfrogs and one evaluation a chain each), the mean and maximum tree
+     depth, it/s, gradients/s, ESS/s and the device busy share;
+  12a. chees_hmc (bench.py:891-936): 1024 chains on DiagonalGaussian1(100),
+     341 warmup and 1000 iterations, store_samples=False: the tuned
+     trajectory length and step size, leapfrogs an iteration, acceptance and
+     max |mean| / sigma in JAX bands; 2 L C + 2 C calls and 2 L C gradients
+     against the steps' reports;
+  12b. ess (bench.py:1686-1691's target: sigma linspace(0.4, 0.9, 5), the
+     residual likelihood) at 100 chains with warmup=True: the moments in JAX
+     bands, (5 + 1) C calls an iteration, and the warmup's corrected
+     likelihood on the card against float64 (and a dense ellipse at d=100);
+  12c. jump_ess, jump_nuts and jump_chees (100 chains, d=100, the identity
+     RealNVP frozen, 5 inner iterations, 64 outer, target N(0.12 * 1, I)):
+     the interleaving law, the counters (static plus dynamic) against the
+     inner steps' reports, jump acceptance in JAX bands, one prior redraw an
+     outer iteration for jump_ess, one hoisted inverse and a forward a jump;
+  12d. neutra_chees (as phase 11): ChEES's warmup (the reverse-KL fit at 0
+     epochs keeps the flow at its identity init) and 1000 iterations:
+     acceptance in a JAX band, the moments, the launch law from the run's
+     leapfrog counts L_i (an inverse and an inverse VJP at B=100 a gradient
+     pass, L_i + 1 an iteration, and the data transform's inverse), ESS/s;
+  12e. card against CPU with the same injected draws: a NUTS step at
+     1024 x 100 (float64: every leapfrog count, mask and state equal; float32:
+     the chains that agree to 1e-5, at most 1% parted by rounding), a ChEES
+     tuning and sampling step (L equal, states to 1e-4), an ESS step with a
+     dense ellipse (to 1e-5, masks equal) and NeuTra-ChEES's gradient of U~
+     (to 1e-4 max |g|);
+  12f. ESS's two-sample test (chain permutation, alpha 0.01) of 32 chains x
+     600 iterations on the card against the JAX package's draws
+     (ESS_DRAWS).
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) and the paths of phase 11 launched must be
-one phase 3, 3b, 7 or 7b held against the plain version, and has its own row
-in the kernels' line.
+every shape the IMH path (10-10c) and the paths of phases 11 and 12 launched
+must be one phase 3, 3b, 7 or 7b held against the plain version, and has its
+own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
@@ -164,6 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -278,6 +315,60 @@ DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 100, {"n_epochs": 10, "lr": 5e-3}
 # band from half the low to 1.5 times the high
 DLMC_ERR_JAX, DLMC_ERR = "0.029988-0.047894", (0.014994, 0.071842)
 DLMC_ACC_JAX, DLMC_ACC = "0.158877-0.164131", (0.079438, 0.246196)
+# The adaptive-trajectory and slice samplers (phases 12-12f), at bench.py's
+# sizes. 12: nuts at bench.py's nuts_1024 (bench.py:1053-1058, 1099-1119):
+# 1024 chains on a 100-d standard Gaussian, max_tree_depth 10, 85 warmup
+# and 100 sampling iterations
+NUTS_C, NUTS_WARM, NUTS_ITERS, NUTS_DEPTH = 1024, 85, 100, 10
+# 12a: chees_hmc at bench.py:891-936: 1024 chains on DiagonalGaussian1(100),
+# 341 warmup and 1000 sampling iterations, store_samples=False
+CHEES_C, CHEES_WARM, CHEES_ITERS = 1024, 341, 1000
+# 12b: ess with bench.py:1686-1691's target (sigma linspace(0.4, 0.9, 5), the
+# "residual" likelihood of tools/run_reference.py) at 100 chains, with the
+# warmup's ellipse adaptation; 12f: its matched run, 32 chains x 600
+# iterations, against the JAX package's draws (scripts/mcmc_reference_cpu.py
+# --ess-draws wrote them to ESS_DRAWS)
+ESS_SIG = np.linspace(0.4, 0.9, 5).astype(np.float32)
+ESS_C, ESS_WARM, ESS_ITERS = 100, 100, 600
+ESS_AB_C, ESS_AB_ITERS, ESS_AB_SEED = 32, 600, 2
+ESS_DRAWS = "scripts/ess_reference_draws.npz"
+# 12c: jump_ess / jump_nuts / jump_chees in the headline setting (100
+# chains, d=100, the identity-init RealNVP frozen, 5 inner iterations) on
+# the misfit target N(0.12 * 1, I); 64 outer iterations make one hoisted
+# chunk of 6400 proposals (a shape phase 3 holds); NUTS's inner step 0.5
+# keeps its trees short (the default 0.1 builds ~64 leaves a step)
+JUMP12_OUTER, JUMP12_INNER, JUMP12_MU, JUMP12_NUTS_STEP = 64, 5, 0.12, 0.5
+# 12d: neutra_chees as phase 11 (bench.py:508, 600-604): 100 chains, the
+# identity-init RealNVP frozen (the warmup's reverse-KL fit set to 0
+# epochs), ChEES's 100 warmup iterations, then 1000
+NEUTRA_CHEES_WARM, NEUTRA_CHEES_ITERS = 100, 1000
+# Their bands, from scripts/mcmc_reference_cpu.py (the JAX package on the
+# CPU at the same configurations, seeds 0-7), each from half the lowest to
+# 1.5 times the highest; an acceptance near 1 as phase 11's: its rejection
+# rate from half the lowest to 1.5 times the highest
+NUTS_ACC_JAX, NUTS_ACC = "0.994746-0.995518", (0.992119, 0.997759)
+NUTS_STEP_JAX, NUTS_STEP = "0.670154-0.682954", (0.335077, 1.024431)
+# the JAX package's tuned step, for runs without a warmup (the warm call and
+# the profiled window)
+NUTS_STEP_JAX_MID = 0.67
+NUTS_ERR_JAX, NUTS_ERR = "0.004365-0.006084", (0.002182, 0.009126)
+CHEES_TRAJ_JAX, CHEES_TRAJ = "3.538053-3.724400", (1.769026, 5.586600)
+CHEES_STEP_JAX, CHEES_STEP = "0.961527-0.983227", (0.480764, 1.474840)
+CHEES_LF_JAX, CHEES_LF = "2.356000-2.425000", (1.178000, 3.637500)
+CHEES_ACC_JAX, CHEES_ACC = "0.658170-0.672854", (0.329085, 1.009282)
+CHEES_ERR_JAX, CHEES_ERR = "0.003162-0.004700", (0.001581, 0.007051)
+ESS_MEAN_JAX, ESS_MEAN = "0.002935-0.010142", (0.001468, 0.015214)
+ESS_VAR_JAX, ESS_VAR = "0.007359-0.014495", (0.003680, 0.021742)
+JUMP12_ACC = {"ess": ((0.227109, 0.715547), "0.454219-0.477031"),
+              "nuts": ((0.194375, 0.620156), "0.388750-0.413438"),
+              "chees": ((0.200000, 0.646875), "0.400000-0.431250")}
+NEUTRA_CHEES_ACC_JAX, NEUTRA_CHEES_ACC = "0.568170-0.652490", (0.284085, 0.978735)
+# max|mean| 0.013367-0.021676 and max|E[x^2] - 1| 0.016915-0.028236 over the
+# dims; the gates are 1.5 times the highest
+NEUTRA_CHEES_MOMENTS = (0.032515, 0.042355)
+# 12e: NUTS's step size for the card-against-CPU step (the untuned default,
+# whose trees reach depth 5-6 on this target)
+NUTS_STEP_12E = 0.1
 
 
 def fail(msg: str) -> None:
@@ -1770,6 +1861,518 @@ def run_flow_sampler_phases(dev) -> dict:
     return res
 
 
+class StepReports:
+    """For the duration of a ``with`` block, what ``cls``'s steps report
+    (their StepInfo's dynamic call and gradient counts, summed on the
+    device, and the steps taken), by tuning flag: the run's own account of
+    its work, apart from the statistics' accumulators."""
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def __enter__(self):
+        cls, rec = self.cls, self
+        self.sums = {}
+        self._orig = {name: cls.__dict__.get(name) for name in
+                      ("_make_step_aux", "_make_step_precomputed")}
+
+        def wrap(make):
+            def factory(sampler, tuning):
+                step = make(sampler, tuning)
+                if step is None:
+                    return None
+
+                def wrapped(*a):
+                    out = step(*a)
+                    s = rec.sums.setdefault(tuning, [0, 0, 0])
+                    s[0], s[1], s[2] = s[0] + out[2].n_calls, s[1] + out[2].n_grads, s[2] + 1
+                    return out
+                return wrapped
+            return factory
+
+        for name in self._orig:
+            setattr(cls, name, wrap(getattr(cls, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            if fn is None:
+                delattr(self.cls, name)
+            else:
+                setattr(self.cls, name, fn)
+
+    def totals(self, tuning):
+        """(calls, grads, steps) the steps of that flag reported."""
+        calls, grads, steps = self.sums.get(tuning, (0, 0, 0))
+        return int(calls), int(grads), steps
+
+
+class CaptureSampler:
+    """For the duration of a ``with`` block, the samplers the front door
+    builds (``nfmc_torch.api.sample.create_sampler``), in order."""
+
+    @staticmethod
+    def _module():
+        # the package exports the function ``sample`` under the module's name
+        import importlib
+
+        return importlib.import_module("nfmc_torch.api.sample")
+
+    def __enter__(self):
+        api = self._module()
+        self._orig = make = api.create_sampler
+        self.samplers = []
+
+        def recording(*a, **k):
+            s = make(*a, **k)
+            self.samplers.append(s)
+            return s
+
+        api.create_sampler = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._module().create_sampler = self._orig
+
+
+def in_band(what, value, band, jax_range):
+    """Print ``value`` beside the JAX package's range and gate it on
+    ``band``."""
+    print(f"  {what} {value:.6f} (JAX package, CPU, seeds 0-7: {jax_range}; band {band})")
+    check(band[0] <= value <= band[1], f"{what} {value} outside {band}")
+
+
+def residual_nll(sig):
+    """The likelihood that turns ESS's N(0, I) prior into N(0, diag(sig^2))
+    (tools/run_reference.py's "residual")."""
+    s = torch.as_tensor(sig)
+    return lambda x: 0.5 * ((x / s.to(x.device)) ** 2 - x ** 2).sum(-1)
+
+
+def run_mcmc_phases(dev) -> dict:
+    """Phases 12-12f: nuts, chees_hmc and ess at bench.py's sizes, their jump
+    variants and neutra_chees through the front door, then one step of each
+    on the card against the CPU and ESS's two-sample test against the JAX
+    package's draws. Returns the launches by shape of each path and the
+    numbers the summary prints."""
+    import nfmc_torch
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import CallablePotential, DiagonalGaussian, DiagonalGaussian1
+    from nfmc_torch.potentials import StandardGaussian
+    from nfmc_torch.samplers.mcmc import ESS, NUTS, CheesHMC
+    from nfmc_torch.validation import mcmc_two_sample_report
+
+    res = {"shapes": {}}
+    target = StandardGaussian((D,))
+    t_last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[{what}: {now - t_last[0]:.1f} s]")
+        t_last[0] = now
+
+    def identity_flow():
+        return Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+
+    def timed(what, run, cls):
+        """``run()`` with the launch counts set to 0 just before it and read
+        just after; its launches by shape, its wall (ending in a
+        synchronise), the inner warmup's wall, ``cls``'s step reports and the
+        samplers the front door built."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Instrument() as ins, ShapeLaunches() as shapes, StepReports(cls) as rep, \
+                CaptureSampler() as cap:
+            out = run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res["shapes"][what] = shapes.n
+        return out, wall, shapes.n, ins, rep, cap.samplers
+
+    # ---- 12. nuts at 1024 chains -----------------------------------------------------
+    def nuts(n_warm, n_iter, seed=0, step=None):
+        """A run with ``n_warm`` dual-averaging iterations first, or, with
+        ``step``, none (a few dual-averaging steps leave the step size far
+        off, and a tiny one builds trees of depth 10)."""
+        kernel = {"max_tree_depth": NUTS_DEPTH, **({"step_size": step} if step else {})}
+        return nfmc_torch.sample(target, strategy="nuts", flow=None, n_chains=NUTS_C,
+                                 n_warmup_iterations=n_warm, n_iterations=n_iter,
+                                 warmup=step is None, kernel_kwargs=kernel,
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    nuts(0, 2, step=NUTS_STEP_JAX_MID)  # warm
+    out, wall, sh, ins, rep, (s,) = timed("nuts", lambda: nuts(NUTS_WARM, NUTS_ITERS), NUTS)
+    st = out.statistics
+    wall_s = wall - ins.inner_s
+    mean_depth, max_depth = s.tree_depths()
+    calls, grads, steps = rep.totals(False)
+    lf = st.n_target_gradient_calls / (NUTS_ITERS * NUTS_C) - 1
+    m1, m2 = float(np.abs(out.mean).max()), float(np.abs(out.second_moment - 1).max())
+    res["nuts_it_per_s"] = NUTS_ITERS / wall_s
+    res["nuts_grads_per_s"] = st.n_target_gradient_calls / wall_s
+    print(f"nuts ({NUTS_C} chains, d={D}, depth {NUTS_DEPTH}, {NUTS_WARM} warmup + {NUTS_ITERS} it): "
+          f"wall {wall:.3f} s, of which warmup {ins.inner_s:.3f} s; sampling {wall_s:.3f} s, "
+          f"{res['nuts_it_per_s']:.2f} it/s, {res['nuts_grads_per_s']:.0f} gradient calls/s "
+          f"(counted), tuned step {out.kernel.step_size:.6f}, tree depth mean {mean_depth:.3f} max "
+          f"{max_depth} (warmup and sampling), {lf:.4f} leapfrogs a chain-iteration, acc "
+          f"{st.acceptance_rate:.6f}, max|mean| {m1:.4f}, max|E[x^2]-1| {m2:.4f}, "
+          f"divergences {st.n_divergences}, launches by shape {dict(sh)}")
+    res["nuts_ess_per_s"] = ess_per_second(out, wall_s, max_window=4096, what="nuts")
+    profile_window(lambda: nuts(0, 20, seed=1, step=NUTS_STEP_JAX_MID),
+                   f"nuts, 20 it at the step {NUTS_STEP_JAX_MID}")
+    check(tuple(out.samples.shape) == (NUTS_ITERS, NUTS_C, D)
+          and bool(torch.isfinite(out.samples).all()), "nuts draws")
+    in_band("nuts acceptance (chains moved)", st.acceptance_rate, NUTS_ACC, NUTS_ACC_JAX)
+    in_band("nuts tuned step", out.kernel.step_size, NUTS_STEP, NUTS_STEP_JAX)
+    in_band("nuts max|mean|", m1, NUTS_ERR, NUTS_ERR_JAX)
+    # the counters against what the sampling run's steps reported: the sum
+    # of their leapfrogs plus one evaluation a chain at each start
+    check(steps == NUTS_ITERS and st.n_target_gradient_calls == grads == calls
+          == st.n_target_calls and grads > NUTS_C * NUTS_ITERS,
+          f"nuts counter law: stats {st.n_target_calls} / {st.n_target_gradient_calls}, the steps "
+          f"reported {calls} / {grads} over {steps} steps")
+    check(not sh, f"nuts launched a coupling kernel: {dict(sh)}")
+    lap("phase 12")
+
+    # ---- 12a. chees_hmc at 1024 chains -------------------------------------------------
+    def chees(n_warm, n_iter, seed=0):
+        return nfmc_torch.sample(DiagonalGaussian1(n_dim=D), strategy="chees_hmc", flow=None,
+                                 n_chains=CHEES_C, n_warmup_iterations=n_warm,
+                                 n_iterations=n_iter, warmup=True,
+                                 param_kwargs={"store_samples": False}, seed=seed,
+                                 show_progress=False)
+
+    chees(2, 2)  # warm
+    out, wall, sh, ins, rep, (s,) = timed("chees_hmc", lambda: chees(CHEES_WARM, CHEES_ITERS),
+                                          CheesHMC)
+    st, k = out.statistics, out.kernel
+    wall_s = wall - ins.inner_s
+    sigma = np.tile(np.arange(1, 11), D // 10)[:D].astype(np.float64)
+    err = float(np.max(np.abs(out.mean) / sigma))
+    lf = st.n_target_gradient_calls / (2 * CHEES_ITERS * CHEES_C)
+    calls, grads, steps = rep.totals(False)
+    res["chees_it_per_s"] = CHEES_ITERS / wall_s
+    res["chees_grads_per_s"] = st.n_target_gradient_calls / wall_s
+    print(f"chees_hmc ({CHEES_C} chains, DiagonalGaussian1({D}), {CHEES_WARM} warmup + "
+          f"{CHEES_ITERS} it): wall {wall:.3f} s, of which warmup {ins.inner_s:.3f} s "
+          f"({CHEES_WARM} syncs, one an iteration); sampling {wall_s:.3f} s, "
+          f"{res['chees_it_per_s']:.2f} it/s, {res['chees_grads_per_s']:.0f} gradient calls/s "
+          f"(counted, 2LC), trajectory {k.trajectory_length:.4f}, step {k.step_size:.6f}, "
+          f"{lf:.4f} leapfrogs an iteration, acc {st.acceptance_rate:.6f}, max|mean|/sigma "
+          f"{err:.4f}, divergences {st.n_divergences}")
+    profile_window(lambda: chees(2, 50, seed=1), "chees_hmc, 2 warmup + 50 it")
+    check(out.samples is None and np.isfinite(out.mean).all(), "chees_hmc: store_samples=False")
+    in_band("chees_hmc trajectory", k.trajectory_length, CHEES_TRAJ, CHEES_TRAJ_JAX)
+    in_band("chees_hmc step", k.step_size, CHEES_STEP, CHEES_STEP_JAX)
+    in_band("chees_hmc leapfrogs an iteration", lf, CHEES_LF, CHEES_LF_JAX)
+    in_band("chees_hmc acceptance", st.acceptance_rate, CHEES_ACC, CHEES_ACC_JAX)
+    in_band("chees_hmc max|mean|/sigma", err, CHEES_ERR, CHEES_ERR_JAX)
+    check(steps == CHEES_ITERS and grads == st.n_target_gradient_calls
+          and calls == st.n_target_calls == grads + 2 * CHEES_C * CHEES_ITERS,
+          f"chees_hmc counter law: stats {st.n_target_calls} / {st.n_target_gradient_calls}, the "
+          f"steps reported {calls} / {grads} over {steps} steps")
+    lap("phase 12a")
+
+    # ---- 12b. ess, with the warmup's ellipse adaptation --------------------------------
+    n_ess = len(ESS_SIG)
+    ess_target = DiagonalGaussian(np.zeros(n_ess, np.float32), ESS_SIG)
+
+    def ess(n_warm, n_iter, seed=0):
+        return nfmc_torch.sample(ess_target, strategy="ess", flow=None,
+                                 negative_log_likelihood=residual_nll(ESS_SIG), n_chains=ESS_C,
+                                 n_warmup_iterations=n_warm, n_iterations=n_iter, warmup=True,
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    ess(2, 2)  # warm
+    out, wall, sh, ins, rep, (s,) = timed("ess", lambda: ess(ESS_WARM, ESS_ITERS), ESS)
+    st = out.statistics
+    wall_s = wall - ins.inner_s
+    sig64 = ESS_SIG.astype(np.float64)
+    m1 = float(np.max(np.abs(out.mean) / sig64))
+    m2 = float(np.max(np.abs(out.variance / sig64 ** 2 - 1)))
+    res["ess_it_per_s"] = ESS_ITERS / wall_s
+    print(f"ess ({ESS_C} chains, sigma {np.round(ESS_SIG, 3).tolist()}, {ESS_WARM} warmup + "
+          f"{ESS_ITERS} it): wall {wall:.3f} s, sampling {wall_s:.3f} s, "
+          f"{res['ess_it_per_s']:.1f} it/s, acc {st.acceptance_rate:.6f}, max|mean|/sigma "
+          f"{m1:.4f}, max|var/sigma^2 - 1| {m2:.4f}, adapted ellipse variances "
+          f"{np.round(np.diag(s.kernel.cov), 4).tolist()}")
+    res["ess_ess_per_s"] = ess_per_second(out, wall_s, max_window=4096, what="ess")
+    check(tuple(out.samples.shape) == (ESS_ITERS, ESS_C, n_ess)
+          and bool(torch.isfinite(out.samples).all()), "ess draws")
+    in_band("ess max|mean|/sigma", m1, ESS_MEAN, ESS_MEAN_JAX)
+    in_band("ess max|var/sigma^2 - 1|", m2, ESS_VAR, ESS_VAR_JAX)
+    check(st.n_target_calls == (5 + 1) * ESS_C * ESS_ITERS and st.n_target_gradient_calls == 0
+          and st.acceptance_rate == 1.0, "ess counter contract ((max_iter + 1) B calls, mask = ones)")
+    # the corrected likelihood on the card against float64 on the host, at
+    # the run's adapted ellipse and at a dense one in d=100 (where a TF32
+    # product would miss by ~1e-3 relative)
+    g12 = torch.Generator().manual_seed(12)
+    cases = [(s, s._adapted_cov64, residual_nll(ESS_SIG.astype(np.float64)), n_ess)]
+    a = torch.randn((D, D), generator=g12, dtype=torch.float64)
+    dense = (a @ a.T / D + 0.5 * torch.eye(D, dtype=torch.float64)).numpy()
+    s100 = ESS((D,), target, target, device=dev)
+    s100._apply_ellipse_adaptation(dense)
+    cases.append((s100, dense, lambda x: 0.5 * (x * x).sum(-1), D))
+    for sampler, cov64, base64, d in cases:
+        x = 2 * torch.randn((1000, d), generator=g12)
+        got = sampler.negative_log_likelihood(x.to(dev)).double().cpu()
+        S = np.diag(np.maximum(cov64, 1e-6)) if cov64.ndim == 1 else 0.5 * (cov64 + cov64.T)
+        chol = np.linalg.cholesky(S)
+        x64 = x.double().numpy()
+        y = np.linalg.solve(chol, x64.T).T
+        lp_new = -0.5 * (y * y).sum(-1) - np.log(np.diag(chol)).sum()
+        want = base64(x.double()).numpy() + lp_new + 0.5 * (x64 * x64).sum(-1)
+        e = float(np.max(np.abs(got.numpy() - want)) / max(1.0, np.abs(want).max()))
+        print(f"ess corrected nll on the card against float64 (d={d}, "
+              f"{'diagonal' if cov64.ndim == 1 else 'dense'} ellipse, 1000 points): max|diff| / "
+              f"max(1, max|ref|) {e:.3e}")
+        check(e <= 1e-5, f"ess: the corrected nll at d={d} is off float64 by {e}")
+    lap("phase 12b")
+
+    # ---- 12c. jump_ess, jump_nuts, jump_chees in the headline setting ----------------------
+    mu = np.full(D, JUMP12_MU, np.float32)
+    misfit = DiagonalGaussian(mu, np.float32(1.0))
+    res["jump"] = {}
+    for kind, cls in (("ess", ESS), ("nuts", NUTS), ("chees", CheesHMC)):
+        kw = {}
+        if kind == "ess":
+            m = torch.as_tensor(mu)
+            kw["negative_log_likelihood"] = CallablePotential(
+                lambda x, m=m: (0.5 * m.to(x.device) ** 2 - m.to(x.device) * x).sum(-1), (D,))
+        if kind == "nuts":
+            kw["inner_kernel_kwargs"] = {"step_size": JUMP12_NUTS_STEP}
+
+        def run(kw=kw, kind=kind, n_outer=JUMP12_OUTER, seed=0):
+            return nfmc_torch.sample(misfit, strategy=f"jump_{kind}", flow=identity_flow(),
+                                     n_chains=C, n_iterations=n_outer,
+                                     inner_param_kwargs={"n_iterations": JUMP12_INNER},
+                                     param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                     show_progress=False, **kw)
+
+        run(n_outer=2)  # warm
+        redraws = [0]
+        orig_resample = ESS.resample_x0_fn
+
+        def counted(self, z, x):
+            redraws[0] += 1
+            return orig_resample(self, z, x)
+
+        ESS.resample_x0_fn = counted
+        try:
+            out, wall, sh, _, rep, (s,) = timed(f"jump_{kind}", run, cls)
+        finally:
+            ESS.resample_x0_fn = orig_resample
+        st = out.statistics
+        calls, grads, steps = rep.totals(False)
+        n_steps = JUMP12_OUTER * JUMP12_INNER
+        static = n_steps * s.inner_sampler.calls_per_iter(C) + JUMP12_OUTER * 2 * C
+        res["jump"][kind] = (JUMP12_OUTER / wall, st.jump_acceptance_rate)
+        print(f"jump_{kind} ({C} chains, {JUMP12_INNER} inner it, {JUMP12_OUTER} outer it, target "
+              f"N({JUMP12_MU} * 1, I)): wall {wall:.3f} s, {JUMP12_OUTER / wall:.2f} outer it/s, "
+              f"{st.n_target_gradient_calls / wall:.0f} gradient calls/s, jump acc "
+              f"{st.jump_acceptance_rate:.6f}, inner acc {st.acceptance_rate:.6f}, counters "
+              f"{st.n_target_calls} / {st.n_target_gradient_calls} (the inner steps reported "
+              f"{calls} / {grads} dynamic over {steps} steps), prior redraws {redraws[0]}, "
+              f"launches by shape {dict(sh)}")
+        res[f"jump_{kind}_ess_per_s"] = ess_per_second(out, wall, max_window=4096,
+                                                       what=f"jump_{kind}")
+        check(tuple(out.samples.shape) == (JUMP12_OUTER * (JUMP12_INNER + 1), C, D)
+              and bool(torch.isfinite(out.samples).all()), f"jump_{kind}: the interleaving law")
+        check(steps == n_steps and st.n_target_calls == static + calls
+              and st.n_target_gradient_calls == n_steps * s.inner_sampler.grads_per_iter(C) + grads
+              and st.n_attempted_jumps == JUMP12_OUTER * C
+              and st.n_attempted_trajectories == n_steps * C,
+              f"jump_{kind}: the counters (static + dynamic) disagree with the steps' reports")
+        band, jax_range = JUMP12_ACC[kind]
+        in_band(f"jump_{kind} jump acceptance", st.jump_acceptance_rate, band, jax_range)
+        check(redraws[0] == (JUMP12_OUTER if kind == "ess" else 0),
+              f"jump_{kind}: {redraws[0]} prior redraws for {JUMP12_OUTER} outer iterations")
+        # one hoisted chunk of proposals, one forward (log q of the current
+        # state) a jump
+        check(sh == {("stack", "inverse", JUMP12_OUTER * C): 1,
+                     ("stack", "forward", C): JUMP12_OUTER}, f"jump_{kind} launch law: {dict(sh)}")
+    lap("phase 12c")
+
+    # ---- 12d. neutra_chees, the identity-init flow frozen ---------------------------------------
+    def neutra_chees(n_warm, n_iter, seed=0):
+        return nfmc_torch.sample(target, strategy="neutra_chees", flow=identity_flow(),
+                                 n_chains=C, n_warmup_iterations=n_warm, n_iterations=n_iter,
+                                 warmup=True,
+                                 param_kwargs={"warmup_fit_kwargs": {"n_epochs": 0},
+                                               "store_samples_on_device": True},
+                                 seed=seed, show_progress=False)
+
+    neutra_chees(2, 5)  # warm
+    out, wall, sh, ins, rep, (s,) = timed(
+        "neutra_chees", lambda: neutra_chees(NEUTRA_CHEES_WARM, NEUTRA_CHEES_ITERS), CheesHMC)
+    st, k = out.statistics, out.kernel
+    inner = s.inner_sampler
+    n_all = NEUTRA_CHEES_WARM + NEUTRA_CHEES_ITERS
+    lf_sample = st.n_target_gradient_calls // (2 * C)
+    lf_all = inner.leapfrog_total
+    wall_s = wall - ins.inner_s - ins.vfit_s
+    m1, m2 = float(np.abs(out.mean).max()), float(np.abs(out.second_moment - 1).max())
+    res["neutra_chees_it_per_s"] = NEUTRA_CHEES_ITERS / wall_s
+    print(f"neutra_chees (identity flow, {NEUTRA_CHEES_WARM} warmup + {NEUTRA_CHEES_ITERS} it): "
+          f"wall {wall:.3f} s, sampling {wall_s:.3f} s, {res['neutra_chees_it_per_s']:.1f} it/s, "
+          f"{st.n_target_gradient_calls / wall_s:.0f} gradient calls/s, step {k.step_size:.6f}, "
+          f"trajectory {k.trajectory_length:.4f}, leapfrogs {lf_all} in all ({lf_sample} sampling, "
+          f"{lf_sample / NEUTRA_CHEES_ITERS:.3f} an iteration), acc {st.acceptance_rate:.6f}, "
+          f"max|mean| {m1:.4f}, max|E[x^2]-1| {m2:.4f}, launches by shape {dict(sh)}")
+    flow = out.kernel.flow
+    res["neutra_chees_ess_per_s"] = ess_per_second(
+        out, wall_s, max_window=4096, what="neutra_chees (data space)",
+        transform=lambda z: flow.bijection.inverse_fn(flow.params, z)[0])
+    profile_window(lambda: neutra_chees(2, 20, seed=1), "neutra_chees, 2 warmup + 20 it")
+    check(tuple(out.samples.shape) == (NEUTRA_CHEES_ITERS, C, D)
+          and bool(torch.isfinite(out.samples).all()), "neutra_chees draws")
+    in_band("neutra_chees acceptance", st.acceptance_rate, NEUTRA_CHEES_ACC, NEUTRA_CHEES_ACC_JAX)
+    check(m1 <= NEUTRA_CHEES_MOMENTS[0] and m2 <= NEUTRA_CHEES_MOMENTS[1],
+          f"neutra_chees moments {m1}, {m2} above {NEUTRA_CHEES_MOMENTS}")
+    check(st.n_target_calls == st.n_target_gradient_calls + 2 * C * NEUTRA_CHEES_ITERS
+          and rep.totals(False)[1] == st.n_target_gradient_calls, "neutra_chees counter law")
+    # each iteration's L_i + 1 gradient passes (an inverse and an inverse
+    # VJP each) and the data transform's inverse, over the warmup and the run
+    check(sh == {("stack", "inverse", C): lf_all + 2 * n_all,
+                 ("vjp", "inverse", C): lf_all + n_all},
+          f"neutra_chees launch law from the run's sum L_i = {lf_all}: {dict(sh)}")
+    lap("phase 12d")
+
+    run_mcmc_card_vs_cpu(dev)
+    lap("phase 12e")
+
+    # ---- 12f. ESS against the JAX package's draws ----------------------------------------------
+    ref = np.load(Path(__file__).resolve().parent / ESS_DRAWS)["draws"]
+
+    def ess_ab():
+        return nfmc_torch.sample(ess_target, strategy="ess", flow=None,
+                                 negative_log_likelihood=residual_nll(ESS_SIG), n_chains=ESS_AB_C,
+                                 n_iterations=ESS_AB_ITERS, seed=ESS_AB_SEED, show_progress=False,
+                                 param_kwargs={"store_samples_on_device": True})
+
+    out = ess_ab()
+    check(out.samples.device.type == "cuda", "ess two-sample run: the draws are not on the card")
+    report = mcmc_two_sample_report(ref, out.samples.cpu().numpy(), alpha=0.01,
+                                    rng=np.random.default_rng(0))
+    print(f"ess two-sample test against the JAX package's draws ({ESS_DRAWS}, {ref.shape}): "
+          f"ks_max {report['ks_max']}, p {report['ks_p_value']}; energy "
+          f"{report['energy_distance']}, p {report['energy_p_value']}; ok {report['ok']}")
+    check(report["ok"], "ess: the card's draws fail the two-sample test against the JAX package's")
+    lap("phase 12f")
+    return res
+
+
+def run_mcmc_card_vs_cpu(dev) -> None:
+    """Phase 12e: one step of each sampler with the same injected draws on
+    the card and on the CPU."""
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.potentials import DiagonalGaussian1, StandardGaussian
+    from nfmc_torch.samplers.mcmc import ESS, NUTS, CheesHMC, CheesHMCKernel, NUTSKernel
+    from nfmc_torch.samplers.mcmc.ess import elliptical_slice_sampling_step
+    from nfmc_torch.samplers.mcmc.nuts_impl import make_nuts_step
+    from nfmc_torch.samplers.nfmc import NeuTraChEES, NeuTraKernel
+
+    target = StandardGaussian((D,))
+    # NUTS at 1024 x 100: in float64 the step's decisions (U-turns, the
+    # multinomial picks) cannot part by rounding, so every chain's leapfrog
+    # count, mask and end state must agree; in float32 a decision within
+    # rounding of its threshold may part, and the chains that agree must
+    # agree to 1e-5
+    s = NUTS((D,), target, NUTSKernel(event_size=D, max_tree_depth=NUTS_DEPTH), device="cpu")
+    draws = s.make_draws()(torch.Generator().manual_seed(120), (), NUTS_C)
+    x0 = torch.randn((NUTS_C, D), generator=torch.Generator().manual_seed(121))
+    step = make_nuts_step(target, (D,), max_tree_depth=NUTS_DEPTH)
+    for dtype in (torch.float64, torch.float32):
+        got = {}
+        for device in ("cpu", dev):
+            d_ = tuple(t.to(device) if t.dtype == torch.bool else t.to(device, dtype)
+                       for t in draws)
+            with torch.no_grad():
+                got[device] = [t.cpu() for t in step(
+                    x0.to(device, dtype), torch.tensor(NUTS_STEP_12E, dtype=dtype, device=device),
+                    torch.ones(D, dtype=dtype, device=device), d_)]
+        (zc, mc, dc, ac, nc, depc), (zg, mg, dg, ag, ng, depg) = got["cpu"], got[dev]
+        same = (nc == ng) & (mc == mg) & (dc == dg)
+        e = ((zg - zc).abs() / torch.clamp(zc.abs(), min=1.0)).max(-1).values
+        e_same = float(e[same].max()) if bool(same.any()) else 0.0
+        print(f"nuts step card vs CPU ({dtype}, {NUTS_C} x {D}, step {NUTS_STEP_12E}): leapfrogs "
+              f"{int(nc.sum())} / {int(ng.sum())}, tree depth max {int(depc.max())}, chains whose "
+              f"leapfrog count, mask and divergence agree {int(same.sum())} of {NUTS_C}, "
+              f"their end states max|diff| / max(1, |x|) {e_same:.3e}, acceptance statistics "
+              f"max|diff| {float((ag - ac)[same].abs().max()):.3e}")
+        if dtype == torch.float64:
+            check(bool(same.all()) and e_same <= 1e-12, "nuts step (float64): card and CPU part")
+        else:
+            check(e_same <= 1e-5 and int((~same).sum()) <= NUTS_C // 100,
+                  "nuts step (float32): card and CPU part beyond rounding")
+
+    # ChEES: a tuning step and a sampling step on DiagonalGaussian1(100)
+    for tuning in (True, False):
+        got = {}
+        g = torch.Generator().manual_seed(122 + tuning)
+        x0 = torch.randn((CHEES_C, D), generator=g) * 3
+        kern = dict(event_size=D, step_size=0.4, trajectory_length=6.0)
+        for device in ("cpu", dev):
+            cs_ = CheesHMC((D,), DiagonalGaussian1(n_dim=D), CheesHMCKernel(**kern), device=device)
+            d_ = tuple(t.to(device) for t in cs_.make_draws()(torch.Generator().manual_seed(124),
+                                                            (), CHEES_C))
+            with torch.no_grad():
+                x1, st1, info = cs_._make_step_aux(tuning)(x0.to(device),
+                                                           cs_.kernel.make_state(device), d_)
+            got[device] = (x1.cpu(), float(st1.step_size), float(st1.log_t), int(info.n_grads),
+                           int(info.n_accepted))
+        e = (got[dev][0] - got["cpu"][0]).abs().max().item()
+        print(f"chees {'tuning' if tuning else 'sampling'} step card vs CPU ({CHEES_C} x {D}): L "
+              f"{got[dev][3] // (2 * CHEES_C)} / {got['cpu'][3] // (2 * CHEES_C)}, states max|diff| "
+              f"{e:.3e}, accepted {got[dev][4]} / {got['cpu'][4]}, step {got[dev][1]:.6f} / "
+              f"{got['cpu'][1]:.6f}, log T {got[dev][2]:.6f} / {got['cpu'][2]:.6f}")
+        check(got[dev][3] == got["cpu"][3] and e <= TOL and got[dev][4] == got["cpu"][4]
+              and abs(got[dev][1] - got["cpu"][1]) <= TOL and abs(got[dev][2] - got["cpu"][2]) <= TOL,
+              "chees step on the card disagrees with the CPU")
+
+    # ESS: one step with a Cholesky ellipse
+    g = torch.Generator().manual_seed(125)
+    a = torch.randn((D, D), generator=g)
+    cov = (a @ a.T / D + 0.5 * torch.eye(D)).numpy()
+    x0 = torch.randn((C, D), generator=g)
+    got = {}
+    for device in ("cpu", dev):
+        es = ESS((D,), target, target, device=device)
+        es.kernel.cov = cov
+        d_ = tuple(t.to(device) for t in es.make_draws()(torch.Generator().manual_seed(126), (), C))
+        with torch.no_grad():
+            xd = x0.to(device)
+            f1, nll1, acc1 = elliptical_slice_sampling_step(xd, target, (D,), d_,
+                                                            chol=es.kernel.make_state(device).chol)
+        got[device] = (f1.cpu(), nll1.cpu(), acc1.cpu())
+    e = max((got[dev][i] - got["cpu"][i]).abs().max().item()
+            / max(1.0, got["cpu"][i].abs().max().item()) for i in (0, 1))
+    print(f"ess step card vs CPU ({C} x {D}, a dense ellipse): states and nll max|diff| / max(1, "
+          f"max|ref|) {e:.3e}, accepted {int(got[dev][2].sum())} / {int(got['cpu'][2].sum())}, "
+          f"masks equal {torch.equal(got[dev][2], got['cpu'][2])}")
+    check(e <= 1e-5 and torch.equal(got[dev][2], got["cpu"][2]), "ess step on the card disagrees")
+
+    # NeuTra-ChEES: the gradient of U~ through a perturbed flow
+    pert = perturbed_params(D, H, L, seed=127, device="cpu")
+    z0 = torch.randn((C, D), generator=torch.Generator().manual_seed(128))
+    got = {}
+    for device in ("cpu", dev):
+        f = Flow(RealNVP((D,), n_layers=L, hidden_size=H))
+        f.params = [{k: [t.to(device) for t in v] for k, v in p.items()} for p in pert]
+        nc_ = NeuTraChEES((D,), target, kernel=NeuTraKernel((D,), flow=f), device=device)
+        z = z0.to(device).requires_grad_(True)
+        (g_z,) = torch.autograd.grad(nc_.adjusted_target(z).sum(), z)
+        got[device] = g_z.cpu()
+    e_g, g_max = (got["cpu"] - got[dev]).abs().max().item(), got["cpu"].abs().max().item()
+    print(f"neutra_chees card vs CPU (d={D}, perturbed flow): gradient of U~ max|diff| {e_g:.3e} "
+          f"(max|g| {g_max:.4g})")
+    check(e_g <= TOL * g_max, "neutra_chees: the gradient of U~ on the card disagrees")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -2086,6 +2689,7 @@ def main() -> None:
     run_fault_checks(dev)
     imh = run_imh_phases(dev)
     flows11 = run_flow_sampler_phases(dev)
+    mcmc12 = run_mcmc_phases(dev)
 
     kernels = []
 
@@ -2135,7 +2739,7 @@ def main() -> None:
 
     # the IMH path (phases 10-10c) and the flow-reparameterised paths (11-11e)
     path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
-    for label, shapes in flows11["shapes"].items():
+    for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items()):
         path_rows(label, shapes)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
@@ -2163,6 +2767,15 @@ def main() -> None:
           f"jump_hmc@{JUMP_HMC_C} outer {flows11['jump_hmc_it_per_s']:.3f} "
           f"({flows11['jump_hmc_grads_per_s']:.0f} leapfrog gradients/s), dlmc@{DLMC_C} "
           f"{flows11['dlmc_it_per_s']:.3f} ({smi.stdout.strip().splitlines()[0]})")
+    jump12 = ", ".join(f"jump_{k} {v[0]:.2f} outer it/s (jump acc {v[1]:.4f})"
+                       for k, v in mcmc12["jump"].items())
+    print(f"phase 12: nuts@{NUTS_C} {mcmc12['nuts_it_per_s']:.2f} it/s "
+          f"({mcmc12['nuts_grads_per_s']:.0f} gradients/s, {mcmc12['nuts_ess_per_s']:.1f} ESS/s), "
+          f"chees_hmc@{CHEES_C} {mcmc12['chees_it_per_s']:.2f} it/s "
+          f"({mcmc12['chees_grads_per_s']:.0f} gradients/s), ess {mcmc12['ess_it_per_s']:.1f} it/s "
+          f"({mcmc12['ess_ess_per_s']:.1f} ESS/s), neutra_chees "
+          f"{mcmc12['neutra_chees_it_per_s']:.2f} it/s ({mcmc12['neutra_chees_ess_per_s']:.1f} "
+          f"ESS/s), {jump12} ({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,10 +8,12 @@ passes ``device="cpu"``. Ported so far: ``sample``/``create_sampler`` for
 reverse-KL warmup, for ``jump_mala`` and ``jump_ula`` with a RealNVP,
 rational-quadratic spline (``c-rqnsf``) or linear-rational spline
 (``c-lrsnsf``) coupling flow (frozen, fitted by the warmup, or refitted with
-``fit_nf=True``), for ``jump_hmc``, ``jump_uhmc`` and ``jump_mh``, for the
-flow-reparameterised ``neutra_hmc`` and ``neutra_mh``, ``tess`` and ``dlmc``,
-and for ``mala``, ``ula``, ``hmc``, ``uhmc`` and ``mh``; the ESS and R-hat
-diagnostics; every potential of ``nfmc_tpu.potentials``.
+``fit_nf=True``), for ``jump_hmc``, ``jump_uhmc``, ``jump_mh``, ``jump_ess``,
+``jump_nuts`` and ``jump_chees``, for the flow-reparameterised
+``neutra_hmc``, ``neutra_mh`` and ``neutra_chees``, ``tess`` and ``dlmc``,
+and for ``mala``, ``ula``, ``hmc``, ``uhmc``, ``mh``, ``ess``, ``nuts`` and
+``chees_hmc``; the ESS and R-hat diagnostics; every potential of
+``nfmc_tpu.potentials``.
 """
 from .api import create_flow_object, create_sampler, parse_flow_string, sample
 from .core import (
@@ -29,7 +31,7 @@ from .core import (
 )
 from . import diagnostics, potentials
 from .flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
-from .samplers.mcmc import HMC, MALA, MH, UHMC, ULA
+from .samplers.mcmc import ESS, HMC, MALA, MH, NUTS, UHMC, ULA, CheesHMC
 from .samplers.nfmc import (
     DLMC,
     TESS,
@@ -37,12 +39,16 @@ from .samplers.nfmc import (
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpChEES,
+    JumpESS,
     JumpHMC,
     JumpMALA,
     JumpMH,
     JumpNFMCParameters,
+    JumpNUTS,
     JumpUHMC,
     JumpULA,
+    NeuTraChEES,
     NeuTraHMC,
     NeuTraMH,
 )
@@ -56,5 +62,6 @@ __all__ = [
     "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "JumpMALA", "JumpULA", "JumpNFMCParameters",
     "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
     "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
-    "NeuTraMH", "TESS", "DLMC",
+    "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",
+    "NeuTraChEES",
 ]

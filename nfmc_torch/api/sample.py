@@ -14,17 +14,26 @@ from ..core.sampler import NFMCKernel, Sampler
 from ..flows import Flow
 from ..potentials import Potential
 from ..samplers.mcmc import (
+    ESS,
     HMC,
     MALA,
     MH,
+    NUTS,
     UHMC,
     ULA,
+    CheesHMC,
+    CheesHMCKernel,
+    CheesHMCParameters,
+    ESSKernel,
+    ESSParameters,
     HMCKernel,
     HMCParameters,
     LangevinKernel,
     LangevinParameters,
     MHKernel,
     MHParameters,
+    NUTSKernel,
+    NUTSParameters,
 )
 from ..samplers.nfmc import (
     DLMC,
@@ -35,12 +44,16 @@ from ..samplers.nfmc import (
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpChEES,
+    JumpESS,
     JumpHMC,
     JumpMALA,
     JumpMH,
     JumpNFMCParameters,
+    JumpNUTS,
     JumpUHMC,
     JumpULA,
+    NeuTraChEES,
     NeuTraHMC,
     NeuTraKernel,
     NeuTraMH,
@@ -99,6 +112,18 @@ def create_sampler(
     if strategy == "mh":
         return MH(event_shape, target, MHKernel(event_size=event_size, **kernel_kwargs),
                   MHParameters(**param_kwargs), device=device)
+    if strategy == "nuts":
+        return NUTS(event_shape, target, NUTSKernel(event_size=event_size, **kernel_kwargs),
+                    NUTSParameters(**param_kwargs), device=device)
+    if strategy == "chees_hmc":
+        return CheesHMC(event_shape, target, CheesHMCKernel(event_size=event_size, **kernel_kwargs),
+                        CheesHMCParameters(**param_kwargs), device=device)
+    if strategy == "ess":
+        if negative_log_likelihood is None:
+            raise ValueError("Negative log likelihood must be provided")
+        return ESS(event_shape, target, negative_log_likelihood,
+                   ESSKernel(event_shape=event_shape, **kernel_kwargs),
+                   ESSParameters(**param_kwargs), device=device)
 
     if flow is None:
         raise ValueError("Flow object must be provided")
@@ -134,10 +159,29 @@ def create_sampler(
                 inner_param_kwargs["n_iterations"] = 5  # the reference's default for jump_hmc
             inner_kernel = HMCKernel(event_size=event_size, **inner_kernel_kwargs)
             inner_params = HMCParameters(**inner_param_kwargs)
-        else:
+        elif inner == "mh":
             cls = JumpMH
             inner_kernel = MHKernel(event_size=event_size, **inner_kernel_kwargs)
             inner_params = MHParameters(**inner_param_kwargs)
+        elif inner == "ess":
+            if negative_log_likelihood is None:
+                raise ValueError("Negative log likelihood must be provided")
+            return JumpESS(event_shape, target, negative_log_likelihood, kernel=kernel,
+                           params=params,
+                           inner_kernel=ESSKernel(event_shape=event_shape, **inner_kernel_kwargs),
+                           inner_params=ESSParameters(**inner_param_kwargs), device=device)
+        else:
+            # nuts, chees: 5 inner iterations by default, as jump_hmc
+            if "n_iterations" not in inner_param_kwargs:
+                inner_param_kwargs["n_iterations"] = 5
+            if inner == "nuts":
+                cls = JumpNUTS
+                inner_kernel = NUTSKernel(event_size=event_size, **inner_kernel_kwargs)
+                inner_params = NUTSParameters(**inner_param_kwargs)
+            else:
+                cls = JumpChEES
+                inner_kernel = CheesHMCKernel(event_size=event_size, **inner_kernel_kwargs)
+                inner_params = CheesHMCParameters(**inner_param_kwargs)
         return cls(event_shape, target, kernel=kernel, params=params, inner_kernel=inner_kernel,
                    inner_params=inner_params, device=device)
 
@@ -152,9 +196,14 @@ def create_sampler(
                     DLMCKernel(event_shape, flow=flow_object, **kernel_kwargs),
                     DLMCParameters(**param_kwargs), device=device)
 
-    # neutra_hmc, neutra_mh
+    # neutra_hmc, neutra_mh, neutra_chees
     kernel = NeuTraKernel(event_shape, flow=flow_object, **kernel_kwargs)
     params = NeuTraParameters(**param_kwargs)
+    if strategy == "neutra_chees":
+        return NeuTraChEES(event_shape, target,
+                           inner_kernel=CheesHMCKernel(event_size=event_size, **inner_kernel_kwargs),
+                           inner_params=CheesHMCParameters(**inner_param_kwargs), kernel=kernel,
+                           params=params, device=device)
     if strategy == "neutra_hmc":
         return NeuTraHMC(event_shape, target,
                          inner_kernel=HMCKernel(event_size=event_size, **inner_kernel_kwargs),

@@ -59,10 +59,16 @@ def hoisted_flow_proposals(flow, params, z, target=None):
 
 
 class StepInfo(NamedTuple):
-    """Per-iteration outputs of a kernel step, on the device."""
+    """Per-iteration outputs of a kernel step, on the device.
+
+    ``n_calls``/``n_grads`` carry the work of kernels whose cost depends on
+    the trajectory (NUTS, ChEES); static-cost kernels leave them the plain
+    int 0 and the host counts ``iters * calls_per_iter`` instead."""
 
     n_accepted: torch.Tensor  # int32 scalar: chains accepted this iteration
     diverged: torch.Tensor  # int32 scalar: 1 if this iteration diverged
+    n_calls: "torch.Tensor | int" = 0
+    n_grads: "torch.Tensor | int" = 0
 
 
 def _compensated_add(s, c, v):
@@ -73,38 +79,90 @@ def _compensated_add(s, c, v):
     return t, c + comp
 
 
+def _add_dynamic(s, c, host, v):
+    """Fold a step's dynamic count into the accumulators: a count the host
+    already has (a Python int: ChEES's leapfrogs, or a static kernel's 0)
+    into the host total, a device count (NUTS's) into the compensated
+    float32 pair. Returns ``(s, c, host)``."""
+    if isinstance(v, int):
+        return s, c, host + v
+    return (*_compensated_add(s, c, v.to(torch.float32)), host)
+
+
 @dataclasses.dataclass
 class StatsAccum:
     """Device accumulators carried through a run: accept and divergence
-    counts and compensated moment sums. Counters that are static per
-    iteration are computed on the host instead."""
+    counts, the dynamic call and gradient counts and compensated moment
+    sums. Counters that are static per iteration are computed on the host
+    instead.
+
+    A dynamic count the host already has (ChEES's) adds to a host integer;
+    a device count (NUTS's) to a compensated float32 pair, not an int32:
+    1024 chains and 256 leapfrogs add ~5e5 an iteration, past 2^31 within a
+    few thousand iterations. Each addend is below 2^24, so the float32 add
+    is exact and the compensation keeps the total exact."""
 
     n_accepted: torch.Tensor
     n_divergences: torch.Tensor
+    n_calls_dyn: torch.Tensor
+    c_calls_dyn: torch.Tensor
+    n_grads_dyn: torch.Tensor
+    c_grads_dyn: torch.Tensor
     sum_x: torch.Tensor
     sum_x2: torch.Tensor
     c_x: torch.Tensor
     c_x2: torch.Tensor
+    # dynamic counts that the steps reported as host integers
+    host_calls: int = 0
+    host_grads: int = 0
 
     @staticmethod
     def zeros(event_shape: Tuple[int, ...], device) -> "StatsAccum":
         def z():
             return torch.zeros(event_shape, dtype=torch.float32, device=device)
 
-        count = torch.zeros((), dtype=torch.int32, device=device)
-        return StatsAccum(n_accepted=count, n_divergences=count.clone(),
+        def scalar(dtype):
+            return torch.zeros((), dtype=dtype, device=device)
+
+        return StatsAccum(n_accepted=scalar(torch.int32), n_divergences=scalar(torch.int32),
+                          n_calls_dyn=scalar(torch.float32), c_calls_dyn=scalar(torch.float32),
+                          n_grads_dyn=scalar(torch.float32), c_grads_dyn=scalar(torch.float32),
                           sum_x=z(), sum_x2=z(), c_x=z(), c_x2=z())
 
     def add(self, info: StepInfo, x: torch.Tensor) -> "StatsAccum":
         xf = x.to(torch.float32)
         sum_x, c_x = _compensated_add(self.sum_x, self.c_x, xf.sum(0))
         sum_x2, c_x2 = _compensated_add(self.sum_x2, self.c_x2, (xf * xf).sum(0))
+        calls, c_calls, h_calls = _add_dynamic(self.n_calls_dyn, self.c_calls_dyn,
+                                               self.host_calls, info.n_calls)
+        grads, c_grads, h_grads = _add_dynamic(self.n_grads_dyn, self.c_grads_dyn,
+                                               self.host_grads, info.n_grads)
         return StatsAccum(n_accepted=self.n_accepted + info.n_accepted,
                           n_divergences=self.n_divergences + info.diverged,
-                          sum_x=sum_x, sum_x2=sum_x2, c_x=c_x, c_x2=c_x2)
+                          n_calls_dyn=calls, c_calls_dyn=c_calls, n_grads_dyn=grads,
+                          c_grads_dyn=c_grads, sum_x=sum_x, sum_x2=sum_x2, c_x=c_x, c_x2=c_x2,
+                          host_calls=h_calls, host_grads=h_grads)
 
     def moment_sums(self):
         return self.sum_x + self.c_x, self.sum_x2 + self.c_x2
+
+    def host_counts(self) -> torch.Tensor:
+        """The accept, divergence and dynamic counts as one float64 vector
+        on the device, for the flush's one device-to-host copy:
+        ``[n_accepted, n_divergences, calls, calls' compensation, grads,
+        grads' compensation]``."""
+        return torch.stack([self.n_accepted.to(torch.float64), self.n_divergences.to(torch.float64),
+                            self.n_calls_dyn.to(torch.float64), self.c_calls_dyn.to(torch.float64),
+                            self.n_grads_dyn.to(torch.float64), self.c_grads_dyn.to(torch.float64)])
+
+    def dynamic_counts(self, host=None) -> Tuple[int, int]:
+        """The dynamic ``(calls, grads)``: the host totals plus the device
+        pairs, read from ``host``, the flushed ``host_counts`` vector (or
+        fetched here when None)."""
+        if host is None:
+            host = self.host_counts().cpu().numpy()
+        return (self.host_calls + int(round(float(host[2]) + float(host[3]))),
+                self.host_grads + int(round(float(host[4]) + float(host[5]))))
 
 
 def chunk_schedule(n_iterations: int, max_chunk: int = 64):
@@ -269,17 +327,17 @@ class ChunkedDriver:
         def flush(iters):
             acc = st["acc"]
             sum_x, sum_x2 = acc.moment_sums()
-            counts = torch.stack([acc.n_accepted, acc.n_divergences]).to(torch.float64)
-            host = torch.cat([counts, sum_x.reshape(-1).to(torch.float64),
+            host = torch.cat([acc.host_counts(), sum_x.reshape(-1).to(torch.float64),
                               sum_x2.reshape(-1).to(torch.float64)]).cpu().numpy()
+            dyn_calls, dyn_grads = acc.dynamic_counts(host)
             stats.update_counters(
                 n_accepted_trajectories=int(host[0]),
                 n_attempted_trajectories=iters * n_chains,
                 n_divergences=int(host[1]),
-                n_target_calls=iters * calls_per_iter,
-                n_target_gradient_calls=iters * grads_per_iter,
+                n_target_calls=iters * calls_per_iter + dyn_calls,
+                n_target_gradient_calls=iters * grads_per_iter + dyn_grads,
             )
-            s_x, s_x2 = np.split(host[2:], 2)
+            s_x, s_x2 = np.split(host[6:], 2)
             stats.update_moments_from_sums(s_x.reshape(self.event_shape),
                                            s_x2.reshape(self.event_shape), iters * n_chains)
             st["acc"] = StatsAccum.zeros(self.event_shape, device)
@@ -304,11 +362,14 @@ class ChunkedDriver:
 
 
 def hoist_cap(n_chains: int, event_elems: int, inner_n: int, per_proposal: int,
-              store_samples: bool) -> int:
+              store_samples: bool, inner_per_iter: Optional[int] = None) -> int:
     """Largest chunk whose hoisted inner draws, flow proposals and emitted
-    draw buffer each stay under ``RNG_HOIST_ELEMENT_LIMIT``."""
+    draw buffer each stay under ``RNG_HOIST_ELEMENT_LIMIT``;
+    ``inner_per_iter`` is an inner iteration's hoisted elements where they
+    exceed the chains' state (NUTS's leaf uniforms)."""
+    per_inner = max(n_chains * event_elems, int(inner_per_iter or 0))
     caps = [
-        RNG_HOIST_ELEMENT_LIMIT // max(1, inner_n * n_chains * event_elems),
+        RNG_HOIST_ELEMENT_LIMIT // max(1, inner_n * per_inner),
         RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * per_proposal),
     ]
     if store_samples:

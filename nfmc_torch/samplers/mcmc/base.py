@@ -120,6 +120,24 @@ class MCMCSampler(Sampler):
     def _extract_mstate(self, state):
         return state[0] if isinstance(state, tuple) else state
 
+    def _make_precompute(self, tuning: bool) -> Optional[Callable]:
+        """``(x, state, draws) -> aux`` or None: work of a chunk's steps that
+        does not depend on the chain state, done in one pass up front (aux
+        tensors with the draws' leading dims); the steps then run
+        ``_make_step_precomputed``. None (the default) runs
+        ``_make_step_aux``'s step."""
+        return None
+
+    def _make_step_precomputed(self, tuning: bool) -> Optional[Callable]:
+        """``(x, state, draws, aux) -> (x', state', StepInfo)``."""
+        return None
+
+    def hoisted_elements_per_iter(self, x: torch.Tensor) -> Optional[int]:
+        """f32 elements of one iteration's hoisted draws, where they exceed
+        the chain state's (NUTS's leaf uniforms, ESS's shrink uniforms), so
+        that the chunk cap tracks them; None otherwise."""
+        return None
+
     def make_propose_aux(self) -> Optional[Callable]:
         """``(x, mstate, draws) -> (x', mask, diverged)``."""
         return None
@@ -187,7 +205,11 @@ class MCMCSampler(Sampler):
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         mstate = self._augment_state(self.kernel.make_state(self.device), x0)
+        per_iter = self.hoisted_elements_per_iter(x0)
         driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws(),
+                               make_precompute=self._make_precompute,
+                               make_step_aux=self._make_step_precomputed,
+                               hoist_per_iter=(lambda _x: per_iter) if per_iter else None,
                                data_transform=self.data_transform)
         _, mstate = driver.run(
             x0, mstate, generator, n_iterations, stats=out.statistics,

@@ -1,0 +1,112 @@
+"""The No-U-Turn Sampler, multi-chain (counterpart of
+``nfmc_tpu/samplers/mcmc/nuts.py``; the tree builder is in
+``nuts_impl.py``).
+
+* the proposal is always the new state; dual averaging adapts the step
+  size on the trajectory-average acceptance statistic
+  ``mean_leaves min(1, exp(-delta E))``;
+* ``n_accepted`` counts the chains that moved;
+* the counters go through the dynamic channel: ``sum n_leapfrog + C``
+  target calls and gradient calls an iteration (the leapfrogs and each
+  chain's evaluation at its start); ``calls_per_iter`` and
+  ``grads_per_iter`` are 0.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from ...core.driver import StepInfo
+from ...utils import event_size_of
+from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from .nuts_impl import make_nuts_step, nuts_step_draws
+
+
+@dataclass
+class NUTSKernel(MetropolisKernel):
+    max_tree_depth: int = 10
+    step_size: float = 0.1
+
+    def __repr__(self):
+        return f"log step: {math.log(self.step_size):.2f}, max depth: {self.max_tree_depth}"
+
+
+@dataclass
+class NUTSParameters(MetropolisParameters):
+    max_delta_energy: float = 1000.0
+
+
+class NUTS(MCMCSampler):
+    """Multi-chain NUTS. ``tree_depths()`` gives the mean and the maximum
+    tree depth over the chains and the steps this sampler took (summed on
+    the device, read once)."""
+
+    def __init__(self, event_shape, target, kernel: Optional[NUTSKernel] = None,
+                 params: Optional[NUTSParameters] = None, device=None):
+        if kernel is None:
+            kernel = NUTSKernel(event_size=event_size_of(event_shape))
+        if params is None:
+            params = NUTSParameters()
+        super().__init__(event_shape, target, kernel, params, device=device)
+        # (sum and max of the tree depths on the device, trajectories counted)
+        self._depths = None
+
+    @property
+    def name(self):
+        return "NUTS"
+
+    def make_draws(self):
+        event_size = self.kernel.event_size
+        max_depth = self.kernel.max_tree_depth
+
+        def draws(generator, prefix, n_chains):
+            return nuts_step_draws(generator, prefix, n_chains, event_size, max_depth)
+
+        return draws
+
+    def hoisted_elements_per_iter(self, x) -> int:
+        # momenta, two uniforms a doubling and one a leaf, per chain
+        n_chains = int(x.shape[0])
+        max_depth = self.kernel.max_tree_depth
+        return n_chains * (self.kernel.event_size + 2 * max_depth + (1 << max_depth) - 1)
+
+    def _make_step_aux(self, tuning: bool):
+        nuts_step = make_nuts_step(self.target, self.event_shape,
+                                   max_tree_depth=self.kernel.max_tree_depth,
+                                   max_delta_energy=self.params.max_delta_energy)
+        update_kernel = self.make_update_kernel()
+
+        def step(x, mstate, draws):
+            x_new, moved, diverged, accept_stat, n_leapfrog, depth = nuts_step(
+                x, mstate.step_size, mstate.inv_mass_diag, draws)
+            if tuning:
+                mstate = update_kernel(mstate, x_new, accept_stat)
+            d_sum, d_max = depth.sum(), depth.max()
+            if self._depths is not None:
+                d_sum, d_max = d_sum + self._depths[0], torch.maximum(d_max, self._depths[1])
+            self._depths = (d_sum, d_max, self._depths[2] + x.shape[0] if self._depths else
+                            x.shape[0])
+            total = n_leapfrog.sum() + x.shape[0]
+            info = StepInfo(n_accepted=moved.sum().to(torch.int32),
+                            diverged=diverged.any().to(torch.int32),
+                            n_calls=total, n_grads=total)
+            return x_new, mstate, info
+
+        return step
+
+    def tree_depths(self):
+        """``(mean, max)`` tree depth over the chains and steps taken, or
+        None before any step."""
+        if self._depths is None:
+            return None
+        d_sum, d_max, n = self._depths
+        return float(d_sum) / n, int(d_max)
+
+    def calls_per_iter(self, n_chains: int) -> int:
+        return 0  # dynamic: reported per trajectory through StepInfo.n_calls
+
+    def grads_per_iter(self, n_chains: int) -> int:
+        return 0

@@ -1,11 +1,12 @@
 from .dlmc import DLMC, DLMCKernel, DLMCParameters
 from .imh import AbstractIMH, AdaptiveIMH, FixedIMH, IMHKernel, IMHParameters, sample_bounded_geom
-from .jump import JumpHMC, JumpMALA, JumpMH, JumpNFMC, JumpNFMCParameters, JumpUHMC, JumpULA
+from .jump import (JumpChEES, JumpESS, JumpHMC, JumpMALA, JumpMH, JumpNFMC, JumpNFMCParameters,
+                   JumpNUTS, JumpUHMC, JumpULA)
 from .neutra import NeuTra, NeuTraChEES, NeuTraHMC, NeuTraKernel, NeuTraMH, NeuTraParameters
 from .tess import TESS, TESSKernel, TESSParameters, make_tess_step
 
 __all__ = ["AbstractIMH", "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters",
            "sample_bounded_geom", "JumpNFMC", "JumpNFMCParameters", "JumpMALA", "JumpULA",
-           "JumpHMC", "JumpUHMC", "JumpMH", "NeuTra", "NeuTraHMC", "NeuTraMH", "NeuTraChEES",
+           "JumpHMC", "JumpUHMC", "JumpMH", "JumpESS", "JumpNUTS", "JumpChEES", "NeuTra", "NeuTraHMC", "NeuTraMH", "NeuTraChEES",
            "NeuTraKernel", "NeuTraParameters", "TESS", "TESSKernel", "TESSParameters",
            "make_tess_step", "DLMC", "DLMCKernel", "DLMCParameters"]

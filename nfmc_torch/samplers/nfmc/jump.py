@@ -47,9 +47,12 @@ from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
 from ...core.tuning import train_val_split
 from ...flows.train import fixed_effort_fit_config, make_scan_fit
 from ...utils import Progress, metropolis_acceptance_log_ratio, unevaluable_current_mask
+from ..mcmc.chees import CheesHMC
+from ..mcmc.ess import ESS
 from ..mcmc.hmc import HMC, UHMC
 from ..mcmc.langevin import MALA, ULA
 from ..mcmc.mh import MH
+from ..mcmc.nuts import NUTS
 
 
 @dataclass
@@ -212,17 +215,24 @@ class JumpNFMC(Sampler):
         """All of a chunk's randomness: the inner steps' draws (the tuple the
         inner sampler's ``make_draws`` gives, e.g. MALA's ``(noise, log_u)``)
         with leading dims ``(chunk, inner_n)``, the proposals' base draws
-        ``z`` ``(chunk, C, *event)`` and the jumps' ``log_u`` ``(chunk, C)``."""
-        inner_n = self.inner_sampler.params.n_iterations
-        inner = self.inner_sampler.make_draws()(generator, (chunk, inner_n), n_chains)
+        ``z`` ``(chunk, C, *event)`` and the jumps' ``log_u`` ``(chunk, C)``;
+        then, drawn last so that the other draws keep their stream, the
+        prior redraws ``x0`` ``(chunk, ...)`` of an inner sampler that starts
+        each outer iteration from its prior (ESS's ``resample_x0_fn``)."""
+        inner_sampler = self.inner_sampler
+        inner_n = inner_sampler.params.n_iterations
+        inner = inner_sampler.make_draws()(generator, (chunk, inner_n), n_chains)
         z = self.kernel.flow.sample_base_fn(generator, chunk * n_chains)
         if self.params.adjusted_jumps:
             jump_log_u = torch.log(torch.rand((chunk, n_chains), generator=generator,
                                               device=generator.device))
         else:
             jump_log_u = torch.zeros((chunk, n_chains), device=generator.device)
-        return {"inner": tuple(inner), "z": z.reshape(chunk, n_chains, *z.shape[1:]),
-                "jump_log_u": jump_log_u}
+        draws = {"inner": tuple(inner), "z": z.reshape(chunk, n_chains, *z.shape[1:]),
+                 "jump_log_u": jump_log_u}
+        if getattr(inner_sampler, "resample_x0_fn", None) is not None:
+            draws["x0"] = inner_sampler.resample_x0_draws(generator, (chunk,), n_chains)
+        return draws
 
     def run_chunk(self, state: ChunkState, draws: dict, refit=None):
         """Run ``chunk`` outer iterations from ``state`` with ``draws``.
@@ -235,7 +245,6 @@ class JumpNFMC(Sampler):
         the refitted params, so its proposal is made after the refit."""
         collect = self.params.store_samples
         inner = self.inner_sampler
-        inner_step = inner._make_step_aux(False)
         accept_core = self._make_jump_accept_core()
         flow = self.kernel.flow
         params = state.flow_params
@@ -243,6 +252,13 @@ class JumpNFMC(Sampler):
         inner_draws = draws["inner"]
         chunk, inner_n = inner_draws[0].shape[:2]
         x, ks, acc, jacc = state.x, state.inner_state, state.acc, state.jump_acc
+        # work of the inner steps that does not depend on the chain state
+        # (ChEES's leapfrog counts) for the whole chunk, in one pass
+        precompute = inner._make_precompute(False)
+        inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
+        inner_step = (inner._make_step_aux(False) if inner_aux is None
+                      else inner._make_step_precomputed(False))
+        resample = getattr(inner, "resample_x0_fn", None)
         ys = None
         if collect:
             ys = torch.empty((chunk * (inner_n + 1), *x.shape), dtype=x.dtype, device=x.device)
@@ -253,8 +269,17 @@ class JumpNFMC(Sampler):
             if refit is None:
                 xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
             for i in range(chunk):
+                if resample is not None:
+                    # each outer iteration starts from a prior redraw (the
+                    # reference's ESS quirk); the carried nll is stale then
+                    x = resample(draws["x0"][i], x)
+                    ks = inner._augment_state(inner._extract_mstate(ks), x)
                 for s in range(inner_n):
-                    x, ks, info = inner_step(x, ks, tuple(d[i, s] for d in inner_draws))
+                    d_i = tuple(d[i, s] for d in inner_draws)
+                    if inner_aux is None:
+                        x, ks, info = inner_step(x, ks, d_i)
+                    else:
+                        x, ks, info = inner_step(x, ks, d_i, tuple(a[i, s] for a in inner_aux))
                     acc = acc.add(info, x)
                     if collect:
                         ys[row].copy_(x)
@@ -341,7 +366,8 @@ class JumpNFMC(Sampler):
         # refits make their proposals per iteration: only the draws are hoisted
         per_proposal = 0 if fit_cfg is not None else flow_proposal_footprint_per_draw(
             self.kernel.flow, event_elems)
-        cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store)
+        cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store,
+                        self.inner_sampler.hoisted_elements_per_iter(x0))
         iters_done = run_chunk_loop(
             self.params.n_iterations,
             dispatch=dispatch,
@@ -434,19 +460,22 @@ class JumpNFMC(Sampler):
         device-to-host copy."""
         a_x, a_x2 = acc.moment_sums()
         j_x, j_x2 = jump_acc.moment_sums()
-        counts = torch.stack([acc.n_accepted, acc.n_divergences, jump_acc.n_accepted])
-        host = torch.cat([counts.to(torch.float64), (a_x + j_x).reshape(-1).to(torch.float64),
+        host = torch.cat([acc.host_counts(), jump_acc.n_accepted.to(torch.float64).reshape(1),
+                          (a_x + j_x).reshape(-1).to(torch.float64),
                           (a_x2 + j_x2).reshape(-1).to(torch.float64)]).cpu().numpy()
-        n_acc, n_div, n_jump = (int(v) for v in host[:3])
-        sum_x, sum_x2 = np.split(host[3:], 2)
+        n_acc, n_div, n_jump = int(host[0]), int(host[1]), int(host[6])
+        dyn_calls, dyn_grads = acc.dynamic_counts(host)
+        sum_x, sum_x2 = np.split(host[7:], 2)
         inner = self.inner_sampler
+        # the static per-iteration contract plus the dynamic channel that
+        # trajectory-dependent inner samplers (NUTS, ChEES) report through
         out.statistics.update_counters(
             n_accepted_trajectories=n_acc,
             n_attempted_trajectories=n_outer * inner_n * n_chains,
             n_divergences=n_div,
             n_target_calls=n_outer * (inner_n * inner.calls_per_iter(n_chains)
-                                      + self._jump_calls_per_iter(n_chains)),
-            n_target_gradient_calls=n_outer * inner_n * inner.grads_per_iter(n_chains),
+                                      + self._jump_calls_per_iter(n_chains)) + dyn_calls,
+            n_target_gradient_calls=n_outer * inner_n * inner.grads_per_iter(n_chains) + dyn_grads,
             n_accepted_jumps=n_jump,
             n_attempted_jumps=n_outer * n_chains,
         )
@@ -492,4 +521,39 @@ class JumpMH(JumpNFMC):
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
                          MH(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpESS(JumpNFMC):
+    """Flow jumps interleaved with elliptical slice sampling; every outer
+    iteration starts from a prior redraw (the reference's ESS quirk)."""
+
+    def __init__(self, event_shape, target, negative_log_likelihood, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         ESS(event_shape, target, negative_log_likelihood, inner_kernel,
+                             inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpNUTS(JumpNFMC):
+    """Flow jumps interleaved with NUTS; the inner trajectories' leapfrogs
+    are counted through the dynamic channel."""
+
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         NUTS(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpChEES(JumpNFMC):
+    """Flow jumps interleaved with ChEES-HMC: the trajectory length and the
+    step size adapt in the warmup's inner tuning and stay fixed (jittered)
+    in the outer loop; the leapfrog counts are counted dynamically."""
+
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         CheesHMC(event_shape, target, inner_kernel, inner_params, device=device),
                          kernel, params, device=device)

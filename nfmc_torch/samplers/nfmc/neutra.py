@@ -1,7 +1,7 @@
 """NeuTra: MCMC in the latent space of a flow (counterpart of
 ``nfmc_tpu/samplers/nfmc/neutra.py``).
 
-* the inner Metropolis sampler (HMC or MH) runs in the latent space on the
+* the inner sampler (HMC, MH or ChEES-HMC) runs in the latent space on the
   adjusted target ``U~(z) = U(f^{-1}(z)) - log|det df^{-1}/dz|``;
 * the stored draws stay latent; the moments are taken of the data-space
   draws through the inner sampler's ``data_transform = z -> f^{-1}(z)``;
@@ -29,6 +29,7 @@ from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
 from ...flows.base import _map_params
 from ...utils import event_size_of
 from ..mcmc.base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from ..mcmc.chees import CheesHMC, CheesHMCKernel, CheesHMCParameters
 from ..mcmc.hmc import HMC, HMCKernel, HMCParameters
 from ..mcmc.mh import MH, MHKernel, MHParameters
 
@@ -195,8 +196,20 @@ class NeuTraMH(NeuTra):
 
 
 class NeuTraChEES(NeuTra):
-    """NeuTra with a ChEES-HMC inner sampler: needs ``chees.py``."""
+    """NeuTra with a ChEES-HMC inner sampler: the adaptive trajectory runs in
+    the latent space, each leapfrog's gradient through the flow's inverse
+    and its VJP."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("NeuTraChEES is not ported to nfmc_torch yet: it needs the "
-                                  "ChEES-HMC sampler (ROADMAP 1.5)")
+    def __init__(self, event_shape, target, inner_kernel: Optional[CheesHMCKernel] = None,
+                 inner_params: Optional[CheesHMCParameters] = None, kernel=None, params=None,
+                 device=None):
+        if inner_kernel is None:
+            inner_kernel = CheesHMCKernel(event_size=event_size_of(event_shape))
+        if inner_params is None:
+            inner_params = CheesHMCParameters()
+        super().__init__(event_shape, target, CheesHMC, inner_kernel, inner_params, kernel, params,
+                         device=device)
+
+    @property
+    def name(self):
+        return "NeuTra-ChEES"

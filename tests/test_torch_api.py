@@ -1,6 +1,8 @@
 """The port's front door and its hygiene: it runs on the CPU when asked,
 raises without a card otherwise, names the ROADMAP item of what it does
-not run yet, and imports nothing of JAX or of nfmc_tpu."""
+not run yet, and imports nothing of JAX or of nfmc_tpu. The sweep over
+the ported strategies covers ess, nuts, chees_hmc, jump_ess, jump_nuts,
+jump_chees and neutra_chees at a tiny size."""
 import ast
 import subprocess
 import sys
@@ -94,15 +96,45 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
                            "dense_hmc", "dense_mala", "jump_ess", "jump_nuts", "jump_aies",
                            "jump_chees", "neutra_chees"))])
 def test_unported_strategies_name_their_roadmap_item(strategy, item):
+    """The strategies of ROADMAP 1.5 that are still to port raise, naming
+    it; the ones ported since (ess, nuts, chees_hmc, their jump variants and
+    neutra_chees) run on the CPU."""
+    if strategy in nfmc_torch.api.registry.PORTED_STRATEGIES:
+        kw = {"negative_log_likelihood": StandardGaussian((3,))} if "ess" in strategy else {}
+        out = _run(strategy=strategy, **kw)
+        assert out.samples.device.type == "cpu" and torch.isfinite(out.samples).all()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         _run(strategy=strategy)
+
+
+def test_the_unported_strategies_are_exactly_the_rest_of_roadmap_1_5():
+    registry = nfmc_torch.api.registry
+    assert set(registry.UNPORTED_STRATEGIES) == {"pt_mala", "pt_mh", "pt_hmc", "aies",
+                                                 "dense_hmc", "dense_mala", "jump_aies"}
+    assert not set(registry.UNPORTED_STRATEGIES) & set(registry.PORTED_STRATEGIES)
+
+
+@pytest.mark.parametrize("strategy", ["ess", "nuts", "chees_hmc", "jump_ess", "jump_nuts",
+                                      "jump_chees", "neutra_chees"])
+def test_the_new_strategies_default_to_the_card(monkeypatch, strategy):
+    """Without a card the default device raises for each new strategy, and
+    an explicit ``device="cuda"`` does too: nothing falls back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {"negative_log_likelihood": StandardGaussian((3,))} if "ess" in strategy else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy, show_progress=False, **kw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nfmc_torch.create_sampler(StandardGaussian((3,)), strategy=strategy, device="cuda", **kw)
 
 
 @pytest.mark.parametrize("strategy", list(nfmc_torch.api.registry.PORTED_STRATEGIES))
 def test_every_ported_strategy_runs_on_the_cpu(strategy):
     """Each ported strategy through the front door with ``device="cpu"``:
     finite draws on the CPU and a counted run."""
-    kw = {"negative_log_likelihood": StandardGaussian((3,))} if strategy in ("tess", "dlmc") else {}
+    kw = ({"negative_log_likelihood": StandardGaussian((3,))}
+          if strategy in ("tess", "dlmc", "ess", "jump_ess") else {})
     if strategy == "dlmc":
         kw["param_kwargs"] = {"flow_fit_kwargs": {"n_epochs": 1}}
     out = nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy,
@@ -165,3 +197,14 @@ def test_no_source_imports_jax_or_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in ("jax", "jaxlib", "nfmc_tpu"), (path, name)
+
+
+def test_nothing_in_the_port_enables_tf32():
+    """ESS's whitening products (``precision="highest"`` in the JAX package)
+    and every other float32 product run in full float32: no module of the
+    port turns TF32 on or lowers the matmul precision."""
+    files = sorted((REPO / "nfmc_torch").rglob("*.py"))
+    for path in files:
+        text = path.read_text()
+        for word in ("allow_tf32", "set_float32_matmul_precision"):
+            assert word not in text, (path, word)

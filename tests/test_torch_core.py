@@ -95,3 +95,22 @@ def test_time_limited_run_syncs_per_chunk_and_stops():
     assert out.samples.shape == (3, 4, 3)
     full = s.sample(x0, show_progress=False, time_limit_seconds=1e6, seed=0)
     assert full.samples.shape == (150, 4, 3) and full.statistics.n_attempted_jumps == 200
+
+
+def test_dynamic_counters_stay_exact_past_int32():
+    """NUTS-style device counts and ChEES-style host counts: 3000 steps of
+    2^23 + 1 calls each (below 2^24, so each float32 add is exact) sum to
+    past 2^31 without a lost call, as the JAX package's compensated pairs
+    (nfmc_tpu/core/driver.py:149-221)."""
+    from nfmc_torch.core.driver import StatsAccum, StepInfo
+
+    acc = StatsAccum.zeros((2,), "cpu")
+    x = torch.zeros((3, 2))
+    zero = torch.zeros((), dtype=torch.int32)
+    v = (1 << 23) + 1
+    for _ in range(3000):
+        acc = acc.add(StepInfo(zero, zero, n_calls=torch.tensor(v, dtype=torch.int32),
+                               n_grads=v - 1), x)
+    calls, grads = acc.dynamic_counts()
+    assert calls == 3000 * v > 2 ** 31 and grads == 3000 * (v - 1)
+    assert acc.host_calls == 0 and acc.host_grads == 3000 * (v - 1)

@@ -162,3 +162,181 @@ def test_misfit_run_matches_jax_two_sample():
     # binomial sd of such a rate is ~0.007
     assert 0.70 <= t_rate <= 0.86 and abs(t_rate - j_rate) < 0.04, (t_rate, j_rate)
     assert abs(tout.statistics.acceptance_rate - jout.statistics.acceptance_rate) < 0.03
+
+
+def _inner_pair(kind, d, target_pair):
+    """The JAX package's and the port's inner sampler of ``kind``."""
+    from nfmc_tpu.samplers.mcmc.chees import CheesHMC as JCheesHMC
+    from nfmc_tpu.samplers.mcmc.chees import CheesHMCKernel as JCheesHMCKernel
+    from nfmc_tpu.samplers.mcmc.ess import ESS as JESS
+    from nfmc_tpu.samplers.mcmc.nuts import NUTS as JNUTS
+    from nfmc_tpu.samplers.mcmc.nuts import NUTSKernel as JNUTSKernel
+    from nfmc_torch.samplers.mcmc import ESS, NUTS, CheesHMC, CheesHMCKernel, NUTSKernel
+
+    jt, tt = target_pair
+    if kind == "ess":
+        return JESS((d,), jt, jt), ESS((d,), tt, tt, device="cpu")
+    if kind == "nuts":
+        return (JNUTS((d,), jt, JNUTSKernel(event_size=d, max_tree_depth=4, step_size=0.3)),
+                NUTS((d,), tt, NUTSKernel(event_size=d, max_tree_depth=4, step_size=0.3),
+                     device="cpu"))
+    kw = dict(event_size=d, step_size=0.2, trajectory_length=0.9)
+    return (JCheesHMC((d,), jt, JCheesHMCKernel(**kw)),
+            CheesHMC((d,), tt, CheesHMCKernel(**kw), device="cpu"))
+
+
+@pytest.mark.parametrize("kind", ["ess", "nuts", "chees"])
+def test_jump_variant_outer_iterations_match_jax(kind):
+    """Three outer iterations of jump_ess / jump_nuts / jump_chees through
+    the port's chunk runner against the JAX package's own pieces with the
+    same numbers: every emitted draw, the accept counts, the dynamic
+    counters. For ESS each outer iteration starts from a prior redraw and
+    the carried nll is refreshed for it."""
+    from nfmc_torch.samplers.nfmc import JumpNFMC
+
+    from .test_torch_nuts import chain_draws
+
+    d, C, inner_n, n_outer = 6, 8, 2, 3
+    rng = np.random.default_rng(1)
+    mu, sigma = np.full(d, 0.3, np.float32), np.float32(1.2)
+    jtarget, ttarget = JDiagonalGaussian(mu, sigma), DiagonalGaussian(mu, sigma)
+    jflow = JFlow(JRealNVP((d,), n_layers=2, hidden_size=16, use_pallas=False), seed=0)
+    jflow.params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.1 * rng.standard_normal(p.shape).astype(np.float32), jflow.params)
+    flow = Flow(RealNVP((d,), n_layers=2, hidden_size=16))
+    flow.params = from_jax_params(jflow.params)
+    jinner, tinner = _inner_pair(kind, d, (jtarget, ttarget))
+    tinner.params.n_iterations = inner_n
+    js = JJumpMALA((d,), jtarget, kernel=JNFMCKernel((d,), flow=jflow),
+                   inner_params=JLangevinParameters(n_iterations=inner_n))
+    js.inner_sampler = jinner
+    ts = JumpNFMC((d,), ttarget, tinner, kernel=NFMCKernel((d,), flow=flow), device="cpu")
+
+    x0 = (10.0 + rng.standard_normal((C, d))).astype(np.float32)  # far from the prior
+    z = rng.standard_normal((n_outer, C, d)).astype(np.float32)
+    k_accs = [jax.random.key(100 + i) for i in range(n_outer)]
+    jump_log_u = np.stack([np.asarray(jnp.log(jax.random.uniform(k, (C,)))) for k in k_accs])
+    prior = rng.standard_normal((n_outer, C, d)).astype(np.float32)
+
+    if kind == "nuts":
+        keys = [[jax.random.key(1000 + 10 * i + s) for s in range(inner_n)] for i in range(n_outer)]
+        per = [[chain_draws(jax.random.split(k, C), d, 4) for k in row] for row in keys]
+        inner_draws = tuple(torch.stack([torch.stack([p[m] for p in row]) for row in per])
+                            for m in range(4))
+        jstep = jax.jit(jinner._make_step(False))
+    elif kind == "ess":
+        inner_draws = (rng.standard_normal((n_outer, inner_n, C, d)).astype(np.float32),
+                       rng.random((n_outer, inner_n, C)).astype(np.float32),
+                       rng.random((n_outer, inner_n, C, 1)).astype(np.float32),
+                       rng.random((n_outer, inner_n, 5, C, 1)).astype(np.float32))
+        jstep = jinner._make_step_aux(False)
+    else:
+        inner_draws = (rng.standard_normal((n_outer, inner_n, C, d)).astype(np.float32),
+                       np.log(rng.random((n_outer, inner_n, C))).astype(np.float32),
+                       (1.0 - rng.random((n_outer, inner_n))).astype(np.float32))
+        jstep = jinner._make_step_aux(False)
+
+    jump_accept = js._make_jump_accept()
+    x = jnp.asarray(x0)
+    ks = jinner._augment_state(jinner.kernel.make_state(), x)
+    acc = JStatsAccum.zeros((d,))
+    emitted, n_jumps = [], 0
+    for i in range(n_outer):
+        if kind == "ess":
+            x = jnp.asarray(prior[i])
+            ks = jinner._augment_state(jinner._extract_mstate(ks), x)
+        for s in range(inner_n):
+            if kind == "nuts":
+                x, ks, info = jstep(x, ks, keys[i][s])
+            else:
+                x, ks, info = jstep(x, ks, None, tuple(jnp.asarray(a[i, s]) for a in inner_draws))
+            acc = acc.add(info, x)
+            emitted.append(np.asarray(x))
+        x_prime, ld_inv = jflow.bijection.inverse_fn(jflow.params, jnp.asarray(z[i]))
+        aux = (x_prime, jflow.base_log_prob_fn(jnp.asarray(z[i])) - ld_inv, jtarget(x_prime))
+        x, jmask = jump_accept(jflow.params, x, k_accs[i], aux)
+        ks = jinner._augment_state(jinner._extract_mstate(ks), x)
+        n_jumps += int(jnp.sum(jmask))
+        emitted.append(np.asarray(x))
+
+    draws = {"inner": tuple(torch.as_tensor(np.asarray(a)) for a in inner_draws),
+             "z": torch.from_numpy(z), "jump_log_u": torch.from_numpy(jump_log_u)}
+    if kind == "ess":
+        draws["x0"] = torch.from_numpy(prior)
+    state, ys = ts.run_chunk(ts.init_chunk_state(torch.from_numpy(x0)), draws)
+    assert ys.shape == (n_outer * (inner_n + 1), C, d)
+    assert float(np.max(np.abs(ys.numpy() - np.stack(emitted)))) <= TOL
+    assert int(state.acc.n_accepted) == int(acc.n_accepted)
+    assert int(state.jump_acc.n_accepted) == n_jumps
+    calls, grads = state.acc.dynamic_counts()
+    assert calls == int(float(acc.n_calls_dyn) + float(acc.c_calls_dyn))
+    assert grads == int(float(acc.n_grads_dyn) + float(acc.c_grads_dyn))
+    if kind == "ess":
+        assert float(np.abs(ys[0].numpy()).max()) < 10  # the first step left the redraw, not x0
+        assert calls == grads == 0
+    else:
+        assert grads > 0
+
+
+@pytest.mark.parametrize("strategy", ["jump_ess", "jump_nuts", "jump_chees"])
+def test_jump_variants_through_the_front_door(strategy):
+    """The interleaving law and the counters, static plus dynamic: ESS's
+    (5 + 1) C calls a step and no gradient; NUTS's leapfrogs + C a step in
+    both counters; ChEES's 2 L C + 2 C calls and 2 L C gradients; and 2 C
+    calls a jump."""
+    import nfmc_torch
+
+    n, inner_n, C, d = 4, 3, 6, 3
+    kw = {"negative_log_likelihood": StandardGaussian((d,))} if strategy == "jump_ess" else {}
+    out = nfmc_torch.sample(StandardGaussian((d,)), strategy=strategy,
+                            flow='realnvp%{"n_layers": 2, "hidden_size": 8}', n_chains=C,
+                            n_iterations=n, inner_param_kwargs={"n_iterations": inner_n},
+                            device="cpu", seed=0, show_progress=False, **kw)
+    st = out.statistics
+    assert out.samples.shape == (n * (inner_n + 1), C, d) and torch.isfinite(out.samples).all()
+    assert st.n_attempted_jumps == n * C and st.n_attempted_trajectories == n * inner_n * C
+    jump_calls = n * 2 * C
+    if strategy == "jump_ess":
+        assert st.n_target_calls == n * inner_n * 6 * C + jump_calls
+        assert st.n_target_gradient_calls == 0
+    elif strategy == "jump_nuts":
+        assert st.n_target_calls == st.n_target_gradient_calls + jump_calls
+        assert st.n_target_gradient_calls > n * inner_n * 2 * C
+    else:
+        grads = st.n_target_gradient_calls
+        assert grads % (2 * C) == 0 and grads >= n * inner_n * 2 * C
+        assert st.n_target_calls == grads + n * inner_n * 2 * C + jump_calls
+    # jump_nuts and jump_chees default to 5 inner iterations, as jump_hmc
+    if strategy != "jump_ess":
+        s = nfmc_torch.create_sampler(StandardGaussian((d,)), strategy=strategy, device="cpu")
+        assert s.inner_sampler.params.n_iterations == 5
+
+
+def test_chunk_draws_keep_their_order():
+    """The jump's draws come in the order they always came (the inner draws,
+    the proposals' base draws, the jump uniforms), so a seed gives the same
+    run as before; an inner sampler with a prior redraw adds its draws
+    last."""
+    from nfmc_torch.samplers.nfmc import JumpESS
+
+    s = _jump_mala((3,), StandardGaussian((3,)), inner_n=2)
+    draws = s.make_chunk_draws(torch.Generator().manual_seed(5), 4, 6)
+    g = torch.Generator().manual_seed(5)
+    noise = torch.randn((4, 2, 6, 3), generator=g)
+    log_u = torch.log(torch.rand((4, 2, 6), generator=g))
+    z = torch.randn((24, 3), generator=g)
+    jlog_u = torch.log(torch.rand((4, 6), generator=g))
+    assert set(draws) == {"inner", "z", "jump_log_u"}
+    assert torch.equal(draws["inner"][0], noise) and torch.equal(draws["inner"][1], log_u)
+    assert torch.equal(draws["z"], z.reshape(4, 6, 3)) and torch.equal(draws["jump_log_u"], jlog_u)
+    e = JumpESS((3,), StandardGaussian((3,)), StandardGaussian((3,)),
+                kernel=NFMCKernel((3,), flow=Flow(RealNVP((3,), n_layers=2, hidden_size=8), seed=0)),
+                device="cpu")
+    e.inner_sampler.params.n_iterations = 2
+    ed = e.make_chunk_draws(torch.Generator().manual_seed(5), 4, 6)
+    g = torch.Generator().manual_seed(5)
+    inner = e.inner_sampler.make_draws()(g, (4, 2), 6)
+    torch.randn((24, 3), generator=g)
+    torch.rand((4, 6), generator=g)
+    assert all(torch.equal(a, b) for a, b in zip(ed["inner"], inner))
+    assert torch.equal(ed["x0"], torch.randn((4, 6, 3), generator=g))

@@ -2,7 +2,8 @@
 adjusted target and its input gradient (RealNVP and c-rqnsf, 1e-5
 relative), one NeuTra-HMC and one NeuTra-MH iteration with injected draws,
 ``transport_x0``, the data-space moments through ``data_transform``, that
-no gradient reaches the flow's weights, and a warmup run."""
+no gradient reaches the flow's weights, and a warmup run; NeuTra-ChEES's
+steps against the JAX package's with injected draws."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -207,5 +208,58 @@ def test_warmup_run_counters_and_finiteness(strategy, grads):
 
 
 def test_neutra_chees_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.5"):
-        NeuTraChEES((D,), StandardGaussian((D,)))
+    """NeuTraChEES, once a stub naming ROADMAP 1.5, now runs: a sampling run
+    on the CPU with its counters (ChEES's 2 L C + 2 C calls, 2 L C
+    gradients through the flow's inverse) and its ChEES inner sampler."""
+    from nfmc_torch.samplers.mcmc import CheesHMC
+
+    s = NeuTraChEES((D,), StandardGaussian((D,)), params=NeuTraParameters(n_iterations=3),
+                    device="cpu")
+    assert isinstance(s.inner_sampler, CheesHMC) and s.name == "NeuTra-ChEES"
+    out = s.sample(torch.zeros(C, D), show_progress=False, seed=0)
+    st = out.statistics
+    n_lf = s.inner_sampler.leapfrog_total
+    assert out.samples.shape == (3, C, D) and torch.isfinite(out.samples).all()
+    assert st.n_target_gradient_calls == 2 * n_lf * C and n_lf >= 3
+    assert st.n_target_calls == st.n_target_gradient_calls + 2 * C * 3
+
+
+@pytest.mark.parametrize("tuning", [False, True])
+@pytest.mark.parametrize("name", list(FLOWS))
+def test_neutra_chees_steps_match_jax(name, tuning):
+    """Four NeuTra-ChEES iterations (the latent-space ChEES step, each
+    leapfrog's gradient through the flow's inverse) with the same injected
+    draws: the latent states to 1e-5, the masks, the counters and the
+    adapted state (step size, log T) after every step."""
+    from nfmc_tpu.samplers.mcmc.chees import CheesHMCKernel as JCheesHMCKernel
+    from nfmc_tpu.samplers.nfmc.neutra import NeuTraChEES as JNeuTraChEES
+    from nfmc_torch.samplers.mcmc import CheesHMCKernel
+
+    jflow, flow = _flows(name)
+    jt, tt = _targets()
+    kw = dict(event_size=D, step_size=0.15, trajectory_length=0.8)
+    js = JNeuTraChEES((D,), jt, inner_kernel=JCheesHMCKernel(**kw),
+                      kernel=JNeuTraKernel((D,), flow=jflow))
+    ts = NeuTraChEES((D,), tt, inner_kernel=CheesHMCKernel(**kw),
+                     kernel=NeuTraKernel((D,), flow=flow), device="cpu")
+    ts._configure_inner()
+    ji, ti = js.inner_sampler, ts.inner_sampler
+    jstep, tstep = jax.jit(ji._make_step_aux(tuning)), ti._make_step_aux(tuning)
+    rng = np.random.default_rng(4)
+    z0 = rng.standard_normal((C, D)).astype(np.float32)
+    jz, tz = jnp.asarray(z0), torch.from_numpy(z0)
+    jst, tst = ji.kernel.make_state(), ti.kernel.make_state("cpu")
+    for _ in range(4):
+        d = (rng.standard_normal((C, D)).astype(np.float32),
+             np.log(rng.random(C)).astype(np.float32), np.float32(1.0 - rng.random()))
+        jz_new, jst, jinfo = jstep(jz, jst, None, tuple(jnp.asarray(a) for a in d))
+        with torch.no_grad():
+            tz_new, tst, tinfo = tstep(tz, tst, tuple(torch.as_tensor(a) for a in d))
+        assert float(np.max(np.abs(tz_new.numpy() - np.asarray(jz_new)))) <= TOL * max(
+            1.0, float(np.abs(np.asarray(jz_new)).max()))
+        np.testing.assert_array_equal((tz_new != tz).any(-1).numpy(),
+                                      np.any(np.asarray(jz_new) != np.asarray(jz), -1))
+        assert int(tinfo.n_grads) == int(jinfo.n_grads) and int(tinfo.n_calls) == int(jinfo.n_calls)
+        for f in ("step_size", "log_t"):
+            assert abs(float(getattr(tst, f)) - float(getattr(jst, f))) <= TOL
+        jz, tz = jz_new, tz_new
