@@ -178,15 +178,41 @@ Phases, in order; any failure exits non-zero before the last line:
      (to 1e-4 max |g|);
   12f. ESS's two-sample test (chain permutation, alpha 0.01) of 32 chains x
      600 iterations on the card against the JAX package's draws
-     (ESS_DRAWS).
+     (ESS_DRAWS);
+  13. dense_metric (bench.py:1310-1437, its near-isotropic runs cut): hmc,
+     dense_hmc, mala and dense_mala on the condition-1e3 correlated target,
+     dense_hmc and dense_mala on N(0, I); d=100, 100 chains, 341 warmup and
+     500 iterations (the bench's 1000 cut): the mean and worst
+     eigen-direction ESS (and per
+     second), max |mean| / sigma and the final scalar-mode flag in JAX
+     bands, the wall-free worst-direction ratios dense / diagonal > 2;
+  13a. pt_multimodal (bench.py:1231-1307): pt_mala, pt_mh, pt_hmc and mala
+     on two modes at +-2 in 10-d, 64 chains started in mode 0, 1000
+     iterations (the bench's 2000 cut), 8 rungs to beta 0.02: the bench's
+     criterion (pt_mala's
+     balance error < 0.15, mala's > 0.4), balance errors, swap rates and
+     acceptances in JAX bands, the counter laws, it/s, ESS/s, and the
+     device busy share of 20 pt_mala iterations;
+  13b. aies at 1024 walkers on 13's correlated target (341 + 1000 it): the
+     tuned stretch scale, acceptance and moment errors in JAX bands;
+  13c. jump_aies in 12c's setting: jump and inner acceptance in JAX bands,
+     the interleaving and counter laws, one hoisted inverse at B=6400 and a
+     forward at B=100 a jump;
+  13d. card against CPU with the same injected draws: a DenseHMC and a
+     DenseMALA step at 100 x 100 (to 1e-5, masks equal), the dense refresh
+     from fixed halves, dense and scalar (chol and chol_inv to 1e-4 of
+     max |ref|, the mode equal), two tuning ladder steps of PT-MALA, PT-MH
+     (to 1e-5) and PT-HMC (to 1e-4) with equal swaps, and an AIES step at
+     1024 x 100 (to 1e-5, masks equal).
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) and the paths of phases 11 and 12 launched
+every shape the IMH path (10-10c) and the paths of phases 11-13 launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and has its
 own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
-over the launches the profiler recorded, null where it recorded none), then
+over the launches the profiler recorded; where it recorded none, that of
+back-to-back calls between CUDA events for a call over 1 ms, else null), then
 as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Needs no JAX, no network, and exits non-zero without a CUDA device.
@@ -370,6 +396,109 @@ NEUTRA_CHEES_MOMENTS = (0.032515, 0.042355)
 # whose trees reach depth 5-6 on this target)
 NUTS_STEP_12E = 0.1
 
+# Phase 13: the last strategies at bench.py's sizes, cut in depth so that
+# the script stays well inside its time limit on a slow host (it took 857 s
+# there with the cuts below undone but the first). 13: dense_metric
+# (bench.py:1310-1437): d = 100, 100 chains, 341 warmup iterations and 500
+# (the bench's 1000 cut); a condition-1e3 correlated Gaussian (the QR basis
+# of a seed-0 normal matrix, variances geomspace(1, 1e-3)) and the isotropic
+# N(0, I); ESS over the true eigenbasis, max_window 1024. The bench's
+# near-isotropic runs (hmc and dense_hmc, sigma linspace(0.9, 1.1)) are cut
+# first
+DENSE_WARM, DENSE_ITERS, DENSE_WINDOW = 341, 500, 1024
+DENSE_RUNS = (("corr", "hmc"), ("corr", "dense_hmc"), ("corr", "mala"), ("corr", "dense_mala"),
+              ("iso", "dense_hmc"), ("iso", "dense_mala"))
+# 13a: pt_multimodal (bench.py:1231-1307): modes at -2 and 2 in 10-d, 64
+# chains all started in mode 0, 1000 iterations (the bench's 2000 cut)
+# without warmup, 8 rungs down to beta 0.02
+PT_D, PT_C, PT_ITERS, PT_MODE, PT_TEMPS, PT_BETA_MIN = 10, 64, 1000, 2.0, 8, 0.02
+PT_RUNS = ("pt_mala", "pt_mh", "pt_hmc", "mala")
+# 13b: aies at the headline's d = 100 with 1024 walkers on 13's correlated
+# target, 341 warmup and 1000 iterations
+AIES_C, AIES_WARM, AIES_ITERS = 1024, 341, 1000
+# 13c: jump_aies in 12c's setting (100 chains, the identity-init RealNVP
+# frozen, 5 inner iterations, 64 outer, target N(0.12 * 1, I))
+
+
+def dense_metric_targets():
+    """bench.py:1335-1343's correlated target in numpy: the eigenbasis q, the
+    variances and the Cholesky factor of the covariance."""
+    rng = np.random.default_rng(0)
+    q, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    eigs = np.geomspace(1.0, 1e-3, D)
+    chol = np.linalg.cholesky((q * eigs) @ q.T + 1e-9 * np.eye(D))
+    return q, eigs, chol
+
+
+def dense_x0(kind: str, seed: int, n: int = C) -> np.ndarray:
+    """``n`` exact draws from phase 13's ``kind`` target ("corr" or "iso"),
+    the start of both the warmup and the run (as bench.py's x0_corr /
+    x0_iso)."""
+    z = np.random.default_rng(3000 + seed).standard_normal((n, D))
+    x = z @ dense_metric_targets()[2].T if kind == "corr" else z
+    return x.astype(np.float32)
+
+
+def pt_x0(seed: int) -> np.ndarray:
+    """Every chain in mode 0 (bench.py:1260): its mean plus 0.5 N(0, I)."""
+    z = np.random.default_rng(5000 + seed).standard_normal((PT_C, PT_D))
+    return (-PT_MODE + 0.5 * z).astype(np.float32)
+
+
+def pt_mode_metrics(draws: np.ndarray):
+    """bench.py:1263-1269: over the second half of the draws, the share in
+    mode 1 (across the hyperplane between the modes) off 0.5, and the rate
+    at which a chain switches modes."""
+    half = draws[draws.shape[0] // 2:]
+    in_mode1 = half.sum(-1) > 0.0
+    balance_err = abs(float(in_mode1.mean()) - 0.5)
+    switches = float(np.abs(np.diff(in_mode1.astype(np.int8), axis=0)).mean())
+    return balance_err, switches
+
+
+# Phase 13's bands: the JAX package's range over seeds 0-7 on the CPU, from
+#   JAX_PLATFORMS=cpu python scripts/mcmc_reference_cpu.py \
+#       --seeds 0 1 2 3 4 5 6 7 --dense --pt --aies --jump-aies
+# and gated by jax_band
+DENSE_JAX = {
+    ("corr", "hmc"): {"ESS mean": (23095.314453, 27906.089844),
+                      "worst-direction ESS": (525.953430, 661.114319),
+                      "max|mean|/sigma": (0.052616, 0.377152)},
+    ("corr", "dense_hmc"): {"ESS mean": (17779.554688, 22190.623047),
+                            "worst-direction ESS": (15098.573242, 20946.080078),
+                            "max|mean|/sigma": (0.014090, 0.027382)},
+    ("corr", "mala"): {"ESS mean": (2617.655029, 2687.920410),
+                       "worst-direction ESS": (499.463409, 544.669922),
+                       "max|mean|/sigma": (0.157385, 0.290210)},
+    ("corr", "dense_mala"): {"ESS mean": (4395.089355, 4587.466309),
+                             "worst-direction ESS": (2420.230469, 2963.482178),
+                             "max|mean|/sigma": (0.039188, 0.058016)},
+    # HMC without jitter on the exact scalar metric: the tuned step lands
+    # on or off a leapfrog resonance (ESS 5,210 to all 50,000 draws)
+    ("iso", "dense_hmc"): {"ESS mean": (5210.027832, 50000.0),
+                           "worst-direction ESS": (4859.666992, 50000.0),
+                           "max|mean|/sigma": (0.004760, 0.044306)},
+    ("iso", "dense_mala"): {"ESS mean": (5267.285156, 5499.286133),
+                            "worst-direction ESS": (4923.452148, 5187.472656),
+                            "max|mean|/sigma": (0.033164, 0.051594)},
+}
+# the final scalar-mode flag, the JAX package's at every seed
+DENSE_SCALAR = {"corr": False, "iso": True}
+# the worst-direction ESS ratios dense / diagonal on the correlated target
+DENSE_RATIO_JAX = {"hmc": (24.861068, 36.550301), "mala": (4.443481, 5.717113)}
+PT_JAX = {
+    "pt_mala": {"cold acc": (0.728031, 0.734141), "balance error": (0.004000, 0.027375),
+                "swap acc": (0.395027, 0.400268)},
+    "pt_mh": {"cold acc": (0.475172, 0.480281), "balance error": (0.063375, 0.163687),
+              "swap acc": (0.398000, 0.402219)},
+    "pt_hmc": {"cold acc": (0.930063, 0.933125), "balance error": (0.004875, 0.033187),
+               "swap acc": (0.393996, 0.399040)},
+    "mala": {"cold acc": (0.726047, 0.730672), "balance error": (0.5, 0.5)},
+}
+AIES_JAX = {"acc": (0.292517, 0.299679), "a": (1.358011, 1.368737),
+            "max|mean|/sigma": (0.058456, 0.086164), "max|var/sigma^2-1|": (0.077381, 0.108321)}
+JUMP_AIES_JAX = {"jump acc": (0.406719, 0.445000), "inner acc": (0.130375, 0.133125)}
+
 
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr)
@@ -423,15 +552,35 @@ def device_us(fn, calls: int = 20) -> dict:
     return {}
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """ms a call of ``reps`` calls enqueued back to back between two CUDA
+    events: the device's time a call where a launch's kernel outlasts its
+    host enqueue."""
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 def kernel_ms(fn, reps: int) -> tuple:
     """(the wrapper's ms a call: the median of CUDA events around the call,
     the host's Python included; the device ms a call of the kernels ``fn``
-    launches, from torch.profiler, None where the profiler saw no device
-    time; text giving both)."""
+    launches, from torch.profiler; text giving both). Where the profiler
+    records no launch and a call takes over 1 ms (so that its host enqueue,
+    ~0.05 ms, is a small part), the device ms is that of back-to-back calls
+    between CUDA events; below that it is None."""
     wrapper = median_ms(fn, reps)
     dev = device_us(fn, reps)
     if not dev:
-        return wrapper, None, f"{wrapper:.4f} ms (device time not measured)"
+        if wrapper < 1.0:
+            return wrapper, None, f"{wrapper:.4f} ms (device time not measured)"
+        ms = back_to_back_ms(fn, reps)
+        return wrapper, ms, (f"{wrapper:.4f} ms (device {ms:.4f} ms, back-to-back CUDA events: "
+                             "the profiler recorded no launch)")
     ms = sum(dev.values()) / 1e3
     return wrapper, ms, f"{wrapper:.4f} ms (device {ms:.4f} ms)"
 
@@ -2373,6 +2522,350 @@ def run_mcmc_card_vs_cpu(dev) -> None:
     check(e_g <= TOL * g_max, "neutra_chees: the gradient of U~ on the card disagrees")
 
 
+def jax_band(lo_hi, errors=False):
+    """The gate around the JAX package's range over seeds 0-7: from half the
+    low (0 for an error, where less is never a fault) to 1.5 times the
+    high; with the range printed beside it."""
+    lo, hi = lo_hi
+    return (0.0 if errors else 0.5 * lo, 1.5 * hi), f"{lo:.6f}-{hi:.6f}"
+
+
+def run_last_strategy_phases(dev) -> dict:
+    """Phases 13-13d: dense_hmc / dense_mala beside hmc / mala at bench.py's
+    dense_metric sizes, pt_mala / pt_mh / pt_hmc beside mala at its
+    pt_multimodal sizes, aies at 1024 walkers and jump_aies in the jump
+    setting, through the front door; then one step of each on the card
+    against the CPU. Returns the launches by shape of jump_aies and the
+    numbers the summary prints."""
+    import nfmc_torch
+    from nfmc_torch.diagnostics import effective_sample_size
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import DiagonalGaussian, FullRankGaussian, GaussianMixture
+    from nfmc_torch.potentials import StandardGaussian
+
+    res = {"shapes": {}}
+    t_last = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        print(f"[{what}: {now - t_last[0]:.1f} s]")
+        t_last[0] = now
+
+    def timed(run):
+        """``run()``'s result and wall (ending in a synchronise), with its
+        coupling launches by shape; the launch counts set to 0 just before."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ShapeLaunches() as shapes:
+            out = run()
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, shapes.n
+
+    # ---- 13. dense metric at bench.py's dense_metric sizes ------------------------------
+    q, eigs, chol = dense_metric_targets()
+    targets = {"corr": (FullRankGaussian(np.zeros(D, np.float32), chol), q, np.sqrt(eigs)),
+               "iso": (StandardGaussian((D,)), None, np.ones(D))}
+    q_dev = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    min_ess, res["dense"] = {}, {}
+    for kind, strategy in DENSE_RUNS:
+        target, qk, scale = targets[kind]
+        s = nfmc_torch.create_sampler(target, event_shape=(D,), strategy=strategy,
+                                      param_kwargs={"n_iterations": DENSE_ITERS,
+                                                    "n_warmup_iterations": DENSE_WARM,
+                                                    "store_samples_on_device": True})
+        x0 = torch.as_tensor(dense_x0(kind, 0), device=dev)
+        _, warm_wall, sh_w = timed(lambda: s.warmup(x0, show_progress=False, seed=1))
+        out, wall, sh = timed(lambda: s.sample(x0, show_progress=False, seed=2))
+        draws = out.samples
+        check(draws.device.type == "cuda" and tuple(draws.shape) == (DENSE_ITERS, C, D)
+              and bool(torch.isfinite(draws).all()), f"{kind} {strategy}: the draws")
+        check(not sh and not sh_w, f"{kind} {strategy} launched a coupling kernel")
+        if qk is not None:
+            draws = draws @ q_dev  # into the true eigenbasis
+        ess = effective_sample_size(draws, max_window=DENSE_WINDOW, dim_slab=25)
+        ess_mean, ess_min = float(ess.mean()), float(ess.min())
+        err = float(np.max(draws.reshape(-1, D).double().mean(0).abs().cpu().numpy() / scale))
+        scalar = bool(getattr(s.kernel, "_resume_scalar_mode", False))
+        min_ess[(kind, strategy)] = ess_min
+        res["dense"][f"{kind} {strategy}"] = (ess_mean / wall, ess_min / wall, DENSE_ITERS / wall)
+        print(f"dense_metric {kind} {strategy} (d={D}, {C} chains, {DENSE_WARM} warmup + "
+              f"{DENSE_ITERS} it): warmup {warm_wall:.3f} s, sampling {wall:.3f} s "
+              f"({DENSE_ITERS / wall:.1f} it/s), ESS mean {ess_mean:.1f} ({ess_mean / wall:.1f} "
+              f"ESS/s), worst eigen-direction {ess_min:.1f} ({ess_min / wall:.1f} ESS/s), "
+              f"max|mean|/sigma {err:.4f}, scalar mode {scalar}, acc "
+              f"{out.statistics.acceptance_rate:.4f}, step {s.kernel.step_size:.5f}")
+        bands = DENSE_JAX[(kind, strategy)]
+        for what, v, errors in (("ESS mean", ess_mean, False), ("worst-direction ESS", ess_min, False),
+                                ("max|mean|/sigma", err, True)):
+            in_band(f"{kind} {strategy} {what}", v, *jax_band(bands[what], errors))
+        if strategy.startswith("dense"):
+            check(scalar == DENSE_SCALAR[kind],
+                  f"{kind} {strategy}: scalar mode {scalar}, the JAX package's {DENSE_SCALAR[kind]} "
+                  "at every seed")
+        calls = {"hmc": 42, "dense_hmc": 42, "mala": 2, "dense_mala": 2}[strategy]
+        check(out.statistics.n_target_calls == DENSE_ITERS * calls * C,
+              f"{kind} {strategy}: counters")
+    ratios = {k: min_ess[("corr", f"dense_{k}")] / min_ess[("corr", k)] for k in ("hmc", "mala")}
+    res["dense_ratios"] = ratios
+    for k, v in ratios.items():
+        in_band(f"worst-direction ESS ratio dense_{k} / {k} (correlated, wall-free)", v,
+                *jax_band(DENSE_RATIO_JAX[k]))
+    # bench.py:1434-1436's own criterion
+    check(ratios["hmc"] > 2.0 and ratios["mala"] > 2.0,
+          f"dense does not win on the correlated target: {ratios}")
+    lap("phase 13")
+
+    # ---- 13a. parallel tempering at bench.py's pt_multimodal sizes ---------------------
+    means = np.stack([np.full(PT_D, -PT_MODE), np.full(PT_D, PT_MODE)]).astype(np.float32)
+    gm = GaussianMixture(means, sigma=1.0)
+    x0_pt = torch.as_tensor(pt_x0(0), device=dev)
+    res["pt"] = {}
+    for strategy in PT_RUNS:
+        kw = ({"kernel_kwargs": {"n_temps": PT_TEMPS, "beta_min": PT_BETA_MIN}}
+              if strategy.startswith("pt_") else {})
+
+        def run(n=PT_ITERS, seed=0, kw=kw, strategy=strategy):
+            return nfmc_torch.sample(gm, strategy=strategy, n_chains=PT_C, n_iterations=n,
+                                     x0=x0_pt, warmup=False, seed=seed, show_progress=False,
+                                     param_kwargs={"store_samples_on_device": True}, **kw)
+
+        run(n=2)  # warm
+        out, wall, sh = timed(run)
+        st = out.statistics
+        check(tuple(out.samples.shape) == (PT_ITERS, PT_C, PT_D)
+              and bool(torch.isfinite(out.samples).all()) and not sh, f"{strategy}: the draws")
+        bal, sw = pt_mode_metrics(out.samples.cpu().numpy())
+        swap = getattr(st, "swap_acceptance_rate", float("nan"))
+        rates = getattr(out.kernel, "swap_acceptance_rates", None)
+        res["pt"][strategy] = (PT_ITERS / wall, bal, swap)
+        print(f"pt_multimodal {strategy} ({PT_C} chains, {PT_ITERS} it, modes +-{PT_MODE} in "
+              f"{PT_D}-d, all started in mode 0): wall {wall:.3f} s, {PT_ITERS / wall:.1f} it/s, "
+              f"balance error {bal:.4f}, switch rate {sw:.5f}, cold acc {st.acceptance_rate:.6f}, "
+              f"swap acc {swap:.6f}, edge swap-rate EMAs "
+              f"{None if rates is None else np.round(rates, 3).tolist()}")
+        res["pt"][strategy] += (ess_per_second(out, wall, max_window=4096, what=strategy),)
+        bands = PT_JAX[strategy]
+        in_band(f"{strategy} cold acceptance", st.acceptance_rate, *jax_band(bands["cold acc"]))
+        in_band(f"{strategy} balance error", bal, *jax_band(bands["balance error"], True))
+        if strategy.startswith("pt_"):
+            in_band(f"{strategy} swap acceptance", swap, *jax_band(bands["swap acc"]))
+            n_temps_c = PT_TEMPS * PT_C
+            law = {"pt_mala": (2, 2), "pt_mh": (2, 0), "pt_hmc": (22, 20)}[strategy]
+            # edges 0, 2, 4, 6 on even iterations, 1, 3, 5 on odd ones
+            check(st.n_target_calls == PT_ITERS * law[0] * n_temps_c
+                  and st.n_target_gradient_calls == PT_ITERS * law[1] * n_temps_c
+                  and st.n_attempted_swaps == PT_ITERS // 2 * (4 + 3) * PT_C,
+                  f"{strategy}: the counter laws")
+    # bench.py:1303-1306's criterion: PT finds mode 1, MALA stays in mode 0
+    check(res["pt"]["pt_mala"][1] < 0.15 and res["pt"]["mala"][1] > 0.4,
+          f"pt_mala balance {res['pt']['pt_mala'][1]}, mala {res['pt']['mala'][1]}")
+    profile_window(lambda: nfmc_torch.sample(
+        gm, strategy="pt_mala", n_chains=PT_C, n_iterations=20, x0=x0_pt, seed=1,
+        kernel_kwargs={"n_temps": PT_TEMPS, "beta_min": PT_BETA_MIN}, show_progress=False),
+        "pt_mala, 20 it")
+    lap("phase 13a")
+
+    # ---- 13b. aies at 1024 walkers ---------------------------------------------------
+    sig = np.sqrt(np.diag(chol @ chol.T))
+    s = nfmc_torch.create_sampler(targets["corr"][0], event_shape=(D,), strategy="aies",
+                                  param_kwargs={"n_iterations": AIES_ITERS,
+                                                "n_warmup_iterations": AIES_WARM,
+                                                "store_samples_on_device": True})
+    x0 = torch.as_tensor(dense_x0("corr", 0, n=AIES_C), device=dev)
+    _, warm_wall, sh_w = timed(lambda: s.warmup(x0, show_progress=False, seed=1))
+    out, wall, sh = timed(lambda: s.sample(x0, show_progress=False, seed=2))
+    st = out.statistics
+    mean = np.asarray(out.mean, dtype=np.float64)
+    err = float(np.max(np.abs(mean @ q) / np.sqrt(eigs)))
+    var_err = float(np.max(np.abs(np.asarray(out.variance) / sig ** 2 - 1)))
+    res["aies_it_per_s"] = AIES_ITERS / wall
+    print(f"aies ({AIES_C} walkers, the correlated target, {AIES_WARM} warmup + {AIES_ITERS} it): "
+          f"warmup {warm_wall:.3f} s, sampling {wall:.3f} s ({AIES_ITERS / wall:.1f} it/s), a "
+          f"{s.kernel.a:.5f}, acc {st.acceptance_rate:.6f}, max|mean|/sigma (eigenbasis) "
+          f"{err:.4f}, max|var/sigma^2 - 1| {var_err:.4f}")
+    res["aies_ess_per_s"] = ess_per_second(out, wall, max_window=DENSE_WINDOW, what="aies")
+    check(tuple(out.samples.shape) == (AIES_ITERS, AIES_C, D)
+          and bool(torch.isfinite(out.samples).all()) and not sh and not sh_w, "aies: the draws")
+    in_band("aies tuned a", s.kernel.a, *jax_band(AIES_JAX["a"]))
+    in_band("aies acceptance", st.acceptance_rate, *jax_band(AIES_JAX["acc"]))
+    in_band("aies max|mean|/sigma", err, *jax_band(AIES_JAX["max|mean|/sigma"], True))
+    in_band("aies max|var/sigma^2 - 1|", var_err, *jax_band(AIES_JAX["max|var/sigma^2-1|"], True))
+    check(st.n_target_calls == 2 * AIES_C * AIES_ITERS and st.n_target_gradient_calls == 0,
+          "aies: the counter law (2 C calls, no gradients)")
+    del out
+    lap("phase 13b")
+
+    # ---- 13c. jump_aies in the jump setting ------------------------------------------
+    mu = np.full(D, JUMP12_MU, np.float32)
+    misfit = DiagonalGaussian(mu, np.float32(1.0))
+
+    def jump(n_outer=JUMP12_OUTER, seed=0):
+        return nfmc_torch.sample(misfit, strategy="jump_aies",
+                                 flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
+                                 n_chains=C, n_iterations=n_outer,
+                                 inner_param_kwargs={"n_iterations": JUMP12_INNER},
+                                 param_kwargs={"store_samples_on_device": True}, seed=seed,
+                                 show_progress=False)
+
+    jump(n_outer=2)  # warm
+    out, wall, sh = timed(jump)
+    res["shapes"]["jump_aies"] = sh
+    st = out.statistics
+    n_steps = JUMP12_OUTER * JUMP12_INNER
+    res["jump_aies"] = (JUMP12_OUTER / wall, st.jump_acceptance_rate)
+    print(f"jump_aies ({C} chains, {JUMP12_INNER} inner it, {JUMP12_OUTER} outer it, target "
+          f"N({JUMP12_MU} * 1, I)): wall {wall:.3f} s, {JUMP12_OUTER / wall:.2f} outer it/s, jump "
+          f"acc {st.jump_acceptance_rate:.6f}, inner acc {st.acceptance_rate:.6f}, counters "
+          f"{st.n_target_calls} / {st.n_target_gradient_calls}, launches by shape {dict(sh)}")
+    res["jump_aies_ess_per_s"] = ess_per_second(out, wall, max_window=4096, what="jump_aies")
+    check(tuple(out.samples.shape) == (JUMP12_OUTER * (JUMP12_INNER + 1), C, D)
+          and bool(torch.isfinite(out.samples).all()), "jump_aies: the interleaving law")
+    check(st.n_target_calls == n_steps * 2 * C + JUMP12_OUTER * 2 * C
+          and st.n_target_gradient_calls == 0 and st.n_attempted_jumps == JUMP12_OUTER * C
+          and st.n_attempted_trajectories == n_steps * C, "jump_aies: the counters")
+    in_band("jump_aies jump acceptance", st.jump_acceptance_rate,
+            *jax_band(JUMP_AIES_JAX["jump acc"]))
+    in_band("jump_aies inner acceptance", st.acceptance_rate, *jax_band(JUMP_AIES_JAX["inner acc"]))
+    # one hoisted chunk of proposals, one forward (log q of the current
+    # state) a jump
+    check(sh == {("stack", "inverse", JUMP12_OUTER * C): 1, ("stack", "forward", C): JUMP12_OUTER},
+          f"jump_aies launch law: {dict(sh)}")
+    lap("phase 13c")
+
+    run_last_card_vs_cpu(dev)
+    lap("phase 13d")
+    return res
+
+
+def run_last_card_vs_cpu(dev) -> None:
+    """Phase 13d: one step of each of phase 13's samplers on the card and on
+    the CPU with the same injected draws and kernel state."""
+    from nfmc_torch.potentials import FullRankGaussian, GaussianMixture
+    from nfmc_torch.samplers.mcmc import (AIES, PTHMC, PTMALA, PTRWMH, DenseHMC, DenseHMCKernel,
+                                          DenseHMCParameters, DenseLangevinKernel,
+                                          DenseLangevinParameters, DenseMALA, PTKernel,
+                                          PTParameters)
+
+    q, eigs, chol = dense_metric_targets()
+    target = FullRankGaussian(np.zeros(D, np.float32), chol)
+    cov = ((q * eigs) @ q.T).astype(np.float32)
+
+    def on_both(make, draws_of, x0, steps=1, tuning=False, state_fix=None):
+        """``steps`` steps of ``make(device)``'s sampler from x0 with the
+        same draws on each device: the positions, the carried state's
+        tensors and the accept counts, per device."""
+        got = {}
+        g = torch.Generator().manual_seed(130)
+        draws = [draws_of(make("cpu"), g) for _ in range(steps)]
+        for device in ("cpu", dev):
+            s = make(device)
+            state = s.kernel.make_state(device)
+            if state_fix is not None:
+                state_fix(state)
+            x = x0.to(device)
+            state = s._augment_state(state, x)
+            step = s._make_step_aux(tuning)
+            accepted = []
+            with torch.no_grad():
+                for d in draws:
+                    x, state, info = step(x, state, tuple(t.to(device) for t in d))
+                    accepted.append(int(info.n_accepted))
+            got[device] = (x.cpu(), state, accepted)
+        return got["cpu"], got[dev]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    # DenseHMC and DenseMALA: the correlated target's covariance as the
+    # metric, the jitter gate open
+    def jitter_on(state):
+        state.jitter_frac = torch.ones_like(state.jitter_frac)
+
+    x0 = torch.as_tensor(dense_x0("corr", 1))
+    for name, make, step in (
+            ("dense_hmc", lambda device: DenseHMC(
+                (D,), target, DenseHMCKernel(event_size=D, step_size=0.3, mass_cov=cov),
+                DenseHMCParameters(), device=device), 0.3),
+            ("dense_mala", lambda device: DenseMALA(
+                (D,), target, DenseLangevinKernel(event_size=D, step_size=0.6, mass_cov=cov),
+                DenseLangevinParameters(), device=device), 0.6)):
+        (xc, _, ac), (xg, _, ag) = on_both(
+            make, lambda s, g: s.make_draws()(g, (), C), x0, state_fix=jitter_on)
+        e = rel(xg, xc)
+        print(f"{name} step card vs CPU ({C} x {D}, the correlated target's covariance as the "
+              f"metric, step {step}): states max|diff| / max(1, max|x|) {e:.3e}, accepted "
+              f"{ag} / {ac}, masks equal {torch.equal(xg != x0, xc != x0)}")
+        check(e <= 1e-5 and ag == ac and torch.equal(xg != x0, xc != x0),
+              f"{name} step on the card disagrees with the CPU")
+
+    # the refresh from fixed EMA halves (an EMA weight of 0 keeps them): two
+    # sample covariances of the correlated target (dense factors, eigh), and
+    # at the patience two of N(0, I) with unit diagonals (mu = 1, r_diag = 0
+    # and r ~ 0.01: scalar factors)
+    rng = np.random.default_rng(131)
+    z = rng.standard_normal((2, 400, D))
+    iso = [np.cov(zi.T) for zi in z]
+    for h in iso:
+        np.fill_diagonal(h, 1.0)
+    for label, halves, streak, want in (
+            ("correlated", [np.cov((zi @ chol.T).T).astype(np.float32) for zi in z], 0, False),
+            ("isotropic noise", [h.astype(np.float32) for h in iso], 1, True)):
+        got = {}
+        for device in ("cpu", dev):
+            s = DenseHMC((D,), target, params=DenseHMCParameters(
+                metric_adjustment=0.0, tune_step_size=False), device=device)
+            st = s.kernel.make_state(device)
+            st.cov_a, st.cov_b = (torch.as_tensor(h, device=device) for h in halves)
+            st.t = s.params.metric_refresh_every - 1
+            st.r_low_streak = torch.tensor(streak, dtype=torch.int32, device=device)
+            new = s.make_update_kernel()(st, torch.zeros(C, D, device=device),
+                                         torch.ones(C, dtype=torch.bool, device=device))
+            got[device] = (new.chol.cpu(), new.chol_inv.cpu(), bool(new.scalar_mode))
+        e_a, e_ai = rel(got[dev][0], got["cpu"][0]), rel(got[dev][1], got["cpu"][1])
+        print(f"dense refresh card vs CPU ({label} halves, d={D}): chol max|diff| / max|ref| "
+              f"{e_a:.3e}, chol_inv {e_ai:.3e}, scalar mode {got[dev][2]} / {got['cpu'][2]}")
+        check(e_a <= 1e-4 and e_ai <= 1e-4 and got[dev][2] == got["cpu"][2] == want,
+              f"dense refresh ({label}) on the card disagrees with the CPU")
+
+    # a PT ladder step of each move, both parities, tuning (the ladder moves)
+    means = np.stack([np.full(PT_D, -PT_MODE), np.full(PT_D, PT_MODE)]).astype(np.float32)
+    gm = GaussianMixture(means, sigma=1.0)
+    x0 = torch.as_tensor(pt_x0(1))
+    for cls in (PTMALA, PTRWMH, PTHMC):
+        def make(device, cls=cls):
+            return cls((PT_D,), gm, PTKernel(event_size=PT_D, n_temps=PT_TEMPS,
+                                             beta_min=PT_BETA_MIN), PTParameters(),
+                       device=device)
+
+        (xc, sc, ac), (xg, sg, ag) = on_both(make, lambda s, g: s.make_draws()(g, (), PT_C), x0,
+                                             steps=2, tuning=True)
+        e = max(rel(xg, xc), rel(sg[1].cpu(), sc[1]), rel(sg[0].betas.cpu(), sc[0].betas))
+        same = (torch.equal(sg[0].swap_accepts.cpu(), sc[0].swap_accepts)
+                and torch.equal(sg[0].swap_attempts.cpu(), sc[0].swap_attempts))
+        # PT-HMC's hottest rung takes 10 leapfrogs of d^(-1/3) / sqrt(0.02) =
+        # 3.3, which grow float32 rounding to ~1e-4: it is held at TOL, as
+        # phase 12e's ChEES and the CPU tests' HMC after their leapfrogs
+        tol = TOL if cls is PTHMC else 1e-5
+        print(f"{cls.__name__} ladder steps card vs CPU (T={PT_TEMPS}, {PT_C} x {PT_D}, both "
+              f"parities, tuning): states, hot rungs and betas max|diff| / max(1, max|ref|) "
+              f"{e:.3e} (gate {tol:g}), cold accepted {ag} / {ac}, swaps an edge "
+              f"{sg[0].swap_accepts.tolist()} / {sc[0].swap_accepts.tolist()}")
+        check(e <= tol and ag == ac and same, f"{cls.__name__} on the card disagrees")
+
+    # an AIES step (both halves) at 1024 walkers
+    x0 = torch.as_tensor(dense_x0("corr", 1, n=AIES_C))
+    (xc, sc, ac), (xg, sg, ag) = on_both(
+        lambda device: AIES((D,), target, device=device),
+        lambda s, g: s.make_draws()(g, (), AIES_C), x0)
+    e = max(rel(xg, xc), rel(sg[1].cpu(), sc[1]))
+    print(f"aies step card vs CPU ({AIES_C} x {D}): states and U max|diff| / max(1, max|ref|) "
+          f"{e:.3e}, accepted {ag} / {ac}, masks equal {torch.equal(xg != x0, xc != x0)}")
+    check(e <= 1e-5 and ag == ac and torch.equal(xg != x0, xc != x0),
+          "aies step on the card disagrees with the CPU")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -2690,6 +3183,7 @@ def main() -> None:
     imh = run_imh_phases(dev)
     flows11 = run_flow_sampler_phases(dev)
     mcmc12 = run_mcmc_phases(dev)
+    last13 = run_last_strategy_phases(dev)
 
     kernels = []
 
@@ -2739,7 +3233,8 @@ def main() -> None:
 
     # the IMH path (phases 10-10c) and the flow-reparameterised paths (11-11e)
     path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
-    for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items()):
+    for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items(),
+                          *last13["shapes"].items()):
         path_rows(label, shapes)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
@@ -2776,6 +3271,16 @@ def main() -> None:
           f"({mcmc12['ess_ess_per_s']:.1f} ESS/s), neutra_chees "
           f"{mcmc12['neutra_chees_it_per_s']:.2f} it/s ({mcmc12['neutra_chees_ess_per_s']:.1f} "
           f"ESS/s), {jump12} ({smi.stdout.strip().splitlines()[0]})")
+    dense13 = ", ".join(f"{k} {v[2]:.1f} it/s ({v[0]:.1f} / {v[1]:.1f} ESS/s mean / worst)"
+                        for k, v in last13["dense"].items())
+    pt13 = ", ".join(f"{k} {v[0]:.1f} it/s ({v[3]:.1f} ESS/s, balance error {v[1]:.4f})"
+                     for k, v in last13["pt"].items())
+    print(f"phase 13: {dense13}; worst-direction ESS ratio dense / diagonal hmc "
+          f"{last13['dense_ratios']['hmc']:.2f}, mala {last13['dense_ratios']['mala']:.2f}; "
+          f"{pt13}; aies@{AIES_C} {last13['aies_it_per_s']:.1f} it/s "
+          f"({last13['aies_ess_per_s']:.1f} ESS/s), jump_aies {last13['jump_aies'][0]:.2f} outer "
+          f"it/s ({last13['jump_aies_ess_per_s']:.1f} ESS/s, jump acc "
+          f"{last13['jump_aies'][1]:.4f}) ({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

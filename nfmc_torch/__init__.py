@@ -3,17 +3,18 @@ CUDA kernels for NVIDIA Hopper.
 
 The port of ``nfmc_tpu`` (JAX on a TPU), which stays the reference. Same
 module layout and public names; entry points run on CUDA unless the caller
-passes ``device="cpu"``. Ported so far: ``sample``/``create_sampler`` for
-``imh`` (the default; ``fixed_imh``) and ``adaptive_imh``, with the
-reverse-KL warmup, for ``jump_mala`` and ``jump_ula`` with a RealNVP,
+passes ``device="cpu"``. ``sample``/``create_sampler`` run every strategy of
+``nfmc_tpu``'s registry: ``imh`` (the default; ``fixed_imh``) and
+``adaptive_imh``, with the reverse-KL warmup; the jump samplers
+(``jump_mala``, ``jump_ula``, ``jump_hmc``, ``jump_uhmc``, ``jump_mh``,
+``jump_ess``, ``jump_nuts``, ``jump_chees``, ``jump_aies``) with a RealNVP,
 rational-quadratic spline (``c-rqnsf``) or linear-rational spline
 (``c-lrsnsf``) coupling flow (frozen, fitted by the warmup, or refitted with
-``fit_nf=True``), for ``jump_hmc``, ``jump_uhmc``, ``jump_mh``, ``jump_ess``,
-``jump_nuts`` and ``jump_chees``, for the flow-reparameterised
-``neutra_hmc``, ``neutra_mh`` and ``neutra_chees``, ``tess`` and ``dlmc``,
-and for ``mala``, ``ula``, ``hmc``, ``uhmc``, ``mh``, ``ess``, ``nuts`` and
-``chees_hmc``; the ESS and R-hat diagnostics; every potential of
-``nfmc_tpu.potentials``.
+``fit_nf=True``); the flow-reparameterised ``neutra_hmc``, ``neutra_mh`` and
+``neutra_chees``, ``tess`` and ``dlmc``; and ``mala``, ``ula``, ``hmc``,
+``uhmc``, ``mh``, ``ess``, ``nuts``, ``chees_hmc``, ``dense_hmc``,
+``dense_mala``, ``pt_mala``, ``pt_mh``, ``pt_hmc`` and ``aies``. Also the
+ESS and R-hat diagnostics and every potential of ``nfmc_tpu.potentials``.
 """
 from .api import create_flow_object, create_sampler, parse_flow_string, sample
 from .core import (
@@ -31,7 +32,8 @@ from .core import (
 )
 from . import diagnostics, potentials
 from .flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
-from .samplers.mcmc import ESS, HMC, MALA, MH, NUTS, UHMC, ULA, CheesHMC
+from .samplers.mcmc import (AIES, ESS, HMC, MALA, MH, NUTS, PTHMC, PTMALA, PTRWMH, UHMC, ULA,
+                            CheesHMC, DenseHMC, DenseMALA)
 from .samplers.nfmc import (
     DLMC,
     TESS,
@@ -39,6 +41,7 @@ from .samplers.nfmc import (
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpAIES,
     JumpChEES,
     JumpESS,
     JumpHMC,
@@ -63,5 +66,5 @@ __all__ = [
     "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
     "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
     "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",
-    "NeuTraChEES",
+    "NeuTraChEES", "DenseHMC", "DenseMALA", "PTMALA", "PTRWMH", "PTHMC", "AIES", "JumpAIES",
 ]

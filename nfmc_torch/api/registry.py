@@ -50,10 +50,11 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
 
 
 # Strategies of nfmc_tpu's registry that the port does not run yet, with the
-# ROADMAP item that ports each.
-UNPORTED_STRATEGIES = {s: "1.5" for s in (
-    "pt_mala", "pt_mh", "pt_hmc", "aies", "dense_hmc", "dense_mala", "jump_aies")}
-PORTED_STRATEGIES = ("imh", "fixed_imh", "adaptive_imh", "jump_mala", "jump_ula", "jump_hmc",
-                     "jump_uhmc", "jump_mh", "jump_ess", "jump_nuts", "jump_chees", "mala", "ula",
-                     "hmc", "uhmc", "mh", "ess", "nuts", "chees_hmc", "neutra_hmc", "neutra_mh",
-                     "neutra_chees", "tess", "dlmc")
+# ROADMAP item that ports each: none left.
+UNPORTED_STRATEGIES: dict = {}
+# the MCMC and the NFMC lists of nfmc_tpu/api/registry.py, in their order
+PORTED_STRATEGIES = ("hmc", "uhmc", "ula", "mala", "mh", "ess", "nuts", "pt_mala", "pt_mh",
+                     "pt_hmc", "aies", "chees_hmc", "dense_hmc", "dense_mala",
+                     "imh", "fixed_imh", "adaptive_imh", "jump_mala", "jump_ula", "jump_hmc",
+                     "jump_uhmc", "jump_ess", "jump_mh", "jump_nuts", "jump_aies", "jump_chees",
+                     "neutra_mh", "neutra_hmc", "neutra_chees", "tess", "dlmc")

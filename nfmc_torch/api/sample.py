@@ -14,16 +14,28 @@ from ..core.sampler import NFMCKernel, Sampler
 from ..flows import Flow
 from ..potentials import Potential
 from ..samplers.mcmc import (
+    AIES,
     ESS,
     HMC,
     MALA,
     MH,
     NUTS,
+    PTHMC,
+    PTMALA,
+    PTRWMH,
     UHMC,
     ULA,
+    AIESKernel,
+    AIESParameters,
     CheesHMC,
     CheesHMCKernel,
     CheesHMCParameters,
+    DenseHMC,
+    DenseHMCKernel,
+    DenseHMCParameters,
+    DenseLangevinKernel,
+    DenseLangevinParameters,
+    DenseMALA,
     ESSKernel,
     ESSParameters,
     HMCKernel,
@@ -34,6 +46,8 @@ from ..samplers.mcmc import (
     MHParameters,
     NUTSKernel,
     NUTSParameters,
+    PTKernel,
+    PTParameters,
 )
 from ..samplers.nfmc import (
     DLMC,
@@ -44,6 +58,7 @@ from ..samplers.nfmc import (
     FixedIMH,
     IMHKernel,
     IMHParameters,
+    JumpAIES,
     JumpChEES,
     JumpESS,
     JumpHMC,
@@ -62,7 +77,7 @@ from ..samplers.nfmc import (
     TESSParameters,
 )
 from ..utils import resolve_device
-from .registry import PORTED_STRATEGIES, UNPORTED_STRATEGIES, create_flow_object
+from .registry import PORTED_STRATEGIES, create_flow_object
 
 
 def create_sampler(
@@ -79,10 +94,6 @@ def create_sampler(
     flow_kwargs: Optional[dict] = None,
 ) -> Sampler:
     """Build a Sampler for ``strategy`` on ``device``."""
-    if strategy in UNPORTED_STRATEGIES:
-        raise NotImplementedError(
-            f"strategy {strategy!r} is not ported to nfmc_torch yet "
-            f"(ROADMAP {UNPORTED_STRATEGIES[strategy]}); ported: {', '.join(PORTED_STRATEGIES)}")
     if strategy not in PORTED_STRATEGIES:
         raise ValueError(f"Unsupported sampling strategy: {strategy}")
     device = resolve_device(device)
@@ -118,6 +129,20 @@ def create_sampler(
     if strategy == "chees_hmc":
         return CheesHMC(event_shape, target, CheesHMCKernel(event_size=event_size, **kernel_kwargs),
                         CheesHMCParameters(**param_kwargs), device=device)
+    if strategy == "dense_hmc":
+        return DenseHMC(event_shape, target, DenseHMCKernel(event_size=event_size, **kernel_kwargs),
+                        DenseHMCParameters(**param_kwargs), device=device)
+    if strategy == "dense_mala":
+        return DenseMALA(event_shape, target,
+                         DenseLangevinKernel(event_size=event_size, **kernel_kwargs),
+                         DenseLangevinParameters(**param_kwargs), device=device)
+    if strategy == "aies":
+        return AIES(event_shape, target, AIESKernel(event_size=event_size, **kernel_kwargs),
+                    AIESParameters(**param_kwargs), device=device)
+    if strategy in ("pt_mala", "pt_mh", "pt_hmc"):
+        cls = {"pt_mala": PTMALA, "pt_mh": PTRWMH, "pt_hmc": PTHMC}[strategy]
+        return cls(event_shape, target, PTKernel(event_size=event_size, **kernel_kwargs),
+                   PTParameters(**param_kwargs), device=device)
     if strategy == "ess":
         if negative_log_likelihood is None:
             raise ValueError("Negative log likelihood must be provided")
@@ -163,6 +188,10 @@ def create_sampler(
             cls = JumpMH
             inner_kernel = MHKernel(event_size=event_size, **inner_kernel_kwargs)
             inner_params = MHParameters(**inner_param_kwargs)
+        elif inner == "aies":
+            cls = JumpAIES
+            inner_kernel = AIESKernel(event_size=event_size, **inner_kernel_kwargs)
+            inner_params = AIESParameters(**inner_param_kwargs)
         elif inner == "ess":
             if negative_log_likelihood is None:
                 raise ValueError("Negative log likelihood must be provided")

@@ -205,3 +205,38 @@ class JumpNFMCStatistics(MCMCStatistics):
 
     def as_dict(self) -> dict:
         return {**super().as_dict(), "jump_acceptance_rate": self.jump_acceptance_rate}
+
+
+@dataclass
+class PTStatistics(MCMCStatistics):
+    """Adds the replica-exchange swap counters: the trajectory counters cover
+    the cold rung (what a user consumes), the swap counters every edge of
+    the ladder."""
+
+    n_accepted_swaps: int = 0
+    n_attempted_swaps: int = 0
+
+    @property
+    def swap_acceptance_rate(self) -> float:
+        if self.n_attempted_swaps == 0:
+            return math.nan
+        return self.n_accepted_swaps / self.n_attempted_swaps
+
+    def update_counters(self, *, n_accepted_swaps: int = 0, n_attempted_swaps: int = 0,
+                        **kwargs) -> None:
+        # keyword-only, as JumpNFMCStatistics.update_counters
+        super().update_counters(**kwargs)
+        self.n_accepted_swaps += int(n_accepted_swaps)
+        self.n_attempted_swaps += int(n_attempted_swaps)
+
+    def __repr__(self) -> str:
+        return (
+            f"cold acc-rate: {self.acceptance_rate:.2f}, "
+            f"swap acc-rate: {self.swap_acceptance_rate:.2f}, "
+            f"kcalls/s: {self.calls_per_second / 1000:.2f}, "
+            f"kgrads/s: {self.grads_per_second / 1000:.2f}, "
+            f"divergences: {self.n_divergences}"
+        )
+
+    def as_dict(self) -> dict:
+        return {**super().as_dict(), "swap_acceptance_rate": self.swap_acceptance_rate}

@@ -120,6 +120,20 @@ class MCMCSampler(Sampler):
     def _extract_mstate(self, state):
         return state[0] if isinstance(state, tuple) else state
 
+    def _make_output(self) -> MCMCOutput:
+        """The run's output; samplers with further counters (PT's swaps)
+        give their own statistics."""
+        return MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
+                          on_device=self.params.store_samples_on_device)
+
+    def _post_run(self, out: MCMCOutput) -> None:
+        """Called after the run and the kernel's sync (PT folds its swap
+        counters into the output's statistics)."""
+
+    def _stash_final_carry(self, mstate) -> None:
+        """Keeps what a continuation starts from of the run's final carried
+        state: nothing here; PT keeps its hot rungs."""
+
     def _make_precompute(self, tuning: bool) -> Optional[Callable]:
         """``(x, state, draws) -> aux`` or None: work of a chunk's steps that
         does not depend on the chain state, done in one pass up front (aux
@@ -202,8 +216,7 @@ class MCMCSampler(Sampler):
              time_limit_seconds, generator: torch.Generator, desc: str) -> MCMCOutput:
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
         n_chains = x0.shape[0]
-        out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
-                         on_device=self.params.store_samples_on_device)
+        out = self._make_output()
         mstate = self._augment_state(self.kernel.make_state(self.device), x0)
         per_iter = self.hoisted_elements_per_iter(x0)
         driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws(),
@@ -219,5 +232,7 @@ class MCMCSampler(Sampler):
             show_progress=show_progress, desc=desc,
         )
         self.kernel.sync_from_state(self._extract_mstate(mstate))
+        self._stash_final_carry(mstate)
         out.kernel = self.kernel
+        self._post_run(out)
         return out

@@ -30,6 +30,10 @@ from ...utils import event_size_of, flatten_event, sum_except_batch, value_and_b
 from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
 
 
+# HMC's jitter fraction: the drawn step scales apply as they are
+HMC_JITTER = 1.0
+
+
 @dataclass
 class HMCKernel(MetropolisKernel):
     n_leapfrog_steps: int = 20
@@ -85,6 +89,12 @@ class HMC(MCMCSampler):
 
         return draws
 
+    # ---- metric hooks (the dense-metric samplers override them) -------------
+    def _jitter_frac(self, mstate):
+        """Multiplier on the step jitter: 1 here; DenseHMC gates it by its
+        adapted metric's state."""
+        return HMC_JITTER
+
     def _momentum(self, mstate, p_raw):
         """Raw normals ``(B, event_size)`` -> momenta ``p ~ N(0, M)``, flat."""
         return p_raw / torch.sqrt(mstate.inv_mass_diag)[None]
@@ -98,16 +108,24 @@ class HMC(MCMCSampler):
         return 0.5 * sum_except_batch(self._precondition(mstate, p) * p, self.event_shape)
 
     def make_propose_aux(self):
+        return self._build_propose_aux(self._momentum, self._precondition, self._kinetic,
+                                       self._jitter_frac)
+
+    def _build_propose_aux(self, momentum, precondition, kinetic, jitter_frac):
+        """The proposal with the metric hooks given (DenseHMC builds its
+        dense or its scalar form)."""
         event_shape = self.event_shape
         adjustment = self.params.adjustment
         n_leapfrog = self.kernel.n_leapfrog_steps
         u_and_grad = value_and_batched_grad(self.target)
-        momentum, precondition, kinetic = self._momentum, self._precondition, self._kinetic
 
         def propose(x, mstate, draws):
             n_chains = x.shape[0]
             p_raw, log_u, eps_scale = draws
-            eps = mstate.step_size * eps_scale.reshape((n_chains,) + (1,) * len(event_shape))
+            jf = jitter_frac(mstate)
+            # 1 + (s - 1) * 1 is s itself: HMC keeps its scales as drawn
+            scale = eps_scale if jf is HMC_JITTER else 1.0 + (eps_scale - 1.0) * jf
+            eps = mstate.step_size * scale.reshape((n_chains,) + (1,) * len(event_shape))
             p0 = momentum(mstate, p_raw).reshape(x.shape)
             # one gradient a position: L + 1 passes; the first and the last
             # also give U at the trajectory's ends

@@ -48,6 +48,7 @@ from ...core.tuning import train_val_split
 from ...flows.train import fixed_effort_fit_config, make_scan_fit
 from ...utils import Progress, metropolis_acceptance_log_ratio, unevaluable_current_mask
 from ..mcmc.chees import CheesHMC
+from ..mcmc.ensemble import AIES
 from ..mcmc.ess import ESS
 from ..mcmc.hmc import HMC, UHMC
 from ..mcmc.langevin import MALA, ULA
@@ -556,4 +557,16 @@ class JumpChEES(JumpNFMC):
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
                          CheesHMC(event_shape, target, inner_kernel, inner_params, device=device),
+                         kernel, params, device=device)
+
+
+class JumpAIES(JumpNFMC):
+    """Flow jumps interleaved with the affine-invariant ensemble's stretch
+    moves (gradient-free); a jump leaves the carried U(x) stale, and the
+    runner's state refresh after each jump recomputes it."""
+
+    def __init__(self, event_shape, target, kernel=None, params=None,
+                 inner_kernel=None, inner_params=None, device=None):
+        super().__init__(event_shape, target,
+                         AIES(event_shape, target, inner_kernel, inner_params, device=device),
                          kernel, params, device=device)

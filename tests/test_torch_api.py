@@ -1,8 +1,9 @@
 """The port's front door and its hygiene: it runs on the CPU when asked,
 raises without a card otherwise, names the ROADMAP item of what it does
 not run yet, and imports nothing of JAX or of nfmc_tpu. The sweep over
-the ported strategies covers ess, nuts, chees_hmc, jump_ess, jump_nuts,
-jump_chees and neutra_chees at a tiny size."""
+the strategies of ROADMAP 1.5 (ess, nuts, chees_hmc, dense_hmc,
+dense_mala, pt_mala, pt_mh, pt_hmc, aies, and the jump and NeuTra
+variants) runs each at a tiny size."""
 import ast
 import subprocess
 import sys
@@ -96,27 +97,30 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
                            "dense_hmc", "dense_mala", "jump_ess", "jump_nuts", "jump_aies",
                            "jump_chees", "neutra_chees"))])
 def test_unported_strategies_name_their_roadmap_item(strategy, item):
-    """The strategies of ROADMAP 1.5 that are still to port raise, naming
-    it; the ones ported since (ess, nuts, chees_hmc, their jump variants and
-    neutra_chees) run on the CPU."""
-    if strategy in nfmc_torch.api.registry.PORTED_STRATEGIES:
-        kw = {"negative_log_likelihood": StandardGaussian((3,))} if "ess" in strategy else {}
-        out = _run(strategy=strategy, **kw)
-        assert out.samples.device.type == "cpu" and torch.isfinite(out.samples).all()
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _run(strategy=strategy)
+    """The strategies of ROADMAP 1.5 are all ported now: each runs on the
+    CPU through the front door and none is listed as unported."""
+    assert strategy in nfmc_torch.api.registry.PORTED_STRATEGIES
+    assert strategy not in nfmc_torch.api.registry.UNPORTED_STRATEGIES
+    kw = {"negative_log_likelihood": StandardGaussian((3,))} if "ess" in strategy else {}
+    out = _run(strategy=strategy, **kw)
+    assert out.samples.device.type == "cpu" and torch.isfinite(out.samples).all()
 
 
 def test_the_unported_strategies_are_exactly_the_rest_of_roadmap_1_5():
+    """No strategy of the JAX package's registry is left to port: the port's
+    list is the JAX package's MCMC and NFMC lists."""
     registry = nfmc_torch.api.registry
-    assert set(registry.UNPORTED_STRATEGIES) == {"pt_mala", "pt_mh", "pt_hmc", "aies",
-                                                 "dense_hmc", "dense_mala", "jump_aies"}
-    assert not set(registry.UNPORTED_STRATEGIES) & set(registry.PORTED_STRATEGIES)
+    assert registry.UNPORTED_STRATEGIES == {}
+    assert registry.PORTED_STRATEGIES == (
+        "hmc", "uhmc", "ula", "mala", "mh", "ess", "nuts", "pt_mala", "pt_mh", "pt_hmc", "aies",
+        "chees_hmc", "dense_hmc", "dense_mala", "imh", "fixed_imh", "adaptive_imh", "jump_mala",
+        "jump_ula", "jump_hmc", "jump_uhmc", "jump_ess", "jump_mh", "jump_nuts", "jump_aies",
+        "jump_chees", "neutra_mh", "neutra_hmc", "neutra_chees", "tess", "dlmc")
 
 
 @pytest.mark.parametrize("strategy", ["ess", "nuts", "chees_hmc", "jump_ess", "jump_nuts",
-                                      "jump_chees", "neutra_chees"])
+                                      "jump_chees", "neutra_chees", "dense_hmc", "dense_mala",
+                                      "pt_mala", "pt_mh", "pt_hmc", "aies", "jump_aies"])
 def test_the_new_strategies_default_to_the_card(monkeypatch, strategy):
     """Without a card the default device raises for each new strategy, and
     an explicit ``device="cuda"`` does too: nothing falls back to the
