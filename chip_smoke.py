@@ -204,6 +204,25 @@ Phases, in order; any failure exits non-zero before the last line:
      max |ref|, the mode equal), two tuning ladder steps of PT-MALA, PT-MH
      (to 1e-5) and PT-HMC (to 1e-4) with equal swaps, and an AIES step at
      1024 x 100 (to 1e-5, masks equal).
+  14. the flows without a kernel (phase 14 owns its launch counts: each
+     of the four kernels must launch 0 times for these flows), at d=100 and
+     each flow's default widths, weights moved ZOO_PERTURB N(0, 1) from
+     the init (zoo_weights): 14a each of the 22 canonical names (nice,
+     maf, iaf, the masked splines, the nine NAF flows, the six residual
+     flows), forward and inverse at B=100 on the card against the CPU (run
+     in worker processes beside the card) within the stated tolerances,
+     the round trip, each direction's ms once the workers have ended,
+     after a discarded first call (a masked NAF flow's sequential direction
+     on its first call); 14b self-target IMH (the frozen
+     flow as proposal and target, 100 chains, 21 iterations; the masked
+     NAF flows 1): acceptance >= 1 - max(0.01, 1.5 times the JAX package's
+     highest rejection rate); 14c IMH with warmup=True through IAF on
+     DiagonalGaussian1(100), 1000 iterations: acceptance above the
+     identity IAF's and in a JAX band, the moments in JAX bands, ESS/s,
+     it/s and ms an Adam step; 14d jump_mala with the identity-init NICE
+     frozen on N(0.12 * 1, I): jump acceptance in [0.30, 0.50]; 14e the
+     repaired faults on the card (sample() with mesh / checkpoint_* None,
+     fused_unroll_outer=4, sample_continue, Flow.sample(3, True)).
 Each path's launch counts are set to 0 just before it and read just after;
 every shape the IMH path (10-10c) and the paths of phases 11-13 launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and has its
@@ -220,7 +239,9 @@ Needs no JAX, no network, and exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import json
+import multiprocessing
 import re
 import statistics
 import subprocess
@@ -500,6 +521,139 @@ AIES_JAX = {"acc": (0.292517, 0.299679), "a": (1.358011, 1.368737),
 JUMP_AIES_JAX = {"jump acc": (0.406719, 0.445000), "inner acc": (0.130375, 0.133125)}
 
 
+# Phase 14: the flows without a kernel (NICE, the masked, NAF and residual
+# flows), at d = D and each flow's default widths (MAF / IAF and the masked
+# splines 2 layers of a 2 x 128 MADE; NICE and c-naf-* 2 coupling layers of
+# hidden 128; NAF 8 (deep) or 4 (dense) components; the residual blocks 4
+# layers of hidden 64, so the exact log-det; planar and radial 8 layers,
+# Sylvester 4 with m = 8). Weights: the port's CPU init at ZOO_SEED plus
+# ZOO_PERTURB N(0, 1) numpy noise from ZOO_SEED (zoo_weights), as
+# tests/test_flow_zoo.py perturbs the JAX zoo's.
+ZOO_NAMES = ("nice", "maf", "iaf", "ma-rqnsf", "ia-rqnsf", "ma-lrsnsf", "ia-lrsnsf",
+             "c-naf-deep", "c-naf-dense", "c-naf-deep-dense", "ma-naf-deep", "ma-naf-dense",
+             "ma-naf-deep-dense", "ia-naf-deep", "ia-naf-dense", "ia-naf-deep-dense",
+             "i-resnet", "resflow", "proximal-resflow", "planar", "radial", "sylvester")
+ZOO_PERTURB, ZOO_SEED, ZOO_B = 0.1, 13, 100
+# 14a: card against CPU. The closed-form directions to TOL * max(1,
+# max|ref|). The iterative ones (NAF bisection, the residual fixed point,
+# planar / radial bisection, Sylvester's Newton solve) to ZOO_ITER_TOL: each
+# stops at a root that rounding moves by a few float32 ulps of the
+# conditioner's output, and a masked flow's d = 100 sequential dims feed
+# each dim's rounding into the next dim's conditioner. The round trip
+# x -> z -> x on the card to ZOO_ROUND_TRIP.
+ZOO_ITER_TOL, ZOO_ROUND_TRIP = 1e-3, 1e-3
+# One direction alone, ia-naf-deep-dense's forward (a bisection), to
+# ZOO_SATURATED_TOL and its round trip to ZOO_SATURATED_ROUND_TRIP: at these
+# weights its mixtures near the clamp 1 - 1e-6, where float32 holds 1 - p
+# to a few percent (its ulp near 1 is 6e-8), so y = logit(p) and the
+# log-det carry rounding of ~1e-2 there on any device. The CPU's own
+# float32 run of that direction lies 5.5e-4 of max(1, max|ref|) from
+# float64 and its round trip ends 1.8e-3 from its start; every other
+# direction of every flow lies within 3.7e-6 and every other round trip
+# within 1.3e-4 (scripts/flow_zoo_reference_cpu.py --drift). Two float32
+# runs may part by twice the drift.
+ZOO_SATURATED = ("ia-naf-deep-dense", "forward")
+ZOO_SATURATED_TOL, ZOO_SATURATED_ROUND_TRIP = 2e-3, 1e-2
+# the CPU side of 14a runs in these worker processes, beside the card
+ZOO_CPU_WORKERS = 3
+# 14b: self-target IMH, ZOO_SELF_ITERS iterations (FixedIMH's hoisted chunks
+# of 1, 4 and 16 iterations) at 100 chains; 14c: IMH with the reverse-KL
+# warmup through IAF on DiagonalGaussian1(100), 1000 iterations; 14d:
+# jump_mala with the identity-init NICE frozen, 500 outer iterations, on
+# N(0.12 * 1, I)
+ZOO_SELF_ITERS, ZOO_IAF_ITERS, ZOO_NICE_OUTER = 21, 1000, 500
+# the masked NAF flows' slow direction (ma-naf-* inverse, ia-naf-* forward)
+# is d sequential bisections of 66 steps, 1.5e5-3.1e5 eager operations a
+# call at d = 100 (scripts/flow_zoo_reference_cpu.py --ops): their 14b runs
+# one iteration, one hoisted chunk (a cut of iterations, not of widths)
+ZOO_SELF_ITERS_NAF = 1
+# 14b's gate: acceptance >= 1 - max(0.01, 1.5 times the JAX package's
+# highest rejection rate over seeds 0-7 at the same configuration)
+# (scripts/flow_zoo_reference_cpu.py --self-target); 1.0 where it never
+# rejected
+ZOO_SELF_REJECT_JAX = {name: 0.0 for name in ZOO_NAMES}
+ZOO_SELF_REJECT_JAX.update({"ia-rqnsf": 0.000476, "ia-lrsnsf": 0.000476})
+ZOO_SELF_ACC = {name: 1.0 - max(0.01, 1.5 * r) for name, r in ZOO_SELF_REJECT_JAX.items()}
+# 14c's bands, from scripts/flow_zoo_reference_cpu.py --iaf (the JAX package
+# on the CPU at the same configuration, seeds 0-7): acceptance 0.2623-0.4727
+# (the identity IAF's at most 0.010550), the band from half the low to 1.5
+# times the high; the medians over the dims of |var / sigma^2 - 1| reach
+# 0.0185 and of |mean| / sigma 0.0120, gated at 1.5 times those; the
+# variance ratio spans 0.9378-1.0852, gated from half the lowest to 1.5
+# times the highest excess (as phase 10b)
+ZOO_IAF_ACC_JAX = "0.2623-0.4727"
+ZOO_IAF_ACC = (0.1312, 0.7091)
+ZOO_IAF_MOMENTS = {"median|var/sigma^2 - 1|": (0.0, 0.0278), "median|mean|/sigma": (0.0, 0.0180),
+                   "min var/sigma^2": (0.4689, float("inf")), "max var/sigma^2": (0.0, 1.1278)}
+
+
+def zoo_masked_naf(name: str) -> bool:
+    """Whether phase 14's flow ``name`` is a masked NAF flow."""
+    return name[:3] in ("ma-", "ia-") and "naf" in name
+
+
+def zoo_self_iters(name: str) -> int:
+    """Phase 14b's iterations for flow ``name``."""
+    return ZOO_SELF_ITERS_NAF if zoo_masked_naf(name) else ZOO_SELF_ITERS
+
+
+def zoo_iterative(name: str, inverse: bool) -> bool:
+    """Whether phase 14's flow ``name`` solves for the direction."""
+    if "naf" in name:
+        return inverse != name.startswith("ia-")
+    return inverse and name in ("i-resnet", "resflow", "proximal-resflow", "planar", "radial",
+                                "sylvester")
+
+
+def zoo_tol(name: str, inverse: bool) -> float:
+    """Phase 14a's card-against-CPU tolerance, relative to max(1, max|ref|)."""
+    if (name, "inverse" if inverse else "forward") == ZOO_SATURATED:
+        return ZOO_SATURATED_TOL
+    return ZOO_ITER_TOL if zoo_iterative(name, inverse) else TOL
+
+
+def zoo_round_trip_tol(name: str) -> float:
+    """Phase 14a's bound on |inverse(forward(x)) - x| for flow ``name``."""
+    return ZOO_SATURATED_ROUND_TRIP if name == ZOO_SATURATED[0] else ZOO_ROUND_TRIP
+
+
+def zoo_inputs():
+    """Phase 14a's rows: x for the forward, z for the inverse, N(0, I)."""
+    rng = np.random.default_rng(ZOO_SEED)
+    return tuple(rng.standard_normal((ZOO_B, D)).astype(np.float32) for _ in range(2))
+
+
+def zoo_cpu_reference(name: str) -> dict:
+    """Phase 14a's CPU side for flow ``name`` (run in a worker process):
+    ``{"forward": (y, ld), "inverse": (x, ld)}`` as numpy."""
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.flows import from_jax_params
+
+    torch.set_num_threads(2)
+    flow = create_flow_object(name, (D,), seed=0)
+    flow.params = from_jax_params(zoo_weights(name))
+    x, z = (torch.from_numpy(v) for v in zoo_inputs())
+    with torch.no_grad():
+        return {"forward": tuple(t.numpy() for t in flow.bijection.forward_fn(flow.params, x)),
+                "inverse": tuple(t.numpy() for t in flow.bijection.inverse_fn(flow.params, z))}
+
+
+def zoo_weights(name: str, seed: int = ZOO_SEED, pert: float = ZOO_PERTURB):
+    """Phase 14's weights of flow ``name`` as a tree of float32 numpy arrays
+    (the layout both packages share): the port's init on the CPU at
+    ``seed``, every array moved by ``pert`` N(0, 1) numpy noise from
+    ``seed``. ``scripts/flow_zoo_reference_cpu.py`` loads the same arrays
+    into the JAX package."""
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.utils import tree_leaves, tree_unflatten
+
+    params = create_flow_object(name, (D,), seed=seed).params
+    rng = np.random.default_rng(seed)
+    return tree_unflatten(params, [
+        (t.numpy() + pert * rng.standard_normal(tuple(t.shape))).astype(np.float32)
+        for t in tree_leaves(params)])
+
+
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -669,9 +823,9 @@ def flat_params(params):
 def packed_flat(params):
     """The weights flat on the CPU in the kernels' packed order, the order
     of a training step's flat gradient."""
-    from nfmc_torch.ops.coupling import _leaves
+    from nfmc_torch.utils import tree_leaves
 
-    return torch.cat([t.detach().reshape(-1).cpu() for t in _leaves(params)])
+    return torch.cat([t.detach().reshape(-1).cpu() for t in tree_leaves(params)])
 
 
 class RecordingNumpy:
@@ -842,9 +996,10 @@ def flat_grad(flow, params, x, dtype=torch.float32) -> torch.Tensor:
     """The MLE loss's gradient in the flat weights (the refit's Adam step's
     gradient), in ``dtype``, on ``x``'s device."""
     from nfmc_torch.flows import train as train_mod
-    from nfmc_torch.ops.coupling import _leaves, unpack_like
+    from nfmc_torch.ops.coupling import unpack_like
+    from nfmc_torch.utils import tree_leaves
 
-    th = torch.cat([t.detach().reshape(-1) for t in _leaves(params)]).to(dtype)
+    th = torch.cat([t.detach().reshape(-1) for t in tree_leaves(params)]).to(dtype)
     th.requires_grad_(True)
     loss = train_mod._nll(flow, unpack_like(th, params), x.to(dtype))
     return torch.autograd.grad(loss, th)[0].detach()
@@ -1164,11 +1319,12 @@ def check_vjp(what, vjp, ref, tol, spline=None) -> tuple:
     with their cotangents zero; every row off the gate must be one of them."""
     from nfmc_torch.ops import coupling as cops
     from nfmc_torch.ops import spline as sops
+    from nfmc_torch.utils import tree_leaves
 
     got, again = vjp(), vjp()
     torch.cuda.synchronize()
     same = torch.equal(got[0], again[0]) and all(
-        torch.equal(a, b) for a, b in zip(cops._leaves(got[1]), cops._leaves(again[1])))
+        torch.equal(a, b) for a, b in zip(tree_leaves(got[1]), tree_leaves(again[1])))
     if spline is None:
         rel, scale, rows = cops.vjp_error(got, ref)
         text = (f"max|diff| {rel * scale:.3e} (scale max(1, max|ref|) = {scale:.2f}, relative "
@@ -2866,6 +3022,205 @@ def run_last_card_vs_cpu(dev) -> None:
           "aies step on the card disagrees with the CPU")
 
 
+def run_flow_zoo_phases(dev) -> dict:
+    """Phases 14-14e: the flows without a kernel (NICE, the masked, NAF and
+    residual flows) on the card against the CPU, as self-target IMH
+    proposals, IAF's reverse-KL warmup through the front door, jump_mala
+    with NICE, and the repaired front-door faults. None of these flows may
+    launch one of the four kernels."""
+    import nfmc_torch
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.flows import from_jax_params
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import CallablePotential, DiagonalGaussian, DiagonalGaussian1
+
+    def counts():
+        return {w.__name__: w.launches for w in build.WRAPPERS}
+
+    def no_kernel(what):
+        check(all(n == 0 for n in counts().values()),
+              f"{what}: a RealNVP or spline kernel launched for a flow without one: {counts()}")
+
+    res = {"ms": {}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    build.reset_launch_counts()
+
+    # ---- 14a. each flow, card against CPU at the same weights ----------------------
+    # The CPU side runs in worker processes while the card makes a first call
+    # of each direction, discarded; once the workers have ended, each
+    # direction's call is timed. A masked NAF flow's sequential direction
+    # (ma-naf-* inverse, ia-naf-* forward: 1.6-3.8 s of host dispatch a call)
+    # is called once, timed: by then its flow's other direction has run its
+    # conditioner and masks, and the coupling NAF flows' inverses the same
+    # bisection.
+    x_np, z_np = zoo_inputs()
+    inputs = {"forward": x_np, "inverse": z_np}
+    order = sorted(ZOO_NAMES, key=lambda n: "naf" not in n or n.startswith("c-"))
+    ctx = multiprocessing.get_context("spawn")
+
+    def call(flow, direction):
+        bij = flow.bijection
+        fn = bij.inverse_fn if direction == "inverse" else bij.forward_fn
+        return fn(flow.params, torch.from_numpy(inputs[direction]).to(dev))
+
+    def once(name, direction):
+        return zoo_masked_naf(name) and zoo_iterative(name, direction == "inverse")
+
+    flows, outs = {}, {}
+    with torch.no_grad():
+        with concurrent.futures.ProcessPoolExecutor(ZOO_CPU_WORKERS, mp_context=ctx) as pool:
+            futures = {name: pool.submit(zoo_cpu_reference, name) for name in order}
+            for name in ZOO_NAMES:
+                flow = flows[name] = create_flow_object(name, (D,), seed=0)
+                flow.params = from_jax_params(zoo_weights(name), device=dev)
+                for direction in ("forward", "inverse"):
+                    if not once(name, direction):
+                        outs[name, direction] = call(flow, direction)
+            refs = {name: f.result() for name, f in futures.items()}
+        for name in ZOO_NAMES:
+            for direction in ("forward", "inverse"):
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = call(flows[name], direction)
+                e1.record()
+                e1.synchronize()
+                res["ms"][name, direction] = e0.elapsed_time(e1)
+                outs.setdefault((name, direction), out)
+        no_kernel("14a")
+        for name in ZOO_NAMES:
+            line = []
+            for direction in ("forward", "inverse"):
+                y, ld = outs[name, direction]
+                check(y.device.type == "cuda" and ld.device.type == "cuda",
+                      f"{name}: the flow left the card")
+                check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
+                      f"{name} {direction}: non-finite output")
+                (y, ld), (y_ref, ld_ref) = (y.cpu().numpy(), ld.cpu().numpy()), refs[name][direction]
+                e = max(float(np.abs(y - y_ref).max()), float(np.abs(ld - ld_ref).max()))
+                scale = max(1.0, float(np.abs(y_ref).max()), float(np.abs(ld_ref).max()))
+                tol = zoo_tol(name, direction == "inverse")
+                line.append(f"{direction} {res['ms'][name, direction]:.3f} ms"
+                            f"{' (its first call)' if once(name, direction) else ''}, card vs CPU "
+                            f"{e:.3e} (scale {scale:.1f}, tol {tol:g})")
+                check(e <= tol * scale, f"{name} {direction}: card and CPU differ by {e} > "
+                                        f"{tol} * {scale}")
+            # the round trip through the cheap direction second
+            bij, params = flows[name].bijection, flows[name].params
+            if name.startswith("ia-"):
+                back = bij.inverse_fn(params, outs[name, "forward"][0])[0]
+                rt = (back.cpu() - torch.from_numpy(x_np)).abs().max().item()
+            else:
+                back = bij.forward_fn(params, outs[name, "inverse"][0])[0]
+                rt = (back.cpu() - torch.from_numpy(z_np)).abs().max().item()
+            rt_tol = zoo_round_trip_tol(name)
+            print(f"14a {name} (d={D}, B={ZOO_B}, 0 kernel launches a call): " + "; ".join(line)
+                  + f"; round trip {rt:.3e} (tol {rt_tol:g})")
+            check(rt <= rt_tol, f"{name}: the round trip ends {rt} from its start (> {rt_tol})")
+    no_kernel("14a's round trips")
+    print(f"14a: kernel launches {counts()}, {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+    # ---- 14b. self-target IMH: a frozen perturbed flow is proposal and target ---------
+    for name in ZOO_NAMES:
+        flow = create_flow_object(name, (D,), seed=0)
+        flow.params = from_jax_params(zoo_weights(name), device=dev)
+        frozen = flow.params
+        t0 = time.perf_counter()
+        n_it = zoo_self_iters(name)
+        sout = nfmc_torch.sample(
+            CallablePotential(lambda x, flow=flow, frozen=frozen: -flow.log_prob_fn(frozen, x),
+                              (D,)),
+            flow=flow, n_chains=C, n_iterations=n_it, seed=0, show_progress=False,
+            param_kwargs={"store_samples_on_device": True})
+        torch.cuda.synchronize()
+        sacc = sout.statistics.acceptance_rate
+        lo = ZOO_SELF_ACC[name]
+        print(f"14b {name} self-target IMH ({n_it} it, {C} chains): acc {sacc:.6f} "
+              f"(gate >= {lo:.4f}), wall {time.perf_counter() - t0:.3f} s")
+        check(sout.samples.device.type == "cuda" and bool(torch.isfinite(sout.samples).all()),
+              f"{name} self-target IMH: non-finite draws or draws off the card")
+        check(sacc >= lo, f"{name} self-target IMH acceptance {sacc} < {lo}: the flow's "
+                          "forward, inverse and log-det disagree")
+        no_kernel(f"{name} self-target IMH")
+
+    # ---- 14c. IMH with the reverse-KL warmup through IAF ----------------------------
+    target = DiagonalGaussian1(D)
+    sigma = target.sigma.astype(np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Instrument() as ins:
+        wout = nfmc_torch.sample(target, flow="iaf", n_chains=C, n_iterations=ZOO_IAF_ITERS,
+                                 warmup=True, param_kwargs={"store_samples_on_device": True},
+                                 seed=0, show_progress=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sample_s = wall - ins.vfit_s
+    acc = wout.statistics.acceptance_rate
+    ratio = wout.variance / sigma ** 2
+    z = np.abs(wout.mean) / sigma
+    moments = {"median|var/sigma^2 - 1|": float(np.median(np.abs(ratio - 1))),
+               "min var/sigma^2": float(ratio.min()), "max var/sigma^2": float(ratio.max()),
+               "median|mean|/sigma": float(np.median(z))}
+    ident = nfmc_torch.sample(target, flow="iaf", n_chains=C, n_iterations=ZOO_IAF_ITERS,
+                              seed=0, show_progress=False).statistics.acceptance_rate
+    ess_s = ess_per_second(wout, sample_s, max_window=4096, what="14c IAF IMH")
+    print(f"14c IAF IMH with warmup on DiagonalGaussian1({D}), {ZOO_IAF_ITERS} it: wall "
+          f"{wall:.3f} s, of which variational fit {ins.vfit_s:.3f} s over {ins.vfit_epochs} "
+          f"Adam steps ({1e3 * ins.vfit_s / max(ins.vfit_epochs, 1):.3f} ms a step), sampling "
+          f"{ZOO_IAF_ITERS / sample_s:.1f} it/s; acc {acc:.4f} (JAX package, CPU: "
+          f"{ZOO_IAF_ACC_JAX}), identity IAF {ident:.6f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in moments.items()) + f" ({smi})")
+    check(wout.samples.device.type == "cuda", "14c: the draws left the card")
+    check(acc > ident, f"IAF IMH acceptance after warmup {acc} not above the identity's {ident}")
+    check(ZOO_IAF_ACC[0] <= acc <= ZOO_IAF_ACC[1],
+          f"IAF IMH acceptance after warmup {acc} outside {ZOO_IAF_ACC}")
+    for k, (lo, hi) in ZOO_IAF_MOMENTS.items():
+        check(lo <= moments[k] <= hi, f"IAF IMH after warmup: {k} {moments[k]} outside "
+                                      f"[{lo}, {hi}]")
+    no_kernel("14c IAF IMH")
+    res["iaf"] = (ZOO_IAF_ITERS / sample_s, ess_s, 1e3 * ins.vfit_s / max(ins.vfit_epochs, 1))
+
+    # ---- 14d. jump_mala with the identity-init NICE frozen, the misfit target ---------
+    t0 = time.perf_counter()
+    nout = nfmc_torch.sample(
+        DiagonalGaussian(np.full(D, 0.12, np.float32), np.float32(1.0)), strategy="jump_mala",
+        flow="nice", n_chains=C, n_iterations=ZOO_NICE_OUTER,
+        inner_param_kwargs={"n_iterations": INNER_N}, seed=0, show_progress=False)
+    torch.cuda.synchronize()
+    jacc = nout.statistics.jump_acceptance_rate
+    print(f"14d jump_mala with NICE (identity init, frozen) on N(0.12*1, I), {ZOO_NICE_OUTER} "
+          f"outer it: jump acc {jacc:.4f}, MALA acc {nout.statistics.acceptance_rate:.4f}, "
+          f"wall {time.perf_counter() - t0:.3f} s")
+    check(0.30 <= jacc <= 0.50, f"NICE misfit jump acceptance {jacc} outside [0.30, 0.50]")
+    no_kernel("14d jump_mala with NICE")
+
+    # ---- 14e. the repaired faults on the card ---------------------------------------
+    from nfmc_torch.potentials import StandardGaussian
+
+    out = nfmc_torch.sample(StandardGaussian((D,)), n_chains=C, n_iterations=5, mesh=None,
+                            checkpoint_path=None, checkpoint_segment_iterations=None,
+                            checkpoint_save_samples=None, seed=0, show_progress=False)
+    check(out.samples.shape == (5, C, D), "14e: sample() with the JAX keywords")
+    sampler = nfmc_torch.create_sampler(StandardGaussian((D,)), strategy="jump_mala",
+                                        param_kwargs={"n_iterations": 4, "fused_unroll_outer": 4,
+                                                      "fused_unroll_inner": 2},
+                                        inner_param_kwargs={"n_iterations": INNER_N})
+    first = sampler.sample(torch.randn((C, D), device=dev), show_progress=False, seed=1)
+    again = sampler.sample_continue(first.running_samples.last_sample, show_progress=False,
+                                    seed=2)
+    check(again.samples.shape == (4 * (INNER_N + 1), C, D) and bool(
+        torch.isfinite(again.samples).all()), "14e: sample_continue on the card")
+    check(sampler.kernel.flow.sample(3, True).shape == (3, D), "14e: Flow.sample(3, True)")
+    print(f"14e: sample() with mesh / checkpoint_* None, jump_mala with fused_unroll_outer=4 and "
+          f"sample_continue on the card ran")
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 14: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -2873,6 +3228,7 @@ def main() -> None:
     from nfmc_torch.ops import build
     from nfmc_torch.ops import coupling as ops
     from nfmc_torch.potentials import DiagonalGaussian, StandardGaussian
+    from nfmc_torch.utils import tree_leaves
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2954,11 +3310,11 @@ def main() -> None:
             again = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse, packed)
             torch.cuda.synchronize()
             ref = ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)
-            pairs = list(zip([got[0], *ops._leaves(got[1])], [ref[0], *ops._leaves(ref[1])]))
+            pairs = list(zip([got[0], *tree_leaves(got[1])], [ref[0], *tree_leaves(ref[1])]))
             e_abs = max((a - b).abs().max().item() for a, b in pairs)
             scale = max(1.0, max(b.abs().max().item() for _, b in pairs))
             same = torch.equal(got[0], again[0]) and all(
-                torch.equal(a, b) for a, b in zip(ops._leaves(got[1]), ops._leaves(again[1])))
+                torch.equal(a, b) for a, b in zip(tree_leaves(got[1]), tree_leaves(again[1])))
             check(all(bool(torch.isfinite(a).all()) for a, _ in pairs), "non-finite gradient")
             bwd_err = max(bwd_err, e_abs)
             line = (f"coupling vjp {'inverse' if inverse else 'forward'} d={d} H={hid} L={nl} "
@@ -3184,6 +3540,7 @@ def main() -> None:
     flows11 = run_flow_sampler_phases(dev)
     mcmc12 = run_mcmc_phases(dev)
     last13 = run_last_strategy_phases(dev)
+    zoo14 = run_flow_zoo_phases(dev)
 
     kernels = []
 
@@ -3281,6 +3638,10 @@ def main() -> None:
           f"({last13['aies_ess_per_s']:.1f} ESS/s), jump_aies {last13['jump_aies'][0]:.2f} outer "
           f"it/s ({last13['jump_aies_ess_per_s']:.1f} ESS/s, jump acc "
           f"{last13['jump_aies'][1]:.4f}) ({smi.stdout.strip().splitlines()[0]})")
+    slowest = max(zoo14["ms"].items(), key=lambda kv: kv[1])
+    print(f"phase 14: {zoo14['wall']:.1f} s; 14a slowest call {slowest[0][0]} {slowest[0][1]} "
+          f"{slowest[1]:.1f} ms; IAF IMH {zoo14['iaf'][0]:.1f} it/s ({zoo14['iaf'][1]:.1f} "
+          f"ESS/s, {zoo14['iaf'][2]:.3f} ms an Adam step) ({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,16 +7,22 @@ passes ``device="cpu"``. ``sample``/``create_sampler`` run every strategy of
 ``nfmc_tpu``'s registry: ``imh`` (the default; ``fixed_imh``) and
 ``adaptive_imh``, with the reverse-KL warmup; the jump samplers
 (``jump_mala``, ``jump_ula``, ``jump_hmc``, ``jump_uhmc``, ``jump_mh``,
-``jump_ess``, ``jump_nuts``, ``jump_chees``, ``jump_aies``) with a RealNVP,
-rational-quadratic spline (``c-rqnsf``) or linear-rational spline
-(``c-lrsnsf``) coupling flow (frozen, fitted by the warmup, or refitted with
+``jump_ess``, ``jump_nuts``, ``jump_chees``, ``jump_aies``) with any
+ported flow (frozen, fitted by the warmup, or refitted with
 ``fit_nf=True``); the flow-reparameterised ``neutra_hmc``, ``neutra_mh`` and
 ``neutra_chees``, ``tess`` and ``dlmc``; and ``mala``, ``ula``, ``hmc``,
 ``uhmc``, ``mh``, ``ess``, ``nuts``, ``chees_hmc``, ``dense_hmc``,
-``dense_mala``, ``pt_mala``, ``pt_mh``, ``pt_hmc`` and ``aies``. Also the
-ESS and R-hat diagnostics and every potential of ``nfmc_tpu.potentials``.
+``dense_mala``, ``pt_mala``, ``pt_mh``, ``pt_hmc`` and ``aies``. The
+ported flows: RealNVP and the coupling splines ``c-rqnsf`` / ``c-lrsnsf``
+(on the CUDA kernels), NICE, MAF / IAF and the masked splines, the nine NAF
+flows and the six residual flows (plain PyTorch on every device, as the
+JAX package runs them through XLA), with ``Chain`` and ``Inverse``. Also
+the ESS and R-hat diagnostics and every potential of
+``nfmc_tpu.potentials``.
 """
-from .api import create_flow_object, create_sampler, parse_flow_string, sample
+from .api import (create_flow_object, create_sampler, get_supported_mcmc_samplers,
+                  get_supported_nfmc_samplers, get_supported_normalizing_flows,
+                  get_supported_samplers, parse_flow_string, sample)
 from .core import (
     JumpNFMCOutput,
     JumpNFMCStatistics,
@@ -31,7 +37,9 @@ from .core import (
     set_seed,
 )
 from . import diagnostics, potentials
-from .flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP
+from .flows import (IAF, MAF, NICE, Chain, CouplingLRS, CouplingRQNSF, Flow, Inverse,
+                    InvertibleResNet, PlanarFlow, ProximalResFlow, RadialFlow, RealNVP, ResFlow,
+                    SylvesterFlow)
 from .samplers.mcmc import (AIES, ESS, HMC, MALA, MH, NUTS, PTHMC, PTMALA, PTRWMH, UHMC, ULA,
                             CheesHMC, DenseHMC, DenseMALA)
 from .samplers.nfmc import (
@@ -60,9 +68,13 @@ __version__ = "0.1.0"
 
 __all__ = [
     "sample", "create_sampler", "create_flow_object", "parse_flow_string", "set_seed",
+    "get_supported_samplers", "get_supported_mcmc_samplers", "get_supported_nfmc_samplers",
+    "get_supported_normalizing_flows",
     "MCMCOutput", "JumpNFMCOutput", "MCMCStatistics", "JumpNFMCStatistics", "MCMCSamples",
     "MCMCKernel", "MCMCParameters", "NFMCKernel", "NFMCParameters", "Sampler",
-    "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "JumpMALA", "JumpULA", "JumpNFMCParameters",
+    "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "NICE", "MAF", "IAF", "Chain", "Inverse",
+    "PlanarFlow", "RadialFlow", "SylvesterFlow", "InvertibleResNet", "ResFlow", "ProximalResFlow",
+    "JumpMALA", "JumpULA", "JumpNFMCParameters",
     "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
     "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
     "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",

@@ -258,6 +258,10 @@ def sample(
     sampling_time_limit_seconds: Optional[float] = None,
     warmup_time_limit_seconds: Optional[float] = None,
     seed: Optional[int] = None,
+    mesh=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_segment_iterations: Optional[int] = None,
+    checkpoint_save_samples: Optional[bool] = None,
     device=None,
     **kwargs,
 ) -> MCMCOutput:
@@ -265,7 +269,16 @@ def sample(
     the device; ``seed`` fixes the flow's initial weights (for a flow given
     by name), ``x0``, the warmup and the run. With ``warmup=True`` the
     sampler warms up first and ``x0`` becomes a reshuffle of the warmup's
-    stored draws (its last state when it stores none)."""
+    stored draws (its last state when it stores none). ``mesh`` and the
+    ``checkpoint_*`` arguments are the JAX package's; any of them other than
+    None raises ``NotImplementedError`` until they are ported (ROADMAP 1.8)."""
+    unported = {"mesh": mesh, "checkpoint_path": checkpoint_path,
+                "checkpoint_segment_iterations": checkpoint_segment_iterations,
+                "checkpoint_save_samples": checkpoint_save_samples}
+    given = [k for k, v in unported.items() if v is not None]
+    if given:
+        raise NotImplementedError(f"{', '.join(given)}: sharded and checkpointed sampling are "
+                                  "not ported to nfmc_torch yet (ROADMAP 1.8)")
     if flow == "None":
         flow = None
     if flow is not None and not isinstance(flow, str):

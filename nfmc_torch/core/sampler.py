@@ -33,6 +33,10 @@ class MCMCParameters:
     store_samples: bool = True
     # keep stored draws on the device instead of copying them to host memory
     store_samples_on_device: bool = False
+    # the JAX package's lax.scan unroll factor of the chunked loop, a pure
+    # scheduling hint there; accepted for the same configurations, with no
+    # effect on the port's eager loops
+    scan_unroll: int = 1
 
     def __post_init__(self):
         pass
@@ -120,3 +124,11 @@ class Sampler:
     def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
                generator=None, seed=None) -> MCMCOutput:
         raise NotImplementedError
+
+    def sample_continue(self, x0, **kwargs) -> MCMCOutput:
+        """Continue a chain from ``x0``, a previous run's
+        ``running_samples.last_sample``. For most samplers this is
+        :meth:`sample`; those whose ``sample`` gives ``x0`` an entry meaning
+        that must not repeat on a continuation (ESS, TESS, DLMC, NeuTra, PT,
+        AdaptiveIMH) define their own."""
+        return self.sample(x0, **kwargs)

@@ -1,4 +1,5 @@
-"""Conditioner networks as plain (init, apply) function pairs.
+"""Conditioner networks as plain (init, apply) function pairs: the tanh MLP
+of the coupling flows and the MADE network of the masked flows.
 
 Parameters are ``{"w": [...], "b": [...]}`` with ``w[i]`` shaped
 ``(in, out)``, the layout of ``nfmc_tpu/flows/conditioners.py``. The final
@@ -9,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 
@@ -35,3 +37,36 @@ def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     for w, b in zip(params["w"][:-1], params["b"][:-1]):
         h = torch.tanh(h @ w + b)
     return h @ params["w"][-1] + params["b"][-1]
+
+
+def made_masks(d: int, hidden: Sequence[int], n_params_per_dim: int):
+    """MADE's binary masks (numpy, float32), so that output ``i`` depends
+    only on the inputs before ``i``: input degrees 1..d, hidden degrees
+    cycling 1..d-1 (1 when d == 1), each dim's ``n_params_per_dim`` outputs
+    (dim-major) of its input's degree, the last mask strict."""
+    degrees = [np.arange(1, d + 1)]
+    for h in hidden:
+        degrees.append((np.arange(h) % (d - 1)) + 1 if d > 1 else np.ones(h, dtype=np.int64))
+    out_deg = np.repeat(np.arange(1, d + 1), n_params_per_dim)
+    masks = [(degrees[i][:, None] <= degrees[i + 1][None, :]).astype(np.float32)
+             for i in range(len(hidden))]
+    masks.append((degrees[-1][:, None] < out_deg[None, :]).astype(np.float32))
+    return masks
+
+
+def made_init(generator: torch.Generator, d: int, hidden: Sequence[int], n_params_per_dim: int):
+    """MADE's weights: the MLP of :func:`mlp_init` from ``d`` inputs to
+    ``d * n_params_per_dim`` outputs (the masks are config, not weights)."""
+    return mlp_init(generator, d, hidden, d * n_params_per_dim)
+
+
+def made_apply(params, masks, x: torch.Tensor) -> torch.Tensor:
+    """(B, d) -> (B, d * n_params_per_dim), autoregressively masked;
+    ``masks`` are tensors on ``x``'s device."""
+    return mlp_apply(masked_weights(params, masks), x)
+
+
+def masked_weights(params, masks):
+    """The conditioner with each weight times its mask, for reuse across
+    the d passes of a masked inverse."""
+    return {"w": [w * m for w, m in zip(params["w"], masks)], "b": params["b"]}

@@ -10,14 +10,16 @@ import torch
 
 
 def from_jax_params(params, device="cpu"):
-    """``[{"w": [...], "b": [...]}, ...]`` (``nfmc_tpu/flows/conditioners.py``
-    layout) -> the same list of float32 tensors on ``device``. The layout is
+    """A JAX flow's parameter tree -> the same structure of float32 tensors
+    on ``device``: dicts stay dicts (the conditioners' ``{"w", "b"}`` lists
+    and the residual flows' dicts of arrays), lists and tuples become lists
+    (a ``Chain``'s list of lists), arrays become tensors. The layouts are
     canonical on both sides, so both packages compute the same function."""
-    return [
-        {k: [torch.as_tensor(np.array(a, dtype=np.float32), device=device) for a in p[k]]
-         for k in ("w", "b")}
-        for p in params
-    ]
+    if isinstance(params, dict):
+        return {k: from_jax_params(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [from_jax_params(v, device) for v in params]
+    return torch.as_tensor(np.array(params, dtype=np.float32), device=device)
 
 
 def from_jax_metropolis_state(state, device="cpu"):

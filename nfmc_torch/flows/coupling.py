@@ -1,4 +1,5 @@
-"""Coupling flows: RealNVP and the coupling spline flows (RQS and LRS).
+"""Coupling flows: RealNVP, NICE and the coupling spline flows (RQS and LRS);
+the coupling NAF flows (``flows/naf.py``) build on ``Coupling`` too.
 
 Layer l conditions on the flattened-event indices with ``(i + l) % 2 == 0``
 and transforms the rest; its conditioner's output columns are dim-major
@@ -15,23 +16,29 @@ import torch
 from ..ops import coupling as coupling_ops
 from ..ops import spline as spline_ops
 from .base import Bijection
-from .conditioners import mlp_init
-from .transforms import AffineTransform, LRSplineTransform, RQSplineTransform
+from .conditioners import mlp_apply, mlp_init
+from .transforms import AffineTransform, LRSplineTransform, RQSplineTransform, ShiftTransform
 
 
 class Coupling(Bijection):
     """Stack of coupling layers with a shared elementwise transform type.
 
-    The conditioner's depth decides, once at construction, how the stack
-    runs, as in the JAX package (``len(self.hidden) != 2`` sends a flow to
-    its XLA path, ``nfmc_tpu/flows/coupling.py:148`` and ``:213``): with
-    exactly 2 hidden layers through the kernel wrappers of
-    :mod:`nfmc_torch.ops`, which launch the CUDA kernels on a CUDA tensor
-    (or raise) and run their plain versions on a CPU one; with any other
-    depth through the plain PyTorch stack on whatever device the tensors
-    are on. That is a choice by configuration, as the reference makes it,
-    not a fallback: a depth-2 flow on CUDA never runs the plain version.
+    The class and the conditioner's depth decide, once at construction, how
+    the stack runs, as in the JAX package (``len(self.hidden) != 2`` sends
+    a flow to its XLA path, ``nfmc_tpu/flows/coupling.py:148`` and
+    ``:213``). A class with kernels (``has_kernels``: RealNVP and the
+    coupling splines) whose conditioners have exactly 2 hidden layers runs
+    through the kernel wrappers of :mod:`nfmc_torch.ops`, which launch the
+    CUDA kernels on a CUDA tensor (or raise) and run their plain versions
+    on a CPU one. Every other coupling flow (NICE, the NAF couplings, other
+    depths) runs the plain PyTorch stack of ``nfmc_tpu/flows/coupling.py::
+    Coupling._layer`` on whatever device the tensors are on, as the JAX
+    package runs them through XLA. That is a choice by configuration, not a
+    fallback: a depth-2 RealNVP or spline flow on CUDA never runs the plain
+    version.
     """
+
+    has_kernels = False
 
     def __init__(
         self,
@@ -55,13 +62,15 @@ class Coupling(Bijection):
         if hidden_size is None:
             hidden_size = int(min(max(32, 2 ** int(np.ceil(np.log2(max(4 * d, 32))))), 128))
         self.hidden = [int(hidden_size)] * int(n_hidden_layers)
-        self.fused = len(self.hidden) == 2  # the kernels take 2 hidden layers
+        # the kernels take 2 hidden layers
+        self.fused = self.has_kernels and len(self.hidden) == 2
         # (conditioning ids, transformed ids) per layer
         ids = np.arange(d)
         self.layer_idx = [(ids[(ids + l) % 2 == 0], ids[(ids + l) % 2 == 1])
                           for l in range(self.n_layers)]
         self._packed_src = ()
         self._packed = None
+        self._index_cache = {}
 
     def init(self, generator: torch.Generator):
         return [
@@ -87,10 +96,32 @@ class Coupling(Bijection):
         wrappers: ``(y, log_det)``."""
         raise NotImplementedError
 
+    def _indices(self, device):
+        """Each layer's (conditioning, transformed) index tensors on
+        ``device``, made once per device."""
+        if device not in self._index_cache:
+            self._index_cache[device] = [
+                (torch.as_tensor(a, device=device), torch.as_tensor(b, device=device))
+                for a, b in self.layer_idx]
+        return self._index_cache[device]
+
+    def _layer(self, p, idx, v, inverse: bool):
+        a, b = idx
+        vb = v[:, b]
+        raw = mlp_apply(p, v[:, a]).reshape(*vb.shape, self.transform.n_params_per_dim)
+        step = self.transform.inverse if inverse else self.transform.forward
+        vb_new, ld_elem = step(vb, raw)
+        return v.index_copy(1, b, vb_new), ld_elem.sum(-1)
+
     def _plain_stack(self, params, flat, inverse: bool):
-        """The whole stack in plain PyTorch, for conditioners whose depth the
-        kernels do not take."""
-        raise NotImplementedError
+        """The whole stack in plain PyTorch on ``(B, event_size)`` rows, the
+        math of ``nfmc_tpu/flows/coupling.py:73-113``."""
+        log_det = torch.zeros(flat.shape[0], dtype=flat.dtype, device=flat.device)
+        layers = list(zip(params, self._indices(flat.device)))
+        for p, idx in (reversed(layers) if inverse else layers):
+            flat, ld = self._layer(p, idx, flat, inverse)
+            log_det = log_det + ld
+        return flat, log_det
 
     def _run(self, params, v, inverse: bool):
         batch_shape = v.shape[: v.dim() - len(self.event_shape)]
@@ -122,6 +153,8 @@ class RealNVP(Coupling):
     the gradient. Other depths run the plain stack (``Coupling``).
     """
 
+    has_kernels = True
+
     def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
         super().__init__(event_shape, AffineTransform(clamp=clamp), n_layers=n_layers, **kwargs)
         self.clamp = float(clamp)
@@ -132,6 +165,14 @@ class RealNVP(Coupling):
 
     def _plain_stack(self, params, flat, inverse):
         return coupling_ops.realnvp_stack_plain(params, flat, self.clamp, inverse)
+
+
+class NICE(Coupling):
+    """Additive coupling flow (Dinh et al. 2015), volume preserving. It has
+    no kernel in either package: the plain stack on every device."""
+
+    def __init__(self, event_shape, n_layers: int = 2, **kwargs):
+        super().__init__(event_shape, ShiftTransform(), n_layers=n_layers, **kwargs)
 
 
 class _CouplingSpline(Coupling):
@@ -147,6 +188,7 @@ class _CouplingSpline(Coupling):
     ``Coupling``: on CUDA a depth-2 flow always runs the kernels."""
 
     _transform = None
+    has_kernels = True
 
     def __init__(self, event_shape, n_layers: int = 2, n_bins: int = 8,
                  tail_bound: float = 5.0, **kwargs):

@@ -3,16 +3,20 @@ and the reverse-KL ``variational_fit`` (counterpart of
 ``nfmc_tpu/flows/train.py``).
 
 Adam (``optax.adam``: b1 0.9, b2 0.999, eps 1e-8) runs on one flat
-parameter vector in the packed order of the coupling kernels. A batch whose
+parameter vector in :func:`nfmc_torch.utils.tree_leaves` order (for the
+coupling flows, the packed order of the kernels), for any flow's tree. A batch whose
 loss or any gradient is non-finite changes neither the parameters nor the
 moments, through ``torch.where`` and with no host synchronisation; the best
 weights and loss are tracked on the device per epoch. ``fit`` synchronises
 with the host once per block of ``check_every`` epochs, where it applies the
 early-stopping count, the time limit and the ``ValueError`` contract that
-lets callers roll back. Each training step goes forward through the flow's
-coupling kernel and back through its backward kernel (``RealNVPStack`` or
-``SplineStack``); a ``variational_fit`` step goes through the flow's inverse
-and back through the backward kernel in the inverse direction.
+lets callers roll back. For RealNVP and the coupling splines each training
+step goes forward through the flow's coupling kernel and back through its
+backward kernel (``RealNVPStack`` or ``SplineStack``); a ``variational_fit``
+step goes through the flow's inverse and back through the backward kernel
+in the inverse direction. Other flows train through autograd of their plain
+PyTorch math. A bijection with a nonzero ``regularization_weight`` adds its
+regularizer to the MLE and reverse-KL losses.
 
 The data-parallel ``mesh`` option is not ported yet (ROADMAP 1.8).
 """
@@ -26,8 +30,8 @@ import numpy as np
 import torch
 
 from ..core.rng import resolve_generator
-from ..ops.coupling import _leaves, unpack_like
-from ..utils import Progress, as_numpy
+from ..ops.coupling import unpack_like
+from ..utils import Progress, as_numpy, tree_leaves
 
 
 def _finite_update(loss: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -80,7 +84,7 @@ def fixed_effort_fit_config(fit_kwargs):
 
 
 def _flatten(params) -> torch.Tensor:
-    return torch.cat([t.detach().reshape(-1) for t in _leaves(params)]).to(torch.float32)
+    return torch.cat([t.detach().reshape(-1) for t in tree_leaves(params)]).to(torch.float32)
 
 
 class _Adam:
@@ -116,23 +120,42 @@ def _nll(flow, params, x, w=None) -> torch.Tensor:
     return -(lp * w).sum() / w.sum().clamp_min(1.0)
 
 
-def _train_step(flow, like, theta, adam, xb, wb):
+def _mle_loss(flow):
+    """The MLE loss ``(flow, params, x, w) -> loss``: the weighted NLL, plus
+    the bijection's regularizer times its ``regularization_weight`` when
+    that is nonzero (a per-sample regularizer weighted like the samples, a
+    scalar one applied unweighted), as ``nfmc_tpu/flows/train.py:271-286``."""
+    reg_weight = float(getattr(flow.bijection, "regularization_weight", 0.0))
+    if not reg_weight:
+        return _nll
+
+    def loss(flow, params, x, w=None):
+        reg = flow.bijection.regularization(params, x)
+        if reg.dim():
+            reg = reg.mean() if w is None else (reg * w).sum() / w.sum().clamp_min(1.0)
+        return _nll(flow, params, x, w) + reg_weight * reg
+
+    return loss
+
+
+def _train_step(flow, like, theta, adam, xb, wb, loss_fn=_nll):
     """One Adam step on a batch; returns ``(theta, loss)``."""
     with torch.enable_grad():
         th = theta.detach().requires_grad_(True)
-        loss = _nll(flow, unpack_like(th, like), xb, wb)
+        loss = loss_fn(flow, unpack_like(th, like), xb, wb)
         (g,) = torch.autograd.grad(loss, th)
     loss = loss.detach()
     with torch.no_grad():
         return adam.step(theta, g, _finite_update(loss, g)), loss
 
 
-def _train_epoch(flow, like, theta, adam, xs, ws):
+def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll):
     """Adam steps over the batches ``xs`` (n_batches, bs, *event) with
     weights ``ws`` (or None); returns ``(theta, losses)``."""
     losses = []
     for i in range(xs.shape[0]):
-        theta, loss = _train_step(flow, like, theta, adam, xs[i], None if ws is None else ws[i])
+        theta, loss = _train_step(flow, like, theta, adam, xs[i], None if ws is None else ws[i],
+                                  loss_fn)
         losses.append(loss)
     return theta, torch.stack(losses)
 
@@ -253,6 +276,7 @@ def fit(
         val_data, val_weights = data, w_data
 
     like = flow.params
+    loss_fn = _mle_loss(flow)
     theta = _flatten(like)
     adam = _Adam(theta, lr)
     best_theta = theta
@@ -277,9 +301,9 @@ def fit(
                     xs, ws = data, w_data
                 theta, _ = _train_epoch(flow, like, theta, adam,
                                         xs.reshape(n_batches, bs, *event_shape),
-                                        ws.reshape(n_batches, bs))
+                                        ws.reshape(n_batches, bs), loss_fn)
                 with torch.no_grad():
-                    vl = _nll(flow, unpack_like(theta, like), val_data, val_weights)
+                    vl = loss_fn(flow, unpack_like(theta, like), val_data, val_weights)
                     better = vl < best_loss
                     best_loss = torch.where(better, vl, best_loss)
                     if keep_best_weights:
@@ -309,11 +333,15 @@ def fit(
     flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
 
 
-def _reverse_kl(flow, params, z, target_log_prob) -> torch.Tensor:
+def _reverse_kl(flow, params, z, target_log_prob, reg_weight: float = 0.0) -> torch.Tensor:
     """``mean(-target_log_prob(x) - log_det_inv)`` with ``x = inverse(z)``;
-    the base entropy is constant and dropped."""
+    the base entropy is constant and dropped. A nonzero ``reg_weight`` adds
+    that times the mean of the bijection's regularizer at ``x``."""
     x, log_det_inv = flow.bijection.inverse_fn(params, z)
-    return (-target_log_prob(x) - log_det_inv).mean()
+    loss = (-target_log_prob(x) - log_det_inv).mean()
+    if reg_weight:
+        loss = loss + reg_weight * flow.bijection.regularization(params, x).mean()
+    return loss
 
 
 def variational_fit(
@@ -354,6 +382,7 @@ def variational_fit(
     n_samples = max(1, int(n_samples))
 
     like = flow.params
+    reg_weight = float(getattr(flow.bijection, "regularization_weight", 0.0))
     theta = _flatten(like)
     adam = _Adam(theta, lr)
     best_theta = theta
@@ -375,7 +404,7 @@ def variational_fit(
                 z = base_draws(generator, n_samples)
                 with torch.enable_grad():
                     th = theta.detach().requires_grad_(True)
-                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob)
+                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob, reg_weight)
                     (g,) = torch.autograd.grad(loss, th)
                 with torch.no_grad():
                     loss = loss.detach()

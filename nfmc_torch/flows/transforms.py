@@ -1,4 +1,4 @@
-"""Elementwise invertible transforms for coupling flows."""
+"""Elementwise invertible transforms shared by the coupling and masked flows."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -30,6 +30,18 @@ class AffineTransform:
     def inverse(self, z, raw) -> Tuple[torch.Tensor, torch.Tensor]:
         shift, log_scale = self._split(raw)
         return z * torch.exp(log_scale) + shift, log_scale
+
+
+class ShiftTransform:
+    """Additive-only map (NICE): z = x - shift, log-det 0."""
+
+    n_params_per_dim = 1
+
+    def forward(self, x, raw) -> Tuple[torch.Tensor, torch.Tensor]:
+        return x - raw[..., 0], torch.zeros_like(x)
+
+    def inverse(self, z, raw) -> Tuple[torch.Tensor, torch.Tensor]:
+        return z + raw[..., 0], torch.zeros_like(z)
 
 
 class _SplineTransform:

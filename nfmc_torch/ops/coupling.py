@@ -26,11 +26,12 @@ The kernels are built and loaded by :mod:`nfmc_torch.ops.build`.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils import tree_leaves, tree_unflatten
 from .build import library, register
 
 # What the launchers return, without launching, when not even a row tile of
@@ -55,27 +56,12 @@ def pack_weights(params) -> torch.Tensor:
     return torch.cat(parts).to(torch.float32).contiguous()
 
 
-def _leaves(params) -> List[torch.Tensor]:
-    """The parameter tensors in packed order (per layer w1, b1, w2, ...)."""
-    return [t for p in params for w, b in zip(p["w"], p["b"]) for t in (w, b)]
-
-
-def _from_leaves(leaves, depths) -> list:
-    """Inverse of ``_leaves``; ``depths[l]`` is layer l's number of dense
-    layers."""
-    params, i = [], 0
-    for n in depths:
-        params.append({"w": list(leaves[i:i + 2 * n:2]), "b": list(leaves[i + 1:i + 2 * n:2])})
-        i += 2 * n
-    return params
-
-
-def unpack_like(flat: torch.Tensor, params) -> list:
-    """Split a packed buffer into views shaped like ``params``."""
-    leaves = _leaves(params)
+def unpack_like(flat: torch.Tensor, params):
+    """Split a flat buffer in :func:`tree_leaves` order into views shaped
+    like the parameter tree ``params`` (any flow's layout)."""
+    leaves = tree_leaves(params)
     parts = flat.split([t.numel() for t in leaves])
-    return _from_leaves([v.view(t.shape) for v, t in zip(parts, leaves)],
-                        [len(p["w"]) for p in params])
+    return tree_unflatten(params, [v.view(t.shape) for v, t in zip(parts, leaves)])
 
 
 def _layer_sets(d: int, l: int, device):
@@ -157,7 +143,7 @@ def vjp_error(got, want):
     """max|got - want| over gx and every weight gradient relative to max(1,
     max|want|), the scale, and each row's max|gx - want gx|."""
     pairs = [(a.to(b.dtype), b) for a, b in
-             zip([got[0], *_leaves(got[1])], [want[0], *_leaves(want[1])])]
+             zip([got[0], *tree_leaves(got[1])], [want[0], *tree_leaves(want[1])])]
     if not all(bool(torch.isfinite(a).all()) for a, _ in pairs):
         return float("inf"), 1.0, torch.full(got[0].shape[:1], float("inf"))
     scale = max(1.0, max(float(b.abs().max()) for _, b in pairs))
@@ -188,7 +174,7 @@ def check_launch(err: int, d: int, hidden: int, backward: bool, lib) -> None:
 
 
 def _check_params(params, x: torch.Tensor, packed: Optional[torch.Tensor]) -> torch.Tensor:
-    if any(t.device != x.device for t in _leaves(params)):
+    if any(t.device != x.device for t in tree_leaves(params)):
         raise ValueError("flow parameters and input are on different devices")
     return pack_weights(params) if packed is None else packed
 
@@ -265,32 +251,32 @@ class RealNVPStack(torch.autograd.Function):
     devices: the kernels on CUDA tensors, their plain versions on CPU ones.
     Saves x and the weights, not activations: the backward recomputes them.
 
-    ``apply(x, packed, clamp, inverse, depths, *leaves)`` with ``leaves`` the
-    parameter tensors in packed order (``_leaves``)."""
+    ``apply(x, packed, clamp, inverse, like, *leaves)`` with ``leaves`` the
+    parameter tensors in packed order (``tree_leaves``) of the tree
+    ``like``."""
 
     @staticmethod
-    def forward(ctx, x, packed, clamp, inverse, depths, *leaves):
-        params = _from_leaves(leaves, depths)
+    def forward(ctx, x, packed, clamp, inverse, like, *leaves):
+        params = tree_unflatten(like, leaves)
         ctx.save_for_backward(x, *leaves)
-        ctx.packed, ctx.clamp, ctx.inverse, ctx.depths = packed, clamp, inverse, depths
+        ctx.packed, ctx.clamp, ctx.inverse, ctx.like = packed, clamp, inverse, like
         return _stack(params, x, clamp, inverse, packed)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gy, gld):
         x, *leaves = ctx.saved_tensors
-        params = _from_leaves(leaves, ctx.depths)
+        params = tree_unflatten(ctx.like, leaves)
         gx, grads = fused_realnvp_vjp(params, x, gy.contiguous(), gld.contiguous(),
                                       ctx.clamp, ctx.inverse, ctx.packed)
         return (gx if ctx.needs_input_grad[0] else None, None, None, None, None,
-                *_leaves(grads))
+                *tree_leaves(grads))
 
 
 def _apply(params, x, clamp, inverse, packed):
-    leaves = _leaves(params)
+    leaves = tree_leaves(params)
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in leaves)):
-        return RealNVPStack.apply(x, packed, float(clamp), bool(inverse),
-                                  tuple(len(p["w"]) for p in params), *leaves)
+        return RealNVPStack.apply(x, packed, float(clamp), bool(inverse), params, *leaves)
     return _stack(params, x, clamp, inverse, packed)
 
 

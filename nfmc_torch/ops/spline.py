@@ -32,9 +32,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..flows.spline import branch_points, n_params_per_dim
+from ..utils import tree_leaves, tree_unflatten
 from .build import library, register
-from .coupling import (TILE_TOO_LARGE, _check_params, _check_rows, _from_leaves, _layer_sets,
-                       _leaves, _on_device, unpack_like, vjp_error)
+from .coupling import (TILE_TOO_LARGE, _check_params, _check_rows, _layer_sets, _on_device,
+                       unpack_like, vjp_error)
 
 INVALID_VALUE = 1  # cudaErrorInvalidValue: a launcher's refusal of its arguments
 _CHUNK_COLUMNS = 128  # the output columns the kernels produce at a time
@@ -76,13 +77,13 @@ def spline_stack_vjp_plain(params, x: torch.Tensor, gy: torch.Tensor, gld: torch
     ``spline_stack_plain``, taken by ``torch.autograd``, so that it is
     independent of the kernel's hand-derived calculus. Returns ``(gx,
     grads)`` with ``grads`` shaped like ``params``."""
-    leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     xd = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        y, ld = spline_stack_plain(_from_leaves(leaves, [len(p["w"]) for p in params]), xd,
-                                   kind, n_bins, tail_bound, inverse)
+        y, ld = spline_stack_plain(tree_unflatten(params, leaves), xd, kind, n_bins, tail_bound,
+                                   inverse)
         gx, *grads = torch.autograd.grad((y, ld), [xd, *leaves], (gy, gld))
-    return gx, _from_leaves(grads, [len(p["w"]) for p in params])
+    return gx, tree_unflatten(params, grads)
 
 
 def knot_witness(params, x: torch.Tensor, kind: str, n_bins: int, tail_bound: float,
@@ -240,14 +241,15 @@ class SplineStack(torch.autograd.Function):
     CPU ones. Saves x and the weights, not activations: the backward
     recomputes them.
 
-    ``apply(x, packed, kind, n_bins, tail_bound, inverse, depths, *leaves)``
-    with ``leaves`` the parameter tensors in packed order (``_leaves``)."""
+    ``apply(x, packed, kind, n_bins, tail_bound, inverse, like, *leaves)``
+    with ``leaves`` the parameter tensors in packed order (``tree_leaves``)
+    of the tree ``like``."""
 
     @staticmethod
-    def forward(ctx, x, packed, kind, n_bins, tail_bound, inverse, depths, *leaves):
-        params = _from_leaves(leaves, depths)
+    def forward(ctx, x, packed, kind, n_bins, tail_bound, inverse, like, *leaves):
+        params = tree_unflatten(like, leaves)
         ctx.save_for_backward(x, *leaves)
-        ctx.packed, ctx.depths = packed, depths
+        ctx.packed, ctx.like = packed, like
         ctx.spline = (kind, n_bins, tail_bound, inverse)
         return _stack(params, x, kind, n_bins, tail_bound, inverse, packed)
 
@@ -255,19 +257,19 @@ class SplineStack(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy, gld):
         x, *leaves = ctx.saved_tensors
-        params = _from_leaves(leaves, ctx.depths)
+        params = tree_unflatten(ctx.like, leaves)
         gx, grads = fused_spline_vjp(params, x, gy.contiguous(), gld.contiguous(), *ctx.spline,
                                      packed=ctx.packed)
         return (gx if ctx.needs_input_grad[0] else None, None, None, None, None, None, None,
-                *_leaves(grads))
+                *tree_leaves(grads))
 
 
 def _apply(params, x, kind, n_bins, tail_bound, inverse, packed):
     n_params_per_dim(kind, n_bins)  # validates the kind
-    leaves = _leaves(params)
+    leaves = tree_leaves(params)
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in leaves)):
         return SplineStack.apply(x, packed, kind, int(n_bins), float(tail_bound), bool(inverse),
-                                 tuple(len(p["w"]) for p in params), *leaves)
+                                 params, *leaves)
     return _stack(params, x, kind, n_bins, tail_bound, inverse, packed)
 
 

@@ -62,6 +62,10 @@ class JumpNFMCParameters(NFMCParameters):
     fit_nf: bool = False
     warmup_fit_kwargs: Optional[dict] = None
     n_jumps_before_training: int = 10
+    # the JAX package's lax.scan unroll factors of the fused outer loop, a
+    # scheduling hint there; accepted, with no effect on the eager port
+    fused_unroll_inner: int = 1
+    fused_unroll_outer: int = 1
 
     def __post_init__(self):
         super().__post_init__()

@@ -26,8 +26,7 @@ import torch
 
 from ...core.output import MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
-from ...flows.base import _map_params
-from ...utils import event_size_of
+from ...utils import event_size_of, tree_leaves, tree_map
 from ..mcmc.base import MCMCSampler, MetropolisKernel, MetropolisParameters
 from ..mcmc.chees import CheesHMC, CheesHMCKernel, CheesHMCParameters
 from ..mcmc.hmc import HMC, HMCKernel, HMCParameters
@@ -91,11 +90,11 @@ class NeuTra(Sampler):
         the tensors are kept so that the ids stay valid."""
         flow = self.kernel.flow
         params = flow.params
-        token = (id(self.target),) + tuple(id(t) for p in params for v in p.values() for t in v)
+        token = (id(self.target),) + tuple(id(t) for t in tree_leaves(params))
         if getattr(self, "_built_params_token", None) != token:
             self._built_params_token = token
             self._built_params_ref = (params, self.target)
-            self._inner_params = _map_params(params, lambda t: t.detach())
+            self._inner_params = tree_map(lambda t: t.detach(), params)
         return self._inner_params
 
     def adjusted_target(self, z):

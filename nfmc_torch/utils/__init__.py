@@ -30,6 +30,52 @@ def event_size_of(event_shape: Sequence[int]) -> int:
     return int(np.prod(np.asarray(event_shape, dtype=np.int64))) if len(event_shape) else 1
 
 
+def _is_mlp(node) -> bool:
+    return (isinstance(node, dict) and set(node) == {"w", "b"}
+            and isinstance(node["w"], (list, tuple)))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a parameter tree (nested lists, tuples and dicts), in
+    a fixed order: a list's children in order; a conditioner
+    ``{"w": [...], "b": [...]}`` per dense layer ``w`` then ``b`` (the
+    packed order of the coupling kernels' weight buffer); any other dict by
+    sorted key, as ``jax.tree_util`` orders it."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if _is_mlp(tree):
+        return [t for w, b in zip(tree["w"], tree["b"]) for t in (w, b)]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for child in tree for t in tree_leaves(child)]
+    raise TypeError(f"not a parameter tree node: {type(tree).__name__}")
+
+
+def tree_unflatten(like, leaves) -> object:
+    """The tree shaped like ``like`` holding ``leaves`` in
+    :func:`tree_leaves`'s order (lists and tuples come back as lists)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, torch.Tensor):
+            return next(it)
+        if _is_mlp(node):
+            pairs = [(next(it), next(it)) for _ in node["w"]]
+            return {"w": [w for w, _ in pairs], "b": [b for _, b in pairs]}
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return [build(child) for child in node]
+
+    return build(like)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of ``tree``, in the same structure."""
+    return tree_unflatten(tree, [fn(t) for t in tree_leaves(tree)])
+
+
 def get_batch_shape(x: torch.Tensor, event_shape: Sequence[int]) -> Shape:
     return tuple(x.shape[: x.dim() - len(event_shape)])
 

@@ -47,6 +47,7 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from nfmc_torch.ops import build  # noqa: E402
 from nfmc_torch.ops import coupling as ops  # noqa: E402
+from nfmc_torch.utils import tree_leaves  # noqa: E402
 
 D, H, L, CLAMP = 100, 128, 4, 3.0
 N_BINS, TAIL = 8, 5.0
@@ -131,7 +132,7 @@ def run(versions: dict) -> None:
     x, gy = (torch.randn((rows, D), generator=g, device=dev) for _ in range(2))
     gld = torch.randn((rows,), generator=g, device=dev)
     ref = ops.realnvp_stack_vjp_plain(params, x, gy, gld, CLAMP, False)
-    ref_flat = torch.cat([t.reshape(-1) for t in ops._leaves(ref[1])])
+    ref_flat = torch.cat([t.reshape(-1) for t in tree_leaves(ref[1])])
     scale = max(1.0, ref[0].abs().max().item(), ref_flat.abs().max().item())
     outs = {}
     for tag, libs in versions.items():
@@ -255,7 +256,7 @@ def run_spline(versions: dict) -> None:
         gy = torch.randn((rows, D), generator=g, device=dev)
         gld = torch.randn((rows,), generator=g, device=dev)
         ref = sops.spline_stack_vjp_plain(params, x, gy, gld, kind, N_BINS, TAIL, False)
-        ref_flat = torch.cat([t.reshape(-1) for t in ops._leaves(ref[1])])
+        ref_flat = torch.cat([t.reshape(-1) for t in tree_leaves(ref[1])])
         scale = max(1.0, ref[0].abs().max().item(), ref_flat.abs().max().item())
         outs = {}
         for tag, libs in versions.items():

@@ -26,8 +26,8 @@ def main() -> None:
     from chip_smoke import perturbed_params
     from nfmc_torch.flows import Flow, RealNVP
     from nfmc_torch.flows.train import _nll
-    from nfmc_torch.ops.coupling import _leaves
     from nfmc_torch.potentials import DiagonalGaussian1
+    from nfmc_torch.utils import tree_leaves
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--d", type=int, default=100)
@@ -43,7 +43,7 @@ def main() -> None:
         p = [{k: [t.to(dtype).requires_grad_(True) for t in v] for k, v in q.items()}
              for q in params]
         loss = _nll(flow, p, x.to(dtype))
-        return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, _leaves(p))])
+        return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, tree_leaves(p))])
 
     g32, g64 = grad(torch.float32).double(), grad(torch.float64)
     err = (g32 - g64).abs()

@@ -27,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from nfmc_torch.ops import coupling as cops  # noqa: E402
 from nfmc_torch.ops import spline as sops  # noqa: E402
+from nfmc_torch.utils import tree_leaves  # noqa: E402
 
 
 def names(n_layers: int) -> list:
@@ -49,7 +50,7 @@ def main() -> None:
                 p64 = [{k: [t.double() for t in v] for k, v in p.items()} for p in params]
                 ref = sops.spline_stack_vjp_plain(p64, x.double(), gy.double(), gld.double(), kind,
                                                   8, 5.0, inverse)
-                flat_ref = [ref[0], *cops._leaves(ref[1])]
+                flat_ref = [ref[0], *tree_leaves(ref[1])]
                 dist, drift, layer, dim = (t.cpu() for t in sops.knot_witness(
                     params, x, kind, 8, 5.0, inverse))
                 line = (f"{kind} d={d} B={rows} {'inverse' if inverse else 'forward'} (rows with "
@@ -60,7 +61,7 @@ def main() -> None:
                         ("plain float32", sops.spline_stack_vjp_plain(params, x, gy, gld, kind, 8,
                                                                       5.0, inverse))):
                     errs = [float((a.double() - b).abs().max())
-                            for a, b in zip([got[0], *cops._leaves(got[1])], flat_ref)]
+                            for a, b in zip([got[0], *tree_leaves(got[1])], flat_ref)]
                     i = max(range(len(errs)), key=errs.__getitem__)
                     rel, scale, row_err = cops.vjp_error(got, ref)
                     off = (row_err > cs.SPLINE_BWD_TOL * scale).nonzero()[:, 0].tolist()

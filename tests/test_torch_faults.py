@@ -5,7 +5,10 @@ computes, checked on the CPU against nfmc_tpu with the same numpy inputs:
   ``data_transform`` of ``MCMCExpectationDict`` and ``MCMCStatistics``;
 * coupling flows whose conditioners have another depth than 2 hidden
   layers, which run the plain stack (the reference's XLA path);
-* strided rows (a column slice) handed to a flow.
+* strided rows (a column slice) handed to a flow;
+* ``sample()``'s ``mesh`` and ``checkpoint_*`` keywords (3.6), the unroll
+  fields of the parameters (3.7), the default ``sample_continue`` (3.8),
+  ``Flow.sample`` / ``Flow.to``'s signatures and the strategy lists (3.9).
 
 Tolerances as in ``tests/test_torch_flows.py`` and
 ``tests/test_torch_spline.py``: float32 values to 1e-5 (RealNVP) or 2e-5
@@ -25,6 +28,7 @@ from nfmc_torch.core import statistics as tstats
 from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow, RealNVP, from_jax_params
 from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as cops
+from nfmc_torch.utils import tree_leaves
 
 # ---- 3.4: the expectations' API -----------------------------------------------
 
@@ -136,9 +140,9 @@ def test_three_hidden_layers_through_the_flow_string():
     assert isinstance(flow.bijection, CouplingLRS) and not flow.bijection.fused
     assert [w.shape[1] for w in flow.params[0]["w"][:-1]] == [8, 8, 8]
     x = np.random.default_rng(3).standard_normal((40, 5)).astype(np.float32)
-    before = cops._leaves(flow.params)[0].clone()
+    before = tree_leaves(flow.params)[0].clone()
     flow.fit(x, n_epochs=2, batch_size=16, early_stopping=False, seed=0)
-    assert not torch.equal(cops._leaves(flow.params)[0], before)
+    assert not torch.equal(tree_leaves(flow.params)[0], before)
     assert torch.isfinite(flow.log_prob(torch.from_numpy(x))).all()
 
 
@@ -158,3 +162,122 @@ def test_flow_takes_a_column_slice(cls):
     z, ld = flow.bijection.inverse(view)
     z_c, ld_c = flow.bijection.inverse(view.contiguous())
     assert torch.equal(z, z_c) and torch.equal(ld, ld_c)
+
+
+# ---- 3.6-3.9: the JAX package's signatures --------------------------------------
+
+import dataclasses  # noqa: E402
+import inspect  # noqa: E402
+
+import nfmc_torch  # noqa: E402
+import nfmc_tpu  # noqa: E402
+from nfmc_torch.potentials import StandardGaussian  # noqa: E402
+
+_UNPORTED_KW = {"mesh": object(), "checkpoint_path": "run.ckpt",
+                "checkpoint_segment_iterations": 2, "checkpoint_save_samples": True}
+
+
+def test_sample_takes_the_jax_keywords():
+    """``sample()`` takes every keyword of the JAX front door with its
+    default; the port runs with those defaults, and each keyword other than
+    None raises naming ROADMAP 1.8 (both packages run with the defaults)."""
+    jsig = inspect.signature(nfmc_tpu.sample).parameters
+    tsig = inspect.signature(nfmc_torch.sample).parameters
+    for name, param in jsig.items():
+        assert name in tsig and tsig[name].default == param.default, name
+    defaults = {k: None for k in _UNPORTED_KW}
+    jout = nfmc_tpu.sample(lambda x: 0.5 * jnp.sum(x ** 2, -1), event_shape=(3,), strategy="mala",
+                           n_chains=4, n_iterations=3, show_progress=False, seed=0, **defaults)
+    out = nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4, n_iterations=3,
+                            device="cpu", show_progress=False, seed=0, **defaults)
+    assert tuple(out.samples.shape) == tuple(np.shape(jout.samples)) == (3, 4, 3)
+    for name, value in _UNPORTED_KW.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
+            nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4,
+                              n_iterations=3, device="cpu", show_progress=False, **{name: value})
+
+
+def _field_defaults(cls):
+    return {f.name: f.default for f in dataclasses.fields(cls)
+            if f.default is not dataclasses.MISSING}
+
+
+def test_unroll_fields_match_jax():
+    from nfmc_torch.core import MCMCParameters
+    from nfmc_torch.samplers.nfmc import JumpNFMCParameters
+    from nfmc_tpu.core import MCMCParameters as JMCMCParameters
+    from nfmc_tpu.samplers.nfmc.jump import JumpNFMCParameters as JJumpNFMCParameters
+
+    assert _field_defaults(MCMCParameters)["scan_unroll"] == 1
+    for field in ("scan_unroll", "fused_unroll_inner", "fused_unroll_outer"):
+        assert (_field_defaults(JumpNFMCParameters)[field]
+                == _field_defaults(JJumpNFMCParameters)[field] == 1)
+    assert _field_defaults(JMCMCParameters)["scan_unroll"] == 1
+    out = nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4, n_iterations=3,
+                            device="cpu", show_progress=False, seed=0,
+                            param_kwargs={"scan_unroll": 2})
+    plain = nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4,
+                              n_iterations=3, device="cpu", show_progress=False, seed=0)
+    assert torch.equal(out.samples, plain.samples)  # no effect on the eager loops
+
+
+JUMPS = [s for s in nfmc_torch.get_supported_nfmc_samplers() if s.startswith("jump_")]
+
+
+@pytest.mark.parametrize("strategy", JUMPS)
+def test_fused_unroll_runs_for_every_jump_strategy(strategy):
+    kw = {"negative_log_likelihood": StandardGaussian((3,))} if strategy == "jump_ess" else {}
+    run = lambda **pk: nfmc_torch.sample(  # noqa: E731
+        StandardGaussian((3,)), strategy=strategy, flow='realnvp%{"hidden_size": 8}',
+        n_chains=4, n_iterations=2, inner_param_kwargs={"n_iterations": 2}, device="cpu",
+        show_progress=False, seed=0, param_kwargs=pk, **kw)
+    out = run(fused_unroll_outer=4, fused_unroll_inner=2)
+    assert torch.equal(out.samples, run().samples)
+
+
+@pytest.mark.parametrize("strategy", ["mala", "hmc", "mh", "nuts", "aies", "chees_hmc",
+                                      "dense_mala", "imh", "jump_mala", "jump_hmc"])
+def test_default_sample_continue(strategy):
+    """The samplers without their own continuation inherit ``sample`` as
+    ``sample_continue``, as the JAX ``Sampler`` does."""
+    from nfmc_torch.core.sampler import Sampler
+    from nfmc_tpu.core.sampler import Sampler as JSampler
+
+    assert "sample_continue" in vars(JSampler) and "sample_continue" in vars(Sampler)
+    sampler = nfmc_torch.create_sampler(StandardGaussian((3,)), strategy=strategy,
+                                        flow='realnvp%{"hidden_size": 8}', device="cpu",
+                                        param_kwargs={"n_iterations": 2},
+                                        inner_param_kwargs={"n_iterations": 2})
+    assert type(sampler).sample_continue is Sampler.sample_continue
+    x0 = torch.randn((8, 3), generator=torch.Generator().manual_seed(0))
+    first = sampler.sample(x0, show_progress=False, seed=1)
+    last = first.running_samples.last_sample
+    again = sampler.sample_continue(last, show_progress=False, seed=2)
+    direct = sampler.sample(last, show_progress=False, seed=2)
+    assert torch.equal(again.samples, direct.samples)
+
+
+def test_flow_sample_and_to_take_the_jax_signatures(monkeypatch):
+    """``flow.sample(3, True)`` is draws in both packages (``no_grad``
+    second); ``to()`` defaults to the default device; the strategy lists
+    equal the JAX package's."""
+    jflow = JFlow(JRealNVP((4,), hidden_size=8), seed=0)
+    flow = Flow(RealNVP((4,), hidden_size=8), seed=0)
+    assert np.shape(jflow.sample(3, True)) == tuple(flow.sample(3, True).shape) == (3, 4)
+    x, log_q = flow.sample(3, True, True, seed=1)
+    assert x.shape == (3, 4) and log_q.shape == (3,) and not x.requires_grad
+    flow.params = [{k: [t.detach().requires_grad_(True) for t in v] for k, v in p.items()}
+                   for p in flow.params]
+    assert not flow.sample(3, True, seed=1).requires_grad
+    assert flow.sample(3, False, seed=1).requires_grad  # the graph to the weights kept
+    assert list(inspect.signature(Flow.sample).parameters)[:4] == ["self", "n", "no_grad",
+                                                                   "return_log_prob"]
+    assert inspect.signature(Flow.to).parameters["device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        flow.to()  # the default device is the card
+    monkeypatch.setattr("nfmc_torch.flows.base.resolve_device", lambda d=None: torch.device("cpu"))
+    assert flow.to() is flow and flow.get_device().type == "cpu"
+    for name in ("get_supported_samplers", "get_supported_mcmc_samplers",
+                 "get_supported_nfmc_samplers"):
+        assert getattr(nfmc_torch, name)() == getattr(nfmc_tpu, name)()

@@ -17,6 +17,7 @@ from nfmc_tpu.flows import RealNVP as JRealNVP
 from nfmc_torch.flows import Flow, RealNVP, from_jax_params
 from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as ops
+from nfmc_torch.utils import tree_leaves, tree_unflatten
 
 TOL = 1e-5
 
@@ -52,10 +53,10 @@ def test_plain_vjp_matches_autograd(inverse, d, n_layers, hidden, n):
     x, gy, gld = (torch.from_numpy(a) for a in _inputs(n, d))
     x.requires_grad_(True)
     y, ld = ops.realnvp_stack_plain(params, x, 3.0, inverse)
-    want = torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), [x, *ops._leaves(params)])
+    want = torch.autograd.grad((y * gy).sum() + (ld * gld).sum(), [x, *tree_leaves(params)])
     with torch.no_grad():
         gx, grads = ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)
-    for g, w in zip([gx, *ops._leaves(grads)], want):
+    for g, w in zip([gx, *tree_leaves(grads)], want):
         assert g.shape == w.shape
         _assert_close(g, w)
 
@@ -106,11 +107,11 @@ def test_function_gradcheck_float64():
     g = torch.Generator().manual_seed(0)
     params = [{k: [(t + 0.3 * torch.randn(t.shape, generator=g)).double().requires_grad_(True)
                    for t in v] for k, v in p.items()} for p in flow.params]
-    leaves = ops._leaves(params)
+    leaves = tree_leaves(params)
     x = torch.randn(4, 5, generator=g, dtype=torch.float64, requires_grad=True)
     for fn in (ops.fused_realnvp_forward, ops.fused_realnvp_inverse):
         def f(x, *lv):
-            return fn(ops._from_leaves(lv, [3] * 3), x, 3.0)
+            return fn(tree_unflatten(params, lv), x, 3.0)
 
         assert torch.autograd.gradcheck(f, (x, *leaves))
 
@@ -123,12 +124,12 @@ def test_flow_is_differentiable_through_the_function():
     _, params = _pair(7, 3, 16, seed=6)
     flow = Flow(RealNVP((7,), n_layers=3, hidden_size=16))
     x = torch.from_numpy(_inputs(11, 7)[0])
-    theta = torch.cat([t.reshape(-1) for t in ops._leaves(params)]).requires_grad_(True)
+    theta = torch.cat([t.reshape(-1) for t in tree_leaves(params)]).requires_grad_(True)
     lp = flow.log_prob_fn(ops.unpack_like(theta, params), x)
     assert lp.grad_fn is not None
     (g,) = torch.autograd.grad(lp.sum(), theta)
-    leaves = [t.clone().requires_grad_(True) for t in ops._leaves(params)]
-    p2 = ops._from_leaves(leaves, [3] * 3)
+    leaves = [t.clone().requires_grad_(True) for t in tree_leaves(params)]
+    p2 = tree_unflatten(params, leaves)
     z, ld = ops.realnvp_stack_plain(p2, x, 3.0, False)
     lp2 = flow.base_log_prob_fn(z) + ld
     want = torch.cat([t.reshape(-1) for t in torch.autograd.grad(lp2.sum(), leaves)])

@@ -12,6 +12,7 @@ import torch
 
 from nfmc_torch.flows import Flow, RealNVP
 from nfmc_torch.ops import coupling as ops
+from nfmc_torch.utils import tree_leaves
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-4
@@ -130,7 +131,7 @@ def test_wide_realnvp_runs_both_ways(cuda, inverse, rows):
 def _grad_err(got, want):
     gx, grads = got
     rx, rgrads = want
-    pairs = list(zip([gx, *ops._leaves(grads)], [rx, *ops._leaves(rgrads)]))
+    pairs = list(zip([gx, *tree_leaves(grads)], [rx, *tree_leaves(rgrads)]))
     return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max())) for a, b in pairs)
 
 
@@ -161,7 +162,7 @@ def test_backward_kernel_is_deterministic(cuda, rows):
     a = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
     b = ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, False)
     assert torch.equal(a[0], b[0])
-    assert all(torch.equal(u, v) for u, v in zip(ops._leaves(a[1]), ops._leaves(b[1])))
+    assert all(torch.equal(u, v) for u, v in zip(tree_leaves(a[1]), tree_leaves(b[1])))
 
 
 # ---- the spline coupling kernels (spline.cu, spline_bwd.cu) ----------------------
@@ -257,7 +258,7 @@ def test_spline_backward_kernel_is_deterministic(cuda, kind, d, rows):
     a = sops.fused_spline_vjp(params, x, gy, gld, kind, 8, 5.0, False)
     b = sops.fused_spline_vjp(params, x, gy, gld, kind, 8, 5.0, False)
     assert torch.equal(a[0], b[0])
-    assert all(torch.equal(u, v) for u, v in zip(ops._leaves(a[1]), ops._leaves(b[1])))
+    assert all(torch.equal(u, v) for u, v in zip(tree_leaves(a[1]), tree_leaves(b[1])))
 
 
 @pytest.mark.parametrize("kind", ["rqs", "lrs"])

@@ -27,6 +27,7 @@ from nfmc_torch.flows.spline import n_params_per_dim
 from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as cops
 from nfmc_torch.ops import spline as sops
+from nfmc_torch.utils import tree_leaves
 
 SHIM = build.CSRC.parents[1] / "tests" / "host_cuda"
 TOL, SPLINE_BWD_TOL = 1e-4, 2e-4
@@ -89,7 +90,7 @@ def _params(n_par, d, hidden, n_layers, seed):
 
 
 def _rel_err(got, want):
-    pairs = list(zip([got[0], *cops._leaves(got[1])], [want[0], *cops._leaves(want[1])]))
+    pairs = list(zip([got[0], *tree_leaves(got[1])], [want[0], *tree_leaves(want[1])]))
     scale = max(1.0, max(float(b.abs().max()) for _, b in pairs))
     return max(float((a - b).abs().max()) for a, b in pairs) / scale
 

@@ -30,6 +30,7 @@ from nfmc_torch.flows import CouplingLRS, CouplingRQNSF, Flow, from_jax_params
 from nfmc_torch.ops import build
 from nfmc_torch.ops import coupling as cops
 from nfmc_torch.ops import spline as ops
+from nfmc_torch.utils import tree_leaves
 
 TOL = 2e-5
 GRAD_TOL = 5e-4
@@ -175,7 +176,7 @@ def test_plain_vjp_matches_jax_grad(kind, inverse):
                                             torch.from_numpy(gy), torch.from_numpy(gld), kind,
                                             8, 5.0, inverse)
     _close(gx_t, gx_j, GRAD_TOL)
-    for got, want in zip(cops._leaves(gp_t), cops._leaves(from_jax_params(gp_j))):
+    for got, want in zip(tree_leaves(gp_t), tree_leaves(from_jax_params(gp_j))):
         assert got.shape == want.shape
         _close(got, want, GRAD_TOL)
 
@@ -202,7 +203,7 @@ def test_plain_vjp_matches_pallas_backward_kernel(interpret_spline, kind, invers
                                             torch.from_numpy(gy), torch.from_numpy(gld), kind,
                                             4, 5.0, inverse)
     _close(gx_t, jnp.take(gx_p, unpack, axis=-1), GRAD_TOL)
-    for got, want in zip(cops._leaves(gp_t), cops._leaves(from_jax_params(gp_j))):
+    for got, want in zip(tree_leaves(gp_t), tree_leaves(from_jax_params(gp_j))):
         _close(got, want, GRAD_TOL)
 
 
@@ -212,12 +213,11 @@ def test_spline_stack_gradcheck(kind, inverse):
     """``SplineStack`` in float64: its backward (the plain VJP on the CPU)
     against finite differences, in the input and every weight."""
     _, flow = _pair(kind, (4,), 2, 4, 3, pert=0.3, seed=15)
-    leaves = [t.double().requires_grad_(True) for t in cops._leaves(flow.params)]
+    leaves = [t.double().requires_grad_(True) for t in tree_leaves(flow.params)]
     x = torch.from_numpy(_x(3, (4,), seed=16) / 2).double().requires_grad_(True)
-    depths = tuple(len(p["w"]) for p in flow.params)
 
     def fn(x, *leaves):
-        return ops.SplineStack.apply(x, None, kind, 3, 5.0, inverse, depths, *leaves)
+        return ops.SplineStack.apply(x, None, kind, 3, 5.0, inverse, flow.params, *leaves)
 
     assert torch.autograd.gradcheck(fn, (x, *leaves), eps=1e-6, atol=1e-5, rtol=1e-4)
 
