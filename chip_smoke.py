@@ -109,7 +109,7 @@ Phases, in order; any failure exits non-zero before the last line:
      final weights agree to 1e-4.
   11. neutra_hmc through the front door (bench.py's north-star cell): 100
      chains on a 100-d standard Gaussian, the identity-init RealNVP frozen,
-     HMC step 0.1 with 20 leapfrog steps, 1000 iterations: acceptance and
+     HMC step 0.1 with 20 leapfrog steps, 500 iterations: acceptance and
      data-space moments in bands from the JAX package's CPU runs
      (scripts/flow_samplers_reference_cpu.py), the counters (2 L B
      gradient calls), the launch law (an iteration: 21 gradient passes, each
@@ -223,8 +223,35 @@ Phases, in order; any failure exits non-zero before the last line:
      frozen on N(0.12 * 1, I): jump acceptance in [0.30, 0.50]; 14e the
      repaired faults on the card (sample() with mesh / checkpoint_* None,
      fused_unroll_outer=4, sample_continue, Flow.sample(3, True)).
+  15. the continuous, multiscale / Glow and convolutional flows (phase 15
+     owns its launch counts: the four kernels must launch 0 times for these
+     23 flows), at each flow's default widths, weights moved LAST_PERTURB
+     N(0, 1) from the init (last_weights): 15a each case of LAST_CASES (the
+     four continuous flows at d=100 on Hutchinson's trace, FFJORD at d=32
+     on the exact path, the 19 image flows on (8, 8), conv-FFJORD on
+     (16, 16) on Hutchinson's), forward and inverse at B=100 on the card
+     against the CPU (worker processes beside the card) with the same
+     probes (FixedProbes), within each case's limit from its float32 drift
+     (LAST_DRIFT), under torch's default backend flags (cuDNN TF32 on: the
+     port's convolutions are shifted views and a matmul, full float32), the
+     production probes equal on both devices and the production path
+     finite; 15b examples/06_applied_targets.py's phi^4 run with
+     glow-realnvp through jump_hmc (32 chains, 100 outer iterations,
+     warmup, its fit 50 epochs): mean |m| and jump acceptance in JAX bands;
+     15c IMH with RNODE's reverse-KL warmup (the kinetic term in, 50 epochs)
+     on DiagonalGaussian1(100), 1000 iterations: acceptance and moments in
+     JAX bands, the kinetic term nonzero; 15d one IMH iteration through
+     sample() for each of the registry's 48 names ((8, 8) images, d=100
+     vectors, the masked NAF flows 1 layer): finite draws of the right shape.
+  16. the headline (jump_mala, RealNVP 4 x 128, the coupling kernels) with
+     checkpoint_path, 100 outer iterations in 5 segments of 20: a run that
+     dies after 2 segments and resumes equals the uninterrupted segmented
+     run bit for bit (stored draws, counters, moments, kernel state, flow
+     weights), and no file is left after success; the same for
+     adaptive_imh (its refits through the backward kernel, its schedule in
+     the extra-state hook).
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) and the paths of phases 11-13 launched
+every shape the IMH path (10-10c) and the paths of phases 11-13 and 16 launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and has its
 own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
@@ -314,16 +341,17 @@ IMH_WARM_MOMENTS = {"median|var/sigma^2 - 1|": (0.0, 0.080), "median|mean|/sigma
                     "max var/sigma^2": (0.0, 1.248)}
 # The flow-reparameterised samplers (phases 11-11f), at bench.py's sizes.
 # 11: neutra_hmc, 100 chains, the identity-init RealNVP frozen, HMC step
-# 0.1 and 20 leapfrog steps (bench.py:508, 600-604).
-NEUTRA_ITERS, NEUTRA_STEP = 1000, 0.1
+# 0.1 and 20 leapfrog steps (bench.py:508, 600-604), cut from 1000 to
+# NEUTRA_ITERS iterations (PR 12: the script's wall on a slow host)
+NEUTRA_ITERS, NEUTRA_STEP = 500, 0.1
 # Its bands, from scripts/flow_samplers_reference_cpu.py --neutra-hmc (the
-# JAX package on the CPU, seeds 0-7): acceptance 0.990310-0.991440, so a
-# rejection rate of 0.008560-0.009690, and the band is that rate from half
-# its low to 1.5 times its high (as phase 10b widens its acceptance);
-# max|mean| 0.004606-0.006969 and max|E[x^2] - 1| 0.012318-0.019147 over
-# the dims, and the gates are 1.5 times the highest
-NEUTRA_ACC_JAX, NEUTRA_ACC = "0.990310-0.991440", (0.985465, 0.995720)
-NEUTRA_MOMENTS = (0.010453, 0.028720)
+# JAX package on the CPU, seeds 0-7, at NEUTRA_ITERS): acceptance
+# 0.990300-0.991920, so a rejection rate of 0.008080-0.009700, and the band
+# is that rate from half its low to 1.5 times its high (as phase 10b widens
+# its acceptance); max|mean| 0.005679-0.009514 and max|E[x^2] - 1|
+# 0.017903-0.022492 over the dims, and the gates are 1.5 times the highest
+NEUTRA_ACC_JAX, NEUTRA_ACC = "0.990300-0.991920", (0.985450, 0.995960)
+NEUTRA_MOMENTS = (0.014271, 0.033738)
 # 11a: neutra_mh on Funnel(100) with warmup=True: the reverse-KL fit capped
 # at NEUTRA_MH_FIT_EPOCHS epochs (the default's 50,000 with early stopping
 # after 5000 is a depth the script's time limit cannot hold), the random
@@ -353,15 +381,15 @@ TESS_ITERS, TESS_FIT_KWARGS = 2000, {"n_epochs": 10, "lr": 5e-3}
 # 11d: jump_hmc at bench.py:682-722: 1024 chains, 5 inner HMC iterations
 JUMP_HMC_C, JUMP_HMC_OUTER, JUMP_HMC_INNER = 1024, 100, 5
 # 11e: dlmc at bench.py:726-743, 1024 chains, cut from 200 iterations to
-# DLMC_ITERS: each iteration refits the flow with 110 Adam steps (10 epochs
-# of 11 batches of 64), host-bound at ~2-3 ms a step on the card
-DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 100, {"n_epochs": 10, "lr": 5e-3}
+# DLMC_ITERS (100 until PR 12): each iteration refits the flow with 110
+# Adam steps (10 epochs of 11 batches of 64), host-bound at ~2-5 ms a step
+DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 50, {"n_epochs": 10, "lr": 5e-3}
 # Its bands, from scripts/flow_samplers_reference_cpu.py --dlmc (the JAX
 # package on the CPU at the same depth, seeds 0-7): the moment error
-# max|mean| 0.029988-0.047894 and the acceptance 0.158877-0.164131, each
+# max|mean| 0.039914-0.063645 and the acceptance 0.130723-0.136816, each
 # band from half the low to 1.5 times the high
-DLMC_ERR_JAX, DLMC_ERR = "0.029988-0.047894", (0.014994, 0.071842)
-DLMC_ACC_JAX, DLMC_ACC = "0.158877-0.164131", (0.079438, 0.246196)
+DLMC_ERR_JAX, DLMC_ERR = "0.039914-0.063645", (0.019957, 0.095467)
+DLMC_ACC_JAX, DLMC_ACC = "0.130723-0.136816", (0.065361, 0.205225)
 # The adaptive-trajectory and slice samplers (phases 12-12f), at bench.py's
 # sizes. 12: nuts at bench.py's nuts_1024 (bench.py:1053-1058, 1099-1119):
 # 1024 chains on a 100-d standard Gaussian, max_tree_depth 10, 85 warmup
@@ -652,6 +680,189 @@ def zoo_weights(name: str, seed: int = ZOO_SEED, pert: float = ZOO_PERTURB):
     return tree_unflatten(params, [
         (t.numpy() + pert * rng.standard_normal(tuple(t.shape))).astype(np.float32)
         for t in tree_leaves(params)])
+
+
+# Phase 15: the continuous, multiscale / Glow and convolutional flows (no
+# kernel: each of the four kernels must launch 0 times for them), at each
+# flow's default widths (the continuous MLPs 2 x 64 and 12 steps, DDB 20
+# Euler steps; multiscale / Glow 2 levels of 2 steps, hidden_channels 32;
+# the conv residual flows 4 layers of 16 channels; the conv CNFs 16
+# channels and 6 steps, DDB 12). 15a: card against CPU at B = LAST_B rows,
+# weights the port's CPU init at LAST_SEED plus LAST_PERTURB N(0, 1)
+# (last_weights). The vector flows at d = D take the Hutchinson trace
+# (d > 32), FFJORD at d = 32 the exact path; the image flows on (8, 8),
+# the conv CNFs there on the exact trace (d = 64 <= 64), conv-FFJORD on
+# (16, 16) on Hutchinson's.
+LAST_VECTOR = ("ffjord", "rnode", "ot-flow", "ddb")
+LAST_IMAGE = ("ms-realnvp", "ms-nice", "ms-rqnsf", "ms-lrsnsf", "ms-naf-deep", "ms-naf-dense",
+              "ms-naf-deep-dense", "glow-realnvp", "glow-nice", "glow-rqnsf", "glow-lrsnsf",
+              "glow-naf-deep", "glow-naf-dense", "glow-naf-deep-dense", "conv-i-resnet",
+              "conv-resflow", "conv-ffjord", "conv-rnode", "conv-ddb")
+LAST_CASES = ([(n, (D,)) for n in LAST_VECTOR] + [("ffjord", (32,))]
+              + [(n, (8, 8)) for n in LAST_IMAGE] + [("conv-ffjord", (16, 16))])
+LAST_PERTURB, LAST_SEED, LAST_B = 0.1, 17, 100
+LAST_CPU_WORKERS = 4
+# 15a's card-against-CPU limits, relative to max(1, max|ref|), per case and
+# direction: max(TOL, 4 times the port's float32 drift from float64 on the
+# CPU at the same weights and rows; two float32 runs may part by twice the
+# drift, and the card sums in another order)
+# (scripts/last_flows_reference_cpu.py --drift).
+LAST_DRIFT = {
+    ("ffjord", (100,), "forward"): 2.236e-07, ("ffjord", (100,), "inverse"): 3.524e-07,
+    ("rnode", (100,), "forward"): 2.236e-07, ("rnode", (100,), "inverse"): 3.524e-07,
+    ("ot-flow", (100,), "forward"): 1.333e-07, ("ot-flow", (100,), "inverse"): 2.776e-07,
+    ("ddb", (100,), "forward"): 2.672e-07, ("ddb", (100,), "inverse"): 3.141e-07,
+    ("ffjord", (32,), "forward"): 9.735e-07, ("ffjord", (32,), "inverse"): 1.060e-06,
+    ("ms-realnvp", (8, 8), "forward"): 5.484e-07, ("ms-realnvp", (8, 8), "inverse"): 3.096e-07,
+    ("ms-nice", (8, 8), "forward"): 3.745e-07, ("ms-nice", (8, 8), "inverse"): 4.932e-07,
+    ("ms-rqnsf", (8, 8), "forward"): 3.398e-06, ("ms-rqnsf", (8, 8), "inverse"): 1.595e-03,
+    ("ms-lrsnsf", (8, 8), "forward"): 2.069e-06, ("ms-lrsnsf", (8, 8), "inverse"): 1.806e-03,
+    ("ms-naf-deep", (8, 8), "forward"): 1.255e-06, ("ms-naf-deep", (8, 8), "inverse"): 8.842e-07,
+    ("ms-naf-dense", (8, 8), "forward"): 5.365e-07, ("ms-naf-dense", (8, 8), "inverse"): 1.351e-06,
+    ("ms-naf-deep-dense", (8, 8), "forward"): 2.187e-06, ("ms-naf-deep-dense", (8, 8), "inverse"): 1.202e-06,
+    ("glow-realnvp", (8, 8), "forward"): 1.369e-06, ("glow-realnvp", (8, 8), "inverse"): 2.422e-06,
+    ("glow-nice", (8, 8), "forward"): 2.236e-07, ("glow-nice", (8, 8), "inverse"): 2.990e-07,
+    ("glow-rqnsf", (8, 8), "forward"): 3.304e-06, ("glow-rqnsf", (8, 8), "inverse"): 9.527e-04,
+    ("glow-lrsnsf", (8, 8), "forward"): 2.922e-06, ("glow-lrsnsf", (8, 8), "inverse"): 1.022e-02,
+    ("glow-naf-deep", (8, 8), "forward"): 4.609e-07, ("glow-naf-deep", (8, 8), "inverse"): 1.201e-06,
+    ("glow-naf-dense", (8, 8), "forward"): 8.393e-06, ("glow-naf-dense", (8, 8), "inverse"): 5.567e-04,
+    ("glow-naf-deep-dense", (8, 8), "forward"): 6.208e-05, ("glow-naf-deep-dense", (8, 8), "inverse"): 2.447e-05,
+    ("conv-i-resnet", (8, 8), "forward"): 1.165e-07, ("conv-i-resnet", (8, 8), "inverse"): 1.105e-07,
+    ("conv-resflow", (8, 8), "forward"): 8.488e-08, ("conv-resflow", (8, 8), "inverse"): 1.001e-07,
+    ("conv-ffjord", (8, 8), "forward"): 8.938e-08, ("conv-ffjord", (8, 8), "inverse"): 1.010e-07,
+    ("conv-rnode", (8, 8), "forward"): 8.938e-08, ("conv-rnode", (8, 8), "inverse"): 1.010e-07,
+    ("conv-ddb", (8, 8), "forward"): 2.071e-07, ("conv-ddb", (8, 8), "inverse"): 1.064e-07,
+    ("conv-ffjord", (16, 16), "forward"): 1.454e-07, ("conv-ffjord", (16, 16), "inverse"): 1.453e-07,
+}
+# 15b: examples/06_applied_targets.py's phi^4 run with the flow swapped for
+# Glow: Phi4Lattice(L=8, kappa=0.25, lam=0.022), jump_hmc, glow-realnvp,
+# 32 chains, 100 outer iterations, warmup=True. Bands: the JAX package's
+# range over seeds 0-7 on the CPU (scripts/last_flows_reference_cpu.py
+# --phi4), from half the low to 1.5 times the high.
+PHI4_KW, PHI4_C, PHI4_ITERS = {"L": 8, "kappa": 0.25, "lam": 0.022}, 32, 100
+# the warmup's fit cut to 50 epochs of the default 500 (with early stopping
+# the port ran 200, 1800 Adam steps, 68 s on a slow host), its other
+# settings the jump sampler's default; the JAX package's range over seeds
+# 0-7 is the same at 50 epochs as at the default, to 4 digits
+PHI4_FIT_KWARGS = {"early_stopping": True, "early_stopping_threshold": 50,
+                   "batch_size": "adaptive", "show_progress": False, "n_epochs": 50}
+PHI4_ABS_M_JAX, PHI4_ABS_M = "0.3082-0.3309", (0.1541, 0.49635)
+PHI4_JUMP_JAX, PHI4_JUMP = "0.0975-0.1509", (0.04875, 0.22635)
+# 15c: IMH with the reverse-KL warmup (kinetic regularizer weighted in)
+# through RNODE on DiagonalGaussian1(100), RNODE_ITERS iterations; bands as
+# 14c's from scripts/last_flows_reference_cpu.py --rnode. The warmup's fit
+# is cut to 50 epochs of the default 500, its other settings the default
+# (a cut of depth):
+# an epoch at d = 100 is ~1e4 eager operations (12 RK4 steps, 4 stages, a
+# probe VJP each, and their backward), and the port's CPU took 500 epochs,
+# 215 s, at the default
+RNODE_ITERS = 1000
+RNODE_FIT_KWARGS = {"early_stopping": True, "early_stopping_threshold": 50,
+                    "keep_best_weights": True, "n_samples": 128, "n_epochs": 50, "lr": 0.005,
+                    "check_for_divergences": True}
+# The JAX package over seeds 0-7 (50 epochs): acceptance 0.0101-0.0113; the
+# medians over the dims of |var / sigma^2 - 1| 0.8806-0.8925 and of
+# |mean| / sigma 0.0130-0.0184; the variance ratio 0.0291-1.1612 (the flow
+# still shrinks the wide dims); the kinetic term 83.8-93.4. Gated from half
+# the low to 1.5 times the high (the |mean| median and the largest ratio
+# from 0, the smallest ratio to infinity), as 14c. At 100 epochs the port's
+# CPU runs of the same seeds lay inside the JAX package's range
+# (acceptance 0.0103-0.0110 against 0.0095-0.0115).
+RNODE_ACC_JAX, RNODE_ACC = "0.0101-0.0113", (0.00505, 0.01695)
+RNODE_MOMENTS = {"median|var/sigma^2 - 1|": (0.4403, 1.33875),
+                 "median|mean|/sigma": (0.0, 0.0276),
+                 "min var/sigma^2": (0.01455, float("inf")), "max var/sigma^2": (0.0, 1.7418)}
+# 16: the headline (jump_mala, RealNVP 4 x 128, 100 chains, d = 100, 5 inner
+# MALA steps, the flow frozen) with checkpoint_path, CKPT_OUTER outer
+# iterations in segments of CKPT_SEG (a cut of the headline's 2184), and
+# adaptive_imh (its 100 iterations) in segments of CKPT_SEG
+CKPT_OUTER, CKPT_SEG = 100, 20
+
+
+def last_weights(name: str, shape, seed: int = LAST_SEED, pert: float = LAST_PERTURB):
+    """Phase 15's weights of flow ``name`` on ``shape`` as a tree of float32
+    numpy arrays: the port's CPU init at ``seed`` plus ``pert`` N(0, 1)
+    numpy noise from ``seed``."""
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.utils import tree_leaves, tree_unflatten
+
+    params = create_flow_object(name, shape, seed=seed).params
+    rng = np.random.default_rng(seed)
+    return tree_unflatten(params, [
+        (t.numpy() + pert * rng.standard_normal(tuple(t.shape))).astype(np.float32)
+        for t in tree_leaves(params)])
+
+
+class FixedProbes:
+    """For the duration of a ``with`` block, the continuous and conv flows'
+    Hutchinson probes depend on the row's size alone (numpy, seeded), the
+    same on the card and on the CPU. Their own probes are a hash of each
+    row's float32 bits (``flows.base.hutchinson_probes``), and rounding
+    that differs between the devices in an integrator's stage changes every
+    probe of that row."""
+
+    def __enter__(self):
+        import nfmc_torch.flows.continuous as cont
+        import nfmc_torch.flows.multiscale as ms
+
+        def probes(v, n, key=None):
+            d = v.shape[-1]
+            e = np.random.default_rng(100 * d + n).choice([-1.0, 1.0], size=(n, d))
+            return torch.as_tensor(e, dtype=v.dtype, device=v.device).expand(*v.shape[:-1], n, d)
+
+        self._orig = [(mod, mod.hutchinson_probes) for mod in (cont, ms)]
+        for mod, _ in self._orig:
+            mod.hutchinson_probes = probes
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._orig:
+            mod.hutchinson_probes = fn
+
+
+def last_flow(name: str, shape, device="cpu", dtype=torch.float32):
+    """Phase 15's flow ``name`` on ``shape`` holding ``last_weights``."""
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.flows import from_jax_params
+    from nfmc_torch.utils import tree_map
+
+    flow = create_flow_object(name, shape, seed=0)
+    flow.params = tree_map(lambda t: t.to(dtype), from_jax_params(last_weights(name, shape),
+                                                                  device=device))
+    return flow
+
+
+def last_inputs(case, device="cpu"):
+    """Phase 15a's rows for ``case = (name, shape)``: x, N(0, I), for the
+    forward; for the inverse z, the float64 forward (on ``device``, with
+    FixedProbes) of other N(0, I) rows, in float32. A NAF layer's logit is
+    bounded (|y| < 13.8), so an N(0, I) latent can leave a NAF flow's
+    image, where the inverse has no point to find and its bisection stops
+    at the bracket's edge; the forward's images have preimages."""
+    name, shape = case
+    rng = np.random.default_rng(LAST_SEED)
+    x, x2 = (rng.standard_normal((LAST_B, *shape)).astype(np.float32) for _ in range(2))
+    flow = last_flow(name, shape, device=device, dtype=torch.float64)
+    with torch.no_grad(), FixedProbes():
+        z = flow.bijection.forward_fn(flow.params, torch.from_numpy(x2).double().to(device))[0]
+    return x, z.float().cpu().numpy()
+
+
+def last_cpu_reference(case, inputs=None, dtype=torch.float32) -> dict:
+    """Phase 15a's CPU side for ``case = (name, shape)`` (a worker process),
+    with FixedProbes, at ``inputs`` (default ``last_inputs(case)``):
+    ``{"forward": (y, ld), "inverse": (x, ld)}`` as numpy, in ``dtype``."""
+    torch.set_num_threads(2)
+    flow = last_flow(*case, dtype=dtype)
+    x, z = (torch.from_numpy(v).to(dtype) for v in (inputs or last_inputs(case)))
+    with torch.no_grad(), FixedProbes():
+        return {"forward": tuple(t.numpy() for t in flow.bijection.forward_fn(flow.params, x)),
+                "inverse": tuple(t.numpy() for t in flow.bijection.inverse_fn(flow.params, z))}
+
+
+def last_tol(name: str, shape, direction: str) -> float:
+    """Phase 15a's limit for a case's direction (LAST_DRIFT)."""
+    return max(TOL, 4.0 * LAST_DRIFT.get((name, tuple(shape), direction), 0.0))
 
 
 def fail(msg: str) -> None:
@@ -3221,6 +3432,300 @@ def run_flow_zoo_phases(dev) -> dict:
     return res
 
 
+def run_last_flow_phases(dev) -> dict:
+    """Phases 15-15d: the continuous, multiscale / Glow and convolutional
+    flows on the card against the CPU under torch's default backend flags,
+    Glow on phi^4 through jump_hmc, RNODE's reverse-KL warmup through IMH,
+    and one short sample() for each of the registry's 48 names. None of the
+    23 new flows may launch one of the four kernels."""
+    import nfmc_torch
+    from nfmc_torch.api.registry import PORTED_FLOWS
+    from nfmc_torch.flows.base import hutchinson_probes
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import DiagonalGaussian1, Phi4Lattice, StandardGaussian
+
+    def counts():
+        return {w.__name__: w.launches for w in build.WRAPPERS}
+
+    def no_kernel(what):
+        check(all(n == 0 for n in counts().values()),
+              f"{what}: a RealNVP or spline kernel launched for a flow without one: {counts()}")
+
+    res = {"ms": {}}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+
+    # ---- 15a. each case, card against CPU, under torch's default flags --------------
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's defaults
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("highest")
+    try:
+        print(f"15a runs under matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+              f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, float32 matmul precision "
+              f"{torch.get_float32_matmul_precision()!r} (torch's defaults)")
+        build.reset_launch_counts()
+        # the production probes hash each row's bits: the same on both devices
+        v = torch.from_numpy(np.random.default_rng(LAST_SEED).standard_normal(
+            (LAST_B, D)).astype(np.float32))
+        check(torch.equal(hutchinson_probes(v.to(dev), 4, 3).cpu(), hutchinson_probes(v, 4, 3)),
+              "15a: hutchinson_probes differ between the card and the CPU")
+        inputs, flows, outs = {}, {}, {}
+        for case in LAST_CASES:
+            flows[case] = last_flow(*case, device=dev)
+            inputs[case] = last_inputs(case, device=dev)
+        ctx = multiprocessing.get_context("spawn")
+        order = sorted(LAST_CASES, key=lambda c: not c[0].startswith("conv-"))
+        with torch.no_grad():
+            with concurrent.futures.ProcessPoolExecutor(LAST_CPU_WORKERS, mp_context=ctx) as pool:
+                futures = {case: pool.submit(last_cpu_reference, case, inputs[case])
+                           for case in order}
+                with FixedProbes():
+                    for case in LAST_CASES:
+                        bij, params = flows[case].bijection, flows[case].params
+                        for direction, v in zip(("forward", "inverse"), inputs[case]):
+                            fn = bij.inverse_fn if direction == "inverse" else bij.forward_fn
+                            outs[case, direction] = fn(params, torch.from_numpy(v).to(dev))
+                refs = {case: f.result() for case, f in futures.items()}
+            for case in LAST_CASES:
+                bij, params = flows[case].bijection, flows[case].params
+                line = []
+                for direction, v in zip(("forward", "inverse"), inputs[case]):
+                    fn = bij.inverse_fn if direction == "inverse" else bij.forward_fn
+                    with FixedProbes():
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn(params, torch.from_numpy(v).to(dev))
+                        torch.cuda.synchronize()
+                    res["ms"][case, direction] = 1e3 * (time.perf_counter() - t0)
+                    y, ld = outs[case, direction]
+                    check(y.device.type == "cuda" and bool(torch.isfinite(y).all()
+                                                           and torch.isfinite(ld).all()),
+                          f"15a {case} {direction}: non-finite output or off the card")
+                    y, ld, (y_ref, ld_ref) = y.cpu().numpy(), ld.cpu().numpy(), refs[case][direction]
+                    e = max(float(np.abs(y - y_ref).max()), float(np.abs(ld - ld_ref).max()))
+                    scale = max(1.0, float(np.abs(y_ref).max()), float(np.abs(ld_ref).max()))
+                    tol = last_tol(*case, direction)
+                    line.append(f"{direction} {res['ms'][case, direction]:.2f} ms, card vs CPU "
+                                f"{e:.3e} (scale {scale:.1f}, limit {tol:.3g})")
+                    check(e <= tol * scale, f"15a {case} {direction}: card and CPU differ by "
+                                            f"{e} > {tol} * {scale}")
+                # with the flow's own probes (the production path): finite
+                y, ld = bij.forward_fn(params, torch.from_numpy(inputs[case][0]).to(dev))
+                check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
+                      f"15a {case}: non-finite output with the flow's own probes")
+                print(f"15a {case[0]} {case[1]} (B={LAST_B}, 0 kernel launches a call): "
+                      + "; ".join(line))
+        no_kernel("15a")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])
+    print(f"15a: kernel launches {counts()}, {time.perf_counter() - t_phase:.1f} s; the script's "
+          f"flags restored: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} ({smi})")
+
+    # ---- 15b. phi^4 through jump_hmc with Glow ----------------------------------------
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Instrument() as ins:
+        pout = nfmc_torch.sample(Phi4Lattice(**PHI4_KW), strategy="jump_hmc", flow="glow-realnvp",
+                                 n_chains=PHI4_C, n_iterations=PHI4_ITERS, warmup=True, seed=0,
+                                 param_kwargs={"flow_fit_kwargs": PHI4_FIT_KWARGS},
+                                 show_progress=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel("15b phi^4 with Glow")
+    phi = pout.samples
+    check(phi.shape == (PHI4_ITERS * 6, PHI4_C, 8, 8) and bool(torch.isfinite(phi).all()),
+          f"15b: draws of shape {tuple(phi.shape)} or non-finite")
+    abs_m = float(phi.double().mean(dim=(-1, -2)).abs().mean())
+    jacc = pout.statistics.jump_acceptance_rate
+    sample_s = wall - ins.inner_s - ins.fit_s
+    res["phi4"] = (wall, PHI4_ITERS / sample_s, ins.fit_s, ins.steps)
+    print(f"15b phi^4 (L=8, kappa=0.25, lam=0.022) jump_hmc with glow-realnvp, {PHI4_C} chains, "
+          f"{PHI4_ITERS} outer it, warmup: wall {wall:.3f} s (inner warmup {ins.inner_s:.3f} s, "
+          f"flow fit {ins.fit_s:.3f} s over {ins.steps} Adam steps, sampling "
+          f"{PHI4_ITERS / sample_s:.2f} outer it/s) ({smi})")
+    in_band("15b mean |m|", abs_m, PHI4_ABS_M, PHI4_ABS_M_JAX)
+    in_band("15b jump acceptance", jacc, PHI4_JUMP, PHI4_JUMP_JAX)
+
+    # ---- 15c. IMH with RNODE's reverse-KL warmup, the kinetic term in ----------------
+    build.reset_launch_counts()
+    target = DiagonalGaussian1(D)
+    sigma = target.sigma.astype(np.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with Instrument() as ins:
+        rout = nfmc_torch.sample(target, flow="rnode", n_chains=C, n_iterations=RNODE_ITERS,
+                                 warmup=True, param_kwargs={"store_samples_on_device": True,
+                                                            "warmup_fit_kwargs": RNODE_FIT_KWARGS},
+                                 seed=0, show_progress=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel("15c RNODE IMH")
+    sample_s = wall - ins.vfit_s
+    flow = rout.kernel.flow
+    with torch.no_grad():
+        kinetic = float(flow.bijection.regularization(flow.params, rout.samples[-1]).mean())
+    ratio = rout.variance / sigma ** 2
+    moments = {"median|var/sigma^2 - 1|": float(np.median(np.abs(ratio - 1))),
+               "min var/sigma^2": float(ratio.min()), "max var/sigma^2": float(ratio.max()),
+               "median|mean|/sigma": float(np.median(np.abs(rout.mean) / sigma))}
+    res["rnode"] = (wall, RNODE_ITERS / sample_s, 1e3 * ins.vfit_s / max(ins.vfit_epochs, 1))
+    print(f"15c RNODE IMH with warmup on DiagonalGaussian1({D}), {RNODE_ITERS} it: wall "
+          f"{wall:.3f} s, of which variational fit {ins.vfit_s:.3f} s over {ins.vfit_epochs} "
+          f"Adam steps ({res['rnode'][2]:.3f} ms a step), sampling {res['rnode'][1]:.1f} it/s; "
+          f"kinetic term at the draws {kinetic:.4e} (weight "
+          f"{flow.bijection.regularization_weight}); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in moments.items()) + f" ({smi})")
+    check(rout.samples.device.type == "cuda" and bool(torch.isfinite(rout.samples).all()),
+          "15c: draws non-finite or off the card")
+    check(np.isfinite(kinetic) and kinetic > 0, f"15c: the kinetic term is {kinetic}")
+    in_band("15c acceptance", rout.statistics.acceptance_rate, RNODE_ACC, RNODE_ACC_JAX)
+    for k, (lo, hi) in RNODE_MOMENTS.items():
+        check(lo <= moments[k] <= hi, f"15c: {k} {moments[k]} outside [{lo}, {hi}]")
+
+    # ---- 15d. every registry name through sample() ------------------------------------
+    t0 = time.perf_counter()
+    slow = []
+    for name in PORTED_FLOWS:
+        image = name.startswith(("ms-", "glow-", "conv-"))
+        shape = (8, 8) if image else (D,)
+        # the masked NAF flows' slow direction is d bisections a layer
+        # (4-6 s a call on a slow host): one layer, not 2
+        flow = f'{name}%{{"n_layers": 1}}' if zoo_masked_naf(name) else name
+        build.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = nfmc_torch.sample(StandardGaussian(shape), flow=flow, n_chains=C, n_iterations=1,
+                                seed=0, show_progress=False)
+        torch.cuda.synchronize()
+        slow.append((time.perf_counter() - t1, name))
+        check(out.samples.shape == (1, C, *shape) and out.samples.device.type == "cpu"
+              and bool(torch.isfinite(out.samples).all()), f"15d {name}: bad draws")
+        if name in [n for n, _ in LAST_CASES]:
+            no_kernel(f"15d {name}")
+    slow.sort(reverse=True)
+    res["15d"] = time.perf_counter() - t0
+    print(f"15d: all {len(PORTED_FLOWS)} registry names through sample() (IMH, 1 iteration, "
+          f"{C} chains; (8, 8) images, d={D} vectors; the masked NAF flows 1 layer): finite "
+          f"draws, {res['15d']:.1f} s; slowest "
+          + ", ".join(f"{n} {s:.2f} s" for s, n in slow[:4]))
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 15: {res['wall']:.1f} s ({smi})")
+    return res
+
+
+def run_checkpoint_phases(dev) -> dict:
+    """Phase 16: the headline with checkpoint_path, cut in CKPT_SEG-outer-
+    iteration segments: an uninterrupted run, one that dies after 2
+    segments, its resume (bit for bit the first, the file gone); the same
+    for adaptive_imh, whose schedule lives in the extra-state hook."""
+    import shutil
+
+    import nfmc_torch
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import StandardGaussian
+    from nfmc_torch.samplers.nfmc import AdaptiveIMH, JumpMALA
+    from nfmc_torch.utils import tree_leaves
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    root = Path(__file__).resolve().parent / "_scratch" / "ckpt16"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    res = {"shapes": {}}
+    t_phase = time.perf_counter()
+
+    def run(label, cls, kw):
+        """(uninterrupted, resumed) outputs and samplers of one configuration."""
+        path = str(root / label)
+        got = {}
+        for attempt in ("uninterrupted", "crash", "resume"):
+            calls = {"n": 0}
+            orig = cls.sample_continue
+
+            def crashing(self, *a, **k):
+                calls["n"] += 1
+                if calls["n"] == 2:  # the third segment's entry: 2 are done
+                    raise RuntimeError("simulated preemption")
+                return orig(self, *a, **k)
+
+            if attempt == "crash":
+                cls.sample_continue = crashing
+            p = path + ("-a" if attempt == "uninterrupted" else "-b")
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with CaptureSampler() as cap, ShapeLaunches() as shapes:
+                    out = nfmc_torch.sample(**kw, checkpoint_path=p, seed=0, show_progress=False,
+                                            checkpoint_save_samples=True)
+                    torch.cuda.synchronize()
+            except RuntimeError as e:
+                check(attempt == "crash" and "preemption" in str(e), f"16 {label}: {e}")
+                check(Path(p + ".npz").exists() and len(list(root.glob(f"{label}-b.npz.seg*.npy")))
+                      == 2, f"16 {label}: the crash left no checkpoint with 2 segments")
+                print(f"16 {label}: died at the third segment, {time.perf_counter() - t0:.3f} s; "
+                      "the checkpoint holds 2 segments")
+                continue
+            finally:
+                cls.sample_continue = orig
+            wall = time.perf_counter() - t0
+            check(not list(root.glob(f"{label}-*")), f"16 {label}: files left after success: "
+                                                     f"{list(root.glob(f'{label}-*'))}")
+            got[attempt] = (out, cap.samplers[-1], dict(counts_of(build)), wall)
+            res["shapes"][f"{label} {attempt}"] = shapes.n
+        return got["uninterrupted"], got["resume"]
+
+    def counts_of(b):
+        return {w.__name__: w.launches for w in b.WRAPPERS}
+
+    common = dict(target=StandardGaussian((D,)), n_chains=C, checkpoint_segment_iterations=CKPT_SEG,
+                  flow=f'realnvp%{{"n_layers": {L}, "hidden_size": {H}}}')
+    cases = {
+        "jump_mala": (JumpMALA, dict(common, strategy="jump_mala", n_iterations=CKPT_OUTER,
+                                     inner_param_kwargs={"n_iterations": INNER_N})),
+        "adaptive_imh": (AdaptiveIMH, dict(common, strategy="adaptive_imh")),
+    }
+    for label, (cls, kw) in cases.items():
+        (a, sa, la, wa), (c, sc, lc, wc) = run(label, cls, kw)
+        check(a.samples.shape == c.samples.shape and torch.equal(a.samples, c.samples),
+              f"16 {label}: the resumed run's draws differ from the uninterrupted run's")
+        for k, v in vars(a.statistics).items():
+            if isinstance(v, int):
+                check(getattr(c.statistics, k) == v, f"16 {label}: {k} {getattr(c.statistics, k)} "
+                                                     f"!= {v}")
+        check(np.array_equal(a.statistics.running_first_moment, c.statistics.running_first_moment)
+              and np.array_equal(a.statistics.running_second_moment,
+                                 c.statistics.running_second_moment), f"16 {label}: moments differ")
+        for x, y in ((sa, sc), *([(sa.inner_sampler, sc.inner_sampler)]
+                                 if hasattr(sa, "inner_sampler") else [])):
+            if hasattr(x.kernel, "make_state"):
+                from nfmc_torch.checkpoint import _flatten
+
+                sx, sy = (_flatten(s.kernel.make_state(dev)) for s in (x, y))
+                check(all(torch.equal(torch.as_tensor(p), torch.as_tensor(q))
+                          for (_, p), (_, q) in zip(sx, sy)), f"16 {label}: kernel state differs")
+        check(all(torch.equal(p, q) for p, q in zip(tree_leaves(sa.kernel.flow.params),
+                                                    tree_leaves(sc.kernel.flow.params))),
+              f"16 {label}: flow weights differ")
+        check(la.get("fused_realnvp_inverse", 0) > 0 and la.get("fused_realnvp_forward", 0) > 0,
+              f"16 {label}: the coupling kernels did not run: {la}")
+        n_draws = a.samples.shape[0]
+        res[label] = (wa, wc, la)
+        print(f"16 {label} with checkpoint_path, {n_draws} stored draws in 5 segments of "
+              f"{CKPT_SEG}: uninterrupted {wa:.3f} s, resumed after 2 segments {wc:.3f} s; draws, "
+              f"counters, moments, kernel state and flow weights bit-identical; launches "
+              f"{la}; checkpoint files gone after success ({smi})")
+    shutil.rmtree(root, ignore_errors=True)
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 16: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -3274,7 +3779,7 @@ def main() -> None:
                              (D, H, L, IMH_CAP * C), (D, H, L, REFIT_B), (D, H, L, 128),
                              (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37),
                              (D, H, L, DLMC_C), (D, H, L, DLMC_C - int(0.7 * DLMC_C)),
-                             (D, H, L, C - int(0.7 * C))]:
+                             (D, H, L, C - int(0.7 * C)), (D, H, L, CKPT_SEG * C)]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -3541,6 +4046,8 @@ def main() -> None:
     mcmc12 = run_mcmc_phases(dev)
     last13 = run_last_strategy_phases(dev)
     zoo14 = run_flow_zoo_phases(dev)
+    last15 = run_last_flow_phases(dev)
+    ckpt16 = run_checkpoint_phases(dev)
 
     kernels = []
 
@@ -3591,7 +4098,7 @@ def main() -> None:
     # the IMH path (phases 10-10c) and the flow-reparameterised paths (11-11e)
     path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
     for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items(),
-                          *last13["shapes"].items()):
+                          *last13["shapes"].items(), *ckpt16["shapes"].items()):
         path_rows(label, shapes)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
@@ -3642,6 +4149,14 @@ def main() -> None:
     print(f"phase 14: {zoo14['wall']:.1f} s; 14a slowest call {slowest[0][0]} {slowest[0][1]} "
           f"{slowest[1]:.1f} ms; IAF IMH {zoo14['iaf'][0]:.1f} it/s ({zoo14['iaf'][1]:.1f} "
           f"ESS/s, {zoo14['iaf'][2]:.3f} ms an Adam step) ({smi.stdout.strip().splitlines()[0]})")
+    slowest = max(last15["ms"].items(), key=lambda kv: kv[1])
+    print(f"phase 15: {last15['wall']:.1f} s; 15a slowest call {slowest[0][0][0]} "
+          f"{slowest[0][0][1]} {slowest[0][1]} {slowest[1]:.1f} ms; phi^4 jump_hmc with Glow "
+          f"{last15['phi4'][1]:.2f} outer it/s ({last15['phi4'][0]:.1f} s wall, fit "
+          f"{last15['phi4'][2]:.1f} s over {last15['phi4'][3]} Adam steps); RNODE IMH "
+          f"{last15['rnode'][1]:.1f} it/s ({last15['rnode'][0]:.1f} s wall, "
+          f"{last15['rnode'][2]:.3f} ms a reverse-KL step); 15d {last15['15d']:.1f} s; "
+          f"phase 16: {ckpt16['wall']:.1f} s ({smi.stdout.strip().splitlines()[0]})")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

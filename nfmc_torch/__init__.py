@@ -15,10 +15,13 @@ ported flow (frozen, fitted by the warmup, or refitted with
 ``dense_mala``, ``pt_mala``, ``pt_mh``, ``pt_hmc`` and ``aies``. The
 ported flows: RealNVP and the coupling splines ``c-rqnsf`` / ``c-lrsnsf``
 (on the CUDA kernels), NICE, MAF / IAF and the masked splines, the nine NAF
-flows and the six residual flows (plain PyTorch on every device, as the
-JAX package runs them through XLA), with ``Chain`` and ``Inverse``. Also
-the ESS and R-hat diagnostics and every potential of
-``nfmc_tpu.potentials``.
+flows, the six residual flows, the continuous flows (FFJORD, RNODE,
+OT-Flow, DDB), the multiscale / Glow image flows and the convolutional
+residual and continuous flows (plain PyTorch on every device, as the JAX
+package runs them through XLA): all 48 names of the registry, with
+``Chain`` and ``Inverse``. Also the ESS and R-hat diagnostics, every
+potential of ``nfmc_tpu.potentials`` and ``checkpoint`` (resumable runs:
+``sample(..., checkpoint_path=...)``).
 """
 from .api import (create_flow_object, create_sampler, get_supported_mcmc_samplers,
                   get_supported_nfmc_samplers, get_supported_normalizing_flows,
@@ -36,7 +39,7 @@ from .core import (
     Sampler,
     set_seed,
 )
-from . import diagnostics, potentials
+from . import checkpoint, diagnostics, potentials
 from .flows import (IAF, MAF, NICE, Chain, CouplingLRS, CouplingRQNSF, Flow, Inverse,
                     InvertibleResNet, PlanarFlow, ProximalResFlow, RadialFlow, RealNVP, ResFlow,
                     SylvesterFlow)
@@ -75,7 +78,8 @@ __all__ = [
     "Flow", "RealNVP", "CouplingRQNSF", "CouplingLRS", "NICE", "MAF", "IAF", "Chain", "Inverse",
     "PlanarFlow", "RadialFlow", "SylvesterFlow", "InvertibleResNet", "ResFlow", "ProximalResFlow",
     "JumpMALA", "JumpULA", "JumpNFMCParameters",
-    "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "diagnostics", "potentials",
+    "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "checkpoint", "diagnostics",
+    "potentials",
     "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
     "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",
     "NeuTraChEES", "DenseHMC", "DenseMALA", "PTMALA", "PTRWMH", "PTHMC", "AIES", "JumpAIES",

@@ -2,11 +2,9 @@
 DSL (e.g. ``'realnvp%{"n_layers": 10}'``), the counterpart of
 ``nfmc_tpu/api/registry.py``: the same canonical flow names, aliases and
 family taxonomy, and the same strategy lists. ``create_flow_object`` builds
-the ported flows (``PORTED_FLOWS``): RealNVP, NICE, the coupling, masked and
-inverse-masked affine, spline and NAF flows, and the residual flows. The
-continuous, multiscale, Glow and convolutional names are ROADMAP 1.7 and
-raise ``NotImplementedError``; a name the registry does not know raises
-``ValueError``, as in the JAX package."""
+every one of the 48 canonical names (``PORTED_FLOWS``) and their aliases; a
+name the registry does not know raises ``ValueError``, as in the JAX
+package."""
 from __future__ import annotations
 
 import hashlib
@@ -14,9 +12,32 @@ import json
 from typing import Dict, List
 
 from ..flows import (
+    FFJORD,
     IAF,
     MAF,
     NICE,
+    RNODE,
+    AffineGlow,
+    ConvolutionalDDB,
+    ConvolutionalFFJORD,
+    ConvolutionalInvertibleResNet,
+    ConvolutionalResFlow,
+    ConvolutionalRNODE,
+    DeepDenseSigmoidGlow,
+    DeepDiffeomorphicBijection,
+    DeepSigmoidGlow,
+    DenseSigmoidGlow,
+    LRSGlow,
+    MultiscaleDeepDenseSigmoid,
+    MultiscaleDeepSigmoid,
+    MultiscaleDenseSigmoid,
+    MultiscaleLRSNSF,
+    MultiscaleNICE,
+    MultiscaleRealNVP,
+    MultiscaleRQNSF,
+    OTFlow,
+    RQSGlow,
+    ShiftGlow,
     CouplingDeepDenseSF,
     CouplingDeepSF,
     CouplingDenseSF,
@@ -178,7 +199,7 @@ def get_supported_normalizing_flows(synonyms: bool = True):
     )
 
 
-# canonical name -> constructor, for every flow ported so far
+# canonical name -> constructor, for every canonical name of the registry
 PORTED_FLOWS = {
     "realnvp": RealNVP,
     "nice": NICE,
@@ -205,6 +226,29 @@ PORTED_FLOWS = {
     "planar": PlanarFlow,
     "radial": RadialFlow,
     "sylvester": SylvesterFlow,
+    "ot-flow": OTFlow,
+    "ffjord": FFJORD,
+    "ddb": DeepDiffeomorphicBijection,
+    "rnode": RNODE,
+    "ms-realnvp": MultiscaleRealNVP,
+    "ms-nice": MultiscaleNICE,
+    "ms-rqnsf": MultiscaleRQNSF,
+    "ms-lrsnsf": MultiscaleLRSNSF,
+    "ms-naf-deep": MultiscaleDeepSigmoid,
+    "ms-naf-deep-dense": MultiscaleDeepDenseSigmoid,
+    "ms-naf-dense": MultiscaleDenseSigmoid,
+    "glow-realnvp": AffineGlow,
+    "glow-nice": ShiftGlow,
+    "glow-rqnsf": RQSGlow,
+    "glow-lrsnsf": LRSGlow,
+    "glow-naf-deep": DeepSigmoidGlow,
+    "glow-naf-dense": DenseSigmoidGlow,
+    "glow-naf-deep-dense": DeepDenseSigmoidGlow,
+    "conv-i-resnet": ConvolutionalInvertibleResNet,
+    "conv-resflow": ConvolutionalResFlow,
+    "conv-ffjord": ConvolutionalFFJORD,
+    "conv-rnode": ConvolutionalRNODE,
+    "conv-ddb": ConvolutionalDDB,
 }
 
 
@@ -240,10 +284,6 @@ def create_flow_object(flow_string: str, event_shape, **kwargs) -> Flow:
     flow_data = parse_flow_string(flow_string)
     kwargs = {**kwargs, **flow_data["kwargs"]}
     canonical = canonical_flow_name(flow_data["name"])
-    if canonical not in PORTED_FLOWS:
-        raise NotImplementedError(
-            f"flow {flow_data['name']!r} ({canonical}) is not ported to nfmc_torch yet "
-            f"(ROADMAP 1.7); ported: {', '.join(PORTED_FLOWS)}")
     seed = kwargs.pop("seed", None)
     return Flow(PORTED_FLOWS[canonical](event_shape, **kwargs), seed=seed)
 

@@ -3,6 +3,7 @@
 call raises unless ``device="cpu"`` is passed."""
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -269,16 +270,33 @@ def sample(
     the device; ``seed`` fixes the flow's initial weights (for a flow given
     by name), ``x0``, the warmup and the run. With ``warmup=True`` the
     sampler warms up first and ``x0`` becomes a reshuffle of the warmup's
-    stored draws (its last state when it stores none). ``mesh`` and the
-    ``checkpoint_*`` arguments are the JAX package's; any of them other than
-    None raises ``NotImplementedError`` until they are ported (ROADMAP 1.8)."""
-    unported = {"mesh": mesh, "checkpoint_path": checkpoint_path,
-                "checkpoint_segment_iterations": checkpoint_segment_iterations,
-                "checkpoint_save_samples": checkpoint_save_samples}
-    given = [k for k, v in unported.items() if v is not None]
-    if given:
-        raise NotImplementedError(f"{', '.join(given)}: sharded and checkpointed sampling are "
-                                  "not ported to nfmc_torch yet (ROADMAP 1.8)")
+    stored draws (its last state when it stores none). ``mesh`` is the JAX
+    package's and raises ``NotImplementedError`` unless None (ROADMAP 1.8).
+
+    ``checkpoint_path`` runs the sampling phase as checkpointed segments
+    (:func:`nfmc_torch.checkpoint.sample_resumable`,
+    ``checkpoint_segment_iterations`` each, about 10 by default). If the
+    process dies, calling ``sample()`` again with the same arguments skips
+    the warmup (the checkpoint holds the tuned kernel and flow) and goes on
+    from the last completed segment, bit for bit as the uninterrupted run
+    would: the segments' base seed comes from the checkpoint. On success
+    the checkpoint is deleted, so a file on disk always means "resume".
+    ``checkpoint_save_samples`` keeps every segment's draws in a sidecar
+    file; None means ``store_samples`` on a fresh run and, on a resume, the
+    checkpoint's own setting. Incompatible with
+    ``sampling_time_limit_seconds``."""
+    if mesh is not None:
+        raise NotImplementedError("mesh: sharded sampling is not ported to nfmc_torch yet "
+                                  "(ROADMAP 1.8)")
+    ckpt_file, resume = None, False
+    if checkpoint_path is not None:
+        if sampling_time_limit_seconds is not None:
+            raise ValueError("checkpoint_path is incompatible with sampling_time_limit_seconds")
+        ckpt_file = str(checkpoint_path)
+        if not ckpt_file.endswith(".npz"):
+            ckpt_file += ".npz"
+        # a checkpoint on disk means a previous call died mid-sampling
+        resume = os.path.exists(ckpt_file)
     if flow == "None":
         flow = None
     if flow is not None and not isinstance(flow, str):
@@ -306,7 +324,7 @@ def sample(
         g.manual_seed(seed_x0)
         x0 = torch.randn((n_chains, *sampler.event_shape), generator=g, device=device)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
-    if warmup:
+    if warmup and not resume:
         warmup_output = sampler.warmup(x0=x0, show_progress=show_progress,
                                        time_limit_seconds=warmup_time_limit_seconds,
                                        seed=seed_warm)
@@ -327,5 +345,15 @@ def sample(
             # sample() maps x0 forward as a data-space point: hand it the
             # data-space points so that the transport gives the draws back
             x0 = sampler._latent_to_data(x0)
+    if ckpt_file is not None:
+        from ..checkpoint import discard_resumable_checkpoint, sample_resumable
+
+        if checkpoint_save_samples is None and not resume:
+            checkpoint_save_samples = bool(sampler.params.store_samples)
+        out = sample_resumable(sampler, x0, ckpt_file,
+                               segment_iterations=checkpoint_segment_iterations, seed=seed_run,
+                               show_progress=show_progress, save_samples=checkpoint_save_samples)
+        discard_resumable_checkpoint(ckpt_file)  # done: a leftover file always means "resume"
+        return out
     return sampler.sample(x0=x0, show_progress=show_progress,
                           time_limit_seconds=sampling_time_limit_seconds, seed=seed_run)

@@ -1,7 +1,10 @@
 """Normalizing flows: the coupling flows (RealNVP, NICE, the RQS and LRS
 splines, the NAF couplings), the masked and inverse-masked autoregressive
-flows, the residual flows, ``Chain`` / ``Inverse`` and the Flow wrapper."""
+flows, the residual and continuous flows, the multiscale / Glow image flows
+and the convolutional residual and continuous flows, ``Chain`` /
+``Inverse`` and the Flow wrapper."""
 from .base import Bijection, Chain, Flow, Inverse, hutchinson_probes
+from .continuous import FFJORD, RNODE, ContinuousFlow, DeepDiffeomorphicBijection, OTFlow
 from .convert import from_jax_metropolis_state, from_jax_params
 from .coupling import NICE, Coupling, CouplingLRS, CouplingRQNSF, RealNVP
 from .masked import (
@@ -12,6 +15,28 @@ from .masked import (
     MaskedAutoregressive,
     MaskedAutoregressiveLRS,
     MaskedAutoregressiveRQNSF,
+)
+from .multiscale import (
+    AffineGlow,
+    ConvolutionalDDB,
+    ConvolutionalFFJORD,
+    ConvolutionalInvertibleResNet,
+    ConvolutionalResFlow,
+    ConvolutionalRNODE,
+    DeepDenseSigmoidGlow,
+    DeepSigmoidGlow,
+    DenseSigmoidGlow,
+    LRSGlow,
+    MultiscaleDeepDenseSigmoid,
+    MultiscaleDeepSigmoid,
+    MultiscaleDenseSigmoid,
+    MultiscaleFlow,
+    MultiscaleLRSNSF,
+    MultiscaleNICE,
+    MultiscaleRealNVP,
+    MultiscaleRQNSF,
+    RQSGlow,
+    ShiftGlow,
 )
 from .naf import (
     CouplingDeepDenseSF,
@@ -42,6 +67,12 @@ __all__ = [
     "MaskedAutoregressiveDeepSF", "MaskedAutoregressiveDenseSF", "MaskedAutoregressiveDeepDenseSF",
     "InverseAutoregressiveDeepSF", "InverseAutoregressiveDenseSF",
     "InverseAutoregressiveDeepDenseSF", "PlanarFlow", "RadialFlow", "SylvesterFlow",
-    "InvertibleResNet", "ResFlow", "ProximalResFlow", "fit", "variational_fit",
-    "from_jax_params", "from_jax_metropolis_state",
+    "InvertibleResNet", "ResFlow", "ProximalResFlow", "ContinuousFlow", "FFJORD", "RNODE",
+    "DeepDiffeomorphicBijection", "OTFlow", "MultiscaleFlow", "MultiscaleRealNVP", "MultiscaleNICE",
+    "MultiscaleRQNSF", "MultiscaleLRSNSF", "MultiscaleDeepSigmoid", "MultiscaleDenseSigmoid",
+    "MultiscaleDeepDenseSigmoid", "AffineGlow", "ShiftGlow", "RQSGlow", "LRSGlow",
+    "DeepSigmoidGlow", "DenseSigmoidGlow", "DeepDenseSigmoidGlow",
+    "ConvolutionalInvertibleResNet", "ConvolutionalResFlow", "ConvolutionalFFJORD",
+    "ConvolutionalRNODE", "ConvolutionalDDB", "fit", "variational_fit", "from_jax_params",
+    "from_jax_metropolis_state",
 ]

@@ -150,8 +150,6 @@ def test_every_ported_strategy_runs_on_the_cpu(strategy):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        _run(flow="ffjord")
     with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
         nfmc_torch.Flow(nfmc_torch.RealNVP((3,)), seed=0).fit(np.zeros((4, 3), np.float32),
                                                               mesh=object())

@@ -30,7 +30,11 @@ from nfmc_tpu.api import registry as jreg
 
 D = 6
 NAMES = list(treg.PORTED_FLOWS)
-NEW = [n for n in NAMES if n not in ("realnvp", "c-rqnsf", "c-lrsnsf")]
+# the continuous and image flows have their own files (test_torch_continuous.py,
+# test_torch_multiscale.py)
+LAST = [n for n in NAMES if n in ("ot-flow", "ffjord", "ddb", "rnode")
+        or n.startswith(("ms-", "glow-", "conv-"))]
+NEW = [n for n in NAMES if n not in ("realnvp", "c-rqnsf", "c-lrsnsf") and n not in LAST]
 ITERATIVE = ("naf", "planar", "radial")
 
 
@@ -417,17 +421,24 @@ def test_every_alias_of_a_ported_flow_builds_its_class():
         want = alias if alias in constructors else next(
             k for k, names in jreg.FLOW_NAMES.items() if alias in names)
         assert treg.canonical_flow_name(alias) == want
-        if want in treg.PORTED_FLOWS:
-            assert treg.PORTED_FLOWS[want].__name__ == constructors[want].__name__
-            flow = treg.create_flow_object(alias, (4,), seed=0)
-            assert np.isfinite(flow.log_prob(torch.zeros((1, 4))).item())
+        assert treg.PORTED_FLOWS[want].__name__ == constructors[want].__name__
+        shape = (4, 4) if want.startswith(("ms-", "glow-", "conv-")) else (4,)
+        flow = treg.create_flow_object(alias, shape, seed=0)
+        assert np.isfinite(flow.log_prob(torch.zeros((1, *shape))).item())
 
 
-@pytest.mark.parametrize("name", [n for n in jreg.FLOW_REFERENCE_DATA
-                                  if n not in treg.PORTED_FLOWS])
-def test_unported_flows_name_roadmap_1_7(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.7"):
-        treg.create_flow_object(name, (4, 4))
+@pytest.mark.parametrize("name", LAST)
+def test_the_last_flows_build_and_sample_through_the_front_door(name):
+    """Each continuous, multiscale, Glow and convolutional name builds
+    through ``create_flow_object`` (no "ROADMAP 1.7" any more) and runs IMH
+    through ``sample`` on the CPU, at small widths: (4, 4) images, d = 4."""
+    image = name.startswith(("ms-", "glow-", "conv-"))
+    shape = (4, 4) if image else (4,)
+    kw = ('{"hidden_channels": 4}' if image else '{"hidden_size": 8, "n_steps": 2}')
+    out = nfmc_torch.sample(StandardGaussian(shape), flow=f"{name}%{kw}", n_chains=3,
+                            n_iterations=2, device="cpu", seed=0, show_progress=False)
+    assert out.samples.shape == (2, 3, *shape) and torch.isfinite(out.samples).all()
+    assert 0.0 <= out.statistics.acceptance_rate <= 1.0
 
 
 def test_unknown_flows_raise_value_error():
