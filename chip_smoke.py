@@ -109,7 +109,7 @@ Phases, in order; any failure exits non-zero before the last line:
      final weights agree to 1e-4.
   11. neutra_hmc through the front door (bench.py's north-star cell): 100
      chains on a 100-d standard Gaussian, the identity-init RealNVP frozen,
-     HMC step 0.1 with 20 leapfrog steps, 500 iterations: acceptance and
+     HMC step 0.1 with 20 leapfrog steps, 250 iterations: acceptance and
      data-space moments in bands from the JAX package's CPU runs
      (scripts/flow_samplers_reference_cpu.py), the counters (2 L B
      gradient calls), the launch law (an iteration: 21 gradient passes, each
@@ -182,12 +182,12 @@ Phases, in order; any failure exits non-zero before the last line:
   13. dense_metric (bench.py:1310-1437, its near-isotropic runs cut): hmc,
      dense_hmc, mala and dense_mala on the condition-1e3 correlated target,
      dense_hmc and dense_mala on N(0, I); d=100, 100 chains, 341 warmup and
-     500 iterations (the bench's 1000 cut): the mean and worst
+     250 iterations (the bench's 1000 cut): the mean and worst
      eigen-direction ESS (and per
      second), max |mean| / sigma and the final scalar-mode flag in JAX
      bands, the wall-free worst-direction ratios dense / diagonal > 2;
   13a. pt_multimodal (bench.py:1231-1307): pt_mala, pt_mh, pt_hmc and mala
-     on two modes at +-2 in 10-d, 64 chains started in mode 0, 1000
+     on two modes at +-2 in 10-d, 64 chains started in mode 0, 500
      iterations (the bench's 2000 cut), 8 rungs to beta 0.02: the bench's
      criterion (pt_mala's
      balance error < 0.15, mala's > 0.4), balance errors, swap rates and
@@ -215,7 +215,7 @@ Phases, in order; any failure exits non-zero before the last line:
      after a discarded first call (a masked NAF flow's sequential direction
      on its first call); 14b self-target IMH (the frozen
      flow as proposal and target, 100 chains, 21 iterations; the masked
-     NAF flows 1): acceptance >= 1 - max(0.01, 1.5 times the JAX package's
+     NAF flows 1, at 1 layer): acceptance >= 1 - max(0.01, 1.5 times the JAX package's
      highest rejection rate); 14c IMH with warmup=True through IAF on
      DiagonalGaussian1(100), 1000 iterations: acceptance above the
      identity IAF's and in a JAX band, the moments in JAX bands, ESS/s,
@@ -236,8 +236,8 @@ Phases, in order; any failure exits non-zero before the last line:
      port's convolutions are shifted views and a matmul, full float32), the
      production probes equal on both devices and the production path
      finite; 15b examples/06_applied_targets.py's phi^4 run with
-     glow-realnvp through jump_hmc (32 chains, 100 outer iterations,
-     warmup, its fit 50 epochs): mean |m| and jump acceptance in JAX bands;
+     glow-realnvp through jump_hmc (32 chains, 50 outer iterations,
+     warmup, its fit 25 epochs): mean |m| and jump acceptance in JAX bands;
      15c IMH with RNODE's reverse-KL warmup (the kinetic term in, 50 epochs)
      on DiagonalGaussian1(100), 1000 iterations: acceptance and moments in
      JAX bands, the kinetic term nonzero; 15d one IMH iteration through
@@ -250,10 +250,27 @@ Phases, in order; any failure exits non-zero before the last line:
      weights), and no file is left after success; the same for
      adaptive_imh (its refits through the backward kernel, its schedule in
      the extra-state hook).
+  17. the transport layer and FAB (nfmc_torch.transport, flow_training) on
+     bench.py's transport_logz easy target (d=16, N(0, I) prior, target
+     N(2 * 1, 0.25 I), RealNVP L=2 H=32): 17a each step on the card against
+     the CPU with the same weights and injected draws (the MALA sweep, an
+     8-level AIS chain, one AFT level with its 60-epoch fit, one CRAFT
+     training level, PMC's train scan and a pCN sweep, one FAB iteration's
+     AIS round and 20 replay steps, SNF's loss and its gradient through the
+     HMC layers), to TOL * max(1, max|ref|), rows that rounding parted at an
+     accept or resample boundary at most 1%, fitted weights apart only with
+     an RMS gradient within float32 error of 0; 17b run_transport_logz's easy
+     suite at bench.py's sizes (AIS 4096 x 128 levels, AFT, CRAFT, PMC at
+     2048 particles, FAB 300 iterations then its 4096-draw estimate): each
+     |log Z error| < 1 nat and in a JAX band, FAB's 2-SE band covering the
+     truth, walls, launches by shape and weight repacks, the busy share of
+     one AFT level and one FAB iteration; 17c snf() at its defaults and ns()
+     at d=3 (64 live points, 400 iterations) in JAX bands; then every
+     RealNVP shape the phase launched (d, H, L, B) against the plain version.
 Each path's launch counts are set to 0 just before it and read just after;
 every shape the IMH path (10-10c) and the paths of phases 11-13 and 16 launched
-must be one phase 3, 3b, 7 or 7b held against the plain version, and has its
-own row in the kernels' line.
+must be one phase 3, 3b, 7 or 7b held against the plain version, and phase
+17's one it holds itself; each has its own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
@@ -342,16 +359,16 @@ IMH_WARM_MOMENTS = {"median|var/sigma^2 - 1|": (0.0, 0.080), "median|mean|/sigma
 # The flow-reparameterised samplers (phases 11-11f), at bench.py's sizes.
 # 11: neutra_hmc, 100 chains, the identity-init RealNVP frozen, HMC step
 # 0.1 and 20 leapfrog steps (bench.py:508, 600-604), cut from 1000 to
-# NEUTRA_ITERS iterations (PR 12: the script's wall on a slow host)
-NEUTRA_ITERS, NEUTRA_STEP = 500, 0.1
+# NEUTRA_ITERS iterations (500 until the script's wall with phase 17)
+NEUTRA_ITERS, NEUTRA_STEP = 250, 0.1
 # Its bands, from scripts/flow_samplers_reference_cpu.py --neutra-hmc (the
 # JAX package on the CPU, seeds 0-7, at NEUTRA_ITERS): acceptance
-# 0.990300-0.991920, so a rejection rate of 0.008080-0.009700, and the band
+# 0.989960-0.991640, so a rejection rate of 0.008360-0.010040, and the band
 # is that rate from half its low to 1.5 times its high (as phase 10b widens
-# its acceptance); max|mean| 0.005679-0.009514 and max|E[x^2] - 1|
-# 0.017903-0.022492 over the dims, and the gates are 1.5 times the highest
-NEUTRA_ACC_JAX, NEUTRA_ACC = "0.990300-0.991920", (0.985450, 0.995960)
-NEUTRA_MOMENTS = (0.014271, 0.033738)
+# its acceptance); max|mean| 0.009857-0.015473 and max|E[x^2] - 1|
+# 0.024565-0.038894 over the dims, and the gates are 1.5 times the highest
+NEUTRA_ACC_JAX, NEUTRA_ACC = "0.989960-0.991640", (0.984940, 0.995820)
+NEUTRA_MOMENTS = (0.023210, 0.058341)
 # 11a: neutra_mh on Funnel(100) with warmup=True: the reverse-KL fit capped
 # at NEUTRA_MH_FIT_EPOCHS epochs (the default's 50,000 with early stopping
 # after 5000 is a depth the script's time limit cannot hold), the random
@@ -369,27 +386,29 @@ NEUTRA_MH_FIT_KWARGS = {"early_stopping": True, "early_stopping_threshold": 5000
 # rejects ~0.9% of the trajectories for their integration error alone (the
 # JAX package's 100-iteration runs read 0.9896-0.9897 at seed 0), and 0.05
 # puts the acceptance well above the gate of 0.99 whatever the flow, while
-# a wrong input gradient still wrecks the energy
-NEUTRA_SELF_ITERS, NEUTRA_SELF_STEP = 100, 0.05
-# --self-target over seeds 0-7, all three flows: acceptance 0.9970-0.9985;
-# over the dims of the latent draws the median of |mean| 0.009629-0.013036
-# and of |var - 1| 0.010473-0.016864; the bounds are 1.5 times the highest
-NEUTRA_SELF_MOMENTS = (0.019554, 0.025296)
+# a wrong input gradient still wrecks the energy (100 iterations until the
+# script's wall with phase 17)
+NEUTRA_SELF_ITERS, NEUTRA_SELF_STEP = 50, 0.05
+# --self-target over seeds 0-7, all three flows: acceptance 0.9972-0.9990;
+# over the dims of the latent draws the median of |mean| 0.013958-0.020125
+# and of |var - 1| 0.014772-0.022049; the bounds are 1.5 times the highest
+NEUTRA_SELF_MOMENTS = (0.030188, 0.033074)
 # 11c: tess at bench.py:641-643, then 20 warmup iterations with
 # fixed-effort refits
 TESS_ITERS, TESS_FIT_KWARGS = 2000, {"n_epochs": 10, "lr": 5e-3}
 # 11d: jump_hmc at bench.py:682-722: 1024 chains, 5 inner HMC iterations
 JUMP_HMC_C, JUMP_HMC_OUTER, JUMP_HMC_INNER = 1024, 100, 5
 # 11e: dlmc at bench.py:726-743, 1024 chains, cut from 200 iterations to
-# DLMC_ITERS (100 until PR 12): each iteration refits the flow with 110
+# DLMC_ITERS (100, then 50 until the script's wall with phase 17): each
+# iteration refits the flow with 110
 # Adam steps (10 epochs of 11 batches of 64), host-bound at ~2-5 ms a step
-DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 50, {"n_epochs": 10, "lr": 5e-3}
+DLMC_C, DLMC_ITERS, DLMC_FIT_KWARGS = 1024, 25, {"n_epochs": 10, "lr": 5e-3}
 # Its bands, from scripts/flow_samplers_reference_cpu.py --dlmc (the JAX
 # package on the CPU at the same depth, seeds 0-7): the moment error
-# max|mean| 0.039914-0.063645 and the acceptance 0.130723-0.136816, each
+# max|mean| 0.047696-0.076703 and the acceptance 0.115937-0.124375, each
 # band from half the low to 1.5 times the high
-DLMC_ERR_JAX, DLMC_ERR = "0.039914-0.063645", (0.019957, 0.095467)
-DLMC_ACC_JAX, DLMC_ACC = "0.130723-0.136816", (0.065361, 0.205225)
+DLMC_ERR_JAX, DLMC_ERR = "0.047696-0.076703", (0.023848, 0.1150545)
+DLMC_ACC_JAX, DLMC_ACC = "0.115937-0.124375", (0.0579685, 0.1865625)
 # The adaptive-trajectory and slice samplers (phases 12-12f), at bench.py's
 # sizes. 12: nuts at bench.py's nuts_1024 (bench.py:1053-1058, 1099-1119):
 # 1024 chains on a 100-d standard Gaussian, max_tree_depth 10, 85 warmup
@@ -448,19 +467,20 @@ NUTS_STEP_12E = 0.1
 # Phase 13: the last strategies at bench.py's sizes, cut in depth so that
 # the script stays well inside its time limit on a slow host (it took 857 s
 # there with the cuts below undone but the first). 13: dense_metric
-# (bench.py:1310-1437): d = 100, 100 chains, 341 warmup iterations and 500
-# (the bench's 1000 cut); a condition-1e3 correlated Gaussian (the QR basis
+# (bench.py:1310-1437): d = 100, 100 chains, 341 warmup iterations and 250
+# (the bench's 1000 cut to 500, then to 250 to hold the script's wall with
+# phase 17); a condition-1e3 correlated Gaussian (the QR basis
 # of a seed-0 normal matrix, variances geomspace(1, 1e-3)) and the isotropic
 # N(0, I); ESS over the true eigenbasis, max_window 1024. The bench's
 # near-isotropic runs (hmc and dense_hmc, sigma linspace(0.9, 1.1)) are cut
 # first
-DENSE_WARM, DENSE_ITERS, DENSE_WINDOW = 341, 500, 1024
+DENSE_WARM, DENSE_ITERS, DENSE_WINDOW = 341, 250, 1024
 DENSE_RUNS = (("corr", "hmc"), ("corr", "dense_hmc"), ("corr", "mala"), ("corr", "dense_mala"),
               ("iso", "dense_hmc"), ("iso", "dense_mala"))
 # 13a: pt_multimodal (bench.py:1231-1307): modes at -2 and 2 in 10-d, 64
-# chains all started in mode 0, 1000 iterations (the bench's 2000 cut)
-# without warmup, 8 rungs down to beta 0.02
-PT_D, PT_C, PT_ITERS, PT_MODE, PT_TEMPS, PT_BETA_MIN = 10, 64, 1000, 2.0, 8, 0.02
+# chains all started in mode 0, 500 iterations (the bench's 2000 cut to
+# 1000, then to 500 with phase 17) without warmup, 8 rungs down to beta 0.02
+PT_D, PT_C, PT_ITERS, PT_MODE, PT_TEMPS, PT_BETA_MIN = 10, 64, 500, 2.0, 8, 0.02
 PT_RUNS = ("pt_mala", "pt_mh", "pt_hmc", "mala")
 # 13b: aies at the headline's d = 100 with 1024 walkers on 13's correlated
 # target, 341 warmup and 1000 iterations
@@ -510,39 +530,39 @@ def pt_mode_metrics(draws: np.ndarray):
 #       --seeds 0 1 2 3 4 5 6 7 --dense --pt --aies --jump-aies
 # and gated by jax_band
 DENSE_JAX = {
-    ("corr", "hmc"): {"ESS mean": (23095.314453, 27906.089844),
-                      "worst-direction ESS": (525.953430, 661.114319),
-                      "max|mean|/sigma": (0.052616, 0.377152)},
-    ("corr", "dense_hmc"): {"ESS mean": (17779.554688, 22190.623047),
-                            "worst-direction ESS": (15098.573242, 20946.080078),
-                            "max|mean|/sigma": (0.014090, 0.027382)},
-    ("corr", "mala"): {"ESS mean": (2617.655029, 2687.920410),
-                       "worst-direction ESS": (499.463409, 544.669922),
-                       "max|mean|/sigma": (0.157385, 0.290210)},
-    ("corr", "dense_mala"): {"ESS mean": (4395.089355, 4587.466309),
-                             "worst-direction ESS": (2420.230469, 2963.482178),
-                             "max|mean|/sigma": (0.039188, 0.058016)},
+    ("corr", "hmc"): {"ESS mean": (11757.715820, 13978.272461),
+                      "worst-direction ESS": (533.027588, 616.844727),
+                      "max|mean|/sigma": (0.039907, 0.395158)},
+    ("corr", "dense_hmc"): {"ESS mean": (9283.613281, 11403.738281),
+                            "worst-direction ESS": (7864.323242, 10562.819336),
+                            "max|mean|/sigma": (0.022189, 0.035223)},
+    ("corr", "mala"): {"ESS mean": (1572.002075, 1615.638428),
+                       "worst-direction ESS": (506.134277, 529.874207),
+                       "max|mean|/sigma": (0.154894, 0.294433)},
+    ("corr", "dense_mala"): {"ESS mean": (2495.409180, 2628.416260),
+                             "worst-direction ESS": (1463.229004, 1685.601685),
+                             "max|mean|/sigma": (0.049729, 0.073185)},
     # HMC without jitter on the exact scalar metric: the tuned step lands
-    # on or off a leapfrog resonance (ESS 5,210 to all 50,000 draws)
-    ("iso", "dense_hmc"): {"ESS mean": (5210.027832, 50000.0),
-                           "worst-direction ESS": (4859.666992, 50000.0),
-                           "max|mean|/sigma": (0.004760, 0.044306)},
-    ("iso", "dense_mala"): {"ESS mean": (5267.285156, 5499.286133),
-                            "worst-direction ESS": (4923.452148, 5187.472656),
-                            "max|mean|/sigma": (0.033164, 0.051594)},
+    # on or off a leapfrog resonance (ESS 2,874 to nearly all 25,000 draws)
+    ("iso", "dense_hmc"): {"ESS mean": (2873.768799, 24999.498047),
+                           "worst-direction ESS": (2639.956299, 24967.757812),
+                           "max|mean|/sigma": (0.009533, 0.062979)},
+    ("iso", "dense_mala"): {"ESS mean": (2887.734375, 3028.069336),
+                            "worst-direction ESS": (2594.420166, 2804.453613),
+                            "max|mean|/sigma": (0.040688, 0.065449)},
 }
 # the final scalar-mode flag, the JAX package's at every seed
 DENSE_SCALAR = {"corr": False, "iso": True}
 # the worst-direction ESS ratios dense / diagonal on the correlated target
-DENSE_RATIO_JAX = {"hmc": (24.861068, 36.550301), "mala": (4.443481, 5.717113)}
+DENSE_RATIO_JAX = {"hmc": (12.974175, 19.469824), "mala": (2.842528, 3.236046)}
 PT_JAX = {
-    "pt_mala": {"cold acc": (0.728031, 0.734141), "balance error": (0.004000, 0.027375),
-                "swap acc": (0.395027, 0.400268)},
-    "pt_mh": {"cold acc": (0.475172, 0.480281), "balance error": (0.063375, 0.163687),
-              "swap acc": (0.398000, 0.402219)},
-    "pt_hmc": {"cold acc": (0.930063, 0.933125), "balance error": (0.004875, 0.033187),
-               "swap acc": (0.393996, 0.399040)},
-    "mala": {"cold acc": (0.726047, 0.730672), "balance error": (0.5, 0.5)},
+    "pt_mala": {"cold acc": (0.727281, 0.733125), "balance error": (0.027875, 0.097250),
+                "swap acc": (0.394607, 0.403509)},
+    "pt_mh": {"cold acc": (0.472938, 0.479625), "balance error": (0.222125, 0.336625),
+              "swap acc": (0.402670, 0.407857)},
+    "pt_hmc": {"cold acc": (0.928250, 0.934469), "balance error": (0.004250, 0.034750),
+               "swap acc": (0.394071, 0.399500)},
+    "mala": {"cold acc": (0.724969, 0.729875), "balance error": (0.5, 0.5)},
 }
 AIES_JAX = {"acc": (0.292517, 0.299679), "a": (1.358011, 1.368737),
             "max|mean|/sigma": (0.058456, 0.086164), "max|var/sigma^2-1|": (0.077381, 0.108321)}
@@ -568,32 +588,29 @@ ZOO_PERTURB, ZOO_SEED, ZOO_B = 0.1, 13, 100
 # stops at a root that rounding moves by a few float32 ulps of the
 # conditioner's output, and a masked flow's d = 100 sequential dims feed
 # each dim's rounding into the next dim's conditioner. The round trip
-# x -> z -> x on the card to ZOO_ROUND_TRIP.
+# x -> z -> x on the card to ZOO_ROUND_TRIP. The CPU's own float32 run of
+# every direction of every flow lies within 3.7e-6 of max(1, max|ref|)
+# from float64 and every round trip within 1.3e-4 (the masked NAF flows at
+# phase 14's 1 layer within 2.2e-6 and 9.6e-6; scripts/
+# flow_zoo_reference_cpu.py --drift; at 2 layers ia-naf-deep-dense's
+# forward saturates its mixtures near the clamp 1 - 1e-6 and drifts 5.5e-4,
+# round trip 1.8e-3).
 ZOO_ITER_TOL, ZOO_ROUND_TRIP = 1e-3, 1e-3
-# One direction alone, ia-naf-deep-dense's forward (a bisection), to
-# ZOO_SATURATED_TOL and its round trip to ZOO_SATURATED_ROUND_TRIP: at these
-# weights its mixtures near the clamp 1 - 1e-6, where float32 holds 1 - p
-# to a few percent (its ulp near 1 is 6e-8), so y = logit(p) and the
-# log-det carry rounding of ~1e-2 there on any device. The CPU's own
-# float32 run of that direction lies 5.5e-4 of max(1, max|ref|) from
-# float64 and its round trip ends 1.8e-3 from its start; every other
-# direction of every flow lies within 3.7e-6 and every other round trip
-# within 1.3e-4 (scripts/flow_zoo_reference_cpu.py --drift). Two float32
-# runs may part by twice the drift.
-ZOO_SATURATED = ("ia-naf-deep-dense", "forward")
-ZOO_SATURATED_TOL, ZOO_SATURATED_ROUND_TRIP = 2e-3, 1e-2
 # the CPU side of 14a runs in these worker processes, beside the card
 ZOO_CPU_WORKERS = 3
 # 14b: self-target IMH, ZOO_SELF_ITERS iterations (FixedIMH's hoisted chunks
 # of 1, 4 and 16 iterations) at 100 chains; 14c: IMH with the reverse-KL
 # warmup through IAF on DiagonalGaussian1(100), 1000 iterations; 14d:
-# jump_mala with the identity-init NICE frozen, 500 outer iterations, on
-# N(0.12 * 1, I)
-ZOO_SELF_ITERS, ZOO_IAF_ITERS, ZOO_NICE_OUTER = 21, 1000, 500
+# jump_mala with the identity-init NICE frozen, ZOO_NICE_OUTER outer
+# iterations (500 until the script's wall with phase 17), on N(0.12 * 1, I)
+ZOO_SELF_ITERS, ZOO_IAF_ITERS, ZOO_NICE_OUTER = 21, 1000, 200
 # the masked NAF flows' slow direction (ma-naf-* inverse, ia-naf-* forward)
 # is d sequential bisections of 66 steps, 1.5e5-3.1e5 eager operations a
-# call at d = 100 (scripts/flow_zoo_reference_cpu.py --ops): their 14b runs
-# one iteration, one hoisted chunk (a cut of iterations, not of widths)
+# call at d = 100 and 2 layers (scripts/flow_zoo_reference_cpu.py --ops):
+# phase 14 cuts them from their default 2 layers to 1 (zoo_flow, as 15d:
+# a cut of depth, not of widths; at 2 layers they took 2-12 s a flow in
+# 14b and ~20 s of 14a's card calls, until the script's wall with phase
+# 17), and their 14b runs one iteration, one hoisted chunk
 ZOO_SELF_ITERS_NAF = 1
 # 14b's gate: acceptance >= 1 - max(0.01, 1.5 times the JAX package's
 # highest rejection rate over seeds 0-7 at the same configuration)
@@ -625,6 +642,12 @@ def zoo_self_iters(name: str) -> int:
     return ZOO_SELF_ITERS_NAF if zoo_masked_naf(name) else ZOO_SELF_ITERS
 
 
+def zoo_flow(name: str) -> str:
+    """Phase 14's flow spec for ``name``: its default widths, a masked NAF
+    flow at 1 layer."""
+    return f'{name}%{{"n_layers": 1}}' if zoo_masked_naf(name) else name
+
+
 def zoo_iterative(name: str, inverse: bool) -> bool:
     """Whether phase 14's flow ``name`` solves for the direction."""
     if "naf" in name:
@@ -635,14 +658,7 @@ def zoo_iterative(name: str, inverse: bool) -> bool:
 
 def zoo_tol(name: str, inverse: bool) -> float:
     """Phase 14a's card-against-CPU tolerance, relative to max(1, max|ref|)."""
-    if (name, "inverse" if inverse else "forward") == ZOO_SATURATED:
-        return ZOO_SATURATED_TOL
     return ZOO_ITER_TOL if zoo_iterative(name, inverse) else TOL
-
-
-def zoo_round_trip_tol(name: str) -> float:
-    """Phase 14a's bound on |inverse(forward(x)) - x| for flow ``name``."""
-    return ZOO_SATURATED_ROUND_TRIP if name == ZOO_SATURATED[0] else ZOO_ROUND_TRIP
 
 
 def zoo_inputs():
@@ -658,8 +674,8 @@ def zoo_cpu_reference(name: str) -> dict:
     from nfmc_torch.flows import from_jax_params
 
     torch.set_num_threads(2)
-    flow = create_flow_object(name, (D,), seed=0)
-    flow.params = from_jax_params(zoo_weights(name))
+    flow = create_flow_object(zoo_flow(name), (D,), seed=0)
+    flow.params = from_jax_params(zoo_weights(zoo_flow(name)))
     x, z = (torch.from_numpy(v) for v in zoo_inputs())
     with torch.no_grad():
         return {"forward": tuple(t.numpy() for t in flow.bijection.forward_fn(flow.params, x)),
@@ -736,18 +752,18 @@ LAST_DRIFT = {
 }
 # 15b: examples/06_applied_targets.py's phi^4 run with the flow swapped for
 # Glow: Phi4Lattice(L=8, kappa=0.25, lam=0.022), jump_hmc, glow-realnvp,
-# 32 chains, 100 outer iterations, warmup=True. Bands: the JAX package's
-# range over seeds 0-7 on the CPU (scripts/last_flows_reference_cpu.py
-# --phi4), from half the low to 1.5 times the high.
-PHI4_KW, PHI4_C, PHI4_ITERS = {"L": 8, "kappa": 0.25, "lam": 0.022}, 32, 100
-# the warmup's fit cut to 50 epochs of the default 500 (with early stopping
-# the port ran 200, 1800 Adam steps, 68 s on a slow host), its other
-# settings the jump sampler's default; the JAX package's range over seeds
-# 0-7 is the same at 50 epochs as at the default, to 4 digits
+# 32 chains, PHI4_ITERS outer iterations (100 until the script's wall with
+# phase 17), warmup=True. Bands: the JAX package's range over seeds 0-7 on
+# the CPU at these depths (scripts/last_flows_reference_cpu.py --phi4),
+# from half the low to 1.5 times the high.
+PHI4_KW, PHI4_C, PHI4_ITERS = {"L": 8, "kappa": 0.25, "lam": 0.022}, 32, 50
+# the warmup's fit cut to 25 epochs of the default 500 (50 until phase 17;
+# with early stopping the port ran 200, 1800 Adam steps, 68 s on a slow
+# host), its other settings the jump sampler's default
 PHI4_FIT_KWARGS = {"early_stopping": True, "early_stopping_threshold": 50,
-                   "batch_size": "adaptive", "show_progress": False, "n_epochs": 50}
-PHI4_ABS_M_JAX, PHI4_ABS_M = "0.3082-0.3309", (0.1541, 0.49635)
-PHI4_JUMP_JAX, PHI4_JUMP = "0.0975-0.1509", (0.04875, 0.22635)
+                   "batch_size": "adaptive", "show_progress": False, "n_epochs": 25}
+PHI4_ABS_M_JAX, PHI4_ABS_M = "0.3075-0.3418", (0.15375, 0.5127)
+PHI4_JUMP_JAX, PHI4_JUMP = "0.0963-0.1444", (0.04815, 0.2166)
 # 15c: IMH with the reverse-KL warmup (kinetic regularizer weighted in)
 # through RNODE on DiagonalGaussian1(100), RNODE_ITERS iterations; bands as
 # 14c's from scripts/last_flows_reference_cpu.py --rnode. The warmup's fit
@@ -777,6 +793,58 @@ RNODE_MOMENTS = {"median|var/sigma^2 - 1|": (0.4403, 1.33875),
 # iterations in segments of CKPT_SEG (a cut of the headline's 2184), and
 # adaptive_imh (its 100 iterations) in segments of CKPT_SEG
 CKPT_OUTER, CKPT_SEG = 100, 20
+# the headline's untimed warm run (phase 5), in outer iterations; phase 6's
+# misfit run (500 until the script's wall reached its limit on a slow host
+# with phase 17: its gate is analytic, and its hoisted inverse at B = 25,600
+# is a shape phase 3 holds)
+HEADLINE_WARM, MISFIT_OUTER = 64, 256
+# Phase 17: the transport layer and FAB at bench.py's transport_logz sizes
+# (bench.py:1724-1848, the easy target): prior N(0, I) in TR_D dims, target
+# N(2 * 1, 0.25 I), log Z = TR_D log 0.5 relative to the prior; RealNVP
+# with 2 layers of hidden width 32
+TR_D = 16
+TR_FLOW = 'realnvp%{"n_layers": 2, "hidden_size": 32}'
+TR_TRUE_LOG_Z = TR_D * float(np.log(0.5))
+TR_AIS = {"n": 4096, "n_steps": 128, "n_mcmc_steps": 2, "step_size": 0.1}
+TR_AFT = {"n_particles": 2048, "n_iterations": 16, "n_train_epochs": 60,
+          "n_train_particles": 1024, "n_val_particles": 512}
+TR_CRAFT = {"n_particles": 2048, "n_iterations": 25, "n_annealing_steps": 12}
+TR_PMC = {"n_particles": 2048, "n_train_epochs": 20, "n_mcmc_steps": 10}
+TR_FAB = {"n_iterations": 300, "n_flow_training_steps": 20, "n_ais_particles": 512}
+# FAB's importance-sampling estimate: TR_FAB_DRAWS flow draws (seed 7 + the
+# run's seed) in TR_FAB_BLOCKS blocks for the two-standard-error band; its
+# truth is the absolute evidence TR_TRUE_LOG_Z + (TR_D / 2) log(2 pi)
+TR_FAB_DRAWS, TR_FAB_BLOCKS = 4096, 8
+TR_METHODS = ("ais", "aft", "craft", "pmc", "fab")
+# 17c: snf() at its defaults on the easy target (100 particles, 10 epochs,
+# HMC + RealNVP(L=2) layers); ns() at tests/test_transport.py:211-218's
+# configuration: d = 3, 64 live points, 400 iterations, log Z -7.214
+TR_SNF = {"n_particles": 100, "n_epochs": 10}
+TR_NS_D, TR_NS = 3, {"n_particles": 64, "n_iterations": 400}
+TR_NS_TRUE_LOG_Z = TR_NS_D * float(np.log(0.5) - 0.5 * np.log(1.25) - 1.6)
+# Phase 17's bands: the JAX package's range over seeds 0-7 on the CPU at the
+# same sizes, from
+#   JAX_PLATFORMS=cpu python scripts/transport_reference_cpu.py \
+#       --seeds 0 1 2 3 4 5 6 7 --suite --snf --ns
+# and gated by jax_band: each method's |log Z error| (FAB's against the
+# absolute evidence), FAB's IS ESS fraction (its 2-SE band covered the
+# truth at every seed), |mean - 2| of SNF's particles, NS's |log Z error|
+# AIS's error is heavy-tailed (an IS ESS of ~2-50 of its 4096 particles):
+# seeds 0-7 put it in 0.056745-0.352150, but the JAX package's own seed 22
+# reads 0.653428, so its band is over seeds 0-31 (--ais --seeds 0 ... 31)
+TR_ERR_JAX = {"ais": (0.003464, 0.653428), "aft": (0.016055, 0.248691),
+              "craft": (0.039697, 0.424234), "pmc": (0.004612, 0.068087),
+              "fab": (0.000035, 0.006293)}
+TR_FAB_ESS_JAX = (0.189730, 0.980954)
+TR_SNF_ERR_JAX = (0.000545, 0.027249)
+TR_NS_ERR_JAX = (0.120189, 0.433047)
+# 17a: card against CPU with the same weights (TR_PERTURB N(0, 1) from the
+# init) and the same injected draws; sampler steps row by row, where float32
+# rounding may flip an accept decision or a resample boundary in at most
+# TR_PARTED of the rows (as phase 12e); the pCN sweep at TR_PCN_B rows (its
+# step size adapts to the mean acceptance, so one flipped decision moves
+# every later proposal)
+TR_PERTURB, TR_SEED, TR_PARTED, TR_PCN_B = 0.05, 17, 0.01, 256
 
 
 def last_weights(name: str, shape, seed: int = LAST_SEED, pert: float = LAST_PERTURB):
@@ -1216,24 +1284,34 @@ def flat_grad(flow, params, x, dtype=torch.float32) -> torch.Tensor:
     return torch.autograd.grad(loss, th)[0].detach()
 
 
-def device_busy_us(prof) -> float:
+def device_busy_us(events) -> float:
     """The time, in us, in which the device ran at least one of the kernels,
-    copies or sets of a torch.profiler trace: the union of their intervals."""
+    copies or sets of a torch.profiler trace's raw events
+    (``trace_events``): the union of their intervals."""
     from torch.autograd import DeviceType
 
     busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == DeviceType.CUDA):
+    for a, b in sorted((e.start_ns(), e.end_ns()) for e in events
+                       if e.device_type() == DeviceType.CUDA):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    return busy
+    return busy / 1e3
+
+
+def trace_events(prof) -> list:
+    """A torch.profiler trace's raw (kineto) events. torch builds its
+    ``events()`` / ``key_averages()`` tree from these lazily, in Python, at
+    0.5-1 ms an event (seconds for a window of 10^4 launches); read raw they
+    cost well under a second."""
+    return list(prof.profiler.kineto_results.events())
 
 
 def profile_window(run, what: str) -> None:
     """Device busy share of ``run()`` (a short run of a path through the
     front door, profiled after a warm call with torch.profiler): the union
-    of the device's kernel intervals over the host's wall time, and the
-    operators that take the most device time."""
+    of the device's kernel intervals over the host's wall time, the kernel
+    launches, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -1242,18 +1320,23 @@ def profile_window(run, what: str) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    device_s = device_busy_us(prof) / 1e6
+    events = trace_events(prof)
+    device_s = device_busy_us(events) / 1e6
     if device_s == 0:
         print(f"profile ({what}): wall {wall:.3f} s, device time not measured")
         return
-    summed_s = sum(a.self_device_time_total for a in avgs) / 1e6
+    per_kernel = collections.defaultdict(lambda: [0, 0])
+    for e in events:
+        if e.device_type() == DeviceType.CUDA:
+            per_kernel[e.name()][0] += e.duration_ns()
+            per_kernel[e.name()][1] += 1
+    launches = sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                "cuLaunchKernelEx") for e in events)
     print(f"profile ({what}): wall {wall:.3f} s, device busy {device_s:.3f} s "
-          f"({100 * device_s / wall:.1f}%; the operators' and kernels' device times summed, "
-          f"which counts a kernel twice: {summed_s:.3f} s), "
-          f"{sum(a.count for a in avgs if a.key == 'cudaLaunchKernel')} kernel launches")
-    for a in sorted(avgs, key=lambda a: -a.self_device_time_total)[:6]:
-        print(f"  {a.key[:60]:60s} device {a.self_device_time_total / 1e3:9.2f} ms  calls {a.count}")
+          f"({100 * device_s / wall:.1f}%; the kernels' device times summed "
+          f"{sum(v[0] for v in per_kernel.values()) / 1e9:.3f} s), {launches} kernel launches")
+    for key, (ns, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"  {key[:60]:60s} device {ns / 1e6:9.2f} ms  calls {n}")
 
 
 def ess_per_second(out, wall: float, max_window: int, what: str, transform=None) -> float:
@@ -1771,7 +1854,9 @@ def run_imh_phases(dev) -> dict:
                                  show_progress=False)
 
     # ---- 10. FixedIMH through the front door, the flow frozen at identity -------
-    frozen_imh(StandardGaussian((D,)), IMH_ITERS)  # warm run
+    # warm run: every hoisted chunk size up to IMH_CHUNK and a remainder
+    # (the whole IMH_ITERS until the script's wall with phase 17)
+    frozen_imh(StandardGaussian((D,)), 2 * IMH_CHUNK)
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3284,8 +3369,8 @@ def run_flow_zoo_phases(dev) -> dict:
         with concurrent.futures.ProcessPoolExecutor(ZOO_CPU_WORKERS, mp_context=ctx) as pool:
             futures = {name: pool.submit(zoo_cpu_reference, name) for name in order}
             for name in ZOO_NAMES:
-                flow = flows[name] = create_flow_object(name, (D,), seed=0)
-                flow.params = from_jax_params(zoo_weights(name), device=dev)
+                flow = flows[name] = create_flow_object(zoo_flow(name), (D,), seed=0)
+                flow.params = from_jax_params(zoo_weights(zoo_flow(name)), device=dev)
                 for direction in ("forward", "inverse"):
                     if not once(name, direction):
                         outs[name, direction] = call(flow, direction)
@@ -3327,8 +3412,9 @@ def run_flow_zoo_phases(dev) -> dict:
             else:
                 back = bij.forward_fn(params, outs[name, "inverse"][0])[0]
                 rt = (back.cpu() - torch.from_numpy(z_np)).abs().max().item()
-            rt_tol = zoo_round_trip_tol(name)
-            print(f"14a {name} (d={D}, B={ZOO_B}, 0 kernel launches a call): " + "; ".join(line)
+            rt_tol = ZOO_ROUND_TRIP
+            print(f"14a {zoo_flow(name)} (d={D}, B={ZOO_B}, 0 kernel launches a call): "
+                  + "; ".join(line)
                   + f"; round trip {rt:.3e} (tol {rt_tol:g})")
             check(rt <= rt_tol, f"{name}: the round trip ends {rt} from its start (> {rt_tol})")
     no_kernel("14a's round trips")
@@ -3336,8 +3422,8 @@ def run_flow_zoo_phases(dev) -> dict:
 
     # ---- 14b. self-target IMH: a frozen perturbed flow is proposal and target ---------
     for name in ZOO_NAMES:
-        flow = create_flow_object(name, (D,), seed=0)
-        flow.params = from_jax_params(zoo_weights(name), device=dev)
+        flow = create_flow_object(zoo_flow(name), (D,), seed=0)
+        flow.params = from_jax_params(zoo_weights(zoo_flow(name)), device=dev)
         frozen = flow.params
         t0 = time.perf_counter()
         n_it = zoo_self_iters(name)
@@ -3349,7 +3435,7 @@ def run_flow_zoo_phases(dev) -> dict:
         torch.cuda.synchronize()
         sacc = sout.statistics.acceptance_rate
         lo = ZOO_SELF_ACC[name]
-        print(f"14b {name} self-target IMH ({n_it} it, {C} chains): acc {sacc:.6f} "
+        print(f"14b {zoo_flow(name)} self-target IMH ({n_it} it, {C} chains): acc {sacc:.6f} "
               f"(gate >= {lo:.4f}), wall {time.perf_counter() - t0:.3f} s")
         check(sout.samples.device.type == "cuda" and bool(torch.isfinite(sout.samples).all()),
               f"{name} self-target IMH: non-finite draws or draws off the card")
@@ -3726,6 +3812,505 @@ def run_checkpoint_phases(dev) -> dict:
     return res
 
 
+class RealNVPLaunches:
+    """For the duration of a ``with`` block: the RealNVP kernels' launches
+    by (kernel, direction, d, H, L, rows), with the kernel "stack" or "vjp",
+    and the weight repacks (``ops.coupling.pack_weights`` calls); the
+    wrappers' own counts go on as before."""
+
+    def __enter__(self):
+        from nfmc_torch.ops import coupling as ops
+
+        self.n, self.repacks = collections.Counter(), 0
+        self._orig = (ops._launch, ops._launch_vjp, ops.pack_weights)
+        launch, launch_vjp, pack = self._orig
+
+        def key(kernel, params, x, inverse):
+            return (kernel, "inverse" if inverse else "forward", x.shape[1],
+                    int(params[0]["w"][1].shape[0]), len(params), x.shape[0])
+
+        def stack(wrapper, params, x, clamp, inverse, packed):
+            out = launch(wrapper, params, x, clamp, inverse, packed)
+            self.n[key("stack", params, x, inverse)] += x.shape[0] > 0
+            return out
+
+        def vjp(params, x, gy, gld, clamp, inverse, packed):
+            out = launch_vjp(params, x, gy, gld, clamp, inverse, packed)
+            self.n[key("vjp", params, x, inverse)] += x.shape[0] > 0
+            return out
+
+        def repack(params):
+            self.repacks += 1
+            return pack(params)
+
+        ops._launch, ops._launch_vjp, ops.pack_weights = stack, vjp, repack
+        return self
+
+    def __exit__(self, *exc):
+        from nfmc_torch.ops import coupling as ops
+
+        ops._launch, ops._launch_vjp, ops.pack_weights = self._orig
+
+
+def transport_targets(d: int):
+    """bench.py's easy transport target in the port: N(0, I) prior, target
+    N(2 * 1, 0.25 I)."""
+    from nfmc_torch.potentials import DiagonalGaussian, StandardGaussian
+
+    return (StandardGaussian((d,)),
+            DiagonalGaussian(np.full(d, 2.0, np.float32), np.full(d, 0.5, np.float32)))
+
+
+def fab_estimate(log_w, true_abs: float) -> dict:
+    """bench.py's FAB figures (bench.py:1790-1808) from the importance
+    log-weights of TR_FAB_DRAWS flow draws, in float64 on the host: the
+    estimate, its error, the IS ESS fraction and whether the
+    TR_FAB_BLOCKS-block two-standard-error band covers the truth."""
+    lw = torch.as_tensor(np.asarray(log_w), dtype=torch.float64)
+    n = lw.shape[0]
+    est = float(torch.logsumexp(lw, 0) - np.log(n))
+    blocks = lw.reshape(TR_FAB_BLOCKS, -1)
+    block_est = (torch.logsumexp(blocks, 1) - np.log(blocks.shape[1])).numpy()
+    two_se = float(2.0 * block_est.std(ddof=1) / np.sqrt(TR_FAB_BLOCKS))
+    ess = float(torch.exp(2 * torch.logsumexp(lw, 0) - torch.logsumexp(2 * lw, 0)) / n)
+    return {"log_z": est, "err": abs(est - true_abs), "is_ess_frac": ess, "two_se": two_se,
+            "covers": bool(abs(block_est.mean() - true_abs) <= two_se)}
+
+
+def transport_suite(seed: int, device, timed=None) -> dict:
+    """17b: bench.py's run_transport_logz easy suite (bench.py:1757-1810)
+    through the port's entry points on ``device``, every seed 0 there
+    replaced by ``seed`` (FAB's estimate drawn with seed 7 + seed).
+    ``timed(name, run)`` wraps each method's run (default: the wall, ending
+    in a synchronise). Returns {method: (log Z, wall[, FAB's figures])}."""
+    import nfmc_torch
+    from nfmc_torch.transport.ais import ais_base
+
+    dev = torch.device(device)
+    prior, target = transport_targets(TR_D)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def wall(name, run):
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        return out, time.perf_counter() - t0
+
+    timed = timed or wall
+    res = {}
+    a = TR_AIS
+
+    def ais():
+        # one stream for the start and the chain: a second generator seeded
+        # alike would replay x0 as the first sweep's noise
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x0 = prior.sample((a["n"],), generator=g)
+        _, log_w = ais_base(x0, prior, target, n_steps=a["n_steps"],
+                            n_mcmc_steps=a["n_mcmc_steps"], step_size=a["step_size"],
+                            generator=g, device=dev)
+        return float(torch.logsumexp(log_w, 0) - np.log(a["n"]))
+
+    tr = nfmc_torch.transport
+    runs = {
+        "ais": ais,
+        "aft": lambda: tr.aft(prior, target, TR_FLOW, seed=seed, device=dev, **TR_AFT)["log_Z"],
+        "craft": lambda: tr.craft(prior, target, TR_FLOW, seed=seed, device=dev,
+                                  **TR_CRAFT)["log_Z"],
+        "pmc": lambda: tr.pmc(prior, target, TR_FLOW, seed=seed, device=dev, **TR_PMC)["log_Z"],
+    }
+    for name, run in runs.items():
+        res[name] = timed(name, run)
+
+    def fab():
+        trained = nfmc_torch.flow_training.fab(target, TR_FLOW, seed=seed, device=dev, **TR_FAB)
+        xq, log_q = trained.sample(TR_FAB_DRAWS, seed=7 + seed, return_log_prob=True)
+        return fab_estimate((-target(xq) - log_q).cpu(),
+                            TR_TRUE_LOG_Z + TR_D / 2 * np.log(2 * np.pi))
+
+    fig, w = timed("fab", fab)
+    res["fab"] = (fig["log_z"], w, fig)
+    return res
+
+
+def rows_close(what, got, want, max_parted=TR_PARTED):
+    """``got`` (card) against ``want`` (CPU) row by row, to TOL * max(1,
+    max|want|) (equal infinities agree): rows apart where float32 rounding
+    flipped an accept decision or a resample boundary, at most
+    ``max_parted`` of them. Returns the parted rows' mask."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    finite = want[torch.isfinite(want)]
+    scale = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
+    diff = torch.where(got == want, 0.0, (got - want).abs()).reshape(got.shape[0], -1)
+    parted = (diff > TOL * scale).any(-1) | torch.isnan(diff).any(-1)
+    e = float(diff[~parted].max()) if (~parted).any() else 0.0
+    print(f"  {what}: max|diff| {e:.3e} over the agreeing rows (scale {scale:.2f}), "
+          f"{int(parted.sum())} of {got.shape[0]} rows parted by rounding")
+    check(int(parted.sum()) <= max_parted * got.shape[0],
+          f"17a {what}: {int(parted.sum())} rows apart, more than {max_parted:.0%}")
+    return parted
+
+
+def all_close(what, got, want):
+    """``got`` against ``want`` to TOL * max(1, max|want|), every element."""
+    return rows_close(what, got.reshape(1, -1), want.reshape(1, -1), max_parted=0.0)
+
+
+def witnessed_weights(what, theta, want, adam):
+    """Weights of a multi-step fit on the card against the CPU's: Adam turns
+    a gradient element within float32 error of 0 into a step of +-lr whose
+    sign is rounding's, so a weight may part from the CPU's by more than TOL
+    only where its RMS gradient over the fit (``adam``'s second moment) is
+    below 1e-5 of the largest (chip_smoke.check_refit's witness)."""
+    theta, want = theta.cpu().double(), want.cpu().double()
+    rms = (adam.nu / (1.0 - adam.b2 ** adam.count)).sqrt().cpu().double()
+    scale = max(1.0, float(want.abs().max()))
+    parted = (theta - want).abs() > TOL * scale
+    ok = bool((rms[parted] <= 1e-5 * rms.max()).all())
+    e = float((theta - want).abs()[~parted].max()) if (~parted).any() else 0.0
+    print(f"  {what}: weights max|diff| {e:.3e} (scale {scale:.2f}); {int(parted.sum())} of "
+          f"{theta.numel()} apart, each with an RMS gradient below 1e-5 of the largest: {ok}")
+    check(ok, f"17a {what}: weights apart that no gradient within float32 error of 0 explains")
+
+
+def transport_card_vs_cpu(dev) -> None:
+    """17a: each step of the slice on the card and on the CPU with the same
+    weights and the same injected draws (made on the CPU)."""
+    import importlib
+
+    from nfmc_torch import create_flow_object
+    from nfmc_torch.flow_training import FAB
+    from nfmc_torch.flows import RealNVP
+    from nfmc_torch.flows.train import _AdamW, _flatten
+    from nfmc_torch.transport import CRAFT, AnnealedFlowTransport, PreconditionedMonteCarlo
+    from nfmc_torch.transport.ais import make_ais
+    from nfmc_torch.transport.common import flat_value_and_grad, make_mala_sweep, tempered
+    from nfmc_torch.utils import tree_map
+
+    snf_mod = importlib.import_module("nfmc_torch.transport.snf")
+    cpu = torch.device("cpu")
+    d = TR_D
+    prior, target = transport_targets(d)
+    g = torch.Generator().manual_seed(TR_SEED)
+    w0 = perturbed_params(d, 32, 2, seed=TR_SEED, device=cpu)
+
+    def on(device, obj):
+        """``obj`` (tensors, tuples and lists of them) on ``device``."""
+        if isinstance(obj, torch.Tensor):
+            return obj.to(device)
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(on(device, o) for o in obj)
+        if isinstance(obj, dict):
+            return {k: on(device, v) for k, v in obj.items()}
+        return obj
+
+    def both(fn, *args):
+        """fn(device, *args on that device) on the card and the CPU."""
+        return fn(dev, *on(dev, args)), fn(cpu, *args)
+
+    def flow_on(device):
+        f = create_flow_object(TR_FLOW, (d,), seed=0)
+        f.params = on(device, w0)
+        return f
+
+    x2048 = torch.randn((2048, d), generator=g)
+    t0 = time.perf_counter()
+    print(f"17a card against CPU (d={d}, RealNVP L=2 H=32, weights {PERTURB} N(0, 1) from the "
+          f"init; the same draws):")
+    # the MALA sweep and an 8-level AIS chain on the easy target
+    u = tempered(prior, target)
+    sweep = make_mala_sweep(u, n_steps=5, step_size=0.05)
+    draws = sweep.draws(g, x2048.shape)
+    card, ref = both(lambda _, x, dr: sweep(x, 0.5, dr), x2048, draws)
+    rows_close("MALA sweep (5 steps, 2048 particles, lam 1/2)", card, ref)
+    chain = make_ais(prior, target, n_steps=8, n_mcmc_steps=2, step_size=0.1)
+    draws = list(chain.draws(g, x2048.shape))
+    card, ref = both(lambda _, x, dr: chain(x, dr), x2048, draws)
+    parted = rows_close("AIS chain x (8 levels x 2 MALA steps)", card[0], ref[0])
+    rows_close("AIS chain log_w", card[1][~parted.to(card[1].device)], ref[1][~parted])
+
+    # one AFT level: the 60-epoch fit, the selection, the base group's transport
+    lam = 1.0 / (TR_AFT["n_iterations"] - 1)
+    xt, xv = torch.randn((1024, d), generator=g), torch.randn((512, d), generator=g)
+    wt, wv = torch.full((1024,), 1 / 1024), torch.full((512,), 1 / 512)
+
+    def aft_level(device, xt, wt, xv, wv, xb):
+        alg = AnnealedFlowTransport(prior, target, flow_on(device), n_steps=16,
+                                    n_train_epochs=TR_AFT["n_train_epochs"])
+        p, best = alg._fit_level(alg.flow.params, xt, wt, xv, wv, lam)
+        use, xv2, lwv = alg._select_transport(p, xv, torch.log(wv), 0.0, lam)
+        xb2, lwb, dlz, ess = alg._transport(p, xb, torch.full((2048,), -np.log(2048),
+                                                              device=device), 0.0, lam, use)
+        return _flatten(p), best, use, xv2, lwv, xb2, lwb, dlz, ess
+
+    card, ref = both(aft_level, xt, wt, xv, wv, x2048)
+    all_close("AFT level: the fitted weights (60 epochs, 1024 train / 512 val rows)",
+              card[0], ref[0])
+    for what, i in (("best val loss", 1), ("val group x", 3), ("val log W", 4),
+                    ("base x", 5), ("base log W", 6), ("delta log Z", 7), ("log ESS", 8)):
+        all_close(f"AFT level: {what}", card[i], ref[i])
+    check(bool(card[2]) == bool(ref[2]), "17a AFT: the selection differs")
+
+    # one CRAFT training level (level 0 of TR_CRAFT's 12)
+    lw0 = torch.full((2048,), -np.log(2048))
+
+    def craft_level(device, x, lw, dr):
+        bijs = [flow_on(device).bijection for _ in range(TR_CRAFT["n_annealing_steps"])]
+        alg = CRAFT(prior, target, bijs)
+        theta = _flatten(bijs[0].params)
+        opt = _AdamW(theta, alg.lr)
+        return (*alg._level(0, theta, opt, x, lw, dr), opt)
+
+    craft_alg = CRAFT(prior, target, [flow_on(cpu).bijection])
+    draws = craft_alg.level_draws(g, x2048.shape)
+    card, ref = both(craft_level, x2048, lw0, draws)
+    witnessed_weights("CRAFT level 0: the AdamW step", card[0], ref[0], card[4])
+    parted = rows_close("CRAFT level 0: x after the resample and the sweep", card[1], ref[1])
+    rows_close("CRAFT level 0: log W", card[2][~parted.to(card[2].device)], ref[2][~parted])
+    all_close("CRAFT level 0: delta log Z", card[3], ref[3])
+
+    # PMC's train scan (20 epochs on 2048 weighted rows) and one pCN sweep
+    pmc_lw = 0.3 * torch.randn((2048,), generator=g)
+    pmc_lw = pmc_lw - torch.logsumexp(pmc_lw, 0)
+    perm = torch.randperm(2048, generator=g)
+    xp = x2048[:TR_PCN_B] * 0.5 + 1.0
+    pmc_cpu = PreconditionedMonteCarlo(prior, target, flow_on(cpu),
+                                       n_train_epochs=TR_PMC["n_train_epochs"],
+                                       n_mcmc_steps=TR_PMC["n_mcmc_steps"])
+    sweep_draws = pmc_cpu.sweep_draws(g, xp.shape)
+
+    def pmc_steps(device, x, lw, perm, xp, dr):
+        alg = PreconditionedMonteCarlo(prior, target, flow_on(device),
+                                       n_train_epochs=TR_PMC["n_train_epochs"],
+                                       n_mcmc_steps=TR_PMC["n_mcmc_steps"])
+        p, losses = alg._train(alg.flow.params, x, lw, perm)
+        rho = torch.tensor(0.0, device=device)
+        return (_flatten(p), losses, *alg._sweep(p, xp, 0.3, rho, dr))
+
+    card, ref = both(pmc_steps, x2048, pmc_lw, perm, xp, sweep_draws)
+    all_close("PMC train scan: the best weights (20 epochs)", card[0], ref[0])
+    all_close("PMC train scan: the losses", card[1], ref[1])
+    rows_close(f"PMC pCN sweep (10 steps, {TR_PCN_B} rows, beta 0.3): x", card[2], ref[2])
+    all_close("PMC pCN sweep: rho_logit", card[3], ref[3])
+    all_close("PMC pCN sweep: acceptance", card[4], ref[4])
+
+    # one FAB iteration: the AIS round into the buffer, then 20 replay steps
+    # from the CPU's buffer on both devices
+    f = TR_FAB
+    fab_cpu = FAB(target, flow_on(cpu))
+    ais_draws, noise = fab_cpu.iteration_draws(g, f["n_flow_training_steps"],
+                                               f["n_ais_particles"], 50)
+
+    def fab_fill(device, dr):
+        alg = FAB(target, flow_on(device))
+        return alg._fill(alg.flow.params, alg._init_buffer(device), dr)
+
+    card, ref = both(fab_fill, ais_draws)
+    n = f["n_ais_particles"]
+    parted = rows_close(f"FAB AIS round ({n} particles, 8 levels x 3 MALA steps): x",
+                        card[0][:n], ref[0][:n])
+    for what, i in (("log w", 1), ("log q", 2)):
+        rows_close(f"FAB AIS round: {what}", card[i][:n][~parted.to(card[i].device)],
+                   ref[i][:n][~parted])
+
+    def fab_replay(device, buf, nz):
+        alg = FAB(target, flow_on(device))
+        like = alg.flow.params
+        theta = _flatten(like)
+        opt = _AdamW(theta, alg.lr)
+        buf = (*[b.clone() for b in buf[:3]], *buf[3:])
+        theta, buf, loss = alg._replay(theta, opt, like, buf, nz)
+        return theta, buf[1], buf[2], loss, opt
+
+    card, ref = both(fab_replay, ref, noise)
+    witnessed_weights(f"FAB replay ({f['n_flow_training_steps']} AdamW steps of 50 rows)",
+                      card[0], ref[0], card[4])
+    for what, i in (("buffered log w", 1), ("buffered log q", 2), ("reported loss", 3)):
+        all_close(f"FAB replay: {what}", card[i], ref[i])
+
+    # SNF's loss and its gradient in the flow weights (snf()'s layers)
+    def snf_model(device):
+        layers = [snf_mod.HMCLayer((d,)), snf_mod.FlowLayer(RealNVP((d,), n_layers=2)),
+                  snf_mod.HMCLayer((d,)), snf_mod.FlowLayer(RealNVP((d,), n_layers=2)),
+                  snf_mod.HMCLayer((d,))]
+        return snf_mod.SNF(layers, target, prior, seed=0, device=device)
+
+    model = snf_model(cpu)
+    z = torch.randn((TR_SNF["n_particles"], d), generator=g)
+    snf_draws = model.draws(g, z.shape)
+    pert = torch.Generator().manual_seed(TR_SEED + 1)
+    snf_w = tree_map(lambda t: t + PERTURB * torch.randn(t.shape, generator=pert), model.params)
+
+    def snf_grad(device, z, dr, w):
+        m = snf_model(device)
+        m.params = w
+        theta = _flatten(w)
+        return flat_value_and_grad(lambda p: m._loss(p, z, dr), theta, w)
+
+    card, ref = both(snf_grad, z, snf_draws, snf_w)
+    all_close(f"SNF loss ({TR_SNF['n_particles']} particles, HMC + RealNVP(L=2, H=64) x 2 + HMC)",
+              card[0], ref[0])
+    all_close("SNF loss gradient in the flow weights (through the HMC layers, second order in "
+              "U)", card[1], ref[1])
+    print(f"17a: {time.perf_counter() - t0:.1f} s")
+
+
+def check_transport_shapes(dev, shapes) -> dict:
+    """Each RealNVP shape phase 17 launched, the forward kernel and the VJP
+    against their plain versions (to TOL * max(1, max|ref|); the VJP twice,
+    bit-identical), with timings and bounds: {shape key: (ms, device ms,
+    plain ms, bound ms, bound by, error)}."""
+    from nfmc_torch.ops import coupling as ops
+    from nfmc_torch.utils import tree_leaves
+
+    g = torch.Generator(device=dev).manual_seed(TR_SEED)
+    out = {}
+    for key in sorted(shapes):
+        kernel, direction, d, hid, nl, rows = key
+        inverse = direction == "inverse"
+        params = perturbed_params(d, hid, nl, seed=d + hid + rows, device=dev)
+        packed = ops.pack_weights(params)
+        x = torch.randn((rows, d), generator=g, device=dev)
+        what = f"{kernel} {direction} d={d} H={hid} L={nl} B={rows}"
+        if kernel == "stack":
+            wrapper = ops.fused_realnvp_inverse if inverse else ops.fused_realnvp_forward
+            y, ld = wrapper(params, x, 3.0, packed=packed)
+            y_ref, ld_ref = ops.realnvp_stack_plain(params, x, 3.0, inverse)
+            scale = max(1.0, y_ref.abs().max().item(), ld_ref.abs().max().item())
+            e = max((y - y_ref).abs().max().item(), (ld - ld_ref).abs().max().item()) / scale
+            check(bool(torch.isfinite(y).all() and torch.isfinite(ld).all()),
+                  f"{what}: non-finite kernel output")
+            fn = lambda: wrapper(params, x, 3.0, packed=packed)
+            plain = lambda: ops.realnvp_stack_plain(params, x, 3.0, inverse)
+            same = True
+        else:
+            gy = torch.randn((rows, d), generator=g, device=dev)
+            gld = torch.randn((rows,), generator=g, device=dev)
+            fn = lambda: ops.fused_realnvp_vjp(params, x, gy, gld, 3.0, inverse, packed)
+            plain = lambda: ops.realnvp_stack_vjp_plain(params, x, gy, gld, 3.0, inverse)
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            e, scale, _ = ops.vjp_error(got, plain())
+            same = torch.equal(got[0], again[0]) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(got[1]), tree_leaves(again[1])))
+        k_ms, k_dev, k_txt = kernel_ms(fn, 20)
+        p_ms = median_ms(plain, 20)
+        bound_ms, bound_by = bound(*stack_cost(d, hid, nl, rows, backward=kernel == "vjp"))
+        out[key] = (k_ms, k_dev, p_ms, bound_ms, bound_by, e * scale)
+        print(f"  {what}: relative max|diff| {e:.3e} (scale {scale:.2f})"
+              + ("" if kernel == "stack" else f", bit-identical rerun {same}")
+              + f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        check(e <= TOL, f"phase 17 {what}: the kernel disagrees with its plain version")
+        check(same, f"phase 17 {what}: two launches gave different gradients")
+    return out
+
+
+def run_transport_phases(dev) -> dict:
+    """Phases 17-17c: the transport layer and FAB. 17a each step on the card
+    against the CPU; 17b run_transport_logz's easy suite at bench.py's
+    sizes (AIS, AFT, CRAFT, PMC, FAB) with the busy share of one AFT level
+    and one FAB iteration; 17c snf() and ns(); then every RealNVP shape the
+    phase launched against the plain version. Returns the launches by shape
+    and the numbers the kernels' line and the summary need."""
+    import nfmc_torch
+    from nfmc_torch.flow_training import FAB
+    from nfmc_torch.ops import build
+    from nfmc_torch.transport import AnnealedFlowTransport
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"shapes": {}, "walls": {}}
+    all_shapes = collections.Counter()
+
+    with RealNVPLaunches() as launched:
+        transport_card_vs_cpu(dev)
+    all_shapes.update(launched.n)
+
+    # ---- 17b. the easy suite at bench.py's sizes ------------------------------------
+    def timed(name, run):
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RealNVPLaunches() as rec:
+            out = run()
+            torch.cuda.synchronize()
+        w = time.perf_counter() - t0
+        counts = {k: v for k, v in ((w_.__name__, w_.launches) for w_ in build.WRAPPERS) if v}
+        res["shapes"][name] = rec.n
+        res["walls"][name] = w
+        all_shapes.update(rec.n)
+        check(all(k.startswith("fused_realnvp") for k in counts),
+              f"17 {name}: a spline kernel launched: {counts}")
+        check(name == "ais" or counts.get("fused_realnvp_vjp", 0) > 0,
+              f"17 {name}: the flow was never trained through the VJP kernel: {counts}")
+        print(f"{'17c' if name in ('snf', 'ns') else '17b'} {name}: wall {w:.3f} s, launches "
+              f"{counts}, weight repacks {rec.repacks}; by "
+              f"shape " + ", ".join(f"{k[0]} {k[1][:3]} d={k[2]} H={k[3]} B={k[5]}: {v}"
+                                    for k, v in sorted(rec.n.items())))
+        return out, w
+
+    suite = transport_suite(0, dev, timed)
+    for m in TR_METHODS:
+        truth = (TR_TRUE_LOG_Z + TR_D / 2 * np.log(2 * np.pi) if m == "fab" else TR_TRUE_LOG_Z)
+        err = abs(suite[m][0] - truth)
+        print(f"17b {m}: log Z {suite[m][0]:.6f} (truth {truth:.6f}), |error| {err:.6f} nats, "
+              f"wall {suite[m][1]:.3f} s ({smi})")
+        check(err < 1.0, f"17b {m}: |log Z error| {err} >= 1 nat (bench.py's all_ok)")
+        band, seen = jax_band(TR_ERR_JAX[m], errors=True)
+        in_band(f"17b {m} |log Z error|", err, band,
+                f"{seen} over seeds 0-31, not 0-7" if m == "ais" else seen)
+    fab = suite["fab"][2]
+    print(f"17b fab: IS ESS fraction {fab['is_ess_frac']:.6f}, 2 SE {fab['two_se']:.6f}, the "
+          f"{TR_FAB_BLOCKS}-block band covers the truth: {fab['covers']}")
+    check(fab["covers"], "17b fab: the two-standard-error band misses the truth")
+    in_band("17b fab IS ESS fraction", fab["is_ess_frac"], *jax_band(TR_FAB_ESS_JAX))
+    res["suite"] = suite
+
+    prior, target = transport_targets(TR_D)
+    a = TR_AFT
+    aft_alg = AnnealedFlowTransport(prior, target,
+                                    nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=0).to(dev),
+                                    n_steps=2, n_train_epochs=a["n_train_epochs"])
+    profile_window(lambda: aft_alg.run(
+        lambda b, generator=None: prior.sample(b, generator=generator),
+        n_particles=a["n_particles"], n_train_particles=a["n_train_particles"],
+        n_val_particles=a["n_val_particles"], seed=0), "17b one AFT level")
+    fab_alg = FAB(target, nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=0).to(dev))
+    profile_window(lambda: fab_alg.run(n_iterations=1,
+                                       n_flow_training_steps=TR_FAB["n_flow_training_steps"],
+                                       n_ais_particles=TR_FAB["n_ais_particles"], seed=0),
+                   "17b one FAB iteration")
+
+    # ---- 17c. snf() and ns() ----------------------------------------------------------
+    def snf_run():
+        return nfmc_torch.transport.snf(prior, target, seed=0, device=dev, **TR_SNF)
+
+    out, w = timed("snf", snf_run)
+    p = out["particles"]
+    check(bool(np.isfinite(p).all()), "17c snf: non-finite particles")
+    print(f"17c snf: {TR_SNF}, wall {w:.3f} s, particle mean {p.mean():.6f}")
+    in_band("17c snf |mean - 2|", abs(float(p.mean()) - 2.0), *jax_band(TR_SNF_ERR_JAX,
+                                                                        errors=True))
+    ns_prior, ns_target = transport_targets(TR_NS_D)
+    out, w = timed("ns", lambda: nfmc_torch.transport.ns(ns_prior, ns_target, TR_FLOW, seed=0,
+                                                         device=dev, **TR_NS))
+    err = abs(out["log_Z"] - TR_NS_TRUE_LOG_Z)
+    print(f"17c ns (d={TR_NS_D}, {TR_NS}): wall {w:.3f} s, log Z {out['log_Z']:.6f} (truth "
+          f"{TR_NS_TRUE_LOG_Z:.6f}), |error| {err:.6f}")
+    check(err < 1.0, f"17c ns: |log Z error| {err} >= 1 nat")
+    in_band("17c ns |log Z error|", err, *jax_band(TR_NS_ERR_JAX, errors=True))
+
+    # ---- every RealNVP shape the phase launched, against the plain version --------------
+    print(f"phase 17 kernels at the {len(all_shapes)} shapes it launched:")
+    res["timing"] = check_transport_shapes(dev, all_shapes)
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 17: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -3736,6 +4321,16 @@ def main() -> None:
     from nfmc_torch.utils import tree_leaves
 
     t_start = time.perf_counter()
+    laps, t_lap = [], [t_start]
+
+    def lap(what):
+        """Print and keep the wall since the last lap (the script's time by
+        phase, against its limit)."""
+        now = time.perf_counter()
+        laps.append((what, now - t_lap[0]))
+        t_lap[0] = now
+        print(f"[{what}: {laps[-1][1]:.1f} s, {now - t_start:.1f} s since the start]")
+
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -3764,6 +4359,8 @@ def main() -> None:
     for ln in build.build_log.splitlines():
         if "registers" in ln or "spill" in ln or ln.startswith("=="):
             print("  ptxas:", ln.strip())
+
+    lap("phases 1-2")
 
     # ---- 3. kernel vs plain ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3904,16 +4501,21 @@ def main() -> None:
     check(len(fits["cuda"][1]) == 5 and e_w <= TOL and e_vl <= TOL,
           "Flow.fit on the card disagrees with the CPU fit")
 
+    lap("phases 3-4b")
+
     # ---- 5. main path: the headline through the front door ----------------------
-    def headline():
+    def headline(n_outer=OUTER):
         return nfmc_torch.sample(
             StandardGaussian((D,)), strategy="jump_mala",
             flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
-            n_chains=C, n_iterations=OUTER, inner_param_kwargs={"n_iterations": INNER_N},
+            n_chains=C, n_iterations=n_outer, inner_param_kwargs={"n_iterations": INNER_N},
             param_kwargs={"store_samples_on_device": True},
             seed=0, show_progress=False)
 
-    headline()  # warm run: allocator, library, cuBLAS handles
+    # warm run (library, cuBLAS handles, the sampler's first call), cut from
+    # the whole OUTER outer iterations to HEADLINE_WARM to keep the script's
+    # wall, phase 17 included, inside its limit on a slow host
+    headline(HEADLINE_WARM)
     build.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3945,6 +4547,8 @@ def main() -> None:
         n_iterations=64, inner_param_kwargs={"n_iterations": INNER_N},
         param_kwargs={"store_samples_on_device": True}, seed=1, show_progress=False),
         "headline, 64 outer it")
+
+    lap("phase 5")
 
     # ---- 5b. the headline with warmup -----------------------------------------
     warm_outer = 500
@@ -4025,29 +4629,43 @@ def main() -> None:
         check(nl["fused_realnvp_inverse"] == nf_outer, "fit_nf: one proposal launch per iteration")
         check(change > 0, "fit_nf: the flow did not change")
 
+    lap("phases 5b-5c")
+
     # ---- 6. misfit target -------------------------------------------------------
     mu = 0.12
     t0 = time.perf_counter()
     mis = nfmc_torch.sample(
         DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)), strategy="jump_mala",
         flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
-        n_chains=C, n_iterations=500, inner_param_kwargs={"n_iterations": INNER_N},
+        n_chains=C, n_iterations=MISFIT_OUTER, inner_param_kwargs={"n_iterations": INNER_N},
         param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
     jacc = mis.statistics.jump_acceptance_rate
     print(f"misfit N({mu}*1, I): jump acc {jacc:.4f}, MALA acc {mis.statistics.acceptance_rate:.4f}, "
           f"max|mean - mu| {np.abs(mis.mean - mu).max():.4f}, wall {time.perf_counter() - t0:.3f} s")
     check(0.30 <= jacc <= 0.50, f"misfit jump acceptance {jacc} outside [0.30, 0.50]")
 
+    lap("phase 6")
     spline = run_spline_phases(dev, g)
+    lap("phases 7-8c")
     run_wide_spline(dev, g)
     run_fault_checks(dev)
+    lap("phases 7d-9")
     imh = run_imh_phases(dev)
+    lap("phase 10")
     flows11 = run_flow_sampler_phases(dev)
+    lap("phase 11")
     mcmc12 = run_mcmc_phases(dev)
+    lap("phase 12")
     last13 = run_last_strategy_phases(dev)
+    lap("phase 13")
     zoo14 = run_flow_zoo_phases(dev)
+    lap("phase 14")
     last15 = run_last_flow_phases(dev)
+    lap("phase 15")
     ckpt16 = run_checkpoint_phases(dev)
+    lap("phase 16")
+    tr17 = run_transport_phases(dev)
+    lap("phase 17")
 
     kernels = []
 
@@ -4100,6 +4718,17 @@ def main() -> None:
     for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items(),
                           *last13["shapes"].items(), *ckpt16["shapes"].items()):
         path_rows(label, shapes)
+    # phase 17's paths: each method's launches at each shape (d, H, L, B)
+    for label, shapes in tr17["shapes"].items():
+        for key, n in sorted(shapes.items()):
+            kernel, direction, d_, hid, nl, rows = key
+            tag = f"{label}, d={d_}, H={hid}, L={nl}, B={rows}"
+            if kernel == "stack":
+                name_, src, tpu = f"fused_realnvp_{direction} ({tag})", fwd_src, fwd_tpu
+            else:
+                name_, src, tpu = f"fused_realnvp_vjp ({direction}, {tag})", bwd_src, bwd_tpu
+            t = tr17["timing"][key]
+            kernel_row(name_, src, tpu, n, t[5], t)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
             k_ms, k_dev, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
@@ -4157,6 +4786,11 @@ def main() -> None:
           f"{last15['rnode'][1]:.1f} it/s ({last15['rnode'][0]:.1f} s wall, "
           f"{last15['rnode'][2]:.3f} ms a reverse-KL step); 15d {last15['15d']:.1f} s; "
           f"phase 16: {ckpt16['wall']:.1f} s ({smi.stdout.strip().splitlines()[0]})")
+    print(f"phase 17: {tr17['wall']:.1f} s; " + ", ".join(
+        f"{m} log Z {tr17['suite'][m][0]:.4f} in {tr17['walls'][m]:.2f} s" for m in TR_METHODS)
+        + f"; snf {tr17['walls']['snf']:.2f} s, ns {tr17['walls']['ns']:.2f} s "
+          f"({smi.stdout.strip().splitlines()[0]})")
+    print("walls by phase: " + ", ".join(f"{what} {s_:.1f} s" for what, s_ in laps))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

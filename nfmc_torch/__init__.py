@@ -20,8 +20,10 @@ OT-Flow, DDB), the multiscale / Glow image flows and the convolutional
 residual and continuous flows (plain PyTorch on every device, as the JAX
 package runs them through XLA): all 48 names of the registry, with
 ``Chain`` and ``Inverse``. Also the ESS and R-hat diagnostics, every
-potential of ``nfmc_tpu.potentials`` and ``checkpoint`` (resumable runs:
-``sample(..., checkpoint_path=...)``).
+potential of ``nfmc_tpu.potentials``, ``checkpoint`` (resumable runs:
+``sample(..., checkpoint_path=...)``), the evidence estimators of
+``transport`` (AIS, AFT, CRAFT, PMC, nested sampling, SNF) and
+``flow_training``'s FAB.
 """
 from .api import (create_flow_object, create_sampler, get_supported_mcmc_samplers,
                   get_supported_nfmc_samplers, get_supported_normalizing_flows,
@@ -39,7 +41,7 @@ from .core import (
     Sampler,
     set_seed,
 )
-from . import checkpoint, diagnostics, potentials
+from . import checkpoint, diagnostics, flow_training, potentials, transport
 from .flows import (IAF, MAF, NICE, Chain, CouplingLRS, CouplingRQNSF, Flow, Inverse,
                     InvertibleResNet, PlanarFlow, ProximalResFlow, RadialFlow, RealNVP, ResFlow,
                     SylvesterFlow)
@@ -79,7 +81,7 @@ __all__ = [
     "PlanarFlow", "RadialFlow", "SylvesterFlow", "InvertibleResNet", "ResFlow", "ProximalResFlow",
     "JumpMALA", "JumpULA", "JumpNFMCParameters",
     "FixedIMH", "AdaptiveIMH", "IMHKernel", "IMHParameters", "checkpoint", "diagnostics",
-    "potentials",
+    "potentials", "transport", "flow_training",
     "MALA", "ULA", "HMC", "UHMC", "MH", "JumpHMC", "JumpUHMC", "JumpMH", "NeuTraHMC",
     "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",
     "NeuTraChEES", "DenseHMC", "DenseMALA", "PTMALA", "PTRWMH", "PTHMC", "AIES", "JumpAIES",

@@ -2,9 +2,10 @@
 and the reverse-KL ``variational_fit`` (counterpart of
 ``nfmc_tpu/flows/train.py``).
 
-Adam (``optax.adam``: b1 0.9, b2 0.999, eps 1e-8) runs on one flat
-parameter vector in :func:`nfmc_torch.utils.tree_leaves` order (for the
-coupling flows, the packed order of the kernels), for any flow's tree. A batch whose
+Adam (``optax.adam``: b1 0.9, b2 0.999, eps 1e-8; ``_AdamW`` adds
+``optax.adamw``'s weight decay 1e-4) runs on one flat parameter vector in
+:func:`nfmc_torch.utils.tree_leaves` order (for the coupling flows, the
+packed order of the kernels), for any flow's tree. A batch whose
 loss or any gradient is non-finite changes neither the parameters nor the
 moments, through ``torch.where`` and with no host synchronisation; the best
 weights and loss are tracked on the device per epoch. ``fit`` synchronises
@@ -88,9 +89,12 @@ def _flatten(params) -> torch.Tensor:
 
 
 class _Adam:
-    """``optax.adam(lr)`` on a flat parameter vector, with the masked skip."""
+    """``optax.adam(lr)`` on a flat parameter vector, with the masked skip:
+    where ``finite`` is False neither the vector nor the moments change
+    (``finite=None`` updates unconditionally, as an unguarded optax step)."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
+    weight_decay = 0.0
 
     def __init__(self, theta: torch.Tensor, lr: float):
         self.lr = lr
@@ -98,17 +102,30 @@ class _Adam:
         self.nu = torch.zeros_like(theta)
         self.count = torch.zeros((), dtype=torch.float32, device=theta.device)
 
-    def step(self, theta, g, finite):
+    def step(self, theta, g, finite=None):
         count = self.count + 1.0
         mu = (1.0 - self.b1) * g + self.b1 * self.mu
         nu = (1.0 - self.b2) * (g * g) + self.b2 * self.nu
         mu_hat = mu / (1.0 - torch.pow(self.b1, count))
         nu_hat = nu / (1.0 - torch.pow(self.b2, count))
-        theta_new = theta + (-self.lr) * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        if self.weight_decay:
+            update = update + self.weight_decay * theta
+        theta_new = theta + (-self.lr) * update
+        if finite is None:
+            self.mu, self.nu, self.count = mu, nu, count
+            return theta_new
         self.mu = torch.where(finite, mu, self.mu)
         self.nu = torch.where(finite, nu, self.nu)
         self.count = torch.where(finite, count, self.count)
         return torch.where(finite, theta_new, theta)
+
+
+class _AdamW(_Adam):
+    """``optax.adamw(lr)`` at optax's defaults: Adam's update plus
+    ``weight_decay * theta``, both scaled by ``-lr``."""
+
+    weight_decay = 1e-4
 
 
 def _nll(flow, params, x, w=None) -> torch.Tensor:

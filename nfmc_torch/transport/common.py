@@ -1,0 +1,150 @@
+"""Shared transport machinery (counterpart of ``nfmc_tpu/transport/common.py``):
+tempered potentials, the MALA correction sweep, systematic and multinomial
+resampling, ESS.
+
+The inverse temperature is a host float: every level loop here runs eagerly
+on the host, with its schedule known there. Every stochastic step takes its
+random numbers as tensors, made by a separate draws function from a
+``torch.Generator``, so that two devices (or the JAX package's keys,
+rebuilt) can be given the same numbers.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Sequence
+
+import torch
+
+from ..utils import value_and_batched_grad
+
+
+def tempered(prior_potential: Callable, target_potential: Callable):
+    """u(x, lam) = (1-lam) * prior + lam * target.
+
+    Endpoint-safe for hard-support potentials: at ``lam = 0`` (or 1) the
+    switched-off side is not evaluated, so a ``U = +inf`` there gives no
+    ``0 * inf = NaN``: ``u(x, 0) = prior`` and ``u(x, 1) = target`` exactly.
+    """
+
+    def u(x, lam):
+        lam = float(lam)
+        if lam <= 0.0:
+            return (1.0 - lam) * prior_potential(x)
+        if lam >= 1.0:
+            return lam * target_potential(x)
+        return (1.0 - lam) * prior_potential(x) + lam * target_potential(x)
+
+    return u
+
+
+def log_ess(log_w: torch.Tensor) -> torch.Tensor:
+    """log ESS of normalized or unnormalized log-weights."""
+    log_w = log_w - torch.logsumexp(log_w, 0)
+    return -torch.logsumexp(2.0 * log_w, 0)
+
+
+def systematic_resample(log_w: torch.Tensor, n: int, offset: torch.Tensor) -> torch.Tensor:
+    """Systematic (low-variance) resampling indices from log-weights: the
+    uniform ``offset`` in [0, 1) and n evenly-spaced points through the
+    weight CDF (left-side search, clipped)."""
+    w = torch.exp(log_w - torch.logsumexp(log_w, 0))
+    cdf = torch.cumsum(w, 0)
+    u = (offset + torch.arange(n, dtype=w.dtype, device=w.device)) / n
+    return torch.searchsorted(cdf, u, side="left").clamp(0, log_w.shape[0] - 1)
+
+
+def resample_offset(generator: torch.Generator) -> torch.Tensor:
+    """The draw of :func:`systematic_resample`: one uniform."""
+    return torch.rand((), generator=generator, device=generator.device)
+
+
+def gumbel(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """Standard Gumbel noise, ``-log(-log(U))`` with U uniform on [tiny, 1),
+    as ``jax.random.gumbel`` draws it."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.rand(tuple(shape), generator=generator, device=generator.device).clamp_min(tiny)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(logits: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max draws from ``softmax(logits)``: ``argmax(logits + noise)``
+    over the last axis, with ``noise`` of shape ``(*shape, len(logits))``
+    (``jax.random.categorical`` given the same noise). No host check: a row
+    of all ``-inf`` logits gives index 0, as in JAX."""
+    return torch.argmax(logits + noise, dim=-1)
+
+
+def multinomial_resample(log_w: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """n multinomial resampling indices from log-weights, given the
+    ``(n, len(log_w))`` Gumbel draw ``noise`` (:func:`gumbel`)."""
+    return categorical(log_w, noise)
+
+
+class MALASweep:
+    """The MALA correction sweep at inverse temperature ``lam``:
+    ``sweep(x, lam, draws) -> x'`` with ``draws = sweep.draws(generator,
+    x.shape)``, the noise ``(n_steps, *x.shape)`` and the accept uniforms
+    ``(n_steps, B)``. A step's U and grad U at the current state carry over
+    from the last (the values JAX recomputes), so a sweep evaluates the
+    potential and its gradient ``n_steps + 1`` times."""
+
+    def __init__(self, u_tempered: Callable, n_steps: int = 5, step_size: float = 0.05):
+        self.u = u_tempered
+        self.n_steps = int(n_steps)
+        self.step_size = float(step_size)
+
+    def draws(self, generator: torch.Generator, shape: Sequence[int]):
+        dev = generator.device
+        return (torch.randn((self.n_steps, *shape), generator=generator, device=dev),
+                torch.rand((self.n_steps, shape[0]), generator=generator, device=dev))
+
+    def __call__(self, x: torch.Tensor, lam, draws) -> torch.Tensor:
+        noise, uniforms = draws
+        s = self.step_size
+        u_and_grad = value_and_batched_grad(lambda v: self.u(v, lam))
+        u_x, g_x = u_and_grad(x)
+        flat = (x.shape[0], -1)
+
+        def qpot(a, b, g):
+            term = (a - b + s * g).reshape(flat)
+            return (term * term).sum(-1) / (4.0 * s)
+
+        for i in range(self.n_steps):
+            x_prime = x - s * g_x + math.sqrt(2.0 * s) * noise[i]
+            u_xp, g_xp = u_and_grad(x_prime)
+            # (-u') - (-u) + (-q(x|x')) - (-q(x'|x)), bit for bit
+            log_alpha = u_x - u_xp - qpot(x, x_prime, g_xp) + qpot(x_prime, x, g_x)
+            # accept-guard semantics as the samplers' (utils.unevaluable_
+            # current_mask): a current state with U = +inf or NaN is forced
+            # to move to any evaluable proposal (its density under pi_lam is
+            # zero); U = -inf currents keep log_alpha = -inf. Non-finite
+            # proposals always reject.
+            cur_bad = torch.isnan(u_x) | (u_x == math.inf)
+            prop_ok = torch.isfinite(u_xp) & torch.isfinite(x_prime.reshape(flat)).all(-1)
+            log_alpha = log_alpha.masked_fill(cur_bad, math.inf).masked_fill(~prop_ok, -math.inf)
+            accept = torch.log(uniforms[i]) < log_alpha
+            mask = accept.reshape(accept.shape + (1,) * (x.dim() - 1))
+            x = torch.where(mask, x_prime, x)
+            u_x = torch.where(accept, u_xp, u_x)
+            g_x = torch.where(mask, g_xp, g_x)
+        return x
+
+
+def make_mala_sweep(u_tempered: Callable, n_steps: int = 5, step_size: float = 0.05) -> MALASweep:
+    """The MALA correction sweep used between annealing levels (the
+    reference's AFT intends ``mh``/``hmc`` there but crashes,
+    ``annealed_flow_transport.py:120-128``)."""
+    return MALASweep(u_tempered, n_steps=n_steps, step_size=step_size)
+
+
+def flat_value_and_grad(loss_fn: Callable, theta: torch.Tensor, like):
+    """``(loss, d loss / d theta)`` of ``loss_fn(params)`` at the flat
+    parameter vector ``theta`` unpacked like the tree ``like``
+    (:func:`nfmc_torch.ops.coupling.unpack_like`), both detached."""
+    from ..ops.coupling import unpack_like
+
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        loss = loss_fn(unpack_like(th, like))
+        (g,) = torch.autograd.grad(loss, th)
+    return loss.detach(), g

@@ -1,0 +1,284 @@
+"""Preconditioned Monte Carlo (Karamanis, Beutler, Peacock & Seljak 2022 --
+the pocoMC algorithm); counterpart of ``nfmc_tpu/transport/pmc.py``.
+
+The reference lists PMC first among the algorithms "yet to be added"
+(``README.md:12-14``). PMC is adaptive-temperature SMC with a
+normalizing-flow preconditioner; per level (inverse temperature ``beta``,
+path ``u(x, b) = (1-b) u_prior + b u_target``):
+  1. choose ``delta`` by bisection (float64 numpy on the host) so the ESS
+     of the incremental weights ``exp(-delta * (u_target - u_prior))`` stays
+     at ``ess_target * n``;
+  2. reweight (``log_Z += logsumexp(log_W + log_g)``) and resample;
+  3. fit the flow to the pre-resample weighted cloud (full-batch Adam with
+     a held-out fifth and val-selected best weights);
+  4. run a preconditioned Crank-Nicolson (pCN) Metropolis sweep in the
+     flow's latent space targeting ``pi_beta``: proposals
+     ``z' = sqrt(1-rho^2) z + rho xi`` are reversible w.r.t. N(0, I), so
+     the accept ratio sees only the residual ``u_lat(z) - ||z||^2/2``;
+     ``rho`` adapts toward ``target_acceptance`` by Robbins-Monro on the
+     device.
+A level copies ``u_target - u_prior`` to the host once and reads the
+sweep's acceptance once.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.rng import resolve_generator
+from ..flows.train import _Adam, _finite_update, _flatten
+from ..ops.coupling import unpack_like
+from ..utils import Progress, as_numpy, resolve_device
+from .common import flat_value_and_grad, resample_offset, systematic_resample, tempered
+
+
+def _ess_np(log_w: np.ndarray) -> float:
+    """ESS (in particle counts) of unnormalized log-weights, host-side."""
+    lw = log_w - np.logaddexp.reduce(log_w)
+    return float(np.exp(-np.logaddexp.reduce(2.0 * lw)))
+
+
+class PreconditionedMonteCarlo:
+    def __init__(
+        self,
+        prior_potential: Callable,
+        target_potential: Callable,
+        flow,
+        ess_target: float = 0.9,
+        n_mcmc_steps: int = 10,
+        target_acceptance: float = 0.65,
+        adapt_rate: float = 0.5,
+        n_train_epochs: int = 30,
+        train_lr: float = 1e-2,
+        max_levels: int = 200,
+        initial_rho: float = 0.5,
+    ):
+        self.prior_potential = prior_potential
+        self.target_potential = target_potential
+        self.flow = flow
+        self.ess_target = float(ess_target)
+        self.n_mcmc_steps = int(n_mcmc_steps)
+        self.target_acceptance = float(target_acceptance)
+        self.adapt_rate = float(adapt_rate)
+        self.max_levels = int(max_levels)
+        self.n_train_epochs = int(n_train_epochs)
+        self.train_lr = float(train_lr)
+        self.initial_rho = min(max(float(initial_rho), 1e-4), 1.0 - 1e-4)
+        self.u = tempered(prior_potential, target_potential)
+
+    @torch.no_grad()
+    def _delta_u(self, x):
+        return self.target_potential(x) - self.prior_potential(x)
+
+    def _weighted_loss(self, params, x, log_w):
+        """Self-normalized weighted negative log-likelihood: an estimate of
+        ``-E_{pi_beta_new}[log q]`` from the pre-resample weighted cloud
+        (every point unique, so the val split is a real holdout)."""
+        return -torch.sum(torch.softmax(log_w, 0) * self.flow.log_prob_fn(params, x))
+
+    def _train(self, params, x, log_w, perm):
+        """The level's preconditioner fit: ``n_train_epochs`` full-batch
+        Adam steps (skipped, moments and all, where the loss or a gradient
+        is not finite) on four fifths of the rows of ``x[perm]``, the best
+        weights by the loss on the other fifth, the tracker seeded with the
+        warm-start params' own val loss (so a non-improving fit keeps the
+        previous level's preconditioner). Val selection is load-bearing:
+        a warm-started fixed-epoch fit overfits small particle sets.
+        ``perm`` is a permutation of the rows (:meth:`train_draws`).
+        Returns ``(best_params, losses)``."""
+        n = x.shape[0]
+        n_val = max(n // 5, 1)
+        x, log_w = x[perm], log_w[perm]
+        x_val, x_train = x[:n_val], x[n_val:]
+        lw_val, lw_train = log_w[:n_val], log_w[n_val:]
+        theta = _flatten(params)
+        adam = _Adam(theta, self.train_lr)
+        with torch.no_grad():
+            init_val = self._weighted_loss(params, x_val, lw_val)
+        best_theta = theta
+        best_val = torch.where(torch.isfinite(init_val), init_val, math.inf)
+        losses = []
+        for _ in range(self.n_train_epochs):
+            loss, g = flat_value_and_grad(lambda p: self._weighted_loss(p, x_train, lw_train),
+                                          theta, params)
+            with torch.no_grad():
+                theta = adam.step(theta, g, _finite_update(loss, g))
+                val = self._weighted_loss(unpack_like(theta, params), x_val, lw_val)
+                better = torch.isfinite(val) & (val < best_val)
+                best_theta = torch.where(better, theta, best_theta)
+                best_val = torch.where(better, val, best_val)
+            losses.append(loss)
+        losses = torch.stack(losses) if losses else torch.zeros(0, device=x.device)
+        return unpack_like(best_theta, params), losses
+
+    def train_draws(self, generator: torch.Generator, n: int) -> torch.Tensor:
+        return torch.randperm(n, generator=generator, device=generator.device)
+
+    def sweep_draws(self, generator: torch.Generator, shape):
+        """The pCN sweep's draws: ``xi`` ``(n_mcmc_steps, *shape)`` and the
+        accept uniforms ``(n_mcmc_steps, B)``."""
+        dev = generator.device
+        return (torch.randn((self.n_mcmc_steps, *shape), generator=generator, device=dev),
+                torch.rand((self.n_mcmc_steps, shape[0]), generator=generator, device=dev))
+
+    def _u_lat(self, params, z, beta):
+        x, log_det_inv = self.flow.bijection.inverse_fn(params, z)
+        return self.u(x, beta) - log_det_inv
+
+    @torch.no_grad()
+    def _sweep(self, params, x, beta, rho_logit, draws):
+        """The latent pCN sweep at ``beta``: ``(x', rho_logit', mean
+        acceptance)``, ``rho_logit`` a 0-d tensor adapted on the device."""
+        xi, uniforms = draws
+
+        def half_sumsq(z):
+            return 0.5 * (z.reshape(z.shape[0], -1) ** 2).sum(-1)
+
+        z, _ = self.flow.bijection.forward_fn(params, x)
+        uz = self._u_lat(params, z, beta)
+        accs = []
+        for i in range(self.n_mcmc_steps):
+            rho = torch.sigmoid(rho_logit)
+            z_prime = torch.sqrt(1.0 - rho ** 2) * z + rho * xi[i]
+            uzp = self._u_lat(params, z_prime, beta)
+            # pCN accept: only the residual Phi(z) = u_lat(z) - ||z||^2/2
+            log_alpha = (uz - half_sumsq(z)) - (uzp - half_sumsq(z_prime))
+            # accept-guard semantics per utils.unevaluable_current_mask: a
+            # NaN current potential would freeze the particle forever, so
+            # it moves to any evaluable proposal (a +inf current already
+            # accepts through log_alpha = +inf); non-finite proposals reject
+            log_alpha = torch.where(torch.isnan(uz), math.inf, log_alpha)
+            log_alpha = torch.where(torch.isfinite(uzp), log_alpha, -math.inf)
+            accept = torch.log(uniforms[i]) < log_alpha
+            mask = accept.reshape(accept.shape + (1,) * (z.dim() - 1))
+            z = torch.where(mask, z_prime, z)
+            uz = torch.where(accept, uzp, uz)
+            acc = accept.to(torch.float32).mean()
+            rho_logit = rho_logit + self.adapt_rate * (acc - self.target_acceptance)
+            accs.append(acc)
+        x, _ = self.flow.bijection.inverse_fn(params, z)
+        acc_mean = torch.stack(accs).mean() if accs else torch.full((), math.nan, device=x.device)
+        return x, rho_logit, acc_mean
+
+    # ---- adaptive temperature: largest delta keeping ESS at the target ------
+    def _choose_delta(self, delta_u: np.ndarray, log_W: np.ndarray, beta: float) -> float:
+        n = delta_u.shape[0]
+        target = self.ess_target * n
+
+        def ess(delta: float) -> float:
+            return _ess_np(log_W - delta * delta_u)
+
+        hi = 1.0 - beta
+        if ess(hi) >= target:
+            return hi
+        lo = 0.0
+        for _ in range(40):
+            mid = 0.5 * (lo + hi)
+            if ess(mid) >= target:
+                lo = mid
+            else:
+                hi = mid
+        # lo can only be 0.0 if even infinitesimal steps break the ESS target
+        # (pathological weights); force minimal progress so the loop terminates
+        return max(lo, (1.0 - beta) / self.max_levels, 1e-6)
+
+    def run(
+        self,
+        prior_sample: Callable,
+        n_particles: int = 100,
+        show_progress: bool = False,
+        full_output: bool = False,
+        generator: Optional[torch.Generator] = None,
+        seed: Optional[int] = None,
+    ):
+        device = self.flow.get_device()
+        g = resolve_generator(device, generator, seed)
+        x = prior_sample((n_particles,), generator=g).to(torch.float32)
+        log_W = np.full((n_particles,), -math.log(n_particles))
+        log_Z = 0.0
+        rho_logit = torch.tensor(math.log(self.initial_rho) - math.log1p(-self.initial_rho),
+                                 dtype=torch.float32, device=device)
+        beta = 0.0
+        params = self.flow.params
+        beta_trace, ess_trace, acc_trace = [0.0], [], []
+        history = [as_numpy(x)] if full_output else None
+
+        bar = Progress(total=self.max_levels, desc="PMC", disable=not show_progress)
+        for _level in range(self.max_levels):
+            if beta >= 1.0:
+                break
+            # 1. adaptive temperature increment
+            delta_u = as_numpy(self._delta_u(x))
+            delta = self._choose_delta(delta_u, log_W, beta)
+            beta_new = min(1.0, beta + delta)
+
+            # 2. reweight + log-Z increment + resample
+            log_w = log_W + (-(beta_new - beta) * delta_u)
+            log_Z += float(np.logaddexp.reduce(log_w))
+            ess_trace.append(_ess_np(log_w))
+            log_w -= np.logaddexp.reduce(log_w)
+            lw_dev = torch.as_tensor(log_w, dtype=torch.float32, device=device)
+            x_prev = x
+            x = x[systematic_resample(lw_dev, n_particles, resample_offset(g))]
+            log_W = np.full((n_particles,), -math.log(n_particles))
+
+            # 3. fit the preconditioner on the pre-resample weighted cloud
+            params, _losses = self._train(params, x_prev, lw_dev,
+                                          self.train_draws(g, n_particles))
+
+            # 4. latent-space pCN Metropolis sweep at beta_new
+            x, rho_logit, acc = self._sweep(params, x, float(np.float32(beta_new)), rho_logit,
+                                            self.sweep_draws(g, x.shape))
+            acc_trace.append(float(acc))
+
+            beta = beta_new
+            beta_trace.append(beta)
+            if full_output:
+                history.append(as_numpy(x))
+            bar.update(1)
+            if show_progress:
+                bar.set_postfix_str(f"beta {beta:.4f}, log Z: {log_Z:.3f}, acc: "
+                                    f"{acc_trace[-1]:.2f}")
+        bar.close()
+
+        self.flow.params = params
+        converged = beta >= 1.0
+        if not converged:
+            print(
+                f"PMC warning: hit max_levels={self.max_levels} at beta={beta:.4f} < 1; "
+                "log_Z and particles target the tempered (not final) density"
+            )
+        result = {
+            "particles": as_numpy(x),
+            "log_weights": log_W,
+            "log_Z": log_Z,
+            "beta_trace": np.asarray(beta_trace),
+            "ess_trace": np.asarray(ess_trace),
+            "acceptance_trace": np.asarray(acc_trace),
+            "converged": converged,
+        }
+        if full_output:
+            result["history"] = np.stack(history)
+        return result
+
+
+def pmc(prior, target, flow, n_particles: int = 100, show_progress: bool = False,
+        seed: int = 0, device=None, **kwargs):
+    """Wrapper in the house transport signature (cf. ``aft``/``craft``):
+    ``prior``/``target`` are Potentials, ``flow`` a registry name or Flow,
+    run on ``device`` (CUDA unless the caller names another)."""
+    from ..api.registry import create_flow_object
+    from ..flows import Flow as _Flow
+
+    device = resolve_device(device)
+    flow_object = flow if isinstance(flow, _Flow) else create_flow_object(flow, prior.event_shape)
+    flow_object.to(device)
+    algorithm = PreconditionedMonteCarlo(prior, target, flow_object, **kwargs)
+    return algorithm.run(
+        lambda batch_shape, generator=None: prior.sample(batch_shape, generator=generator),
+        n_particles=n_particles, show_progress=show_progress,
+        full_output=True, seed=seed,
+    )

@@ -7,7 +7,8 @@ weights are imported from ``chip_smoke.py``), once per seed, and prints what
 those phases gate, then each quantity's range over the seeds:
 
   --self-target  phase 14b: for each of ``ZOO_NAMES``, IMH with the flow
-                 (d = 100, default widths, ``chip_smoke.zoo_weights``)
+                 (d = 100, default widths, the masked NAF flows at 1
+                 layer: ``chip_smoke.zoo_flow``; ``zoo_weights``)
                  frozen as the proposal and as the target (U = -log q),
                  100 chains, ``zoo_self_iters(name)`` iterations: the
                  acceptance;
@@ -67,9 +68,10 @@ def packages(port: bool):
 
 def self_target(seeds, names, port: bool) -> None:
     for name in names:
-        weights = cs.zoo_weights(name)
+        spec = cs.zoo_flow(name)
+        weights = cs.zoo_weights(spec)
         for pkg_name, pkg, pots, extra, load in packages(port):
-            flow = pkg.create_flow_object(name, (cs.D,), seed=0)
+            flow = pkg.create_flow_object(spec, (cs.D,), seed=0)
             flow.params = load(weights)
             params = flow.params
             target = pots.CallablePotential(lambda x: -flow.log_prob_fn(params, x), (cs.D,))
@@ -81,7 +83,7 @@ def self_target(seeds, names, port: bool) -> None:
                                  show_progress=False, **extra)
                 accs.append(out.statistics.acceptance_rate)
             accs = np.array(accs)
-            print(f"{pkg_name} {name} self-target IMH ({n_it} it, seeds "
+            print(f"{pkg_name} {spec} self-target IMH ({n_it} it, seeds "
                   f"{seeds[0]}-{seeds[-1]}): acc [{accs.min():.6f}, {accs.max():.6f}], rejection "
                   f"rate max {1 - accs.min():.6f} ({time.time() - t0:.0f} s)", flush=True)
 
@@ -106,8 +108,9 @@ def ops(names) -> None:
     x = torch.from_numpy(np.random.default_rng(cs.ZOO_SEED).standard_normal(
         (cs.ZOO_B, cs.D)).astype(np.float32))
     for name in names:
-        flow = nfmc_torch.create_flow_object(name, (cs.D,), seed=0)
-        flow.params = from_jax_params(cs.zoo_weights(name))
+        spec = cs.zoo_flow(name)
+        flow = nfmc_torch.create_flow_object(spec, (cs.D,), seed=0)
+        flow.params = from_jax_params(cs.zoo_weights(spec))
         counts = []
         with torch.no_grad():
             for fn in (flow.bijection.forward_fn, flow.bijection.inverse_fn):
@@ -115,7 +118,7 @@ def ops(names) -> None:
                 with Count():
                     fn(flow.params, x)
                 counts.append(Count.n)
-        print(f"{name} (d={cs.D}, B={cs.ZOO_B}): forward {counts[0]} operations a call, "
+        print(f"{spec} (d={cs.D}, B={cs.ZOO_B}): forward {counts[0]} operations a call, "
               f"inverse {counts[1]}", flush=True)
 
 
@@ -129,8 +132,9 @@ def drift(names) -> None:
 
     for name in names:
         ref = cs.zoo_cpu_reference(name)
-        flow = nfmc_torch.create_flow_object(name, (cs.D,), seed=0)
-        p64 = tree_map(lambda t: t.double(), from_jax_params(cs.zoo_weights(name)))
+        spec = cs.zoo_flow(name)
+        flow = nfmc_torch.create_flow_object(spec, (cs.D,), seed=0)
+        p64 = tree_map(lambda t: t.double(), from_jax_params(cs.zoo_weights(spec)))
         line = []
         with torch.no_grad():
             for direction, v in zip(("forward", "inverse"), cs.zoo_inputs()):
@@ -142,7 +146,7 @@ def drift(names) -> None:
                 line.append(f"{direction} {e:.3e} ({e / scale:.3e} of scale {scale:.1f})")
             # the round trip in float32 through the cheap direction second, as 14a
             x, z = (torch.from_numpy(v) for v in cs.zoo_inputs())
-            p32 = from_jax_params(cs.zoo_weights(name))
+            p32 = from_jax_params(cs.zoo_weights(spec))
             if name.startswith("ia-"):
                 back = flow.bijection.inverse_fn(p32, torch.from_numpy(ref["forward"][0]))[0]
                 rt = float((back - x).abs().max())
@@ -150,7 +154,7 @@ def drift(names) -> None:
                 back = flow.bijection.forward_fn(p32, torch.from_numpy(ref["inverse"][0]))[0]
                 rt = float((back - z).abs().max())
             line.append(f"float32 round trip {rt:.3e}")
-        print(f"{name} float32 against float64 on the CPU: " + "; ".join(line), flush=True)
+        print(f"{spec} float32 against float64 on the CPU: " + "; ".join(line), flush=True)
 
 
 def iaf(seeds, port: bool) -> None:

@@ -177,8 +177,9 @@ def test_front_door_standalone_langevin(strategy, calls):
 
 def test_import_pulls_in_no_jax():
     check = ("import sys, nfmc_torch, nfmc_torch.api, nfmc_torch.ops.coupling, "
-             "nfmc_torch.ops.spline; "
-             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'nfmc_tpu')]; "
+             "nfmc_torch.ops.spline, nfmc_torch.transport, nfmc_torch.flow_training; "
+             "bad = [m for m in sys.modules "
+             "if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'nfmc_tpu')]; "
              "assert not bad, bad; print('CLEAN')")
     r = subprocess.run([sys.executable, "-c", check], capture_output=True, text=True,
                        cwd=str(REPO), timeout=120)
@@ -198,7 +199,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "nfmc_tpu"), (path, name)
+                assert name.split(".")[0] not in ("jax", "jaxlib", "optax", "nfmc_tpu"), (
+                    path, name)
 
 
 def test_nothing_in_the_port_enables_tf32():
