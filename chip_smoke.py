@@ -267,8 +267,18 @@ Phases, in order; any failure exits non-zero before the last line:
      one AFT level and one FAB iteration; 17c snf() at its defaults and ns()
      at d=3 (64 live points, 400 iterations) in JAX bands; then every
      RealNVP shape the phase launched (d, H, L, B) against the plain version.
+  18. profiling and the mesh (nfmc_torch.profiling, nfmc_torch.parallel):
+     18a the headline for 20 outer iterations under profiling.trace, inside
+     annotate("jump"): the written *.pt.trace.json holds the coupling
+     kernel's forward and inverse launches as device events and the span,
+     and the ten device ops that took most time, with their shares; 18b
+     chain_mesh() over the card (a one-rank NCCL group on a FileStore): the
+     headline for 100 outer iterations through sample(..., mesh=mesh) is
+     bit-identical to the run without the mesh (draws, counters, moments,
+     launch counts), and Flow.fit(mesh=mesh) (4096 rows, 3 epochs) ends at
+     the same weights as Flow.fit; the group is destroyed after.
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) and the paths of phases 11-13 and 16 launched
+every shape the IMH path (10-10c) and the paths of phases 11-13, 16 and 18b launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and phase
 17's one it holds itself; each has its own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
@@ -4311,6 +4321,161 @@ def run_transport_phases(dev) -> dict:
     return res
 
 
+# phase 18: the headline under nfmc_torch.profiling.trace for TRACE_OUTER
+# outer iterations; under sample(mesh=...) on a one-rank NCCL mesh for
+# MESH_OUTER (one chunk: its proposals' inverse at MESH_OUTER * C rows, a
+# shape phase 3 holds); Flow.fit(mesh=...) on MESH_FIT_ROWS rows at the
+# adaptive batch of 256, its validation at 512 rows
+TRACE_OUTER, MESH_OUTER, MESH_FIT_ROWS, MESH_FIT_EPOCHS = 20, 100, 4096, 3
+
+
+def run_parallel_phases(dev) -> dict:
+    """Phase 18: 18a the headline under ``nfmc_torch.profiling.trace`` inside
+    ``annotate("jump")``: the trace file holds the coupling kernel's
+    forward and inverse launches as device events and the span, and the ten
+    device ops that took most time; 18b ``chain_mesh()`` (a one-rank NCCL
+    group over the card): the headline through ``sample(..., mesh=mesh)``
+    bit for bit as without it, draws, counters and launch counts, and
+    ``Flow.fit(mesh=mesh)`` to the same weights as ``Flow.fit``; the group
+    is destroyed at the end."""
+    import shutil
+
+    import torch.distributed as dist
+
+    import nfmc_torch
+    from nfmc_torch import profiling
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.ops import build
+    from nfmc_torch.parallel import chain_mesh
+    from nfmc_torch.potentials import StandardGaussian
+    from nfmc_torch.utils import tree_leaves
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"shapes": {}}
+
+    def headline(n_outer, **kw):
+        return nfmc_torch.sample(
+            StandardGaussian((D,)), strategy="jump_mala",
+            flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0), n_chains=C,
+            n_iterations=n_outer, inner_param_kwargs={"n_iterations": INNER_N},
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False, **kw)
+
+    def counts():
+        return {w.__name__: w.launches for w in build.WRAPPERS}
+
+    # ---- 18a. the headline under profiling.trace -------------------------------------
+    root = Path(__file__).resolve().parent / "_scratch" / "trace18a"
+    shutil.rmtree(root, ignore_errors=True)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiling.trace(root) as log_dir:
+        with profiling.annotate("jump"):
+            headline(TRACE_OUTER)
+            torch.cuda.synchronize()
+    traced = counts()
+    t_traced = time.perf_counter() - t0
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"18a: trace() wrote {[f.name for f in files]}, not one *.pt.trace.json")
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    shutil.rmtree(root, ignore_errors=True)
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    stack = [e for e in device if e.get("cat") == "kernel" and "coupling_stack_kernel" in e["name"]]
+    grids = collections.Counter(tuple(e.get("args", {}).get("grid", ())) for e in stack)
+    n_stack = traced["fused_realnvp_forward"] + traced["fused_realnvp_inverse"]
+    spans = [e for e in events if e.get("name") == "jump"
+             and e.get("cat") in ("user_annotation", "gpu_user_annotation")]
+    print(f"18a trace: {len(events)} events, {len(device)} device ops in {t_traced:.2f} s; "
+          f"coupling_stack_kernel events {len(stack)} (launches: forward "
+          f"{traced['fused_realnvp_forward']}, inverse {traced['fused_realnvp_inverse']}) at "
+          f"grids {dict(grids)}; 'jump' spans {[e['cat'] for e in spans]}")
+    check(traced["fused_realnvp_forward"] == TRACE_OUTER and traced["fused_realnvp_inverse"] >= 1,
+          f"18a: the traced headline's launches {traced}")
+    check(len(stack) == n_stack and len(grids) >= 2,
+          "18a: the trace does not hold the coupling kernel's forward (B=C) and inverse (B=chunk C) "
+          "launches as device events")
+    check(any(e["cat"] == "user_annotation" for e in spans), "18a: no 'jump' span in the trace")
+    per_op = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        per_op[e["name"]][0] += float(e.get("dur", 0.0))
+        per_op[e["name"]][1] += 1
+    total_us = sum(v[0] for v in per_op.values())
+    check(total_us > 0, "18a: the trace holds no device time")
+    top = sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]
+    res["top"] = [(k, v[0], v[1], v[0] / total_us) for k, v in top]
+    print(f"18a top device ops of the headline ({TRACE_OUTER} outer it, device time "
+          f"{total_us / 1e3:.3f} ms; {smi}):")
+    for k, us, n, share in res["top"]:
+        print(f"  {100 * share:5.1f}%  {us / 1e3:9.3f} ms  calls {n:6d}  {k[:90]}")
+
+    # ---- 18b. a one-rank NCCL mesh ---------------------------------------------------
+    check(not dist.is_initialized(), "18b: a process group is already running")
+    t0 = time.perf_counter()
+    mesh = chain_mesh()
+    try:
+        # NCCL sets its communicator up at the first collective: do that
+        # here, so that the timed runs below compare warm paths
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(0))
+        torch.cuda.synchronize()
+        t_mesh = time.perf_counter() - t0
+        check(mesh.size() == 1 and dist.get_backend() == "nccl",
+              f"18b: chain_mesh() gave {mesh} on {dist.get_backend()}")
+        runs = {}
+        for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ShapeLaunches() as shapes:
+                out = headline(MESH_OUTER, **kw)
+                torch.cuda.synchronize()
+            runs[label] = (out, counts(), time.perf_counter() - t0)
+            res["shapes"][f"headline {label}"] = shapes.n
+        (a, la, wa), (b, lb, wb) = runs["plain"], runs["mesh"]
+        sa, sb = a.statistics, b.statistics
+        same_counters = all(getattr(sa, k) == getattr(sb, k) for k, v in vars(sa).items()
+                            if isinstance(v, int))
+        same_moments = (np.array_equal(sa.running_first_moment, sb.running_first_moment)
+                        and np.array_equal(sa.running_second_moment, sb.running_second_moment))
+        print(f"18b headline, {MESH_OUTER} outer it: without a mesh {wa:.3f} s, with the one-rank "
+              f"NCCL mesh {wb:.3f} s (chain_mesh() and NCCL's first all_reduce {t_mesh:.2f} s); draws bit-identical "
+              f"{torch.equal(a.samples, b.samples)}, counters {same_counters}, moments "
+              f"{same_moments}; launches {lb} ({smi})")
+        check(a.samples.shape == b.samples.shape and torch.equal(a.samples, b.samples),
+              "18b: the mesh run's draws differ from the run without a mesh")
+        check(same_counters and same_moments, "18b: the mesh run's counters or moments differ")
+        check(la == lb and lb["fused_realnvp_forward"] == MESH_OUTER
+              and lb["fused_realnvp_inverse"] >= 1, f"18b: launch counts {la} vs {lb}")
+        rng = np.random.default_rng(18)
+        x_fit = rng.standard_normal((MESH_FIT_ROWS, D)).astype(np.float32)
+        x_val = rng.standard_normal((512, D)).astype(np.float32)
+        fitted = {}
+        for label, m in (("plain", None), ("mesh", mesh)):
+            flow = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+            flow.params = perturbed_params(D, H, L, seed=18, device=dev)
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ShapeLaunches() as shapes:
+                flow.fit(x_fit, x_val=x_val, n_epochs=MESH_FIT_EPOCHS, seed=1, mesh=m)
+                torch.cuda.synchronize()
+            fitted[label] = (tree_leaves(flow.params), counts(), time.perf_counter() - t0)
+            res["shapes"][f"fit {label}"] = shapes.n
+        same = all(torch.equal(p, q) for p, q in zip(fitted["plain"][0], fitted["mesh"][0]))
+        print(f"18b Flow.fit, {MESH_FIT_ROWS} rows x {MESH_FIT_EPOCHS} epochs: without a mesh "
+              f"{fitted['plain'][2]:.3f} s (the first fit of the phase), with it "
+              f"{fitted['mesh'][2]:.3f} s; weights "
+              f"bit-identical {same}; launches {fitted['mesh'][1]} ({smi})")
+        check(same, "18b: Flow.fit(mesh=...) on one rank gave other weights than Flow.fit")
+        check(fitted["mesh"][1]["fused_realnvp_vjp"] > 0, "18b: the fit skipped the backward kernel")
+    finally:
+        dist.destroy_process_group()
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 18: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -4376,7 +4541,8 @@ def main() -> None:
                              (D, H, L, IMH_CAP * C), (D, H, L, REFIT_B), (D, H, L, 128),
                              (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37),
                              (D, H, L, DLMC_C), (D, H, L, DLMC_C - int(0.7 * DLMC_C)),
-                             (D, H, L, C - int(0.7 * C)), (D, H, L, CKPT_SEG * C)]:
+                             (D, H, L, C - int(0.7 * C)), (D, H, L, CKPT_SEG * C),
+                             (D, H, L, MESH_OUTER * C)]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -4666,6 +4832,8 @@ def main() -> None:
     lap("phase 16")
     tr17 = run_transport_phases(dev)
     lap("phase 17")
+    par18 = run_parallel_phases(dev)
+    lap("phase 18")
 
     kernels = []
 
@@ -4716,7 +4884,8 @@ def main() -> None:
     # the IMH path (phases 10-10c) and the flow-reparameterised paths (11-11e)
     path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
     for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items(),
-                          *last13["shapes"].items(), *ckpt16["shapes"].items()):
+                          *last13["shapes"].items(), *ckpt16["shapes"].items(),
+                          *par18["shapes"].items()):
         path_rows(label, shapes)
     # phase 17's paths: each method's launches at each shape (d, H, L, B)
     for label, shapes in tr17["shapes"].items():

@@ -23,8 +23,13 @@ package runs them through XLA): all 48 names of the registry, with
 potential of ``nfmc_tpu.potentials``, ``checkpoint`` (resumable runs:
 ``sample(..., checkpoint_path=...)``), the evidence estimators of
 ``transport`` (AIS, AFT, CRAFT, PMC, nested sampling, SNF) and
-``flow_training``'s FAB.
+``flow_training``'s FAB, and, loaded on first access, ``parallel``
+(chain-sharded sampling and data-parallel fits over a ``torch.distributed``
+``DeviceMesh``), ``profiling`` (``torch.profiler`` traces and NVTX spans) and
+``validation``.
 """
+import importlib
+
 from .api import (create_flow_object, create_sampler, get_supported_mcmc_samplers,
                   get_supported_nfmc_samplers, get_supported_normalizing_flows,
                   get_supported_samplers, parse_flow_string, sample)
@@ -86,3 +91,17 @@ __all__ = [
     "NeuTraMH", "TESS", "DLMC", "ESS", "NUTS", "CheesHMC", "JumpESS", "JumpNUTS", "JumpChEES",
     "NeuTraChEES", "DenseHMC", "DenseMALA", "PTMALA", "PTRWMH", "PTHMC", "AIES", "JumpAIES",
 ]
+
+# submodules loaded on first access, as in nfmc_tpu (importing the package
+# starts no process group)
+_LAZY_MODULES = ("parallel", "profiling", "validation")
+
+
+def __getattr__(name):
+    if name in _LAZY_MODULES:
+        return importlib.import_module("." + name, __name__)
+    raise AttributeError(f"module 'nfmc_torch' has no attribute {name}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY_MODULES))

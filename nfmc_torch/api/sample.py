@@ -9,6 +9,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..core.chains import is_sharded
 from ..core.output import MCMCOutput
 from ..core.rng import next_seed
 from ..core.sampler import NFMCKernel, Sampler
@@ -270,8 +271,15 @@ def sample(
     the device; ``seed`` fixes the flow's initial weights (for a flow given
     by name), ``x0``, the warmup and the run. With ``warmup=True`` the
     sampler warms up first and ``x0`` becomes a reshuffle of the warmup's
-    stored draws (its last state when it stores none). ``mesh`` is the JAX
-    package's and raises ``NotImplementedError`` unless None (ROADMAP 1.8).
+    stored draws (its last state when it stores none).
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh``,
+    :func:`nfmc_torch.parallel.chain_mesh`) shards the chains over its first
+    axis end to end: every rank of the job makes this call, runs its block
+    of chains through the warmup and the sampling, and gets the output with
+    all the chains (:mod:`nfmc_torch.parallel`). ``n_chains`` must divide by
+    that axis's size. On more than one rank only the strategies listed in
+    ``nfmc_torch.parallel`` run; the others raise ``NotImplementedError``.
 
     ``checkpoint_path`` runs the sampling phase as checkpointed segments
     (:func:`nfmc_torch.checkpoint.sample_resumable`,
@@ -286,8 +294,11 @@ def sample(
     checkpoint's own setting. Incompatible with
     ``sampling_time_limit_seconds``."""
     if mesh is not None:
-        raise NotImplementedError("mesh: sharded sampling is not ported to nfmc_torch yet "
-                                  "(ROADMAP 1.8)")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                            f"(nfmc_torch.parallel.chain_mesh), got {type(mesh).__name__}")
     ckpt_file, resume = None, False
     if checkpoint_path is not None:
         if sampling_time_limit_seconds is not None:
@@ -324,6 +335,21 @@ def sample(
         g.manual_seed(seed_x0)
         x0 = torch.randn((n_chains, *sampler.event_shape), generator=g, device=device)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    shard = None
+    if mesh is not None:
+        from ..parallel import shard_chains
+
+        # chains shard over the mesh's first axis only
+        axis = (mesh.mesh_dim_names or ("chains",))[0]
+        if x0.shape[0] % mesh.size(0) != 0:
+            raise ValueError(f"n_chains={x0.shape[0]} must be divisible by mesh axis "
+                             f"{axis!r} size {mesh.size(0)}")
+
+        def shard(v):
+            return shard_chains(torch.as_tensor(v, dtype=torch.float32, device=device), mesh,
+                                axis_name=axis)
+
+        x0 = shard(x0)
     if warmup and not resume:
         warmup_output = sampler.warmup(x0=x0, show_progress=show_progress,
                                        time_limit_seconds=warmup_time_limit_seconds,
@@ -345,15 +371,24 @@ def sample(
             # sample() maps x0 forward as a data-space point: hand it the
             # data-space points so that the transport gives the draws back
             x0 = sampler._latent_to_data(x0)
+        if shard is not None and not is_sharded(x0):
+            x0 = shard(x0)  # the reshuffle rebuilt x0 from all the chains: re-shard it
     if ckpt_file is not None:
-        from ..checkpoint import discard_resumable_checkpoint, sample_resumable
+        from ..checkpoint import checkpoint_writer, discard_resumable_checkpoint, sample_resumable
 
         if checkpoint_save_samples is None and not resume:
             checkpoint_save_samples = bool(sampler.params.store_samples)
         out = sample_resumable(sampler, x0, ckpt_file,
                                segment_iterations=checkpoint_segment_iterations, seed=seed_run,
-                               show_progress=show_progress, save_samples=checkpoint_save_samples)
-        discard_resumable_checkpoint(ckpt_file)  # done: a leftover file always means "resume"
+                               show_progress=show_progress, save_samples=checkpoint_save_samples,
+                               shard_fn=shard)
+        if checkpoint_writer(x0):
+            discard_resumable_checkpoint(ckpt_file)  # done: a leftover file means "resume"
+        if shard is not None:
+            # no rank starts another call before the checkpoint is gone
+            import torch.distributed as dist
+
+            dist.barrier()
         return out
     return sampler.sample(x0=x0, show_progress=show_progress,
                           time_limit_seconds=sampling_time_limit_seconds, seed=seed_run)

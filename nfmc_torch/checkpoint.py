@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .core.chains import ChainShard, is_sharded
 from .core.rng import next_seed
 
 # The on-disk format: a key-path tree signature is required, and a file
@@ -367,9 +368,21 @@ def _rebuild_completed_output(sampler, x, combined, sample_segments, path, event
     return out
 
 
+def checkpoint_writer(x0, shard_fn=None) -> bool:
+    """Whether this process writes a run's checkpoint files: always, unless
+    the run is chain-sharded (``x0`` a DTensor, or a ``shard_fn``) over a
+    process group, where global rank 0 alone writes the files that every
+    rank would write alike."""
+    import torch.distributed as dist
+
+    sharded = is_sharded(x0) or shard_fn is not None
+    return not (sharded and dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: Optional[int] = None,
                      generator: Optional[torch.Generator] = None, seed: Optional[int] = None,
-                     show_progress: bool = False, save_samples: Optional[bool] = None):
+                     show_progress: bool = False, save_samples: Optional[bool] = None,
+                     shard_fn=None):
     """Run ``sampler.sample`` as checkpointed segments; resume after a crash.
 
     ``sampler.params.n_iterations`` is cut into segments of
@@ -394,6 +407,13 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
     The checkpoint stays on disk after completion: a re-call rebuilds the
     finished output from it. Delete it with
     :func:`discard_resumable_checkpoint` (``sample()`` does so on success).
+
+    ``shard_fn`` maps the chains (all of them, as a plain tensor) to what a
+    segment starts from; it is applied between segments and on resume.
+    ``sample(..., mesh=...)`` passes :func:`nfmc_torch.parallel.shard_chains`
+    on its mesh, so that every segment runs chain-sharded (``x0`` is then a
+    DTensor too); the checkpoint holds all the chains, and only global rank
+    0 writes it.
     """
     n_total = int(sampler.params.n_iterations)
     if segment_iterations is None:
@@ -401,6 +421,7 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
     n_segments = -(-n_total // segment_iterations)
     event_shape = tuple(sampler.event_shape)
     path = _npz_path(checkpoint_path)
+    writer = checkpoint_writer(x0, shard_fn)
     if seed is not None:
         base_seed = int(seed)
     elif generator is not None:
@@ -408,7 +429,12 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
                                       device=generator.device).item())
     else:
         base_seed = next_seed()
-    x = torch.as_tensor(x0, dtype=torch.float32, device=sampler.device)
+    if is_sharded(x0):
+        # x: what a segment starts from; x_all: all the chains
+        base_seed = ChainShard(x0.device_mesh).agree_seed(base_seed)
+        x, x_all = x0, x0.full_tensor().to(sampler.device)
+    else:
+        x = x_all = torch.as_tensor(x0, dtype=torch.float32, device=sampler.device)
     start_segment = 0
     combined: Optional[Dict] = None
     sample_segments: list = []
@@ -451,7 +477,7 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
         # (ESS: no Cholesky factor -> one), which the signature must see
         _restore_extras(sampler, {k[len("extra__"):]: data[k] for k in data.files
                                   if k.startswith("extra__")})
-        like = sampler_state(sampler, x, base_seed)
+        like = sampler_state(sampler, x_all, base_seed)
         saved_sig = _saved_signature(path, data, meta)
         if saved_sig is None:
             raise ValueError(f"checkpoint {path} carries no key-path tree signature: delete it "
@@ -464,14 +490,16 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
                 "the sampler before reusing it.")
         state = _unflatten(like, [data[f"leaf_{i}"] for i in range(len(_flatten(like)))])
         x, base_seed = restore_sampler_state(sampler, state)
-        x = torch.as_tensor(x, dtype=torch.float32, device=sampler.device)
+        x = x_all = torch.as_tensor(x, dtype=torch.float32, device=sampler.device)
+        if shard_fn is not None:
+            x = shard_fn(x)
         start_segment = int(meta["segment"])
         combined = {"counters": meta["counters"], "fm": data["fm"], "sm": data["sm"],
                     "n_seen": int(meta["n_seen"]),
                     "stats_class": meta.get("stats_class", "MCMCStatistics")}
         sample_segments = list(meta.get("sample_segments", []))
         if start_segment >= n_segments:
-            out = _rebuild_completed_output(sampler, x, combined, sample_segments, path,
+            out = _rebuild_completed_output(sampler, x_all, combined, sample_segments, path,
                                             event_shape)
             if not sample_segments and "last_seg_samples" in data.files:
                 # without sidecars the normal return carries the last
@@ -496,8 +524,10 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
             out = entry(x, show_progress=show_progress, seed=segment_seed(base_seed, i))
         finally:
             sampler.params.n_iterations = n_total
-        x = torch.as_tensor(out.running_samples.last_sample, dtype=torch.float32,
-                            device=sampler.device)
+        x = x_all = torch.as_tensor(out.running_samples.last_sample, dtype=torch.float32,
+                                    device=sampler.device)
+        if shard_fn is not None:
+            x = shard_fn(x)
         combined = _merge_segment_stats(combined, out.statistics, event_shape)
         combined["stats_class"] = type(out.statistics).__name__
 
@@ -505,9 +535,10 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
         rs = out.running_samples
         if rs.n_samples > 0 and save_samples:
             seg_draws = rs.as_tensor().cpu().numpy()
-            tmp = _seg_samples_path(path, i) + ".tmp.npy"
-            np.save(tmp, seg_draws)
-            os.replace(tmp, _seg_samples_path(path, i))
+            if writer:
+                tmp = _seg_samples_path(path, i) + ".tmp.npy"
+                np.save(tmp, seg_draws)
+                os.replace(tmp, _seg_samples_path(path, i))
             mem_blocks[i] = seg_draws
             sample_segments.append(i)
         elif rs.n_samples > 0 and i == n_segments - 1:
@@ -519,7 +550,9 @@ def sample_resumable(sampler, x0, checkpoint_path: str, *, segment_iterations: O
         extra_arrays["fm"], extra_arrays["sm"] = combined["fm"], combined["sm"]
         if last_seg_draws is not None:
             extra_arrays["last_seg_samples"] = last_seg_draws
-        _save_state_npz(path, sampler_state(sampler, x, base_seed), metadata={
+        if not writer:
+            continue
+        _save_state_npz(path, sampler_state(sampler, x_all, base_seed), metadata={
             "segment": i + 1, "n_segments": n_segments, "n_total": n_total,
             "segment_iterations": segment_iterations, "x_shape": list(x.shape),
             "save_samples": save_samples,

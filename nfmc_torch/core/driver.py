@@ -100,7 +100,11 @@ class StatsAccum:
     a device count (NUTS's) to a compensated float32 pair, not an int32:
     1024 chains and 256 leapfrogs add ~5e5 an iteration, past 2^31 within a
     few thousand iterations. Each addend is below 2^24, so the float32 add
-    is exact and the compensation keeps the total exact."""
+    is exact and the compensation keeps the total exact.
+
+    ``div_flags``, kept when the chains are sharded over several ranks,
+    holds each iteration's divergence flag, so that a flush counts an
+    iteration once where some rank diverged (:meth:`reduced`)."""
 
     n_accepted: torch.Tensor
     n_divergences: torch.Tensor
@@ -115,9 +119,12 @@ class StatsAccum:
     # dynamic counts that the steps reported as host integers
     host_calls: int = 0
     host_grads: int = 0
+    div_flags: Optional[list] = None
 
     @staticmethod
-    def zeros(event_shape: Tuple[int, ...], device) -> "StatsAccum":
+    def zeros(event_shape: Tuple[int, ...], device, shard=None) -> "StatsAccum":
+        """Zeroed accumulators; with a ``shard`` of several ranks they keep
+        the per-iteration divergence flags."""
         def z():
             return torch.zeros(event_shape, dtype=torch.float32, device=device)
 
@@ -127,7 +134,8 @@ class StatsAccum:
         return StatsAccum(n_accepted=scalar(torch.int32), n_divergences=scalar(torch.int32),
                           n_calls_dyn=scalar(torch.float32), c_calls_dyn=scalar(torch.float32),
                           n_grads_dyn=scalar(torch.float32), c_grads_dyn=scalar(torch.float32),
-                          sum_x=z(), sum_x2=z(), c_x=z(), c_x2=z())
+                          sum_x=z(), sum_x2=z(), c_x=z(), c_x2=z(),
+                          div_flags=[] if shard is not None and shard.size > 1 else None)
 
     def add(self, info: StepInfo, x: torch.Tensor) -> "StatsAccum":
         xf = x.to(torch.float32)
@@ -137,11 +145,13 @@ class StatsAccum:
                                                self.host_calls, info.n_calls)
         grads, c_grads, h_grads = _add_dynamic(self.n_grads_dyn, self.c_grads_dyn,
                                                self.host_grads, info.n_grads)
+        if self.div_flags is not None:
+            self.div_flags.append(info.diverged)  # the list passes to the new accumulators
         return StatsAccum(n_accepted=self.n_accepted + info.n_accepted,
                           n_divergences=self.n_divergences + info.diverged,
                           n_calls_dyn=calls, c_calls_dyn=c_calls, n_grads_dyn=grads,
                           c_grads_dyn=c_grads, sum_x=sum_x, sum_x2=sum_x2, c_x=c_x, c_x2=c_x2,
-                          host_calls=h_calls, host_grads=h_grads)
+                          host_calls=h_calls, host_grads=h_grads, div_flags=self.div_flags)
 
     def moment_sums(self):
         return self.sum_x + self.c_x, self.sum_x2 + self.c_x2
@@ -154,6 +164,17 @@ class StatsAccum:
         return torch.stack([self.n_accepted.to(torch.float64), self.n_divergences.to(torch.float64),
                             self.n_calls_dyn.to(torch.float64), self.c_calls_dyn.to(torch.float64),
                             self.n_grads_dyn.to(torch.float64), self.c_grads_dyn.to(torch.float64)])
+
+    def reduced(self, host: torch.Tensor, shard) -> torch.Tensor:
+        """A flush's vector (``host_counts`` first, then any sums) summed
+        over the ranks of ``shard`` (as it is without one), its divergence
+        count made the iterations in which some rank diverged."""
+        if shard is None:
+            return host
+        host = shard.sum(host)
+        if self.div_flags:
+            host[1] = shard.max(torch.stack(self.div_flags)).sum()
+        return host
 
     def dynamic_counts(self, host=None) -> Tuple[int, int]:
         """The dynamic ``(calls, grads)``: the host totals plus the device
@@ -196,6 +217,7 @@ def run_chunk_loop(
     desc: str = "MCMC",
     sync_max_chunk: int = 64,
     single_chunk_cap: Optional[int] = None,
+    shard=None,
 ) -> int:
     """The chunk-loop policy. ``dispatch(chunk_len, iters_done)`` enqueues one
     chunk; ``flush(unflushed_iters)`` folds the device accumulators into
@@ -207,7 +229,9 @@ def run_chunk_loop(
     ``single_chunk_cap`` (the largest chunk the hoisted draws may span) is
     one chunk. Otherwise every chunk is waited for, so elapsed time and the
     limit see real work. Chunks never exceed ``single_chunk_cap``. Returns
-    the iterations completed (a time limit may stop the run early).
+    the iterations completed (a time limit may stop the run early). With a
+    chain ``shard`` the ranks stop together, when one rank's clock reaches
+    the limit.
     """
     pipelined = time_limit_seconds is None and not show_progress
     max_chunk = 1024 if pipelined else sync_max_chunk
@@ -223,8 +247,10 @@ def run_chunk_loop(
     run_t0 = time.time()
     bar = Progress(total=n_iterations, desc=desc, disable=not show_progress)
     for chunk in schedule:
-        if time_limit_seconds is not None and stats.elapsed_time_seconds >= time_limit_seconds:
-            break
+        if time_limit_seconds is not None:
+            over = stats.elapsed_time_seconds >= time_limit_seconds
+            if shard.any(over) if shard is not None else over:
+                break
         t0 = time.time()
         dispatch(chunk, iters_done)
         if not pipelined:
@@ -266,13 +292,22 @@ class ChunkedDriver:
     output), caps the chunk so that the default footprint limit admits it.
     ``data_transform`` maps each new state before it enters the moment sums
     (the stored draws stay as they are).
+
+    With a chain ``shard`` (:mod:`nfmc_torch.core.chains`) ``x0`` holds this
+    rank's chains: a chunk's draws are made for the global chains and cut to
+    this rank's rows (each draw's chain axis follows the chunk's leading
+    axis, or sits ``draw_chain_axes[i]`` axes later; None keeps the draw
+    whole, for a step that indexes it by global chain), the chunk schedule
+    is the global run's, and each flush sums the counts and moments over
+    the ranks.
     """
 
     def __init__(self, event_shape: Tuple[int, ...], make_step: Callable[[bool], Callable],
                  make_draws: Callable, make_precompute: Optional[Callable] = None,
                  make_step_aux: Optional[Callable] = None,
                  hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None,
-                 data_transform: Optional[Callable] = None):
+                 data_transform: Optional[Callable] = None,
+                 draw_chain_axes: Optional[Tuple[int, ...]] = None):
         self.event_shape = tuple(event_shape)
         self.make_step = make_step
         self.make_draws = make_draws
@@ -280,20 +315,23 @@ class ChunkedDriver:
         self.make_step_aux = make_step_aux
         self.hoist_per_iter = hoist_per_iter
         self.data_transform = data_transform or (lambda v: v)
+        self.draw_chain_axes = draw_chain_axes
 
     def run(self, x0: torch.Tensor, kstate, generator: torch.Generator, n_iterations: int, *,
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
             tuning: bool = False, collect: bool = True,
             time_limit_seconds: Optional[float] = None, show_progress: bool = False,
-            desc: str = "MCMC"):
-        """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``."""
+            desc: str = "MCMC", shard=None):
+        """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``.
+        ``calls_per_iter`` and ``grads_per_iter`` count the global chains."""
         step = self.make_step(tuning)
         data_transform = self.data_transform
         precompute = self.make_precompute(tuning) if self.make_precompute else None
         step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
-        st = {"x": x0.clone(), "kstate": kstate, "acc": StatsAccum.zeros(self.event_shape, device)}
-        n_chains = x0.shape[0]
+        st = {"x": x0.clone(), "kstate": kstate,
+              "acc": StatsAccum.zeros(self.event_shape, device, shard)}
+        n_chains = x0.shape[0] if shard is None else shard.n_global(x0.shape[0])
         event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
         collect = collect and samples is not None
         # a pipelined run keeps its draws on the device and stores them after
@@ -304,6 +342,10 @@ class ChunkedDriver:
 
         def dispatch(chunk, _iters_done):
             draws = self.make_draws(generator, (chunk,), n_chains)
+            if shard is not None:
+                axes = self.draw_chain_axes or (0,) * len(draws)
+                draws = tuple(d if a is None else shard.rows(d, 1 + a)
+                              for d, a in zip(draws, axes))
             x, ks, acc = st["x"], st["kstate"], st["acc"]
             ys = torch.empty((chunk, *x.shape), dtype=x.dtype, device=device) if collect else None
             with torch.no_grad():
@@ -328,7 +370,8 @@ class ChunkedDriver:
             acc = st["acc"]
             sum_x, sum_x2 = acc.moment_sums()
             host = torch.cat([acc.host_counts(), sum_x.reshape(-1).to(torch.float64),
-                              sum_x2.reshape(-1).to(torch.float64)]).cpu().numpy()
+                              sum_x2.reshape(-1).to(torch.float64)])
+            host = acc.reduced(host, shard).cpu().numpy()
             dyn_calls, dyn_grads = acc.dynamic_counts(host)
             stats.update_counters(
                 n_accepted_trajectories=int(host[0]),
@@ -340,7 +383,7 @@ class ChunkedDriver:
             s_x, s_x2 = np.split(host[6:], 2)
             stats.update_moments_from_sums(s_x.reshape(self.event_shape),
                                            s_x2.reshape(self.event_shape), iters * n_chains)
-            st["acc"] = StatsAccum.zeros(self.event_shape, device)
+            st["acc"] = StatsAccum.zeros(self.event_shape, device, shard)
 
         # the chunk's hoisted draws and its emitted-draw buffer are each
         # about (chunk, C, *event)
@@ -352,7 +395,7 @@ class ChunkedDriver:
         iters_done = run_chunk_loop(
             n_iterations, dispatch=dispatch, sync=lambda: synchronize(device), stats=stats,
             flush=flush, time_limit_seconds=time_limit_seconds, show_progress=show_progress,
-            desc=desc, sync_max_chunk=64, single_chunk_cap=cap,
+            desc=desc, sync_max_chunk=64, single_chunk_cap=cap, shard=shard,
         )
         if deferred:
             samples.add(deferred[0] if len(deferred) == 1 else torch.cat(deferred, 0))

@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from ..utils import event_size_of, resolve_device
+from .chains import SHARDED_ENTRIES, sharded_entry
 from .output import MCMCOutput
 from .rng import resolve_generator
 
@@ -88,7 +89,22 @@ class NFMCParameters(MCMCParameters):
 
 class Sampler:
     """Abstract sampler. ``device`` defaults to CUDA and raises when CUDA is
-    absent (pass ``device="cpu"`` to run on the CPU)."""
+    absent (pass ``device="cpu"`` to run on the CPU).
+
+    ``warmup``, ``sample`` and ``sample_continue`` run chain-sharded when
+    ``x0`` is a DTensor (:mod:`nfmc_torch.core.chains`); during such a call
+    ``chain_shard`` holds this rank's :class:`~nfmc_torch.core.chains.ChainShard`.
+    A class that has been shown to match its unsharded runs on more than one
+    rank sets ``multi_rank_chains = True`` itself."""
+
+    chain_shard = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in SHARDED_ENTRIES:
+            fn = cls.__dict__.get(name)
+            if fn is not None and not getattr(fn, "sharded_entry", False):
+                setattr(cls, name, sharded_entry(fn))
 
     def __init__(
         self,
@@ -108,6 +124,16 @@ class Sampler:
     @property
     def name(self) -> str:
         return "Generic sampler"
+
+    def _n_global(self, n_local: int) -> int:
+        """The run's chain count: ``n_local`` times the ranks the chains are
+        sharded over."""
+        return n_local if self.chain_shard is None else self.chain_shard.n_global(n_local)
+
+    def _chain_rows(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """This rank's rows of a tensor with the global chain axis ``axis``
+        (all of it without a shard)."""
+        return t if self.chain_shard is None else self.chain_shard.rows(t, axis)
 
     def _generator(self, generator: Optional[torch.Generator] = None,
                    seed: Optional[int] = None) -> torch.Generator:

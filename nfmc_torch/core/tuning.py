@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils import as_numpy
+from .chains import chain_var
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +71,12 @@ def da_update_step_size(da: DualAveragingState, acceptance_rate: torch.Tensor,
 
 
 def ema_inv_mass_diag(inv_mass_diag: torch.Tensor, x_flat: torch.Tensor,
-                      adjustment: float) -> torch.Tensor:
+                      adjustment: float, shard=None) -> torch.Tensor:
     """EMA of the per-dimension chain variance into the inverse mass
     diagonal. ``x_flat``: (chains, event_size). The variance is the
-    population variance (``jnp.var``), hence ``correction=0``."""
-    var = torch.var(x_flat, dim=0, correction=0)
+    population variance (``jnp.var``), over the global chains when they are
+    sharded (``shard``, :mod:`nfmc_torch.core.chains`)."""
+    var = chain_var(x_flat, shard)
     return adjustment * var + (1.0 - adjustment) * inv_mass_diag
 
 

@@ -128,6 +128,10 @@ class Inverse(Bijection):
     def regularization(self, params, x):
         return self.inner.regularization(params, x)
 
+    @property
+    def layers(self):
+        return getattr(self.inner, "layers", [])
+
 
 class Chain(Bijection):
     """Composition: forward applies the bijections in order (data -> latent);

@@ -44,6 +44,10 @@ class ContinuousFlow(Bijection):
         self.exact_trace_dim = int(exact_trace_dim)
         self.n_probes = int(n_probes)
 
+    @property
+    def layers(self):
+        return list(range(self.n_steps))
+
     def init(self, generator):
         return mlp_init(generator, self.event_size + 1, self.hidden, self.event_size)
 

@@ -72,6 +72,12 @@ class Coupling(Bijection):
         self._packed = None
         self._index_cache = {}
 
+    @property
+    def layers(self):
+        """Per-layer descriptors, ``(conditioning ids, transformed ids)``
+        (torchflows ``bijection.layers`` parity)."""
+        return self.layer_idx
+
     def init(self, generator: torch.Generator):
         return [
             mlp_init(generator, len(a), self.hidden, len(b) * self.transform.n_params_per_dim)

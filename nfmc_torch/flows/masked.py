@@ -55,6 +55,10 @@ class MaskedAutoregressive(Bijection):
             self._mask_cache[device] = [torch.as_tensor(m, device=device) for m in self.masks]
         return self._mask_cache[device]
 
+    @property
+    def layers(self):
+        return list(range(self.n_layers))
+
     def init(self, generator):
         return [made_init(generator, self.event_size, self.hidden, self.transform.n_params_per_dim)
                 for _ in range(self.n_layers)]

@@ -138,6 +138,10 @@ class MultiscaleFlow(Bijection):
             if lvl != self.n_levels - 1:
                 ch -= ch // 2
 
+    @property
+    def layers(self):
+        return list(range(self.n_levels * self.n_steps))
+
     def init(self, generator):
         params = []
         for ch in self.level_channels:
@@ -322,6 +326,10 @@ class _ConvResidual(Bijection):
         self.hidden_channels = int(hidden_channels)
         self.n_probes = int(n_probes)
 
+    @property
+    def layers(self):
+        return list(range(self.n_layers))
+
     def init(self, generator):
         c, hc = self.chw[0], self.hidden_channels
         return [{"w1": _randn(generator, hc, c, 3, 3) / np.sqrt(c * 9), "b1": _zeros(generator, hc),
@@ -425,6 +433,10 @@ class _ConvContinuous(Bijection):
         self.n_steps = int(n_steps)
         self.n_probes = int(n_probes)
         self.exact_trace_dim = int(exact_trace_dim)
+
+    @property
+    def layers(self):
+        return list(range(self.n_steps))
 
     def init(self, generator):
         c, hc = self.chw[0], self.hidden_channels

@@ -46,6 +46,10 @@ class _LayerStack(Bijection):
         super().__init__(event_shape)
         self.n_layers = int(n_layers)
 
+    @property
+    def layers(self):
+        return list(range(self.n_layers))
+
     def _run(self, params, v, inverse: bool):
         flat, batch = _flatten(v, self.event_shape)
         ld = torch.zeros(flat.shape[0], dtype=flat.dtype, device=flat.device)

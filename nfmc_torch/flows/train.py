@@ -19,7 +19,15 @@ in the inverse direction. Other flows train through autograd of their plain
 PyTorch math. A bijection with a nonzero ``regularization_weight`` adds its
 regularizer to the MLE and reverse-KL losses.
 
-The data-parallel ``mesh`` option is not ported yet (ROADMAP 1.8).
+``mesh`` (a ``torch.distributed`` ``DeviceMesh``) trains data-parallel, as
+the JAX package's ``mesh`` does: the batch rounds to a multiple of the
+mesh's size, each rank of the mesh's first axis takes its slice of every
+global batch (or of each step's base draws) and computes its share of the
+global loss, and one ``all_reduce`` a step sums the flat gradient and the
+loss before Adam's step. The validation loss is summed the same way, so
+every rank takes the same steps and ends with the same weights. On a
+one-rank mesh the weights equal those of the run without a mesh bit for
+bit.
 """
 from __future__ import annotations
 
@@ -84,6 +92,32 @@ def fixed_effort_fit_config(fit_kwargs):
     )
 
 
+def _data_shard(mesh):
+    """``(shard, n_devices)`` of a ``DeviceMesh`` (``(None, 1)`` for None):
+    the slices go over the mesh's first axis, the batch rounds to a
+    multiple of all its devices."""
+    if mesh is None:
+        return None, 1
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..core.chains import ChainShard
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                        f"(nfmc_torch.parallel.chain_mesh), got {type(mesh).__name__}")
+    return ChainShard(mesh), mesh.size()
+
+
+def _agreed_generator(device, generator, seed, shard):
+    """The fit's generator; with a shard and no seed, rank 0's next seed on
+    every rank, so that the ranks shuffle and draw alike."""
+    if shard is not None and generator is None and seed is None:
+        from ..core.rng import next_seed
+
+        seed = shard.agree_seed(next_seed())
+    return resolve_generator(device, generator, seed)
+
+
 def _flatten(params) -> torch.Tensor:
     return torch.cat([t.detach().reshape(-1) for t in tree_leaves(params)]).to(torch.float32)
 
@@ -128,13 +162,23 @@ class _AdamW(_Adam):
     weight_decay = 1e-4
 
 
-def _nll(flow, params, x, w=None) -> torch.Tensor:
-    """Negative mean log-likelihood, weighted when ``w`` is given (padding
-    rows carry weight 0)."""
-    lp = flow.log_prob_fn(params, x)
+def _rows(t, shard):
+    return t if shard is None or t is None else shard.rows(t)
+
+
+def _batch_mean(v, x, w, shard):
+    """The mean of per-row terms ``v`` (this rank's rows) over the global
+    batch ``x``, weighted by ``w`` when given: with a shard, this rank's
+    share of it (the shares sum to the mean)."""
     if w is None:
-        return -lp.mean()
-    return -(lp * w).sum() / w.sum().clamp_min(1.0)
+        return v.sum() / x.shape[0]
+    return (v * _rows(w, shard)).sum() / w.sum().clamp_min(1.0)
+
+
+def _nll(flow, params, x, w=None, shard=None) -> torch.Tensor:
+    """Negative mean log-likelihood, weighted when ``w`` is given (padding
+    rows carry weight 0); with a data ``shard``, this rank's share of it."""
+    return -_batch_mean(flow.log_prob_fn(params, _rows(x, shard)), x, w, shard)
 
 
 def _mle_loss(flow):
@@ -146,33 +190,45 @@ def _mle_loss(flow):
     if not reg_weight:
         return _nll
 
-    def loss(flow, params, x, w=None):
-        reg = flow.bijection.regularization(params, x)
+    def loss(flow, params, x, w=None, shard=None):
+        reg = flow.bijection.regularization(params, _rows(x, shard))
         if reg.dim():
-            reg = reg.mean() if w is None else (reg * w).sum() / w.sum().clamp_min(1.0)
-        return _nll(flow, params, x, w) + reg_weight * reg
+            reg = _batch_mean(reg, x, w, shard)
+        elif shard is not None:
+            reg = reg / shard.size
+        return _nll(flow, params, x, w, shard) + reg_weight * reg
 
     return loss
 
 
-def _train_step(flow, like, theta, adam, xb, wb, loss_fn=_nll):
-    """One Adam step on a batch; returns ``(theta, loss)``."""
+def _sum_shares(g, loss, shard):
+    """The gradient and loss summed over the ranks' shares, in one
+    ``all_reduce``."""
+    if shard is None:
+        return g, loss
+    both = shard.sum(torch.cat([g, loss.reshape(1)]))
+    return both[:-1], both[-1]
+
+
+def _train_step(flow, like, theta, adam, xb, wb, loss_fn=_nll, shard=None):
+    """One Adam step on a batch (this rank's slice of it, with a data
+    ``shard``); returns ``(theta, loss)``."""
     with torch.enable_grad():
         th = theta.detach().requires_grad_(True)
-        loss = loss_fn(flow, unpack_like(th, like), xb, wb)
+        loss = loss_fn(flow, unpack_like(th, like), xb, wb, shard)
         (g,) = torch.autograd.grad(loss, th)
-    loss = loss.detach()
+    g, loss = _sum_shares(g, loss.detach(), shard)
     with torch.no_grad():
         return adam.step(theta, g, _finite_update(loss, g)), loss
 
 
-def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll):
+def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll, shard=None):
     """Adam steps over the batches ``xs`` (n_batches, bs, *event) with
     weights ``ws`` (or None); returns ``(theta, losses)``."""
     losses = []
     for i in range(xs.shape[0]):
         theta, loss = _train_step(flow, like, theta, adam, xs[i], None if ws is None else ws[i],
-                                  loss_fn)
+                                  loss_fn, shard)
         losses.append(loss)
     return theta, torch.stack(losses)
 
@@ -259,13 +315,12 @@ def fit(
     seed: Optional[int] = None,
 ) -> None:
     """Forward-KL MLE on samples; replaces ``flow.params``. Raises
-    ``ValueError`` when training diverges (non-finite validation loss)."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel flow training (mesh) is not ported yet "
-                                  "(ROADMAP 1.8)")
+    ``ValueError`` when training diverges (non-finite validation loss).
+    ``mesh``: a ``DeviceMesh`` to train over data-parallel (module doc)."""
     t_start = time.time()
+    shard, n_devices = _data_shard(mesh)
     device = flow.get_device()
-    generator = resolve_generator(device, generator, seed)
+    generator = _agreed_generator(device, generator, seed, shard)
     event_shape = flow.event_shape
 
     x_train = as_numpy(x_train).astype(np.float32)
@@ -277,6 +332,8 @@ def fit(
         bs = _adaptive_batch_size(n_train)
     else:
         bs = min(int(batch_size), n_train)
+    if mesh is not None:
+        bs = max(n_devices, (bs // n_devices) * n_devices)  # the batch tiles the mesh
     x_train_p, w_train = _pad_to_multiple(x_train, bs)
     n_batches = len(x_train_p) // bs
     data = torch.as_tensor(x_train_p, device=device)
@@ -306,7 +363,7 @@ def fit(
     bar = Progress(total=n_epochs, desc="Fitting NF", disable=not show_progress)
     try:
         while epochs_done < n_epochs:
-            if time_limit_seconds is not None and time.time() - t_start > time_limit_seconds:
+            if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
             vls = []
@@ -318,9 +375,11 @@ def fit(
                     xs, ws = data, w_data
                 theta, _ = _train_epoch(flow, like, theta, adam,
                                         xs.reshape(n_batches, bs, *event_shape),
-                                        ws.reshape(n_batches, bs), loss_fn)
+                                        ws.reshape(n_batches, bs), loss_fn, shard)
                 with torch.no_grad():
-                    vl = loss_fn(flow, unpack_like(theta, like), val_data, val_weights)
+                    vl = loss_fn(flow, unpack_like(theta, like), val_data, val_weights, shard)
+                    if shard is not None:
+                        vl = shard.sum(vl)
                     better = vl < best_loss
                     best_loss = torch.where(better, vl, best_loss)
                     if keep_best_weights:
@@ -350,15 +409,25 @@ def fit(
     flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
 
 
-def _reverse_kl(flow, params, z, target_log_prob, reg_weight: float = 0.0) -> torch.Tensor:
+def _reverse_kl(flow, params, z, target_log_prob, reg_weight: float = 0.0,
+                shard=None) -> torch.Tensor:
     """``mean(-target_log_prob(x) - log_det_inv)`` with ``x = inverse(z)``;
     the base entropy is constant and dropped. A nonzero ``reg_weight`` adds
-    that times the mean of the bijection's regularizer at ``x``."""
-    x, log_det_inv = flow.bijection.inverse_fn(params, z)
-    loss = (-target_log_prob(x) - log_det_inv).mean()
+    that times the mean of the bijection's regularizer at ``x``. With a data
+    ``shard``, this rank's share of it over its slice of ``z``."""
+    x, log_det_inv = flow.bijection.inverse_fn(params, _rows(z, shard))
+    loss = _batch_mean(-target_log_prob(x) - log_det_inv, z, None, shard)
     if reg_weight:
-        loss = loss + reg_weight * flow.bijection.regularization(params, x).mean()
+        loss = loss + reg_weight * _batch_mean(flow.bijection.regularization(params, x), z, None,
+                                               shard)
     return loss
+
+
+def _over(t_start: float, limit: float, shard) -> bool:
+    """The time limit is reached (on some rank's clock, with a shard: the
+    ranks stop together)."""
+    over = time.time() - t_start > limit
+    return shard.any(over) if shard is not None else over
 
 
 def variational_fit(
@@ -388,15 +457,17 @@ def variational_fit(
     parameters nor Adam's moments; the host looks at the losses once per
     block of ``min(128, n_epochs)`` epochs, counts early stopping per epoch,
     and with ``check_for_divergences`` stops once more than a block's worth
-    of losses were not finite."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel flow training (mesh) is not ported yet "
-                                  "(ROADMAP 1.8)")
+    of losses were not finite. ``mesh``: a ``DeviceMesh`` to train over
+    data-parallel, each rank on its slice of every step's draws (module
+    doc)."""
     t_start = time.time()
+    shard, n_devices = _data_shard(mesh)
     device = flow.get_device()
-    generator = resolve_generator(device, generator, seed)
+    generator = _agreed_generator(device, generator, seed, shard)
     base_draws = base_draws or flow.sample_base_fn
     n_samples = max(1, int(n_samples))
+    if mesh is not None:
+        n_samples = max(n_devices, (n_samples // n_devices) * n_devices)
 
     like = flow.params
     reg_weight = float(getattr(flow.bijection, "regularization_weight", 0.0))
@@ -413,7 +484,7 @@ def variational_fit(
     bar = Progress(total=n_epochs, desc="Fitting NF (variational)", disable=not show_progress)
     try:
         while epochs_done < n_epochs:
-            if time_limit_seconds is not None and time.time() - t_start > time_limit_seconds:
+            if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
             losses = []
@@ -421,10 +492,11 @@ def variational_fit(
                 z = base_draws(generator, n_samples)
                 with torch.enable_grad():
                     th = theta.detach().requires_grad_(True)
-                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob, reg_weight)
+                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob, reg_weight,
+                                       shard)
                     (g,) = torch.autograd.grad(loss, th)
+                g, loss = _sum_shares(g, loss.detach(), shard)
                 with torch.no_grad():
-                    loss = loss.detach()
                     better = torch.isfinite(loss) & (loss < best_loss)
                     best_loss = torch.where(better, loss, best_loss)
                     if keep_best_weights:

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ...core.chains import chain_mean
 from ...core.driver import ChunkedDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import MCMCKernel, MCMCParameters, Sampler
@@ -96,6 +97,9 @@ class MCMCSampler(Sampler):
     stored draws stay untransformed."""
 
     data_transform: Optional[Callable] = None
+    # the chain axis of each ``make_draws`` tensor after its leading dims,
+    # where it is not the first (``ChunkedDriver``'s ``draw_chain_axes``)
+    draw_chain_axes: Optional[tuple] = None
 
     @property
     def name(self) -> str:
@@ -184,16 +188,18 @@ class MCMCSampler(Sampler):
         tune_step = getattr(p, "tune_step_size", False) and getattr(p, "adjustment", False)
         imd_adjustment = getattr(p, "imd_adjustment", 1e-3)
         da_params = getattr(self.kernel, "da_params", None) or DualAveragingParams()
+        shard = self.chain_shard
 
         def update(mstate: MetropolisState, x: torch.Tensor, mask: torch.Tensor) -> MetropolisState:
             n_chains = x.shape[0]
             inv_mass_diag = mstate.inv_mass_diag
-            if tune_imd and n_chains > 1:
+            if tune_imd and self._n_global(n_chains) > 1:
                 inv_mass_diag = ema_inv_mass_diag(inv_mass_diag, x.reshape(n_chains, -1),
-                                                  imd_adjustment)
+                                                  imd_adjustment, shard)
             da, step_size = mstate.da, mstate.step_size
             if tune_step:
-                da, step_size = da_update_step_size(da, mask.to(torch.float32).mean(), da_params)
+                da, step_size = da_update_step_size(da, chain_mean(mask.to(torch.float32), shard),
+                                                    da_params)
             return MetropolisState(step_size=step_size, inv_mass_diag=inv_mass_diag, da=da)
 
         return update
@@ -215,7 +221,7 @@ class MCMCSampler(Sampler):
     def _run(self, x0, n_iterations: int, tuning: bool, show_progress: bool,
              time_limit_seconds, generator: torch.Generator, desc: str) -> MCMCOutput:
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
-        n_chains = x0.shape[0]
+        n_chains = self._n_global(x0.shape[0])
         out = self._make_output()
         mstate = self._augment_state(self.kernel.make_state(self.device), x0)
         per_iter = self.hoisted_elements_per_iter(x0)
@@ -223,13 +229,14 @@ class MCMCSampler(Sampler):
                                make_precompute=self._make_precompute,
                                make_step_aux=self._make_step_precomputed,
                                hoist_per_iter=(lambda _x: per_iter) if per_iter else None,
-                               data_transform=self.data_transform)
+                               data_transform=self.data_transform,
+                               draw_chain_axes=self.draw_chain_axes)
         _, mstate = driver.run(
             x0, mstate, generator, n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self.calls_per_iter(n_chains),
             grads_per_iter=self.grads_per_iter(n_chains), tuning=tuning,
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
-            show_progress=show_progress, desc=desc,
+            show_progress=show_progress, desc=desc, shard=self.chain_shard,
         )
         self.kernel.sync_from_state(self._extract_mstate(mstate))
         self._stash_final_carry(mstate)

@@ -33,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.chains import chain_mean
 from ...core.driver import StepInfo
 from ...core.sampler import MCMCKernel, MCMCParameters
 from ...core.tuning import (
@@ -153,7 +154,11 @@ class CheesHMCParameters(MCMCParameters):
 
 class CheesHMC(MCMCSampler):
     """HMC with a jittered, ChEES-adapted trajectory length (best with many
-    chains: the ChEES gradient is a cross-chain estimate)."""
+    chains: the ChEES gradient is a cross-chain estimate, over every rank's
+    chains when they are sharded)."""
+
+    multi_rank_chains = True
+    draw_chain_axes = (0, 0, None)  # the jitter is one draw an iteration
 
     def __init__(self, event_shape, target, kernel: Optional[CheesHMCKernel] = None,
                  params: Optional[CheesHMCParameters] = None, device=None):
@@ -232,11 +237,16 @@ class CheesHMC(MCMCSampler):
         tune_traj = tuning and p.tune_trajectory
         tune_imd = tuning and p.tune_inv_mass_diag
         imd_adjustment = p.imd_adjustment
+        shard = self.chain_shard
+        split = shard is not None and shard.size > 1
+
+        def chain_sum(v):
+            return shard.sum(v.sum()) if split else v.sum()
 
         def step(x, cs: CheesState, draws, n_leapfrog):
             p_raw, log_u, u_jit = draws
             u_jit = self._jitter(cs, u_jit)
-            n_chains = x.shape[0]
+            n_chains = self._n_global(x.shape[0])
             inv_mass, eps = cs.inv_mass_diag, cs.step_size
             if n_leapfrog is None:
                 n_leapfrog = int(leapfrog_count(u_jit, cs.log_t, eps, max_steps))
@@ -269,21 +279,21 @@ class CheesHMC(MCMCSampler):
                                     torch.zeros_like(log_alpha))
                 da, step_size = cs.da, cs.step_size
                 if tune_step:
-                    da, step_size = da_update_step_size(da, alpha.mean(), da_params)
+                    da, step_size = da_update_step_size(da, chain_mean(alpha, shard), da_params)
                 log_t, m, v, t_adam = cs.log_t, cs.adam_m, cs.adam_v, cs.adam_t
                 if tune_traj:
                     # d ChEES / d log T across chains: diverged proposals
                     # fall back to the current state for the centre
                     xf = flatten_event(x, event_shape)
                     xpf = torch.where(finite[:, None], flatten_event(xq, event_shape), xf)
-                    ctr = xpf - xpf.mean(0, keepdim=True)
-                    ctr0 = xf - xf.mean(0, keepdim=True)
+                    ctr = xpf - chain_mean(xpf, shard)[None]
+                    ctr0 = xf - chain_mean(xf, shard)[None]
                     dsq = (ctr * ctr).sum(-1) - (ctr0 * ctr0).sum(-1)
                     v_end = flatten_event(precondition(pq), event_shape)
                     v_end = torch.where(finite[:, None], v_end, torch.zeros_like(v_end))
                     per_chain = dsq * (ctr * v_end).sum(-1)
-                    w_sum = torch.clamp(alpha.sum(), min=1e-6)
-                    grad = ((alpha * per_chain).sum() / w_sum) * u_jit * torch.exp(log_t)
+                    w_sum = torch.clamp(chain_sum(alpha), min=1e-6)
+                    grad = (chain_sum(alpha * per_chain) / w_sum) * u_jit * torch.exp(log_t)
                     t_adam = t_adam + 1.0
                     m = 0.9 * m + 0.1 * grad
                     v = 0.999 * v + 0.001 * grad * grad
@@ -298,7 +308,7 @@ class CheesHMC(MCMCSampler):
                 if tune_imd and n_chains > 1:
                     inv_mass_new = ema_inv_mass_diag(cs.inv_mass_diag,
                                                      flatten_event(x_new, event_shape),
-                                                     imd_adjustment)
+                                                     imd_adjustment, shard)
                 cs = CheesState(step_size=step_size, inv_mass_diag=inv_mass_new, da=da,
                                 log_t=log_t, adam_m=m, adam_v=v, adam_t=t_adam,
                                 iter_idx=cs.iter_idx)

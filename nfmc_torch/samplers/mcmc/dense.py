@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.chains import chain_mean
 from ...core.tuning import DualAveragingParams, DualAveragingState, da_init, da_update_step_size
 from ...utils import event_size_of, flatten_event
 from .base import MetropolisKernel, MetropolisParameters
@@ -257,6 +258,8 @@ class _DenseMetricMixin:
         r_lo, r_hi = float(p.scalar_fallback_r), float(p.scalar_recover_r)
         patience = int(p.scalar_fallback_patience)
         da_params = getattr(self.kernel, "da_params", None) or DualAveragingParams()
+        shard = self.chain_shard
+        split = shard is not None and shard.size > 1
 
         def refresh(cov_a, cov_b, streak, scalar_mode):
             """The shrunk factors from the halves, and the mode decision."""
@@ -303,25 +306,34 @@ class _DenseMetricMixin:
             return a, a_inv, finite if ok is None else finite & ok, mu, mode2, streak2
 
         def update(mstate: DenseMetropolisState, x: torch.Tensor, mask: torch.Tensor):
-            n_chains = x.shape[0]
+            n_local = x.shape[0]
+            n_chains = self._n_global(n_local)
             cov_a, cov_b, t = mstate.cov_a, mstate.cov_b, mstate.t
             chol, chol_inv, jitter_frac = mstate.chol, mstate.chol_inv, mstate.jitter_frac
             mu_c, scalar_mode, streak = mstate.mu, mstate.scalar_mode, mstate.r_low_streak
             if tune_metric and n_chains > 1:
                 d = cov_a.shape[0]
-                x_flat = x.reshape(n_chains, -1)
+                x_flat = x.reshape(n_local, -1)
                 eye = torch.eye(d, dtype=x_flat.dtype, device=x_flat.device)
 
-                def batch_cov(xs):
-                    xc = xs - xs.mean(0, keepdim=True)
-                    return (xc.T @ xc) / (xs.shape[0] - 1) + ridge * eye
+                def batch_cov(xs, n):
+                    """The covariance of ``n`` chains, ``xs`` this rank's of
+                    them (two passes over the ranks when they are split)."""
+                    if not split:
+                        xc = xs - xs.mean(0, keepdim=True)
+                        return (xc.T @ xc) / (xs.shape[0] - 1) + ridge * eye
+                    xc = xs - shard.sum(xs.sum(0, keepdim=True)) / n
+                    return shard.sum(xc.T @ xc) / (n - 1) + ridge * eye
 
                 if n_chains > 3:
-                    # independent halves of the chains: independent noise
-                    c_a, c_b = batch_cov(x_flat[0::2]), batch_cov(x_flat[1::2])
+                    # independent halves of the chains (even and odd global
+                    # index): independent noise
+                    first = 0 if shard is None else (shard.rank * n_local) % 2
+                    c_a = batch_cov(x_flat[first::2], (n_chains + 1) // 2)
+                    c_b = batch_cov(x_flat[1 - first::2], n_chains // 2)
                 else:
                     # too few chains to split: one shared estimate (r = 1)
-                    c_a = c_b = batch_cov(x_flat)
+                    c_a = c_b = batch_cov(x_flat, n_chains)
                 a_new = alpha * c_a + (1.0 - alpha) * cov_a
                 b_new = alpha * c_b + (1.0 - alpha) * cov_b
                 # a non-finite batch (diverged chains) leaves the EMAs as they were
@@ -340,7 +352,8 @@ class _DenseMetricMixin:
                     streak = torch.where(ok, streak2, streak)
             da, step_size = mstate.da, mstate.step_size
             if tune_step:
-                da, step_size = da_update_step_size(da, mask.to(torch.float32).mean(), da_params)
+                da, step_size = da_update_step_size(da, chain_mean(mask.to(torch.float32), shard),
+                                                    da_params)
             return DenseMetropolisState(step_size=step_size, cov_a=cov_a, cov_b=cov_b, chol=chol,
                                         chol_inv=chol_inv, jitter_frac=jitter_frac, t=t, mu=mu_c,
                                         scalar_mode=scalar_mode, r_low_streak=streak, da=da)
@@ -350,6 +363,8 @@ class _DenseMetricMixin:
 
 class DenseHMC(_DenseMetricMixin, HMC):
     """HMC with a dense metric; see the module docstring."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel: Optional[DenseHMCKernel] = None,
                  params: Optional[DenseHMCParameters] = None, device=None):
@@ -403,6 +418,8 @@ class DenseHMC(_DenseMetricMixin, HMC):
 class DenseMALA(_DenseMetricMixin, Langevin):
     """MALA with the dense preconditioner ``Sigma``: drift ``-tau Sigma grad
     U``, noise ``sqrt(2 tau) chol(Sigma) xi``; see the module docstring."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel: Optional[DenseLangevinKernel] = None,
                  params: Optional[DenseLangevinParameters] = None, device=None):

@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.chains import chain_mean
 from ...core.driver import StepInfo
 from ...core.sampler import MCMCKernel, MCMCParameters
 from ...core.tuning import DualAveragingParams, DualAveragingState, da_step
@@ -82,7 +83,16 @@ class AIESParameters(MCMCParameters):
 class AIES(MCMCSampler):
     """Needs ``n_chains >= 4`` (two halves of at least two walkers) and mixes
     best with ``n_chains >= 2 * event_size``: with fewer walkers the
-    proposals stay in the ensemble's affine hull."""
+    proposals stay in the ensemble's affine hull.
+
+    Sharded over several ranks, each rank moves its walkers and the halves
+    meet through two all_gathers an iteration (the partner pool, then the
+    updated half 0); the draws stay whole, indexed by global walker. Each
+    rank's block must lie in one half (an even number of ranks, e.g.): a
+    block across both is not tested yet (ROADMAP 1.8d)."""
+
+    multi_rank_chains = True
+    draw_chain_axes = (None, None, None, None)
 
     def __init__(self, event_shape, target, kernel: Optional[AIESKernel] = None,
                  params: Optional[AIESParameters] = None, device=None):
@@ -115,11 +125,16 @@ class AIES(MCMCSampler):
         return draws
 
     def _augment_state(self, astate, x0):
-        if x0.shape[0] < 4:
+        n_chains = self._n_global(x0.shape[0])
+        if n_chains < 4:
             raise ValueError(
                 f"AIES needs n_chains >= 4 (two non-degenerate ensemble "
-                f"halves); got {x0.shape[0]}"
+                f"halves); got {n_chains}"
             )
+        if n_chains != x0.shape[0] and (n_chains // 2) % x0.shape[0]:
+            raise NotImplementedError(
+                f"AIES with blocks of {x0.shape[0]} of {n_chains} walkers: a rank's block across "
+                "both halves is not supported yet (ROADMAP 1.8d); use an even number of ranks")
         return (astate, self.target(x0))
 
     def _make_step_aux(self, tuning: bool):
@@ -128,6 +143,7 @@ class AIES(MCMCSampler):
         d = self.event_size
         tune = tuning and self.params.tune_stretch
         da_params = self.kernel.da_params
+        shard = self.chain_shard
 
         def half_move(xs_move, u_move, partners, z_u, log_u, a):
             """Stretch-move one half against a frozen partner pool."""
@@ -142,21 +158,50 @@ class AIES(MCMCSampler):
             x_new = torch.where(mask.reshape(mask.shape + (1,) * event_ndim), y, xs_move)
             return x_new, torch.where(mask, u_y, u_move), mask, ~ok.all()
 
+        def local_move(xs, us, partners, z_u, log_u, a):
+            """``half_move`` on this rank's walkers of a half, none if it
+            holds none (the target is not called on an empty batch)."""
+            if xs.shape[0] == 0:
+                return xs, us, torch.zeros(0, dtype=torch.bool, device=xs.device), \
+                    torch.zeros((), dtype=torch.bool, device=xs.device)
+            return half_move(xs, us, partners, z_u, log_u, a)
+
+        def step_split(x, u, draws, a):
+            """This rank's walkers, rows ``[lo, hi)`` of the ensemble: those
+            of half 0 move against all of half 1, then those of half 1
+            against all of the updated half 0."""
+            z_u, idx0, idx1, log_u = draws
+            c0, n_local = idx0.shape[0], x.shape[0]
+            lo = shard.rank * n_local
+            k = n_local if lo < c0 else 0  # this rank's walkers in half 0 (all or none)
+            g0, g1 = slice(lo, lo + k), slice(lo + k, lo + n_local)
+            pool = shard.gather(x, 0)[c0:]
+            x0h, u0h, m0, d0 = local_move(x[:k], u[:k], pool[idx0[g0]], z_u[g0], log_u[g0], a)
+            x = torch.cat([x0h, x[k:]])
+            pool = shard.gather(x, 0)[:c0]
+            x1h, u1h, m1, d1 = local_move(x[k:], u[k:], pool[idx1[lo + k - c0:lo + n_local - c0]],
+                                          z_u[g1], log_u[g1], a)
+            return x0h, x1h, u0h, u1h, m0, m1, d0, d1
+
         def step(x, state, draws):
             astate, u = state
             z_u, idx0, idx1, log_u = draws
             c0 = idx0.shape[0]
             a = astate.a
-            x0h, x1h = x[:c0], x[c0:]
-            u0h, u1h = u[:c0], u[c0:]
-            # half 0 against half 1, then half 1 against the UPDATED half 0:
-            # the sequential dependency keeps detailed balance
-            x0h, u0h, m0, d0 = half_move(x0h, u0h, x1h[idx0], z_u[:c0], log_u[:c0], a)
-            x1h, u1h, m1, d1 = half_move(x1h, u1h, x0h[idx1], z_u[c0:], log_u[c0:], a)
+            if shard is not None and shard.size > 1:
+                x0h, x1h, u0h, u1h, m0, m1, d0, d1 = step_split(x, u, draws, a)
+            else:
+                x0h, x1h = x[:c0], x[c0:]
+                u0h, u1h = u[:c0], u[c0:]
+                # half 0 against half 1, then half 1 against the UPDATED half
+                # 0: the sequential dependency keeps detailed balance
+                x0h, u0h, m0, d0 = half_move(x0h, u0h, x1h[idx0], z_u[:c0], log_u[:c0], a)
+                x1h, u1h, m1, d1 = half_move(x1h, u1h, x0h[idx1], z_u[c0:], log_u[c0:], a)
             mask = torch.cat([m0, m1])
             if tune:
                 da = da_step(astate.da,
-                             da_params.target_acceptance_rate - mask.to(torch.float32).mean(),
+                             da_params.target_acceptance_rate
+                             - chain_mean(mask.to(torch.float32), shard),
                              da_params)
                 astate = AIESState(a=1.0 + torch.exp(da.log_step_averaged), da=da)
             info = StepInfo(n_accepted=mask.sum().to(torch.int32),

@@ -52,6 +52,8 @@ class HMCParameters(MetropolisParameters):
 
 
 class HMC(MCMCSampler):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel: Optional[HMCKernel] = None,
                  params: Optional[HMCParameters] = None, device=None):
         if kernel is None:

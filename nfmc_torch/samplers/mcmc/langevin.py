@@ -144,6 +144,8 @@ class Langevin(MCMCSampler):
 
 
 class MALA(Langevin):
+    multi_rank_chains = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.params.adjustment = True

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.chains import chain_mean, chain_var
 from ...core.driver import StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import MCMCKernel, MCMCParameters
@@ -178,6 +179,7 @@ class ParallelTempering(MCMCSampler):
     """The shared ladder; the subclasses choose the move within a rung."""
 
     move: str = "mala"  # "mala" (PTMALA), "rwmh" (PTRWMH), "hmc" (PTHMC)
+    draw_chain_axes = (1, 1, 1)  # the draws hold the rungs first
 
     def __init__(self, event_shape, target, kernel: Optional[PTKernel] = None,
                  params: Optional[PTParameters] = None, device=None):
@@ -207,8 +209,8 @@ class ParallelTempering(MCMCSampler):
 
     def hoisted_elements_per_iter(self, x: torch.Tensor) -> int:
         """The draws are ladder-wide: noise ``(T, C, *event)`` and two ``(T,
-        C)`` uniform fields an iteration."""
-        T, n_chains = self.kernel.n_temps, x.shape[0]
+        C)`` uniform fields an iteration (over the global chains)."""
+        T, n_chains = self.kernel.n_temps, self._n_global(x.shape[0])
         return T * n_chains * (self.event_size + 2)
 
     # ---- state -------------------------------------------------------------
@@ -217,7 +219,8 @@ class ParallelTempering(MCMCSampler):
         xs = x0[None].expand(T, *x0.shape)  # every rung starts at x0
         hot = getattr(self, "_continue_hot", None)
         if getattr(self, "_use_continue_hot", False) and hot is not None:
-            hot = torch.as_tensor(hot, dtype=torch.float32, device=x0.device)
+            # the stash holds every chain's hot rungs: this rank's rows
+            hot = self._chain_rows(torch.as_tensor(hot, dtype=torch.float32, device=x0.device), 1)
             if hot.shape != xs[1:].shape:
                 raise ValueError(
                     f"PT continuation hot-rung state has shape {tuple(hot.shape)} "
@@ -268,6 +271,7 @@ class ParallelTempering(MCMCSampler):
         da_params = self.kernel.da_params
         u_and_grad = value_and_batched_grad(target)
         device = self.device
+        shard = self.chain_shard
         # for each parity: the partners, the rung whose swap draw a pair
         # shares, the rungs that have a partner and the edges swept
         sweeps = []
@@ -291,6 +295,7 @@ class ParallelTempering(MCMCSampler):
                 g_all = None
             noise, log_u_move, log_u_swap = draws
             C = x_cold.shape[0]
+            n_all = self._n_global(C)
             X = torch.cat([x_cold[None], xs_hot], 0)  # (T, C, *event)
             beta, tau, m = pts.betas, pts.step_sizes, pts.inv_mass_diag
             Xf = X.reshape(T, C, d)
@@ -370,9 +375,12 @@ class ParallelTempering(MCMCSampler):
             edge_accepts = torch.where(edge_active, swap_mask[:-1].sum(1),
                                        torch.zeros((), dtype=torch.int64, device=X.device)
                                        ).to(torch.int32)
+            if shard is not None and shard.size > 1:
+                # the ladder adapts on every chain's swaps
+                edge_accepts = shard.sum(edge_accepts)
             swap_accepts = pts.swap_accepts + edge_accepts
-            swap_attempts = pts.swap_attempts + sw["attempts"] * C
-            inst_rate = edge_accepts.to(torch.float32) / C
+            swap_attempts = pts.swap_attempts + sw["attempts"] * n_all
+            inst_rate = edge_accepts.to(torch.float32) / n_all
             ema = torch.where(edge_active,
                               (1.0 - p.swap_ema_alpha) * pts.swap_rate_ema
                               + p.swap_ema_alpha * inst_rate,
@@ -382,11 +390,11 @@ class ParallelTempering(MCMCSampler):
             betas_new, steps_new, da, imd = beta, tau, pts.da, m
             if tuning:
                 if p.tune_step_size:
-                    acc_rate = mask_move.to(torch.float32).mean(1)  # (T,)
+                    acc_rate = chain_mean(mask_move.to(torch.float32), shard, dim=1)  # (T,)
                     da = da_step(da, da_params.target_acceptance_rate - acc_rate, da_params)
                     steps_new = torch.exp(da.log_step_averaged)
-                if p.tune_inv_mass_diag and C > 1:
-                    var = torch.var(X[0].reshape(C, -1), dim=0, correction=0)
+                if p.tune_inv_mass_diag and n_all > 1:
+                    var = chain_var(X[0].reshape(C, -1), shard)
                     imd = p.imd_adjustment * var + (1.0 - p.imd_adjustment) * imd
                 if p.tune_ladder and T >= 3:
                     temps = 1.0 / beta  # ascending
@@ -430,8 +438,12 @@ class ParallelTempering(MCMCSampler):
     def _stash_final_carry(self, mstate) -> None:
         """Keeps only the hot rungs' positions (``mstate[1]``), all that a
         continuation reads; the whole carry would pin every rung's potential
-        and gradient caches for the sampler's lifetime."""
-        self._final_mstate = (None, mstate[1])
+        and gradient caches for the sampler's lifetime. Sharded chains keep
+        every rank's (a continuation takes its rows again)."""
+        hot = mstate[1]
+        if self.chain_shard is not None:
+            hot = self.chain_shard.gather(hot, axis=1)
+        self._final_mstate = (None, hot)
 
     def sample_continue(self, x0, **kwargs):
         """A continuation: the hot replicas start from the last run's final
@@ -466,6 +478,7 @@ class PTMALA(ParallelTempering):
     """Parallel tempering with MALA moves within each rung."""
 
     move = "mala"
+    multi_rank_chains = True
 
 
 class PTRWMH(ParallelTempering):
@@ -473,6 +486,7 @@ class PTRWMH(ParallelTempering):
     (proposal scale ``step_k * inv_mass_diag``)."""
 
     move = "rwmh"
+    multi_rank_chains = True
 
 
 class PTHMC(ParallelTempering):
@@ -481,3 +495,4 @@ class PTHMC(ParallelTempering):
     ``(T C)``-row gradient pass."""
 
     move = "hmc"
+    multi_rank_chains = True

@@ -51,6 +51,8 @@ class DLMCParameters(NFMCParameters):
 
 
 class DLMC(Sampler):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[DLMCKernel] = None, params: Optional[DLMCParameters] = None,
                  device=None):
@@ -140,7 +142,7 @@ class DLMC(Sampler):
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
         generator = self._generator(generator, seed)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
-        n_chains = x0.shape[0]
+        n_chains = self._n_global(x0.shape[0])
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         self.kernel.flow.to(self.device)
@@ -164,7 +166,8 @@ class DLMC(Sampler):
         """Refit, drift and accept as one iteration of the chunked driver,
         the flow's weights its carried state."""
         flow = self.kernel.flow
-        n_chains = x.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(x.shape[0])
         n_epochs, lr, batch_size, keep_best_weights, shuffle = fit_cfg
         fit = make_scan_fit(flow, n_chains, n_epochs=n_epochs, lr=lr, batch_size=batch_size,
                             shuffle=shuffle, keep_best_weights=keep_best_weights,
@@ -177,7 +180,8 @@ class DLMC(Sampler):
 
         def make_step(tuning):
             def step(x, params, draws):
-                params = fit(params, x, fit_generator)
+                # every rank refits on all the particles, to the same weights
+                params = fit(params, x if shard is None else shard.gather(x, 0), fit_generator)
                 x, mask, diverged = accept(params, drift(params, x), draws)
                 return x, params, StepInfo(n_accepted=mask.sum().to(torch.int32),
                                            diverged=diverged)
@@ -189,7 +193,7 @@ class DLMC(Sampler):
             x, flow.params, generator, self.params.n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=3 * n_chains, grads_per_iter=n_chains,
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
-            show_progress=show_progress, desc="DLMC sampling")
+            show_progress=show_progress, desc="DLMC sampling", shard=shard)
         flow.params = params
 
     def _sample_host(self, x, out, generator, show_progress, time_limit_seconds):
@@ -197,31 +201,43 @@ class DLMC(Sampler):
         on a train/validation split of the particles (a ``ValueError`` keeps
         the weights it leaves), then the drift and the accept."""
         flow = self.kernel.flow
-        n_chains = x.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(x.shape[0])
+
+        def every(v):  # all the particles of v
+            return v if shard is None else shard.gather(v, 0)
+
         drift, accept = self._make_drift_accept()
         stats = out.statistics
         bar = Progress(total=self.params.n_iterations, desc="DLMC sampling",
                        disable=not show_progress)
         for _ in range(self.params.n_iterations):
-            if time_limit_seconds is not None and stats.elapsed_time_seconds >= time_limit_seconds:
-                break
+            if time_limit_seconds is not None:
+                over = stats.elapsed_time_seconds >= time_limit_seconds
+                if shard.any(over) if shard is not None else over:
+                    break
             t0 = time.time()
             seed_split, seed_fit = self._sub_seeds(generator, 2)
             x_train, x_val = train_val_split(
-                x[None], train_pct=self.params.train_pct,
+                every(x)[None], train_pct=self.params.train_pct,
                 max_train_size=self.params.max_train_size,
                 max_val_size=self.params.max_val_size, seed=seed_split)
             try:
-                flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit)
+                flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit,
+                         mesh=None if shard is None else shard.mesh)
             except ValueError:
                 pass
-            draws = tuple(d[0] for d in self.make_draws(generator, (1,), n_chains))
+            draws = tuple(self._chain_rows(d, 1)[0]
+                          for d in self.make_draws(generator, (1,), n_chains))
             with torch.no_grad():
                 x, mask, diverged = accept(flow.params, drift(flow.params, x), draws)
             out.running_samples.add(x)
-            stats.expectations.update(x)
+            stats.expectations.update(every(x))
+            n_acc = mask.sum()
+            if shard is not None:
+                n_acc, diverged = shard.sum(n_acc), shard.max(diverged)
             stats.update_counters(n_target_calls=3 * n_chains, n_target_gradient_calls=n_chains,
-                                  n_accepted_trajectories=int(mask.sum()),
+                                  n_accepted_trajectories=int(n_acc),
                                   n_attempted_trajectories=n_chains, n_divergences=int(diverged))
             stats.update_elapsed_time(time.time() - t0)
             bar.update(1)

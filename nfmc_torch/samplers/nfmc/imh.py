@@ -103,16 +103,20 @@ class AbstractIMH(Sampler):
         ``time_limit_seconds``); returns one batch of flow draws."""
         seed_fit, seed_draw = self._sub_seeds(self._generator(generator, seed), 2)
         flow = self.kernel.flow.to(self.device)
+        shard = self.chain_shard
         fit_kwargs = {
             "show_progress": show_progress,
             "time_limit_seconds": time_limit_seconds,
             "seed": seed_fit,
             **self.params.warmup_fit_kwargs,
         }
+        if shard is not None:
+            fit_kwargs["mesh"] = shard.mesh  # each rank takes its slice of the draws
         flow.variational_fit(lambda v: -self.target(v), **fit_kwargs)
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
-        out.running_samples.add(flow.sample(x0.shape[0], seed=seed_draw))
+        draws = flow.sample(self._n_global(x0.shape[0]), seed=seed_draw)
+        out.running_samples.add(self._chain_rows(draws, 0))
         return out
 
     def _make_accept_core(self):
@@ -171,6 +175,8 @@ class AbstractIMH(Sampler):
 
 
 class FixedIMH(AbstractIMH):
+    multi_rank_chains = True
+
     @property
     def name(self):
         return "Fixed IMH"
@@ -179,7 +185,7 @@ class FixedIMH(AbstractIMH):
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
         generator = self._generator(generator, seed)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device).clone()
-        n_chains = x0.shape[0]
+        n_chains = self._n_global(x0.shape[0])
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         flow = self.kernel.flow.to(self.device)
@@ -223,7 +229,7 @@ class FixedIMH(AbstractIMH):
 
         driver = ChunkedDriver(self.event_shape, make_step, self.make_draws,
                                make_precompute=make_precompute, make_step_aux=make_step_aux,
-                               hoist_per_iter=lambda x: x.shape[0] * per_draw)
+                               hoist_per_iter=lambda x: n_chains * per_draw)
         t0 = time.time()
         with torch.no_grad():
             flp0 = flow.log_prob(x0)
@@ -234,6 +240,7 @@ class FixedIMH(AbstractIMH):
             stats=out.statistics, samples=out.running_samples, calls_per_iter=2 * n_chains,
             grads_per_iter=0, collect=self.params.store_samples,
             time_limit_seconds=time_limit_seconds, show_progress=show_progress, desc=self.name,
+            shard=self.chain_shard,
         )
         out.kernel = self.kernel
         return out

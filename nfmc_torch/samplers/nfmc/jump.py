@@ -152,8 +152,13 @@ class JumpNFMC(Sampler):
         self.inner_sampler.params.store_samples = True
         warmup_output = self.inner_sampler.warmup(
             x0, show_progress=show_progress, time_limit_seconds=inner_time_limit, seed=seed_inner)
+        shard = self.chain_shard
+        pooled = warmup_output.samples
+        if shard is not None and pooled is not None:
+            # every rank fits on the global pool, data-parallel over the mesh
+            pooled = shard.gather(pooled, axis=1)
         x_train, x_val = train_val_split(
-            warmup_output.samples, train_pct=self.params.train_pct,
+            pooled, train_pct=self.params.train_pct,
             max_train_size=self.params.max_train_size, max_val_size=self.params.max_val_size,
             seed=seed_fit)
         flow_params = self.kernel.flow.state_dict()
@@ -163,7 +168,7 @@ class JumpNFMC(Sampler):
             self.kernel.flow.fit(x_train, x_val=x_val,
                                  **{**self.params.flow_fit_kwargs,
                                     **dict(show_progress=show_progress, time_limit_seconds=fit_limit)},
-                                 seed=seed_fit)
+                                 seed=seed_fit, mesh=None if shard is None else shard.mesh)
         except ValueError:
             self.kernel.flow.load_state_dict(flow_params)
         # the caller prefers MCMC warmup draws as x0 (flow draws can be outliers)
@@ -211,7 +216,7 @@ class JumpNFMC(Sampler):
         return ChunkState(
             x=x0,
             inner_state=inner._augment_state(inner.kernel.make_state(self.device), x0),
-            acc=StatsAccum.zeros(self.event_shape, self.device),
+            acc=StatsAccum.zeros(self.event_shape, self.device, self.chain_shard),
             jump_acc=_JumpAccum.zeros(self.event_shape, self.device),
             flow_params=self.kernel.flow.params,
         )
@@ -296,7 +301,9 @@ class JumpNFMC(Sampler):
                 else:
                     scan_fit, generator, gate = refit
                     if gate[i]:
-                        params = scan_fit(params, inner_ys.reshape(-1, *self.event_shape), generator)
+                        data = inner_ys if self.chain_shard is None else self.chain_shard.gather(
+                            inner_ys, axis=1)
+                        params = scan_fit(params, data.reshape(-1, *self.event_shape), generator)
                     prop = tuple(t[0] for t in hoisted_flow_proposals(
                         flow, params, draws["z"][i:i + 1], target=target))
                 x, jmask = accept_core(params, x, *prop, draws["jump_log_u"][i])
@@ -326,8 +333,21 @@ class JumpNFMC(Sampler):
         out.kernel = self.kernel
         return out
 
+    def _shard_chunk_draws(self, draws: dict) -> dict:
+        """This rank's rows of a chunk's draws made for the global chains."""
+        if self.chain_shard is None:
+            return draws
+        rows = self._chain_rows
+        out = {"inner": tuple(rows(d, 2) for d in draws["inner"]), "z": rows(draws["z"], 1),
+               "jump_log_u": rows(draws["jump_log_u"], 1)}
+        if "x0" in draws:
+            out["x0"] = rows(draws["x0"], 1)
+        return out
+
     def _sample_chunked(self, x0, out, generator, time_limit_seconds, show_progress, fit_cfg):
-        n_chains = x0.shape[0]
+        # the run's global chain count: draws, refits and caps are the
+        # unsharded run's
+        n_chains = self._n_global(x0.shape[0])
         inner_n = self.inner_sampler.params.n_iterations
         store = self.params.store_samples
         event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
@@ -349,7 +369,7 @@ class JumpNFMC(Sampler):
             fit_generator.manual_seed(self._sub_seeds(generator, 1)[0])
 
         def dispatch(chunk, iters_done):
-            draws = self.make_chunk_draws(generator, chunk, n_chains)
+            draws = self._shard_chunk_draws(self.make_chunk_draws(generator, chunk, n_chains))
             refit = None
             if fit_cfg is not None:
                 # gated by the absolute outer index
@@ -365,7 +385,7 @@ class JumpNFMC(Sampler):
         def flush(iters):
             s = st["state"]
             self._account_outer_iters(out, iters, n_chains, inner_n, s.acc, s.jump_acc)
-            s.acc = StatsAccum.zeros(self.event_shape, self.device)
+            s.acc = StatsAccum.zeros(self.event_shape, self.device, self.chain_shard)
             s.jump_acc = _JumpAccum.zeros(self.event_shape, self.device)
 
         # refits make their proposals per iteration: only the draws are hoisted
@@ -384,6 +404,7 @@ class JumpNFMC(Sampler):
             desc=self.name,
             sync_max_chunk=256,
             single_chunk_cap=cap,
+            shard=self.chain_shard,
         )
         for blk in deferred:
             out.running_samples.add(blk)
@@ -403,13 +424,16 @@ class JumpNFMC(Sampler):
         inner = self.inner_sampler
         accept_core = self._make_jump_accept_core()
         adjusted = self.params.adjusted_jumps
-        n_chains = x0.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(x0.shape[0])
         x = x0
         stats = out.statistics
         bar = Progress(total=self.params.n_iterations, desc=self.name, disable=not show_progress)
         for i in range(self.params.n_iterations):
-            if time_limit_seconds is not None and stats.elapsed_time_seconds >= time_limit_seconds:
-                break
+            if time_limit_seconds is not None:
+                over = stats.elapsed_time_seconds >= time_limit_seconds
+                if shard.any(over) if shard is not None else over:
+                    break
             seed_inner, seed_fit = self._sub_seeds(generator, 2)
             mcmc_output = inner.sample(x0=x, show_progress=False, seed=seed_inner)
             ist = mcmc_output.statistics
@@ -427,25 +451,31 @@ class JumpNFMC(Sampler):
             t0 = time.time()
             if self.params.fit_nf and i >= self.params.n_jumps_before_training:
                 x_train, x_val = train_val_split(
-                    draws, train_pct=self.params.train_pct,
+                    draws if shard is None else shard.gather(draws, axis=1),
+                    train_pct=self.params.train_pct,
                     max_train_size=self.params.max_train_size,
                     max_val_size=self.params.max_val_size, seed=seed_fit)
                 snapshot = flow.state_dict()
                 try:
-                    flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit)
+                    flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit,
+                             mesh=None if shard is None else shard.mesh)
                 except ValueError:
                     flow.load_state_dict(snapshot)
 
             x = mcmc_output.running_samples.last_sample.to(self.device)
             with torch.no_grad():
-                z = flow.sample_base_fn(generator, n_chains)
+                z = self._chain_rows(flow.sample_base_fn(generator, n_chains), 0)
                 prop = hoisted_flow_proposals(flow, flow.params, z[None],
                                               target=self.target if adjusted else None)
                 log_u = (torch.log(torch.rand(n_chains, generator=generator, device=self.device))
                          if adjusted else torch.zeros(n_chains, device=self.device))
-                x, jmask = accept_core(flow.params, x, *(t[0] for t in prop), log_u)
+                x, jmask = accept_core(flow.params, x, *(t[0] for t in prop),
+                                       self._chain_rows(log_u, 0))
+            n_jumped = jmask.sum()
             stats.update_counters(n_target_calls=self._jump_calls_per_iter(n_chains),
-                                  n_attempted_jumps=n_chains, n_accepted_jumps=int(jmask.sum()))
+                                  n_attempted_jumps=n_chains,
+                                  n_accepted_jumps=int(n_jumped if shard is None
+                                                       else shard.sum(n_jumped)))
             stats.update_elapsed_time(time.time() - t0)
             self._add_draws(out, x[None])
             bar.update(1)
@@ -454,10 +484,14 @@ class JumpNFMC(Sampler):
         bar.close()
 
     def _add_draws(self, out, block):
-        """Store a ``(k, C, *event)`` block and fold it into the moments."""
+        """Store a ``(k, C, *event)`` block and fold it into the moments
+        (summed over the ranks when the chains are sharded)."""
         xf = block.to(torch.float64)
-        n = block.shape[0] * block.shape[1]
-        out.statistics.update_moments_from_sums(xf.sum((0, 1)), (xf * xf).sum((0, 1)), n)
+        n = block.shape[0] * self._n_global(block.shape[1])
+        sums = torch.stack([xf.sum((0, 1)), (xf * xf).sum((0, 1))])
+        if self.chain_shard is not None:
+            sums = self.chain_shard.sum(sums)
+        out.statistics.update_moments_from_sums(sums[0], sums[1], n)
         out.running_samples.add(block)
 
     def _account_outer_iters(self, out, n_outer, n_chains, inner_n, acc, jump_acc):
@@ -467,7 +501,8 @@ class JumpNFMC(Sampler):
         j_x, j_x2 = jump_acc.moment_sums()
         host = torch.cat([acc.host_counts(), jump_acc.n_accepted.to(torch.float64).reshape(1),
                           (a_x + j_x).reshape(-1).to(torch.float64),
-                          (a_x2 + j_x2).reshape(-1).to(torch.float64)]).cpu().numpy()
+                          (a_x2 + j_x2).reshape(-1).to(torch.float64)])
+        host = acc.reduced(host, self.chain_shard).cpu().numpy()
         n_acc, n_div, n_jump = int(host[0]), int(host[1]), int(host[6])
         dyn_calls, dyn_grads = acc.dynamic_counts(host)
         sum_x, sum_x2 = np.split(host[7:], 2)
@@ -490,6 +525,8 @@ class JumpNFMC(Sampler):
 
 
 class JumpMALA(JumpNFMC):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,

@@ -131,6 +131,8 @@ class NeuTra(Sampler):
         # the user's warmup_fit_kwargs win over show_progress and the limit
         fit_kwargs = {"time_limit_seconds": fit_limit, "show_progress": show_progress,
                       "seed": seed_fit, **self.params.warmup_fit_kwargs}
+        if self.chain_shard is not None:
+            fit_kwargs["mesh"] = self.chain_shard.mesh  # each rank on its slice of the draws
         self.kernel.flow.to(self.device).variational_fit(lambda v: -self.target(v), **fit_kwargs)
         elapsed = time.time() - t0
         inner_limit = (time_limit_seconds - elapsed) if time_limit_seconds is not None else None
@@ -163,6 +165,8 @@ class NeuTra(Sampler):
 
 
 class NeuTraHMC(NeuTra):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, inner_kernel: Optional[HMCKernel] = None,
                  inner_params: Optional[HMCParameters] = None, kernel=None, params=None,
                  device=None):

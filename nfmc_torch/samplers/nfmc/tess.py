@@ -138,12 +138,19 @@ def make_tess_step(flow, potential, event_shape: Tuple[int, ...], max_iterations
     return tess_init, tess_step, tess_draws
 
 
+# the chain axis of each of tess_draws' tensors after the leading dims: the
+# shrink uniforms hold the bracket's iterations first
+TESS_DRAW_AXES = (0, 0, 0, 1)
+
+
 def _info(accepted, u_new):
     return StepInfo(n_accepted=accepted.sum().to(torch.int32),
                     diverged=(~torch.isfinite(u_new).all()).to(torch.int32))
 
 
 class TESS(Sampler):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[TESSKernel] = None, params: Optional[TESSParameters] = None,
                  device=None):
@@ -168,9 +175,10 @@ class TESS(Sampler):
         return (self.params.max_ess_step_iterations + 1) * n_chains
 
     def _hoist_per_iter(self, x) -> int:
-        """f32 elements of one iteration's draws: z, w, theta0 and the
-        shrink uniforms, which outweigh z when the event is small."""
-        n = x.shape[0]
+        """f32 elements of one iteration's draws (over the global chains):
+        z, w, theta0 and the shrink uniforms, which outweigh z when the
+        event is small."""
+        n = self._n_global(x.shape[0])
         return n * (event_size_of(self.event_shape) + 2 + self.params.max_ess_step_iterations)
 
     def warmup(self, x0, show_progress: bool = True, time_limit_seconds=None,
@@ -179,10 +187,11 @@ class TESS(Sampler):
         draws, from ``u ~ N(0, I)``; ``x0`` gives only the number of chains."""
         generator = self._generator(generator, seed)
         self.kernel.flow.to(self.device)
-        n_chains = x0.shape[0]
+        n_chains = self._n_global(x0.shape[0])
         fit_cfg = fixed_effort_fit_config(self.params.flow_fit_kwargs)
         t0 = time.time()
-        u0 = torch.randn((n_chains, *self.event_shape), generator=generator, device=self.device)
+        u0 = self._chain_rows(torch.randn((n_chains, *self.event_shape), generator=generator,
+                                          device=self.device), 0)
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         out.statistics.update_elapsed_time(time.time() - t0)
@@ -195,34 +204,46 @@ class TESS(Sampler):
 
     def _warmup_host(self, u, out, generator, show_progress, time_limit_seconds):
         flow = self.kernel.flow
-        n_chains = u.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(u.shape[0])
+
+        def every(v):  # all the chains of v
+            return v if shard is None else shard.gather(v, 0)
+
         tess_init, tess_step, tess_draws = self._make_tess_step()
         stats = out.statistics
         bar = Progress(total=self.params.n_warmup_iterations, desc="[Warmup] TESS",
                        disable=not show_progress)
         for _ in range(self.params.n_warmup_iterations):
-            if time_limit_seconds is not None and stats.elapsed_time_seconds >= time_limit_seconds:
-                break
+            if time_limit_seconds is not None:
+                over = stats.elapsed_time_seconds >= time_limit_seconds
+                if shard.any(over) if shard is not None else over:
+                    break
             t0 = time.time()
             seed_split, seed_fit = self._sub_seeds(generator, 2)
-            draws = tuple(d[0] for d in tess_draws(generator, (1,), n_chains))
+            draws = tess_draws(generator, (1,), n_chains)
+            draws = tuple(self._chain_rows(d, 1 + a)[0] for d, a in zip(draws, TESS_DRAW_AXES))
             with torch.no_grad():
                 # the flow is refitted every iteration, so lp and x are re-derived
                 lp_u, x_u = tess_init(flow.params, u)
                 x, u, _lp, accepted = tess_step(flow.params, u, lp_u, x_u, draws)
             # the warmup stores latent draws, as the reference does
             out.running_samples.add(u)
-            stats.expectations.update(u)
+            u_all = every(u)
+            stats.expectations.update(u_all)
+            n_acc = accepted.sum()
             stats.update_counters(n_target_calls=self._calls_per_iter(n_chains),
-                                  n_accepted_trajectories=int(accepted.sum()),
+                                  n_accepted_trajectories=int(n_acc if shard is None
+                                                              else shard.sum(n_acc)),
                                   n_attempted_trajectories=n_chains,
-                                  n_divergences=int(not bool(torch.isfinite(u).all())))
+                                  n_divergences=int(not bool(torch.isfinite(u_all).all())))
             x_train, x_val = train_val_split(
-                x[None], train_pct=self.params.train_pct,
+                every(x)[None], train_pct=self.params.train_pct,
                 max_train_size=self.params.max_train_size,
                 max_val_size=self.params.max_val_size, seed=seed_split)
             try:
-                flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit)
+                flow.fit(x_train, x_val=x_val, **self.params.flow_fit_kwargs, seed=seed_fit,
+                         mesh=None if shard is None else shard.mesh)
             except ValueError:
                 pass
             stats.update_elapsed_time(time.time() - t0)
@@ -233,7 +254,8 @@ class TESS(Sampler):
         """The step and the refit as one iteration of the chunked driver,
         the latent ``u`` its position and the flow's weights its state."""
         flow = self.kernel.flow
-        n_chains = u0.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(u0.shape[0])
         n_epochs, lr, batch_size, keep_best_weights, shuffle = fit_cfg
         tess_init, tess_step, tess_draws = self._make_tess_step()
         scan_fit = make_scan_fit(flow, n_chains, n_epochs=n_epochs, lr=lr, batch_size=batch_size,
@@ -248,19 +270,22 @@ class TESS(Sampler):
             def step(u, params, draws):
                 lp_u, x_u = tess_init(params, u)
                 x, u_new, _lp, accepted = tess_step(params, u, lp_u, x_u, draws)
-                params = scan_fit(params, x, fit_generator)
+                # every rank refits on all the chains, to the same weights
+                params = scan_fit(params, x if shard is None else shard.gather(x, 0),
+                                  fit_generator)
                 return u_new, params, _info(accepted, u_new)
 
             return step
 
         driver = ChunkedDriver(self.event_shape, make_step, tess_draws,
-                               hoist_per_iter=self._hoist_per_iter)
+                               hoist_per_iter=self._hoist_per_iter,
+                               draw_chain_axes=TESS_DRAW_AXES)
         _u, params = driver.run(
             u0, flow.params, generator, self.params.n_warmup_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self._calls_per_iter(n_chains),
             grads_per_iter=0, collect=self.params.store_samples,
             time_limit_seconds=time_limit_seconds, show_progress=show_progress,
-            desc="[Warmup] TESS")
+            desc="[Warmup] TESS", shard=shard)
         flow.params = params
 
     def sample_continue(self, x, **kwargs) -> MCMCOutput:
@@ -278,7 +303,7 @@ class TESS(Sampler):
         generator = self._generator(generator, seed)
         flow = self.kernel.flow.to(self.device)
         u0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
-        n_chains = u0.shape[0]
+        n_chains = self._n_global(u0.shape[0])
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
         tess_init, tess_step, tess_draws = self._make_tess_step()
@@ -294,7 +319,8 @@ class TESS(Sampler):
             return step
 
         driver = ChunkedDriver(self.event_shape, make_step, tess_draws,
-                               hoist_per_iter=self._hoist_per_iter)
+                               hoist_per_iter=self._hoist_per_iter,
+                               draw_chain_axes=TESS_DRAW_AXES)
         t0 = time.time()
         with torch.no_grad():
             lp0, x0_data = tess_init(flow.params, u0)
@@ -303,6 +329,6 @@ class TESS(Sampler):
                    stats=out.statistics, samples=out.running_samples,
                    calls_per_iter=self._calls_per_iter(n_chains), grads_per_iter=0,
                    collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
-                   show_progress=show_progress, desc="TESS sampling")
+                   show_progress=show_progress, desc="TESS sampling", shard=self.chain_shard)
         out.kernel = self.kernel
         return out

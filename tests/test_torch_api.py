@@ -150,7 +150,8 @@ def test_every_ported_strategy_runs_on_the_cpu(strategy):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
+    # a mesh must be a torch.distributed DeviceMesh (nfmc_torch.parallel)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nfmc_torch.Flow(nfmc_torch.RealNVP((3,)), seed=0).fit(np.zeros((4, 3), np.float32),
                                                               mesh=object())
     with pytest.raises(ValueError, match="Unsupported sampling strategy"):

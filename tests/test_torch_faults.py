@@ -180,8 +180,9 @@ _JAX_KW = ("mesh", "checkpoint_path", "checkpoint_segment_iterations",
 def test_sample_takes_the_jax_keywords():
     """``sample()`` takes every keyword of the JAX front door with its
     default; the port runs with those defaults (both packages do), and a
-    ``mesh`` other than None raises naming ROADMAP 1.8 (the checkpoint
-    keywords are ported: ``tests/test_torch_checkpoint.py``)."""
+    ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError`` (sharded runs:
+    ``tests/test_torch_parallel.py``; the checkpoint keywords:
+    ``tests/test_torch_checkpoint.py``)."""
     jsig = inspect.signature(nfmc_tpu.sample).parameters
     tsig = inspect.signature(nfmc_torch.sample).parameters
     for name, param in jsig.items():
@@ -192,7 +193,7 @@ def test_sample_takes_the_jax_keywords():
     out = nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4, n_iterations=3,
                             device="cpu", show_progress=False, seed=0, **defaults)
     assert tuple(out.samples.shape) == tuple(np.shape(jout.samples)) == (3, 4, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         nfmc_torch.sample(StandardGaussian((3,)), strategy="mala", n_chains=4, n_iterations=3,
                           device="cpu", show_progress=False, mesh=object())
 
@@ -281,3 +282,67 @@ def test_flow_sample_and_to_take_the_jax_signatures(monkeypatch):
     for name in ("get_supported_samplers", "get_supported_mcmc_samplers",
                  "get_supported_nfmc_samplers"):
         assert getattr(nfmc_torch, name)() == getattr(nfmc_tpu, name)()
+
+
+# ---- 3.10: bijection.layers on every flow ---------------------------------------
+
+LAYER_CASES = [("realnvp", (6,)), ("nice", (6,)), ("c-rqnsf", (6,)), ("c-naf-deep", (6,)),
+               ("maf", (6,)), ("ia-naf-dense", (6,)), ("planar", (6,)), ("sylvester", (6,)),
+               ("i-resnet", (6,)), ("ffjord", (6,)), ("ddb", (6,)), ("ms-realnvp", (8, 8)),
+               ("glow-nice", (8, 8)), ("conv-i-resnet", (8, 8)), ("conv-ffjord", (8, 8))]
+
+
+@pytest.mark.parametrize("name,shape", LAYER_CASES, ids=[n for n, _ in LAYER_CASES])
+def test_bijection_layers_match_jax(name, shape):
+    """``bijection.layers`` (torchflows parity) has JAX's length for a name
+    of each family, and through ``Inverse``."""
+    import nfmc_torch
+    import nfmc_tpu
+    from nfmc_torch.flows import Inverse
+    from nfmc_tpu.flows import Inverse as JInverse
+
+    jb = nfmc_tpu.create_flow_object(name, shape).bijection
+    tb = nfmc_torch.create_flow_object(name, shape).bijection
+    assert len(tb.layers) == len(jb.layers) > 0
+    assert len(Inverse(tb).layers) == len(JInverse(jb).layers)
+
+
+def test_bijection_layers_through_sample():
+    """``tests/test_flow_kwargs.py``'s check in the port: the flow string's
+    ``n_layers`` reaches ``out.kernel.flow.bijection.layers``."""
+    import nfmc_torch
+    import nfmc_tpu
+
+    def n_layers(flow):
+        out = nfmc_torch.sample(StandardGaussian((20,)), flow=flow, strategy="imh",
+                                n_iterations=2, n_chains=4, device="cpu", seed=0,
+                                show_progress=False)
+        return len(out.kernel.flow.bijection.layers)
+
+    basic, advanced = n_layers("realnvp"), n_layers('realnvp%{"n_layers": 10}')
+    assert advanced == 10 > basic
+    assert basic == len(nfmc_tpu.create_flow_object("realnvp", (20,)).bijection.layers)
+
+
+# ---- 3.11: the lazily loaded submodules -------------------------------------------
+
+
+def test_lazy_submodules_match_jax():
+    """``nfmc_torch.parallel``, ``.profiling`` and ``.validation`` load on
+    access, as ``nfmc_tpu``'s, are listed by ``dir()``, and start no
+    process group; an unknown name still raises ``AttributeError``."""
+    import importlib
+
+    import torch.distributed as dist
+
+    import nfmc_torch
+    import nfmc_tpu
+
+    running = dist.is_initialized()
+    for name in ("parallel", "profiling", "validation"):
+        assert name in dir(nfmc_torch) and name in dir(nfmc_tpu)
+        assert getattr(nfmc_torch, name) is importlib.import_module("nfmc_torch." + name)
+    assert dist.is_initialized() == running
+    assert callable(nfmc_torch.parallel.chain_mesh) and callable(nfmc_torch.profiling.trace)
+    with pytest.raises(AttributeError):
+        nfmc_torch.no_such_module

@@ -191,7 +191,7 @@ def test_variational_fit_stops_on_persistent_divergence_and_mesh_raises():
     assert len(calls) == 256
     after = [t for p in f.params for v in p.values() for t in v]
     assert all(torch.equal(a, b) for a, b in zip(before, after))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         f.variational_fit(_neg_u, mesh=object())
 
 

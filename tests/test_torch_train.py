@@ -159,5 +159,5 @@ def test_divergent_fit_raises_value_error():
     f = Flow(RealNVP((3,), n_layers=2, hidden_size=16), seed=0)
     with pytest.raises(ValueError, match="diverged"):
         f.fit(np.full((64, 3), 1e30, dtype=np.float32), n_epochs=5, check_for_divergences=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         f.fit(_data(8)[:, :3], mesh=object())
