@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the last line:
      hoisted chunks B=100, 400, ..., 102,400 and, at the chunk cap,
      B=313,500;
      variational_fit's B=128 and AdaptiveIMH's refit batch B=64; jump_hmc's
-     and DLMC's B=1024, DLMC's refit validation B=308 and TESS's B=30), the
+     and DLMC's B=1024, DLMC's refit validation B=308 and TESS's B=30;
+     jump_hmc's hoisted B=51,200 and the misfit's B=12,800), the
      flow fit's (B=256 training batches, B=3000 validation, and B=512) and a
      ragged odd shape (d=7, B=37): max |diff| <= 1e-4, with timings (CUDA
      events around the wrapper, and the kernel's own device time from
@@ -40,7 +41,7 @@ Phases, in order; any failure exits non-zero before the last line:
      reshuffle of warmup draws into x0; jump acceptance in [0.010, 0.035],
      MALA acceptance in [0.55, 0.72], the counter and launch laws; ms per
      Adam step (the fit's wall over its steps);
-  5c. fit_nf=True at 20 outer iterations, on the fixed-effort route and on
+  5c. fit_nf=True at 10 outer iterations, on the fixed-effort route and on
      the host route: the interleaving law, the counters, a trained flow;
   6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50];
   7. the spline forward kernel (RQS and LRS, both directions) vs its plain
@@ -67,8 +68,9 @@ Phases, in order; any failure exits non-zero before the last line:
      acceptance, the fitted flow's training NLL below the identity's (it is
      above it on the validation rows: the fit overfits), jump acceptance
      <= 0.01;
-  8b. a frozen identity-init spline flow against N(0.12 * 1, I): jump
-     acceptance in [0.30, 0.50], one forward launch per jump;
+  8b. a frozen identity-init spline flow against N(0.12 * 1, I), 250
+     outer iterations: jump acceptance in [0.30, 0.50], one forward launch
+     per jump;
   8c. self-target: a frozen perturbed spline flow is the proposal and the
      target (U = -log q): jump acceptance >= 0.99, MALA acceptance in
      SELF_MALA_ACC, backward launches = the sampler's gradient passes;
@@ -125,14 +127,14 @@ Phases, in order; any failure exits non-zero before the last line:
      latent space): acceptance >= 0.99, the latent medians over the dims of
      |mean| and |var - 1| within bounds from the JAX package's CPU runs, the
      launch law (both directions of the kernel and of its VJP at B=100);
-  11c. tess (bench.py:641-643): 100 chains, the identity-init flow, 2000
+  11c. tess (bench.py:641-643): 100 chains, the identity-init flow, 1000
      iterations: acceptance exactly 1 (the flow's base is the target), the
      counters ((5 + 1) B target calls), moments, the launch law, ESS/s; then
      20 warmup iterations with fixed-effort refits (10 epochs): counters,
      launches, finite refit weights that moved;
   11d. jump_hmc (bench.py:682-722): 1024 chains, 5 inner HMC iterations,
-     100 outer iterations: the interleaving law, counters, moments, one
-     hoisted chunk of 102,400 proposals and one forward at B=1024 a jump;
+     50 outer iterations: the interleaving law, counters, moments, one
+     hoisted chunk of 51,200 proposals and one forward at B=1024 a jump;
      leapfrog gradients/s and outer it/s;
   11e. dlmc (bench.py:726-743): 1024 chains, DLMC_ITERS iterations with
      fixed-effort refits (10 epochs of 11 Adam steps at B=64): the counter
@@ -277,10 +279,31 @@ Phases, in order; any failure exits non-zero before the last line:
      bit-identical to the run without the mesh (draws, counters, moments,
      launch counts), and Flow.fit(mesh=mesh) (4096 rows, 3 epochs) ends at
      the same weights as Flow.fit; the group is destroyed after.
+  19. chains and particles sharded over several ranks: 19a each strategy
+     declared for several ranks after phase 18 (ula, uhmc, mh, nuts, ess,
+     adaptive_imh, neutra_mh, neutra_chees and the eight other jump_*)
+     through sample(..., mesh=chain_mesh()) on a one-rank NCCL group and
+     without it, at full width (nuts and jump_hmc at 1024 chains) with
+     warmup=True and the depth cut, bit for bit (draws, moments, counters,
+     adapted state, launch counts); AFT and PMC at phase 17's sizes (depth
+     cut) with their particles drawn sharded on that mesh, bit for bit;
+     19b two processes on the one card (spawned before phase 17, they set
+     themselves up beside phases 17-19a and wait for a go), each a rank of
+     a gloo group whose collectives run on the host
+     (chain_mesh(device_type="cpu")): nuts (each
+     rank breaks its own trees), adaptive_imh (each refit through the VJP
+     kernel on every rank's chains, gathered), jump_hmc with fit_nf=True
+     (its refits likewise) and AFT (resampling across the ranks), held
+     against the same runs unsharded on
+     the card: draws and means to 1e-5 with equal counters, AFT's log Z to
+     1e-3 with its fits off and within 0.75 with them on; each rank's wall,
+     collective time and launches by shape; a rank that fails or hangs
+     fails the script; then every RealNVP shape the phase launched that
+     phases 3, 3b and 17 did not hold, against the plain version.
 Each path's launch counts are set to 0 just before it and read just after;
 every shape the IMH path (10-10c) and the paths of phases 11-13, 16 and 18b launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and phase
-17's one it holds itself; each has its own row in the kernels' line.
+17's and 19's ones they hold themselves; each has its own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
 around its wrapper's call at the main path's shape, host included, as in every
 earlier run; "device_ms" its kernels' device time a launch from torch.profiler,
@@ -334,6 +357,9 @@ REPLACES = {"fwd": "nfmc_tpu/ops/experimental_spline_pallas.py:308",
 # tests/test_pallas.py:175-180); on an H100 this kernel measured at most
 # 3.14e-5 (PERF.md).
 SPLINE_BWD_TOL = 2e-4
+# 8b's misfit runs, in outer iterations (500 until phase 19 joined the
+# script: the gate is analytic)
+SPLINE_MISFIT_OUTER = 250
 # Self-target (phase 8c): weights perturbed SELF_PERTURB from the identity,
 # and the MALA acceptance band around the JAX package's on the same numpy
 # weights (scripts/warmup_reference_cpu.py --self-target).
@@ -403,11 +429,15 @@ NEUTRA_SELF_ITERS, NEUTRA_SELF_STEP = 50, 0.05
 # over the dims of the latent draws the median of |mean| 0.013958-0.020125
 # and of |var - 1| 0.014772-0.022049; the bounds are 1.5 times the highest
 NEUTRA_SELF_MOMENTS = (0.030188, 0.033074)
-# 11c: tess at bench.py:641-643, then 20 warmup iterations with
+# 11c: tess at bench.py:641-643, TESS_ITERS iterations (2000 until phase 19
+# joined the script: its gates are analytic), then 20 warmup iterations with
 # fixed-effort refits
-TESS_ITERS, TESS_FIT_KWARGS = 2000, {"n_epochs": 10, "lr": 5e-3}
-# 11d: jump_hmc at bench.py:682-722: 1024 chains, 5 inner HMC iterations
-JUMP_HMC_C, JUMP_HMC_OUTER, JUMP_HMC_INNER = 1024, 100, 5
+TESS_ITERS, TESS_FIT_KWARGS = 1000, {"n_epochs": 10, "lr": 5e-3}
+# 11d: jump_hmc at bench.py:682-722: 1024 chains, 5 inner HMC iterations;
+# JUMP_HMC_OUTER outer iterations (100 until phase 19 joined the script: its
+# gates are analytic, and its hoisted inverse at B = 51,200 a shape phase 3
+# holds)
+JUMP_HMC_C, JUMP_HMC_OUTER, JUMP_HMC_INNER = 1024, 50, 5
 # 11e: dlmc at bench.py:726-743, 1024 chains, cut from 200 iterations to
 # DLMC_ITERS (100, then 50 until the script's wall with phase 17): each
 # iteration refits the flow with 110
@@ -612,8 +642,9 @@ ZOO_CPU_WORKERS = 3
 # of 1, 4 and 16 iterations) at 100 chains; 14c: IMH with the reverse-KL
 # warmup through IAF on DiagonalGaussian1(100), 1000 iterations; 14d:
 # jump_mala with the identity-init NICE frozen, ZOO_NICE_OUTER outer
-# iterations (500 until the script's wall with phase 17), on N(0.12 * 1, I)
-ZOO_SELF_ITERS, ZOO_IAF_ITERS, ZOO_NICE_OUTER = 21, 1000, 200
+# iterations (500 until the script's wall with phase 17, 200 until phase 19's:
+# its gate is analytic), on N(0.12 * 1, I)
+ZOO_SELF_ITERS, ZOO_IAF_ITERS, ZOO_NICE_OUTER = 21, 1000, 100
 # the masked NAF flows' slow direction (ma-naf-* inverse, ia-naf-* forward)
 # is d sequential bisections of 66 steps, 1.5e5-3.1e5 eager operations a
 # call at d = 100 and 2 layers (scripts/flow_zoo_reference_cpu.py --ops):
@@ -805,9 +836,10 @@ RNODE_MOMENTS = {"median|var/sigma^2 - 1|": (0.4403, 1.33875),
 CKPT_OUTER, CKPT_SEG = 100, 20
 # the headline's untimed warm run (phase 5), in outer iterations; phase 6's
 # misfit run (500 until the script's wall reached its limit on a slow host
-# with phase 17: its gate is analytic, and its hoisted inverse at B = 25,600
-# is a shape phase 3 holds)
-HEADLINE_WARM, MISFIT_OUTER = 64, 256
+# with phase 17, 256 until phase 19's: its gate is analytic, and its hoisted
+# inverse at B = 12,800 a shape phase 3 holds); phase 10a's IMH misfit run
+# (2000 until phase 19's: its gate is analytic)
+HEADLINE_WARM, MISFIT_OUTER, IMH_MISFIT_ITERS = 64, 128, 1000
 # Phase 17: the transport layer and FAB at bench.py's transport_logz sizes
 # (bench.py:1724-1848, the easy target): prior N(0, I) in TR_D dims, target
 # N(2 * 1, 0.25 I), log Z = TR_D log 0.5 relative to the prior; RealNVP
@@ -1558,7 +1590,8 @@ def run_spline_phases(dev, g) -> dict:
         mis = nfmc_torch.sample(
             DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)), strategy="jump_mala",
             flow=Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS), seed=0),
-            n_chains=C, n_iterations=500, inner_param_kwargs={"n_iterations": INNER_N},
+            n_chains=C, n_iterations=SPLINE_MISFIT_OUTER,
+            inner_param_kwargs={"n_iterations": INNER_N},
             param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
         nl_ = {w.__name__: w.launches for w in build.WRAPPERS}
         jacc = mis.statistics.jump_acceptance_rate
@@ -1566,7 +1599,8 @@ def run_spline_phases(dev, g) -> dict:
               f"0.3929), MALA acc {mis.statistics.acceptance_rate:.4f}, launches {nl_}, wall "
               f"{time.perf_counter() - t0:.3f} s")
         check(0.30 <= jacc <= 0.50, f"spline misfit jump acceptance {jacc} outside [0.30, 0.50]")
-        check(nl_[f"fused_{kind}_forward"] == 500, "spline misfit: one forward launch per jump")
+        check(nl_[f"fused_{kind}_forward"] == SPLINE_MISFIT_OUTER,
+              "spline misfit: one forward launch per jump")
         check(nl_[f"fused_{kind}_inverse"] == 1, "spline misfit: proposals not in one launch")
 
     # ---- 8c. self-target: the flow is the proposal and the target ---------------------
@@ -1903,9 +1937,10 @@ def run_imh_phases(dev) -> dict:
     # ---- 10a. misfit ----------------------------------------------------------------
     mu = 0.12
     t0 = time.perf_counter()
-    mis = frozen_imh(DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)), 2000)
+    mis = frozen_imh(DiagonalGaussian(np.full(D, mu, np.float32), np.float32(1.0)),
+                     IMH_MISFIT_ITERS)
     acc = mis.statistics.acceptance_rate
-    print(f"IMH misfit N({mu}*1, I), 2000 it: acc {acc:.4f} (analytic 2 Phi(-|mu|/sqrt 2) = "
+    print(f"IMH misfit N({mu}*1, I), {IMH_MISFIT_ITERS} it: acc {acc:.4f} (analytic 2 Phi(-|mu|/sqrt 2) = "
           f"0.396), max|mean - mu| {np.abs(mis.mean - mu).max():.4f}, wall "
           f"{time.perf_counter() - t0:.3f} s")
     check(0.30 <= acc <= 0.50, f"IMH misfit acceptance {acc} outside [0.30, 0.50]")
@@ -4167,8 +4202,8 @@ def transport_card_vs_cpu(dev) -> None:
     print(f"17a: {time.perf_counter() - t0:.1f} s")
 
 
-def check_transport_shapes(dev, shapes) -> dict:
-    """Each RealNVP shape phase 17 launched, the forward kernel and the VJP
+def check_transport_shapes(dev, shapes, label="phase 17") -> dict:
+    """Each RealNVP shape ``label`` launched, the forward kernel and the VJP
     against their plain versions (to TOL * max(1, max|ref|); the VJP twice,
     bit-identical), with timings and bounds: {shape key: (ms, device ms,
     plain ms, bound ms, bound by, error)}."""
@@ -4212,8 +4247,8 @@ def check_transport_shapes(dev, shapes) -> dict:
         print(f"  {what}: relative max|diff| {e:.3e} (scale {scale:.2f})"
               + ("" if kernel == "stack" else f", bit-identical rerun {same}")
               + f", kernel {k_txt}, plain {p_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-        check(e <= TOL, f"phase 17 {what}: the kernel disagrees with its plain version")
-        check(same, f"phase 17 {what}: two launches gave different gradients")
+        check(e <= TOL, f"{label} {what}: the kernel disagrees with its plain version")
+        check(same, f"{label} {what}: two launches gave different gradients")
     return out
 
 
@@ -4476,6 +4511,460 @@ def run_parallel_phases(dev) -> dict:
     return res
 
 
+# phase 19: the strategies declared for several ranks after phase 18's, each
+# through the front door at full width (d = 100, 100 chains, NUTS and
+# jump_hmc at 1024 as phases 11d-12, RealNVP 4 x 128) with its depth cut:
+# warmup=True with SHARD_WARM tuning iterations (the jump samplers' inner
+# ones, then the flow's MLE fit of SHARD_FIT_EPOCHS epochs; NeuTra's and
+# adaptive_imh's reverse-KL fits SHARD_FIT_EPOCHS epochs), then SHARD_ITERS
+# iterations (the jump samplers SHARD_OUTER outer iterations of SHARD_INNER
+# inner steps; adaptive_imh its 100, the reference ignores n_iterations);
+# AFT and PMC at phase 17's sizes cut to SHARD_AFT_STEPS annealing steps and
+# SHARD_PMC_LEVELS levels; 19b's AdaptiveIMH SHARD_IMH_ITERS iterations
+SHARD_WARM, SHARD_ITERS, SHARD_OUTER, SHARD_INNER, SHARD_FIT_EPOCHS = 5, 5, 3, 2, 2
+SHARD_AFT_STEPS, SHARD_PMC_LEVELS, SHARD_IMH_ITERS = 3, 4, 20
+SHARD_STRATEGIES = ("ula", "uhmc", "mh", "nuts", "ess", "adaptive_imh", "neutra_mh",
+                    "neutra_chees", "jump_ula", "jump_hmc", "jump_uhmc", "jump_mh", "jump_ess",
+                    "jump_nuts", "jump_chees", "jump_aies")
+# 19b: two gloo ranks, each its own process on the one card; the spawn's
+# time limit, and a collective's
+SHARD_RANKS, SHARD_TIMEOUT_S, SHARD_GLOO_TIMEOUT_S = 2, 300, 120
+SHARD_TOL, SHARD_AFT_LOGZ_TOL, SHARD_AFT_FIT_LOGZ_TOL = 1e-5, 1e-3, 0.75
+
+
+def shard_run(strategy: str, dev, mesh=None):
+    """19a's (and 19b's jump_hmc's) front-door run of ``strategy`` on
+    ``dev``, with ``mesh`` when given."""
+    import nfmc_torch
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.potentials import StandardGaussian
+
+    target = StandardGaussian((D,))
+    kw = dict(n_chains=NUTS_C if strategy in ("nuts", "jump_hmc") else C,
+              n_iterations=SHARD_ITERS, n_warmup_iterations=SHARD_WARM, warmup=True, seed=19,
+              device=dev, show_progress=False, mesh=mesh, param_kwargs={})
+    if strategy in ("ess", "jump_ess"):
+        kw["negative_log_likelihood"] = target
+    inner = strategy.startswith(("jump_", "neutra_"))
+    kernel_kw = kw["inner_kernel_kwargs" if inner else "kernel_kwargs"] = {}
+    if strategy in ("mh", "jump_mh", "neutra_mh"):  # the scale is the inverse mass (11a)
+        kernel_kw["inv_mass_diag"] = np.full(D, NEUTRA_MH_SCALE, np.float32)
+    if strategy in ("nuts", "jump_nuts"):  # phase 12's tuned step: trees of depth ~3
+        kernel_kw["step_size"] = NUTS_STEP_JAX_MID
+    if strategy.startswith(("jump_", "neutra_")) or strategy == "adaptive_imh":
+        kw["flow"] = Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+    if strategy.startswith("jump_"):
+        kw.update(n_iterations=SHARD_OUTER,
+                  inner_param_kwargs={"n_iterations": SHARD_INNER,
+                                      "n_warmup_iterations": SHARD_WARM})
+        kw["param_kwargs"]["flow_fit_kwargs"] = {"n_epochs": SHARD_FIT_EPOCHS}
+    elif inner or strategy == "adaptive_imh":
+        kw["param_kwargs"]["warmup_fit_kwargs"] = {"n_epochs": SHARD_FIT_EPOCHS,
+                                                   "n_samples": 128, "lr": 5e-3}
+    return nfmc_torch.sample(target, strategy=strategy, **kw)
+
+
+def kernel_state(kernel) -> dict:
+    """What a run adapted, on the host: the kernel's tuned scalars and
+    arrays, and its flow's weights."""
+    state = {k: np.asarray(getattr(kernel, k)) for k in
+             ("step_size", "inv_mass_diag", "a", "cov", "trajectory_length")
+             if getattr(kernel, k, None) is not None}
+    if getattr(kernel, "flow", None) is not None:
+        state["flow"] = flat_leaves(kernel.flow.params)
+    return state
+
+
+def flat_leaves(params) -> np.ndarray:
+    """Any flow's weights as one host vector."""
+    from nfmc_torch.utils import tree_leaves
+
+    return np.concatenate([t.detach().reshape(-1).cpu().numpy() for t in tree_leaves(params)])
+
+
+def run_summary(out, **extra) -> dict:
+    """A run's draws, moments, counters and adapted state, on the host."""
+    st = out.statistics
+    return {"samples": out.samples.cpu().numpy(), "mean": np.asarray(out.mean, np.float64),
+            "second": np.asarray(out.second_moment, np.float64),
+            "counters": {k: v for k, v in vars(st).items() if isinstance(v, int)},
+            "state": kernel_state(out.kernel), **extra}
+
+
+def shard_transport(method: str, dev, mesh=None, n_train_epochs=None) -> dict:
+    """AFT or PMC at phase 17's sizes (depth cut, module constants), the
+    particles of each group drawn sharded over ``mesh`` when given."""
+    import nfmc_torch
+    from nfmc_torch.parallel import shard_chains
+    from nfmc_torch.transport import AnnealedFlowTransport, PreconditionedMonteCarlo
+
+    prior, target = transport_targets(TR_D)
+    flow = nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=0).to(dev)
+
+    def prior_sample(batch_shape, generator=None):
+        x = prior.sample(batch_shape, generator=generator)
+        return x if mesh is None else shard_chains(x, mesh)
+
+    if method == "aft":
+        a = TR_AFT
+        epochs = a["n_train_epochs"] if n_train_epochs is None else n_train_epochs
+        out = AnnealedFlowTransport(prior, target, flow, n_steps=SHARD_AFT_STEPS,
+                                    n_train_epochs=epochs).run(
+            prior_sample, n_particles=a["n_particles"], n_train_particles=a["n_train_particles"],
+            n_val_particles=a["n_val_particles"], full_output=True, seed=0)
+    else:
+        p = TR_PMC
+        out = PreconditionedMonteCarlo(prior, target, flow, n_train_epochs=p["n_train_epochs"],
+                                       n_mcmc_steps=p["n_mcmc_steps"],
+                                       max_levels=SHARD_PMC_LEVELS).run(
+            prior_sample, n_particles=p["n_particles"], full_output=True, seed=0)
+    return {"log_Z": float(out["log_Z"]), "particles": np.asarray(out["particles"]),
+            "history": np.asarray(out["history"]), "flow": flat_leaves(flow.params)}
+
+
+def b19_nuts(mesh, dev) -> dict:
+    """19b: NUTS at 1024 chains and the JAX-tuned step, sampling: each rank
+    builds its own chains' trees and breaks on them."""
+    from nfmc_torch.parallel import sharded_sample
+    from nfmc_torch.potentials import StandardGaussian
+    from nfmc_torch.samplers.mcmc import NUTS
+    from nfmc_torch.samplers.mcmc.nuts import NUTSKernel
+
+    s = NUTS((D,), StandardGaussian((D,)), NUTSKernel(event_size=D, step_size=NUTS_STEP_JAX_MID),
+             device=dev)
+    s.params.n_iterations = SHARD_ITERS
+    x0 = torch.randn((NUTS_C, D), generator=torch.Generator(device=dev).manual_seed(19),
+                     device=dev)
+    out = (s.sample(x0, seed=19, show_progress=False) if mesh is None
+           else sharded_sample(s, x0, mesh=mesh, seed=19, show_progress=False))
+    return run_summary(out, depths=np.asarray(s.tree_depths(), np.float64))
+
+
+def b19_adaptive_imh(mesh, dev) -> dict:
+    """19b: AdaptiveIMH on the misfit target, each refit through the
+    coupling VJP kernel on the stored batch of every rank's chains,
+    gathered."""
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.parallel import sharded_sample
+    from nfmc_torch.potentials import DiagonalGaussian
+    from nfmc_torch.samplers.nfmc import AdaptiveIMH, IMHKernel
+
+    s = AdaptiveIMH((D,), DiagonalGaussian(np.full(D, 0.12, np.float32), np.float32(1.0)),
+                    IMHKernel((D,), flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)),
+                    device=dev)
+    s.params.n_iterations = SHARD_IMH_ITERS
+    x0 = torch.randn((C, D), generator=torch.Generator(device=dev).manual_seed(19), device=dev)
+    out = (s.sample(x0, seed=19, show_progress=False) if mesh is None
+           else sharded_sample(s, x0, mesh=mesh, seed=19, show_progress=False))
+    return run_summary(out)
+
+
+def b19_jump_hmc(mesh, dev):
+    """19b: jump_hmc at 1024 chains through the front door with fit_nf=True:
+    from the first jump on, each refits the flow (SHARD_FIT_EPOCHS epochs,
+    fixed effort) on the inner draws of every rank's chains, gathered, each
+    rank on all of them."""
+    import nfmc_torch
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.potentials import StandardGaussian
+
+    return nfmc_torch.sample(
+        StandardGaussian((D,)), strategy="jump_hmc",
+        flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0), n_chains=JUMP_HMC_C,
+        n_iterations=SHARD_OUTER, inner_param_kwargs={"n_iterations": SHARD_INNER},
+        param_kwargs={"fit_nf": True, "n_jumps_before_training": 1,
+                      "flow_fit_kwargs": {"n_epochs": SHARD_FIT_EPOCHS}},
+        seed=19, device=dev, show_progress=False, mesh=mesh)
+
+
+B19_SCENARIOS = {
+    "nuts": b19_nuts,
+    "adaptive_imh": b19_adaptive_imh,
+    "jump_hmc": lambda mesh, dev: run_summary(b19_jump_hmc(mesh, dev)),
+    "aft": lambda mesh, dev: shard_transport("aft", dev, mesh, n_train_epochs=0),
+    "aft_fit": lambda mesh, dev: shard_transport("aft", dev, mesh),
+}
+
+
+def rank19b(rank: int, world: int, workdir: str) -> None:
+    """19b: one of ``world`` ranks, a process of its own on the one card: it
+    joins a gloo group (a FileStore in ``workdir``), runs each of
+    B19_SCENARIOS on CUDA with ``chain_mesh(device_type="cpu")`` carrying
+    the collectives on the host, and writes ``rank<r>.pkl`` with each run's
+    results, wall, RealNVP launches by shape and the time and number of its
+    collectives (``ChainShard``'s sum, max, gather and seed broadcast, the
+    copies to the host and back included). It sets itself up, writes
+    ``ready<r>`` (when it entered this function and when it was set up),
+    then waits for a file ``go`` in ``workdir`` before the first run. A
+    failure raises: the process exits non-zero."""
+    import os
+    import pickle
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from nfmc_torch.core.chains import ChainShard
+    from nfmc_torch.ops import build
+    from nfmc_torch.parallel import chain_mesh, shard_chains
+
+    t_entry = time.time()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    build.library("coupling")  # the libraries the parent built
+    # CUDA's libraries start before the first timed run
+    torch.linalg.cholesky(torch.eye(4, device=dev) @ torch.eye(4, device=dev))
+    torch.randn(4, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    spent = [0.0, 0]
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return run
+
+    for name in ("sum", "max", "gather", "agree_seed"):
+        setattr(ChainShard, name, timed(getattr(ChainShard, name)))
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=SHARD_GLOO_TIMEOUT_S))
+    try:
+        mesh = chain_mesh(device_type="cpu")
+        shard_chains(torch.zeros((world, 1), device=dev), mesh)  # DTensor's first use
+        ChainShard(mesh).gather(torch.zeros(1, device=dev))
+        with open(os.path.join(workdir, f"ready{rank}"), "w") as f:
+            f.write(f"{t_entry} {time.time()}")
+        # the parent says go once its own runs are done, so the ranks' walls
+        # are theirs alone
+        go, deadline = os.path.join(workdir, "go"), time.time() + 3 * SHARD_TIMEOUT_S
+        while not os.path.exists(go):
+            if time.time() > deadline:
+                raise TimeoutError(f"rank {rank}: no go within {SHARD_TIMEOUT_S} s")
+            time.sleep(0.05)
+        results = {}
+        for name, fn in B19_SCENARIOS.items():
+            dist.barrier()
+            spent[:] = [0.0, 0]
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with RealNVPLaunches() as rec:
+                out = fn(mesh, dev)
+                torch.cuda.synchronize()
+            out.update(wall=time.perf_counter() - t0, coll_s=spent[0], coll_n=spent[1],
+                       shapes=dict(rec.n),
+                       launches={w.__name__: w.launches for w in build.WRAPPERS if w.launches})
+            results[name] = out
+        path = os.path.join(workdir, f"rank{rank}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(results, f)
+        os.replace(path + ".tmp", path)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks19b():
+    """Spawn 19b's SHARD_RANKS ranks (``rank19b``) early, so that they set
+    themselves up (imports, CUDA, the kernels' libraries, the gloo group)
+    beside the phases before 19; daemons, so that they end with the script
+    on any failure. Returns ``(processes, workdir, spawn time)``."""
+    import atexit
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="nfmc-19b-")
+    atexit.register(shutil.rmtree, workdir, True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank19b, args=(r, SHARD_RANKS, workdir), daemon=True)
+             for r in range(SHARD_RANKS)]
+    t_spawn = time.time()
+    for p in procs:
+        p.start()
+    return procs, workdir, t_spawn
+
+
+def run_sharded_phases(dev, known, ranks19b) -> dict:
+    """Phase 19: 19a each strategy declared for several ranks after phase
+    18's through ``sample(..., mesh=chain_mesh())`` (a one-rank NCCL group)
+    and without it, bit for bit (draws, moments, counters, adapted state,
+    launch counts), and AFT and PMC with their particles drawn sharded on
+    that mesh; 19b two gloo ranks, each a process on the one card, running
+    B19_SCENARIOS against the same runs unsharded on the card in this
+    process (draws and means to SHARD_TOL with equal counters; AFT's log Z
+    with the fits off to SHARD_AFT_LOGZ_TOL, with them on finite and within
+    SHARD_AFT_FIT_LOGZ_TOL; the ranks are ``start_ranks19b()``'s); then
+    every RealNVP shape the phase launched that ``known`` (a phase 3, 3b or
+    17 shape: timing) lacks, against the plain version."""
+    import os
+    import pickle
+    import shutil
+
+    import torch.distributed as dist
+
+    from nfmc_torch.core.chains import ChainShard
+    from nfmc_torch.ops import build
+    from nfmc_torch.parallel import chain_mesh
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"shapes": {}, "walls": {}}
+
+    def counts():
+        return {w.__name__: w.launches for w in build.WRAPPERS if w.launches}
+
+    def measured(label, run):
+        """``run()``'s result, launches and wall; its launches by shape kept
+        under ``label`` (None: not kept)."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with RealNVPLaunches() as rec:
+            out = run()
+            torch.cuda.synchronize()
+        if label is not None:
+            res["shapes"][label] = rec.n
+        return out, counts(), time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    procs, workdir, t_spawn = ranks19b
+    try:
+        # ---- 19a. one rank: a one-rank NCCL mesh against no mesh ----------------------
+        check(not dist.is_initialized(), "19a: a process group is already running")
+        mesh = chain_mesh()
+        try:
+            # NCCL sets each collective up at its first call: do that here
+            warm = ChainShard(mesh)
+            warm.sum(torch.zeros(1, device=dev))
+            warm.gather(torch.zeros(1, device=dev))
+            warm.agree_seed(0)
+            for strategy in SHARD_STRATEGIES:
+                # the launches are kept once: the two runs' must be equal
+                runs = {label: measured(m and f"19a {strategy}",
+                                        lambda m=m: run_summary(shard_run(strategy, dev, m)))
+                        for label, m in (("plain", None), ("mesh", mesh))}
+                (a, la, wa), (b, lb, wb) = runs["plain"], runs["mesh"]
+                res["walls"][strategy] = (wa, wb)
+                ok = la == lb and all(same(a[k], b[k]) for k in a)
+                print(f"19a {strategy}: without a mesh {wa:.3f} s, with the one-rank NCCL mesh "
+                      f"{wb:.3f} s; draws {a['samples'].shape}, acc "
+                      f"{a['counters']['n_accepted_trajectories']} of "
+                      f"{a['counters']['n_attempted_trajectories']}, bit-identical {ok} (draws, "
+                      f"moments, counters, adapted {sorted(a['state'])}); launches {lb}")
+                check(ok, f"19a {strategy}: the one-rank mesh run differs from the run without it")
+                check(np.isfinite(a["samples"]).all(), f"19a {strategy}: non-finite draws")
+                check(strategy in ("ula", "uhmc", "mh", "nuts", "ess")
+                      or la.get("fused_realnvp_vjp", 0) > 0,
+                      f"19a {strategy}: the flow's fit never went through the VJP kernel: {la}")
+            for method in ("aft", "pmc"):
+                runs = {label: measured(m and f"19a {method}",
+                                        lambda m=m: shard_transport(method, dev, m))
+                        for label, m in (("plain", None), ("mesh", mesh))}
+                (a, la, wa), (b, lb, wb) = runs["plain"], runs["mesh"]
+                res["walls"][method] = (wa, wb)
+                ok = la == lb and all(same(a[k], b[k]) for k in a)
+                print(f"19a {method} (d={TR_D}, phase 17's particles): without a mesh {wa:.3f} s, "
+                      f"with it {wb:.3f} s; log Z {a['log_Z']:.6f}, bit-identical {ok} (log Z, "
+                      f"particles, history, flow); launches {lb}")
+                check(ok, f"19a {method}: particles sharded on the one-rank mesh differ")
+        finally:
+            dist.destroy_process_group()
+        lap_19a = time.perf_counter() - t_phase
+
+        # ---- 19b. two gloo ranks on the one card --------------------------------------
+        # the unsharded runs on the card first, then the ranks alone
+        t0 = time.perf_counter()
+        refs = {}
+        for name, fn in B19_SCENARIOS.items():
+            refs[name], la, wa = measured(f"19b {name} unsharded", lambda fn=fn: fn(None, dev))
+            refs[name].update(wall=wa, launches=la)
+        t_go, go_at = time.perf_counter(), time.time() - t_spawn
+        open(os.path.join(workdir, "go"), "w").close()
+        for p in procs:
+            p.join(timeout=max(0.0, t_go + SHARD_TIMEOUT_S - time.perf_counter()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"19b: ranks {hung} did not finish within {SHARD_TIMEOUT_S} s")
+        check(all(p.exitcode == 0 for p in procs),
+              f"19b: the ranks exited with {[p.exitcode for p in procs]}")
+        ranks, ready = [], []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(workdir, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+            with open(os.path.join(workdir, f"ready{r}")) as f:
+                ready.append([float(v) - t_spawn for v in f.read().split()])
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(workdir, ignore_errors=True)
+    wall_19b = time.perf_counter() - t0
+    for name in B19_SCENARIOS:
+        want, got = refs[name], ranks[0][name]
+        check(all(same(got[k], rk[name][k]) for rk in ranks[1:]
+                  for k in got if k not in ("wall", "coll_s", "coll_n", "shapes", "launches")),
+              f"19b {name}: the ranks' gathered results differ")
+        for r, rk in enumerate(ranks):
+            res["shapes"][f"19b {name} rank {r}"] = collections.Counter(rk[name]["shapes"])
+            print(f"19b {name} rank {r}: wall {rk[name]['wall']:.3f} s, collectives "
+                  f"{rk[name]['coll_n']} taking {rk[name]['coll_s']:.3f} s (gloo on the host, "
+                  f"copies included); launches {rk[name]['launches']}; by shape "
+                  + ", ".join(f"{k[0]} {k[1][:3]} d={k[2]} B={k[5]}: {v}"
+                              for k, v in sorted(rk[name]["shapes"].items())))
+        res["walls"][f"19b {name}"] = (want["wall"], max(rk[name]["wall"] for rk in ranks),
+                                       max(rk[name]["coll_s"] for rk in ranks))
+        if name.startswith("aft"):
+            dz = abs(got["log_Z"] - want["log_Z"])
+            dp = float(np.abs(got["particles"] - want["particles"]).max())
+            print(f"19b {name}: log Z {got['log_Z']:.6f} on {SHARD_RANKS} ranks, "
+                  f"{want['log_Z']:.6f} unsharded ({want['wall']:.3f} s), |diff| {dz:.3e}; "
+                  f"particles max|diff| {dp:.3e}")
+            check(np.isfinite(got["log_Z"]) and np.isfinite(want["log_Z"]),
+                  f"19b {name}: a log Z is not finite")
+            check(dz < (SHARD_AFT_LOGZ_TOL if name == "aft" else SHARD_AFT_FIT_LOGZ_TOL),
+                  f"19b {name}: log Z {got['log_Z']} on two ranks, {want['log_Z']} on one")
+            continue
+        e_draws = float(np.abs(got["samples"] - want["samples"]).max())
+        e_mean = float(np.abs(got["mean"] - want["mean"]).max())
+        print(f"19b {name}: draws {got['samples'].shape} max|diff| {e_draws:.3e}, means "
+              f"max|diff| {e_mean:.3e}, counters equal {got['counters'] == want['counters']}"
+              + (f", tree depths {got['depths']} vs {want['depths']}" if "depths" in got else "")
+              + f"; unsharded {want['wall']:.3f} s, launches {want['launches']}")
+        check(got["samples"].shape == want["samples"].shape and e_draws <= SHARD_TOL
+              and e_mean <= SHARD_TOL, f"19b {name}: the two ranks' draws differ from one's")
+        check(got["counters"] == want["counters"], f"19b {name}: the counters differ")
+        check("depths" not in got or same(got["depths"], want["depths"]),
+              f"19b {name}: the tree depths differ")
+    check(ranks[0]["adaptive_imh"]["launches"].get("fused_realnvp_vjp", 0) > 0,
+          "19b adaptive_imh: the refits never went through the VJP kernel")
+    print(f"19a: {lap_19a:.1f} s; 19b: {wall_19b:.1f} s, of which the unsharded runs "
+          f"{t_go - t0:.1f} s and the ranks' {wall_19b - t_go + t0:.1f} s; the ranks set up "
+          + ", ".join(f"rank {r} at {b:.1f} s after the spawn (its imports {a:.1f} s)"
+                      for r, (a, b) in enumerate(ready))
+          + f", the go at {go_at:.1f} s ({smi})")
+
+    # ---- every RealNVP shape the phase launched, against the plain version --------------
+    launched = collections.Counter()
+    for shapes in res["shapes"].values():
+        launched.update(shapes)
+    new = {k: v for k, v in launched.items() if k not in known}
+    print(f"phase 19 kernels at the {len(new)} shapes of its {len(launched)} that phases 3, 3b "
+          "and 17 did not hold:")
+    res["timing"] = {**{k: known[k] for k in launched if k in known},
+                     **check_transport_shapes(dev, new, label="phase 19")}
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 19: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -4542,7 +5031,8 @@ def main() -> None:
                              (D, H, L, 256), (D, H, L, 512), (D, H, L, 3000), (7, 16, 3, 37),
                              (D, H, L, DLMC_C), (D, H, L, DLMC_C - int(0.7 * DLMC_C)),
                              (D, H, L, C - int(0.7 * C)), (D, H, L, CKPT_SEG * C),
-                             (D, H, L, MESH_OUTER * C)]:
+                             (D, H, L, MESH_OUTER * C), (D, H, L, JUMP_HMC_OUTER * JUMP_HMC_C),
+                             (D, H, L, MISFIT_OUTER * C)]:
         params = perturbed_params(d, hid, nl, seed=d + rows, device=dev)
         packed = ops.pack_weights(params)
         x = torch.randn((rows, d), generator=g, device=dev)
@@ -4761,7 +5251,9 @@ def main() -> None:
     # ---- 5c. fit_nf=True, both routes -----------------------------------------
     from nfmc_torch.flows.train import _adaptive_batch_size
 
-    nf_outer, n_before = 20, 2
+    # 10 outer iterations (20 until phase 19 joined the script: its gates
+    # are counts)
+    nf_outer, n_before = 10, 2
     n_fits, rows = nf_outer - n_before, INNER_N * C
     n_train = int(rows * 0.7)
     bs = _adaptive_batch_size(n_train)
@@ -4830,10 +5322,17 @@ def main() -> None:
     lap("phase 15")
     ckpt16 = run_checkpoint_phases(dev)
     lap("phase 16")
+    ranks19b = start_ranks19b()
     tr17 = run_transport_phases(dev)
     lap("phase 17")
     par18 = run_parallel_phases(dev)
     lap("phase 18")
+    known = {**{("stack", "inverse" if inv else "forward", D, H, L, rows): t
+                for (d_, rows, inv), t in timing.items() if d_ == D},
+             **{("vjp", "inverse" if inv else "forward", D, H, L, rows): t
+                for (rows, inv), t in bwd_timing.items()}, **tr17["timing"]}
+    par19 = run_sharded_phases(dev, known, ranks19b)
+    lap("phase 19")
 
     kernels = []
 
@@ -4887,17 +5386,18 @@ def main() -> None:
                           *last13["shapes"].items(), *ckpt16["shapes"].items(),
                           *par18["shapes"].items()):
         path_rows(label, shapes)
-    # phase 17's paths: each method's launches at each shape (d, H, L, B)
-    for label, shapes in tr17["shapes"].items():
-        for key, n in sorted(shapes.items()):
-            kernel, direction, d_, hid, nl, rows = key
-            tag = f"{label}, d={d_}, H={hid}, L={nl}, B={rows}"
-            if kernel == "stack":
-                name_, src, tpu = f"fused_realnvp_{direction} ({tag})", fwd_src, fwd_tpu
-            else:
-                name_, src, tpu = f"fused_realnvp_vjp ({direction}, {tag})", bwd_src, bwd_tpu
-            t = tr17["timing"][key]
-            kernel_row(name_, src, tpu, n, t[5], t)
+    # phase 17's and 19's paths: each path's launches at each shape (d, H, L, B)
+    for res_ in (tr17, par19):
+        for label, shapes in res_["shapes"].items():
+            for key, n in sorted(shapes.items()):
+                kernel, direction, d_, hid, nl, rows = key
+                tag = f"{label}, d={d_}, H={hid}, L={nl}, B={rows}"
+                if kernel == "stack":
+                    name_, src, tpu = f"fused_realnvp_{direction} ({tag})", fwd_src, fwd_tpu
+                else:
+                    name_, src, tpu = f"fused_realnvp_vjp ({direction}, {tag})", bwd_src, bwd_tpu
+                t = res_["timing"][key]
+                kernel_row(name_, src, tpu, n, t[5], t)
     for kind in SPLINE_FLOWS:
         for inverse, rows in ((False, C), (True, 500 * C)):
             k_ms, k_dev, p_ms, bound_ms, bound_by, e = spline["fwd_timing"][(kind, rows, inverse)]
@@ -4959,6 +5459,12 @@ def main() -> None:
         f"{m} log Z {tr17['suite'][m][0]:.4f} in {tr17['walls'][m]:.2f} s" for m in TR_METHODS)
         + f"; snf {tr17['walls']['snf']:.2f} s, ns {tr17['walls']['ns']:.2f} s "
           f"({smi.stdout.strip().splitlines()[0]})")
+    print(f"phase 19: {par19['wall']:.1f} s; 19a without / with the one-rank mesh " + ", ".join(
+        f"{k} {v[0]:.2f} / {v[1]:.2f} s" for k, v in par19["walls"].items()
+        if not k.startswith("19b")) + "; 19b unsharded / slowest rank (its collectives) "
+        + ", ".join(f"{k[4:]} {v[0]:.2f} / {v[1]:.2f} s ({v[2]:.2f} s)"
+                    for k, v in par19["walls"].items() if k.startswith("19b"))
+        + f" ({smi.stdout.strip().splitlines()[0]})")
     print("walls by phase: " + ", ".join(f"{what} {s_:.1f} s" for what, s_ in laps))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -278,8 +278,9 @@ def sample(
     axis end to end: every rank of the job makes this call, runs its block
     of chains through the warmup and the sampling, and gets the output with
     all the chains (:mod:`nfmc_torch.parallel`). ``n_chains`` must divide by
-    that axis's size. On more than one rank only the strategies listed in
-    ``nfmc_torch.parallel`` run; the others raise ``NotImplementedError``.
+    that axis's size. Every strategy runs on any number of ranks; a sampler
+    subclass runs on more than one only if it declares
+    ``multi_rank_chains`` itself.
 
     ``checkpoint_path`` runs the sampling phase as checkpointed segments
     (:func:`nfmc_torch.checkpoint.sample_resumable`,

@@ -130,6 +130,33 @@ def chain_var(v: torch.Tensor, shard: Optional[ChainShard] = None) -> torch.Tens
     return chain_mean((v - m) ** 2, shard)
 
 
+def chain_logsumexp(v: torch.Tensor, shard: Optional[ChainShard] = None) -> torch.Tensor:
+    """``logsumexp`` over the (global) axis 0 of ``v``. On one rank it is
+    ``torch.logsumexp(v, 0)``; across ranks in two passes: the maximum over
+    the ranks, then the sum over them of the exponentials below it."""
+    if shard is None or shard.size == 1:
+        return torch.logsumexp(v, 0)
+    m = shard.max(v.max(0).values)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # all -inf: log 0 below
+    return torch.log(shard.sum(torch.exp(v - m).sum(0))) + m
+
+
+def chain_softmax(log_w: torch.Tensor, shard: Optional[ChainShard] = None) -> torch.Tensor:
+    """The normalised weights ``softmax(log_w)`` over the (global) axis 0,
+    this rank's rows of them (``torch.softmax`` on one rank)."""
+    if shard is None or shard.size == 1:
+        return torch.softmax(log_w, 0)
+    return torch.exp(log_w - chain_logsumexp(log_w, shard))
+
+
+def refuse_sharded(what: str, *values) -> None:
+    """Raise for a DTensor among ``values``: ``what`` does not shard its
+    particles yet."""
+    if any(is_sharded(v) for v in values):
+        raise NotImplementedError(f"{what}: particles sharded over a mesh are not supported yet "
+                                  "(ROADMAP 1.8d)")
+
+
 def support_multi_rank(sampler) -> bool:
     """True iff the sampler's own class and those of its nested samplers
     each declare ``multi_rank_chains`` (a subclass must declare it again)."""

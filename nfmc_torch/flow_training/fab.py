@@ -25,12 +25,13 @@ from typing import Optional
 
 import torch
 
+from ..core.chains import refuse_sharded
 from ..core.rng import resolve_generator
 from ..flows.train import _AdamW, _finite_update, _flatten
 from ..ops.coupling import unpack_like
 from ..transport.ais import anneal_chain
 from ..transport.common import categorical, gumbel, make_mala_sweep, tempered
-from ..utils import Progress, resolve_device
+from ..utils import Progress, resolve_device, tree_leaves
 
 
 class FAB:
@@ -185,6 +186,7 @@ class FAB:
                 f"n_ais_particles ({n_ais_particles}) exceeds buffer_size "
                 f"({self.buffer_size}); one AIS round would overwrite its own rows"
             )
+        refuse_sharded("FAB", *tree_leaves(self.flow.params))
         device = self.flow.get_device()
         g = resolve_generator(device, generator, seed)
         like = self.flow.params

@@ -134,6 +134,11 @@ class MCMCSampler(Sampler):
         """Called after the run and the kernel's sync (PT folds its swap
         counters into the output's statistics)."""
 
+    def _finish_run(self) -> None:
+        """Called once at the end of every run of this sampler's steps
+        (its own or a jump sampler's), inside the call that bound its
+        chain shard: NUTS reduces its tree depths over the ranks here."""
+
     def _stash_final_carry(self, mstate) -> None:
         """Keeps what a continuation starts from of the run's final carried
         state: nothing here; PT keeps its hot rungs."""
@@ -238,6 +243,7 @@ class MCMCSampler(Sampler):
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
             show_progress=show_progress, desc=desc, shard=self.chain_shard,
         )
+        self._finish_run()
         self.kernel.sync_from_state(self._extract_mstate(mstate))
         self._stash_final_carry(mstate)
         out.kernel = self.kernel

@@ -87,9 +87,10 @@ class AIES(MCMCSampler):
 
     Sharded over several ranks, each rank moves its walkers and the halves
     meet through two all_gathers an iteration (the partner pool, then the
-    updated half 0); the draws stay whole, indexed by global walker. Each
-    rank's block must lie in one half (an even number of ranks, e.g.): a
-    block across both is not tested yet (ROADMAP 1.8d)."""
+    updated half 0); the draws stay whole, indexed by global walker. A
+    rank's block may lie across both halves (an odd number of ranks): its
+    rows of half 0 move first, against all of half 1, then its rows of
+    half 1 against the updated half 0."""
 
     multi_rank_chains = True
     draw_chain_axes = (None, None, None, None)
@@ -131,10 +132,6 @@ class AIES(MCMCSampler):
                 f"AIES needs n_chains >= 4 (two non-degenerate ensemble "
                 f"halves); got {n_chains}"
             )
-        if n_chains != x0.shape[0] and (n_chains // 2) % x0.shape[0]:
-            raise NotImplementedError(
-                f"AIES with blocks of {x0.shape[0]} of {n_chains} walkers: a rank's block across "
-                "both halves is not supported yet (ROADMAP 1.8d); use an even number of ranks")
         return (astate, self.target(x0))
 
     def _make_step_aux(self, tuning: bool):
@@ -173,7 +170,7 @@ class AIES(MCMCSampler):
             z_u, idx0, idx1, log_u = draws
             c0, n_local = idx0.shape[0], x.shape[0]
             lo = shard.rank * n_local
-            k = n_local if lo < c0 else 0  # this rank's walkers in half 0 (all or none)
+            k = min(max(c0 - lo, 0), n_local)  # this rank's walkers in half 0
             g0, g1 = slice(lo, lo + k), slice(lo + k, lo + n_local)
             pool = shard.gather(x, 0)[c0:]
             x0h, u0h, m0, d0 = local_move(x[:k], u[:k], pool[idx0[g0]], z_u[g0], log_u[g0], a)

@@ -132,6 +132,9 @@ def elliptical_slice_sampling_step(f: torch.Tensor, negative_log_likelihood: Cal
 
 
 class ESS(MCMCSampler):
+    multi_rank_chains = True
+    draw_chain_axes = (0, 0, 0, 1)  # the shrink uniforms hold the shrink steps first
+
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[ESSKernel] = None, params: Optional[ESSParameters] = None,
                  device=None):
@@ -168,9 +171,8 @@ class ESS(MCMCSampler):
     def hoisted_elements_per_iter(self, x) -> int:
         # z (C d) + u (C) + theta0 (C) + shrink (max_iter C): for small d the
         # shrink uniforms dominate
-        n_chains = int(x.shape[0])
-        d = x.numel() // max(n_chains, 1)
-        return n_chains * (d + 2 + int(self.params.max_ess_step_iterations))
+        d = x.numel() // max(int(x.shape[0]), 1)
+        return self._n_global(int(x.shape[0])) * (d + 2 + int(self.params.max_ess_step_iterations))
 
     def _make_step_aux(self, tuning: bool):
         """The carried-likelihood step: ``(x, (mstate, nll(x)), draws)``."""
@@ -209,6 +211,11 @@ class ESS(MCMCSampler):
             *prefix, n_chains, *self.event_shape)
         return torch.randn(shape, generator=generator, device=generator.device)
 
+    def _redraw_x0(self, generator: torch.Generator, x0: torch.Tensor) -> torch.Tensor:
+        """A prior draw for the (global) chains, this rank's rows of it."""
+        z = self.resample_x0_draws(generator, (), self._n_global(x0.shape[0]))
+        return self.resample_x0_fn(self._chain_rows(z, 0), x0)
+
     def resample_x0_fn(self, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """A prior draw ``N(0, cov)`` from the raw normals ``z``, shaped as
         ``x``."""
@@ -223,7 +230,7 @@ class ESS(MCMCSampler):
         shape and device are kept)."""
         generator = self._generator(generator, seed)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
-        x0 = self.resample_x0_fn(self.resample_x0_draws(generator, (), x0.shape[0]), x0)
+        x0 = self._redraw_x0(generator, x0)
         return super().sample(x0, show_progress=show_progress,
                               time_limit_seconds=time_limit_seconds, generator=generator)
 
@@ -234,7 +241,7 @@ class ESS(MCMCSampler):
         stream as ``sample``."""
         generator = self._generator(generator, seed)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
-        self.resample_x0_draws(generator, (), x0.shape[0])
+        self.resample_x0_draws(generator, (), self._n_global(x0.shape[0]))
         return super().sample(x0, show_progress=show_progress,
                               time_limit_seconds=time_limit_seconds, generator=generator)
 
@@ -305,11 +312,15 @@ class ESS(MCMCSampler):
         """The adaptation's covariance: dense (shrunk toward its diagonal)
         from the stored warmup draws' second half when
         ``params.dense_ellipse``, else the streaming per-dimension
-        variance."""
+        variance. Sharded, every rank adapts to the draws of all the chains
+        (gathered) and to the variance the flushes summed over the ranks."""
         if self.params.dense_ellipse:
             ok = out.samples is not None
             if ok:
-                draws = np.asarray(out.samples.cpu(), dtype=np.float64)  # (K, C, *event)
+                draws = out.samples
+                if self.chain_shard is not None:
+                    draws = self.chain_shard.gather(draws, axis=1)
+                draws = np.asarray(draws.cpu(), dtype=np.float64)  # (K, C, *event)
                 flat = draws.reshape(-1, int(np.prod(draws.shape[2:])))
                 flat = flat[flat.shape[0] // 2:]
                 n, d = flat.shape

@@ -162,6 +162,8 @@ class HMC(MCMCSampler):
 
 
 class UHMC(HMC):
+    multi_rank_chains = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.params.adjustment = False

@@ -156,6 +156,8 @@ class MALA(Langevin):
 
 
 class ULA(Langevin):
+    multi_rank_chains = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.params.adjustment = False

@@ -40,6 +40,8 @@ class MHParameters(MetropolisParameters):
 
 
 class MH(MCMCSampler):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel: Optional[MHKernel] = None,
                  params: Optional[MHParameters] = None, device=None):
         if kernel is None:
@@ -122,6 +124,8 @@ class MH(MCMCSampler):
 
 
 class RandomWalk(MH):
+    multi_rank_chains = True
+
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.params.adjustment = False

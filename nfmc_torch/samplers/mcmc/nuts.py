@@ -42,7 +42,15 @@ class NUTSParameters(MetropolisParameters):
 class NUTS(MCMCSampler):
     """Multi-chain NUTS. ``tree_depths()`` gives the mean and the maximum
     tree depth over the chains and the steps this sampler took (summed on
-    the device, read once)."""
+    the device, read once; with chains sharded over several ranks, summed
+    and maximised over them at the end of each run, so every rank reports
+    the global figures).
+
+    Sharded, each rank builds its own chains' trees: the host's breaks
+    (no chain running) are the rank's, and a rank that stops early leaves
+    its finished chains as the masked updates of the unsharded run would."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel: Optional[NUTSKernel] = None,
                  params: Optional[NUTSParameters] = None, device=None):
@@ -51,8 +59,10 @@ class NUTS(MCMCSampler):
         if params is None:
             params = NUTSParameters()
         super().__init__(event_shape, target, kernel, params, device=device)
-        # (sum and max of the tree depths on the device, trajectories counted)
+        # (sum and max of the tree depths on the device, trajectories
+        # counted): over every run so far, and the running one's on this rank
         self._depths = None
+        self._run_depths = None
 
     @property
     def name(self):
@@ -68,8 +78,8 @@ class NUTS(MCMCSampler):
         return draws
 
     def hoisted_elements_per_iter(self, x) -> int:
-        # momenta, two uniforms a doubling and one a leaf, per chain
-        n_chains = int(x.shape[0])
+        # momenta, two uniforms a doubling and one a leaf, per (global) chain
+        n_chains = self._n_global(int(x.shape[0]))
         max_depth = self.kernel.max_tree_depth
         return n_chains * (self.kernel.event_size + 2 * max_depth + (1 << max_depth) - 1)
 
@@ -84,11 +94,8 @@ class NUTS(MCMCSampler):
                 x, mstate.step_size, mstate.inv_mass_diag, draws)
             if tuning:
                 mstate = update_kernel(mstate, x_new, accept_stat)
-            d_sum, d_max = depth.sum(), depth.max()
-            if self._depths is not None:
-                d_sum, d_max = d_sum + self._depths[0], torch.maximum(d_max, self._depths[1])
-            self._depths = (d_sum, d_max, self._depths[2] + x.shape[0] if self._depths else
-                            x.shape[0])
+            self._run_depths = _fold_depths(self._run_depths, (depth.sum(), depth.max(),
+                                                               x.shape[0]))
             total = n_leapfrog.sum() + x.shape[0]
             info = StepInfo(n_accepted=moved.sum().to(torch.int32),
                             diverged=diverged.any().to(torch.int32),
@@ -97,9 +104,22 @@ class NUTS(MCMCSampler):
 
         return step
 
+    def _finish_run(self) -> None:
+        """Fold the run's depths into the total, summed (the depths and the
+        trajectories) and maximised over the ranks of the chain shard."""
+        run, self._run_depths = self._run_depths, None
+        if run is None:
+            return
+        shard = self.chain_shard
+        if shard is not None and shard.size > 1:
+            run = (shard.sum(run[0]), shard.max(run[1]), shard.n_global(run[2]))
+        self._depths = _fold_depths(self._depths, run)
+
     def tree_depths(self):
         """``(mean, max)`` tree depth over the chains and steps taken, or
         None before any step."""
+        if self.chain_shard is None:
+            self._finish_run()  # steps taken outside a run (unsharded)
         if self._depths is None:
             return None
         d_sum, d_max, n = self._depths
@@ -110,3 +130,11 @@ class NUTS(MCMCSampler):
 
     def grads_per_iter(self, n_chains: int) -> int:
         return 0
+
+
+def _fold_depths(total, part):
+    """``(depth sum, depth max, trajectories)`` of ``total`` and ``part``
+    together (``total`` None: ``part``)."""
+    if total is None:
+        return part
+    return total[0] + part[0], torch.maximum(total[1], part[1]), total[2] + part[2]

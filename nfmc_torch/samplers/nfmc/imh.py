@@ -247,6 +247,16 @@ class FixedIMH(AbstractIMH):
 
 
 class AdaptiveIMH(AbstractIMH):
+    """Sharded over several ranks, each rank keeps its chains' history; a
+    refit gathers the stored batch of all the chains and every rank trains
+    on all of it with the same generator, so the weights are the unsharded
+    run's bit for bit. (Not data-parallel: a refit is one fresh Adam step,
+    ``lr * g / (|g| + eps)``, so a gradient component that the ranks' sum
+    order puts on the other side of 0 would move its weight by ``2 lr``,
+    and the runs would part.) The schedule's numpy stream is seeded from
+    the run's generator, the same on every rank."""
+
+    multi_rank_chains = True
     # footprint cap (f32 elements) of the fused path's draw history on the
     # device; its own knob, so that the proposal limit cannot switch paths
     history_element_limit: int = RNG_HOIST_ELEMENT_LIMIT
@@ -317,7 +327,7 @@ class AdaptiveIMH(AbstractIMH):
         generator = self._generator(generator, seed)
         self.params.store_samples = True
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device).clone()
-        n_chains = x0.shape[0]
+        n_chains = self._n_global(x0.shape[0])
         n_total = self.params.n_iterations
         offset = int(getattr(self, "_continue_offset", 0))
         self.kernel.flow.to(self.device)
@@ -339,7 +349,8 @@ class AdaptiveIMH(AbstractIMH):
                          on_device=self.params.store_samples_on_device)
         flow = self.kernel.flow
         accept_step = self._make_accept_step()
-        n_chains = x0.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(x0.shape[0])
 
         t0 = time.time()
         x = x0
@@ -351,28 +362,35 @@ class AdaptiveIMH(AbstractIMH):
         completed = 0
         bar = Progress(total=self.params.n_iterations, desc=self.name, disable=not show_progress)
         for i in range(self.params.n_iterations):
-            if (time_limit_seconds is not None
-                    and out.statistics.elapsed_time_seconds >= time_limit_seconds):
-                break
+            if time_limit_seconds is not None:
+                over = out.statistics.elapsed_time_seconds >= time_limit_seconds
+                if shard.any(over) if shard is not None else over:
+                    break
             completed = i + 1
             t0 = time.time()
-            draws = tuple(d[0] for d in self.make_draws(generator, (1,), n_chains))
+            draws = tuple(self._chain_rows(d[0], 0)
+                          for d in self.make_draws(generator, (1,), n_chains))
             with torch.no_grad():
                 x, flp_x, u_x, mask, diverged = accept_step(flow.params, x, flp_x, u_x, draws)
+            n_acc, x_all = mask.sum(), x
+            if shard is not None:
+                n_acc, diverged, x_all = shard.sum(n_acc), shard.max(diverged), shard.gather(x, 0)
             out.statistics.update_counters(
                 # reference parity: the accept step's target evaluations are
                 # counted as gradient calls (``imh.py:146``)
                 n_target_gradient_calls=2 * n_chains,
-                n_accepted_trajectories=int(mask.sum()),
+                n_accepted_trajectories=int(n_acc),
                 n_attempted_trajectories=n_chains,
                 n_divergences=int(diverged),
             )
-            out.statistics.expectations.update(x)
+            out.statistics.expectations.update(x_all)
             out.running_samples.add(x)
 
             if rng.uniform() < self.params.adaptation_dropoff ** (offset + i):
                 k = self._train_index(rng, out.running_samples.n_samples)
                 x_train = out.running_samples[k]
+                if shard is not None:
+                    x_train = shard.gather(x_train, 0)
                 flow_weights = flow.state_dict()
                 try:
                     flow.fit(x_train, n_epochs=1, show_progress=False, generator=fit_generator)
@@ -397,7 +415,7 @@ class AdaptiveIMH(AbstractIMH):
                     "u": self.target(x0),
                     "hist": torch.zeros((n_total, *x0.shape), dtype=torch.float32,
                                         device=x0.device),
-                    "acc": StatsAccum.zeros(self.event_shape, x0.device)}
+                    "acc": StatsAccum.zeros(self.event_shape, x0.device, self.chain_shard)}
 
     def run_fused_chunk(self, st: dict, i0: int, draws, do_fit, k_idx, scan_fit,
                         fit_generator) -> dict:
@@ -408,6 +426,7 @@ class AdaptiveIMH(AbstractIMH):
         row ``k_idx`` and rescores the current state."""
         flow = self.kernel.flow
         accept_step = self._make_accept_step()
+        shard = self.chain_shard
         params, x, flp, u, hist, acc = (st[k] for k in ("params", "x", "flp", "u", "hist", "acc"))
         with torch.no_grad():
             for j in range(len(do_fit)):
@@ -415,7 +434,9 @@ class AdaptiveIMH(AbstractIMH):
                                                         tuple(d[j] for d in draws))
                 hist[i0 + j].copy_(x)
                 if do_fit[j]:
-                    params = scan_fit(params, hist[int(k_idx[j])], fit_generator)
+                    data = hist[int(k_idx[j])]
+                    params = scan_fit(params, data if shard is None else shard.gather(data, 0),
+                                      fit_generator)
                     flp = flow.log_prob_fn(params, x)
                 acc = acc.add(StepInfo(n_accepted=mask.sum().to(torch.int32), diverged=diverged),
                               x)
@@ -427,7 +448,8 @@ class AdaptiveIMH(AbstractIMH):
         host in the host loop's order, and the refit ``make_scan_fit``
         (1 epoch, a fresh Adam, rollback on a non-finite loss)."""
         flow = self.kernel.flow
-        n_chains = x0.shape[0]
+        shard = self.chain_shard
+        n_chains = self._n_global(x0.shape[0])
         n_total = self.params.n_iterations
         out = MCMCOutput(self.event_shape, store_samples=True,
                          on_device=self.params.store_samples_on_device)
@@ -439,16 +461,17 @@ class AdaptiveIMH(AbstractIMH):
 
         def dispatch(chunk, iters_done):
             do_fit, k_idx = self._adaptation_schedule(rng, iters_done, chunk, offset=offset)
-            draws = self.make_draws(generator, (chunk,), n_chains)
+            draws = tuple(self._chain_rows(d, 1)
+                          for d in self.make_draws(generator, (chunk,), n_chains))
             st.update(self.run_fused_chunk(st, iters_done, draws, do_fit, k_idx, scan_fit,
                                            fit_generator))
 
         def flush(iters):
             acc = st["acc"]
             sum_x, sum_x2 = acc.moment_sums()
-            counts = torch.stack([acc.n_accepted, acc.n_divergences]).to(torch.float64)
-            host = torch.cat([counts, sum_x.reshape(-1).to(torch.float64),
-                              sum_x2.reshape(-1).to(torch.float64)]).cpu().numpy()
+            host = torch.cat([acc.host_counts(), sum_x.reshape(-1).to(torch.float64),
+                              sum_x2.reshape(-1).to(torch.float64)])
+            host = acc.reduced(host, shard).cpu().numpy()
             out.statistics.update_counters(
                 n_accepted_trajectories=int(host[0]),
                 n_attempted_trajectories=iters * n_chains,
@@ -457,15 +480,15 @@ class AdaptiveIMH(AbstractIMH):
                 # counted as gradient calls (``imh.py:146``)
                 n_target_gradient_calls=2 * n_chains * iters,
             )
-            s_x, s_x2 = np.split(host[2:], 2)
+            s_x, s_x2 = np.split(host[6:], 2)
             out.statistics.update_moments_from_sums(
                 s_x.reshape(self.event_shape), s_x2.reshape(self.event_shape), iters * n_chains)
-            st["acc"] = StatsAccum.zeros(self.event_shape, self.device)
+            st["acc"] = StatsAccum.zeros(self.event_shape, self.device, shard)
 
         iters_done = run_chunk_loop(
             n_total, dispatch=dispatch, sync=lambda: synchronize(self.device),
             stats=out.statistics, flush=flush, time_limit_seconds=time_limit_seconds,
-            show_progress=show_progress, desc=self.name, sync_max_chunk=256,
+            show_progress=show_progress, desc=self.name, sync_max_chunk=256, shard=shard,
         )
         if iters_done:
             out.running_samples.add(st["hist"][:iters_done])

@@ -334,12 +334,16 @@ class JumpNFMC(Sampler):
         return out
 
     def _shard_chunk_draws(self, draws: dict) -> dict:
-        """This rank's rows of a chunk's draws made for the global chains."""
+        """This rank's rows of a chunk's draws made for the global chains
+        (the inner draws' chain axes as the inner sampler declares them,
+        ``draw_chain_axes``; None keeps a draw whole)."""
         if self.chain_shard is None:
             return draws
         rows = self._chain_rows
-        out = {"inner": tuple(rows(d, 2) for d in draws["inner"]), "z": rows(draws["z"], 1),
-               "jump_log_u": rows(draws["jump_log_u"], 1)}
+        axes = self.inner_sampler.draw_chain_axes or (0,) * len(draws["inner"])
+        out = {"inner": tuple(d if a is None else rows(d, 2 + a)
+                              for d, a in zip(draws["inner"], axes)),
+               "z": rows(draws["z"], 1), "jump_log_u": rows(draws["jump_log_u"], 1)}
         if "x0" in draws:
             out["x0"] = rows(draws["x0"], 1)
         return out
@@ -412,6 +416,7 @@ class JumpNFMC(Sampler):
             out.running_samples.add(st["state"].x)
         if fit_cfg is not None:
             self.kernel.flow.params = st["state"].flow_params
+        self.inner_sampler._finish_run()
         self.inner_sampler.kernel.sync_from_state(
             self.inner_sampler._extract_mstate(st["state"].inner_state))
 
@@ -535,6 +540,8 @@ class JumpMALA(JumpNFMC):
 
 
 class JumpULA(JumpNFMC):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -543,6 +550,8 @@ class JumpULA(JumpNFMC):
 
 
 class JumpHMC(JumpNFMC):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -551,6 +560,8 @@ class JumpHMC(JumpNFMC):
 
 
 class JumpUHMC(JumpNFMC):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -559,6 +570,8 @@ class JumpUHMC(JumpNFMC):
 
 
 class JumpMH(JumpNFMC):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -569,6 +582,8 @@ class JumpMH(JumpNFMC):
 class JumpESS(JumpNFMC):
     """Flow jumps interleaved with elliptical slice sampling; every outer
     iteration starts from a prior redraw (the reference's ESS quirk)."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, negative_log_likelihood, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -582,6 +597,8 @@ class JumpNUTS(JumpNFMC):
     """Flow jumps interleaved with NUTS; the inner trajectories' leapfrogs
     are counted through the dynamic channel."""
 
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -594,6 +611,8 @@ class JumpChEES(JumpNFMC):
     step size adapt in the warmup's inner tuning and stay fixed (jittered)
     in the outer loop; the leapfrog counts are counted dynamically."""
 
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
         super().__init__(event_shape, target,
@@ -605,6 +624,8 @@ class JumpAIES(JumpNFMC):
     """Flow jumps interleaved with the affine-invariant ensemble's stretch
     moves (gradient-free); a jump leaves the carried U(x) stale, and the
     runner's state refresh after each jump recomputes it."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):

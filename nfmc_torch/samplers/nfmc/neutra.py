@@ -183,6 +183,8 @@ class NeuTraHMC(NeuTra):
 
 
 class NeuTraMH(NeuTra):
+    multi_rank_chains = True
+
     def __init__(self, event_shape, target, inner_kernel: Optional[MHKernel] = None,
                  inner_params: Optional[MHParameters] = None, kernel=None, params=None,
                  device=None):
@@ -202,6 +204,8 @@ class NeuTraChEES(NeuTra):
     """NeuTra with a ChEES-HMC inner sampler: the adaptive trajectory runs in
     the latent space, each leapfrog's gradient through the flow's inverse
     and its VJP."""
+
+    multi_rank_chains = True
 
     def __init__(self, event_shape, target, inner_kernel: Optional[CheesHMCKernel] = None,
                  inner_params: Optional[CheesHMCParameters] = None, kernel=None, params=None,

@@ -18,6 +18,12 @@ Three particle groups (base / train / val) as in the reference design:
 log_Z from base, flow fitting from train with val early stopping. The level
 loop runs eagerly on the host, with one host synchronisation a level (the
 log-Z increment and the resample decision).
+
+A group that ``prior_sample`` returns as a DTensor runs sharded over its
+mesh (:mod:`nfmc_torch.transport.common`): the level fit sums its ranks'
+shares of the losses and the gradient in one ``all_reduce`` a step, the
+weights' log-sums and softmaxes and the ESS are global, and a resample
+gathers the group. The result holds every particle on every rank.
 """
 from __future__ import annotations
 
@@ -27,16 +33,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.chains import chain_logsumexp, chain_softmax
 from ..core.rng import resolve_generator
-from ..flows.train import _Adam, _flatten
+from ..flows.train import _Adam, _flatten, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import (flat_value_and_grad, log_ess, make_mala_sweep, resample_offset,
-                     systematic_resample, tempered)
+from .common import (draw_rows, flat_value_and_grad, gathered, log_ess, make_mala_sweep,
+                     rank_share, resample, resample_offset, run_shard, take_particles, tempered)
 
 
-def _uniform(n: int, device) -> torch.Tensor:
-    return torch.full((n,), -math.log(n), device=device)
+def _uniform(n: int, x: torch.Tensor) -> torch.Tensor:
+    """Uniform log-weights of a group of ``n`` particles, ``x``'s rows of it."""
+    return torch.full((x.shape[0],), -math.log(n), device=x.device)
 
 
 class AnnealedFlowTransport:
@@ -66,46 +74,60 @@ class AnnealedFlowTransport:
         x_t, log_det = self.flow.bijection.forward_fn(params, x)
         return torch.sum(w * (self.u(x_t, lam) - log_det))
 
-    def _fit_level(self, params, x_train, w_train, x_val, w_val, lam):
+    def _fit_level(self, params, x_train, w_train, x_val, w_val, lam, shards=(None, None)):
         """One level's training loop: ``n_train_epochs`` full-batch Adam
         steps (``optax.adam(train_lr)``, fresh moments, unguarded as in the
         JAX package) with the val loss after each and the best weights
         tracked on the device. The tracker starts at the warm-start params'
         own val loss, so a fit that never improves on the carry-in cannot
-        replace it. Returns ``(best_params, best_val)``."""
+        replace it. Returns ``(best_params, best_val)``.
+
+        ``shards``: the train and the val group's. With either sharded, each
+        rank computes its share of both losses, and one ``all_reduce`` a
+        step sums the gradient with the val loss at the same weights (the
+        last weights' val loss alone after the loop)."""
+        run = run_shard(shards)
         theta = _flatten(params)
         adam = _Adam(theta, self.train_lr)
-        with torch.no_grad():
-            init_val = self._loss_fn(params, x_val, w_val, lam)
-        best_theta = theta
-        best_val = torch.where(torch.isfinite(init_val), init_val, math.inf)
-        for _ in range(self.n_train_epochs):
-            _, g = flat_value_and_grad(lambda p: self._loss_fn(p, x_train, w_train, lam),
-                                       theta, params)
+        best_theta, best_val = theta, None
+        for epoch in range(self.n_train_epochs + 1):
             with torch.no_grad():
-                theta = adam.step(theta, g)
-                val = self._loss_fn(unpack_like(theta, params), x_val, w_val, lam)
-                better = torch.isfinite(val) & (val < best_val)
-                best_theta = torch.where(better, theta, best_theta)
-                best_val = torch.where(better, val, best_val)
+                val = rank_share(self._loss_fn(unpack_like(theta, params), x_val, w_val, lam),
+                                 shards[1], run)
+            stepping = epoch < self.n_train_epochs
+            if stepping:
+                _, g = flat_value_and_grad(lambda p: self._loss_fn(p, x_train, w_train, lam),
+                                           theta, params)
+                g, val = _sum_shares(rank_share(g, shards[0], run), val, run)
+            elif run is not None:
+                val = run.sum(val)
+            with torch.no_grad():
+                if best_val is None:
+                    best_val = torch.where(torch.isfinite(val), val, math.inf)
+                else:
+                    better = torch.isfinite(val) & (val < best_val)
+                    best_theta = torch.where(better, theta, best_theta)
+                    best_val = torch.where(better, val, best_val)
+                if stepping:
+                    theta = adam.step(theta, g)
         return unpack_like(best_theta, params), best_val
 
     @torch.no_grad()
-    def _transport(self, params, x, log_W, lam_prev, lam_next, use_flow):
+    def _transport(self, params, x, log_W, lam_prev, lam_next, use_flow, shard=None):
         """Transport and reweight one group through the fitted map, or
         through the identity where ``use_flow`` (a 0-d bool tensor) is
         False: ``(x_t, log_W_new, delta_log_Z, log ESS of the increments'
-        weights)``."""
+        weights)``, the last two over the group's global particles."""
         x_f, log_det = self.flow.bijection.forward_fn(params, x)
         x_t = torch.where(use_flow, x_f, x)
         log_det = torch.where(use_flow, log_det, 0.0)
         log_G = self.u(x, lam_prev) - self.u(x_t, lam_next) + log_det
         log_w = log_W + log_G
-        delta_log_Z = torch.logsumexp(log_w, 0)
-        return x_t, log_w - delta_log_Z, delta_log_Z, log_ess(log_w)
+        delta_log_Z = chain_logsumexp(log_w, shard)
+        return x_t, log_w - delta_log_Z, delta_log_Z, log_ess(log_w, shard)
 
     @torch.no_grad()
-    def _select_transport(self, params, x_val, lw_val, lam_prev, lam_next):
+    def _select_transport(self, params, x_val, lw_val, lam_prev, lam_next, shard=None):
         """Per-level safeguard fused with the val group's transport: accept
         the fitted map only if it does not hurt the incremental-weight ESS
         measured on the VAL group (independent of the base particles whose
@@ -116,14 +138,14 @@ class AnnealedFlowTransport:
         u_prev = self.u(x_val, lam_prev)
         log_G_flow = u_prev - self.u(x_f, lam_next) + log_det
         log_G_id = u_prev - self.u(x_val, lam_next)
-        ess_flow = log_ess(lw_val + log_G_flow)
-        ess_id = log_ess(lw_val + log_G_id)
+        ess_flow = log_ess(lw_val + log_G_flow, shard)
+        ess_id = log_ess(lw_val + log_G_id, shard)
         # a non-finite ess_id (e.g. every val particle at U=+inf under a
         # hard-support target) must NOT veto a finite fitted transport
         use_flow = torch.isfinite(ess_flow) & ((ess_flow >= ess_id) | ~torch.isfinite(ess_id))
         x_t = torch.where(use_flow, x_f, x_val)
         log_w = lw_val + torch.where(use_flow, log_G_flow, log_G_id)
-        norm = torch.logsumexp(log_w, 0)
+        norm = chain_logsumexp(log_w, shard)
         lw_new = log_w - norm
         # degenerate level (both maps unevaluable on every val particle):
         # reset to uniform rather than write NaN weights, which would lock
@@ -131,7 +153,8 @@ class AnnealedFlowTransport:
         # finite norm degrade to -inf (never resampled)
         lw_new = torch.where(torch.isfinite(norm),
                              torch.where(torch.isfinite(lw_new), lw_new, -math.inf),
-                             -math.log(log_w.shape[0]))
+                             -math.log(log_w.shape[0] if shard is None
+                                       else shard.n_global(log_w.shape[0])))
         return use_flow, x_t, lw_new
 
     def run(
@@ -146,17 +169,19 @@ class AnnealedFlowTransport:
         seed: Optional[int] = None,
     ):
         """``prior_sample(batch_shape, generator=...)`` draws the three
-        groups on the flow's device."""
+        groups on the flow's device; a group it returns as a DTensor runs
+        sharded (module doc)."""
         device = self.flow.get_device()
         g = resolve_generator(device, generator, seed)
         threshold = self.sampling_threshold
         if threshold is None:
             threshold = 0.3 if 1.0 / n_particles <= 0.3 else 1.0 / n_particles
         sizes = (n_particles, n_train_particles, n_val_particles)
-        xs = [prior_sample((n,), generator=g).to(torch.float32) for n in sizes]
-        lws = [_uniform(n, device) for n in sizes]
+        xs, shards = zip(*(take_particles(prior_sample((n,), generator=g)) for n in sizes))
+        xs = [x.to(device) if s is not None else x for x, s in zip(xs, shards)]
+        lws = [_uniform(n, x) for n, x in zip(sizes, xs)]
         log_Z = 0.0
-        history = [as_numpy(xs[0])] if full_output else None
+        history = [as_numpy(gathered(xs[0], shards[0]))] if full_output else None
         ess_trace = []
 
         params = self.flow.params
@@ -167,17 +192,18 @@ class AnnealedFlowTransport:
             (x_base, x_train, x_val), (lw_base, lw_train, lw_val) = xs, lws
 
             # 1. fit the flow on the weighted train particles (val best weights)
-            params, _ = self._fit_level(params, x_train, torch.softmax(lw_train, 0), x_val,
-                                        torch.softmax(lw_val, 0), lam_next)
+            params, _ = self._fit_level(params, x_train, chain_softmax(lw_train, shards[1]),
+                                        x_val, chain_softmax(lw_val, shards[2]), lam_next,
+                                        shards[1:])
 
             # 2. transport & reweight (the fitted map, or the identity when
             # it would hurt the val group's ESS)
             use_flow, x_val, lw_val = self._select_transport(params, x_val, lw_val, lam_prev,
-                                                             lam_next)
+                                                             lam_next, shards[2])
             x_base, lw_base, dlZ, _ = self._transport(params, x_base, lw_base, lam_prev,
-                                                      lam_next, use_flow)
+                                                      lam_next, use_flow, shards[0])
             x_train, lw_train, _, ess_t = self._transport(params, x_train, lw_train, lam_prev,
-                                                          lam_next, use_flow)
+                                                          lam_next, use_flow, shards[1])
             dlZ, ess_t = torch.stack([dlZ, ess_t]).tolist()  # the level's one synchronisation
             log_Z += dlZ
             # log_ess is the log of the ABSOLUTE ESS (in [0, log n])
@@ -186,15 +212,16 @@ class AnnealedFlowTransport:
 
             # 3. resample on the train-ESS criterion (reference design)
             if ess_t - math.log(n_train_particles) <= math.log(threshold):
-                xs = [x[systematic_resample(lw, n, resample_offset(g))]
-                      for x, lw, n in zip(xs, lws, sizes)]
-                lws = [_uniform(n, device) for n in sizes]
+                xs = [resample(x, lw, resample_offset(g), s) for x, lw, s in zip(xs, lws, shards)]
+                lws = [_uniform(n, x) for n, x in zip(sizes, xs)]
 
             # 4. MCMC correction at the new level
-            xs = [self.mala_sweep(x, lam_next, self.mala_sweep.draws(g, x.shape)) for x in xs]
+            xs = [self.mala_sweep(x, lam_next, draw_rows(
+                self.mala_sweep.draws(g, (n, *x.shape[1:])), s))
+                for x, n, s in zip(xs, sizes, shards)]
 
             if full_output:
-                history.append(as_numpy(xs[0]))
+                history.append(as_numpy(gathered(xs[0], shards[0])))
             bar.update(1)
             if show_progress:
                 bar.set_postfix_str(f"log Z: {log_Z:.3f}")
@@ -202,8 +229,8 @@ class AnnealedFlowTransport:
 
         self.flow.params = params
         result = {
-            "particles": as_numpy(xs[0]),
-            "log_weights": as_numpy(lws[0]),
+            "particles": as_numpy(gathered(xs[0], shards[0])),
+            "log_weights": as_numpy(gathered(lws[0], shards[0])),
             "log_Z": log_Z,
             "ess_trace": ess_trace,
         }

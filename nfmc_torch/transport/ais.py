@@ -14,6 +14,7 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from ..core.chains import refuse_sharded
 from ..core.rng import resolve_generator
 from ..utils import resolve_device
 from .common import make_mala_sweep, tempered
@@ -42,6 +43,7 @@ class AnnealChain:
         return list(zip(noise, uniforms))
 
     def __call__(self, x0: torch.Tensor, draws: Iterable):
+        refuse_sharded("AIS", x0)
         x = x0
         log_w = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
         for lam_prev, lam_next, d in zip(self.lambdas[:-1], self.lambdas[1:], draws):
@@ -75,6 +77,7 @@ def ais_base(x0, prior_potential, target_potential, n_steps: int = 10,
              device=None):
     """Convenience one-shot form (reference-style signature): ``(x, log_w)``
     on ``device`` (CUDA unless the caller names another)."""
+    refuse_sharded("AIS", x0)
     device = resolve_device(device)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
     g = resolve_generator(device, generator, seed)

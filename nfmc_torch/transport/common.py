@@ -7,14 +7,22 @@ on the host, with its schedule known there. Every stochastic step takes its
 random numbers as tensors, made by a separate draws function from a
 ``torch.Generator``, so that two devices (or the JAX package's keys,
 rebuilt) can be given the same numbers.
+
+A group of particles that ``prior_sample`` returns as a ``DTensor`` placed
+``Shard(0)`` over its mesh's first axis is sharded, as the chains of a
+sampler are (:mod:`nfmc_torch.core.chains`): each rank holds its rows, draws
+the group's global randomness and keeps its rows of it, and reduces over
+the ranks where the particles meet (log-sums, softmaxes, resampling, the
+fits' losses). A plain tensor is the whole group on every rank.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
+from ..core.chains import ChainShard, chain_logsumexp, is_sharded
 from ..utils import value_and_batched_grad
 
 
@@ -37,10 +45,71 @@ def tempered(prior_potential: Callable, target_potential: Callable):
     return u
 
 
-def log_ess(log_w: torch.Tensor) -> torch.Tensor:
-    """log ESS of normalized or unnormalized log-weights."""
-    log_w = log_w - torch.logsumexp(log_w, 0)
-    return -torch.logsumexp(2.0 * log_w, 0)
+def log_ess(log_w: torch.Tensor, shard: Optional[ChainShard] = None) -> torch.Tensor:
+    """log ESS of normalized or unnormalized log-weights (of a sharded
+    group's global particles with its ``shard``)."""
+    log_w = log_w - chain_logsumexp(log_w, shard)
+    return -chain_logsumexp(2.0 * log_w, shard)
+
+
+def take_particles(x):
+    """A group's particles from ``prior_sample``: ``(this rank's rows as
+    float32, its ChainShard)``, the shard None for a plain tensor (the
+    whole group, on every rank)."""
+    if not is_sharded(x):
+        return x.to(torch.float32), None
+    from torch.distributed.tensor import Shard
+
+    if not x.placements or x.placements[0] != Shard(0) or any(
+            p.is_shard() for p in x.placements[1:]):
+        raise ValueError(f"particles must be sharded over their axis 0 on the mesh's first axis "
+                         f"and replicated over the others, got placements {x.placements}")
+    shard = ChainShard(x.device_mesh)
+    if x.shape[0] % shard.size:
+        raise ValueError(f"{x.shape[0]} particles must be divisible by the mesh's first axis "
+                         f"size {shard.size}")
+    return x.to_local().to(torch.float32), shard
+
+
+def run_shard(shards) -> Optional[ChainShard]:
+    """The run's shard: that of its sharded groups (None if none is), which
+    must lie on one mesh."""
+    found = [s for s in shards if s is not None]
+    if any(s.mesh != found[0].mesh for s in found[1:]):
+        raise ValueError("the sharded particle groups lie on different meshes")
+    return found[0] if found else None
+
+
+def gathered(x: torch.Tensor, shard: Optional[ChainShard]) -> torch.Tensor:
+    """The whole group: ``x`` gathered over the ranks of its shard."""
+    return x if shard is None else shard.gather(x, 0)
+
+
+def rank_share(v: torch.Tensor, shard: Optional[ChainShard],
+               run: Optional[ChainShard]) -> torch.Tensor:
+    """This rank's share of a sum over a group that the run sums over its
+    ranks: a sharded group's own (its rows'), a whole group's all on the
+    run's first rank, none on the others."""
+    if run is None or shard is not None or run.rank == 0:
+        return v
+    return torch.zeros_like(v)
+
+
+def draw_rows(draws, shard: Optional[ChainShard], axis: int = 1):
+    """This rank's rows of draws made for a group's global particles (their
+    particle axis ``axis``)."""
+    return draws if shard is None else tuple(shard.rows(d, axis) for d in draws)
+
+
+def resample(x: torch.Tensor, log_w: torch.Tensor, offset: torch.Tensor,
+             shard: Optional[ChainShard] = None) -> torch.Tensor:
+    """Systematic resampling of a group with ``offset``: this rank's rows
+    of the resampled particles. The index is global: sharded, the rank
+    gathers the group and its weights and keeps its rows."""
+    if shard is None:
+        return x[systematic_resample(log_w, x.shape[0], offset)]
+    x_all = shard.gather(x, 0)
+    return shard.rows(x_all[systematic_resample(shard.gather(log_w, 0), x_all.shape[0], offset)])
 
 
 def systematic_resample(log_w: torch.Tensor, n: int, offset: torch.Tensor) -> torch.Tensor:

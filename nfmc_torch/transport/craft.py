@@ -25,6 +25,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..core.chains import refuse_sharded
 from ..core.rng import resolve_generator
 from ..flows.train import _AdamW, _finite_update, _flatten
 from ..ops.coupling import unpack_like
@@ -149,7 +150,9 @@ class CRAFT:
 
         bar = Progress(total=n_training_steps, desc="CRAFT", disable=not show_progress)
         for _ in range(n_training_steps):
-            x = prior_sample((n_particles,), generator=g).to(torch.float32)
+            x = prior_sample((n_particles,), generator=g)
+            refuse_sharded("CRAFT", x)
+            x = x.to(torch.float32)
             log_W = torch.full((n_particles,), -math.log(n_particles), device=device)
             _, _, log_Z, _ = self._pass(thetas, opts, x, log_W, self._pass_draws(g, x.shape))
             bar.update(1)
@@ -164,7 +167,9 @@ class CRAFT:
         like = self.bijections[0].params
         device = tree_leaves(like)[0].device
         g = resolve_generator(device, generator, seed)
-        x0 = prior_sample((n_particles,), generator=g).to(torch.float32)
+        x0 = prior_sample((n_particles,), generator=g)
+        refuse_sharded("CRAFT", x0)
+        x0 = x0.to(torch.float32)
         log_W = torch.full((n_particles,), -math.log(n_particles), device=device)
         thetas = [_flatten(b.params) for b in self.bijections]
         x, log_W, log_Z, xs = self._pass(thetas, None, x0, log_W, self._pass_draws(g, x0.shape))

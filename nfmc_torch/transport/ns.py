@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.chains import refuse_sharded
 from ..core.rng import resolve_generator
 from ..utils import Progress, as_numpy, resolve_device
 
@@ -60,7 +61,9 @@ class NestedSampling:
         device = self.flow.get_device()
         g = resolve_generator(device, generator, seed)
         with torch.no_grad():
-            x0 = self.prior.sample((self.n_live,), generator=g).to(torch.float32)
+            x0 = self.prior.sample((self.n_live,), generator=g)
+            refuse_sharded("nested sampling", x0)
+            x0 = x0.to(torch.float32)
             x = np.array(as_numpy(x0), dtype=np.float32, copy=True)
             ll = np.array(as_numpy(self.log_likelihood(x0)), copy=True)
 

@@ -19,6 +19,13 @@ path ``u(x, b) = (1-b) u_prior + b u_target``):
      device.
 A level copies ``u_target - u_prior`` to the host once and reads the
 sweep's acceptance once.
+
+Particles that ``prior_sample`` returns as a DTensor run sharded over its
+mesh (:mod:`nfmc_torch.transport.common`): a level gathers
+``u_target - u_prior`` and the pre-resample cloud, so the temperature, the
+weights and the resample index are the unsharded run's on every rank; the
+fit is data-parallel over that cloud (one ``all_reduce`` a step) and the
+sweep's acceptance a mean over every particle.
 """
 from __future__ import annotations
 
@@ -28,11 +35,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core.chains import chain_mean
 from ..core.rng import resolve_generator
 from ..flows.train import _Adam, _finite_update, _flatten
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import flat_value_and_grad, resample_offset, systematic_resample, tempered
+from .common import (draw_rows, flat_value_and_grad, gathered, resample_offset,
+                     systematic_resample, take_particles, tempered)
 
 
 def _ess_np(log_w: np.ndarray) -> float:
@@ -73,13 +82,17 @@ class PreconditionedMonteCarlo:
     def _delta_u(self, x):
         return self.target_potential(x) - self.prior_potential(x)
 
-    def _weighted_loss(self, params, x, log_w):
+    def _weighted_loss(self, params, x, log_w, shard=None):
         """Self-normalized weighted negative log-likelihood: an estimate of
         ``-E_{pi_beta_new}[log q]`` from the pre-resample weighted cloud
-        (every point unique, so the val split is a real holdout)."""
-        return -torch.sum(torch.softmax(log_w, 0) * self.flow.log_prob_fn(params, x))
+        (every point unique, so the val split is a real holdout). With a
+        ``shard``, this rank's share of it, over its rows of ``x``."""
+        w = torch.softmax(log_w, 0)
+        if shard is not None:
+            w, x = shard.rows(w), shard.rows(x)
+        return -torch.sum(w * self.flow.log_prob_fn(params, x))
 
-    def _train(self, params, x, log_w, perm):
+    def _train(self, params, x, log_w, perm, shard=None):
         """The level's preconditioner fit: ``n_train_epochs`` full-batch
         Adam steps (skipped, moments and all, where the loss or a gradient
         is not finite) on four fifths of the rows of ``x[perm]``, the best
@@ -88,7 +101,12 @@ class PreconditionedMonteCarlo:
         previous level's preconditioner). Val selection is load-bearing:
         a warm-started fixed-epoch fit overfits small particle sets.
         ``perm`` is a permutation of the rows (:meth:`train_draws`).
-        Returns ``(best_params, losses)``."""
+        Returns ``(best_params, losses)``.
+
+        With a ``shard`` every rank holds the whole cloud and trains
+        data-parallel on its rows of each split: one ``all_reduce`` a step
+        sums the gradient, the loss and the val loss at the same weights
+        (the last weights' val loss alone after the loop)."""
         n = x.shape[0]
         n_val = max(n // 5, 1)
         x, log_w = x[perm], log_w[perm]
@@ -96,21 +114,30 @@ class PreconditionedMonteCarlo:
         lw_val, lw_train = log_w[:n_val], log_w[n_val:]
         theta = _flatten(params)
         adam = _Adam(theta, self.train_lr)
-        with torch.no_grad():
-            init_val = self._weighted_loss(params, x_val, lw_val)
-        best_theta = theta
-        best_val = torch.where(torch.isfinite(init_val), init_val, math.inf)
+        best_theta, best_val = theta, None
         losses = []
-        for _ in range(self.n_train_epochs):
-            loss, g = flat_value_and_grad(lambda p: self._weighted_loss(p, x_train, lw_train),
-                                          theta, params)
+        for epoch in range(self.n_train_epochs + 1):
             with torch.no_grad():
-                theta = adam.step(theta, g, _finite_update(loss, g))
-                val = self._weighted_loss(unpack_like(theta, params), x_val, lw_val)
-                better = torch.isfinite(val) & (val < best_val)
-                best_theta = torch.where(better, theta, best_theta)
-                best_val = torch.where(better, val, best_val)
-            losses.append(loss)
+                val = self._weighted_loss(unpack_like(theta, params), x_val, lw_val, shard)
+            stepping = epoch < self.n_train_epochs
+            if stepping:
+                loss, g = flat_value_and_grad(
+                    lambda p: self._weighted_loss(p, x_train, lw_train, shard), theta, params)
+                if shard is not None:
+                    both = shard.sum(torch.cat([g, loss.reshape(1), val.reshape(1)]))
+                    g, loss, val = both[:-2], both[-2], both[-1]
+            elif shard is not None:
+                val = shard.sum(val)
+            with torch.no_grad():
+                if best_val is None:
+                    best_val = torch.where(torch.isfinite(val), val, math.inf)
+                else:
+                    better = torch.isfinite(val) & (val < best_val)
+                    best_theta = torch.where(better, theta, best_theta)
+                    best_val = torch.where(better, val, best_val)
+                if stepping:
+                    theta = adam.step(theta, g, _finite_update(loss, g))
+                    losses.append(loss)
         losses = torch.stack(losses) if losses else torch.zeros(0, device=x.device)
         return unpack_like(best_theta, params), losses
 
@@ -129,9 +156,10 @@ class PreconditionedMonteCarlo:
         return self.u(x, beta) - log_det_inv
 
     @torch.no_grad()
-    def _sweep(self, params, x, beta, rho_logit, draws):
+    def _sweep(self, params, x, beta, rho_logit, draws, shard=None):
         """The latent pCN sweep at ``beta``: ``(x', rho_logit', mean
-        acceptance)``, ``rho_logit`` a 0-d tensor adapted on the device."""
+        acceptance)``, ``rho_logit`` a 0-d tensor adapted on the device, on
+        the acceptance over every particle (with the particles' ``shard``)."""
         xi, uniforms = draws
 
         def half_sumsq(z):
@@ -156,7 +184,7 @@ class PreconditionedMonteCarlo:
             mask = accept.reshape(accept.shape + (1,) * (z.dim() - 1))
             z = torch.where(mask, z_prime, z)
             uz = torch.where(accept, uzp, uz)
-            acc = accept.to(torch.float32).mean()
+            acc = chain_mean(accept.to(torch.float32), shard)
             rho_logit = rho_logit + self.adapt_rate * (acc - self.target_acceptance)
             accs.append(acc)
         x, _ = self.flow.bijection.inverse_fn(params, z)
@@ -194,9 +222,13 @@ class PreconditionedMonteCarlo:
         generator: Optional[torch.Generator] = None,
         seed: Optional[int] = None,
     ):
+        """``prior_sample(batch_shape, generator=...)`` draws the particles
+        on the flow's device; a DTensor runs them sharded (module doc)."""
         device = self.flow.get_device()
         g = resolve_generator(device, generator, seed)
-        x = prior_sample((n_particles,), generator=g).to(torch.float32)
+        x, shard = take_particles(prior_sample((n_particles,), generator=g))
+        if shard is not None:
+            x = x.to(device)
         log_W = np.full((n_particles,), -math.log(n_particles))
         log_Z = 0.0
         rho_logit = torch.tensor(math.log(self.initial_rho) - math.log1p(-self.initial_rho),
@@ -204,14 +236,14 @@ class PreconditionedMonteCarlo:
         beta = 0.0
         params = self.flow.params
         beta_trace, ess_trace, acc_trace = [0.0], [], []
-        history = [as_numpy(x)] if full_output else None
+        history = [as_numpy(gathered(x, shard))] if full_output else None
 
         bar = Progress(total=self.max_levels, desc="PMC", disable=not show_progress)
         for _level in range(self.max_levels):
             if beta >= 1.0:
                 break
             # 1. adaptive temperature increment
-            delta_u = as_numpy(self._delta_u(x))
+            delta_u = as_numpy(gathered(self._delta_u(x), shard))
             delta = self._choose_delta(delta_u, log_W, beta)
             beta_new = min(1.0, beta + delta)
 
@@ -221,23 +253,26 @@ class PreconditionedMonteCarlo:
             ess_trace.append(_ess_np(log_w))
             log_w -= np.logaddexp.reduce(log_w)
             lw_dev = torch.as_tensor(log_w, dtype=torch.float32, device=device)
-            x_prev = x
-            x = x[systematic_resample(lw_dev, n_particles, resample_offset(g))]
+            x_prev = gathered(x, shard)  # the whole cloud: the resample index is global
+            x = x_prev[systematic_resample(lw_dev, n_particles, resample_offset(g))]
+            if shard is not None:
+                x = shard.rows(x)
             log_W = np.full((n_particles,), -math.log(n_particles))
 
             # 3. fit the preconditioner on the pre-resample weighted cloud
             params, _losses = self._train(params, x_prev, lw_dev,
-                                          self.train_draws(g, n_particles))
+                                          self.train_draws(g, n_particles), shard)
 
             # 4. latent-space pCN Metropolis sweep at beta_new
-            x, rho_logit, acc = self._sweep(params, x, float(np.float32(beta_new)), rho_logit,
-                                            self.sweep_draws(g, x.shape))
+            x, rho_logit, acc = self._sweep(
+                params, x, float(np.float32(beta_new)), rho_logit,
+                draw_rows(self.sweep_draws(g, (n_particles, *x.shape[1:])), shard), shard)
             acc_trace.append(float(acc))
 
             beta = beta_new
             beta_trace.append(beta)
             if full_output:
-                history.append(as_numpy(x))
+                history.append(as_numpy(gathered(x, shard)))
             bar.update(1)
             if show_progress:
                 bar.set_postfix_str(f"beta {beta:.4f}, log Z: {log_Z:.3f}, acc: "
@@ -252,7 +287,7 @@ class PreconditionedMonteCarlo:
                 "log_Z and particles target the tempered (not final) density"
             )
         result = {
-            "particles": as_numpy(x),
+            "particles": as_numpy(gathered(x, shard)),
             "log_weights": log_W,
             "log_Z": log_Z,
             "beta_trace": np.asarray(beta_trace),

@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.chains import refuse_sharded
 from ..core.rng import resolve_generator
 from ..flows.train import _AdamW, _finite_update, _flatten
 from ..ops.coupling import unpack_like
@@ -207,6 +208,7 @@ class SNF:
     def inverse(self, z, generator: Optional[torch.Generator] = None,
                 seed: Optional[int] = None):
         """``(history, x, log_weights)`` of the latent batch ``z``."""
+        refuse_sharded("SNF", z)
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
         g = resolve_generator(self.device, generator, seed)
         with torch.no_grad():
@@ -222,6 +224,7 @@ class SNF:
         epoch whose loss or any gradient is not finite is skipped on the
         host (a divergent leapfrog would otherwise NaN the parameters and
         the moments for good)."""
+        refuse_sharded("SNF", z)
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
         g = resolve_generator(self.device, generator, seed)
         like = self.params

@@ -404,11 +404,15 @@ def custom_axis(mesh, workdir):
 
 def rejections(mesh, workdir):
     """Uneven chains raise ValueError (``sharded_sample`` and the front
-    door); a strategy that does not declare multi-rank support raises
-    NotImplementedError naming ROADMAP 1.8d."""
+    door); a sampler class that does not declare multi-rank support itself
+    (a subclass of a declared one) raises NotImplementedError naming
+    ROADMAP 1.8d."""
     import nfmc_torch
     from nfmc_torch.parallel import sharded_sample
-    from nfmc_torch.samplers.mcmc import MALA, ULA
+    from nfmc_torch.samplers.mcmc import MALA
+
+    class _Undeclared(MALA):
+        pass
 
     caught = []
     for fn, exc in [
@@ -416,7 +420,7 @@ def rejections(mesh, workdir):
                                 show_progress=False), ValueError),
         (lambda: nfmc_torch.sample(_target(), strategy="mala", n_chains=15, n_iterations=2,
                                    device="cpu", show_progress=False, mesh=mesh), ValueError),
-        (lambda: sharded_sample(ULA((D,), _target(), device="cpu"), _x0(0), mesh=mesh,
+        (lambda: sharded_sample(_Undeclared((D,), _target(), device="cpu"), _x0(0), mesh=mesh,
                                 show_progress=False, seed=0), NotImplementedError),
     ]:
         try:
@@ -475,14 +479,15 @@ SCENARIOS = {f.__name__: f for f in (
     dlmc_fused, dlmc_host, pt_mala, pt_mh, pt_hmc, aies, chees_hmc, mesh_2x1, mesh_1x2, custom_axis, rejections, fit, variational_fit)}
 
 
-def run_rank(rank: int, world: int, workdir: str, names) -> None:
+def run_rank(rank: int, world: int, workdir: str, names, scenarios=None) -> None:
     """One rank: join the gloo group through a FileStore in ``workdir``, run
-    the scenarios on a ``chain_mesh`` over it and write ``rank<r>.pkl``
-    (each scenario's result, or its traceback)."""
+    the scenarios (``SCENARIOS`` by default) on a ``chain_mesh`` over it and
+    write ``rank<r>.pkl`` (each scenario's result, or its traceback)."""
     import torch.distributed as dist
 
     from nfmc_torch.parallel import chain_mesh
 
+    scenarios = SCENARIOS if scenarios is None else scenarios
     torch.set_num_threads(1)
     results = {}
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
@@ -491,7 +496,7 @@ def run_rank(rank: int, world: int, workdir: str, names) -> None:
         mesh = chain_mesh(device_type="cpu")
         for name in names:
             try:
-                results[name] = SCENARIOS[name](mesh, workdir)
+                results[name] = scenarios[name](mesh, workdir)
             except Exception:
                 results[name] = {"error": traceback.format_exc()}
             dist.barrier()

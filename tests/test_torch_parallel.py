@@ -228,19 +228,20 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-# mala, declared for several ranks, and strategies that refuse several
+# a strategy of each family, every one declared for several ranks
 ONE_RANK_STRATEGIES = ["mala", "ula", "mh", "adaptive_imh", "jump_hmc", "nuts", "ess",
-                       "neutra_mh"]
+                       "neutra_mh", "uhmc", "jump_ula", "jump_uhmc", "jump_mh", "jump_ess",
+                       "jump_nuts", "jump_chees", "jump_aies", "neutra_chees"]
 
 
 @pytest.mark.parametrize("strategy", ONE_RANK_STRATEGIES)
 def test_one_rank_mesh_is_bit_identical(one_rank_mesh, strategy):
-    """On a one-rank mesh every strategy runs (those that refuse two ranks
-    too), bit for bit as without a mesh."""
+    """On a one-rank mesh every strategy runs, bit for bit as without a
+    mesh."""
     torch.set_num_threads(1)
     kw = dict(flow='realnvp%{"n_layers": 2, "hidden_size": 8}', n_chains=8, n_iterations=3,
               device="cpu", seed=3, show_progress=False, inner_param_kwargs={"n_iterations": 2})
-    if strategy == "ess":
+    if strategy in ("ess", "jump_ess"):
         kw["negative_log_likelihood"] = StandardGaussian((3,))
     plain = nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy, **kw)
     sharded = nfmc_torch.sample(StandardGaussian((3,)), strategy=strategy, mesh=one_rank_mesh,
