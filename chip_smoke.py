@@ -269,7 +269,8 @@ Phases, in order; any failure exits non-zero before the last line:
      one AFT level and one FAB iteration; 17c snf() at its defaults and ns()
      at d=3 (64 live points, 400 iterations) in JAX bands; then every
      RealNVP shape the phase launched (d, H, L, B) against the plain version.
-  18. profiling and the mesh (nfmc_torch.profiling, nfmc_torch.parallel):
+  18. profiling and the mesh (nfmc_torch.profiling, nfmc_torch.parallel),
+     run right after the build (2), before phase 3:
      18a the headline for 20 outer iterations under profiling.trace, inside
      annotate("jump"): the written *.pt.trace.json holds the coupling
      kernel's forward and inverse launches as device events and the span,
@@ -1006,7 +1007,7 @@ def device_us(fn, calls: int = 20) -> dict:
     launch of these kernels (scripts/coupling_kernels_ab.py --family spline
     counted 0.3-1.0 records a call in one call, all in another), so a total
     over the calls undercounts, and a window that recorded none is tried
-    again, up to three windows. Empty if the profiler saw no device time."""
+    again, up to six windows. Empty if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     def name(key):  # "void (anonymous namespace)::kernel<8>(float const*, ...)" -> "kernel"
@@ -1015,7 +1016,7 @@ def device_us(fn, calls: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -4526,10 +4527,30 @@ SHARD_AFT_STEPS, SHARD_PMC_LEVELS, SHARD_IMH_ITERS = 3, 4, 20
 SHARD_STRATEGIES = ("ula", "uhmc", "mh", "nuts", "ess", "adaptive_imh", "neutra_mh",
                     "neutra_chees", "jump_ula", "jump_hmc", "jump_uhmc", "jump_mh", "jump_ess",
                     "jump_nuts", "jump_chees", "jump_aies")
+# the transport methods on a mesh, at phase 17's sizes (19a, and 19b on two
+# ranks) with their depth cut: AFT and PMC as above; CRAFT at TR_CRAFT's
+# particles and levels, trained SHARD_CRAFT_PASSES passes (not 25) before
+# its sampling pass; AIS at TR_AIS; SNF at TR_SNF's particles, fitted
+# SHARD_SNF_EPOCHS epochs (not 10); nested sampling at TR_NS_D / TR_NS; FAB
+# at TR_FAB's AIS particles and replay steps for SHARD_FAB_ITERS iterations
+# (not 300). Every gate on them is bit for bit or against the unsharded run
+SHARD_CRAFT_PASSES, SHARD_SNF_EPOCHS, SHARD_FAB_ITERS = 2, 2, 3
+SHARD_TRANSPORT = ("aft", "pmc", "craft", "ais", "snf", "ns", "fab")
 # 19b: two gloo ranks, each its own process on the one card; the spawn's
 # time limit, and a collective's
 SHARD_RANKS, SHARD_TIMEOUT_S, SHARD_GLOO_TIMEOUT_S = 2, 300, 120
 SHARD_TOL, SHARD_AFT_LOGZ_TOL, SHARD_AFT_FIT_LOGZ_TOL = 1e-5, 1e-3, 0.75
+# 19b, trained CRAFT: its particle means (tests/test_sharding.py's AFT bound
+# with fits on), its log Z, and the share of its weights that may part from
+# the unsharded run's by more than SHARD_TOL. The ranks' gradients differ
+# from one's by rounding (the VJP kernel sums 1024 rows, not 2048), and the
+# SMC steps after a level (resample, accept) can carry such a difference
+# on. A sound run on the H100 reads log Z 3.3e-3 apart and 9.0% of the
+# weights beyond SHARD_TOL; with the loss's weights normalised on each rank
+# alone, 2.9e-2 and 19.4%. No bound on one weight can tell them apart: an
+# Adam step moves a weight by at most about lr, so any two runs part by at
+# most 2 lr a pass (3.4e-3 and 4.0e-3 read; NVIDIA H100 80GB HBM3, 700.00 W)
+SHARD_FIT_MEAN_TOL, SHARD_CRAFT_LOGZ_TOL, SHARD_CRAFT_PARTED = 0.15, 1e-2, 0.12
 
 
 def shard_run(strategy: str, dev, mesh=None):
@@ -4591,35 +4612,155 @@ def run_summary(out, **extra) -> dict:
             "state": kernel_state(out.kernel), **extra}
 
 
-def shard_transport(method: str, dev, mesh=None, n_train_epochs=None) -> dict:
-    """AFT or PMC at phase 17's sizes (depth cut, module constants), the
-    particles of each group drawn sharded over ``mesh`` when given."""
+class ShardedPrior:
+    """A prior whose draws come sharded over ``mesh`` where their count
+    tiles its first axis (the transport runs' particle groups, nested
+    sampling's live set and population draws), whole otherwise."""
+
+    def __init__(self, prior, mesh):
+        self.prior, self.mesh = prior, mesh
+
+    def __call__(self, x):
+        return self.prior(x)
+
+    def sample(self, batch_shape, generator=None):
+        from nfmc_torch.parallel import shard_chains
+
+        x = self.prior.sample(batch_shape, generator=generator)
+        if self.mesh is None or x.shape[0] % self.mesh.size(0):
+            return x
+        return shard_chains(x, self.mesh)
+
+
+_PARAM_MESHES = {}
+
+
+def param_mesh(mesh, dev):
+    """The mesh a flow's parameters are replicated over for a run on
+    ``dev``: ``mesh`` itself, or, where its device type is another (19b's
+    gloo ranks carry their collectives on a CPU mesh), a mesh of ``dev``'s
+    type over the same ranks, so that each rank's copy lies on the card. No
+    collective runs on it; it is made once a mesh (a new process group:
+    every rank makes it at the same point)."""
+    if mesh is None or mesh.device_type == dev.type:
+        return mesh
+    if id(mesh) not in _PARAM_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        _PARAM_MESHES[id(mesh)] = DeviceMesh(dev.type, mesh.mesh.tolist(),
+                                             mesh_dim_names=mesh.mesh_dim_names)
+    return _PARAM_MESHES[id(mesh)]
+
+
+def shard_transport(method: str, dev, mesh=None, passes=None) -> dict:
+    """AFT, PMC, CRAFT, AIS, SNF, nested sampling or FAB at phase 17's sizes
+    with the depth cut of the module constants (AFT's fit epochs, CRAFT's
+    training passes or SNF's fit epochs ``passes`` where given), the
+    particles drawn sharded over ``mesh`` when given (AFT's, PMC's,
+    CRAFT's and nested sampling's prior draws, AIS's start, SNF's batches);
+    nested sampling's and FAB's flow replicated over ``param_mesh(mesh,
+    dev)``. Returns the run's results on the host."""
     import nfmc_torch
-    from nfmc_torch.parallel import shard_chains
-    from nfmc_torch.transport import AnnealedFlowTransport, PreconditionedMonteCarlo
+    from nfmc_torch.core.chains import local_params
+    from nfmc_torch.parallel import replicate
+    from nfmc_torch.transport import (CRAFT, AnnealedFlowTransport, NestedSampling,
+                                      PreconditionedMonteCarlo)
+    from nfmc_torch.transport.ais import ais_base
+    from nfmc_torch.transport.snf import SNF, FlowLayer, HMCLayer
 
     prior, target = transport_targets(TR_D)
-    flow = nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=0).to(dev)
+    sharded = ShardedPrior(prior, mesh)
 
-    def prior_sample(batch_shape, generator=None):
-        x = prior.sample(batch_shape, generator=generator)
-        return x if mesh is None else shard_chains(x, mesh)
+    def flow_on_mesh(d=TR_D):
+        flow = nfmc_torch.create_flow_object(TR_FLOW, (d,), seed=0).to(dev)
+        if mesh is not None:
+            flow.params = replicate(flow.params, param_mesh(mesh, dev))
+        return flow
 
-    if method == "aft":
-        a = TR_AFT
-        epochs = a["n_train_epochs"] if n_train_epochs is None else n_train_epochs
-        out = AnnealedFlowTransport(prior, target, flow, n_steps=SHARD_AFT_STEPS,
-                                    n_train_epochs=epochs).run(
-            prior_sample, n_particles=a["n_particles"], n_train_particles=a["n_train_particles"],
-            n_val_particles=a["n_val_particles"], full_output=True, seed=0)
-    else:
-        p = TR_PMC
-        out = PreconditionedMonteCarlo(prior, target, flow, n_train_epochs=p["n_train_epochs"],
-                                       n_mcmc_steps=p["n_mcmc_steps"],
-                                       max_levels=SHARD_PMC_LEVELS).run(
-            prior_sample, n_particles=p["n_particles"], full_output=True, seed=0)
-    return {"log_Z": float(out["log_Z"]), "particles": np.asarray(out["particles"]),
-            "history": np.asarray(out["history"]), "flow": flat_leaves(flow.params)}
+    def replicated(params):
+        """The parameters' local copy, flat, and whether they came back
+        replicated on the mesh (always without one)."""
+        local, placed = local_params(params)
+        return flat_leaves(local), placed == (None if mesh is None else param_mesh(mesh, dev))
+
+    if method in ("aft", "pmc"):
+        flow = nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=0).to(dev)
+        if method == "aft":
+            a = TR_AFT
+            out = AnnealedFlowTransport(
+                prior, target, flow, n_steps=SHARD_AFT_STEPS,
+                n_train_epochs=a["n_train_epochs"] if passes is None else passes).run(
+                sharded.sample, n_particles=a["n_particles"],
+                n_train_particles=a["n_train_particles"], n_val_particles=a["n_val_particles"],
+                full_output=True, seed=0)
+        else:
+            p = TR_PMC
+            out = PreconditionedMonteCarlo(prior, target, flow, n_train_epochs=p["n_train_epochs"],
+                                           n_mcmc_steps=p["n_mcmc_steps"],
+                                           max_levels=SHARD_PMC_LEVELS).run(
+                sharded.sample, n_particles=p["n_particles"], full_output=True, seed=0)
+        return {"log_Z": float(out["log_Z"]), "particles": np.asarray(out["particles"]),
+                "history": np.asarray(out["history"]), "flow": flat_leaves(flow.params)}
+    if method == "craft":
+        c = TR_CRAFT
+        bijections = [nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=i).to(dev).bijection
+                      for i in range(c["n_annealing_steps"])]
+        algorithm = CRAFT(prior, target, bijections)
+        passes = SHARD_CRAFT_PASSES if passes is None else passes
+        algorithm.train(sharded.sample, n_particles=c["n_particles"], n_training_steps=passes,
+                        seed=0)
+        out = algorithm.sample(sharded.sample, n_particles=c["n_particles"], seed=1)
+        return {"log_Z": float(out["log_Z"]), "particles": out["particles"],
+                "log_weights": out["log_weights"], "history": out["history"],
+                "flow": np.concatenate([flat_leaves(b.params) for b in bijections])}
+    if method == "ais":
+        a = TR_AIS
+        g = torch.Generator(device=dev).manual_seed(0)
+        x, log_w = ais_base(sharded.sample((a["n"],), generator=g), prior, target,
+                            n_steps=a["n_steps"], n_mcmc_steps=a["n_mcmc_steps"],
+                            step_size=a["step_size"], generator=g, device=dev)
+        return {"particles": x.cpu().numpy(), "log_weights": log_w.cpu().numpy(),
+                "log_Z": float(torch.logsumexp(log_w, 0) - np.log(a["n"])),
+                "plain": type(x) is torch.Tensor and type(log_w) is torch.Tensor}
+    if method == "snf":
+        # snf()'s stack and its draws (seeds 0-4), the batches sharded
+        from nfmc_torch.flows import RealNVP
+
+        n = TR_SNF["n_particles"]
+        model = SNF([HMCLayer((TR_D,)), FlowLayer(RealNVP((TR_D,), n_layers=2)),
+                     HMCLayer((TR_D,)), FlowLayer(RealNVP((TR_D,), n_layers=2)),
+                     HMCLayer((TR_D,))], target, prior, seed=0, device=dev)
+        batch = lambda seed: sharded.sample(  # noqa: E731
+            (n,), generator=torch.Generator(device=dev).manual_seed(seed))
+        epochs = SHARD_SNF_EPOCHS if passes is None else passes
+        fitted = {}
+        if epochs:
+            model.fit(batch(1), n_epochs=epochs, seed=2)
+            fitted["loss"] = model.loss_trace.cpu().numpy()
+        history, x, log_w = model.inverse(batch(4 if epochs else 1), seed=3)
+        return {"history": history.cpu().numpy(), "particles": x.cpu().numpy(),
+                "log_weights": log_w.cpu().numpy(),
+                "log_Z": float(torch.logsumexp(log_w, 0) - np.log(n)),
+                "flow": np.concatenate([flat_leaves(p) for p in model.params if p]), **fitted}
+    if method == "ns":
+        ns_prior, ns_target = transport_targets(TR_NS_D)
+        flow = flow_on_mesh(TR_NS_D)
+        out = NestedSampling(ShardedPrior(ns_prior, mesh), lambda x: -ns_target(x), flow,
+                             n_live_points=TR_NS["n_particles"]).run(
+            n_iterations=TR_NS["n_iterations"], seed=0)
+        flat, placed = replicated(flow.params)
+        return {"log_Z": out["log_Z"], "live": out["live_points"], "dead": out["dead_points"],
+                "live_ll": out["live_log_likelihoods"], "flow": flat, "replicated": placed}
+    from nfmc_torch.flow_training import FAB
+
+    f = TR_FAB
+    flow = flow_on_mesh()
+    algorithm = FAB(target, flow)
+    trained = algorithm.run(n_iterations=SHARD_FAB_ITERS,
+                            n_flow_training_steps=f["n_flow_training_steps"],
+                            n_ais_particles=f["n_ais_particles"], seed=0)
+    flat, placed = replicated(trained.params)
+    return {"flow": flat, "loss": algorithm.loss_trace.cpu().numpy(), "replicated": placed}
 
 
 def b19_nuts(mesh, dev) -> dict:
@@ -4681,27 +4822,93 @@ B19_SCENARIOS = {
     "nuts": b19_nuts,
     "adaptive_imh": b19_adaptive_imh,
     "jump_hmc": lambda mesh, dev: run_summary(b19_jump_hmc(mesh, dev)),
-    "aft": lambda mesh, dev: shard_transport("aft", dev, mesh, n_train_epochs=0),
+    "aft": lambda mesh, dev: shard_transport("aft", dev, mesh, passes=0),
     "aft_fit": lambda mesh, dev: shard_transport("aft", dev, mesh),
+    "craft_sample": lambda mesh, dev: shard_transport("craft", dev, mesh, passes=0),
+    "craft": lambda mesh, dev: shard_transport("craft", dev, mesh),
+    "ais": lambda mesh, dev: shard_transport("ais", dev, mesh),
+    "snf_inverse": lambda mesh, dev: shard_transport("snf", dev, mesh, passes=0),
+    **{m: (lambda mesh, dev, m=m: shard_transport(m, dev, mesh)) for m in ("snf", "ns", "fab")},
 }
+
+
+# the 19b runs whose unsharded reference is a 19a run without a mesh (the
+# same call, and so the same result): 19b takes it from there
+B19_FROM_19A = {"aft_fit": "aft", "craft": "craft", "ais": "ais", "snf": "snf", "ns": "ns",
+                "fab": "fab"}
+
+
+def b19_transport_check(name: str, got: dict, want: dict) -> tuple:
+    """19b's gate on a transport run of two ranks (``got``) against the
+    unsharded one (``want``): ``(what was compared, whether it holds)``. AFT
+    and CRAFT with their fits off, AIS and SNF's inverse: log Z to
+    SHARD_AFT_LOGZ_TOL and the particles and log-weights (the history) to
+    SHARD_TOL; AFT and CRAFT trained: both log Z finite and within
+    SHARD_AFT_FIT_LOGZ_TOL (CRAFT's within SHARD_CRAFT_LOGZ_TOL, its
+    particle means to SHARD_FIT_MEAN_TOL and at most SHARD_CRAFT_PARTED of
+    its weights beyond SHARD_TOL); SNF fitted:
+    each epoch's loss (relative), the weights, log Z on fresh draws and
+    that inverse's output to SHARD_TOL; nested sampling and FAB bit for bit
+    (their flows replicated on the mesh)."""
+    def diff(k):
+        return float(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64)).max())
+
+    dz = abs(got["log_Z"] - want["log_Z"]) if "log_Z" in want else None
+    finite = dz is not None and np.isfinite(got["log_Z"]) and np.isfinite(want["log_Z"])
+    if name in ("ns", "fab"):
+        keys = sorted(want)
+        ok = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in keys)
+        return f"bit-identical {ok} ({', '.join(keys)}; replicated {got['replicated']})", ok
+    if name in ("aft_fit", "craft"):
+        text = f"log Z {got['log_Z']:.6f} vs {want['log_Z']:.6f} unsharded, |diff| {dz:.3e}"
+        ok = finite and dz < SHARD_AFT_FIT_LOGZ_TOL
+        if name == "craft":
+            dm = float(np.abs(got["particles"].mean(0) - want["particles"].mean(0)).max())
+            dw = np.abs(got["flow"] - want["flow"])
+            parted = float(np.mean(dw > SHARD_TOL))
+            text += (f"; particle means max|diff| {dm:.3e}; weights max|diff| {dw.max():.3e}, "
+                     f"rms {float(np.sqrt(np.mean(dw ** 2))):.3e}, {parted:.4%} of "
+                     f"{dw.size} beyond {SHARD_TOL}")
+            ok = (ok and dz < SHARD_CRAFT_LOGZ_TOL and dm < SHARD_FIT_MEAN_TOL
+                  and parted <= SHARD_CRAFT_PARTED and bool(np.isfinite(got["flow"]).all()))
+        return text, ok
+    keys = [k for k in ("particles", "log_weights", "history", "flow") if k in want]
+    errs = {k: diff(k) for k in keys}
+    ok = finite and all(e <= SHARD_TOL for e in errs.values())
+    if name == "snf":  # fitted: log Z and each epoch's loss too
+        dl = np.abs(got["loss"] - want["loss"]) / np.maximum(1.0, np.abs(want["loss"]))
+        errs["loss (relative)"] = float(dl.max())
+        ok = ok and dz <= SHARD_TOL and errs["loss (relative)"] <= SHARD_TOL
+    else:
+        ok = ok and dz < SHARD_AFT_LOGZ_TOL
+    if name == "ais":
+        ok = ok and got["plain"]
+    return (f"log Z {got['log_Z']:.6f} vs {want['log_Z']:.6f} unsharded, |diff| {dz:.3e}; "
+            + ", ".join(f"{k} max|diff| {e:.3e}" for k, e in errs.items())), ok
+
+
+# what each 19b rank adds to a scenario's result beside the run's own
+RANK_KEYS = ("wall", "coll_s", "coll_n", "shapes")
 
 
 def rank19b(rank: int, world: int, workdir: str) -> None:
     """19b: one of ``world`` ranks, a process of its own on the one card: it
     joins a gloo group (a FileStore in ``workdir``), runs each of
     B19_SCENARIOS on CUDA with ``chain_mesh(device_type="cpu")`` carrying
-    the collectives on the host, and writes ``rank<r>.pkl`` with each run's
+    the collectives on the host (and ``param_mesh``'s CUDA mesh holding the
+    replicated flows), and writes ``rank<r>.pkl`` with each run's
     results, wall, RealNVP launches by shape and the time and number of its
-    collectives (``ChainShard``'s sum, max, gather and seed broadcast, the
-    copies to the host and back included). It sets itself up, writes
-    ``ready<r>`` (when it entered this function and when it was set up),
-    then waits for a file ``go`` in ``workdir`` before the first run. A
-    failure raises: the process exits non-zero."""
+    collectives (``ChainShard``'s sum, max, gather and seed broadcast and
+    ``DTensor.full_tensor``, the copies to the host and back included). It
+    sets itself up, writes ``ready<r>`` (when it entered this function and
+    when it was set up), then waits for a file ``go`` in ``workdir`` before
+    the first run. A failure raises: the process exits non-zero."""
     import os
     import pickle
     from datetime import timedelta
 
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
 
     from nfmc_torch.core.chains import ChainShard
     from nfmc_torch.ops import build
@@ -4729,6 +4936,8 @@ def rank19b(rank: int, world: int, workdir: str) -> None:
 
     for name in ("sum", "max", "gather", "agree_seed"):
         setattr(ChainShard, name, timed(getattr(ChainShard, name)))
+    # nested sampling gathers its sharded draws through DTensor itself
+    DTensor.full_tensor = timed(DTensor.full_tensor)
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(workdir, "store"), world),
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=SHARD_GLOO_TIMEOUT_S))
@@ -4736,6 +4945,7 @@ def rank19b(rank: int, world: int, workdir: str) -> None:
         mesh = chain_mesh(device_type="cpu")
         shard_chains(torch.zeros((world, 1), device=dev), mesh)  # DTensor's first use
         ChainShard(mesh).gather(torch.zeros(1, device=dev))
+        param_mesh(mesh, dev)
         with open(os.path.join(workdir, f"ready{rank}"), "w") as f:
             f.write(f"{t_entry} {time.time()}")
         # the parent says go once its own runs are done, so the ranks' walls
@@ -4791,12 +5001,13 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
     """Phase 19: 19a each strategy declared for several ranks after phase
     18's through ``sample(..., mesh=chain_mesh())`` (a one-rank NCCL group)
     and without it, bit for bit (draws, moments, counters, adapted state,
-    launch counts), and AFT and PMC with their particles drawn sharded on
-    that mesh; 19b two gloo ranks, each a process on the one card, running
-    B19_SCENARIOS against the same runs unsharded on the card in this
-    process (draws and means to SHARD_TOL with equal counters; AFT's log Z
-    with the fits off to SHARD_AFT_LOGZ_TOL, with them on finite and within
-    SHARD_AFT_FIT_LOGZ_TOL; the ranks are ``start_ranks19b()``'s); then
+    launch counts), AFT, PMC, CRAFT, AIS and SNF with their particles drawn
+    sharded on that mesh, nested sampling with its live set sharded and its
+    flow replicated there, and FAB with its flow replicated there; 19b two
+    gloo ranks, each a process on the one card, running B19_SCENARIOS
+    against the same runs unsharded on the card in this process (draws and
+    means to SHARD_TOL with equal counters; the transport runs by
+    ``b19_transport_check``; the ranks are ``start_ranks19b()``'s); then
     every RealNVP shape the phase launched that ``known`` (a phase 3, 3b or
     17 shape: timing) lacks, against the plain version."""
     import os
@@ -4836,6 +5047,7 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
         return np.array_equal(np.asarray(a), np.asarray(b))
 
     procs, workdir, t_spawn = ranks19b
+    plain19a = {}  # 19a's transport runs without a mesh, by method
     try:
         # ---- 19a. one rank: a one-rank NCCL mesh against no mesh ----------------------
         check(not dist.is_initialized(), "19a: a process group is already running")
@@ -4864,17 +5076,21 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
                 check(strategy in ("ula", "uhmc", "mh", "nuts", "ess")
                       or la.get("fused_realnvp_vjp", 0) > 0,
                       f"19a {strategy}: the flow's fit never went through the VJP kernel: {la}")
-            for method in ("aft", "pmc"):
+            for method in SHARD_TRANSPORT:
                 runs = {label: measured(m and f"19a {method}",
                                         lambda m=m: shard_transport(method, dev, m))
                         for label, m in (("plain", None), ("mesh", mesh))}
                 (a, la, wa), (b, lb, wb) = runs["plain"], runs["mesh"]
                 res["walls"][method] = (wa, wb)
-                ok = la == lb and all(same(a[k], b[k]) for k in a)
-                print(f"19a {method} (d={TR_D}, phase 17's particles): without a mesh {wa:.3f} s, "
-                      f"with it {wb:.3f} s; log Z {a['log_Z']:.6f}, bit-identical {ok} (log Z, "
-                      f"particles, history, flow); launches {lb}")
-                check(ok, f"19a {method}: particles sharded on the one-rank mesh differ")
+                plain19a[method] = runs["plain"]
+                ok = la == lb and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+                print(f"19a {method}: without a mesh {wa:.3f} s, with it {wb:.3f} s"
+                      + (f"; log Z {a['log_Z']:.6f}" if "log_Z" in a else "")
+                      + f"; bit-identical {ok} ({', '.join(sorted(a))}); launches {lb}")
+                check(ok, f"19a {method}: the run on the one-rank mesh differs from the run "
+                          "without it")
+                check(method == "ais" or la.get("fused_realnvp_vjp", 0) > 0,
+                      f"19a {method}: the flow was never trained through the VJP kernel: {la}")
         finally:
             dist.destroy_process_group()
         lap_19a = time.perf_counter() - t_phase
@@ -4884,8 +5100,11 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
         t0 = time.perf_counter()
         refs = {}
         for name, fn in B19_SCENARIOS.items():
-            refs[name], la, wa = measured(f"19b {name} unsharded", lambda fn=fn: fn(None, dev))
-            refs[name].update(wall=wa, launches=la)
+            if B19_FROM_19A.get(name) in plain19a:  # the same call: its run without a mesh
+                ref, la, wa = plain19a[B19_FROM_19A[name]]
+            else:
+                ref, la, wa = measured(f"19b {name} unsharded", lambda fn=fn: fn(None, dev))
+            refs[name] = {**ref, "wall": wa, "launches": la}
         t_go, go_at = time.perf_counter(), time.time() - t_spawn
         open(os.path.join(workdir, "go"), "w").close()
         for p in procs:
@@ -4909,8 +5128,8 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
     wall_19b = time.perf_counter() - t0
     for name in B19_SCENARIOS:
         want, got = refs[name], ranks[0][name]
-        check(all(same(got[k], rk[name][k]) for rk in ranks[1:]
-                  for k in got if k not in ("wall", "coll_s", "coll_n", "shapes", "launches")),
+        check(all(same(got[k], rk[name][k]) for rk in ranks[1:] for k in got
+                  if k not in RANK_KEYS + ("launches",)),
               f"19b {name}: the ranks' gathered results differ")
         for r, rk in enumerate(ranks):
             res["shapes"][f"19b {name} rank {r}"] = collections.Counter(rk[name]["shapes"])
@@ -4921,16 +5140,13 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
                               for k, v in sorted(rk[name]["shapes"].items())))
         res["walls"][f"19b {name}"] = (want["wall"], max(rk[name]["wall"] for rk in ranks),
                                        max(rk[name]["coll_s"] for rk in ranks))
-        if name.startswith("aft"):
-            dz = abs(got["log_Z"] - want["log_Z"])
-            dp = float(np.abs(got["particles"] - want["particles"]).max())
-            print(f"19b {name}: log Z {got['log_Z']:.6f} on {SHARD_RANKS} ranks, "
-                  f"{want['log_Z']:.6f} unsharded ({want['wall']:.3f} s), |diff| {dz:.3e}; "
-                  f"particles max|diff| {dp:.3e}")
-            check(np.isfinite(got["log_Z"]) and np.isfinite(want["log_Z"]),
-                  f"19b {name}: a log Z is not finite")
-            check(dz < (SHARD_AFT_LOGZ_TOL if name == "aft" else SHARD_AFT_FIT_LOGZ_TOL),
-                  f"19b {name}: log Z {got['log_Z']} on two ranks, {want['log_Z']} on one")
+        if "samples" not in want:  # a transport run
+            text, ok = b19_transport_check(
+                name, *({k: v for k, v in r.items() if k not in RANK_KEYS + ("launches",)}
+                        for r in (got, want)))
+            print(f"19b {name} on {SHARD_RANKS} ranks: {text}; unsharded {want['wall']:.3f} s, "
+                  f"launches {want['launches']}")
+            check(ok, f"19b {name}: the {SHARD_RANKS} ranks' run is off the unsharded one: {text}")
             continue
         e_draws = float(np.abs(got["samples"] - want["samples"]).max())
         e_mean = float(np.abs(got["mean"] - want["mean"]).max())
@@ -5019,6 +5235,13 @@ def main() -> None:
     # ---- 3. kernel vs plain ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # phase 18 runs first: its trace (18a) missed the traced headline's last
+    # ~70 device ops, its inverse among them, in each of four runs that
+    # reached it after 790 s or more of this script, and held them in each
+    # run that reached it by 705 s and in a fresh process (NVIDIA H100 80GB
+    # HBM3, 700.00 W); the cause is not known
+    par18 = run_parallel_phases(dev)
+    lap("phase 18")
     g = torch.Generator(device=dev).manual_seed(0)
     err = {False: 0.0, True: 0.0}
     timing = {}
@@ -5325,8 +5548,6 @@ def main() -> None:
     ranks19b = start_ranks19b()
     tr17 = run_transport_phases(dev)
     lap("phase 17")
-    par18 = run_parallel_phases(dev)
-    lap("phase 18")
     known = {**{("stack", "inverse" if inv else "forward", D, H, L, rows): t
                 for (d_, rows, inv), t in timing.items() if d_ == D},
              **{("vjp", "inverse" if inv else "forward", D, H, L, rows): t

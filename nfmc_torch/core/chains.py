@@ -149,12 +149,53 @@ def chain_softmax(log_w: torch.Tensor, shard: Optional[ChainShard] = None) -> to
     return torch.exp(log_w - chain_logsumexp(log_w, shard))
 
 
-def refuse_sharded(what: str, *values) -> None:
-    """Raise for a DTensor among ``values``: ``what`` does not shard its
-    particles yet."""
-    if any(is_sharded(v) for v in values):
-        raise NotImplementedError(f"{what}: particles sharded over a mesh are not supported yet "
-                                  "(ROADMAP 1.8d)")
+def mesh_seed(mesh, seed: int) -> int:
+    """The ``seed`` of the mesh's first rank on each of its ranks: a
+    broadcast along each axis in turn."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(seed)], dtype=torch.int64, device=mesh_device(mesh))
+    for dim in range(mesh.ndim):
+        group = mesh.get_group(dim)
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return int(t.item())
+
+
+def local_params(tree):
+    """``(local tree, mesh)``: a parameter tree whose tensors are DTensors
+    replicated over a mesh (:func:`nfmc_torch.parallel.replicate`) as this
+    rank's copy of each, with that mesh; a tree without a DTensor as it is,
+    with None. The runs that take such a tree (FAB, nested sampling) work
+    on the copy, as GSPMD runs the JAX package's jitted steps replicated. A
+    tensor placed ``Shard`` raises ``ValueError``."""
+    from ..utils import tree_leaves, tree_map
+
+    placed = [t for t in tree_leaves(tree) if is_sharded(t)]
+    if not placed:
+        return tree, None
+    mesh = placed[0].device_mesh
+    for t in placed:
+        if t.device_mesh != mesh or any(p.is_shard() for p in t.placements):
+            raise ValueError("parameters must be replicated over one mesh, got placements "
+                             f"{t.placements} on {t.device_mesh}")
+    return tree_map(lambda t: t.to_local() if is_sharded(t) else t, tree), mesh
+
+
+@contextlib.contextmanager
+def on_local_copy(flow):
+    """For the ``with`` block, ``flow``'s parameters are this rank's copy
+    (:func:`local_params`), and the block gets their mesh (None for plain
+    parameters); afterwards they are replicated again over it, as trained
+    in the block."""
+    params, mesh = local_params(flow.params)
+    flow.params = params
+    try:
+        yield mesh
+    finally:
+        if mesh is not None:
+            from ..parallel import replicate
+
+            flow.params = replicate(flow.params, mesh)
 
 
 def support_multi_rank(sampler) -> bool:

@@ -17,6 +17,14 @@ with no host synchronisation. Prioritized replay draws are Gumbel-max
 (``argmax(logits + Gumbel)``, ``jax.random.categorical``'s own draw) over
 the buffered log-weights: no ``torch.multinomial``, which raises on an
 all-zero row and checks on the host.
+
+A flow whose parameters are replicated over a mesh
+(:func:`nfmc_torch.parallel.replicate`), the one input of FAB that the JAX
+package places on a mesh, runs on each rank's copy: GSPMD runs that
+package's jitted iteration replicated, and so every rank here runs the
+unsharded run, with the same generator (the first rank's seed when none is
+given) and kernels, on plain tensors. The trained parameters come back
+replicated over the same mesh.
 """
 from __future__ import annotations
 
@@ -25,13 +33,12 @@ from typing import Optional
 
 import torch
 
-from ..core.chains import refuse_sharded
-from ..core.rng import resolve_generator
+from ..core.chains import on_local_copy
 from ..flows.train import _AdamW, _finite_update, _flatten
 from ..ops.coupling import unpack_like
 from ..transport.ais import anneal_chain
-from ..transport.common import categorical, gumbel, make_mala_sweep, tempered
-from ..utils import Progress, resolve_device, tree_leaves
+from ..transport.common import categorical, gumbel, make_mala_sweep, run_generator, tempered
+from ..utils import Progress, resolve_device
 
 
 class FAB:
@@ -186,9 +193,15 @@ class FAB:
                 f"n_ais_particles ({n_ais_particles}) exceeds buffer_size "
                 f"({self.buffer_size}); one AIS round would overwrite its own rows"
             )
-        refuse_sharded("FAB", *tree_leaves(self.flow.params))
+        with on_local_copy(self.flow) as mesh:
+            device = self.flow.get_device()
+            return self._run(n_iterations, n_flow_training_steps, n_ais_particles,
+                             n_training_particles, show_progress,
+                             run_generator(device, generator, seed, mesh))
+
+    def _run(self, n_iterations, n_flow_training_steps, n_ais_particles, n_training_particles,
+             show_progress, g):
         device = self.flow.get_device()
-        g = resolve_generator(device, generator, seed)
         like = self.flow.params
         theta = _flatten(like)
         opt = _AdamW(theta, self.lr)

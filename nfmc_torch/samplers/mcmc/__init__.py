@@ -1,4 +1,5 @@
-from .base import MCMCSampler, MetropolisKernel, MetropolisParameters, MetropolisState
+from .base import (MCMCSampler, MetropolisKernel, MetropolisParameters, MetropolisSampler,
+                   MetropolisState)
 from .chees import CheesHMC, CheesHMCKernel, CheesHMCParameters, CheesState
 from .dense import (DenseHMC, DenseHMCKernel, DenseHMCParameters, DenseLangevinKernel,
                     DenseLangevinParameters, DenseMALA, DenseMetropolisState)
@@ -10,7 +11,8 @@ from .mh import MH, MHKernel, MHParameters, RandomWalk
 from .nuts import NUTS, NUTSKernel, NUTSParameters
 from .pt import PTHMC, PTMALA, PTRWMH, ParallelTempering, PTKernel, PTParameters, PTState
 
-__all__ = ["MCMCSampler", "MetropolisKernel", "MetropolisParameters", "MetropolisState",
+__all__ = ["MCMCSampler", "MetropolisKernel", "MetropolisParameters", "MetropolisSampler",
+           "MetropolisState",
            "Langevin", "LangevinKernel", "LangevinParameters", "MALA", "ULA",
            "HMC", "UHMC", "HMCKernel", "HMCParameters", "MH", "MHKernel", "MHParameters",
            "RandomWalk", "ESS", "ESSKernel", "ESSParameters", "ESSState", "NUTS", "NUTSKernel",

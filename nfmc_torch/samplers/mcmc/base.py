@@ -1,5 +1,6 @@
-"""Metropolis-family kernel state, Metropolis adaptation and the standalone
-MCMC runner (counterpart of ``nfmc_tpu/samplers/mcmc/base.py``).
+"""Metropolis-family kernel state, Metropolis adaptation, the standalone
+MCMC runner and the base of the Metropolis samplers (Langevin, HMC, MH,
+NUTS); counterpart of ``nfmc_tpu/samplers/mcmc/base.py``.
 
 * ``warmup`` runs ``n_warmup_iterations`` in tuning mode and keeps the tuned
   kernel; ``sample`` runs ``n_iterations`` (tuning if ``params.tuning``);
@@ -249,3 +250,14 @@ class MCMCSampler(Sampler):
         out.kernel = self.kernel
         self._post_run(out)
         return out
+
+
+class MetropolisSampler(MCMCSampler):
+    """The base of the samplers whose kernel is a :class:`MetropolisKernel`
+    tuned by Metropolis adaptation (Langevin, HMC, MH, NUTS), as in the JAX
+    package. It declares no ``multi_rank_chains``: each concrete class
+    declares its own (:func:`nfmc_torch.core.chains.support_multi_rank`)."""
+
+    def __init__(self, event_shape, target, kernel: MetropolisKernel,
+                 params: MetropolisParameters, **kw):
+        super().__init__(event_shape, target, kernel, params, **kw)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ...utils import event_size_of, flatten_event, sum_except_batch, value_and_batched_grad
-from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from .base import MetropolisKernel, MetropolisParameters, MetropolisSampler
 
 
 # HMC's jitter fraction: the drawn step scales apply as they are
@@ -51,7 +51,7 @@ class HMCParameters(MetropolisParameters):
     step_jitter: float = 0.0
 
 
-class HMC(MCMCSampler):
+class HMC(MetropolisSampler):
     multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel: Optional[HMCKernel] = None,

@@ -24,7 +24,7 @@ from ...utils import (
     metropolis_acceptance_log_ratio,
     value_and_batched_grad,
 )
-from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from .base import MetropolisKernel, MetropolisParameters, MetropolisSampler
 
 
 @dataclass
@@ -48,7 +48,7 @@ def proposal_potential(x_prime_flat, x_flat, grad_u_x_flat, a_diag, tau):
     return (term * (1.0 / a_diag[None]) * term).sum(-1) / (4.0 * tau)
 
 
-class Langevin(MCMCSampler):
+class Langevin(MetropolisSampler):
     def __init__(self, event_shape, target, kernel: Optional[LangevinKernel] = None,
                  params: Optional[LangevinParameters] = None, device=None):
         if kernel is None:

@@ -21,7 +21,7 @@ import torch
 
 from ...core.driver import StepInfo
 from ...utils import event_size_of, metropolis_acceptance_log_ratio
-from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from .base import MetropolisKernel, MetropolisParameters, MetropolisSampler
 
 
 @dataclass
@@ -39,7 +39,7 @@ class MHParameters(MetropolisParameters):
         self.tune_inv_mass_diag = True
 
 
-class MH(MCMCSampler):
+class MH(MetropolisSampler):
     multi_rank_chains = True
 
     def __init__(self, event_shape, target, kernel: Optional[MHKernel] = None,

@@ -21,7 +21,7 @@ import torch
 
 from ...core.driver import StepInfo
 from ...utils import event_size_of
-from .base import MCMCSampler, MetropolisKernel, MetropolisParameters
+from .base import MetropolisKernel, MetropolisParameters, MetropolisSampler
 from .nuts_impl import make_nuts_step, nuts_step_draws
 
 
@@ -39,7 +39,7 @@ class NUTSParameters(MetropolisParameters):
     max_delta_energy: float = 1000.0
 
 
-class NUTS(MCMCSampler):
+class NUTS(MetropolisSampler):
     """Multi-chain NUTS. ``tree_depths()`` gives the mean and the maximum
     tree depth over the chains and the steps this sampler took (summed on
     the device, read once; with chains sharded over several ranks, summed

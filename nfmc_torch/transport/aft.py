@@ -34,12 +34,12 @@ import numpy as np
 import torch
 
 from ..core.chains import chain_logsumexp, chain_softmax
-from ..core.rng import resolve_generator
 from ..flows.train import _Adam, _flatten, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import (draw_rows, flat_value_and_grad, gathered, log_ess, make_mala_sweep,
-                     rank_share, resample, resample_offset, run_shard, take_particles, tempered)
+from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
+                     make_mala_sweep, rank_share, resample, resample_offset, run_shard,
+                     take_particles, tempered)
 
 
 def _uniform(n: int, x: torch.Tensor) -> torch.Tensor:
@@ -172,12 +172,13 @@ class AnnealedFlowTransport:
         groups on the flow's device; a group it returns as a DTensor runs
         sharded (module doc)."""
         device = self.flow.get_device()
-        g = resolve_generator(device, generator, seed)
         threshold = self.sampling_threshold
         if threshold is None:
             threshold = 0.3 if 1.0 / n_particles <= 0.3 else 1.0 / n_particles
         sizes = (n_particles, n_train_particles, n_val_particles)
-        xs, shards = zip(*(take_particles(prior_sample((n,), generator=g)) for n in sizes))
+        g, drawn = first_draw(lambda g: [prior_sample((n,), generator=g) for n in sizes], device,
+                              generator, seed)
+        xs, shards = zip(*(take_particles(x) for x in drawn))
         xs = [x.to(device) if s is not None else x for x, s in zip(xs, shards)]
         lws = [_uniform(n, x) for n, x in zip(sizes, xs)]
         log_Z = 0.0

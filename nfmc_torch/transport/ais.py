@@ -5,6 +5,12 @@ The reference imports ``nfmc.mcmc.ais``, which does not exist
 (``flow_annealed_bootstrap.py:4``); this is the real component: a linear
 schedule with MALA transitions and importance weights
 ``log_w = sum_k [u_{k-1}(x_k) - u_k(x_k)]`` accumulated on the device.
+
+A start ``x0`` given as a DTensor placed ``Shard(0)`` over a mesh's first
+axis runs sharded (:mod:`nfmc_torch.transport.common`): the draws are made
+for the global particles and each rank anneals its rows with its rows of
+them. No sum crosses the particles inside the chain, so the ranks meet only
+to gather the result: ``(x, log_w)`` of the global shape on every rank.
 """
 from __future__ import annotations
 
@@ -14,10 +20,9 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from ..core.chains import refuse_sharded
-from ..core.rng import resolve_generator
+from ..core.chains import is_sharded
 from ..utils import resolve_device
-from .common import make_mala_sweep, tempered
+from .common import draw_rows, gathered, make_mala_sweep, run_generator, take_particles, tempered
 
 
 class AnnealChain:
@@ -43,9 +48,16 @@ class AnnealChain:
         return list(zip(noise, uniforms))
 
     def __call__(self, x0: torch.Tensor, draws: Iterable):
-        refuse_sharded("AIS", x0)
-        x = x0
-        log_w = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
+        """``(x, log_w)`` from the start ``x0``. Sharded (a DTensor ``x0``),
+        the rank runs its rows, with its rows of the global ``draws``, on
+        the draws' device, and returns the result gathered."""
+        x, shard = x0, None
+        if is_sharded(x0):
+            x, shard = take_particles(x0)
+            draws = [draw_rows(d, shard) for d in draws]
+            if draws:
+                x = x.to(draws[0][0].device)
+        log_w = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for lam_prev, lam_next, d in zip(self.lambdas[:-1], self.lambdas[1:], draws):
             with torch.no_grad():
                 log_w = log_w + self.u(x, lam_prev) - self.u(x, lam_next)
@@ -54,7 +66,7 @@ class AnnealChain:
                 # such particle cannot NaN every logsumexp-based estimate
                 log_w = torch.where(torch.isnan(log_w), -math.inf, log_w)
             x = self.sweep(x, lam_next, d)
-        return x, log_w
+        return gathered(x, shard), gathered(log_w, shard)
 
 
 def anneal_chain(u: Callable, sweep, n_steps: int) -> AnnealChain:
@@ -76,10 +88,13 @@ def ais_base(x0, prior_potential, target_potential, n_steps: int = 10,
              generator: Optional[torch.Generator] = None, seed: Optional[int] = None,
              device=None):
     """Convenience one-shot form (reference-style signature): ``(x, log_w)``
-    on ``device`` (CUDA unless the caller names another)."""
-    refuse_sharded("AIS", x0)
+    on ``device`` (CUDA unless the caller names another); a DTensor ``x0``
+    runs sharded, its draws those of the global particles (from the first
+    rank's seed when none is given)."""
     device = resolve_device(device)
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
-    g = resolve_generator(device, generator, seed)
+    mesh = x0.device_mesh if is_sharded(x0) else None
+    if mesh is None:
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=device)
+    g = run_generator(device, generator, seed, mesh)
     run = make_ais(prior_potential, target_potential, n_steps, n_mcmc_steps, step_size)
-    return run(x0, run.draws(g, x0.shape))
+    return run(x0, run.draws(g, tuple(x0.shape)))

@@ -13,7 +13,10 @@ A group of particles that ``prior_sample`` returns as a ``DTensor`` placed
 sampler are (:mod:`nfmc_torch.core.chains`): each rank holds its rows, draws
 the group's global randomness and keeps its rows of it, and reduces over
 the ranks where the particles meet (log-sums, softmaxes, resampling, the
-fits' losses). A plain tensor is the whole group on every rank.
+fits' losses). A plain tensor is the whole group on every rank. A run given
+neither a generator nor a seed draws from the first rank's next seed on
+every rank (:func:`first_draw`, :func:`run_generator`), so that ranks whose
+process-wide streams differ still draw alike.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..core.chains import ChainShard, chain_logsumexp, is_sharded
+from ..core.chains import ChainShard, chain_logsumexp, is_sharded, mesh_seed
+from ..core.rng import next_seed, resolve_generator
 from ..utils import value_and_batched_grad
 
 
@@ -80,9 +84,10 @@ def run_shard(shards) -> Optional[ChainShard]:
     return found[0] if found else None
 
 
-def gathered(x: torch.Tensor, shard: Optional[ChainShard]) -> torch.Tensor:
-    """The whole group: ``x`` gathered over the ranks of its shard."""
-    return x if shard is None else shard.gather(x, 0)
+def gathered(x: torch.Tensor, shard: Optional[ChainShard], axis: int = 0) -> torch.Tensor:
+    """The whole group: ``x`` (its particle axis ``axis``) gathered over the
+    ranks of its shard."""
+    return x if shard is None else shard.gather(x, axis)
 
 
 def rank_share(v: torch.Tensor, shard: Optional[ChainShard],
@@ -97,8 +102,43 @@ def rank_share(v: torch.Tensor, shard: Optional[ChainShard],
 
 def draw_rows(draws, shard: Optional[ChainShard], axis: int = 1):
     """This rank's rows of draws made for a group's global particles (their
-    particle axis ``axis``)."""
-    return draws if shard is None else tuple(shard.rows(d, axis) for d in draws)
+    particle axis ``axis``): of a tensor, or of each in a sequence."""
+    if shard is None or draws is None:
+        return draws
+    if isinstance(draws, torch.Tensor):
+        return shard.rows(draws, axis)
+    return tuple(shard.rows(d, axis) for d in draws)
+
+
+def run_generator(device, generator: Optional[torch.Generator] = None,
+                  seed: Optional[int] = None, mesh=None) -> torch.Generator:
+    """A run's generator (:func:`nfmc_torch.core.rng.resolve_generator`). On
+    a ``mesh`` with neither a generator nor a seed given, the seed is the
+    next one of the first rank's stream on every rank, so that the ranks
+    draw the same global randomness whatever their own streams hold."""
+    if mesh is not None and generator is None and seed is None:
+        seed = mesh_seed(mesh, next_seed())
+    return resolve_generator(device, generator, seed)
+
+
+def first_draw(draw: Callable, device, generator: Optional[torch.Generator] = None,
+               seed: Optional[int] = None, mesh=None):
+    """``(the run's generator, draw(generator))`` for a run whose mesh, if
+    it has one, may show first in what ``draw`` returns (a group of
+    particles, or a list of groups, from ``prior_sample``): where a group
+    comes back sharded and neither a generator nor a seed was given, the
+    ranks agree on the first rank's seed (:func:`run_generator`) and each
+    draws again from it. A run takes one seed of the stream either way."""
+    if mesh is None and generator is None and seed is None:
+        seed = next_seed()
+        g = resolve_generator(device, None, seed)
+        x = draw(g)
+        placed = [t for t in (x if isinstance(x, (list, tuple)) else [x]) if is_sharded(t)]
+        if not placed:
+            return g, x
+        seed = mesh_seed(placed[0].device_mesh, seed)
+    g = run_generator(device, generator, seed, mesh)
+    return g, draw(g)
 
 
 def resample(x: torch.Tensor, log_w: torch.Tensor, offset: torch.Tensor,

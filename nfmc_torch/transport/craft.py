@@ -16,6 +16,14 @@ parameter vector and AdamW state. A pass (train step, transport, the
 ESS-gated resample and the MALA sweep at every level) is an eager loop over
 the levels with no host synchronisation; the JAX package runs it as one
 ``lax.scan``.
+
+Particles that ``prior_sample`` returns as a DTensor run sharded over its
+mesh (:mod:`nfmc_torch.transport.common`): each rank holds its rows and its
+rows of every level's draws, made for the global particles; the weights'
+softmax and log-sum, the ESS and the resample are global; a training step
+sums the ranks' shares of the loss and of its gradient in one
+``all_reduce``, so every rank takes the same step. The result holds every
+particle on every rank.
 """
 from __future__ import annotations
 
@@ -25,13 +33,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..core.chains import refuse_sharded
-from ..core.rng import resolve_generator
-from ..flows.train import _AdamW, _finite_update, _flatten
+from ..core.chains import chain_logsumexp, chain_softmax
+from ..flows.train import _AdamW, _finite_update, _flatten, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device, tree_leaves, tree_unflatten
-from .common import (flat_value_and_grad, log_ess, make_mala_sweep, resample_offset,
-                     systematic_resample, tempered)
+from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
+                     make_mala_sweep, resample, resample_offset, take_particles, tempered)
 
 
 def _shapes(params):
@@ -83,19 +90,22 @@ class CRAFT:
         """One level's draws: the resample offset and the sweep's draws."""
         return resample_offset(generator), self.mala_sweep.draws(generator, shape)
 
-    def _level(self, k, theta, opt, x, log_W, draws):
+    def _level(self, k, theta, opt, x, log_W, draws, shard=None):
         """Level k of a pass: with an optimizer ``opt`` first one AdamW step
         on ``theta`` (skipped, moments and all, where the loss or a gradient
         is not finite), then transport, reweight, the ESS-gated resample and
-        the MALA sweep. Returns ``(theta, x, log_W, delta_log_Z)``."""
+        the MALA sweep. Returns ``(theta, x, log_W, delta_log_Z)``. With a
+        ``shard``, ``x`` and ``log_W`` are this rank's rows and ``draws`` the
+        global particles' (module doc)."""
         bij = self.bijections[0]
         like = bij.params
         lam_prev, lam_next = self.lams_prev[k], self.lams[k]
         offset, sweep_draws = draws
         if opt is not None:
-            w = torch.softmax(log_W, 0)
+            w = chain_softmax(log_W, shard)
             loss, g = flat_value_and_grad(
                 lambda p: self._loss(bij, p, x, w, lam_prev, lam_next), theta, like)
+            g, loss = _sum_shares(g, loss, shard)
             with torch.no_grad():
                 theta = opt.step(theta, g, _finite_update(loss, g))
         with torch.no_grad():
@@ -105,33 +115,33 @@ class CRAFT:
             # incremental weight is genuinely zero, not NaN
             log_G = torch.where(torch.isnan(log_G), -math.inf, log_G)
             log_w = log_W + log_G
-            dlZ = torch.logsumexp(log_w, 0)
-            n = log_w.shape[0]
+            dlZ = chain_logsumexp(log_w, shard)
+            n = log_w.shape[0] if shard is None else shard.n_global(log_w.shape[0])
             # degenerate level (every particle unevaluable): uniform reset
             # instead of NaN weights (as aft.py's val-weight guard)
             log_W_new = torch.where(
                 torch.isfinite(dlZ),
                 torch.where(torch.isfinite(log_w - dlZ), log_w - dlZ, -math.inf),
                 -math.log(n))
-            # the ESS-gated resample, decided on the device
-            do = log_ess(log_w) - math.log(n) <= math.log(self.sampling_threshold)
-            idx = torch.where(do, systematic_resample(log_W_new, n, offset),
-                              torch.arange(n, device=x.device))
-            x_next = x_next[idx]
+            # the ESS-gated resample, decided on the device (from reduced
+            # values: the same on every rank)
+            do = log_ess(log_w, shard) - math.log(n) <= math.log(self.sampling_threshold)
+            x_next = torch.where(do, resample(x_next, log_W_new, offset, shard), x_next)
             log_W_new = torch.where(do, -math.log(n), log_W_new)
-        x_next = self.mala_sweep(x_next, lam_next, sweep_draws)
+        x_next = self.mala_sweep(x_next, lam_next, draw_rows(sweep_draws, shard))
         return theta, x_next, log_W_new, dlZ
 
-    def _pass(self, thetas, opts, x, log_W, draws):
+    def _pass(self, thetas, opts, x, log_W, draws, shard=None):
         """One SMC pass over all levels; ``thetas`` (and ``opts``, when
         training) are updated in place. ``draws`` yields each level's
         :meth:`level_draws`. Returns ``(x, log_W, log_Z, xs)`` with ``xs``
-        the particles after each level."""
+        the particles after each level (this rank's rows with a
+        ``shard``)."""
         log_Z = torch.zeros((), device=x.device)
         xs = []
         for k, d in zip(range(self.n_levels), draws):
             thetas[k], x, log_W, dlZ = self._level(k, thetas[k], None if opts is None else opts[k],
-                                                   x, log_W, d)
+                                                   x, log_W, d, shard)
             log_Z = log_Z + dlZ
             xs.append(x)
         return x, log_W, log_Z, xs
@@ -139,22 +149,32 @@ class CRAFT:
     def _pass_draws(self, generator, shape):
         return (self.level_draws(generator, shape) for _ in range(self.n_levels))
 
+    @staticmethod
+    def _particles(drawn, n_particles, device):
+        """A pass's start from its ``n_particles`` prior draws: ``(this
+        rank's particles, their uniform log-weights, the shard)``."""
+        x, shard = take_particles(drawn)
+        if shard is not None:
+            x = x.to(device)
+        return x, torch.full((x.shape[0],), -math.log(n_particles), device=device), shard
+
     def train(self, prior_sample, n_particles: int = 100, n_training_steps: int = 100,
               show_progress: bool = False, generator: Optional[torch.Generator] = None,
               seed: Optional[int] = None):
         like = self.bijections[0].params
         device = tree_leaves(like)[0].device
-        g = resolve_generator(device, generator, seed)
+        if n_training_steps <= 0:
+            return
+        draw = lambda g: prior_sample((n_particles,), generator=g)  # noqa: E731
+        g, drawn = first_draw(draw, device, generator, seed)
         thetas = [_flatten(b.params) for b in self.bijections]
         opts = [_AdamW(t, self.lr) for t in thetas]
 
         bar = Progress(total=n_training_steps, desc="CRAFT", disable=not show_progress)
-        for _ in range(n_training_steps):
-            x = prior_sample((n_particles,), generator=g)
-            refuse_sharded("CRAFT", x)
-            x = x.to(torch.float32)
-            log_W = torch.full((n_particles,), -math.log(n_particles), device=device)
-            _, _, log_Z, _ = self._pass(thetas, opts, x, log_W, self._pass_draws(g, x.shape))
+        for i in range(n_training_steps):
+            x, log_W, shard = self._particles(drawn if i == 0 else draw(g), n_particles, device)
+            _, _, log_Z, _ = self._pass(thetas, opts, x, log_W,
+                                        self._pass_draws(g, (n_particles, *x.shape[1:])), shard)
             bar.update(1)
             if show_progress:  # the only per-pass synchronisation, opt-in
                 bar.set_postfix_str(f"log Z: {float(log_Z):.3f}")
@@ -166,18 +186,17 @@ class CRAFT:
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None):
         like = self.bijections[0].params
         device = tree_leaves(like)[0].device
-        g = resolve_generator(device, generator, seed)
-        x0 = prior_sample((n_particles,), generator=g)
-        refuse_sharded("CRAFT", x0)
-        x0 = x0.to(torch.float32)
-        log_W = torch.full((n_particles,), -math.log(n_particles), device=device)
+        g, drawn = first_draw(lambda g: prior_sample((n_particles,), generator=g), device,
+                              generator, seed)
+        x0, log_W, shard = self._particles(drawn, n_particles, device)
         thetas = [_flatten(b.params) for b in self.bijections]
-        x, log_W, log_Z, xs = self._pass(thetas, None, x0, log_W, self._pass_draws(g, x0.shape))
+        x, log_W, log_Z, xs = self._pass(thetas, None, x0, log_W,
+                                         self._pass_draws(g, (n_particles, *x0.shape[1:])), shard)
         return {
-            "particles": as_numpy(x),
-            "log_weights": as_numpy(log_W),
+            "particles": as_numpy(gathered(x, shard)),
+            "log_weights": as_numpy(gathered(log_W, shard)),
             "log_Z": float(log_Z),
-            "history": as_numpy(torch.stack([x0, *xs])),
+            "history": as_numpy(gathered(torch.stack([x0, *xs]), shard, 1)),
         }
 
 

@@ -15,6 +15,13 @@ population from the flow, each candidate weighted by ``prior(x)/q(x)``,
 restricted to the constraint, one candidate resampled by those weights
 (SIR). The loop runs on the host; each proposal pass (flow sample,
 likelihood, both densities) runs on the flow's device and is copied back.
+
+On a mesh the run is whole on every rank, as the JAX package's is (it turns
+the live points into a host array): live points that ``prior.sample``
+returns as a DTensor are gathered, and a flow whose parameters are
+replicated over a mesh (:func:`nfmc_torch.parallel.replicate`) runs on each
+rank's copy and comes back replicated. Every rank then computes the
+unsharded run's numbers.
 """
 from __future__ import annotations
 
@@ -24,9 +31,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core.chains import refuse_sharded
-from ..core.rng import resolve_generator
+from ..core.chains import is_sharded, on_local_copy
 from ..utils import Progress, as_numpy, resolve_device
+from .common import first_draw
 
 
 class NestedSampling:
@@ -51,18 +58,27 @@ class NestedSampling:
         log_w = -self.prior(xp) - logq  # log[prior(x)/q(x)] up to a constant
         return as_numpy(xp), as_numpy(lls), as_numpy(log_w)
 
+    @staticmethod
+    def _whole(x, generator):
+        """Prior draws, whole: a DTensor is gathered (onto the generator's
+        device)."""
+        return x.full_tensor().to(generator.device) if is_sharded(x) else x
+
     @torch.no_grad()
     def _prior_draw(self, generator):
-        cand = self.prior.sample((self.n_pop,), generator=generator)
+        cand = self._whole(self.prior.sample((self.n_pop,), generator=generator), generator)
         return as_numpy(cand), as_numpy(self.log_likelihood(cand))
 
     def run(self, n_iterations: int = 1000, show_progress: bool = False,
             generator: Optional[torch.Generator] = None, seed: Optional[int] = None):
-        device = self.flow.get_device()
-        g = resolve_generator(device, generator, seed)
+        with on_local_copy(self.flow) as mesh:
+            with torch.no_grad():
+                g, x0 = first_draw(lambda g: self.prior.sample((self.n_live,), generator=g),
+                                   self.flow.get_device(), generator, seed, mesh)
+            return self._run(n_iterations, show_progress, g, self._whole(x0, g))
+
+    def _run(self, n_iterations, show_progress, g, x0):
         with torch.no_grad():
-            x0 = self.prior.sample((self.n_live,), generator=g)
-            refuse_sharded("nested sampling", x0)
             x0 = x0.to(torch.float32)
             x = np.array(as_numpy(x0), dtype=np.float32, copy=True)
             ll = np.array(as_numpy(self.log_likelihood(x0)), copy=True)
@@ -122,8 +138,11 @@ class NestedSampling:
             x[worst], ll[worst] = replacement
 
             if i % self.n_live == 0 and i > 0:
+                # the refit's seed comes from the run's generator, as every
+                # other draw of the run does: the same on every rank
+                refit_seed = int(np.random.default_rng((g.initial_seed(), i)).integers(2**62))
                 try:
-                    self.flow.fit(x, **self.flow_fit_kwargs)
+                    self.flow.fit(x, **{"seed": refit_seed, **self.flow_fit_kwargs})
                 except ValueError:
                     pass
             bar.update(1)

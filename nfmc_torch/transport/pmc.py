@@ -36,11 +36,10 @@ import numpy as np
 import torch
 
 from ..core.chains import chain_mean
-from ..core.rng import resolve_generator
 from ..flows.train import _Adam, _finite_update, _flatten
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import (draw_rows, flat_value_and_grad, gathered, resample_offset,
+from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, resample_offset,
                      systematic_resample, take_particles, tempered)
 
 
@@ -225,8 +224,9 @@ class PreconditionedMonteCarlo:
         """``prior_sample(batch_shape, generator=...)`` draws the particles
         on the flow's device; a DTensor runs them sharded (module doc)."""
         device = self.flow.get_device()
-        g = resolve_generator(device, generator, seed)
-        x, shard = take_particles(prior_sample((n_particles,), generator=g))
+        g, drawn = first_draw(lambda g: prior_sample((n_particles,), generator=g), device,
+                              generator, seed)
+        x, shard = take_particles(drawn)
         if shard is not None:
             x = x.to(device)
         log_W = np.full((n_particles,), -math.log(n_particles))

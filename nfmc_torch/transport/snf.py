@@ -27,6 +27,15 @@ once, through its VJP kernel.
 
 Each stochastic layer takes its random numbers as tensors
 (``layer.draws(generator, shape)``).
+
+A latent batch ``z`` given as a DTensor placed ``Shard(0)`` over a mesh's
+first axis runs sharded (:mod:`nfmc_torch.transport.common`): every layer's
+draws are made for the global batch and each rank keeps its rows of them
+(``layer.draw_axis``, their particle axis). ``inverse`` has no sum across
+particles and returns its result gathered; ``fit``'s loss is each rank's sum
+of ``-log_w`` over its rows divided by the global count, summed over the
+ranks with the gradient in one ``all_reduce`` a step, so every rank takes
+(or skips) the same step.
 """
 from __future__ import annotations
 
@@ -36,13 +45,14 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.chains import refuse_sharded
+from ..core.chains import is_sharded
 from ..core.rng import resolve_generator
-from ..flows.train import _AdamW, _finite_update, _flatten
+from ..flows.train import _AdamW, _finite_update, _flatten, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import (Progress, as_numpy, batched_grad, resolve_device, sum_except_batch,
                      tree_leaves, tree_map)
-from .common import flat_value_and_grad, tempered
+from .common import (draw_rows, flat_value_and_grad, gathered, run_generator, take_particles,
+                     tempered)
 
 
 def _grad_u(potential: Callable, x: torch.Tensor) -> torch.Tensor:
@@ -56,6 +66,8 @@ def _grad_u(potential: Callable, x: torch.Tensor) -> torch.Tensor:
 
 class SNFLayer:
     has_params = False
+    # the particle axis of the layer's draws
+    draw_axis = 1
 
     def init(self, generator):
         return ()
@@ -69,6 +81,8 @@ class SNFLayer:
 
 
 class MALALayer(SNFLayer):
+    draw_axis = 0
+
     def __init__(self, event_shape, time_step: float = 1.0, friction: float = 1.0,
                  mass: float = 1.0, beta: float = 1.0):
         self.event_shape = tuple(event_shape)
@@ -205,37 +219,68 @@ class SNF:
         log_weights = -self.target_potential(x) + self.prior_potential(z) + log_det
         return torch.stack(history), x, log_weights
 
+    def _batch(self, z):
+        """``(this rank's rows of z on the device, its shard)``; the shard
+        None for a plain batch."""
+        if is_sharded(z):
+            z, shard = take_particles(z)
+            return z.to(self.device), shard
+        return torch.as_tensor(z, dtype=torch.float32, device=self.device), None
+
+    def _generator(self, generator, seed, shard):
+        """The run's generator: with no seed on a sharded batch, the first
+        rank's (:func:`nfmc_torch.transport.common.run_generator`)."""
+        return run_generator(self.device, generator, seed, None if shard is None else shard.mesh)
+
+    def _draws(self, generator, z, shard):
+        """Every layer's draws for the global batch, this rank's rows of
+        them."""
+        shape = tuple(z.shape) if shard is None else (shard.n_global(z.shape[0]), *z.shape[1:])
+        draws = self.draws(generator, shape)
+        if shard is None:
+            return draws
+        return [draw_rows(d, shard, layer.draw_axis) for layer, d in zip(self.layers, draws)]
+
     def inverse(self, z, generator: Optional[torch.Generator] = None,
                 seed: Optional[int] = None):
-        """``(history, x, log_weights)`` of the latent batch ``z``."""
-        refuse_sharded("SNF", z)
-        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-        g = resolve_generator(self.device, generator, seed)
+        """``(history, x, log_weights)`` of the latent batch ``z`` (gathered
+        when ``z`` is sharded)."""
+        z, shard = self._batch(z)
+        g = self._generator(generator, seed, shard)
         with torch.no_grad():
-            return self._inverse_impl(self.params, z, self.draws(g, z.shape))
+            history, x, log_w = self._inverse_impl(self.params, z, self._draws(g, z, shard))
+        return gathered(history, shard, 1), gathered(x, shard), gathered(log_w, shard)
 
-    def _loss(self, params, z, draws):
+    def _loss(self, params, z, draws, shard=None):
+        """``-mean(log_w)`` over the batch; with a ``shard``, this rank's
+        share of it: its rows' sum over the global count."""
         _, _, log_w = self._inverse_impl(params, z, draws)
-        return -torch.mean(log_w)
+        if shard is None or shard.size == 1:
+            return -torch.mean(log_w)
+        return -log_w.sum() / shard.n_global(log_w.shape[0])
 
     def fit(self, z, n_epochs: int = 10, show_progress: bool = False,
             generator: Optional[torch.Generator] = None, seed: Optional[int] = None):
         """AdamW (``optax.adamw(1e-3)``) on the flow layers' parameters; an
         epoch whose loss or any gradient is not finite is skipped on the
         host (a divergent leapfrog would otherwise NaN the parameters and
-        the moments for good)."""
-        refuse_sharded("SNF", z)
-        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-        g = resolve_generator(self.device, generator, seed)
+        the moments for good). Sharded, that is decided on the values
+        summed over the ranks. ``loss_trace`` keeps each epoch's loss, on
+        the device (summed over the ranks: the unsharded run's loss)."""
+        z, shard = self._batch(z)
+        g = self._generator(generator, seed, shard)
         like = self.params
         if not tree_leaves(like):
             return
         theta = _flatten(like)
         opt = _AdamW(theta, 1e-3)
+        losses = []
         bar = Progress(total=n_epochs, desc="SNF", disable=not show_progress)
         for _ in range(n_epochs):
-            draws = self.draws(g, z.shape)
-            loss, grad = flat_value_and_grad(lambda p: self._loss(p, z, draws), theta, like)
+            draws = self._draws(g, z, shard)
+            loss, grad = flat_value_and_grad(lambda p: self._loss(p, z, draws, shard), theta, like)
+            grad, loss = _sum_shares(grad, loss, shard)
+            losses.append(loss)
             bar.update(1)
             if not bool(_finite_update(loss, grad)):
                 continue
@@ -243,6 +288,7 @@ class SNF:
                 theta = opt.step(theta, grad)
         bar.close()
         self.params = unpack_like(theta, like)
+        self.loss_trace = torch.stack(losses) if losses else torch.zeros(0, device=self.device)
 
 
 def snf(prior, target, flow: str = "realnvp", n_particles: int = 100,

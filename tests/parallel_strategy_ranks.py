@@ -9,6 +9,7 @@ never import JAX. Each scenario is a function of ``(mesh, workdir)``;
 ``mesh=None`` runs it without a mesh.
 """
 import numpy as np
+import torch
 
 from tests.parallel_ranks import D, _entry, _flat, _flow, _metropolis, _result, _target, _x0
 from tests.parallel_ranks import run_rank as _run_rank
@@ -16,6 +17,14 @@ from tests.parallel_ranks import run_rank as _run_rank
 # the transport runs: tests/test_sharding.py's target and flow
 TR_D, AFT_SIZES, PMC_N = 3, (64, 100, 51), 128
 TR_FLOW = 'realnvp%{"n_layers": 2, "hidden_size": 16}'
+# CRAFT's particles, levels and training passes; AIS's particles and
+# levels; SNF's batch and epochs; nested sampling's live points and
+# iterations (past 2 x NS_LIVE, where the flow proposes); FAB's iterations
+CRAFT_N, CRAFT_LEVELS, CRAFT_PASSES = 64, 3, 3
+AIS_N, AIS_STEPS = 128, 4
+SNF_N, SNF_EPOCHS = 64, 3
+NS_LIVE, NS_ITERS = 16, 40
+FAB_ITERS = 2
 AIES_WALKERS = 12
 
 
@@ -289,7 +298,7 @@ def _transport_result(out):
     return r
 
 
-def _aft(mesh, n_train_epochs):
+def _aft(mesh, n_train_epochs, seed=0):
     from nfmc_torch.transport.aft import AnnealedFlowTransport
 
     prior, target, flow = _transport_problem()
@@ -297,7 +306,7 @@ def _aft(mesh, n_train_epochs):
                                       n_train_epochs=n_train_epochs)
     n, n_train, n_val = AFT_SIZES
     out = algorithm.run(_prior_sample(prior, mesh), n_particles=n, n_train_particles=n_train,
-                        n_val_particles=n_val, full_output=True, seed=0)
+                        n_val_particles=n_val, full_output=True, seed=seed)
     return {**_transport_result(out), "flow": _flat(flow.params)}
 
 
@@ -335,51 +344,234 @@ def aft_level_fit(mesh, workdir):
     return {"flow": _flat(params), "best": float(best)}
 
 
-def pmc(mesh, workdir):
+def pmc(mesh, workdir, seed=0):
     """PMC: the temperature from the gathered potentials, the weighted fit
     data-parallel, the pCN sweep's acceptance over every particle."""
     from nfmc_torch.transport.pmc import PreconditionedMonteCarlo
 
     prior, target, flow = _transport_problem()
     out = PreconditionedMonteCarlo(prior, target, flow).run(
-        _prior_sample(prior, mesh), n_particles=PMC_N, full_output=True, seed=0)
+        _prior_sample(prior, mesh), n_particles=PMC_N, full_output=True, seed=seed)
     return {**_transport_result(out), "flow": _flat(flow.params)}
 
 
-def transport_refusals(mesh, workdir):
-    """CRAFT, AIS, nested sampling, SNF and FAB given a DTensor: each raises
-    NotImplementedError naming ROADMAP 1.8d."""
-    from nfmc_torch.flow_training import FAB
+def _sharded(x, mesh):
+    """``x`` sharded over ``mesh`` (as it is without one)."""
+    from nfmc_torch.parallel import shard_chains
+
+    return x if mesh is None else shard_chains(x, mesh)
+
+
+def _perturbed_bijections(n_levels, pert=0.05):
+    """CRAFT's level maps: the transport flow's init at seeds 0.., each
+    weight moved ``pert`` N(0, 1) (numpy, the level's seed), so that the
+    untrained maps are not the identity."""
+    import torch
+
+    from nfmc_torch.api.registry import create_flow_object
+    from nfmc_torch.utils import tree_map
+
+    out = []
+    for i in range(n_levels):
+        b = create_flow_object(TR_FLOW, (TR_D,), seed=i).to("cpu").bijection
+        rng = np.random.default_rng(100 + i)
+        b.params = tree_map(lambda t: t + torch.from_numpy(
+            pert * rng.standard_normal(tuple(t.shape)).astype(np.float32)), b.params)
+        out.append(b)
+    return out
+
+
+def _craft(mesh, n_training_steps, seeds=(1, 2)):
+    from nfmc_torch.transport import CRAFT
+
+    prior, target, _ = _transport_problem()
+    algorithm = CRAFT(prior, target, _perturbed_bijections(CRAFT_LEVELS), n_mcmc_steps=2,
+                      lr=1e-2)
+    sample = _prior_sample(prior, mesh)
+    if n_training_steps:
+        algorithm.train(sample, n_particles=CRAFT_N, n_training_steps=n_training_steps,
+                        seed=seeds[0])
+    out = algorithm.sample(sample, n_particles=CRAFT_N, seed=seeds[1])
+    flows = np.concatenate([_flat(b.params) for b in algorithm.bijections])
+    return {**_transport_result(out), "flow": flows}
+
+
+def craft_sample(mesh, workdir):
+    """CRAFT's sampling pass with untrained (perturbed) maps: global
+    softmaxes, log-sums and ESS, the resample on the gathered group."""
+    return _craft(mesh, 0)
+
+
+def craft_train(mesh, workdir):
+    """CRAFT trained for CRAFT_PASSES passes, each level's AdamW step on
+    the loss summed over the ranks, then sampled."""
+    return _craft(mesh, CRAFT_PASSES)
+
+
+def _ais_start(mesh):
+    prior, target, _ = _transport_problem()
+    g = torch.Generator().manual_seed(21)
+    return prior, target, g, _sharded(prior.sample((AIS_N,), generator=g), mesh)
+
+
+def ais_base(mesh, workdir, seeded=True):
+    """``ais_base`` on a sharded start: each rank anneals its rows with its
+    rows of the global draws, the result gathered (the draws from the
+    start's generator, or ``seeded=False`` from the global stream)."""
+    from nfmc_torch.transport.ais import ais_base as run
+
+    prior, target, g, x0 = _ais_start(mesh)
+    x, log_w = run(x0, prior, target, n_steps=AIS_STEPS, n_mcmc_steps=2, step_size=0.1,
+                   generator=g if seeded else None, device="cpu")
+    return {"particles": x.numpy(), "log_w": log_w.numpy(),
+            "plain": type(x) is torch.Tensor and type(log_w) is torch.Tensor}
+
+
+def ais_chain(mesh, workdir):
+    """``make_ais``'s chain called on a sharded start with the global draws."""
+    from nfmc_torch.transport.ais import make_ais
+
+    prior, target, g, x0 = _ais_start(mesh)
+    run = make_ais(prior, target, n_steps=AIS_STEPS, n_mcmc_steps=2, step_size=0.1)
+    x, log_w = run(x0, run.draws(g, tuple(x0.shape)))
+    return {"particles": x.numpy(), "log_w": log_w.numpy(),
+            "plain": type(x) is torch.Tensor and type(log_w) is torch.Tensor}
+
+
+def _snf():
+    """An SNF with a layer of each kind: MALA (draws with the particle axis
+    first), RealNVP, HMC and MH (the steps first)."""
+    from nfmc_torch.flows import RealNVP
+    from nfmc_torch.transport.snf import SNF, FlowLayer, HMCLayer, MALALayer, MHLayer
+
+    prior, target, _ = _transport_problem()
+    layers = [MALALayer((TR_D,), time_step=0.1), FlowLayer(RealNVP((TR_D,), n_layers=2,
+                                                                    hidden_size=8)),
+              HMCLayer((TR_D,), n_steps=2, n_leapfrog=3), MHLayer((TR_D,), n_steps=2)]
+    return prior, SNF(layers, target, prior, seed=0, device="cpu")
+
+
+def snf_inverse(mesh, workdir, seed=3):
+    """SNF's inverse of a sharded batch: each layer's rows of its draws."""
+    prior, model = _snf()
+    z = prior.sample((SNF_N,), generator=torch.Generator().manual_seed(22))
+    history, x, log_w = model.inverse(_sharded(z, mesh), seed=seed)
+    return {"history": history.numpy(), "particles": x.numpy(), "log_w": log_w.numpy()}
+
+
+def snf_fit(mesh, workdir, seed=4):
+    """SNF fit SNF_EPOCHS epochs on a sharded batch (the mean over the ranks'
+    rows, one all_reduce a step), then log Z on fresh draws, unsharded."""
+    prior, model = _snf()
+    z = prior.sample((SNF_N,), generator=torch.Generator().manual_seed(23))
+    model.fit(_sharded(z, mesh), n_epochs=SNF_EPOCHS, seed=seed)
+    z_eval = prior.sample((SNF_N,), generator=torch.Generator().manual_seed(24))
+    _, _, log_w = model.inverse(z_eval, seed=5)
+    return {"log_Z": float(torch.logsumexp(log_w, 0) - np.log(SNF_N)),
+            "loss": model.loss_trace.numpy(),
+            "flow": np.concatenate([_flat(p) for p in model.params if p])}
+
+
+def _replicated(params, mesh):
     from nfmc_torch.parallel import replicate
-    from nfmc_torch.transport import CRAFT, SNF, NestedSampling, ais
-    from nfmc_torch.transport.snf import HMCLayer
+
+    return params if mesh is None else replicate(params, mesh)
+
+
+def _placements(params, mesh):
+    """Whether every parameter is a DTensor replicated over ``mesh``."""
+    from torch.distributed.tensor import Replicate
+
+    from nfmc_torch.core.chains import is_sharded
+    from nfmc_torch.utils import tree_leaves
+
+    return all(is_sharded(t) and t.device_mesh == mesh
+               and all(p == Replicate() for p in t.placements) for t in tree_leaves(params))
+
+
+def _local_flat(params):
+    from nfmc_torch.core.chains import local_params
+
+    return _flat(local_params(params)[0])
+
+
+def ns(mesh, workdir, seed=0):
+    """Nested sampling with live points drawn sharded and a flow replicated
+    over the mesh: made whole, then the unsharded run on every rank, past
+    the flow's refits (seeded from the run's generator) and into its
+    proposals."""
+    from nfmc_torch.transport import NestedSampling
 
     prior, target, flow = _transport_problem()
-    sharded = _prior_sample(prior, mesh)
-    x0 = sharded((16,))
-    runs = {
-        "craft": lambda: CRAFT(prior, target, [flow.bijection], n_mcmc_steps=1).sample(
-            sharded, n_particles=16, seed=0),
-        "ais": lambda: ais.ais_base(x0, prior, target, n_steps=2, device="cpu"),
-        "ais_chain": lambda: ais.make_ais(prior, target, n_steps=2)(x0, []),
-        "ns": lambda: NestedSampling(_ShardedPrior(prior, mesh), lambda x: -target(x), flow,
-                                        n_live_points=16).run(n_iterations=1, seed=0),
-        "snf": lambda: SNF([HMCLayer((TR_D,))], target, prior, seed=0,
-                               device="cpu").inverse(x0, seed=0),
-        "snf_fit": lambda: SNF([HMCLayer((TR_D,))], target, prior, seed=0,
-                                   device="cpu").fit(x0, n_epochs=1, seed=0),
-    }
-    fab_flow = _transport_problem()[2]
-    fab_flow.params = replicate(fab_flow.params, mesh)
-    runs["fab"] = lambda: FAB(target, fab_flow).run(n_iterations=1, seed=0)
-    caught = {}
-    for name, run in runs.items():
-        try:
-            run()
-            caught[name] = "no error"
-        except NotImplementedError as e:
-            caught[name] = f"NotImplementedError: {e}"
-    return {"caught": caught}
+    flow.params = _replicated(flow.params, mesh)
+    out = NestedSampling(_ShardedPrior(prior, mesh), lambda x: -target(x), flow,
+                         n_live_points=NS_LIVE, n_population_draws=16,
+                         flow_fit_kwargs={"n_epochs": 3, "lr": 0.01}).run(
+        n_iterations=NS_ITERS, seed=seed)
+    return {"log_Z": out["log_Z"], "live": out["live_points"], "dead": out["dead_points"],
+            "flow": _local_flat(flow.params),
+            "replicated": mesh is None or _placements(flow.params, mesh)}
+
+
+def fab(mesh, workdir, seed=0):
+    """FAB with the flow's parameters replicated over the mesh: each rank
+    runs the unsharded run on its copy; the parameters come back
+    replicated."""
+    from nfmc_torch.flow_training import FAB
+
+    _, target, flow = _transport_problem()
+    flow.params = _replicated(flow.params, mesh)
+    algorithm = FAB(target, flow, buffer_size=64, n_ais_steps=2)
+    trained = algorithm.run(n_iterations=FAB_ITERS, n_flow_training_steps=3, n_ais_particles=16,
+                            n_training_particles=8, seed=seed)
+    return {"flow": _local_flat(trained.params), "loss": algorithm.loss_trace.numpy(),
+            "replicated": mesh is None or _placements(trained.params, mesh)}
+
+
+def fab_sharded_parameter(mesh, workdir):
+    """FAB given a flow with a parameter placed ``Shard(0)``: the error."""
+    from nfmc_torch.flow_training import FAB
+    from nfmc_torch.utils import tree_leaves, tree_unflatten
+
+    _, target, flow = _transport_problem()
+    leaves = tree_leaves(_replicated(flow.params, mesh))
+    leaves[0] = _sharded(leaves[0].to_local(), mesh)
+    flow.params = tree_unflatten(flow.params, leaves)
+    try:
+        FAB(target, flow).run(n_iterations=1, seed=0)
+    except ValueError as e:
+        return {"caught": f"ValueError: {e}"}
+    return {"caught": "no error"}
+
+
+def _unseeded(run):
+    """The scenario ``run(mesh, workdir)`` given no seed (nor generator),
+    with the global stream pinned and then, on the mesh's second rank,
+    advanced by one seed: the ranks must draw from the first rank's seed,
+    and so match the unsharded run from the same stream."""
+    def scenario(mesh, workdir):
+        from nfmc_torch import set_seed
+        from nfmc_torch.core.rng import next_seed
+
+        set_seed(7)
+        if mesh is not None and mesh.get_local_rank(0) == 1:
+            next_seed()
+        return run(mesh, workdir)
+
+    return scenario
+
+
+# each transport method given no seed, and the scenario it is held to
+UNSEEDED = {
+    "craft_train": lambda mesh, workdir: _craft(mesh, CRAFT_PASSES, seeds=(None, None)),
+    "ais_base": lambda mesh, workdir: ais_base(mesh, workdir, seeded=False),
+    "snf_inverse": lambda mesh, workdir: snf_inverse(mesh, workdir, seed=None),
+    "snf_fit": lambda mesh, workdir: snf_fit(mesh, workdir, seed=None),
+    "ns": lambda mesh, workdir: ns(mesh, workdir, seed=None),
+    "fab": lambda mesh, workdir: fab(mesh, workdir, seed=None),
+    "aft_nofit": lambda mesh, workdir: _aft(mesh, 0, seed=None),
+    "pmc": lambda mesh, workdir: pmc(mesh, workdir, seed=None),
+}
 
 
 class _ShardedPrior:
@@ -396,7 +588,9 @@ class _ShardedPrior:
 SCENARIOS = {f.__name__: f for f in (
     ula, uhmc, mh, random_walk, nuts, ess_dense, ess_diag, adaptive_imh_fused, adaptive_imh_host,
     neutra_mh, neutra_chees, jump_ula, jump_hmc, jump_uhmc, jump_mh, jump_ess, jump_nuts,
-    jump_chees, jump_aies, aft_nofit, aft_fit, aft_level_fit, pmc, transport_refusals)}
+    jump_chees, jump_aies, aft_nofit, aft_fit, aft_level_fit, pmc, craft_sample, craft_train,
+    ais_base, ais_chain, snf_inverse, snf_fit, ns, fab, fab_sharded_parameter)}
+SCENARIOS.update({f"unseeded_{k}": _unseeded(run) for k, run in UNSEEDED.items()})
 # run on three ranks
 ODD_SCENARIOS = {"aies_odd": aies_odd}
 

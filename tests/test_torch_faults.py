@@ -8,7 +8,9 @@ computes, checked on the CPU against nfmc_tpu with the same numpy inputs:
 * strided rows (a column slice) handed to a flow;
 * ``sample()``'s ``mesh`` and ``checkpoint_*`` keywords (3.6), the unroll
   fields of the parameters (3.7), the default ``sample_continue`` (3.8),
-  ``Flow.sample`` / ``Flow.to``'s signatures and the strategy lists (3.9).
+  ``Flow.sample`` / ``Flow.to``'s signatures and the strategy lists (3.9);
+* the names ``nfmc_tpu.core`` and ``nfmc_tpu.samplers.mcmc`` export, and
+  the samplers built on ``MetropolisSampler`` (3.12).
 
 Tolerances as in ``tests/test_torch_flows.py`` and
 ``tests/test_torch_spline.py``: float32 values to 1e-5 (RealNVP) or 2e-5
@@ -346,3 +348,62 @@ def test_lazy_submodules_match_jax():
     assert callable(nfmc_torch.parallel.chain_mesh) and callable(nfmc_torch.profiling.trace)
     with pytest.raises(AttributeError):
         nfmc_torch.no_such_module
+
+
+# ---- 3.12: the exported names and the Metropolis samplers' base ----------------------
+
+# the JAX package's names that the port has no counterpart of, each a
+# recorded divergence (ROADMAP §3)
+NOT_PORTED = {
+    "ChunkedScanDriver": "one compiled lax.scan a chunk; the port runs each chunk as an eager "
+                         "loop (core.driver.ChunkedDriver, ROADMAP 1.1)",
+    "next_key": "JAX keys; the port draws from torch.Generators",
+    "resolve_key": "JAX keys; the port's core.rng.resolve_generator",
+}
+
+
+@pytest.mark.parametrize("module", ["core", "samplers.mcmc"])
+def test_exported_names_match_jax(module):
+    """Every name in the ``__all__`` of ``nfmc_tpu.core`` and
+    ``nfmc_tpu.samplers.mcmc`` is in the port's module and its
+    ``__all__``, but for NOT_PORTED's divergences, which the port lacks."""
+    import importlib
+
+    jax_mod = importlib.import_module("nfmc_tpu." + module)
+    port = importlib.import_module("nfmc_torch." + module)
+    wanted = [n for n in jax_mod.__all__ if n not in NOT_PORTED]
+    assert [n for n in wanted if not hasattr(port, n) or n not in port.__all__] == []
+    assert [n for n in NOT_PORTED if hasattr(port, n)] == []
+
+
+def _strategy_kwargs(strategy):
+    kw = {"flow": 'realnvp%{"n_layers": 2, "hidden_size": 8}'}
+    if strategy in ("ess", "jump_ess", "tess", "dlmc"):
+        kw["negative_log_likelihood"] = "target"
+    return kw
+
+
+@pytest.mark.parametrize("strategy", nfmc_torch.api.registry.PORTED_STRATEGIES)
+def test_metropolis_sampler_bases_match_jax(strategy):
+    """For each strategy of the registry, the sampler ``create_sampler``
+    builds and the sampler it holds (a jump, NeuTra or PT sampler's inner
+    one) are ``MetropolisSampler``s in the port exactly where they are in
+    the JAX package."""
+    from nfmc_torch.core.chains import sampler_tree
+    from nfmc_torch.samplers.mcmc import MetropolisSampler
+    from nfmc_tpu.potentials import StandardGaussian as JStandardGaussian
+    from nfmc_tpu.samplers.mcmc import MetropolisSampler as JMetropolisSampler
+
+    def built(pkg, target, **extra):
+        kw = _strategy_kwargs(strategy)
+        if "negative_log_likelihood" in kw:
+            kw["negative_log_likelihood"] = target
+        return pkg.create_sampler(target, strategy=strategy, **kw, **extra)
+
+    jax_sampler = built(nfmc_tpu, JStandardGaussian((3,)))
+    port = sampler_tree(built(nfmc_torch, StandardGaussian((3,)), device="cpu"))
+    jax_tree = [jax_sampler] + [getattr(jax_sampler, a) for a in ("inner_sampler", "sampler")
+                                if hasattr(jax_sampler, a)]
+    assert [type(s).__name__ for s in port] == [type(s).__name__ for s in jax_tree]
+    assert ([isinstance(s, MetropolisSampler) for s in port]
+            == [isinstance(s, JMetropolisSampler) for s in jax_tree])

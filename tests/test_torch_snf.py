@@ -101,6 +101,33 @@ def test_snf_loss_gradient_through_the_hmc_layers_is_second_order():
     assert np.abs(g1.numpy() - want).max() > 1e-3 * max(1.0, np.abs(want).max())
 
 
+def test_snf_inverse_matches_jax_with_its_draws():
+    """SNF's inverse (history, particles, log-weights) through a layer of
+    each kind (MALA, RealNVP, HMC, MH) with the JAX package's draws: the
+    unsharded path that a sharded batch cuts its rows from."""
+    def layers(m, flow_cls, **kw):
+        return [m.MALALayer((D,), time_step=0.1), m.FlowLayer(flow_cls((D,), n_layers=2,
+                                                                       hidden_size=8, **kw)),
+                m.HMCLayer((D,), n_steps=2, n_leapfrog=3), m.MHLayer((D,), n_steps=3)]
+
+    jm = jsnf.SNF(layers(jsnf, JRealNVP, use_pallas=False), JTARGET, JPRIOR, seed=0)
+    rng = np.random.default_rng(25)
+    jm.params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.2 * rng.standard_normal(p.shape).astype(np.float32), jm.params)
+    tm = tsnf.SNF(layers(tsnf, RealNVP), TARGET, PRIOR, seed=0, device="cpu")
+    tm.params = from_jax_params(jm.params)
+    z = rows(40, seed=26)
+    key = jax.random.key(27)
+    jhist, jx, jlw = jm.inverse(jnp.asarray(z), key=key)
+    draws = [jax_layer_draws(l, k, z.shape)
+             for l, k in zip(jm.layers, jax.random.split(key, len(jm.layers)))]
+    with torch.no_grad():
+        hist, x, lw = tm._inverse_impl(tm.params, t(z), draws)
+    close(hist, np.asarray(jhist), STEP_TOL, "history")
+    close(x, np.asarray(jx), STEP_TOL, "x")
+    close(lw, np.asarray(jlw), STEP_TOL, "log_weights")
+
+
 def test_snf_fit_step_and_inverse_shapes():
     jm, tm = snf_pair()
     z = rows(32, seed=21)
