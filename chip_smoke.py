@@ -301,6 +301,19 @@ Phases, in order; any failure exits non-zero before the last line:
      collective time and launches by shape; a rank that fails or hangs
      fails the script; then every RealNVP shape the phase launched that
      phases 3, 3b and 17 did not hold, against the plain version.
+  20. chunks as CUDA graph replays (nfmc_torch.core.graphs): each captured
+     path through the front door from one seed with graphs and under
+     disable_graphs() in this process (the headline 64 outer iterations
+     pipelined, under a time limit that never stops it, and on a one-rank
+     NCCL chain_mesh(); MALA, HMC and MH 50 tuning and 250 sampling
+     iterations on DiagonalGaussian1(100); IMH 1000 iterations with
+     RealNVP and 200 with c-rqnsf; TESS 200; NeuTra-HMC 50), bit for bit:
+     stored draws, counters, moments, the kernel's final state and each
+     wrapper's launch count; each path's wall both ways, and, in a
+     torch.profiler window of each, its kernel and graph launches an
+     iteration (the host's runtime calls) and the device's busy share, and
+     the graph cache's memory after the run. Every earlier phase runs its
+     declared paths with graphs (the launch laws count a replay's launches).
 Each path's launch counts are set to 0 just before it and read just after;
 every shape the IMH path (10-10c) and the paths of phases 11-13, 16 and 18b launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and phase
@@ -318,6 +331,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
 import re
@@ -1227,47 +1241,27 @@ class ShapeLaunches:
     """For the duration of a ``with`` block: the kernels' launches by
     (kernel, direction, rows), e.g. ``("vjp", "inverse", 128)``, with the
     kernel "stack" or "vjp" for RealNVP and "rqs", "lrs", "rqs vjp" or "lrs
-    vjp" for the spline flows; the wrappers' own counts go on as before."""
+    vjp" for the spline flows (a listener of ``build.count_launch``, so a
+    graph's replays count as the launches they make); the wrappers' own
+    counts go on as before."""
 
     def __enter__(self):
-        from nfmc_torch.ops import coupling as ops
-        from nfmc_torch.ops import spline as sops
+        from nfmc_torch.ops import build
 
         self.n = collections.Counter()
-        self._orig = [(m, m._launch, m._launch_vjp) for m in (ops, sops)]
-        launch, launch_vjp = ops._launch, ops._launch_vjp
-        s_launch, s_launch_vjp = sops._launch, sops._launch_vjp
 
-        def count(kernel, inverse, x):
-            self.n[kernel, "inverse" if inverse else "forward", x.shape[0]] += x.shape[0] > 0
+        def listen(_wrapper, key, n):
+            kernel, direction, _d, _hid, _nl, rows = key
+            self.n[kernel, direction, rows] += n
 
-        def stack(wrapper, params, x, clamp, inverse, packed):
-            out = launch(wrapper, params, x, clamp, inverse, packed)
-            count("stack", inverse, x)
-            return out
-
-        def vjp(params, x, gy, gld, clamp, inverse, packed):
-            out = launch_vjp(params, x, gy, gld, clamp, inverse, packed)
-            count("vjp", inverse, x)
-            return out
-
-        def s_stack(wrapper, params, x, kind, n_bins, tail_bound, inverse, packed):
-            out = s_launch(wrapper, params, x, kind, n_bins, tail_bound, inverse, packed)
-            count(kind, inverse, x)
-            return out
-
-        def s_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed):
-            out = s_launch_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed)
-            count(f"{kind} vjp", inverse, x)
-            return out
-
-        ops._launch, ops._launch_vjp = stack, vjp
-        sops._launch, sops._launch_vjp = s_stack, s_vjp
+        self._listener = listen
+        build.LISTENERS.append(listen)
         return self
 
     def __exit__(self, *exc):
-        for m, launch, launch_vjp in self._orig:
-            m._launch, m._launch_vjp = launch, launch_vjp
+        from nfmc_torch.ops import build
+
+        build.LISTENERS.remove(self._listener)
 
 
 class RefitRecorder:
@@ -1373,11 +1367,12 @@ def profile_window(run, what: str) -> None:
         if e.device_type() == DeviceType.CUDA:
             per_kernel[e.name()][0] += e.duration_ns()
             per_kernel[e.name()][1] += 1
-    launches = sum(e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                                "cuLaunchKernelEx") for e in events)
+    launches = sum(e.name() in HOST_LAUNCHES for e in events)
+    replays = sum(e.name() in GRAPH_LAUNCHES for e in events)
     print(f"profile ({what}): wall {wall:.3f} s, device busy {device_s:.3f} s "
           f"({100 * device_s / wall:.1f}%; the kernels' device times summed "
-          f"{sum(v[0] for v in per_kernel.values()) / 1e9:.3f} s), {launches} kernel launches")
+          f"{sum(v[0] for v in per_kernel.values()) / 1e9:.3f} s), {launches} kernel launches, "
+          f"{replays} graph launches")
     for key, (ns, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"  {key[:60]:60s} device {ns / 1e6:9.2f} ms  calls {n}")
 
@@ -1612,10 +1607,12 @@ def run_spline_phases(dev, g) -> dict:
         flow = Flow(cls((D,), n_layers=L, hidden_size=H, n_bins=N_BINS))
         flow.params = from_jax_params(self_target_params(kind), device=dev)
         frozen = flow.params  # the sampler leaves a flow it does not fit as it is
-        grad_passes = [0]
+        # counted on the device, so that a graph's replays count their passes
+        grad_passes = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def u(x, flow=flow, frozen=frozen):
-            grad_passes[0] += int(x.requires_grad and torch.is_grad_enabled())
+        def u(x, flow=flow, frozen=frozen, passes=grad_passes):
+            if x.requires_grad and torch.is_grad_enabled():
+                passes.add_(1)
             return -flow.log_prob_fn(frozen, x)
 
         build.reset_launch_counts()
@@ -1629,7 +1626,7 @@ def run_spline_phases(dev, g) -> dict:
         sst = sout.statistics
         print(f"{SPLINE_FLOWS[kind]} self-target (perturbation {SELF_PERTURB}, {self_outer} outer "
               f"it): jump acc {sst.jump_acceptance_rate:.4f}, MALA acc {sst.acceptance_rate:.4f} "
-              f"(JAX package, CPU: RQS 0.132, LRS 0.0955), gradient passes {grad_passes[0]}, "
+              f"(JAX package, CPU: RQS 0.132, LRS 0.0955), gradient passes {int(grad_passes)}, "
               f"launches {nl_}, wall {time.perf_counter() - t0:.3f} s")
         check(bool(torch.isfinite(sout.samples).all()), "self-target: non-finite samples")
         check(sst.jump_acceptance_rate >= 0.99,
@@ -1637,7 +1634,7 @@ def run_spline_phases(dev, g) -> dict:
               "forward, inverse and log-det disagree")
         check(SELF_MALA_ACC[0] <= sst.acceptance_rate <= SELF_MALA_ACC[1],
               f"self-target MALA acceptance {sst.acceptance_rate} outside {SELF_MALA_ACC}")
-        check(grad_passes[0] > 0 and nl_["fused_spline_vjp"] == grad_passes[0],
+        check(int(grad_passes) > 0 and nl_["fused_spline_vjp"] == int(grad_passes),
               "self-target: backward launches != the sampler's gradient passes")
     return out
 
@@ -3860,42 +3857,37 @@ def run_checkpoint_phases(dev) -> dict:
 
 class RealNVPLaunches:
     """For the duration of a ``with`` block: the RealNVP kernels' launches
-    by (kernel, direction, d, H, L, rows), with the kernel "stack" or "vjp",
-    and the weight repacks (``ops.coupling.pack_weights`` calls); the
-    wrappers' own counts go on as before."""
+    by (kernel, direction, d, H, L, rows), with the kernel "stack" or "vjp"
+    (a listener of ``build.count_launch``), and the weight repacks
+    (``ops.coupling.pack_weights`` calls); the wrappers' own counts go on as
+    before."""
 
     def __enter__(self):
+        from nfmc_torch.ops import build
         from nfmc_torch.ops import coupling as ops
 
         self.n, self.repacks = collections.Counter(), 0
-        self._orig = (ops._launch, ops._launch_vjp, ops.pack_weights)
-        launch, launch_vjp, pack = self._orig
+        self._orig = pack = ops.pack_weights
 
-        def key(kernel, params, x, inverse):
-            return (kernel, "inverse" if inverse else "forward", x.shape[1],
-                    int(params[0]["w"][1].shape[0]), len(params), x.shape[0])
-
-        def stack(wrapper, params, x, clamp, inverse, packed):
-            out = launch(wrapper, params, x, clamp, inverse, packed)
-            self.n[key("stack", params, x, inverse)] += x.shape[0] > 0
-            return out
-
-        def vjp(params, x, gy, gld, clamp, inverse, packed):
-            out = launch_vjp(params, x, gy, gld, clamp, inverse, packed)
-            self.n[key("vjp", params, x, inverse)] += x.shape[0] > 0
-            return out
+        def listen(_wrapper, key, n):
+            if key[0] in ("stack", "vjp"):
+                self.n[key] += n
 
         def repack(params):
             self.repacks += 1
             return pack(params)
 
-        ops._launch, ops._launch_vjp, ops.pack_weights = stack, vjp, repack
+        self._listener = listen
+        build.LISTENERS.append(listen)
+        ops.pack_weights = repack
         return self
 
     def __exit__(self, *exc):
+        from nfmc_torch.ops import build
         from nfmc_torch.ops import coupling as ops
 
-        ops._launch, ops._launch_vjp, ops.pack_weights = self._orig
+        build.LISTENERS.remove(self._listener)
+        ops.pack_weights = self._orig
 
 
 def transport_targets(d: int):
@@ -5181,6 +5173,163 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
     return res
 
 
+# phase 20: each captured path at full width (d = 100, 100 chains, RealNVP 4 x
+# 128), with its depth cut: the headline GRAPH_OUTER outer iterations,
+# pipelined and under a time limit that never stops it (chunks 1, 4, 16 and
+# the rest, so that several chunk lengths replay), MALA, HMC and MH
+# GRAPH_MCMC_WARM tuning and GRAPH_MCMC_ITERS sampling iterations, IMH
+# GRAPH_IMH_ITERS with RealNVP and GRAPH_SPLINE_ITERS with c-rqnsf, TESS
+# GRAPH_TESS_ITERS and NeuTra-HMC GRAPH_NEUTRA_ITERS
+GRAPH_OUTER, GRAPH_MCMC_WARM, GRAPH_MCMC_ITERS = 64, 50, 250
+GRAPH_IMH_ITERS, GRAPH_SPLINE_ITERS, GRAPH_TESS_ITERS, GRAPH_NEUTRA_ITERS = 1000, 200, 200, 50
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def launch_profile(run) -> tuple:
+    """``run()`` under torch.profiler: ``(wall s, device busy s, kernel
+    launches, graph launches)``, the launches counted from the host's
+    runtime calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = trace_events(prof)
+    names = collections.Counter(e.name() for e in events)
+    return (wall, device_busy_us(events) / 1e6, sum(names[n] for n in HOST_LAUNCHES),
+            sum(names[n] for n in GRAPH_LAUNCHES))
+
+
+def run_graph_phases(dev) -> dict:
+    """Phase 20: every captured path run from one seed with graphs and under
+    ``disable_graphs()`` in this process, bit for bit: the stored draws,
+    the counters, the moments, the final kernel state and each wrapper's
+    launch count; each path's wall both ways, its host launches an
+    iteration (kernel launches and graph launches in a torch.profiler
+    window) and device busy share, and the graph cache's memory. The
+    headline also runs on a one-rank NCCL ``chain_mesh()`` both ways."""
+    import torch.distributed as dist
+
+    import nfmc_torch
+    from nfmc_torch.core import graphs
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.ops import build
+    from nfmc_torch.parallel import chain_mesh
+    from nfmc_torch.potentials import DiagonalGaussian1, StandardGaussian
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"paths": {}}
+    target = DiagonalGaussian1(D)
+
+    def flow(name="realnvp"):
+        if name == "realnvp":
+            return Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0)
+        return nfmc_torch.create_flow_object(
+            f'{name}%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": {N_BINS}}}', (D,), seed=0)
+
+    def headline(**kw):
+        return nfmc_torch.sample(
+            StandardGaussian((D,)), strategy="jump_mala", flow=flow(), n_chains=C,
+            n_iterations=GRAPH_OUTER, inner_param_kwargs={"n_iterations": INNER_N},
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False, **kw)
+
+    def mcmc(strategy, **kw):
+        return nfmc_torch.sample(
+            target, strategy=strategy, n_chains=C, n_iterations=GRAPH_MCMC_ITERS, warmup=True,
+            n_warmup_iterations=GRAPH_MCMC_WARM, param_kwargs={"store_samples_on_device": True},
+            seed=0, show_progress=False, **kw)
+
+    def frozen(strategy, n, name="realnvp", **kw):
+        return nfmc_torch.sample(target, strategy=strategy, flow=flow(name), n_chains=C,
+                                 n_iterations=n, seed=0, show_progress=False,
+                                 param_kwargs={"store_samples_on_device": True}, **kw)
+
+    paths = {
+        "headline": (GRAPH_OUTER, headline),
+        "headline, time limit": (GRAPH_OUTER,
+                                 lambda: headline(sampling_time_limit_seconds=1e9)),
+        "mala": (GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, lambda: mcmc("mala")),
+        "hmc": (GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, lambda: mcmc("hmc")),
+        "mh": (GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, lambda: mcmc(
+            "mh", kernel_kwargs={"inv_mass_diag": np.full(D, NEUTRA_MH_SCALE, np.float32)})),
+        "imh": (GRAPH_IMH_ITERS, lambda: frozen("imh", GRAPH_IMH_ITERS)),
+        "imh c-rqnsf": (GRAPH_SPLINE_ITERS, lambda: frozen("imh", GRAPH_SPLINE_ITERS, "c-rqnsf")),
+        "tess": (GRAPH_TESS_ITERS, lambda: frozen("tess", GRAPH_TESS_ITERS,
+                                                  negative_log_likelihood=target)),
+        "neutra_hmc": (GRAPH_NEUTRA_ITERS, lambda: frozen(
+            "neutra_hmc", GRAPH_NEUTRA_ITERS, inner_kernel_kwargs={"step_size": NEUTRA_STEP})),
+    }
+
+    def measured(run, eager):
+        """``run()``'s summary, launches and wall, with graphs or without,
+        and the graph cache as the run left it (its samplers still alive)."""
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        with CaptureSampler() as cap:
+            t0 = time.perf_counter()
+            with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+                out = run()
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cache = graphs.CACHE.describe()
+        del cap
+        return (run_summary(out), {w.__name__: w.launches for w in build.WRAPPERS}, wall,
+                cache)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    def compare(label, n_it, run, profiled=True):
+        eager, l_eager, w_eager, _ = measured(run, eager=True)
+        graph, l_graph, w_graph, cache = measured(run, eager=False)
+        parts = {k: same(eager[k], graph[k]) for k in ("samples", "counters", "mean", "second",
+                                                         "state")}
+        parts["launches"] = l_eager == l_graph
+        line = (f"20 {label} ({n_it} it): wall without graphs {w_eager:.3f} s, with "
+                f"{w_graph:.3f} s; bit for bit {parts}; launches "
+                f"{ {k: v for k, v in l_graph.items() if v} }")
+        row = {"wall": (w_eager, w_graph), "same": parts}
+        if profiled:
+            with graphs.disable_graphs():
+                pe = launch_profile(run)
+            pg = launch_profile(run)
+            row["profile"] = (pe, pg)
+            line += (f"; profiled: kernel launches an iteration {pe[2] / n_it:.1f} without "
+                     f"graphs, {pg[2] / n_it:.1f} with (graph launches {pg[3] / n_it:.1f}), device "
+                     f"busy {100 * pe[1] / pe[0]:.1f}% / {100 * pg[1] / pg[0]:.1f}% of "
+                     f"{pe[0]:.3f} / {pg[0]:.3f} s")
+        print(line + f"; graph cache after the run {cache} ({smi})")
+        check(all(parts.values()), f"20 {label}: the run with graphs differs from the eager "
+                                   f"run: {parts}")
+        if profiled:
+            check(pg[3] > 0, f"20 {label}: no graph was launched")
+        res["paths"][label] = row
+
+    for label, (n_it, run) in paths.items():
+        compare(label, n_it, run, profiled=label != "headline, time limit")
+
+    # ---- 20b. the headline on a one-rank NCCL mesh ---------------------------------
+    check(not dist.is_initialized(), "20b: a process group is already running")
+    mesh = chain_mesh()
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group(0))
+        compare("headline, one-rank NCCL mesh", GRAPH_OUTER, lambda: headline(mesh=mesh),
+                profiled=False)
+    finally:
+        dist.destroy_process_group()
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 20: {res['wall']:.1f} s ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -5554,6 +5703,8 @@ def main() -> None:
                 for (rows, inv), t in bwd_timing.items()}, **tr17["timing"]}
     par19 = run_sharded_phases(dev, known, ranks19b)
     lap("phase 19")
+    graph20 = run_graph_phases(dev)
+    lap("phase 20")
 
     kernels = []
 
@@ -5685,6 +5836,9 @@ def main() -> None:
         if not k.startswith("19b")) + "; 19b unsharded / slowest rank (its collectives) "
         + ", ".join(f"{k[4:]} {v[0]:.2f} / {v[1]:.2f} s ({v[2]:.2f} s)"
                     for k, v in par19["walls"].items() if k.startswith("19b"))
+        + f" ({smi.stdout.strip().splitlines()[0]})")
+    print("phase 20, wall without / with graphs: " + ", ".join(
+        f"{k} {v['wall'][0]:.3f} / {v['wall'][1]:.3f} s" for k, v in graph20["paths"].items())
         + f" ({smi.stdout.strip().splitlines()[0]})")
     print("walls by phase: " + ", ".join(f"{what} {s_:.1f} s" for what, s_ in laps))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
 """Core runtime: sampler bases, driver, sample store, statistics, outputs, RNG."""
-from .driver import StatsAccum, StepInfo, chunk_schedule
+from .driver import ChunkedScanDriver, StatsAccum, StepInfo, chunk_schedule
+from .graphs import disable_graphs
 from .output import JumpNFMCOutput, MCMCOutput
 from .rng import set_seed
 from .sampler import MCMCKernel, MCMCParameters, NFMCKernel, NFMCParameters, Sampler
@@ -10,7 +11,7 @@ from .tuning import (DualAveragingParams, DualAveragingState, da_init, da_step, 
                      train_val_split)
 
 __all__ = [
-    "StatsAccum", "StepInfo", "chunk_schedule",
+    "ChunkedScanDriver", "StatsAccum", "StepInfo", "chunk_schedule", "disable_graphs",
     "JumpNFMCOutput", "MCMCOutput", "set_seed", "MCMCKernel", "MCMCParameters",
     "NFMCKernel", "NFMCParameters", "Sampler", "MCMCSamples", "JumpNFMCStatistics",
     "MCMCExpectation", "MCMCExpectationDict", "MCMCStatistics", "PTStatistics",

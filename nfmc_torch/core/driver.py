@@ -1,12 +1,15 @@
 """The chunked chain driver: accumulators, hoisted flow proposals, the
-chunk-loop policy and the standalone MCMC runner (``ChunkedDriver``).
+chunk-loop policy and the standalone MCMC runner (``ChunkedScanDriver``).
 
 The JAX package compiles each chunk of iterations into one ``lax.scan``.
-Here a chunk is a plain Python loop of eager device operations, with the
-same structure: the chunk's randomness and its flow proposals are computed
-up front in batched passes, and the counters and moment sums stay on the
-device, so a run synchronises with the host once, at its end (or per chunk
-when a time limit or a progress bar needs the wall clock).
+Here a chunk has the same structure: the chunk's randomness and its flow
+proposals are computed up front in batched passes, and the counters and
+moment sums stay on the device, so a run synchronises with the host once, at
+its end (or per chunk when a time limit or a progress bar needs the wall
+clock). For a sampler that declares its step capturable, on CUDA, the
+iterations of a chunk are replays of one captured CUDA graph of an iteration
+(:mod:`nfmc_torch.core.graphs`); otherwise, and under
+:func:`~nfmc_torch.core.graphs.disable_graphs`, they are an eager loop.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils import Progress
+from . import graphs
 
 # Footprint cap (f32 elements across a chunk) for hoisted draws and
 # proposals, ~512 MB.
@@ -173,7 +177,8 @@ class StatsAccum:
             return host
         host = shard.sum(host)
         if self.div_flags:
-            host[1] = shard.max(torch.stack(self.div_flags)).sum()
+            flags = torch.cat([f.reshape(-1) for f in self.div_flags])
+            host[1] = shard.max(flags).sum()
         return host
 
     def dynamic_counts(self, host=None) -> Tuple[int, int]:
@@ -205,6 +210,18 @@ def chunk_schedule(n_iterations: int, max_chunk: int = 64):
         remaining -= size
 
 
+def plan_chunks(n_iterations: int, pipelined: bool, sync_max_chunk: int = 64,
+                single_chunk_cap: Optional[int] = None) -> list:
+    """The chunk lengths of a run (see :func:`run_chunk_loop`)."""
+    max_chunk = 1024 if pipelined else sync_max_chunk
+    if single_chunk_cap is not None:
+        max_chunk = min(max_chunk, single_chunk_cap)
+    if (pipelined and 0 < n_iterations <= SINGLE_CHUNK_ITER_LIMIT
+            and (single_chunk_cap is None or n_iterations <= single_chunk_cap)):
+        return [n_iterations]
+    return list(chunk_schedule(n_iterations, max_chunk=max_chunk))
+
+
 def run_chunk_loop(
     n_iterations: int,
     *,
@@ -234,14 +251,7 @@ def run_chunk_loop(
     the limit.
     """
     pipelined = time_limit_seconds is None and not show_progress
-    max_chunk = 1024 if pipelined else sync_max_chunk
-    if single_chunk_cap is not None:
-        max_chunk = min(max_chunk, single_chunk_cap)
-    if (pipelined and 0 < n_iterations <= SINGLE_CHUNK_ITER_LIMIT
-            and (single_chunk_cap is None or n_iterations <= single_chunk_cap)):
-        schedule = [n_iterations]
-    else:
-        schedule = chunk_schedule(n_iterations, max_chunk=max_chunk)
+    schedule = plan_chunks(n_iterations, pipelined, sync_max_chunk, single_chunk_cap)
     iters_done = 0
     unflushed = 0
     run_t0 = time.time()
@@ -272,15 +282,16 @@ def run_chunk_loop(
     return iters_done
 
 
-class ChunkedDriver:
+class ChunkedScanDriver:
     """Runs a sampler's step for N iterations in chunks (the counterpart of
-    ``nfmc_tpu/core/driver.py::ChunkedScanDriver``).
+    ``nfmc_tpu/core/driver.py::ChunkedScanDriver``). A sampler keeps one
+    across its runs (``Sampler._cached_driver``), with its graphs.
 
     ``make_step(tuning)`` gives ``step(x, kstate, draws) -> (x', kstate',
     StepInfo)`` and ``make_draws(generator, prefix, n_chains)`` a chunk's
     per-iteration randomness with leading dims ``prefix``. A chunk draws its
-    randomness up front, then loops the step eagerly; the accumulators stay
-    on the device.
+    randomness up front, then runs the step ``chunk`` times; the
+    accumulators stay on the device.
 
     Work that does not depend on the chain state can be hoisted out of the
     loop: ``make_precompute(tuning)`` gives ``precompute(x, kstate, draws)
@@ -292,6 +303,15 @@ class ChunkedDriver:
     output), caps the chunk so that the default footprint limit admits it.
     ``data_transform`` maps each new state before it enters the moment sums
     (the stored draws stay as they are).
+
+    ``capturable`` is the sampler's declaration (:func:`graphs.declared`):
+    its runs on CUDA replay one captured iteration ``chunk`` times
+    (:func:`graphs.captures` decides before the run). The graph reads the
+    carried state, the chunk's draws and precompute output and writes the
+    emitted draws at a device counter; the tensors a step closes over (the
+    target's, a flow's weights) are read where they lie, so a run that
+    changes them passes them as ``constants``, and a new set of tensors
+    captures anew.
 
     With a chain ``shard`` (:mod:`nfmc_torch.core.chains`) ``x0`` holds this
     rank's chains: a chunk's draws are made for the global chains and cut to
@@ -307,7 +327,7 @@ class ChunkedDriver:
                  make_step_aux: Optional[Callable] = None,
                  hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None,
                  data_transform: Optional[Callable] = None,
-                 draw_chain_axes: Optional[Tuple[int, ...]] = None):
+                 draw_chain_axes: Optional[Tuple[int, ...]] = None, capturable: bool = False):
         self.event_shape = tuple(event_shape)
         self.make_step = make_step
         self.make_draws = make_draws
@@ -316,12 +336,49 @@ class ChunkedDriver:
         self.hoist_per_iter = hoist_per_iter
         self.data_transform = data_transform or (lambda v: v)
         self.draw_chain_axes = draw_chain_axes
+        self.capturable = capturable
+
+    def _graph(self, tuning, collect, n_draws, flags, spec, leaves, inputs, length, constants):
+        """The graph of one iteration for this mode and these shapes (made
+        and cached on first use); ``inputs`` holds the chunk's ``n_draws``
+        draws, then its precompute output, if any."""
+        use_aux = len(inputs) > n_draws
+        key = (tuning, collect, n_draws, flags, spec, graphs.signature(leaves),
+               graphs.signature(t[0] for t in inputs), length, tuple(id(c) for c in constants))
+        data_transform = self.data_transform
+
+        def make():
+            step = self.make_step_aux(tuning) if use_aux else self.make_step(tuning)
+
+            def body(state, rows):
+                x, ks, acc = graphs.unflatten(spec, state)
+                draws_i = tuple(rows[:n_draws])
+                if use_aux:
+                    x, ks, info = step(x, ks, draws_i, tuple(rows[n_draws:]))
+                else:
+                    x, ks, info = step(x, ks, draws_i)
+                graphs.check_host_counts(info)
+                acc = acc.add(info, data_transform(x))
+                new_leaves, new_spec = graphs.flatten((x, ks, acc))
+                if new_spec != spec:
+                    raise RuntimeError("a captured step changed the structure of its state")
+                return new_leaves, ([x] if collect else []) + ([info.diverged] if flags else [])
+
+            x = leaves[0]
+            outputs = ([((length, *x.shape), x.dtype)] if collect else []) + (
+                [((length,), torch.int32)] if flags else [])
+            graph = graphs.IterationGraph(body, leaves, [((length, *t.shape[1:]), t.dtype)
+                                                         for t in inputs], outputs, x.device)
+            graph.constants = tuple(constants)  # keeps the ids of the key valid
+            return graph
+
+        return graphs.CACHE.get(self, key, make)
 
     def run(self, x0: torch.Tensor, kstate, generator: torch.Generator, n_iterations: int, *,
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
             tuning: bool = False, collect: bool = True,
             time_limit_seconds: Optional[float] = None, show_progress: bool = False,
-            desc: str = "MCMC", shard=None):
+            desc: str = "MCMC", shard=None, constants=()):
         """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``.
         ``calls_per_iter`` and ``grads_per_iter`` count the global chains."""
         step = self.make_step(tuning)
@@ -329,23 +386,46 @@ class ChunkedDriver:
         precompute = self.make_precompute(tuning) if self.make_precompute else None
         step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
+        graphed = self.capturable and graphs.captures(device, shard, tuning)
         st = {"x": x0.clone(), "kstate": kstate,
               "acc": StatsAccum.zeros(self.event_shape, device, shard)}
         n_chains = x0.shape[0] if shard is None else shard.n_global(x0.shape[0])
         event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
         collect = collect and samples is not None
+        pipelined = time_limit_seconds is None and not show_progress
         # a pipelined run keeps its draws on the device and stores them after
         # the one end-of-run synchronisation
-        defer_store = (collect and time_limit_seconds is None and not show_progress
+        defer_store = (collect and pipelined
                        and n_iterations * n_chains * event_elems <= RNG_HOIST_ELEMENT_LIMIT)
         deferred = []
+        flags = shard is not None and shard.size > 1
 
-        def dispatch(chunk, _iters_done):
+        # the chunk's hoisted draws and its emitted-draw buffer are each
+        # about (chunk, C, *event)
+        cap = max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * event_elems))
+        if self.hoist_per_iter is not None:
+            # the default limit, not a sampler's own: forcing the in-loop
+            # step must not change the chunk schedule
+            cap = min(cap, max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, int(self.hoist_per_iter(x0)))))
+        # a graph's static buffers hold the run's longest chunk
+        length = max(plan_chunks(n_iterations, pipelined, 64, cap), default=1)
+
+        def draw(chunk):
             draws = self.make_draws(generator, (chunk,), n_chains)
             if shard is not None:
                 axes = self.draw_chain_axes or (0,) * len(draws)
                 draws = tuple(d if a is None else shard.rows(d, 1 + a)
                               for d, a in zip(draws, axes))
+            return draws
+
+        def store(ys):
+            if defer_store:
+                deferred.append(ys)
+            else:
+                samples.add(ys)
+
+        def dispatch_eager(chunk, _iters_done):
+            draws = draw(chunk)
             x, ks, acc = st["x"], st["kstate"], st["acc"]
             ys = torch.empty((chunk, *x.shape), dtype=x.dtype, device=device) if collect else None
             with torch.no_grad():
@@ -361,10 +441,26 @@ class ChunkedDriver:
                         ys[i].copy_(x)
             st.update(x=x, kstate=ks, acc=acc)
             if collect:
-                if defer_store:
-                    deferred.append(ys)
-                else:
-                    samples.add(ys)
+                store(ys)
+
+        def dispatch_graph(chunk, _iters_done):
+            draws = draw(chunk)
+            x, ks, acc = st["x"], st["kstate"], st["acc"]
+            with torch.no_grad():
+                aux = precompute(x, ks, draws) if precompute is not None else None
+            inputs = list(draws) + (list(aux) if aux is not None else [])
+            leaves, spec = graphs.flatten((x, ks, dataclasses.replace(acc, div_flags=None)))
+            graph = self._graph(tuning, collect, len(draws), flags, spec, leaves, inputs,
+                                length, constants)
+            graph.load(leaves, inputs)
+            with torch.no_grad():
+                graph.run(chunk)
+            x, ks, new_acc = graphs.unflatten(spec, graph.state)
+            if flags:
+                acc.div_flags.append(graph.outputs[-1][:chunk].clone())
+            st.update(x=x, kstate=ks, acc=dataclasses.replace(new_acc, div_flags=acc.div_flags))
+            if collect:
+                store(graph.outputs[0][:chunk].clone())
 
         def flush(iters):
             acc = st["acc"]
@@ -385,18 +481,16 @@ class ChunkedDriver:
                                            s_x2.reshape(self.event_shape), iters * n_chains)
             st["acc"] = StatsAccum.zeros(self.event_shape, device, shard)
 
-        # the chunk's hoisted draws and its emitted-draw buffer are each
-        # about (chunk, C, *event)
-        cap = max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * event_elems))
-        if self.hoist_per_iter is not None:
-            # the default limit, not a sampler's own: forcing the in-loop
-            # step must not change the chunk schedule
-            cap = min(cap, max(1, RNG_HOIST_ELEMENT_LIMIT // max(1, int(self.hoist_per_iter(x0)))))
         iters_done = run_chunk_loop(
-            n_iterations, dispatch=dispatch, sync=lambda: synchronize(device), stats=stats,
-            flush=flush, time_limit_seconds=time_limit_seconds, show_progress=show_progress,
-            desc=desc, sync_max_chunk=64, single_chunk_cap=cap, shard=shard,
+            n_iterations, dispatch=dispatch_graph if graphed else dispatch_eager,
+            sync=lambda: synchronize(device), stats=stats, flush=flush,
+            time_limit_seconds=time_limit_seconds, show_progress=show_progress, desc=desc,
+            sync_max_chunk=64, single_chunk_cap=cap, shard=shard,
         )
+        if graphed:
+            # the static buffers belong to the graph, which a later run reuses
+            leaves, spec = graphs.flatten((st["x"], st["kstate"]))
+            st["x"], st["kstate"] = graphs.unflatten(spec, [t.clone() for t in leaves])
         if deferred:
             samples.add(deferred[0] if len(deferred) == 1 else torch.cat(deferred, 0))
         if samples is not None and not collect and iters_done > 0:

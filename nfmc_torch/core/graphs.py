@@ -1,0 +1,360 @@
+"""The capture layer: a chunk of a sampler's iterations as replays of one
+captured CUDA graph, the counterpart of the JAX package's compiled
+``lax.scan`` chunk (``nfmc_tpu/core/driver.py::ChunkedScanDriver``). It owns
+every graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
+
+* A graph holds ONE iteration's body. The body reads its inputs (the
+  chunk's draws and hoisted proposals) at a device-side counter, writes
+  what it emits there and advances the counter itself, so a chunk of n
+  iterations is n replays with no host work between them.
+* Every tensor the graph touches keeps its address across replays: the
+  carried state, the chunk's inputs and the emitted rows live in static
+  buffers (:class:`IterationGraph`), filled with ``copy_`` once a chunk.
+* The first iteration of a new graph runs the body eagerly. It is a real
+  iteration of the chain: it builds the kernels, loads lazily loaded CUDA
+  modules and sets up the autograd and cuBLAS state. Capture starts from
+  the next iteration.
+* Which runs are captured is declared, not tried: a sampler class whose
+  step has static shapes and reads nothing on the host sets
+  ``graph_capturable = True`` (read from the class's own ``__dict__``, so a
+  subclass declares again), and on a CUDA device its chunks are replays. A
+  capture or a replay that fails raises; nothing falls back to the eager
+  loop.
+* A kernel wrapper counts its launches on the host
+  (:func:`nfmc_torch.ops.build.count_launch`). A replay runs no Python, so
+  the launches that the capture recorded are counted once per replay.
+* :func:`disable_graphs` runs the eager loop instead, the counterpart of
+  ``jax.disable_jit()``: the oracle a replay is held against bit for bit.
+* Graphs live on their driver, keyed by (tuning, collect, shapes, dtypes and
+  the closure constants the sampler names), and :data:`CACHE` bounds them
+  all, least recently used first.
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import gc
+import threading
+import weakref
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+
+from ..ops import build
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """For the ``with`` block, every chunk runs as the eager loop of the
+    step, in this thread (the counterpart of ``jax.disable_jit()``)."""
+    before = getattr(_local, "disabled", 0)
+    _local.disabled = before + 1
+    try:
+        yield
+    finally:
+        _local.disabled = before
+
+
+@contextlib.contextmanager
+def without_capture():
+    """For the ``with`` block, a declared sampler takes the graph path on
+    any device, with each replay a Python call of the captured body and no
+    capture: the static-buffer and counter protocol as the CPU tests run
+    it."""
+    before = getattr(_local, "uncaptured", 0)
+    _local.uncaptured = before + 1
+    try:
+        yield
+    finally:
+        _local.uncaptured = before
+
+
+def declared(sampler, flows=()) -> bool:
+    """Whether ``sampler``'s own class declares its step capturable, and
+    so does the bijection of each flow in ``flows`` that the step calls
+    (RealNVP and the coupling splines do)."""
+    return all(bool(type(obj).__dict__.get("graph_capturable", False))
+               for obj in (sampler, *(f.bijection for f in flows)))
+
+
+def captures(device: torch.device, shard=None, tuning: bool = False) -> bool:
+    """Whether a run of a declared sampler on ``device`` goes through
+    graphs, decided before the run: on CUDA (or anywhere under
+    :func:`without_capture`), outside :func:`disable_graphs`. A tuning step
+    on several ranks reduces over them inside the step, so it runs
+    eagerly."""
+    if getattr(_local, "disabled", 0):
+        return False
+    if tuning and shard is not None and shard.size > 1:
+        return False
+    return device.type == "cuda" or bool(getattr(_local, "uncaptured", 0))
+
+
+# ---- carried state as a flat list of tensors --------------------------------------------
+
+def flatten(tree) -> Tuple[List[torch.Tensor], object]:
+    """``(leaves, spec)``: the tensors of a tree of tuples, lists, dicts and
+    dataclasses in a fixed order, and its structure with every other value
+    kept as a constant."""
+    leaves = []
+
+    def go(node):
+        if isinstance(node, torch.Tensor):
+            leaves.append(node)
+            return None
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return (type(node), tuple((f.name, go(getattr(node, f.name)))
+                                      for f in dataclasses.fields(node)))
+        if isinstance(node, (list, tuple)):
+            return (type(node), tuple(go(c) for c in node))
+        if isinstance(node, dict):
+            return (dict, tuple((k, go(v)) for k, v in node.items()))
+        return ("const", node)
+
+    return leaves, go(tree)
+
+
+def unflatten(spec, leaves: Sequence[torch.Tensor]):
+    """The tree of ``spec`` holding ``leaves`` in :func:`flatten`'s order."""
+    it = iter(leaves)
+
+    def build_(s):
+        if s is None:
+            return next(it)
+        kind, body = s
+        if kind == "const":
+            return body
+        if kind is dict:
+            return {k: build_(v) for k, v in body}
+        if dataclasses.is_dataclass(kind):
+            return kind(**{name: build_(v) for name, v in body})
+        children = [build_(c) for c in body]
+        if kind in (list, tuple):
+            return kind(children)
+        return kind(*children)  # a NamedTuple
+
+    return build_(spec)
+
+
+def check_host_counts(info) -> None:
+    """Raise where a captured step reports a count on the host
+    (``StepInfo.n_calls`` / ``n_grads`` as a Python int other than 0): a
+    replay would not report it."""
+    for name in ("n_calls", "n_grads"):
+        v = getattr(info, name)
+        if not isinstance(v, torch.Tensor) and v != 0:
+            raise RuntimeError(f"a captured step reported {name}={v} on the host; a graph replay "
+                               "cannot count it (declare the class without graph_capturable)")
+
+
+# ---- one captured iteration ---------------------------------------------------------------
+
+class _CudaGraph:
+    """A ``torch.cuda.CUDAGraph`` captured on a stream of its own."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.graph = None
+        self.pool_bytes = 0
+
+    @contextlib.contextmanager
+    def side_stream(self):
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def capture(self, fn: Callable[[], None]) -> None:
+        graph = torch.cuda.CUDAGraph()
+        before = torch.cuda.memory_reserved(self.device)
+        # a collection inside the capture may free another graph, whose
+        # destruction is not permitted while a stream captures
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with self.side_stream():
+                # thread_local: the NCCL watchdog and the autograd engine's
+                # threads may query events while this thread captures
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass  # the capture is invalid already; raise its cause
+                    raise
+                graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _Uncaptured:
+    """The protocol without capture: "capturing" keeps the body, and a
+    replay calls it (its launches then count themselves)."""
+
+    pool_bytes = 0
+
+    def __init__(self, device):
+        self.fn = None
+
+    @contextlib.contextmanager
+    def side_stream(self):
+        yield
+
+    def capture(self, fn: Callable[[], None]) -> None:
+        self.fn = fn
+
+    def replay(self) -> None:
+        self.fn()
+
+
+class IterationGraph:
+    """One iteration's ``body(state, rows) -> (state', outs)`` over static
+    buffers: ``state`` the carried tensors, ``rows`` each input's row at the
+    counter, ``outs`` the rows written at the counter into each output.
+    ``state`` gives the carried tensors' shapes; ``inputs`` and ``outputs``
+    are ``(shape, dtype)`` of whole buffers, their first axis the chunk's.
+    """
+
+    def __init__(self, body: Callable, state: Sequence[torch.Tensor], inputs, outputs,
+                 device: torch.device, backend=None):
+        self.body = body
+        self.device = device
+        self.counter = torch.zeros((), dtype=torch.int64, device=device)
+        self.state = [torch.empty_like(t, memory_format=torch.contiguous_format) for t in state]
+        self.inputs = [torch.empty(s, dtype=d, device=device) for s, d in inputs]
+        self.outputs = [torch.empty(s, dtype=d, device=device) for s, d in outputs]
+        # the most iterations a chunk may run from the counter's 0
+        self.length = min([t.shape[0] for t in self.inputs + self.outputs], default=None)
+        if backend is None:
+            backend = _Uncaptured if getattr(_local, "uncaptured", 0) else _CudaGraph
+        self.backend = backend(device)
+        self.captured = False
+        self.warm = False
+        self.events: list = []
+        self.replays = 0
+
+    @property
+    def nbytes(self) -> int:
+        """The static buffers' bytes and the memory the capture took."""
+        bufs = [self.counter, *self.state, *self.inputs, *self.outputs]
+        return sum(t.numel() * t.element_size() for t in bufs) + self.backend.pool_bytes
+
+    def _iteration(self) -> None:
+        idx = self.counter.view(1)
+        rows = [b.index_select(0, idx)[0] for b in self.inputs]
+        new_state, outs = self.body(self.state, rows)
+        for b, o in zip(self.outputs, outs, strict=True):
+            b.index_copy_(0, idx, o.unsqueeze(0))
+        for s, n in zip(self.state, new_state, strict=True):
+            if n is not s:
+                s.copy_(n)
+        self.counter.add_(1)
+
+    def load(self, state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> None:
+        """Copy a chunk's carried state (where it is not the static buffer
+        itself) and inputs in, and set the counter to 0."""
+        for s, t in zip(self.state, state, strict=True):
+            if t is not s:
+                s.copy_(t)
+        for b, t in zip(self.inputs, inputs, strict=True):
+            b[: t.shape[0]].copy_(t)
+        self.counter.zero_()
+
+    def run(self, n: int) -> None:
+        """``n`` iterations from the counter: the first of a new graph
+        eagerly, then replays (the capture made before the first)."""
+        if self.length is not None and n > self.length:
+            raise ValueError(f"a chunk of {n} iterations exceeds the static buffers' {self.length}")
+        done = 0
+        if not self.warm and n > 0:
+            with self.backend.side_stream():
+                self._iteration()
+            self.warm, done = True, 1
+        if done < n and not self.captured:
+            with build.recording() as events:
+                self.backend.capture(self._iteration)
+            self.events, self.captured = events, True
+        for _ in range(n - done):
+            self.backend.replay()
+        self.replays += n - done
+        build.count_replays(self.events, n - done)
+
+
+# ---- the cache ------------------------------------------------------------------------------
+
+class GraphCache:
+    """Bounds the graphs of every driver, least recently used first: at most
+    ``max_graphs`` graphs and ``max_bytes`` of static buffers and capture
+    memory. A driver keeps its graphs in ``driver._graphs``; the cache holds
+    the drivers weakly, so a driver's graphs go with it."""
+
+    def __init__(self, max_graphs: int = 32, max_bytes: int = 8 << 30):
+        self.max_graphs, self.max_bytes = max_graphs, max_bytes
+        # (id(driver), key) -> (weak driver, weak graph): nothing here keeps
+        # a driver or a graph alive
+        self._order = collections.OrderedDict()
+
+    def get(self, driver, key, make: Callable[[], IterationGraph]) -> IterationGraph:
+        graphs = driver.__dict__.setdefault("_graphs", {})
+        slot = (id(driver), key)
+        if key in graphs:
+            self._order.move_to_end(slot)
+            return graphs[key]
+        graph = graphs[key] = make()
+        ref = weakref.ref(driver, lambda _r, owner=id(driver): self._forget(owner))
+        self._order[slot] = (ref, weakref.ref(graph))
+        while len(self._order) > 1 and (len(self._order) > self.max_graphs
+                                        or self.nbytes() > self.max_bytes):
+            (_owner, old_key), (old_ref, _g) = self._order.popitem(last=False)
+            owner = old_ref()
+            if owner is not None:
+                owner.__dict__.get("_graphs", {}).pop(old_key, None)
+        return graph
+
+    def _forget(self, owner: int) -> None:
+        # a weakref callback: it may run inside any allocation, so the
+        # loops here iterate over copies
+        for slot in [s for s in list(self._order) if s[0] == owner]:
+            self._order.pop(slot, None)
+
+    def nbytes(self) -> int:
+        graphs = [w() for _r, w in list(self._order.values())]
+        return sum(g.nbytes for g in graphs if g is not None)
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def describe(self) -> str:
+        return f"{len(self)} graphs, {self.nbytes() / 2 ** 20:.1f} MiB"
+
+    def clear(self) -> None:
+        for (_owner, key), (ref, _g) in list(self._order.items()):
+            owner = ref()
+            if owner is not None:
+                owner.__dict__.get("_graphs", {}).pop(key, None)
+        self._order.clear()
+
+
+CACHE = GraphCache()
+
+
+def signature(tensors) -> tuple:
+    """Shapes and dtypes of ``tensors``, for a cache key."""
+    return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+__all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "declared",
+           "disable_graphs", "flatten", "signature", "unflatten", "without_capture"]

@@ -139,6 +139,20 @@ class Sampler:
                    seed: Optional[int] = None) -> torch.Generator:
         return resolve_generator(self.device, generator, seed)
 
+    def _cached_driver(self, config, factory, keepalive=()):
+        """Memoise a ``ChunkedScanDriver`` across ``sample()`` calls, so that
+        a later call replays the graphs an earlier one captured (the JAX
+        package's ``_cached_driver``, which keeps its jitted chunks).
+        ``config`` (a tuple of plain comparable tokens) must capture
+        everything the driver's steps bake in; ``keepalive`` holds the
+        objects behind its ``id(...)`` tokens, so that the ids cannot be
+        recycled while the driver lives."""
+        if getattr(self, "_driver_cache_cfg", None) != config:
+            self._driver_cache_val = factory()
+            self._driver_cache_cfg = config
+            self._driver_cache_refs = keepalive
+        return self._driver_cache_val
+
     def _sub_seeds(self, generator: torch.Generator, n: int):
         """``n`` seeds drawn from ``generator``, for the streams a call splits off."""
         return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()

@@ -90,6 +90,10 @@ class Coupling(Bijection):
         tensors themselves, so a freed tensor's address cannot alias it."""
         if device.type != "cuda" or not self.fused:
             return None
+        if torch.cuda.is_current_stream_capturing():
+            # a graph packs inside itself, from the weights' addresses, on
+            # every replay: a cached buffer would hold the capture's values
+            return None
         src = tuple((t, t._version) for p in params for v in p.values() for t in v)
         if (len(src) != len(self._packed_src)
                 or any(a is not b or va != vb for (a, va), (b, vb) in zip(src, self._packed_src))):
@@ -160,6 +164,8 @@ class RealNVP(Coupling):
     """
 
     has_kernels = True
+    # both directions run no host read: a sampler's captured step may call it
+    graph_capturable = True
 
     def __init__(self, event_shape, n_layers: int = 2, clamp: float = 3.0, **kwargs):
         super().__init__(event_shape, AffineTransform(clamp=clamp), n_layers=n_layers, **kwargs)
@@ -220,6 +226,7 @@ class CouplingRQNSF(_CouplingSpline):
     et al. 2019)."""
 
     _transform = RQSplineTransform
+    graph_capturable = True
 
 
 class CouplingLRS(_CouplingSpline):
@@ -227,3 +234,4 @@ class CouplingLRS(_CouplingSpline):
     al. 2020)."""
 
     _transform = LRSplineTransform
+    graph_capturable = True

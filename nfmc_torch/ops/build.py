@@ -7,11 +7,15 @@ keyed by the hash of the source, the shared headers and the flags. All
 are loaded with ``ctypes``.
 
 Every kernel wrapper of :mod:`nfmc_torch.ops` registers itself in
-``WRAPPERS`` and adds one to its ``.launches`` where it launches its kernel;
-``reset_launch_counts()`` sets them all to 0.
+``WRAPPERS`` and adds one to its ``.launches`` where it launches its kernel,
+through ``count_launch``, which also tells the ``LISTENERS`` the launch's
+shape; ``reset_launch_counts()`` sets the counts to 0. While a CUDA graph
+captures (``recording``) a launch is recorded instead of counted, and each
+replay of the graph counts what was recorded (``count_replays``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +24,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -54,6 +58,12 @@ build_log = ""
 build_seconds: Optional[float] = None
 
 WRAPPERS: List = []
+# callables (wrapper, key, n): a launch's shape key is (kernel, direction, d,
+# H, L, rows), the kernel "stack" or "vjp" (RealNVP), "rqs" or "lrs" (the
+# spline stack) or "rqs vjp" / "lrs vjp"
+LISTENERS: List[Callable] = []
+# the launches of the iteration a graph is capturing, None outside a capture
+_recording: Optional[List[Tuple]] = None
 
 
 def register(*wrappers) -> None:
@@ -66,6 +76,39 @@ def register(*wrappers) -> None:
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+
+
+def count_launch(wrapper, key: tuple, n: int = 1) -> None:
+    """Count ``n`` launches of ``wrapper``'s kernel at shape ``key`` (see
+    ``LISTENERS``); inside a capture, record one for the graph's replays."""
+    if _recording is not None:
+        _recording.append((wrapper, key))
+        return
+    wrapper.launches += n
+    for listener in LISTENERS:
+        listener(wrapper, key, n)
+
+
+@contextlib.contextmanager
+def recording():
+    """For the ``with`` block, launches are recorded in the list it gives,
+    not counted: a capture enqueues them for its replays and runs nothing."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a capture is already recording launches")
+    _recording = events = []
+    try:
+        yield events
+    finally:
+        _recording = None
+
+
+def count_replays(events, n: int) -> None:
+    """Count the launches ``events`` (a capture's ``recording``) once for
+    each of ``n`` replays."""
+    if n > 0:
+        for wrapper, key in events:
+            count_launch(wrapper, key, n)
 
 
 def find_nvcc() -> str:

@@ -32,7 +32,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..utils import tree_leaves, tree_unflatten
-from .build import library, register
+from .build import count_launch, library, register
 
 # What the launchers return, without launching, when not even a row tile of
 # 8 rows fits a block's shared memory (cudaErrorInvalidConfiguration;
@@ -196,7 +196,7 @@ def _launch(wrapper, params, x: torch.Tensor, clamp: float, inverse: bool,
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(),
             n, d, hidden, len(params), float(clamp), int(inverse), stream)
     check_launch(err, d, hidden, False, lib)
-    wrapper.launches += 1
+    count_launch(wrapper, ("stack", "inverse" if inverse else "forward", d, hidden, len(params), n))
     return y, ld
 
 
@@ -227,7 +227,8 @@ def _launch_vjp(params, x, gy, gld, clamp: float, inverse: bool,
             grads.data_ptr(), scratch.data_ptr(), n, d, hidden, len(params), float(clamp),
             int(inverse), stream)
     check_launch(err, d, hidden, True, lib)
-    fused_realnvp_vjp.launches += 1
+    count_launch(fused_realnvp_vjp,
+                 ("vjp", "inverse" if inverse else "forward", d, hidden, len(params), n))
     return gx, unpack_like(grads, params)
 
 

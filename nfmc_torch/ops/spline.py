@@ -33,7 +33,7 @@ from torch.autograd.function import once_differentiable
 
 from ..flows.spline import branch_points, n_params_per_dim
 from ..utils import tree_leaves, tree_unflatten
-from .build import library, register
+from .build import count_launch, library, register
 from .coupling import (TILE_TOO_LARGE, _check_params, _check_rows, _layer_sets, _on_device,
                        unpack_like, vjp_error)
 
@@ -192,7 +192,7 @@ def _launch(wrapper, params, x: torch.Tensor, kind: str, n_bins: int, tail_bound
             x.data_ptr(), packed.data_ptr(), y.data_ptr(), ld.data_ptr(), n, d, hidden,
             len(params), int(n_bins), float(tail_bound), int(inverse), int(kind == "lrs"), stream)
     _check_launch(err, kind, n_bins, d, hidden, False, lib)
-    wrapper.launches += 1
+    count_launch(wrapper, (kind, "inverse" if inverse else "forward", d, hidden, len(params), n))
     return y, ld
 
 
@@ -223,7 +223,8 @@ def _launch_vjp(params, x, gy, gld, kind, n_bins, tail_bound, inverse, packed):
             grads.data_ptr(), scratch.data_ptr(), n, d, hidden, len(params), int(n_bins),
             float(tail_bound), int(inverse), int(kind == "lrs"), stream)
     _check_launch(err, kind, n_bins, d, hidden, True, lib)
-    fused_spline_vjp.launches += 1
+    count_launch(fused_spline_vjp,
+                 (f"{kind} vjp", "inverse" if inverse else "forward", d, hidden, len(params), n))
     return gx, unpack_like(grads, params)
 
 

@@ -19,8 +19,10 @@ import numpy as np
 import torch
 
 from ...core.chains import chain_mean
-from ...core.driver import ChunkedDriver, StepInfo
+from ...core import graphs
+from ...core.driver import ChunkedScanDriver, StepInfo
 from ...core.output import MCMCOutput
+from ...utils import tree_leaves
 from ...core.sampler import MCMCKernel, MCMCParameters, Sampler
 from ...core.tuning import (
     DualAveragingParams,
@@ -99,8 +101,11 @@ class MCMCSampler(Sampler):
 
     data_transform: Optional[Callable] = None
     # the chain axis of each ``make_draws`` tensor after its leading dims,
-    # where it is not the first (``ChunkedDriver``'s ``draw_chain_axes``)
+    # where it is not the first (``ChunkedScanDriver``'s ``draw_chain_axes``)
     draw_chain_axes: Optional[tuple] = None
+    # the flows the step calls by closure (NeuTra's, through its target and
+    # moment transform): their bijections must be capturable too
+    graph_flows: tuple = ()
 
     @property
     def name(self) -> str:
@@ -224,25 +229,54 @@ class MCMCSampler(Sampler):
                          show_progress=show_progress, time_limit_seconds=time_limit_seconds,
                          generator=self._generator(generator, seed), desc=self.name)
 
+    def graph_constants(self) -> tuple:
+        """The tensors the step reads by closure that a later run may
+        replace, the weights of ``graph_flows``: a captured graph reads them
+        where they lie, so a new set captures anew."""
+        return tuple(t for f in self.graph_flows for t in tree_leaves(f.params))
+
+    def _static_config(self, per_iter) -> tuple:
+        """What the memoised driver's step closures bake in: the target, the
+        moment transform, the run configuration but for the iteration counts
+        and the tuning flag, the kernel's static fields and the chain
+        shard's size (the kernel's state is carried, not baked)."""
+        params = tuple(sorted((k, v) for k, v in vars(self.params).items()
+                              if k not in ("n_iterations", "n_warmup_iterations", "tuning")
+                              and isinstance(v, (bool, int, float, str, type(None)))))
+        kernel = self.kernel
+        shard = self.chain_shard
+        return (id(self.target), id(self.data_transform), self.draw_chain_axes, params,
+                getattr(kernel, "n_leapfrog_steps", None), getattr(kernel, "da_params", None),
+                tuple(id(f.bijection) for f in self.graph_flows),
+                None if shard is None else shard.size, per_iter)
+
+    def _get_driver(self, x0) -> ChunkedScanDriver:
+        per_iter = self.hoisted_elements_per_iter(x0)
+        return self._cached_driver(
+            self._static_config(per_iter),
+            lambda: ChunkedScanDriver(
+                self.event_shape, self._make_step_aux,
+                lambda generator, prefix, n: self.make_draws()(generator, prefix, n),
+                make_precompute=self._make_precompute, make_step_aux=self._make_step_precomputed,
+                hoist_per_iter=(lambda _x: per_iter) if per_iter else None,
+                data_transform=self.data_transform, draw_chain_axes=self.draw_chain_axes,
+                capturable=graphs.declared(self, self.graph_flows)),
+            keepalive=(self.target, self.data_transform, self.graph_flows))
+
     def _run(self, x0, n_iterations: int, tuning: bool, show_progress: bool,
              time_limit_seconds, generator: torch.Generator, desc: str) -> MCMCOutput:
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
         n_chains = self._n_global(x0.shape[0])
         out = self._make_output()
         mstate = self._augment_state(self.kernel.make_state(self.device), x0)
-        per_iter = self.hoisted_elements_per_iter(x0)
-        driver = ChunkedDriver(self.event_shape, self._make_step_aux, self.make_draws(),
-                               make_precompute=self._make_precompute,
-                               make_step_aux=self._make_step_precomputed,
-                               hoist_per_iter=(lambda _x: per_iter) if per_iter else None,
-                               data_transform=self.data_transform,
-                               draw_chain_axes=self.draw_chain_axes)
+        driver = self._get_driver(x0)
         _, mstate = driver.run(
             x0, mstate, generator, n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self.calls_per_iter(n_chains),
             grads_per_iter=self.grads_per_iter(n_chains), tuning=tuning,
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
             show_progress=show_progress, desc=desc, shard=self.chain_shard,
+            constants=self.graph_constants(),
         )
         self._finish_run()
         self.kernel.sync_from_state(self._extract_mstate(mstate))

@@ -53,6 +53,8 @@ class HMCParameters(MetropolisParameters):
 
 class HMC(MetropolisSampler):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[HMCKernel] = None,
                  params: Optional[HMCParameters] = None, device=None):
@@ -163,6 +165,8 @@ class HMC(MetropolisSampler):
 
 class UHMC(HMC):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

@@ -145,6 +145,8 @@ class Langevin(MetropolisSampler):
 
 class MALA(Langevin):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -157,6 +159,8 @@ class MALA(Langevin):
 
 class ULA(Langevin):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

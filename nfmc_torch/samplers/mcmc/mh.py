@@ -41,6 +41,8 @@ class MHParameters(MetropolisParameters):
 
 class MH(MetropolisSampler):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[MHKernel] = None,
                  params: Optional[MHParameters] = None, device=None):
@@ -125,6 +127,8 @@ class MH(MetropolisSampler):
 
 class RandomWalk(MH):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)

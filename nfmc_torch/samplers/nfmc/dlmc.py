@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from ...core.driver import ChunkedDriver, StepInfo
+from ...core.driver import ChunkedScanDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
 from ...core.tuning import train_val_split
@@ -188,7 +188,7 @@ class DLMC(Sampler):
 
             return step
 
-        driver = ChunkedDriver(self.event_shape, make_step, self.make_draws)
+        driver = ChunkedScanDriver(self.event_shape, make_step, self.make_draws)
         _x, params = driver.run(
             x, flow.params, generator, self.params.n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=3 * n_chains, grads_per_iter=n_chains,

@@ -8,7 +8,7 @@
   accept mask, so one target call an iteration is made while the counters
   keep the reference's 2 C target calls and 0 gradient calls. The flow is
   frozen, so a chunk makes all its proposals in one batched coupling inverse
-  (``ChunkedDriver``'s precompute) and then loops over the accept step.
+  (``ChunkedScanDriver``'s precompute) and then loops over the accept step.
 * ``AdaptiveIMH``: the same accept step, then with probability
   ``adaptation_dropoff ** i`` a 1-epoch refit on one stored batch of draws
   chosen by ``train_distribution``. With a draw history under
@@ -26,9 +26,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core import graphs
 from ...core.driver import (
     RNG_HOIST_ELEMENT_LIMIT,
-    ChunkedDriver,
+    ChunkedScanDriver,
     StatsAccum,
     StepInfo,
     flow_proposal_footprint_per_draw,
@@ -176,24 +177,24 @@ class AbstractIMH(Sampler):
 
 class FixedIMH(AbstractIMH):
     multi_rank_chains = True
+    # static shapes, no host read in the step: chunks replay a CUDA graph
+    graph_capturable = True
 
     @property
     def name(self):
         return "Fixed IMH"
 
-    def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
-               generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
-        generator = self._generator(generator, seed)
-        x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device).clone()
-        n_chains = self._n_global(x0.shape[0])
-        out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
-                         on_device=self.params.store_samples_on_device)
-        flow = self.kernel.flow.to(self.device)
+    def _get_driver(self) -> ChunkedScanDriver:
+        """The driver, memoised across calls: its steps bake in the flow's
+        structure, the target and the hoisting limit (the weights ride in
+        the carried state)."""
+        flow = self.kernel.flow
         target = self.target
         accept_core = self._make_accept_core()
         accept_step = self._make_accept_step()
         hoist_limit = self.rng_hoist_element_limit
         per_draw = flow_proposal_footprint_per_draw(flow, self.event_size)
+        n_global = self._n_global
 
         def make_precompute(tuning):
             # the proposals do not depend on the chain state: the chunk's
@@ -201,7 +202,7 @@ class FixedIMH(AbstractIMH):
             # potential through one target call; declined above the cap
             def precompute(x, kstate, draws):
                 z = draws[0]
-                if z.shape[0] * n_chains * per_draw > hoist_limit:
+                if z.shape[0] * n_global(x.shape[0]) * per_draw > hoist_limit:
                     return None
                 return hoisted_flow_proposals(flow, kstate[0], z, target=target)
 
@@ -227,13 +228,29 @@ class FixedIMH(AbstractIMH):
 
             return step
 
-        driver = ChunkedDriver(self.event_shape, make_step, self.make_draws,
-                               make_precompute=make_precompute, make_step_aux=make_step_aux,
-                               hoist_per_iter=lambda x: n_chains * per_draw)
+        return self._cached_driver(
+            (id(flow), id(flow.bijection), id(target), hoist_limit, per_draw,
+             None if self.chain_shard is None else self.chain_shard.size),
+            lambda: ChunkedScanDriver(self.event_shape, make_step, self.make_draws,
+                                      make_precompute=make_precompute,
+                                      make_step_aux=make_step_aux,
+                                      hoist_per_iter=lambda x: n_global(x.shape[0]) * per_draw,
+                                      capturable=graphs.declared(self, (flow,))),
+            keepalive=(flow, flow.bijection, target))
+
+    def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
+               generator: Optional[torch.Generator] = None, seed: Optional[int] = None) -> MCMCOutput:
+        generator = self._generator(generator, seed)
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device).clone()
+        n_chains = self._n_global(x0.shape[0])
+        out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
+                         on_device=self.params.store_samples_on_device)
+        flow = self.kernel.flow.to(self.device)
+        driver = self._get_driver()
         t0 = time.time()
         with torch.no_grad():
             flp0 = flow.log_prob(x0)
-            u0 = target(x0)
+            u0 = self.target(x0)
         out.statistics.update_elapsed_time(time.time() - t0)
         driver.run(
             x0, (flow.params, flp0, u0), generator, self.params.n_iterations,

@@ -10,7 +10,9 @@ chunk, n_chains)`` (all of the chunk's randomness, drawn on the device up
 front) followed by ``run_chunk(state, draws)``. With a frozen flow
 (``fit_nf=False``) the proposals do not depend on the chain state, so the
 chunk makes every proposal in ONE batched coupling inverse and then loops
-over the iterations with no host synchronisation. With ``fit_nf=True`` and
+over the iterations with no host synchronisation; for the declared classes
+(MALA, ULA, HMC, UHMC and MH inside) on CUDA the loop is ``chunk`` replays
+of one captured outer iteration (:mod:`nfmc_torch.core.graphs`). With ``fit_nf=True`` and
 fixed-effort ``flow_fit_kwargs`` each outer iteration from
 ``n_jumps_before_training`` on refits the flow on its inner draws
 (``make_scan_fit``) inside the chunk, and the proposals are made per
@@ -32,6 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core import graphs
 from ...core.driver import (
     RNG_HOIST_ELEMENT_LIMIT,
     StatsAccum,
@@ -39,6 +42,7 @@ from ...core.driver import (
     flow_proposal_footprint_per_draw,
     hoist_cap,
     hoisted_flow_proposals,
+    plan_chunks,
     run_chunk_loop,
     synchronize,
 )
@@ -244,7 +248,50 @@ class JumpNFMC(Sampler):
             draws["x0"] = inner_sampler.resample_x0_draws(generator, (chunk,), n_chains)
         return draws
 
-    def run_chunk(self, state: ChunkState, draws: dict, refit=None):
+    def _make_outer_steps(self, precomputed: bool):
+        """``(sweep, jump)``, the two halves of an outer iteration.
+
+        * ``sweep(x, ks, acc, inner_i, aux_i, x0_i) -> (x, ks, acc, states,
+          infos)``: the inner steps from the iteration's inner draws
+          ``inner_i`` (leading dim ``inner_n``) and precompute output
+          ``aux_i`` (None without one), after the prior redraw ``x0_i`` of an
+          inner sampler that takes one;
+        * ``jump(params, x, ks, jacc, prop, log_u) -> (x, ks, jacc)``: the
+          jump to the proposal ``prop = (x', log q(x'), U(x'))``."""
+        inner = self.inner_sampler
+        inner_n = inner.params.n_iterations
+        inner_step = (inner._make_step_precomputed(False) if precomputed
+                      else inner._make_step_aux(False))
+        accept_core = self._make_jump_accept_core()
+        resample = getattr(inner, "resample_x0_fn", None)
+
+        def sweep(x, ks, acc, inner_i, aux_i, x0_i):
+            if resample is not None:
+                # each outer iteration starts from a prior redraw (the
+                # reference's ESS quirk); the carried nll is stale then
+                x = resample(x0_i, x)
+                ks = inner._augment_state(inner._extract_mstate(ks), x)
+            states, infos = [], []
+            for s in range(inner_n):
+                d_s = tuple(d[s] for d in inner_i)
+                if aux_i is None:
+                    x, ks, info = inner_step(x, ks, d_s)
+                else:
+                    x, ks, info = inner_step(x, ks, d_s, tuple(a[s] for a in aux_i))
+                acc = acc.add(info, x)
+                states.append(x)
+                infos.append(info)
+            return x, ks, acc, states, infos
+
+        def jump(params, x, ks, jacc, prop, log_u):
+            x, jmask = accept_core(params, x, *prop, log_u)
+            # the carried U / grad U are stale for chains that jumped
+            ks = inner._augment_state(inner._extract_mstate(ks), x)
+            return x, ks, jacc.add_jump(jmask, x)
+
+        return sweep, jump
+
+    def run_chunk(self, state: ChunkState, draws: dict, refit=None, length=None):
         """Run ``chunk`` outer iterations from ``state`` with ``draws``.
         Returns ``(state, ys)``; ``ys`` is the chunk's emitted draws
         ``(chunk * (inner_n + 1), C, *event)``, or None when
@@ -252,10 +299,14 @@ class JumpNFMC(Sampler):
 
         ``refit = (scan_fit, generator, gate)``: outer iteration i refits the
         flow on its inner draws when ``gate[i]`` is set and then jumps with
-        the refitted params, so its proposal is made after the refit."""
+        the refitted params, so its proposal is made after the refit.
+
+        Without a refit, a declared class on CUDA runs the outer iterations
+        as replays of one captured iteration (:mod:`~nfmc_torch.core.graphs`)
+        whose static buffers hold ``length`` iterations (the chunk's own
+        length when None)."""
         collect = self.params.store_samples
         inner = self.inner_sampler
-        accept_core = self._make_jump_accept_core()
         flow = self.kernel.flow
         params = state.flow_params
         target = self.target if self.params.adjusted_jumps else None
@@ -266,36 +317,33 @@ class JumpNFMC(Sampler):
         # (ChEES's leapfrog counts) for the whole chunk, in one pass
         precompute = inner._make_precompute(False)
         inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
-        inner_step = (inner._make_step_aux(False) if inner_aux is None
-                      else inner._make_step_precomputed(False))
-        resample = getattr(inner, "resample_x0_fn", None)
-        ys = None
-        if collect:
-            ys = torch.empty((chunk * (inner_n + 1), *x.shape), dtype=x.dtype, device=x.device)
-        if refit is not None:
-            inner_ys = torch.empty((inner_n, *x.shape), dtype=x.dtype, device=x.device)
-        row = 0
+        sweep, jump = self._make_outer_steps(inner_aux is not None)
+        graphed = (refit is None and graphs.declared(self, (flow,))
+                   and graphs.captures(x.device, self.chain_shard))
         with torch.no_grad():
             if refit is None:
                 xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
+            if graphed:
+                return self._run_chunk_graph(state, draws, inner_aux, (xp, flp, up),
+                                             length or chunk)
+            ys = None
+            if collect:
+                ys = torch.empty((chunk * (inner_n + 1), *x.shape), dtype=x.dtype,
+                                 device=x.device)
+            if refit is not None:
+                inner_ys = torch.empty((inner_n, *x.shape), dtype=x.dtype, device=x.device)
+            row = 0
             for i in range(chunk):
-                if resample is not None:
-                    # each outer iteration starts from a prior redraw (the
-                    # reference's ESS quirk); the carried nll is stale then
-                    x = resample(draws["x0"][i], x)
-                    ks = inner._augment_state(inner._extract_mstate(ks), x)
-                for s in range(inner_n):
-                    d_i = tuple(d[i, s] for d in inner_draws)
-                    if inner_aux is None:
-                        x, ks, info = inner_step(x, ks, d_i)
-                    else:
-                        x, ks, info = inner_step(x, ks, d_i, tuple(a[i, s] for a in inner_aux))
-                    acc = acc.add(info, x)
+                x, ks, acc, states, _infos = sweep(
+                    x, ks, acc, tuple(d[i] for d in inner_draws),
+                    None if inner_aux is None else tuple(a[i] for a in inner_aux),
+                    draws["x0"][i] if "x0" in draws else None)
+                for s, x_s in enumerate(states):
                     if collect:
-                        ys[row].copy_(x)
+                        ys[row].copy_(x_s)
                         row += 1
                     if refit is not None:
-                        inner_ys[s].copy_(x)
+                        inner_ys[s].copy_(x_s)
                 if refit is None:
                     prop = (xp[i], flp[i], up[i])
                 else:
@@ -306,14 +354,81 @@ class JumpNFMC(Sampler):
                         params = scan_fit(params, data.reshape(-1, *self.event_shape), generator)
                     prop = tuple(t[0] for t in hoisted_flow_proposals(
                         flow, params, draws["z"][i:i + 1], target=target))
-                x, jmask = accept_core(params, x, *prop, draws["jump_log_u"][i])
-                # the carried U / grad U are stale for chains that jumped
-                ks = inner._augment_state(inner._extract_mstate(ks), x)
-                jacc = jacc.add_jump(jmask, x)
+                x, ks, jacc = jump(params, x, ks, jacc, prop, draws["jump_log_u"][i])
                 if collect:
                     ys[row].copy_(x)
                     row += 1
         return ChunkState(x=x, inner_state=ks, acc=acc, jump_acc=jacc, flow_params=params), ys
+
+    def _graph_config(self) -> tuple:
+        """What the captured outer iteration bakes in: the inner sampler's
+        configuration, the flow's structure, the target and the jumps'
+        adjustment (the weights ride in the carried state)."""
+        inner = self.inner_sampler
+        flow = self.kernel.flow
+        return (inner._static_config(None), id(flow), id(flow.bijection), id(self.target),
+                self.params.adjusted_jumps)
+
+    def _run_chunk_graph(self, state: ChunkState, draws: dict, inner_aux, prop, length: int):
+        """:meth:`run_chunk` as replays of one captured outer iteration: its
+        inner draws, precompute output, proposal, jump uniform and prior
+        redraw at the counter; it emits the iteration's ``inner_n + 1``
+        states (and, on several ranks, its steps' divergence flags)."""
+        collect = self.params.store_samples
+        inner_draws = draws["inner"]
+        chunk, inner_n = inner_draws[0].shape[:2]
+        shard = self.chain_shard
+        flags = shard is not None and shard.size > 1
+        n_inner, n_aux = len(inner_draws), len(inner_aux or ())
+        inputs = [*inner_draws, *(inner_aux or ()), *prop, draws["jump_log_u"]]
+        if "x0" in draws:
+            inputs.append(draws["x0"])
+        acc = state.acc
+        leaves, spec = graphs.flatten((state.x, state.inner_state,
+                                       dataclasses.replace(acc, div_flags=None), state.jump_acc,
+                                       state.flow_params))
+        key = ("outer", self._graph_config(), collect, flags, n_aux, spec,
+               graphs.signature(leaves), graphs.signature(t[0] for t in inputs), length)
+
+        def make():
+            sweep, jump = self._make_outer_steps(n_aux > 0)
+
+            def body(state_leaves, rows):
+                x, ks, acc_, jacc, params = graphs.unflatten(spec, state_leaves)
+                k = n_inner + n_aux
+                x, ks, acc_, states, infos = sweep(x, ks, acc_, rows[:n_inner],
+                                                   rows[n_inner:k] if n_aux else None,
+                                                   rows[k + 4] if len(rows) > k + 4 else None)
+                for info in infos:
+                    graphs.check_host_counts(info)
+                x, ks, jacc = jump(params, x, ks, jacc, rows[k:k + 3], rows[k + 3])
+                new_leaves, new_spec = graphs.flatten((x, ks, acc_, jacc, params))
+                if new_spec != spec:
+                    raise RuntimeError("a captured outer iteration changed the structure of "
+                                       "its state")
+                outs = [torch.stack([*states, x])] if collect else []
+                if flags:
+                    outs.append(torch.stack([info.diverged for info in infos]))
+                return new_leaves, outs
+
+            x = state.x
+            outputs = ([((length, inner_n + 1, *x.shape), x.dtype)] if collect else []) + (
+                [((length, inner_n), torch.int32)] if flags else [])
+            return graphs.IterationGraph(body, leaves, [((length, *t.shape[1:]), t.dtype)
+                                                        for t in inputs], outputs, x.device)
+
+        graph = graphs.CACHE.get(self, key, make)
+        graph.load(leaves, inputs)
+        graph.run(chunk)
+        x, ks, new_acc, jacc, params = graphs.unflatten(spec, graph.state)
+        if flags:
+            acc.div_flags.append(graph.outputs[-1][:chunk].reshape(-1).clone())
+        ys = None
+        if collect:
+            ys = graph.outputs[0][:chunk].reshape(chunk * (inner_n + 1), *x.shape).clone()
+        return ChunkState(x=x, inner_state=ks,
+                          acc=dataclasses.replace(new_acc, div_flags=acc.div_flags),
+                          jump_acc=jacc, flow_params=params), ys
 
     # ------------------------------------------------------------------- sample
     def sample(self, x0, show_progress: bool = True, time_limit_seconds=None,
@@ -371,6 +486,13 @@ class JumpNFMC(Sampler):
                 max_val_size=self.params.max_val_size)
             fit_generator = torch.Generator(device=self.device)
             fit_generator.manual_seed(self._sub_seeds(generator, 1)[0])
+        # refits make their proposals per iteration: only the draws are hoisted
+        per_proposal = 0 if fit_cfg is not None else flow_proposal_footprint_per_draw(
+            self.kernel.flow, event_elems)
+        cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store,
+                        self.inner_sampler.hoisted_elements_per_iter(x0))
+        # a captured iteration's static buffers hold the run's longest chunk
+        length = max(plan_chunks(self.params.n_iterations, pipelined, 256, cap), default=1)
 
         def dispatch(chunk, iters_done):
             draws = self._shard_chunk_draws(self.make_chunk_draws(generator, chunk, n_chains))
@@ -379,7 +501,7 @@ class JumpNFMC(Sampler):
                 # gated by the absolute outer index
                 gate = [iters_done + i >= self.params.n_jumps_before_training for i in range(chunk)]
                 refit = (scan_fit, fit_generator, gate)
-            st["state"], ys = self.run_chunk(st["state"], draws, refit)
+            st["state"], ys = self.run_chunk(st["state"], draws, refit, length)
             if store:
                 if defer_store:
                     deferred.append(ys)
@@ -392,11 +514,6 @@ class JumpNFMC(Sampler):
             s.acc = StatsAccum.zeros(self.event_shape, self.device, self.chain_shard)
             s.jump_acc = _JumpAccum.zeros(self.event_shape, self.device)
 
-        # refits make their proposals per iteration: only the draws are hoisted
-        per_proposal = 0 if fit_cfg is not None else flow_proposal_footprint_per_draw(
-            self.kernel.flow, event_elems)
-        cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store,
-                        self.inner_sampler.hoisted_elements_per_iter(x0))
         iters_done = run_chunk_loop(
             self.params.n_iterations,
             dispatch=dispatch,
@@ -412,13 +529,16 @@ class JumpNFMC(Sampler):
         )
         for blk in deferred:
             out.running_samples.add(blk)
+        # a captured iteration's state lies in static buffers that a later
+        # run reuses
+        leaves, spec = graphs.flatten((st["state"].x, st["state"].inner_state))
+        x, inner_state = graphs.unflatten(spec, [t.clone() for t in leaves])
         if not store and iters_done > 0:
-            out.running_samples.add(st["state"].x)
+            out.running_samples.add(x)
         if fit_cfg is not None:
             self.kernel.flow.params = st["state"].flow_params
         self.inner_sampler._finish_run()
-        self.inner_sampler.kernel.sync_from_state(
-            self.inner_sampler._extract_mstate(st["state"].inner_state))
+        self.inner_sampler.kernel.sync_from_state(self.inner_sampler._extract_mstate(inner_state))
 
     def _sample_host(self, x0, out, generator, time_limit_seconds, show_progress):
         """The outer loop on the host, for refits that are not fixed-effort:
@@ -531,6 +651,8 @@ class JumpNFMC(Sampler):
 
 class JumpMALA(JumpNFMC):
     multi_rank_chains = True
+    # the outer iteration without refits: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -541,6 +663,8 @@ class JumpMALA(JumpNFMC):
 
 class JumpULA(JumpNFMC):
     multi_rank_chains = True
+    # the outer iteration without refits: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -551,6 +675,8 @@ class JumpULA(JumpNFMC):
 
 class JumpHMC(JumpNFMC):
     multi_rank_chains = True
+    # the outer iteration without refits: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -561,6 +687,8 @@ class JumpHMC(JumpNFMC):
 
 class JumpUHMC(JumpNFMC):
     multi_rank_chains = True
+    # the outer iteration without refits: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -571,6 +699,8 @@ class JumpUHMC(JumpNFMC):
 
 class JumpMH(JumpNFMC):
     multi_rank_chains = True
+    # the outer iteration without refits: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):

@@ -14,7 +14,10 @@ Each HMC gradient of ``U~`` is one pass through the flow's inverse and
 back: on CUDA the coupling kernel's inverse and its VJP in the inverse
 direction, taken with respect to ``z`` alone (``value_and_batched_grad``).
 The flow's weights enter the inner run detached, so nothing accumulates
-gradients on them whatever their ``requires_grad``.
+gradients on them whatever their ``requires_grad``. On CUDA the inner HMC
+or MH run replays a captured iteration, the kernels and the VJP's autograd
+pass inside the graph; the graph reads the weights where they lie, so a
+flow given new weight tensors captures anew (``graph_flows``).
 """
 from __future__ import annotations
 
@@ -78,6 +81,9 @@ class NeuTra(Sampler):
         self.inner_sampler = inner_sampler_class(event_shape, self.adjusted_target, inner_kernel,
                                                  inner_params, device=self.device)
         self.inner_sampler.data_transform = self._latent_to_data
+        # the inner run's step calls the flow; its graphs read the flow's
+        # weights where they lie
+        self.inner_sampler.graph_flows = (self.kernel.flow,)
 
     @property
     def name(self):

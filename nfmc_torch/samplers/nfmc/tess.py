@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.driver import ChunkedDriver, StepInfo
+from ...core import graphs
+from ...core.driver import ChunkedScanDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
 from ...core.tuning import train_val_split
@@ -150,6 +151,9 @@ def _info(accepted, u_new):
 
 class TESS(Sampler):
     multi_rank_chains = True
+    # the sampling run's step: static shapes, a fixed number of bracket
+    # rounds, no host read (the warmup refits and is not captured)
+    graph_capturable = True
 
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[TESSKernel] = None, params: Optional[TESSParameters] = None,
@@ -277,9 +281,10 @@ class TESS(Sampler):
 
             return step
 
-        driver = ChunkedDriver(self.event_shape, make_step, tess_draws,
-                               hoist_per_iter=self._hoist_per_iter,
-                               draw_chain_axes=TESS_DRAW_AXES)
+        # a refit inside the step draws from its generator: never captured
+        driver = ChunkedScanDriver(self.event_shape, make_step, tess_draws,
+                                   hoist_per_iter=self._hoist_per_iter,
+                                   draw_chain_axes=TESS_DRAW_AXES)
         _u, params = driver.run(
             u0, flow.params, generator, self.params.n_warmup_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self._calls_per_iter(n_chains),
@@ -287,6 +292,35 @@ class TESS(Sampler):
             time_limit_seconds=time_limit_seconds, show_progress=show_progress,
             desc="[Warmup] TESS", shard=shard)
         flow.params = params
+
+    def _get_driver(self) -> ChunkedScanDriver:
+        """The sampling run's driver, memoised across calls: its step bakes
+        in the flow's structure, the likelihood, the bracket's rounds and
+        the ellipse's covariance (the weights ride in the carried state)."""
+        _init, tess_step, tess_draws = self._make_tess_step()
+        cov = self.kernel.cov
+        flow = self.kernel.flow
+
+        # the position is the data-space x, so the stored draws and the
+        # moments need no extra inverse; u and its log pi^ ride in the state
+        def make_step(tuning):
+            def step(x, kstate, draws):
+                params, u, lp_u = kstate
+                x_new, u_new, lp_new, accepted = tess_step(params, u, lp_u, x, draws)
+                return x_new, (params, u_new, lp_new), _info(accepted, u_new)
+
+            return step
+
+        return self._cached_driver(
+            (self.params.max_ess_step_iterations, id(flow.bijection),
+             id(self.negative_log_likelihood),
+             None if cov is None else hash(np.asarray(cov).tobytes()),
+             None if self.chain_shard is None else self.chain_shard.size),
+            lambda: ChunkedScanDriver(self.event_shape, make_step, tess_draws,
+                                      hoist_per_iter=self._hoist_per_iter,
+                                      draw_chain_axes=TESS_DRAW_AXES,
+                                      capturable=graphs.declared(self, (flow,))),
+            keepalive=(flow.bijection, self.negative_log_likelihood))
 
     def sample_continue(self, x, **kwargs) -> MCMCOutput:
         """Continue from a data-space draw (what ``sample`` stores): it is
@@ -306,21 +340,8 @@ class TESS(Sampler):
         n_chains = self._n_global(u0.shape[0])
         out = MCMCOutput(self.event_shape, store_samples=self.params.store_samples,
                          on_device=self.params.store_samples_on_device)
-        tess_init, tess_step, tess_draws = self._make_tess_step()
-
-        # the position is the data-space x, so the stored draws and the
-        # moments need no extra inverse; u and its log pi^ ride in the state
-        def make_step(tuning):
-            def step(x, kstate, draws):
-                params, u, lp_u = kstate
-                x_new, u_new, lp_new, accepted = tess_step(params, u, lp_u, x, draws)
-                return x_new, (params, u_new, lp_new), _info(accepted, u_new)
-
-            return step
-
-        driver = ChunkedDriver(self.event_shape, make_step, tess_draws,
-                               hoist_per_iter=self._hoist_per_iter,
-                               draw_chain_axes=TESS_DRAW_AXES)
+        tess_init, _step, _draws = self._make_tess_step()
+        driver = self._get_driver()
         t0 = time.time()
         with torch.no_grad():
             lp0, x0_data = tess_init(flow.params, u0)

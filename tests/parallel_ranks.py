@@ -196,6 +196,47 @@ def mala_divergent(mesh, workdir):
     return _result(sharded_sample(s, x0, mesh=mesh, show_progress=False, seed=1))
 
 
+def mala_divergent_graphed(mesh, workdir):
+    """``mala_divergent`` through the capture layer's protocol (each chunk
+    replays one iteration's body over static buffers, without capture):
+    each rank writes its divergence flags at the counter, and a divergence
+    still counts once an iteration."""
+    from nfmc_torch.core import graphs
+
+    with graphs.without_capture():
+        return mala_divergent(mesh, workdir)
+
+
+def jump_divergent_graphed(mesh, workdir):
+    """JumpMALA with a frozen flow on the walled Gaussian, through the
+    protocol: the outer iteration's inner divergence flags at the counter,
+    pipelined and in synced chunks."""
+    from nfmc_torch.core import graphs
+    from nfmc_torch.core.sampler import NFMCKernel
+    from nfmc_torch.parallel import sharded_sample
+    from nfmc_torch.samplers.mcmc.langevin import LangevinKernel
+    from nfmc_torch.samplers.nfmc import JumpMALA
+
+    results = {}
+    for label, limit in (("pipelined", None), ("synced", 1e9)):
+        s = JumpMALA((D,), _walled, kernel=NFMCKernel((D,), flow=_flow()),
+                     inner_kernel=LangevinKernel(event_size=D, step_size=0.05), device="cpu")
+        s.params.n_iterations = 6
+        s.inner_sampler.params.n_iterations = 2
+        x0 = 0.3 * _x0(16)
+        with graphs.without_capture():
+            if mesh is None:
+                out = s.sample(x0, show_progress=False, seed=2, time_limit_seconds=limit)
+            else:
+                out = sharded_sample(s, x0, mesh=mesh, show_progress=False, seed=2,
+                                     time_limit_seconds=limit)
+        results[label] = out
+    r = _result(results["pipelined"])
+    synced = _result(results["synced"])
+    r.update(synced_samples=synced["samples"], synced_counters=np.asarray(synced["counters"]))
+    return r
+
+
 def _walled(x):
     u = 0.5 * (x ** 2).sum(-1)
     return torch.where((x.abs() > 1.5).any(-1), torch.full_like(u, float("inf")), u)
@@ -475,7 +516,8 @@ def variational_fit(mesh, workdir):
 
 SCENARIOS = {f.__name__: f for f in (
     mala, hmc, imh, jump_mala_fused, jump_mala_host, front_door, front_door_checkpoint,
-    resumable_shard_fn, mala_divergent, dense_mala, dense_hmc, neutra_hmc, tess_fused, tess_host,
+    resumable_shard_fn, mala_divergent, mala_divergent_graphed, jump_divergent_graphed,
+    dense_mala, dense_hmc, neutra_hmc, tess_fused, tess_host,
     dlmc_fused, dlmc_host, pt_mala, pt_mh, pt_hmc, aies, chees_hmc, mesh_2x1, mesh_1x2, custom_axis, rejections, fit, variational_fit)}
 
 

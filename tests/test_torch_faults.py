@@ -355,8 +355,6 @@ def test_lazy_submodules_match_jax():
 # the JAX package's names that the port has no counterpart of, each a
 # recorded divergence (ROADMAP §3)
 NOT_PORTED = {
-    "ChunkedScanDriver": "one compiled lax.scan a chunk; the port runs each chunk as an eager "
-                         "loop (core.driver.ChunkedDriver, ROADMAP 1.1)",
     "next_key": "JAX keys; the port draws from torch.Generators",
     "resolve_key": "JAX keys; the port's core.rng.resolve_generator",
 }

@@ -148,7 +148,7 @@ def _assert_matches(got, want, atol=ATOL):
     assert got["counters"] == want["counters"]
     assert got.get("swaps") == want.get("swaps")
     for k in ("step_size", "inv_mass", "flow", "warm_flow", "warm", "warm_counters", "betas",
-              "step_sizes", "hot", "trajectory"):
+              "step_sizes", "hot", "trajectory", "synced_samples", "synced_counters"):
         if k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol, err_msg=k)
     if "mass_cov" in want:
@@ -157,6 +157,7 @@ def _assert_matches(got, want, atol=ATOL):
 
 @pytest.mark.parametrize("name", ["mala", "hmc", "imh", "jump_mala_fused", "jump_mala_host",
                                   "front_door", "front_door_checkpoint", "mala_divergent",
+                                  "mala_divergent_graphed", "jump_divergent_graphed",
                                   "dense_mala", "dense_hmc", "neutra_hmc", "tess_fused",
                                   "tess_host", "dlmc_fused", "dlmc_host", "pt_mala", "pt_mh",
                                   "pt_hmc", "aies", "chees_hmc", "mesh_2x1", "mesh_1x2",
@@ -168,7 +169,8 @@ def test_two_ranks_match_unsharded(ranks, name):
     checkpoint, divergences, the further strategies that declare multi-rank
     support (DenseMALA, DenseHMC, NeuTraHMC, TESS and DLMC with either
     refit route, the PT family through a checkpointed continuation, AIES,
-    ChEES-HMC tuning),
+    ChEES-HMC tuning), MALA and JumpMALA through the capture layer's
+    protocol,
     and (2, 1), (1, 2) and custom-axis meshes: sharded over two ranks, as
     the unsharded run."""
     torch.set_num_threads(1)
