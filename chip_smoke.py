@@ -314,8 +314,22 @@ Phases, in order; any failure exits non-zero before the last line:
      iteration (the host's runtime calls) and the device's busy share, and
      the graph cache's memory after the run. Every earlier phase runs its
      declared paths with graphs (the launch laws count a replay's launches).
+  21. the flow fits as CUDA graph replays (nfmc_torch.flows.train): the
+     headline's warmup fit on phase 5b's own data (4096 rows at batch 256,
+     3000 validation rows, early stopping), IMH's reverse-KL warmup fit at
+     phase 10b's size, AdaptiveIMH's refits through the front door (10c),
+     three of DLMC's refits through one make_scan_fit closure at 11e's size
+     and a 20-epoch fit of each coupling spline flow, each with graphs and
+     under disable_graphs() from one seed, bit for bit: the weights, the
+     carried tensors each fit ends with (weights, Adam's moments and count,
+     the best weights and loss), the losses the host read, the steps and
+     epochs counted (flows.train.COUNTS, which Instrument reads in every
+     earlier phase), the launches and launches by shape; ms per Adam step
+     both ways; in torch.profiler windows of the headline, IMH and DLMC
+     fits, the device's busy share and the kernel and graph launches both
+     ways; the weight buffer's cache holds none of a fit graph's buffers.
 Each path's launch counts are set to 0 just before it and read just after;
-every shape the IMH path (10-10c) and the paths of phases 11-13, 16 and 18b launched
+every shape the IMH path (10-10c) and the paths of phases 11-13, 16, 18b and 21 launched
 must be one phase 3, 3b, 7 or 7b held against the plain version, and phase
 17's and 19's ones they hold themselves; each has its own row in the kernels' line.
 Prints the kernels' JSON line (each kernel's "ms" is the median of CUDA events
@@ -1184,7 +1198,9 @@ class Instrument:
     """For the duration of a ``with`` block: wall time (ending in a
     synchronise) of the inner sampler's warmup, of ``Flow.fit`` and of
     ``Flow.variational_fit``, the epochs and optimizer steps of flow
-    training (a variational epoch is one step), and the inner sampler."""
+    training (a variational epoch is one step), and the inner sampler. The
+    steps and epochs are ``flows.train.COUNTS``'s, which a replayed fit
+    advances by what its capture recorded: a replay runs no Python."""
 
     def __enter__(self):
         from nfmc_torch.flows import base as flow_base
@@ -1192,14 +1208,11 @@ class Instrument:
         from nfmc_torch.samplers.mcmc.base import MCMCSampler
 
         self.inner_s = self.fit_s = self.vfit_s = 0.0
-        self.epochs = self.steps = self.vfit_epochs = 0
         self.inner = None
+        self._counts, self._start, self._end = train_mod.COUNTS, dict(train_mod.COUNTS), None
         self._orig = [(MCMCSampler, "warmup", MCMCSampler.warmup),
                       (flow_base.Flow, "fit", flow_base.Flow.fit),
-                      (flow_base.Flow, "variational_fit", flow_base.Flow.variational_fit),
-                      (train_mod, "_train_epoch", train_mod._train_epoch),
-                      (train_mod, "_train_step", train_mod._train_step),
-                      (train_mod, "_reverse_kl", train_mod._reverse_kl)]
+                      (flow_base.Flow, "variational_fit", flow_base.Flow.variational_fit)]
         rec = self
 
         self.x_train = self.x_val = None
@@ -1218,21 +1231,28 @@ class Instrument:
                     setattr(rec, attr, getattr(rec, attr) + time.perf_counter() - t0)
             return wrapper
 
-        def counted(fn, attr):
-            def wrapper(*a, **k):
-                setattr(rec, attr, getattr(rec, attr) + 1)
-                return fn(*a, **k)
-            return wrapper
-
         MCMCSampler.warmup = timed(MCMCSampler.warmup, "inner_s")
         flow_base.Flow.fit = timed(flow_base.Flow.fit, "fit_s")
         flow_base.Flow.variational_fit = timed(flow_base.Flow.variational_fit, "vfit_s")
-        train_mod._train_epoch = counted(train_mod._train_epoch, "epochs")
-        train_mod._train_step = counted(train_mod._train_step, "steps")
-        train_mod._reverse_kl = counted(train_mod._reverse_kl, "vfit_epochs")
         return self
 
+    def _count(self, name):
+        return (self._end or self._counts)[name] - self._start[name]
+
+    @property
+    def epochs(self):
+        return self._count("epochs")
+
+    @property
+    def steps(self):
+        return self._count("steps")
+
+    @property
+    def vfit_epochs(self):
+        return self._count("variational_steps")
+
     def __exit__(self, *exc):
+        self._end = dict(self._counts)
         for owner, name, fn in self._orig:
             setattr(owner, name, fn)
 
@@ -5330,6 +5350,187 @@ def run_graph_phases(dev) -> dict:
     return res
 
 
+FIT21_SPLINE_EPOCHS, FIT21_PROFILE_EPOCHS, FIT21_VFIT_PROFILE, FIT21_DLMC_REFITS = 20, 10, 50, 3
+
+
+def run_fit_graph_phases(dev, headline_data) -> dict:
+    """Phase 21: the flow fits with graphs and under ``disable_graphs()`` in
+    this process, each from one seed, bit for bit: the weights, the carried
+    tensors each fit ends with (weights, Adam's moments and count, the best
+    weights and loss; of every refit, for the refitting paths), the losses
+    the host read, the steps and epochs counted, and each wrapper's launches
+    and launches by shape. The fits: the headline's warmup fit on phase 5b's
+    own data (``headline_data``), IMH's reverse-KL warmup fit at phase 10b's
+    size, AdaptiveIMH's refits through the front door (phase 10c), DLMC's
+    refit closure at 11e's size, and a fit of each coupling spline flow.
+    Prints ms per Adam step both ways, the device busy share of a short
+    window of the headline, IMH and DLMC fits both ways (the graph windows
+    replay graphs captured before them) and the graph cache's memory."""
+    import nfmc_torch
+    from nfmc_torch.core import graphs
+    from nfmc_torch.flows import Flow, RealNVP
+    from nfmc_torch.flows import train as train_mod
+    from nfmc_torch.ops import build
+    from nfmc_torch.potentials import DiagonalGaussian1
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"fits": {}, "shapes": {}}
+    x_train, x_val = headline_data
+    target = DiagonalGaussian1(D)
+
+    def neg_u(v):
+        return -target(v)
+
+    def flow(name="realnvp"):
+        if name == "realnvp":
+            return Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0).to(dev)
+        return nfmc_torch.create_flow_object(
+            f'{name}%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": {N_BINS}}}', (D,),
+            seed=0).to(dev)
+
+    jump_fit_kw = nfmc_torch.NFMCParameters().flow_fit_kwargs
+    imh_fit_kw = dict(nfmc_torch.IMHParameters().warmup_fit_kwargs)
+    dlmc_x = torch.randn((DLMC_C, D), generator=torch.Generator(device=dev).manual_seed(21),
+                         device=dev) * torch.from_numpy(target.sigma).to(dev)
+
+    def dlmc_refits(fit):
+        fit_flow = flow()
+        params, g = fit_flow.params, torch.Generator(device=dev).manual_seed(22)
+        for _ in range(FIT21_DLMC_REFITS):
+            params = fit(params, dlmc_x, g)
+        return flat_params(params)
+
+    def dlmc_closure(fit_flow):
+        return train_mod.make_scan_fit(fit_flow, DLMC_C, train_pct=0.7, **DLMC_FIT_KWARGS)
+
+    def adaptive_imh():
+        out = nfmc_torch.sample(target, strategy="adaptive_imh", flow=flow(), n_chains=C,
+                                n_iterations=IMH_WARM_ITERS, seed=0, show_progress=False,
+                                param_kwargs={"store_samples_on_device": True})
+        return torch.cat([out.samples.reshape(-1).cpu(),
+                          flat_params(out.kernel.flow.params)])
+
+    def fitted(name, call):
+        def run():
+            f = flow(name)
+            call(f)
+            return flat_params(f.params)
+        return run
+
+    fits = {
+        "headline fit": fitted("realnvp", lambda f: f.fit(x_train, x_val=x_val, seed=0,
+                                                          **jump_fit_kw)),
+        "IMH reverse-KL fit": fitted("realnvp", lambda f: f.variational_fit(neg_u, seed=0,
+                                                                            **imh_fit_kw)),
+        "AdaptiveIMH refits": adaptive_imh,
+        "DLMC refits": lambda: dlmc_refits(dlmc_closure(flow())),
+        **{f"{name} fit": fitted(name, lambda f: f.fit(
+            x_train, x_val=x_val, seed=0, n_epochs=FIT21_SPLINE_EPOCHS, batch_size=256))
+           for name in SPLINE_FLOWS.values()},
+    }
+
+    def measured(run, eager):
+        """``run()``'s weights, the carried tensors and host-read losses of
+        each fit it made, its counts, launches and wall, with graphs or
+        without."""
+        build.reset_launch_counts()
+        before = dict(train_mod.COUNTS)
+        carries, rec = [], RecordingNumpy()
+        orig_fitted, orig_np = train_mod._fitted, train_mod.np
+
+        def recording(carry, keep_best):
+            carries.append(torch.cat([t.reshape(-1) for t in carry]).cpu())
+            return orig_fitted(carry, keep_best)
+
+        train_mod._fitted, train_mod.np = recording, rec
+        try:
+            with ShapeLaunches() as shapes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+                    out = run()
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            train_mod._fitted, train_mod.np = orig_fitted, orig_np
+        return {"out": out, "carries": carries, "losses": rec.seen,
+                "counts": {k: train_mod.COUNTS[k] - before[k] for k in before},
+                "launches": {w.__name__: w.launches for w in build.WRAPPERS},
+                "shapes": dict(shapes.n), "wall": wall}
+
+    def same_list(a, b, eq):
+        return len(a) == len(b) and all(eq(x, y) for x, y in zip(a, b))
+
+    for label, run in fits.items():
+        e, gr = measured(run, eager=True), measured(run, eager=False)
+        parts = {"weights": torch.equal(e["out"], gr["out"]),
+                 "carried": same_list(e["carries"], gr["carries"], torch.equal),
+                 "losses": same_list(e["losses"], gr["losses"], np.array_equal),
+                 "counts": e["counts"] == gr["counts"], "launches": e["launches"] == gr["launches"],
+                 "by shape": e["shapes"] == gr["shapes"]}
+        steps = gr["counts"]["steps"] + gr["counts"]["variational_steps"]
+        res["fits"][label] = {"wall": (e["wall"], gr["wall"]), "steps": steps, "same": parts}
+        res["shapes"][f"fit graphs, {label}"] = collections.Counter(gr["shapes"])
+        print(f"21 {label}: {len(gr['carries'])} fits, {gr['counts']}, wall without graphs "
+              f"{e['wall']:.3f} s, with {gr['wall']:.3f} s; ms per Adam step "
+              f"{1e3 * e['wall'] / max(steps, 1):.3f} / {1e3 * gr['wall'] / max(steps, 1):.3f}; "
+              f"bit for bit {parts}; launches {({k: v for k, v in gr['launches'].items() if v})}; "
+              f"graph cache {graphs.CACHE.describe()} ({smi})")
+        check(len(gr["carries"]) > 0 and steps > 0 and gr["out"].numel() > 0
+              and sum(gr["launches"].values()) > 0, f"21 {label}: no fit ran on the card")
+        check(all(parts.values()), f"21 {label}: the fit with graphs differs from the eager "
+                                   f"fit: {parts}")
+        check(gr["launches"]["fused_realnvp_vjp"] + gr["launches"]["fused_spline_vjp"] == steps,
+              f"21 {label}: backward launches != Adam steps")
+
+    # ---- 21b. the device's busy share, and the weight buffer's cache ----------------
+    def profiled(label, eager_run, graph_run, n_steps):
+        with graphs.disable_graphs():
+            pe = launch_profile(eager_run)
+        pg = launch_profile(graph_run)
+        res["fits"][label]["profile"] = (pe, pg)
+        print(f"21b {label}, {n_steps} Adam steps profiled: wall {pe[0]:.3f} / {pg[0]:.3f} s "
+              f"({1e3 * pe[0] / n_steps:.3f} / {1e3 * pg[0] / n_steps:.3f} ms a step) without / "
+              f"with graphs, device busy {100 * pe[1] / pe[0]:.1f}% / {100 * pg[1] / pg[0]:.1f}%, "
+              f"kernel launches {pe[2]} / {pg[2]}, graph launches {pe[3]} / {pg[3]} ({smi})")
+        check(pg[3] > 0 and pe[3] == 0, f"21b {label}: graph launches {pe[3]} / {pg[3]}")
+
+    f_head = flow()
+    bs = train_mod._adaptive_batch_size(len(x_train))
+    short = dict(jump_fit_kw, n_epochs=FIT21_PROFILE_EPOCHS)
+    f_head.fit(x_train, x_val=x_val, seed=1, **short)  # captures the graph the window replays
+    # the graph's first epoch ran eagerly: the kernels' weight buffer was
+    # packed from the static buffers there, and must not be cached
+    graph_bufs = {b.untyped_storage().data_ptr() for gr_ in f_head._graphs.values()
+                  for b in (*gr_.state, *gr_.inputs, *gr_.outputs)}
+    held = {t.untyped_storage().data_ptr() for t, _v in f_head.bijection._packed_src}
+    check(len(graph_bufs) > 0 and not held & graph_bufs,
+          "21b: the weight buffer's cache holds a graph's static buffer")
+    profiled("headline fit",
+             lambda: flow().fit(x_train, x_val=x_val, seed=1, **short),
+             lambda: f_head.fit(x_train, x_val=x_val, seed=1, **short),
+             FIT21_PROFILE_EPOCHS * (len(x_train) // bs))
+    f_imh = flow()
+    vkw = dict(imh_fit_kw, n_epochs=FIT21_VFIT_PROFILE, early_stopping=False)
+    f_imh.variational_fit(neg_u, seed=1, **vkw)
+    profiled("IMH reverse-KL fit", lambda: flow().variational_fit(neg_u, seed=1, **vkw),
+             lambda: f_imh.variational_fit(neg_u, seed=1, **vkw), FIT21_VFIT_PROFILE)
+    f_dlmc = flow()
+    closure = dlmc_closure(f_dlmc)
+    g22 = torch.Generator(device=dev).manual_seed(23)
+    closure(f_dlmc.params, dlmc_x, g22)
+    n_train = int(0.7 * DLMC_C)
+    profiled("DLMC refits", lambda: dlmc_closure(flow())(f_dlmc.params, dlmc_x, g22),
+             lambda: closure(f_dlmc.params, dlmc_x, g22),
+             DLMC_FIT_KWARGS["n_epochs"] * (n_train // train_mod._adaptive_batch_size(n_train)))
+    res["cache"] = graphs.CACHE.describe()
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 21: {res['wall']:.1f} s; graph cache {res['cache']} ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -5592,6 +5793,7 @@ def main() -> None:
         torch.cuda.synchronize()
     wall_w = time.perf_counter() - t0
     warm_launches = {w.__name__: w.launches for w in build.WRAPPERS}
+    headline_fit_data = (ins.x_train, ins.x_val)
     wst = wout.statistics
     ik = ins.inner.kernel
     jacc_w, macc_w = wst.jump_acceptance_rate, wst.acceptance_rate
@@ -5705,6 +5907,8 @@ def main() -> None:
     lap("phase 19")
     graph20 = run_graph_phases(dev)
     lap("phase 20")
+    fit21 = run_fit_graph_phases(dev, headline_fit_data)
+    lap("phase 21")
 
     kernels = []
 
@@ -5756,7 +5960,7 @@ def main() -> None:
     path_rows("IMH", imh["imh_shapes"] + imh["vfit_shapes"] + imh["refit_shapes"])
     for label, shapes in (*flows11["shapes"].items(), *mcmc12["shapes"].items(),
                           *last13["shapes"].items(), *ckpt16["shapes"].items(),
-                          *par18["shapes"].items()):
+                          *par18["shapes"].items(), *fit21["shapes"].items()):
         path_rows(label, shapes)
     # phase 17's and 19's paths: each path's launches at each shape (d, H, L, B)
     for res_ in (tr17, par19):
@@ -5840,6 +6044,9 @@ def main() -> None:
     print("phase 20, wall without / with graphs: " + ", ".join(
         f"{k} {v['wall'][0]:.3f} / {v['wall'][1]:.3f} s" for k, v in graph20["paths"].items())
         + f" ({smi.stdout.strip().splitlines()[0]})")
+    print("phase 21, ms per Adam step without / with graphs: " + ", ".join(
+        f"{k} {1e3 * v['wall'][0] / v['steps']:.3f} / {1e3 * v['wall'][1] / v['steps']:.3f}"
+        for k, v in fit21["fits"].items()) + f" ({smi.stdout.strip().splitlines()[0]})")
     print("walls by phase: " + ", ".join(f"{what} {s_:.1f} s" for what, s_ in laps))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
-"""The capture layer: a chunk of a sampler's iterations as replays of one
-captured CUDA graph, the counterpart of the JAX package's compiled
-``lax.scan`` chunk (``nfmc_tpu/core/driver.py::ChunkedScanDriver``). It owns
-every graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
+"""The capture layer: a chunk of a sampler's iterations, or a block of a
+flow fit's epochs or steps, as replays of one captured CUDA graph, the
+counterpart of the JAX package's compiled ``lax.scan`` chunk
+(``nfmc_tpu/core/driver.py::ChunkedScanDriver``) and jitted training block
+(``nfmc_tpu/flows/train.py``). It owns every graph of the package; nothing
+else calls ``torch.cuda.CUDAGraph``.
 
 * A graph holds ONE iteration's body. The body reads its inputs (the
   chunk's draws and hoisted proposals) at a device-side counter, writes
@@ -18,16 +20,22 @@ every graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
   step has static shapes and reads nothing on the host sets
   ``graph_capturable = True`` (read from the class's own ``__dict__``, so a
   subclass declares again), and on a CUDA device its chunks are replays. A
-  capture or a replay that fails raises; nothing falls back to the eager
-  loop.
+  flow's fits are captured where its bijection declares the same
+  (:func:`fit_captures`). A capture or a replay that fails raises; nothing
+  falls back to the eager loop.
 * A kernel wrapper counts its launches on the host
   (:func:`nfmc_torch.ops.build.count_launch`). A replay runs no Python, so
   the launches that the capture recorded are counted once per replay.
 * :func:`disable_graphs` runs the eager loop instead, the counterpart of
   ``jax.disable_jit()``: the oracle a replay is held against bit for bit.
-* Graphs live on their driver, keyed by (tuning, collect, shapes, dtypes and
-  the closure constants the sampler names), and :data:`CACHE` bounds them
+* Graphs live on their owner (a sampler's driver, a flow for its fits, a
+  ``make_scan_fit`` closure), keyed by what the body bakes in (shapes,
+  dtypes, modes and the closure constants), and :data:`CACHE` bounds them
   all, least recently used first.
+* While an iteration's body runs (eagerly first, then under capture), code
+  that caches tensors across calls holds nothing it was given
+  (:func:`in_body`): the static buffers change under replays, which bump no
+  version counter.
 """
 from __future__ import annotations
 
@@ -72,6 +80,12 @@ def without_capture():
         _local.uncaptured = before
 
 
+def in_body() -> bool:
+    """Whether an :class:`IterationGraph`'s body is running in this thread
+    (its first, eager iteration or its capture)."""
+    return bool(getattr(_local, "body", 0))
+
+
 def declared(sampler, flows=()) -> bool:
     """Whether ``sampler``'s own class declares its step capturable, and
     so does the bijection of each flow in ``flows`` that the step calls
@@ -91,6 +105,15 @@ def captures(device: torch.device, shard=None, tuning: bool = False) -> bool:
     if tuning and shard is not None and shard.size > 1:
         return False
     return device.type == "cuda" or bool(getattr(_local, "uncaptured", 0))
+
+
+def fit_captures(flow, device: torch.device, shard=None) -> bool:
+    """Whether a fit of ``flow`` on ``device`` replays graphs, decided
+    before the fit: its bijection declares ``graph_capturable`` and
+    :func:`captures` holds as for a tuning step (a fit on several ranks
+    reduces its gradient over them every step, so it runs eagerly)."""
+    return (bool(type(flow.bijection).__dict__.get("graph_capturable", False))
+            and captures(device, shard, tuning=True))
 
 
 # ---- carried state as a flat list of tensors --------------------------------------------
@@ -255,7 +278,11 @@ class IterationGraph:
     def _iteration(self) -> None:
         idx = self.counter.view(1)
         rows = [b.index_select(0, idx)[0] for b in self.inputs]
-        new_state, outs = self.body(self.state, rows)
+        _local.body = getattr(_local, "body", 0) + 1
+        try:
+            new_state, outs = self.body(self.state, rows)
+        finally:
+            _local.body -= 1
         for b, o in zip(self.outputs, outs, strict=True):
             b.index_copy_(0, idx, o.unsqueeze(0))
         for s, n in zip(self.state, new_state, strict=True):
@@ -296,32 +323,33 @@ class IterationGraph:
 # ---- the cache ------------------------------------------------------------------------------
 
 class GraphCache:
-    """Bounds the graphs of every driver, least recently used first: at most
+    """Bounds the graphs of every owner, least recently used first: at most
     ``max_graphs`` graphs and ``max_bytes`` of static buffers and capture
-    memory. A driver keeps its graphs in ``driver._graphs``; the cache holds
-    the drivers weakly, so a driver's graphs go with it."""
+    memory. An owner (a driver, a flow, a fit's closure) keeps its graphs
+    in ``owner._graphs``; the cache holds the owners weakly, so an owner's
+    graphs go with it."""
 
     def __init__(self, max_graphs: int = 32, max_bytes: int = 8 << 30):
         self.max_graphs, self.max_bytes = max_graphs, max_bytes
-        # (id(driver), key) -> (weak driver, weak graph): nothing here keeps
-        # a driver or a graph alive
+        # (id(owner), key) -> (weak owner, weak graph): nothing here keeps
+        # an owner or a graph alive
         self._order = collections.OrderedDict()
 
-    def get(self, driver, key, make: Callable[[], IterationGraph]) -> IterationGraph:
-        graphs = driver.__dict__.setdefault("_graphs", {})
-        slot = (id(driver), key)
+    def get(self, owner, key, make: Callable[[], IterationGraph]) -> IterationGraph:
+        graphs = owner.__dict__.setdefault("_graphs", {})
+        slot = (id(owner), key)
         if key in graphs:
             self._order.move_to_end(slot)
             return graphs[key]
         graph = graphs[key] = make()
-        ref = weakref.ref(driver, lambda _r, owner=id(driver): self._forget(owner))
+        ref = weakref.ref(owner, lambda _r, gone=id(owner): self._forget(gone))
         self._order[slot] = (ref, weakref.ref(graph))
         while len(self._order) > 1 and (len(self._order) > self.max_graphs
                                         or self.nbytes() > self.max_bytes):
             (_owner, old_key), (old_ref, _g) = self._order.popitem(last=False)
-            owner = old_ref()
-            if owner is not None:
-                owner.__dict__.get("_graphs", {}).pop(old_key, None)
+            old_owner = old_ref()
+            if old_owner is not None:
+                old_owner.__dict__.get("_graphs", {}).pop(old_key, None)
         return graph
 
     def _forget(self, owner: int) -> None:
@@ -357,4 +385,5 @@ def signature(tensors) -> tuple:
 
 
 __all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "declared",
-           "disable_graphs", "flatten", "signature", "unflatten", "without_capture"]
+           "disable_graphs", "fit_captures", "flatten", "in_body", "signature", "unflatten",
+           "without_capture"]

@@ -293,7 +293,10 @@ class Flow:
 
     # ---- training --------------------------------------------------------------
     def fit(self, x_train, **kwargs):
-        """Forward-KL MLE on samples (:func:`nfmc_torch.flows.train.fit`)."""
+        """Forward-KL MLE on samples (:func:`nfmc_torch.flows.train.fit`).
+        On CUDA a flow whose bijection declares ``graph_capturable`` replays
+        a captured epoch, cached on the flow, so a refit of the same shapes
+        replays a graph captured once."""
         from .train import fit as _fit
 
         return _fit(self, x_train, **kwargs)

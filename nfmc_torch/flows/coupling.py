@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..ops import coupling as coupling_ops
 from ..ops import spline as spline_ops
 from .base import Bijection
@@ -90,9 +91,11 @@ class Coupling(Bijection):
         tensors themselves, so a freed tensor's address cannot alias it."""
         if device.type != "cuda" or not self.fused:
             return None
-        if torch.cuda.is_current_stream_capturing():
+        if torch.cuda.is_current_stream_capturing() or graphs.in_body():
             # a graph packs inside itself, from the weights' addresses, on
-            # every replay: a cached buffer would hold the capture's values
+            # every replay: a cached buffer would hold the capture's values,
+            # and a key the graph's static buffers, which replays change
+            # with no version bump
             return None
         src = tuple((t, t._version) for p in params for v in p.values() for t in v)
         if (len(src) != len(self._packed_src)

@@ -28,6 +28,26 @@ loss before Adam's step. The validation loss is summed the same way, so
 every rank takes the same steps and ends with the same weights. On a
 one-rank mesh the weights equal those of the run without a mesh bit for
 bit.
+
+On CUDA, a fit of a flow whose bijection declares ``graph_capturable``
+(RealNVP and the coupling splines; :func:`nfmc_torch.core.graphs.
+fit_captures`) runs as replays of a captured CUDA graph, as the JAX package
+runs each block as one jitted ``lax.scan``: a graph's iteration is one epoch
+of ``fit`` or ``make_scan_fit`` (every batch's Adam step, then the
+validation loss and the best weights) or one step of ``variational_fit``.
+The carried tensors (the flat weights, Adam's moments and count, the best
+weights and loss) and the fit's data live in the graph's static buffers.
+An eager prologue makes the draws (each epoch's permutation, each step's
+base draws) from the fit's generator in the eager loop's order, and the
+graph reads them at its counter; the host reads a block's losses once, as
+before. The graphs live in :data:`nfmc_torch.core.graphs.CACHE`, owned by
+the flow (``fit``, ``variational_fit``) or by the ``make_scan_fit``
+closure, so a refit of the same shapes replays a graph captured once. A fit
+on several ranks, of a flow without the declaration, or under
+:func:`~nfmc_torch.core.graphs.disable_graphs` runs the eager loop, with
+which a replayed fit agrees bit for bit. :data:`COUNTS` holds the MLE Adam
+steps and epochs and the reverse-KL steps done, a replay adding what its
+capture recorded.
 """
 from __future__ import annotations
 
@@ -38,9 +58,18 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import graphs
+from ..core.driver import RNG_HOIST_ELEMENT_LIMIT
 from ..core.rng import resolve_generator
+from ..ops import build
 from ..ops.coupling import unpack_like
-from ..utils import Progress, as_numpy, tree_leaves
+from ..utils import Progress, as_numpy, tree_leaves, tree_map
+
+#: Flow-training work done in this process: the MLE Adam steps
+#: (``_train_step``) and epochs (``_train_epoch``) and the reverse-KL Adam
+#: steps, each replay of a captured fit adding what its capture recorded
+#: (:func:`nfmc_torch.ops.build.tally`).
+COUNTS = {"steps": 0, "epochs": 0, "variational_steps": 0}
 
 
 def _finite_update(loss: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
@@ -136,6 +165,13 @@ class _Adam:
         self.nu = torch.zeros_like(theta)
         self.count = torch.zeros((), dtype=torch.float32, device=theta.device)
 
+    @classmethod
+    def resume(cls, lr: float, mu: torch.Tensor, nu: torch.Tensor, count: torch.Tensor):
+        """The optimizer at moments ``mu``, ``nu`` and step ``count``."""
+        adam = cls.__new__(cls)
+        adam.lr, adam.mu, adam.nu, adam.count = lr, mu, nu, count
+        return adam
+
     def step(self, theta, g, finite=None):
         count = self.count + 1.0
         mu = (1.0 - self.b1) * g + self.b1 * self.mu
@@ -213,6 +249,7 @@ def _sum_shares(g, loss, shard):
 def _train_step(flow, like, theta, adam, xb, wb, loss_fn=_nll, shard=None):
     """One Adam step on a batch (this rank's slice of it, with a data
     ``shard``); returns ``(theta, loss)``."""
+    build.tally(COUNTS, "steps")
     with torch.enable_grad():
         th = theta.detach().requires_grad_(True)
         loss = loss_fn(flow, unpack_like(th, like), xb, wb, shard)
@@ -225,12 +262,114 @@ def _train_step(flow, like, theta, adam, xb, wb, loss_fn=_nll, shard=None):
 def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll, shard=None):
     """Adam steps over the batches ``xs`` (n_batches, bs, *event) with
     weights ``ws`` (or None); returns ``(theta, losses)``."""
+    build.tally(COUNTS, "epochs")
     losses = []
     for i in range(xs.shape[0]):
         theta, loss = _train_step(flow, like, theta, adam, xs[i], None if ws is None else ws[i],
                                   loss_fn, shard)
         losses.append(loss)
     return theta, torch.stack(losses)
+
+
+# ---- a fit's iterations, eager or replayed --------------------------------------------------
+
+# the carried tensors: theta, Adam's mu, nu and count, the best theta and loss
+_N_CARRY = 6
+
+
+def _start(theta: torch.Tensor, lr: float) -> list:
+    """A fit's carried tensors at its start: a fresh Adam, the best loss
+    inf and the best weights ``theta``."""
+    adam = _Adam(theta, lr)
+    return [theta, adam.mu, adam.nu, adam.count, theta,
+            torch.tensor(math.inf, device=theta.device)]
+
+
+def _resume(carry, lr: float):
+    """``(theta, adam, best, best_loss)`` of the carried tensors."""
+    theta, mu, nu, count, best, best_loss = carry
+    return theta, _Adam.resume(lr, mu, nu, count), best, best_loss
+
+
+def _fitted(carry, keep_best: bool) -> torch.Tensor:
+    """The flat weights a fit ends with (the best ones with ``keep_best``),
+    copied: the carried tensors may be a graph's static buffers, which its
+    next replay overwrites."""
+    return (carry[4] if keep_best else carry[0]).clone()
+
+
+def _skeleton(params):
+    """``params``'s tree with shape-only (meta) tensors, for
+    :func:`unpack_like` in a cached graph's body, which must not keep the
+    weights of the call that made it."""
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), params)
+
+
+def _replays(owner, flow, config: tuple, step, outs, length: int, keep=()):
+    """``graph_of(state, inputs)`` for :func:`_iterations`: the graph of one
+    iteration of a fit's ``step(carry, consts, rows) -> (carry, outs)``,
+    cached on ``owner`` (made on first use). ``state`` holds the carried
+    tensors, then the fit's constant ones; ``inputs`` the iterations'
+    draws, stacked; ``outs`` the ``(shape, dtype)`` of an iteration's
+    outputs; ``length`` the iterations the static buffers hold. The key
+    holds ``config`` (what the body bakes in besides ``flow``), the shapes
+    and the ids of ``flow``'s bijection and base-density override and of
+    ``keep``, which the graph keeps alive."""
+    keep = (flow.bijection, flow._base_log_prob_override, *keep)
+
+    def graph_of(state, inputs):
+        key = (config, str(state[0].device), graphs.signature(state),
+               graphs.signature(t[0] for t in inputs), length, tuple(id(k) for k in keep))
+
+        def make():
+            def body(st, rows):
+                consts = list(st[_N_CARRY:])
+                carry, outs_ = step(list(st[:_N_CARRY]), consts, rows)
+                return carry + consts, outs_
+
+            graph = graphs.IterationGraph(
+                body, state, [((length, *t.shape[1:]), t.dtype) for t in inputs],
+                [((length, *shape), dtype) for shape, dtype in outs], state[0].device)
+            graph.constants = keep  # keeps the ids of the key valid
+            return graph
+
+        return graphs.CACHE.get(owner, key, make)
+
+    return graph_of
+
+
+def _iterations(step, carry, consts, draw, n: int, graph_of=None, length: int = 1):
+    """``n`` iterations of a fit's ``step(carry, consts, rows) -> (carry,
+    outs)``, ``rows`` each iteration's draws: ``draw(k)`` makes k
+    iterations' draws, stacked, in the eager loop's order. Eager when
+    ``graph_of`` is None; else ``graph_of(state, inputs)``
+    (:func:`_replays`) gives the graph, which replays ``length`` iterations
+    at a time, its draws made before each run.
+    Returns ``(carry, consts, outs)``, each output stacked over the
+    iterations, on the device."""
+    parts = []
+    if graph_of is None:
+        for _ in range(n):
+            carry, outs = step(carry, consts, [t[0] for t in draw(1)])
+            parts.append([o.reshape(1) for o in outs])
+    else:
+        done = 0
+        while done < n:
+            k = min(length, n - done)
+            inputs = draw(k)
+            graph = graph_of(carry + consts, inputs)
+            graph.load(carry + consts, inputs)
+            graph.run(k)
+            carry, consts = list(graph.state[:_N_CARRY]), list(graph.state[_N_CARRY:])
+            parts.append([o[:k].clone() for o in graph.outputs])
+            done += k
+    return carry, consts, [torch.cat(col) for col in zip(*parts)]
+
+
+def _hoist_length(block: int, row_elems: int) -> int:
+    """The iterations a graph's static buffers hold: a block, capped so
+    that its hoisted draws stay under the driver's footprint limit."""
+    return max(1, min(block, RNG_HOIST_ELEMENT_LIMIT // max(1, row_elems)))
 
 
 def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
@@ -273,23 +412,36 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
                 xt = data
                 xv = data[:bs]
         theta0 = _flatten(params)
-        theta, adam = theta0, _Adam(theta0, lr)
-        best, best_loss = theta0, torch.tensor(math.inf, device=device)
-        for _ in range(n_epochs):
-            if shuffle:
-                xs = xt[torch.randperm(xt.shape[0], generator=generator, device=device)[:n_eff]]
-            else:
-                xs = xt[:n_eff]
-            theta, losses = _train_epoch(flow, params, theta, adam,
+        like = _skeleton(params)
+
+        def epoch(carry, consts, rows):
+            xt_, xv_ = consts
+            theta, adam, best, best_loss = _resume(carry, lr)
+            xs = xt_[rows[0]] if shuffle else xt_[:n_eff]
+            theta, losses = _train_epoch(flow, like, theta, adam,
                                          xs.reshape(n_batches, bs, *event_shape), None)
             with torch.no_grad():
-                vl = _nll(flow, unpack_like(theta, params), xv) if keep_best else losses.mean()
+                vl = _nll(flow, unpack_like(theta, like), xv_) if keep_best else losses.mean()
                 better = vl < best_loss
                 best_loss = torch.where(better, vl, best_loss)
                 if keep_best:
                     best = torch.where(better, theta, best)
+            return [theta, adam.mu, adam.nu, adam.count, best, best_loss], []
+
+        def draw(k):
+            if not shuffle:
+                return []
+            return [torch.stack([torch.randperm(xt.shape[0], generator=generator,
+                                                device=device)[:n_eff] for _ in range(k)])]
+
+        graph_of, length = None, 1
+        if graphs.fit_captures(flow, device):
+            length = _hoist_length(n_epochs, n_eff)
+            graph_of = _replays(scan_fit, flow, ("make_scan_fit",), epoch, [], length)
+        carry, _, _ = _iterations(epoch, _start(theta0, lr), [xt, xv], draw, n_epochs, graph_of,
+                                  length)
         with torch.no_grad():
-            fitted = best if keep_best else theta
+            fitted = _fitted(carry, keep_best)
             ok = torch.isfinite(_nll(flow, unpack_like(fitted, params), xv))
             return unpack_like(torch.where(ok, fitted, theta0), params)
 
@@ -349,13 +501,47 @@ def fit(
     else:
         val_data, val_weights = data, w_data
 
-    like = flow.params
+    like = _skeleton(flow.params)
     loss_fn = _mle_loss(flow)
-    theta = _flatten(like)
-    adam = _Adam(theta, lr)
-    best_theta = theta
-    best_loss = torch.tensor(math.inf, device=device)
+    reg_weight = float(getattr(flow.bijection, "regularization_weight", 0.0))
     check_every = max(1, min(64, early_stopping_threshold if early_stopping else 64, n_epochs))
+    graphed = graphs.fit_captures(flow, device, shard)
+    # a captured fit runs on one rank, where the shares are the sums
+    step_shard = None if graphed else shard
+    own_val = val_weights is None
+
+    def epoch(carry, consts, rows):
+        data_, w_data_, *val = consts
+        theta, adam, best, best_loss = _resume(carry, lr)
+        xs, ws = (data_[rows[0]], w_data_[rows[0]]) if shuffle else (data_, w_data_)
+        theta, _ = _train_epoch(flow, like, theta, adam, xs.reshape(n_batches, bs, *event_shape),
+                                ws.reshape(n_batches, bs), loss_fn, step_shard)
+        with torch.no_grad():
+            vl = loss_fn(flow, unpack_like(theta, like), *((val[0], None) if own_val
+                                                           else (data_, w_data_)), step_shard)
+            if step_shard is not None:
+                vl = step_shard.sum(vl)
+            better = vl < best_loss
+            best_loss = torch.where(better, vl, best_loss)
+            if keep_best_weights:
+                best = torch.where(better, theta, best)
+        return [theta, adam.mu, adam.nu, adam.count, best, best_loss], [vl]
+
+    def draw(k):
+        if not shuffle:
+            return []
+        return [torch.stack([torch.randperm(len(data), generator=generator, device=device)
+                             for _ in range(k)])]
+
+    carry = _start(_flatten(flow.params), lr)
+    consts = [data, w_data] + ([val_data] if own_val else [])
+    graph_of, length = None, 1
+    if graphed:
+        length = _hoist_length(check_every, len(data) if shuffle else 0)
+        graph_of = _replays(flow, flow, ("fit", n_batches, bs, bool(shuffle),
+                                         bool(keep_best_weights), own_val, float(lr), reg_weight),
+                            epoch, [((), torch.float32)], length)
+
     epochs_done = 0
     epochs_since_best = 0
     global_best = math.inf
@@ -366,32 +552,15 @@ def fit(
             if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
-            vls = []
-            for _ in range(block):
-                if shuffle:
-                    perm = torch.randperm(len(data), generator=generator, device=device)
-                    xs, ws = data[perm], w_data[perm]
-                else:
-                    xs, ws = data, w_data
-                theta, _ = _train_epoch(flow, like, theta, adam,
-                                        xs.reshape(n_batches, bs, *event_shape),
-                                        ws.reshape(n_batches, bs), loss_fn, shard)
-                with torch.no_grad():
-                    vl = loss_fn(flow, unpack_like(theta, like), val_data, val_weights, shard)
-                    if shard is not None:
-                        vl = shard.sum(vl)
-                    better = vl < best_loss
-                    best_loss = torch.where(better, vl, best_loss)
-                    if keep_best_weights:
-                        best_theta = torch.where(better, theta, best_theta)
-                vls.append(vl)
-            vls = torch.stack(vls).cpu().numpy()  # the block's one synchronisation
+            carry, consts, (vls,) = _iterations(epoch, carry, consts, draw, block, graph_of,
+                                                length)
+            vls = vls.cpu().numpy()  # the block's one synchronisation
             epochs_done += block
             bar.update(block)
             if not np.all(np.isfinite(vls)):
                 # the ValueError contract: callers roll the weights back
                 if check_for_divergences or not np.isfinite(vls[-1]):
-                    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
+                    flow.params = unpack_like(_fitted(carry, keep_best_weights), like)
                     raise ValueError("flow training diverged (non-finite loss)")
             for vl in vls:
                 if vl < global_best:
@@ -406,7 +575,7 @@ def fit(
     finally:
         bar.close()
 
-    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
+    flow.params = unpack_like(_fitted(carry, keep_best_weights), like)
 
 
 def _reverse_kl(flow, params, z, target_log_prob, reg_weight: float = 0.0,
@@ -469,13 +638,41 @@ def variational_fit(
     if mesh is not None:
         n_samples = max(n_devices, (n_samples // n_devices) * n_devices)
 
-    like = flow.params
+    like = _skeleton(flow.params)
     reg_weight = float(getattr(flow.bijection, "regularization_weight", 0.0))
-    theta = _flatten(like)
-    adam = _Adam(theta, lr)
-    best_theta = theta
-    best_loss = torch.tensor(math.inf, device=device)
     check_every = max(1, min(128, n_epochs))
+    graphed = graphs.fit_captures(flow, device, shard)
+    # a captured fit runs on one rank, where the shares are the sums
+    step_shard = None if graphed else shard
+
+    def step(carry, consts, rows):
+        theta, adam, best, best_loss = _resume(carry, lr)
+        build.tally(COUNTS, "variational_steps")
+        with torch.enable_grad():
+            th = theta.detach().requires_grad_(True)
+            loss = _reverse_kl(flow, unpack_like(th, like), rows[0], target_log_prob, reg_weight,
+                               step_shard)
+            (g,) = torch.autograd.grad(loss, th)
+        g, loss = _sum_shares(g, loss.detach(), step_shard)
+        with torch.no_grad():
+            better = torch.isfinite(loss) & (loss < best_loss)
+            best_loss = torch.where(better, loss, best_loss)
+            if keep_best_weights:
+                best = torch.where(better, theta, best)
+            theta = adam.step(theta, g, _finite_update(loss, g))
+        return [theta, adam.mu, adam.nu, adam.count, best, best_loss], [loss]
+
+    def draw(k):
+        return [torch.stack([base_draws(generator, n_samples) for _ in range(k)])]
+
+    carry = _start(_flatten(flow.params), lr)
+    graph_of, length = None, 1
+    if graphed:
+        length = _hoist_length(check_every, n_samples * int(np.prod(flow.event_shape)))
+        graph_of = _replays(flow, flow, ("variational_fit", float(lr), bool(keep_best_weights),
+                                         reg_weight), step, [((), torch.float32)], length,
+                            (target_log_prob,))
+
     epochs_done = 0
     epochs_since_best = 0
     global_best = math.inf
@@ -487,23 +684,8 @@ def variational_fit(
             if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
-            losses = []
-            for _ in range(block):
-                z = base_draws(generator, n_samples)
-                with torch.enable_grad():
-                    th = theta.detach().requires_grad_(True)
-                    loss = _reverse_kl(flow, unpack_like(th, like), z, target_log_prob, reg_weight,
-                                       shard)
-                    (g,) = torch.autograd.grad(loss, th)
-                g, loss = _sum_shares(g, loss.detach(), shard)
-                with torch.no_grad():
-                    better = torch.isfinite(loss) & (loss < best_loss)
-                    best_loss = torch.where(better, loss, best_loss)
-                    if keep_best_weights:
-                        best_theta = torch.where(better, theta, best_theta)
-                    theta = adam.step(theta, g, _finite_update(loss, g))
-                losses.append(loss)
-            losses = torch.stack(losses).cpu().numpy()  # the block's one synchronisation
+            carry, _, (losses,) = _iterations(step, carry, [], draw, block, graph_of, length)
+            losses = losses.cpu().numpy()  # the block's one synchronisation
             epochs_done += block
             bar.update(block)
             n_nonfinite += int(np.sum(~np.isfinite(losses)))
@@ -522,4 +704,4 @@ def variational_fit(
     finally:
         bar.close()
 
-    flow.params = unpack_like(best_theta if keep_best_weights else theta, like)
+    flow.params = unpack_like(_fitted(carry, keep_best_weights), like)

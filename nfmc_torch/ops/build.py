@@ -11,7 +11,8 @@ Every kernel wrapper of :mod:`nfmc_torch.ops` registers itself in
 through ``count_launch``, which also tells the ``LISTENERS`` the launch's
 shape; ``reset_launch_counts()`` sets the counts to 0. While a CUDA graph
 captures (``recording``) a launch is recorded instead of counted, and each
-replay of the graph counts what was recorded (``count_replays``).
+replay of the graph counts what was recorded (``count_replays``). ``tally``
+counts other work the same way (a flow fit's Adam steps and epochs).
 """
 from __future__ import annotations
 
@@ -62,7 +63,8 @@ WRAPPERS: List = []
 # H, L, rows), the kernel "stack" or "vjp" (RealNVP), "rqs" or "lrs" (the
 # spline stack) or "rqs vjp" / "lrs vjp"
 LISTENERS: List[Callable] = []
-# the launches of the iteration a graph is capturing, None outside a capture
+# the counts of the iteration a graph is capturing, as (count function,
+# first argument, second argument), None outside a capture
 _recording: Optional[List[Tuple]] = None
 
 
@@ -82,11 +84,21 @@ def count_launch(wrapper, key: tuple, n: int = 1) -> None:
     """Count ``n`` launches of ``wrapper``'s kernel at shape ``key`` (see
     ``LISTENERS``); inside a capture, record one for the graph's replays."""
     if _recording is not None:
-        _recording.append((wrapper, key))
+        _recording.append((count_launch, wrapper, key))
         return
     wrapper.launches += n
     for listener in LISTENERS:
         listener(wrapper, key, n)
+
+
+def tally(counts: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` to ``counts[name]``, a count of work that launches no
+    kernel of its own (a flow fit's Adam steps); inside a capture, record
+    one for the graph's replays, as ``count_launch`` does."""
+    if _recording is not None:
+        _recording.append((tally, counts, name))
+        return
+    counts[name] += n
 
 
 @contextlib.contextmanager
@@ -104,11 +116,11 @@ def recording():
 
 
 def count_replays(events, n: int) -> None:
-    """Count the launches ``events`` (a capture's ``recording``) once for
-    each of ``n`` replays."""
+    """Count the launches and tallies ``events`` (a capture's
+    ``recording``) once for each of ``n`` replays."""
     if n > 0:
-        for wrapper, key in events:
-            count_launch(wrapper, key, n)
+        for count, a, b in events:
+            count(a, b, n)
 
 
 def find_nvcc() -> str:

@@ -90,13 +90,22 @@ def turn(checkout: Path) -> dict:
         steps[0] += 1
         return orig_step(*a, **k)
 
+    # a checkout whose fits replay CUDA graphs counts its steps in
+    # train.COUNTS (a replay runs no Python); an older one is counted here
+    counts = getattr(train, "COUNTS", None)
+    if counts is not None:
+        step = orig_step
+
     flow_base.Flow.fit, train._train_step = fit, step
     try:
         for prefix, flow in (("", None),
                              ("rqs_", f'c-rqnsf%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": 8}}'),
                              ("lrs_", f'c-lrsnsf%{{"n_layers": {L}, "hidden_size": {H}, "n_bins": 8}}')):
             fit_s[0], steps[0] = 0.0, 0
+            before = dict(counts) if counts is not None else None
             _, wall = timed(lambda: headline(WARM_OUTER, flow=flow, warmup=True))
+            if counts is not None:
+                steps[0] = counts["steps"] - before["steps"]
             out.update({f"{prefix}warmup_wall_s": wall, f"{prefix}fit_s": fit_s[0],
                         f"{prefix}fit_steps": steps[0],
                         f"{prefix}fit_ms_per_step": 1e3 * fit_s[0] / max(steps[0], 1)})

@@ -179,22 +179,30 @@ def test_driver_memoised_across_calls():
 
 def test_undeclared_and_refitting_paths_stay_eager(monkeypatch):
     """NUTS, a flow without a declaration and a jump chunk with refits run
-    the eager loop even under ``without_capture``: chosen by declaration."""
-    replayed = []
-    monkeypatch.setattr(graphs.IterationGraph, "run", lambda self, n: replayed.append(n))
+    the eager loop even under ``without_capture``: chosen by declaration.
+    The refits inside that chunk replay their fit's own graph: the first
+    refit's one epoch runs eagerly, the second's is a replay."""
+    runs = []
+    run = graphs.IterationGraph.run
+    monkeypatch.setattr(graphs.IterationGraph, "run",
+                        lambda self, n: (runs.append((self, n)), run(self, n))[1])
     with graphs.without_capture():
         nfmc_torch.sample(TARGET, strategy="nuts", n_chains=4, n_iterations=3, seed=0,
                           show_progress=False, device="cpu")
         nfmc_torch.sample(TARGET, strategy="jump_mala", flow="nice", n_chains=4,
                           n_iterations=3, inner_param_kwargs={"n_iterations": 2}, seed=0,
                           show_progress=False, device="cpu")
+        assert runs == []
         nfmc_torch.sample(TARGET, strategy="jump_mala",
                           flow=Flow(RealNVP((4,), n_layers=2, hidden_size=8), seed=0),
                           n_chains=4, n_iterations=3, inner_param_kwargs={"n_iterations": 2},
                           param_kwargs={"fit_nf": True, "n_jumps_before_training": 1,
                                         "flow_fit_kwargs": {"n_epochs": 1}},
                           seed=0, show_progress=False, device="cpu")
-    assert replayed == []
+    fit_runs = [(g, n) for g, n in runs if g.body.__module__ == "nfmc_torch.flows.train"]
+    assert [n for g, n in runs if (g, n) not in fit_runs] == []
+    assert [n for _, n in fit_runs] == [1, 1] and fit_runs[0][0] is fit_runs[1][0]
+    assert fit_runs[0][0].replays == 1
     assert not graphs.declared(nfmc_torch.NUTS((4,), TARGET, device="cpu"))
 
 
