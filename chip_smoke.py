@@ -346,6 +346,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import io
 import json
 import multiprocessing
 import re
@@ -5531,6 +5532,207 @@ def run_fit_graph_phases(dev, headline_data) -> dict:
     return res
 
 
+# phase 22: the transport layer and FAB at phase 17's widths (d = TR_D,
+# RealNVP 2 x 32), their depth cut: FAB TR22_FAB_ITERS iterations, AIS its
+# TR_AIS 128 levels, AFT TR22_AFT_LEVELS levels, CRAFT TR22_CRAFT_PASSES
+# training passes and two sampling passes (the second a replay), PMC to its
+# end. The profiled windows: without graphs on fresh objects, FAB
+# TR22_FAB_PROFILE iterations, AFT and PMC TR22_PROFILE_LEVELS levels, CRAFT
+# TR22_PROFILE_LEVELS passes, AIS its 128 levels; with graphs on the objects
+# of the runs with graphs, which replay the graphs those captured: FAB a
+# block of its graph's length, the others as long as the run
+TR22_FAB_ITERS, TR22_FAB_PROFILE, TR22_AFT_LEVELS, TR22_CRAFT_PASSES = 20, 4, 6, 5
+TR22_PROFILE_LEVELS = 2
+
+
+def transport_graph_paths(dev) -> dict:
+    """Phase 22's paths: {label: (iterations, unit, make)}, ``make()`` a run
+    from one seed on fresh objects returning ``(results on the host, the
+    object that owns the graphs)``."""
+    import nfmc_torch
+    from nfmc_torch.flow_training import FAB
+    from nfmc_torch.transport import CRAFT, AnnealedFlowTransport, PreconditionedMonteCarlo
+    from nfmc_torch.transport.ais import make_ais
+
+    prior, target = transport_targets(TR_D)
+
+    def flow(seed=0):
+        return nfmc_torch.create_flow_object(TR_FLOW, (TR_D,), seed=seed).to(dev)
+
+    def host(res):
+        return {k: np.asarray(v) for k, v in res.items()}
+
+    def fab(n=TR22_FAB_ITERS, alg=None):
+        alg = alg or FAB(target, flow())
+        alg.run(n_iterations=n, n_flow_training_steps=TR_FAB["n_flow_training_steps"],
+                n_ais_particles=TR_FAB["n_ais_particles"], seed=0)
+        return {"flow": flat_leaves(alg.flow.params), "loss": alg.loss_trace.cpu().numpy(),
+                **{f"buffer {i}": b.cpu().numpy() for i, b in enumerate(alg._buf_state)}}, alg
+
+    def ais(chain=None):
+        a = TR_AIS
+        chain = chain or make_ais(prior, target, a["n_steps"], a["n_mcmc_steps"],
+                                  a["step_size"])
+        g = torch.Generator(device=dev).manual_seed(0)
+        x0 = prior.sample((a["n"],), generator=g)
+        x, log_w = chain(x0, chain.draws(g, tuple(x0.shape)))
+        return {"x": x.cpu().numpy(), "log_w": log_w.cpu().numpy()}, chain
+
+    def aft(alg=None, levels=TR22_AFT_LEVELS):
+        a = TR_AFT
+        alg = alg or AnnealedFlowTransport(prior, target, flow(), n_steps=levels + 1,
+                                           n_train_epochs=a["n_train_epochs"])
+        out = alg.run(lambda b, generator=None: prior.sample(b, generator=generator),
+                      n_particles=a["n_particles"], n_train_particles=a["n_train_particles"],
+                      n_val_particles=a["n_val_particles"], full_output=True, seed=0)
+        return {**host(out), "flow": flat_leaves(alg.flow.params)}, alg
+
+    def craft(alg=None, samples=(1, 2), passes=TR22_CRAFT_PASSES):
+        c = TR_CRAFT
+        alg = alg or CRAFT(prior, target, [flow(seed=i).bijection
+                                           for i in range(c["n_annealing_steps"])])
+        draw = lambda b, generator=None: prior.sample(b, generator=generator)  # noqa: E731
+        alg.train(draw, n_particles=c["n_particles"], n_training_steps=passes, seed=0)
+        out = {"flow": np.concatenate([flat_leaves(b.params) for b in alg.bijections])}
+        for seed in samples:
+            res = alg.sample(draw, n_particles=c["n_particles"], seed=seed)
+            out.update({f"{k} {seed}": np.asarray(v) for k, v in host(res).items()})
+        return out, alg
+
+    def pmc(alg=None, levels=200):
+        p = TR_PMC
+        alg = alg or PreconditionedMonteCarlo(prior, target, flow(),
+                                              n_train_epochs=p["n_train_epochs"],
+                                              n_mcmc_steps=p["n_mcmc_steps"], max_levels=levels)
+        out = alg.run(lambda b, generator=None: prior.sample(b, generator=generator),
+                      n_particles=p["n_particles"], full_output=True, seed=0)
+        return {**host(out), "flow": flat_leaves(alg.flow.params)}, alg
+
+    return {"fab": (TR22_FAB_ITERS, "iteration", fab), "ais": (TR_AIS["n_steps"], "level", ais),
+            "aft": (TR22_AFT_LEVELS, "level", aft),
+            "craft": (TR22_CRAFT_PASSES, "training pass", craft), "pmc": (None, "level", pmc)}
+
+
+def run_transport_graph_phases(dev, known) -> dict:
+    """Phase 22: the transport layer and FAB with graphs and under
+    ``disable_graphs()`` in this process, each from one seed, bit for bit:
+    the results (particles, log-weights, log Z, histories, traces, the
+    flows' weights, FAB's buffer with its device index and fill), every
+    loop's carried tensors and outputs (``graphs.iterations``: Adam's
+    moments and counts, the best weights, ``rho_logit``), and each
+    wrapper's launches and launches by shape. Prints each path's wall both
+    ways, its kernel and graph launches an iteration (a FAB iteration, an
+    AIS / AFT / PMC level, a CRAFT training pass) and device busy share from
+    a profiled window, and the graph cache's memory, beside the card's name
+    and power limit; holds each RealNVP shape the phase launched that phase
+    17 did not (``known``: phase 17's timings by shape) against the plain
+    version."""
+    from nfmc_torch.core import graphs
+    from nfmc_torch.ops import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    t_phase = time.perf_counter()
+    res = {"paths": {}, "shapes": {}}
+    paths = transport_graph_paths(dev)
+
+    def measured(make, eager):
+        loops, orig = [], graphs.iterations
+
+        def recording(*args, **kw):
+            carry, consts, outs = orig(*args, **kw)
+            loops.append([v.detach().cpu().clone() for v in (*carry, *outs)])
+            return carry, consts, outs
+
+        graphs.iterations = recording
+        build.reset_launch_counts()
+        try:
+            with RealNVPLaunches() as shapes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
+                    out, owner = make()
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            graphs.iterations = orig
+        return {"out": out, "loops": loops, "wall": wall, "shapes": dict(shapes.n),
+                "launches": {w.__name__: w.launches for w in build.WRAPPERS},
+                "graphs": len(owner.__dict__.get("_graphs", {})), "owner": owner}
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return np.array_equal(np.asarray(a), np.asarray(b))
+
+    for label, (n_it, unit, make) in paths.items():
+        units = unit + ("es" if unit.endswith("s") else "s")
+        e, gr = measured(make, eager=True), measured(make, eager=False)
+        parts = {"results": same(e["out"], gr["out"]),
+                 "launches": e["launches"] == gr["launches"],
+                 "by shape": e["shapes"] == gr["shapes"]}
+        if label != "ais":  # the eager chain is a plain loop over the levels
+            parts["carried"] = same(e["loops"], gr["loops"])
+        if n_it is None:  # PMC: its levels
+            n_it = len(gr["out"]["beta_trace"]) - 1
+        # the profiled windows: eagerly on fresh objects, with graphs on the
+        # run's own objects, whose graphs it captured
+        warm = gr.pop("owner")
+        quiet = contextlib.redirect_stdout(io.StringIO())  # PMC's cut-short warning
+        if label == "fab":
+            (graph,) = warm._graphs.values()
+            window, g_window = TR22_FAB_PROFILE, graph.length
+            eager_run = lambda: make(window)  # noqa: E731
+            graph_run = lambda: make(g_window, warm)  # noqa: E731
+        elif label == "ais":
+            window = g_window = n_it
+            eager_run, graph_run = make, lambda: make(warm)
+        else:
+            window, g_window = TR22_PROFILE_LEVELS, n_it
+            eager_run = {"aft": lambda: make(levels=window),
+                         "craft": lambda: make(samples=(), passes=window),
+                         "pmc": lambda: make(levels=window)}[label]
+            graph_run = {"aft": lambda: make(warm), "craft": lambda: make(warm, samples=()),
+                         "pmc": lambda: make(warm)}[label]
+        with graphs.disable_graphs(), quiet:
+            pe = launch_profile(eager_run)
+        pg = launch_profile(graph_run)
+        row = {"wall": (e["wall"], gr["wall"]), "n": n_it, "unit": units, "same": parts,
+               "profile": (pe, pg), "window": (window, g_window),
+               "cache": graphs.CACHE.describe()}
+        res["paths"][label] = row
+        res["shapes"][f"transport graphs, {label}"] = collections.Counter(gr["shapes"])
+        print(f"22 {label} ({n_it} {units}): wall without graphs {e['wall']:.3f} s, with "
+              f"{gr['wall']:.3f} s ({e['wall'] / gr['wall']:.1f}x); bit for bit {parts}; "
+              f"{gr['graphs']} graphs; launches "
+              f"{ {k: v for k, v in gr['launches'].items() if v} }; profiled windows of {window} "
+              f"/ {g_window} {units}: kernel launches a {unit} {pe[2] / window:.1f} without "
+              f"graphs, {pg[2] / g_window:.1f} with (graph launches {pg[3] / g_window:.2f}), "
+              f"device busy "
+              f"{100 * pe[1] / pe[0]:.1f}% / {100 * pg[1] / pg[0]:.1f}% of {pe[0]:.3f} / "
+              f"{pg[0]:.3f} s; graph cache {row['cache']} ({smi})")
+        check(all(parts.values()), f"22 {label}: the run with graphs differs from the eager "
+                                   f"run: {parts}")
+        check(gr["graphs"] > 0 and pg[3] > 0 and pe[3] == 0,
+              f"22 {label}: {gr['graphs']} graphs, graph launches {pe[3]} / {pg[3]}")
+        if label == "fab":
+            check(pg[3] == g_window, f"22 fab: {pg[3]} graph launches for {g_window} iterations")
+    all_shapes = collections.Counter()
+    for shapes in res["shapes"].values():
+        all_shapes.update(shapes)
+    missing = {k: n for k, n in all_shapes.items() if k not in known}
+    print(f"phase 22 kernels at the {len(missing)} shapes it launched that phase 17 did not:")
+    res["timing"] = {**{k: known[k] for k in all_shapes if k in known},
+                     **check_transport_shapes(dev, missing, "phase 22")}
+    res["wall"] = time.perf_counter() - t_phase
+    print(f"phase 22: {res['wall']:.1f} s; graph cache {graphs.CACHE.describe()} ({smi})")
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -5909,6 +6111,8 @@ def main() -> None:
     lap("phase 20")
     fit21 = run_fit_graph_phases(dev, headline_fit_data)
     lap("phase 21")
+    tr22 = run_transport_graph_phases(dev, tr17["timing"])
+    lap("phase 22")
 
     kernels = []
 
@@ -5962,8 +6166,8 @@ def main() -> None:
                           *last13["shapes"].items(), *ckpt16["shapes"].items(),
                           *par18["shapes"].items(), *fit21["shapes"].items()):
         path_rows(label, shapes)
-    # phase 17's and 19's paths: each path's launches at each shape (d, H, L, B)
-    for res_ in (tr17, par19):
+    # phase 17's, 19's and 22's paths: each path's launches at each shape (d, H, L, B)
+    for res_ in (tr17, par19, tr22):
         for label, shapes in res_["shapes"].items():
             for key, n in sorted(shapes.items()):
                 kernel, direction, d_, hid, nl, rows = key
@@ -6047,6 +6251,9 @@ def main() -> None:
     print("phase 21, ms per Adam step without / with graphs: " + ", ".join(
         f"{k} {1e3 * v['wall'][0] / v['steps']:.3f} / {1e3 * v['wall'][1] / v['steps']:.3f}"
         for k, v in fit21["fits"].items()) + f" ({smi.stdout.strip().splitlines()[0]})")
+    print("phase 22, wall without / with graphs: " + ", ".join(
+        f"{k} {v['wall'][0]:.3f} / {v['wall'][1]:.3f} s ({v['n']} {v['unit']})"
+        for k, v in tr22["paths"].items()) + f" ({smi.stdout.strip().splitlines()[0]})")
     print("walls by phase: " + ", ".join(f"{what} {s_:.1f} s" for what, s_ in laps))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,11 @@
-"""The capture layer: a chunk of a sampler's iterations, or a block of a
-flow fit's epochs or steps, as replays of one captured CUDA graph, the
-counterpart of the JAX package's compiled ``lax.scan`` chunk
-(``nfmc_tpu/core/driver.py::ChunkedScanDriver``) and jitted training block
-(``nfmc_tpu/flows/train.py``). It owns every graph of the package; nothing
-else calls ``torch.cuda.CUDAGraph``.
+"""The capture layer: a chunk of a sampler's iterations, a block of a flow
+fit's epochs or steps, or a transport loop's levels, passes or
+iterations, as replays of one captured CUDA graph, the counterpart of the
+JAX package's compiled ``lax.scan`` chunk
+(``nfmc_tpu/core/driver.py::ChunkedScanDriver``), jitted training block
+(``nfmc_tpu/flows/train.py``) and jitted transport loops
+(``nfmc_tpu/transport/``, ``nfmc_tpu/flow_training/fab.py``). It owns every
+graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
 
 * A graph holds ONE iteration's body. The body reads its inputs (the
   chunk's draws and hoisted proposals) at a device-side counter, writes
@@ -20,9 +22,15 @@ else calls ``torch.cuda.CUDAGraph``.
   step has static shapes and reads nothing on the host sets
   ``graph_capturable = True`` (read from the class's own ``__dict__``, so a
   subclass declares again), and on a CUDA device its chunks are replays. A
-  flow's fits are captured where its bijection declares the same
-  (:func:`fit_captures`). A capture or a replay that fails raises; nothing
-  falls back to the eager loop.
+  flow's fits, and the transport layer's loops and FAB's iterations, are
+  captured where the bijections they call declare the same
+  (:func:`fit_captures`, :func:`transport_captures`). A capture or a
+  replay that fails raises; nothing falls back to the eager loop.
+* :func:`replays` and :func:`iterations` run any loop of a step
+  ``step(carry, consts, rows) -> (carry, outs)`` over the carried tensors,
+  the loop's constant tensors and each iteration's inputs: eagerly, or as
+  replays of one cached graph, with the inputs made before each block in
+  the eager loop's order.
 * A kernel wrapper counts its launches on the host
   (:func:`nfmc_torch.ops.build.count_launch`). A replay runs no Python, so
   the launches that the capture recorded are counted once per replay.
@@ -42,6 +50,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import threading
 import weakref
@@ -112,7 +121,17 @@ def fit_captures(flow, device: torch.device, shard=None) -> bool:
     before the fit: its bijection declares ``graph_capturable`` and
     :func:`captures` holds as for a tuning step (a fit on several ranks
     reduces its gradient over them every step, so it runs eagerly)."""
-    return (bool(type(flow.bijection).__dict__.get("graph_capturable", False))
+    return transport_captures([flow.bijection], device, shard)
+
+
+def transport_captures(bijections, device: torch.device, shard=None) -> bool:
+    """Whether a transport run (AIS, AFT, CRAFT, PMC) or a FAB run on
+    ``device`` replays graphs, decided before the run: each of the
+    ``bijections`` its steps call declares ``graph_capturable`` (AIS calls
+    none) and :func:`captures` holds as for a tuning step (a run over
+    several ranks reduces over them inside its steps, so it runs
+    eagerly). A captured run on one rank runs its steps unsharded."""
+    return (all(bool(type(b).__dict__.get("graph_capturable", False)) for b in bijections)
             and captures(device, shard, tuning=True))
 
 
@@ -384,6 +403,94 @@ def signature(tensors) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
 
 
+# ---- a loop of a step, eager or replayed ----------------------------------------------------
+
+def replays(owner, config: tuple, step: Callable, outs, length: int, keep=()):
+    """``graph_of(carry, consts, inputs)`` for :func:`iterations`: the graph
+    of one iteration of ``step(carry, consts, rows) -> (carry, outs)``,
+    cached on ``owner`` (made on first use). ``carry`` holds the carried
+    tensors, ``consts`` the loop's constant ones, ``inputs`` the
+    iterations' inputs, stacked; ``outs`` gives the ``(shape, dtype)`` of
+    an iteration's outputs, ``length`` the iterations the static buffers
+    hold. The key holds ``config`` (what the body bakes in: the step's
+    closure is that of the call that made the graph), the shapes and the
+    ids of ``keep``, which the graph keeps alive."""
+
+    def graph_of(carry, consts, inputs):
+        state = [*carry, *consts]
+        n_carry = len(carry)
+        key = (config, str(state[0].device), n_carry, signature(state),
+               signature(t[0] for t in inputs), length, tuple(id(k) for k in keep))
+
+        def make():
+            @functools.wraps(step)  # a body names the step it runs
+            def body(st, rows):
+                fixed = list(st[n_carry:])
+                new, outs_ = step(list(st[:n_carry]), fixed, rows)
+                return list(new) + fixed, outs_
+
+            graph = IterationGraph(
+                body, state, [((length, *t.shape[1:]), t.dtype) for t in inputs],
+                [((length, *shape), dtype) for shape, dtype in outs], state[0].device)
+            graph.constants = keep  # keeps the ids of the key valid
+            return graph
+
+        return CACHE.get(owner, key, make)
+
+    return graph_of
+
+
+def iterations(step: Callable, carry: list, consts: list, draw: Callable, n: int,
+               graph_of=None, length: int = 1):
+    """``n`` iterations of ``step(carry, consts, rows) -> (carry, outs)``,
+    ``rows`` each iteration's inputs: ``draw(k)`` makes k iterations'
+    inputs, stacked, in the eager loop's order. Eager when ``graph_of`` is
+    None; else ``graph_of(carry, consts, inputs)`` (:func:`replays`) gives
+    the graph, which replays ``length`` iterations at a time, its inputs
+    made before each run. Returns ``(carry, consts, outs)``, each output
+    stacked over the iterations, on the device (an empty list when n is
+    0). The carried tensors returned may be the graph's static buffers,
+    which its next run overwrites."""
+    parts = []
+    if graph_of is None:
+        for _ in range(n):
+            carry, outs = step(carry, consts, [t[0] for t in draw(1)])
+            parts.append([o.unsqueeze(0) for o in outs])
+    else:
+        done = 0
+        while done < n:
+            k = min(length, n - done)
+            inputs = draw(k)
+            graph = graph_of(carry, consts, inputs)
+            graph.load(carry + consts, inputs)
+            graph.run(k)
+            carry, consts = list(graph.state[:len(carry)]), list(graph.state[len(carry):])
+            parts.append([o[:k].clone() for o in graph.outputs])
+            done += k
+    return list(carry), consts, [torch.cat(col) for col in zip(*parts)]
+
+
+def sliced(inputs: Sequence[torch.Tensor]) -> Callable:
+    """``draw(k)`` for :func:`iterations` over inputs made beforehand (each
+    stacked over the iterations): the next k rows of each."""
+    at = [0]
+
+    def draw(k):
+        out = [t[at[0]:at[0] + k] for t in inputs]
+        at[0] += k
+        return out
+
+    return draw
+
+
+def hoist_length(block: int, row_elems: int) -> int:
+    """The iterations a graph's static buffers hold: a block, capped so
+    that its hoisted inputs stay under the driver's footprint limit."""
+    from .driver import RNG_HOIST_ELEMENT_LIMIT
+
+    return max(1, min(block, RNG_HOIST_ELEMENT_LIMIT // max(1, row_elems)))
+
+
 __all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "declared",
-           "disable_graphs", "fit_captures", "flatten", "in_body", "signature", "unflatten",
-           "without_capture"]
+           "disable_graphs", "fit_captures", "flatten", "hoist_length", "in_body", "iterations",
+           "replays", "signature", "sliced", "transport_captures", "unflatten", "without_capture"]

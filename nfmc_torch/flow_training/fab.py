@@ -11,9 +11,25 @@ weights into a prioritized replay buffer, (3) take gradient steps on
 ``w_corr = q_old(x) / q_new(x)``, updating the buffered weights/densities.
 
 The replay buffer lives on the device and persists on the object across
-``run()`` calls (the reference's object-held ring buffer); its write
-position and fill count are host integers. An iteration is an eager loop
-with no host synchronisation. Prioritized replay draws are Gumbel-max
+``run()`` calls (the reference's object-held ring buffer), with either path
+below; its write position and fill count are 0-d int64 device tensors,
+carried as the JAX package carries its ``int32`` ones. An iteration reads
+nothing on the host. The JAX package runs a block of iterations as one
+jitted ``lax.scan`` (``nfmc_tpu/flow_training/fab.py:108-207``); here, on
+CUDA with a flow whose bijection declares ``graph_capturable`` (RealNVP,
+the coupling splines: :func:`nfmc_torch.core.graphs.transport_captures`),
+an iteration is one replay of a captured CUDA graph: the AIS round with its
+levels unrolled, the sanitised ring write, the ``n_flow_training_steps``
+replay steps and the reported loss, written at the graph's counter, over
+static buffers that carry the weights, AdamW's moments and count and the
+buffer. An eager prologue makes a block's draws (the base draws, the
+levels' sweep draws and the replay steps' Gumbel noise) from the run's
+generator in the eager loop's order, the block capped at
+``RNG_HOIST_ELEMENT_LIMIT`` hoisted elements; the loss trace stays on the
+device. :func:`~nfmc_torch.core.graphs.disable_graphs`, a flow without the
+declaration or a mesh of several ranks runs the same iteration as an eager
+loop, with which the replays agree bit for bit. Prioritized replay draws
+are Gumbel-max
 (``argmax(logits + Gumbel)``, ``jax.random.categorical``'s own draw) over
 the buffered log-weights: no ``torch.multinomial``, which raises on an
 all-zero row and checks on the host.
@@ -31,10 +47,12 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core.chains import on_local_copy
-from ..flows.train import _AdamW, _finite_update, _flatten
+from ..core import graphs
+from ..core.chains import ChainShard, on_local_copy
+from ..flows.train import _AdamW, _finite_update, _flatten, _skeleton
 from ..ops.coupling import unpack_like
 from ..transport.ais import anneal_chain
 from ..transport.common import categorical, gumbel, make_mala_sweep, run_generator, tempered
@@ -68,20 +86,27 @@ class FAB:
         sweep = make_mala_sweep(u, n_steps=self.n_mcmc_steps, step_size=self.ais_step_size)
         return anneal_chain(u, sweep, self.n_ais_steps)
 
+    def _stacked_ais_draws(self, generator: torch.Generator, n_particles: int):
+        """An AIS round's draws: the base draw ``(n, *event)``, then every
+        level's sweep noise and uniforms, stacked over the levels."""
+        z = self.flow.sample_base_fn(generator, n_particles)
+        return (z, *self._anneal(None).stacked_draws(generator, (n_particles, *self.event_shape)))
+
     def ais_draws(self, generator: torch.Generator, n_particles: int):
         """An AIS round's draws: the base draw ``(n, *event)`` and each
         level's sweep draws."""
-        z = self.flow.sample_base_fn(generator, n_particles)
-        return z, self._anneal(None).draws(generator, (n_particles, *self.event_shape))
+        z, noise, uniforms = self._stacked_ais_draws(generator, n_particles)
+        return z, list(zip(noise, uniforms))
 
     def _ais_round(self, params, draws):
-        """``(x, log_w, log q(x))`` of one AIS round from the base draw.
-        The pre-AIS log q is not used: the buffer stores the flow density of
-        the post-AIS particles."""
+        """``(x, log_w, log q(x))`` of one AIS round from the base draw, its
+        levels unrolled (:meth:`AnnealChain.levels`). The pre-AIS log q is
+        not used: the buffer stores the flow density of the post-AIS
+        particles."""
         z, level_draws = draws
         with torch.no_grad():
             x, _ = self.flow.push_base_fn(params, z)
-        x, log_w = self._anneal(params)(x, level_draws)
+        x, log_w = self._anneal(params).levels(x, level_draws)
         with torch.no_grad():
             return x, log_w, self.flow.log_prob_fn(params, x)
 
@@ -101,10 +126,15 @@ class FAB:
         return theta, loss, log_q_new.detach()
 
     def _init_buffer(self, device):
+        """The empty replay buffer: rows, log-weights, log-densities, and
+        the write position and fill as 0-d int64 device tensors (the JAX
+        package's ``int32`` carries)."""
         size = self.buffer_size
         return (torch.zeros((size, *self.event_shape), dtype=torch.float32, device=device),
                 torch.zeros((size,), dtype=torch.float32, device=device),
-                torch.zeros((size,), dtype=torch.float32, device=device), 0, 0)
+                torch.zeros((size,), dtype=torch.float32, device=device),
+                torch.zeros((), dtype=torch.int64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
 
     def iteration_draws(self, generator: torch.Generator, n_flow_training_steps: int,
                         n_ais_particles: int, n_training_particles: int):
@@ -124,7 +154,8 @@ class FAB:
         return self._replay(theta, opt, like, buf_state, replay_noise)
 
     def _fill(self, params, buf_state, ais_draws):
-        """An AIS round at ``params`` written into the ring buffer."""
+        """An AIS round at ``params`` written into the ring buffer, in
+        place; the write position and the fill advance on the device."""
         buf_x, buf_lw, buf_lq, index, filled = buf_state
         x, log_w, log_q = self._ais_round(params, ais_draws)
         n = x.shape[0]
@@ -138,11 +169,12 @@ class FAB:
             x = torch.where(row_ok.reshape((-1,) + (1,) * len(self.event_shape)), x, 0.0)
             log_w = torch.where(row_ok, log_w, -math.inf)
             log_q = torch.where(row_ok, log_q, 0.0)
-            # ring-buffer write; the position and the fill are host integers
+            # ring-buffer write (a leading-axis scatter), as JAX's .at[pos]
             pos = (index + torch.arange(n, device=x.device)) % self.buffer_size
             buf_x[pos], buf_lw[pos], buf_lq[pos] = x, log_w, log_q
-        return buf_x, buf_lw, buf_lq, (index + n) % self.buffer_size, min(self.buffer_size,
-                                                                          filled + n)
+            index = (index + n) % self.buffer_size
+            filled = (filled + n).clamp_max(self.buffer_size)
+        return buf_x, buf_lw, buf_lq, index, filled
 
     def _replay(self, theta, opt, like, buf_state, replay_noise):
         """The prioritized replay steps on the buffer, one a noise draw (a
@@ -197,34 +229,66 @@ class FAB:
             device = self.flow.get_device()
             return self._run(n_iterations, n_flow_training_steps, n_ais_particles,
                              n_training_particles, show_progress,
-                             run_generator(device, generator, seed, mesh))
+                             run_generator(device, generator, seed, mesh),
+                             None if mesh is None else ChainShard(mesh))
 
     def _run(self, n_iterations, n_flow_training_steps, n_ais_particles, n_training_particles,
-             show_progress, g):
+             show_progress, g, shard=None):
         device = self.flow.get_device()
-        like = self.flow.params
-        theta = _flatten(like)
+        like = _skeleton(self.flow.params)
+        theta = _flatten(self.flow.params)
         opt = _AdamW(theta, self.lr)
         # the replay buffer persists across run() calls (reference parity:
         # the ring buffer lives on the object, flow_annealed_bootstrap.py:9-26)
         buf_state = getattr(self, "_buf_state", None)
         if buf_state is None:
             buf_state = self._init_buffer(device)
+        sizes = (int(n_flow_training_steps), int(n_ais_particles), int(n_training_particles))
 
+        def step(carry, consts, rows):
+            theta, mu, nu, count, *buf = carry
+            z, noise, uniforms, replay_noise = rows
+            opt = _AdamW.resume(self.lr, mu, nu, count)
+            theta, buf, loss = self._iteration(theta, opt, like, tuple(buf),
+                                               ((z, list(zip(noise, uniforms))), replay_noise))
+            return [theta, opt.mu, opt.nu, opt.count, *buf], [loss]
+
+        def draw(k):
+            its = [(*self._stacked_ais_draws(g, sizes[1]),
+                    gumbel(g, (sizes[0], sizes[2], self.buffer_size))) for _ in range(k)]
+            return [torch.stack(col) for col in zip(*its)]
+
+        graph_of, length = None, 1
+        if graphs.transport_captures([self.flow.bijection], device, shard):
+            row = (sizes[1] * (1 + self.n_ais_steps * self.n_mcmc_steps)
+                   * int(np.prod(self.event_shape)) + self.n_ais_steps * self.n_mcmc_steps
+                   * sizes[1] + sizes[0] * sizes[2] * self.buffer_size)
+            length = graphs.hoist_length(n_iterations, row)
+            graph_of = graphs.replays(
+                self, ("fab", sizes, self.buffer_size, self.lr, self.n_ais_steps,
+                       self.n_mcmc_steps, self.ais_step_size), step, [((), torch.float32)],
+                length, (self.flow.bijection, self.flow._base_log_prob_override,
+                         self.target_potential))
+
+        carry = [theta, opt.mu, opt.nu, opt.count, *buf_state]
         losses = []
         bar = Progress(total=n_iterations, desc="FAB", disable=not show_progress)
-        for _ in range(n_iterations):
-            draws = self.iteration_draws(g, n_flow_training_steps, n_ais_particles,
-                                         n_training_particles)
-            theta, buf_state, loss = self._iteration(theta, opt, like, buf_state, draws)
-            losses.append(loss)
-            bar.update(1)
+        done = 0
+        while done < n_iterations:
+            # a block of replays between progress updates (one when silent)
+            block = min(max(1, length) if show_progress else n_iterations, n_iterations - done)
+            carry, _, outs = graphs.iterations(step, carry, [], draw, block, graph_of, length)
+            losses.append(outs[0])
+            done += block
+            bar.update(block)
         bar.close()
-        self._buf_state = buf_state
-        # (n_iterations,) replay loss; n_iterations=0 is legal (a no-op run)
-        self.loss_trace = (torch.stack(losses) if losses
+        # copies: the carried tensors may be a graph's static buffers
+        self._buf_state = tuple(t.clone() for t in carry[4:])
+        # (n_iterations,) replay loss, on the device; n_iterations=0 is legal
+        # (a no-op run)
+        self.loss_trace = (torch.cat(losses) if losses
                            else torch.zeros((0,), dtype=torch.float32, device=device))
-        self.flow.params = unpack_like(theta, like)
+        self.flow.params = unpack_like(carry[0].clone(), like)
         return self.flow
 
 

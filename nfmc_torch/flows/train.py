@@ -59,7 +59,6 @@ import numpy as np
 import torch
 
 from ..core import graphs
-from ..core.driver import RNG_HOIST_ELEMENT_LIMIT
 from ..core.rng import resolve_generator
 from ..ops import build
 from ..ops.coupling import unpack_like
@@ -272,10 +271,7 @@ def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll, shard=None):
 
 
 # ---- a fit's iterations, eager or replayed --------------------------------------------------
-
-# the carried tensors: theta, Adam's mu, nu and count, the best theta and loss
-_N_CARRY = 6
-
+# (the carried tensors: theta, Adam's mu, nu and count, the best theta and loss)
 
 def _start(theta: torch.Tensor, lr: float) -> list:
     """A fit's carried tensors at its start: a fresh Adam, the best loss
@@ -306,70 +302,11 @@ def _skeleton(params):
 
 
 def _replays(owner, flow, config: tuple, step, outs, length: int, keep=()):
-    """``graph_of(state, inputs)`` for :func:`_iterations`: the graph of one
-    iteration of a fit's ``step(carry, consts, rows) -> (carry, outs)``,
-    cached on ``owner`` (made on first use). ``state`` holds the carried
-    tensors, then the fit's constant ones; ``inputs`` the iterations'
-    draws, stacked; ``outs`` the ``(shape, dtype)`` of an iteration's
-    outputs; ``length`` the iterations the static buffers hold. The key
-    holds ``config`` (what the body bakes in besides ``flow``), the shapes
-    and the ids of ``flow``'s bijection and base-density override and of
-    ``keep``, which the graph keeps alive."""
-    keep = (flow.bijection, flow._base_log_prob_override, *keep)
-
-    def graph_of(state, inputs):
-        key = (config, str(state[0].device), graphs.signature(state),
-               graphs.signature(t[0] for t in inputs), length, tuple(id(k) for k in keep))
-
-        def make():
-            def body(st, rows):
-                consts = list(st[_N_CARRY:])
-                carry, outs_ = step(list(st[:_N_CARRY]), consts, rows)
-                return carry + consts, outs_
-
-            graph = graphs.IterationGraph(
-                body, state, [((length, *t.shape[1:]), t.dtype) for t in inputs],
-                [((length, *shape), dtype) for shape, dtype in outs], state[0].device)
-            graph.constants = keep  # keeps the ids of the key valid
-            return graph
-
-        return graphs.CACHE.get(owner, key, make)
-
-    return graph_of
-
-
-def _iterations(step, carry, consts, draw, n: int, graph_of=None, length: int = 1):
-    """``n`` iterations of a fit's ``step(carry, consts, rows) -> (carry,
-    outs)``, ``rows`` each iteration's draws: ``draw(k)`` makes k
-    iterations' draws, stacked, in the eager loop's order. Eager when
-    ``graph_of`` is None; else ``graph_of(state, inputs)``
-    (:func:`_replays`) gives the graph, which replays ``length`` iterations
-    at a time, its draws made before each run.
-    Returns ``(carry, consts, outs)``, each output stacked over the
-    iterations, on the device."""
-    parts = []
-    if graph_of is None:
-        for _ in range(n):
-            carry, outs = step(carry, consts, [t[0] for t in draw(1)])
-            parts.append([o.reshape(1) for o in outs])
-    else:
-        done = 0
-        while done < n:
-            k = min(length, n - done)
-            inputs = draw(k)
-            graph = graph_of(carry + consts, inputs)
-            graph.load(carry + consts, inputs)
-            graph.run(k)
-            carry, consts = list(graph.state[:_N_CARRY]), list(graph.state[_N_CARRY:])
-            parts.append([o[:k].clone() for o in graph.outputs])
-            done += k
-    return carry, consts, [torch.cat(col) for col in zip(*parts)]
-
-
-def _hoist_length(block: int, row_elems: int) -> int:
-    """The iterations a graph's static buffers hold: a block, capped so
-    that its hoisted draws stay under the driver's footprint limit."""
-    return max(1, min(block, RNG_HOIST_ELEMENT_LIMIT // max(1, row_elems)))
+    """:func:`nfmc_torch.core.graphs.replays` for a fit of ``flow``: the key
+    also holds the ids of ``flow``'s bijection and base-density override,
+    which the graph keeps alive, besides ``keep``."""
+    return graphs.replays(owner, config, step, outs, length,
+                          (flow.bijection, flow._base_log_prob_override, *keep))
 
 
 def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
@@ -436,10 +373,10 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
 
         graph_of, length = None, 1
         if graphs.fit_captures(flow, device):
-            length = _hoist_length(n_epochs, n_eff)
+            length = graphs.hoist_length(n_epochs, n_eff)
             graph_of = _replays(scan_fit, flow, ("make_scan_fit",), epoch, [], length)
-        carry, _, _ = _iterations(epoch, _start(theta0, lr), [xt, xv], draw, n_epochs, graph_of,
-                                  length)
+        carry, _, _ = graphs.iterations(epoch, _start(theta0, lr), [xt, xv], draw, n_epochs,
+                                        graph_of, length)
         with torch.no_grad():
             fitted = _fitted(carry, keep_best)
             ok = torch.isfinite(_nll(flow, unpack_like(fitted, params), xv))
@@ -537,7 +474,7 @@ def fit(
     consts = [data, w_data] + ([val_data] if own_val else [])
     graph_of, length = None, 1
     if graphed:
-        length = _hoist_length(check_every, len(data) if shuffle else 0)
+        length = graphs.hoist_length(check_every, len(data) if shuffle else 0)
         graph_of = _replays(flow, flow, ("fit", n_batches, bs, bool(shuffle),
                                          bool(keep_best_weights), own_val, float(lr), reg_weight),
                             epoch, [((), torch.float32)], length)
@@ -552,8 +489,8 @@ def fit(
             if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
-            carry, consts, (vls,) = _iterations(epoch, carry, consts, draw, block, graph_of,
-                                                length)
+            carry, consts, (vls,) = graphs.iterations(epoch, carry, consts, draw, block,
+                                                      graph_of, length)
             vls = vls.cpu().numpy()  # the block's one synchronisation
             epochs_done += block
             bar.update(block)
@@ -668,7 +605,7 @@ def variational_fit(
     carry = _start(_flatten(flow.params), lr)
     graph_of, length = None, 1
     if graphed:
-        length = _hoist_length(check_every, n_samples * int(np.prod(flow.event_shape)))
+        length = graphs.hoist_length(check_every, n_samples * int(np.prod(flow.event_shape)))
         graph_of = _replays(flow, flow, ("variational_fit", float(lr), bool(keep_best_weights),
                                          reg_weight), step, [((), torch.float32)], length,
                             (target_log_prob,))
@@ -684,7 +621,7 @@ def variational_fit(
             if time_limit_seconds is not None and _over(t_start, time_limit_seconds, shard):
                 break
             block = min(check_every, n_epochs - epochs_done)
-            carry, _, (losses,) = _iterations(step, carry, [], draw, block, graph_of, length)
+            carry, _, (losses,) = graphs.iterations(step, carry, [], draw, block, graph_of, length)
             losses = losses.cpu().numpy()  # the block's one synchronisation
             epochs_done += block
             bar.update(block)

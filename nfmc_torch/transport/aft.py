@@ -16,8 +16,12 @@ level k (linear schedule lam_k = k/(K-1)):
 
 Three particle groups (base / train / val) as in the reference design:
 log_Z from base, flow fitting from train with val early stopping. The level
-loop runs eagerly on the host, with one host synchronisation a level (the
-log-Z increment and the resample decision).
+loop runs on the host, with one host synchronisation a level (the log-Z
+increment and the resample decision, which the JAX package reads there
+too). On CUDA a level's fit is replays of one captured graph of an epoch
+(:meth:`AnnealedFlowTransport._fit_level`), as the JAX package jits it as
+one ``lax.scan``; the selection, the transports and the sweeps run eagerly
+between the fits.
 
 A group that ``prior_sample`` returns as a DTensor runs sharded over its
 mesh (:mod:`nfmc_torch.transport.common`): the level fit sums its ranks'
@@ -33,11 +37,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.chains import chain_logsumexp, chain_softmax
-from ..flows.train import _Adam, _flatten, _sum_shares
+from ..flows.train import _Adam, _flatten, _resume, _skeleton, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
+from .common import (as_level, draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
                      make_mala_sweep, rank_share, resample, resample_offset, run_shard,
                      take_particles, tempered)
 
@@ -77,40 +82,71 @@ class AnnealedFlowTransport:
     def _fit_level(self, params, x_train, w_train, x_val, w_val, lam, shards=(None, None)):
         """One level's training loop: ``n_train_epochs`` full-batch Adam
         steps (``optax.adam(train_lr)``, fresh moments, unguarded as in the
-        JAX package) with the val loss after each and the best weights
-        tracked on the device. The tracker starts at the warm-start params'
-        own val loss, so a fit that never improves on the carry-in cannot
-        replace it. Returns ``(best_params, best_val)``.
+        JAX package) with the val loss before each and after the last, the
+        best weights tracked on the device. The tracker starts at the
+        warm-start params' own val loss, so a fit that never improves on
+        the carry-in cannot replace it. Returns ``(best_params, best_val)``.
 
-        ``shards``: the train and the val group's. With either sharded, each
-        rank computes its share of both losses, and one ``all_reduce`` a
-        step sums the gradient with the val loss at the same weights (the
-        last weights' val loss alone after the loop)."""
+        The JAX package jits the loop as one ``lax.scan`` over epochs
+        (``nfmc_tpu/transport/aft.py:58-65``). On CUDA, with one rank and a
+        bijection that declares ``graph_capturable``, an epoch (the val
+        loss, the Adam step, the best-weights tracker) is one replay of a
+        captured graph, ``lam`` a device scalar among the graph's constants,
+        so that one graph, cached on the object, serves every level of a
+        shape; the last val loss is one eager step after the replays.
+
+        ``shards``: the train and the val group's. With either sharded over
+        several ranks, each rank computes its share of both losses, and one
+        ``all_reduce`` a step sums the gradient with the val loss at the
+        same weights (the last weights' val loss alone after the loop)."""
         run = run_shard(shards)
+        device = x_train.device
+        graphed = graphs.transport_captures([self.flow.bijection], device, run)
+        if graphed:  # a captured fit runs on one rank, where the shares are the sums
+            shards, run = (None, None), None
+        like = _skeleton(params)
         theta = _flatten(params)
         adam = _Adam(theta, self.train_lr)
-        best_theta, best_val = theta, None
-        for epoch in range(self.n_train_epochs + 1):
+
+        def val_share(theta, x_val, w_val, lam):
             with torch.no_grad():
-                val = rank_share(self._loss_fn(unpack_like(theta, params), x_val, w_val, lam),
-                                 shards[1], run)
-            stepping = epoch < self.n_train_epochs
-            if stepping:
-                _, g = flat_value_and_grad(lambda p: self._loss_fn(p, x_train, w_train, lam),
-                                           theta, params)
-                g, val = _sum_shares(rank_share(g, shards[0], run), val, run)
-            elif run is not None:
-                val = run.sum(val)
+                return rank_share(self._loss_fn(unpack_like(theta, like), x_val, w_val, lam),
+                                  shards[1], run)
+
+        def tracked(theta, best, best_val, val):
             with torch.no_grad():
-                if best_val is None:
-                    best_val = torch.where(torch.isfinite(val), val, math.inf)
-                else:
-                    better = torch.isfinite(val) & (val < best_val)
-                    best_theta = torch.where(better, theta, best_theta)
-                    best_val = torch.where(better, val, best_val)
-                if stepping:
-                    theta = adam.step(theta, g)
-        return unpack_like(best_theta, params), best_val
+                better = torch.isfinite(val) & (val < best_val)
+                return torch.where(better, theta, best), torch.where(better, val, best_val)
+
+        def epoch(carry, consts, rows):
+            theta, adam, best, best_val = _resume(carry, self.train_lr)
+            x_train, w_train, x_val, w_val, lam = consts
+            val = val_share(theta, x_val, w_val, lam)
+            _, g = flat_value_and_grad(lambda p: self._loss_fn(p, x_train, w_train, lam),
+                                       theta, like)
+            g, val = _sum_shares(rank_share(g, shards[0], run), val, run)
+            best, best_val = tracked(theta, best, best_val, val)
+            with torch.no_grad():
+                theta = adam.step(theta, g)
+            return [theta, adam.mu, adam.nu, adam.count, best, best_val], []
+
+        graph_of = None
+        if graphed:
+            graph_of = graphs.replays(self, ("aft_fit", self.train_lr), epoch, [], 1,
+                                      (self.flow.bijection,))
+        # best_val starts at inf: the first epoch then takes the warm-start
+        # val loss where it is finite, as the JAX package's seed does
+        carry = [theta, adam.mu, adam.nu, adam.count, theta,
+                 torch.full((), math.inf, device=device)]
+        consts = [x_train, w_train, x_val, w_val, as_level(lam, x_train)]
+        carry, _, _ = graphs.iterations(epoch, carry, consts, lambda k: [], self.n_train_epochs,
+                                        graph_of, self.n_train_epochs)
+        theta, _, _, _, best, best_val = carry
+        val = val_share(theta, x_val, w_val, consts[-1])
+        if run is not None:
+            val = run.sum(val)
+        best, best_val = tracked(theta, best, best_val, val)
+        return unpack_like(best.clone(), params), best_val.clone()
 
     @torch.no_grad()
     def _transport(self, params, x, log_W, lam_prev, lam_next, use_flow, shard=None):

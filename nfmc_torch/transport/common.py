@@ -2,11 +2,16 @@
 tempered potentials, the MALA correction sweep, systematic and multinomial
 resampling, ESS.
 
-The inverse temperature is a host float: every level loop here runs eagerly
-on the host, with its schedule known there. Every stochastic step takes its
-random numbers as tensors, made by a separate draws function from a
-``torch.Generator``, so that two devices (or the JAX package's keys,
-rebuilt) can be given the same numbers.
+The inverse temperature is a 0-d float32 tensor (:func:`tempered`), as the
+JAX package traces it, so that one captured step serves every level of a
+loop (:mod:`nfmc_torch.core.graphs`): AIS reads it at the graph's counter,
+AFT and PMC hold it among a graph's constants, and CRAFT's passes, whose
+levels one graph unrolls, fill it in as a kernel argument. FAB's unrolled
+AIS round and the steps left eager give it as a host float.
+Every stochastic step takes its random numbers as tensors, made by a
+separate draws function from a ``torch.Generator``, so that two devices
+(or the JAX package's keys, rebuilt) can be given the same numbers, and a
+graph reads them from its static buffers.
 
 A group of particles that ``prior_sample`` returns as a ``DTensor`` placed
 ``Shard(0)`` over its mesh's first axis is sharded, as the chains of a
@@ -31,22 +36,41 @@ from ..utils import value_and_batched_grad
 
 
 def tempered(prior_potential: Callable, target_potential: Callable):
-    """u(x, lam) = (1-lam) * prior + lam * target.
+    """u(x, lam) = (1-lam) * prior + lam * target, ``lam`` a 0-d float32
+    tensor or a host float.
 
-    Endpoint-safe for hard-support potentials: at ``lam = 0`` (or 1) the
-    switched-off side is not evaluated, so a ``U = +inf`` there gives no
-    ``0 * inf = NaN``: ``u(x, 0) = prior`` and ``u(x, 1) = target`` exactly.
+    In the JAX package's own form (``nfmc_tpu/transport/common.py:25-30``):
+    both sides are evaluated and the zero-weight one is masked out, with
+    ``where`` on a tensor ``lam`` (so that one captured step serves every
+    level, reading ``lam`` on the device), on the host for a float. For
+    hard-support potentials a ``U = +inf`` on the switched-off side then
+    gives no ``0 * inf = NaN``: ``u(x, 0) = prior`` and ``u(x, 1) = target``
+    exactly, and the masked side's gradient is a zero cotangent, as in JAX.
+    A tensor ``lam`` computes its weights in float32, as the JAX package
+    traces them; a host float in double, rounded once.
     """
 
     def u(x, lam):
-        lam = float(lam)
-        if lam <= 0.0:
-            return (1.0 - lam) * prior_potential(x)
-        if lam >= 1.0:
-            return lam * target_potential(x)
-        return (1.0 - lam) * prior_potential(x) + lam * target_potential(x)
+        up = prior_potential(x)
+        ut = target_potential(x)
+        if isinstance(lam, torch.Tensor):
+            a = torch.where(lam < 1.0, (1.0 - lam) * up, 0.0)
+            b = torch.where(lam > 0.0, lam * ut, 0.0)
+        else:
+            a = (1.0 - lam) * up if lam < 1.0 else torch.zeros_like(up)
+            b = lam * ut if lam > 0.0 else torch.zeros_like(ut)
+        return a + b
 
     return u
+
+
+def as_level(lam, like: torch.Tensor) -> torch.Tensor:
+    """An inverse temperature as a 0-d float32 tensor on ``like``'s device:
+    a tensor as it is, a host float through a fill (a kernel argument, no
+    copy from the host, so legal inside a captured graph)."""
+    if isinstance(lam, torch.Tensor):
+        return lam
+    return torch.full((), float(lam), dtype=torch.float32, device=like.device)
 
 
 def log_ess(log_w: torch.Tensor, shard: Optional[ChainShard] = None) -> torch.Tensor:
@@ -190,7 +214,8 @@ def multinomial_resample(log_w: torch.Tensor, noise: torch.Tensor) -> torch.Tens
 
 
 class MALASweep:
-    """The MALA correction sweep at inverse temperature ``lam``:
+    """The MALA correction sweep at inverse temperature ``lam`` (a 0-d
+    tensor or a host float, :func:`tempered`):
     ``sweep(x, lam, draws) -> x'`` with ``draws = sweep.draws(generator,
     x.shape)``, the noise ``(n_steps, *x.shape)`` and the accept uniforms
     ``(n_steps, B)``. A step's U and grad U at the current state carry over

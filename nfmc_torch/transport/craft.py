@@ -13,9 +13,18 @@ sampling).
 All levels share one bijection architecture (checked), so every level's
 parameters go through level 0's bijection, each level with its own flat
 parameter vector and AdamW state. A pass (train step, transport, the
-ESS-gated resample and the MALA sweep at every level) is an eager loop over
-the levels with no host synchronisation; the JAX package runs it as one
-``lax.scan``.
+ESS-gated resample and the MALA sweep at every level) reads nothing on the
+host; the JAX package runs it as one jitted ``lax.scan`` over the levels
+(``nfmc_tpu/transport/craft.py:77-78, 140-175``). On CUDA, with one rank
+and a bijection that declares ``graph_capturable``
+(:func:`nfmc_torch.core.graphs.transport_captures`), a training pass is one
+replay of a captured graph whose body unrolls the levels, their weights
+and AdamW moments rows of stacked carried tensors, and the sampling pass a
+second graph of the same body without the optimizer; an eager prologue
+makes each pass's prior draw and level draws with the run's generator in
+the eager loop's order. :func:`~nfmc_torch.core.graphs.disable_graphs` or
+several ranks run the same pass as an eager loop, with which the replays
+agree bit for bit.
 
 Particles that ``prior_sample`` returns as a DTensor run sharded over its
 mesh (:mod:`nfmc_torch.transport.common`): each rank holds its rows and its
@@ -33,11 +42,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.chains import chain_logsumexp, chain_softmax
-from ..flows.train import _AdamW, _finite_update, _flatten, _sum_shares
+from ..flows.train import _AdamW, _finite_update, _flatten, _skeleton, _sum_shares
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device, tree_leaves, tree_unflatten
-from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
+from .common import (as_level, draw_rows, first_draw, flat_value_and_grad, gathered, log_ess,
                      make_mala_sweep, resample, resample_offset, take_particles, tempered)
 
 
@@ -75,6 +85,9 @@ class CRAFT:
                     f"CRAFT requires all levels to share one bijection "
                     f"architecture; level {i} differs from level 0"
                 )
+        # the levels' weights go through level 0's bijection, unpacked
+        # like this shape-only tree (a cached graph's body keeps no weights)
+        self._like = _skeleton(self.bijections[0].params)
         n = self.n_levels
         self.lams = [float(v) for v in np.arange(1, n + 1, dtype=np.float32) / np.float32(n)]
         self.lams_prev = [float(v) for v in np.arange(0, n, dtype=np.float32) / np.float32(n)]
@@ -98,8 +111,8 @@ class CRAFT:
         ``shard``, ``x`` and ``log_W`` are this rank's rows and ``draws`` the
         global particles' (module doc)."""
         bij = self.bijections[0]
-        like = bij.params
-        lam_prev, lam_next = self.lams_prev[k], self.lams[k]
+        like = self._like
+        lam_prev, lam_next = as_level(self.lams_prev[k], x), as_level(self.lams[k], x)
         offset, sweep_draws = draws
         if opt is not None:
             w = chain_softmax(log_W, shard)
@@ -146,57 +159,141 @@ class CRAFT:
             xs.append(x)
         return x, log_W, log_Z, xs
 
-    def _pass_draws(self, generator, shape):
-        return (self.level_draws(generator, shape) for _ in range(self.n_levels))
+    def _stacked_pass_draws(self, generator, shape):
+        """A pass's draws, stacked over the levels in :meth:`level_draws`'
+        order: the offsets ``(L,)``, the sweep noise and the uniforms."""
+        levels = [self.level_draws(generator, shape) for _ in range(self.n_levels)]
+        return (torch.stack([o for o, _ in levels]), torch.stack([d[0] for _, d in levels]),
+                torch.stack([d[1] for _, d in levels]))
 
     @staticmethod
-    def _particles(drawn, n_particles, device):
-        """A pass's start from its ``n_particles`` prior draws: ``(this
-        rank's particles, their uniform log-weights, the shard)``."""
+    def _particles(drawn, device):
+        """A pass's start from its prior draws: ``(this rank's particles,
+        the shard)``."""
         x, shard = take_particles(drawn)
         if shard is not None:
             x = x.to(device)
-        return x, torch.full((x.shape[0],), -math.log(n_particles), device=device), shard
+        return x, shard
+
+    def _pass_step(self, n_particles, shard, train: bool):
+        """A pass as the step of :func:`nfmc_torch.core.graphs.iterations`:
+        ``rows`` the start ``x0`` and the stacked level draws; training,
+        the carry is the levels' stacked flat weights, AdamW moments and
+        counts (a row a level) and the output the pass's log Z; sampling,
+        the weights are the one constant and the outputs the final
+        log-weights, log Z and the particles after each level."""
+
+        def step(carry, consts, rows):
+            x0, offsets, noise, uniforms = rows
+            log_W = torch.full((x0.shape[0],), -math.log(n_particles), device=x0.device)
+            draws = zip(offsets, zip(noise, uniforms))
+            if train:
+                thetas = list(carry[0].unbind(0))
+                opts = [_AdamW.resume(self.lr, *state)
+                        for state in zip(carry[1].unbind(0), carry[2].unbind(0),
+                                         carry[3].unbind(0))]
+                _, _, log_Z, _ = self._pass(thetas, opts, x0, log_W, draws, shard)
+                return [torch.stack(thetas), torch.stack([o.mu for o in opts]),
+                        torch.stack([o.nu for o in opts]),
+                        torch.stack([o.count for o in opts])], [log_Z]
+            _, log_W, log_Z, xs = self._pass(list(consts[0].unbind(0)), None, x0, log_W, draws,
+                                             shard)
+            return [], [log_W, log_Z, torch.stack(xs)]
+
+        return step
+
+    def _graph_of(self, n_particles, train: bool, length: int, outs):
+        """The pass's graph (:func:`nfmc_torch.core.graphs.replays`), cached
+        on the object: its levels unrolled in one body, the training pass's
+        and the sampling pass's two graphs of one shape."""
+        return graphs.replays(
+            self, ("craft", "train" if train else "sample", n_particles, self.lr,
+                   self.sampling_threshold, self.mala_sweep.n_steps, self.mala_sweep.step_size),
+            self._pass_step(n_particles, None, train), outs, length,
+            (self.bijections[0], self.prior_potential, self.target_potential))
 
     def train(self, prior_sample, n_particles: int = 100, n_training_steps: int = 100,
               show_progress: bool = False, generator: Optional[torch.Generator] = None,
               seed: Optional[int] = None):
+        """``n_training_steps`` training passes, each from new prior draws.
+        On CUDA (one rank, a declared bijection) each pass is one replay of
+        a captured graph of the pass, the JAX package's one jitted
+        ``lax.scan`` over levels (``nfmc_tpu/transport/craft.py:77-78,
+        140-175``): the levels unrolled in one body, their weights and AdamW
+        moments rows of stacked carried tensors. An eager prologue makes a
+        block's prior draws and level draws with the run's generator in the
+        eager loop's order; the host reads log Z only for the progress bar."""
         like = self.bijections[0].params
         device = tree_leaves(like)[0].device
         if n_training_steps <= 0:
             return
-        draw = lambda g: prior_sample((n_particles,), generator=g)  # noqa: E731
-        g, drawn = first_draw(draw, device, generator, seed)
-        thetas = [_flatten(b.params) for b in self.bijections]
-        opts = [_AdamW(t, self.lr) for t in thetas]
+        draw_prior = lambda g: prior_sample((n_particles,), generator=g)  # noqa: E731
+        g, drawn = first_draw(draw_prior, device, generator, seed)
+        thetas = torch.stack([_flatten(b.params) for b in self.bijections])
+        opt = _AdamW(thetas, self.lr)
+        carry = [thetas, opt.mu, opt.nu, torch.zeros(self.n_levels, device=device)]
+        x0, shard = self._particles(drawn, device)
+        first = [x0]
+
+        def draw(k):
+            out = []
+            for _ in range(k):
+                x = first.pop() if first else self._particles(draw_prior(g), device)[0]
+                out.append((x, *self._stacked_pass_draws(g, (n_particles, *x.shape[1:]))))
+            return [torch.stack(col) for col in zip(*out)]
+
+        graph_of, length = None, 1
+        if graphs.transport_captures(self.bijections[:1], device, shard):
+            row = x0.numel() * (1 + self.n_levels * self.mala_sweep.n_steps) + self.n_levels * (
+                1 + self.mala_sweep.n_steps * n_particles)
+            length = graphs.hoist_length(n_training_steps, row)
+            graph_of = self._graph_of(n_particles, True, length, [((), torch.float32)])
+        step = self._pass_step(n_particles, shard, True)
 
         bar = Progress(total=n_training_steps, desc="CRAFT", disable=not show_progress)
-        for i in range(n_training_steps):
-            x, log_W, shard = self._particles(drawn if i == 0 else draw(g), n_particles, device)
-            _, _, log_Z, _ = self._pass(thetas, opts, x, log_W,
-                                        self._pass_draws(g, (n_particles, *x.shape[1:])), shard)
-            bar.update(1)
-            if show_progress:  # the only per-pass synchronisation, opt-in
-                bar.set_postfix_str(f"log Z: {float(log_Z):.3f}")
+        done = 0
+        while done < n_training_steps:
+            block = min(max(1, length) if show_progress else n_training_steps,
+                        n_training_steps - done)
+            carry, _, (log_Z,) = graphs.iterations(step, carry, [], draw, block, graph_of,
+                                                   length)
+            done += block
+            bar.update(block)
+            if show_progress:  # the only synchronisation, opt-in
+                bar.set_postfix_str(f"log Z: {float(log_Z[-1]):.3f}")
         bar.close()
-        for b, t in zip(self.bijections, thetas):
-            b.params = unpack_like(t, like)
+        for b, t in zip(self.bijections, carry[0]):
+            b.params = unpack_like(t.clone(), like)
 
     def sample(self, prior_sample, n_particles: int = 100,
                generator: Optional[torch.Generator] = None, seed: Optional[int] = None):
+        """One sampling pass: on CUDA a replay of a second captured graph,
+        the training pass's body without the optimizer (the first call of
+        a shape runs it eagerly and a later call replays it), which emits
+        the particles after each level."""
         like = self.bijections[0].params
         device = tree_leaves(like)[0].device
         g, drawn = first_draw(lambda g: prior_sample((n_particles,), generator=g), device,
                               generator, seed)
-        x0, log_W, shard = self._particles(drawn, n_particles, device)
-        thetas = [_flatten(b.params) for b in self.bijections]
-        x, log_W, log_Z, xs = self._pass(thetas, None, x0, log_W,
-                                         self._pass_draws(g, (n_particles, *x0.shape[1:])), shard)
+        x0, shard = self._particles(drawn, device)
+        thetas = torch.stack([_flatten(b.params) for b in self.bijections])
+        inputs = [t.unsqueeze(0) for t in
+                  (x0, *self._stacked_pass_draws(g, (n_particles, *x0.shape[1:])))]
+        graph_of = None
+        if graphs.transport_captures(self.bijections[:1], device, shard):
+            n = x0.shape[0]
+            graph_of = self._graph_of(n_particles, False, 1, [
+                ((n,), torch.float32), ((), torch.float32),
+                ((self.n_levels, *x0.shape), torch.float32)])
+        _, _, (log_W, log_Z, xs) = graphs.iterations(
+            self._pass_step(n_particles, shard, False), [], [thetas], graphs.sliced(inputs), 1,
+            graph_of, 1)
+        log_W, log_Z, xs = log_W[0], log_Z[0], xs[0]
         return {
-            "particles": as_numpy(gathered(x, shard)),
+            "particles": as_numpy(gathered(xs[-1], shard)),
             "log_weights": as_numpy(gathered(log_W, shard)),
             "log_Z": float(log_Z),
-            "history": as_numpy(gathered(torch.stack([x0, *xs]), shard, 1)),
+            "history": as_numpy(gathered(torch.cat([x0.unsqueeze(0), xs]), shard, 1)),
         }
 
 

@@ -18,7 +18,10 @@ path ``u(x, b) = (1-b) u_prior + b u_target``):
      ``rho`` adapts toward ``target_acceptance`` by Robbins-Monro on the
      device.
 A level copies ``u_target - u_prior`` to the host once and reads the
-sweep's acceptance once.
+sweep's acceptance once; the temperature's bisection runs on the host in
+float64, as in the JAX package. On CUDA the fit's epochs and the sweep's
+pCN steps are replays of two captured graphs (:meth:`_train`,
+:meth:`_sweep`), as the JAX package jits each as one ``lax.scan``.
 
 Particles that ``prior_sample`` returns as a DTensor run sharded over its
 mesh (:mod:`nfmc_torch.transport.common`): a level gathers
@@ -35,12 +38,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.chains import chain_mean
-from ..flows.train import _Adam, _finite_update, _flatten
+from ..flows.train import _Adam, _finite_update, _flatten, _resume, _skeleton
 from ..ops.coupling import unpack_like
 from ..utils import Progress, as_numpy, resolve_device
-from .common import (draw_rows, first_draw, flat_value_and_grad, gathered, resample_offset,
-                     systematic_resample, take_particles, tempered)
+from .common import (as_level, draw_rows, first_draw, flat_value_and_grad, gathered,
+                     resample_offset, systematic_resample, take_particles, tempered)
 
 
 def _ess_np(log_w: np.ndarray) -> float:
@@ -102,43 +106,68 @@ class PreconditionedMonteCarlo:
         ``perm`` is a permutation of the rows (:meth:`train_draws`).
         Returns ``(best_params, losses)``.
 
-        With a ``shard`` every rank holds the whole cloud and trains
-        data-parallel on its rows of each split: one ``all_reduce`` a step
-        sums the gradient, the loss and the val loss at the same weights
-        (the last weights' val loss alone after the loop)."""
+        The JAX package jits the fit as one ``lax.scan`` over epochs
+        (``nfmc_tpu/transport/pmc.py:141-147``). On CUDA, with one rank and
+        a bijection that declares ``graph_capturable``, an epoch (the val
+        loss, the guarded Adam step, the best-weights tracker) is one replay
+        of a captured graph over the split that ``perm`` makes, cached on
+        the object; the last val loss is one eager step after the replays.
+
+        With a ``shard`` of several ranks every rank holds the whole cloud
+        and trains data-parallel on its rows of each split: one
+        ``all_reduce`` a step sums the gradient, the loss and the val loss
+        at the same weights (the last weights' val loss alone after the
+        loop)."""
         n = x.shape[0]
         n_val = max(n // 5, 1)
         x, log_w = x[perm], log_w[perm]
-        x_val, x_train = x[:n_val], x[n_val:]
-        lw_val, lw_train = log_w[:n_val], log_w[n_val:]
+        graphed = graphs.transport_captures([self.flow.bijection], x.device, shard)
+        if graphed:  # a captured fit runs on one rank, where the shares are the sums
+            shard = None
+        like = _skeleton(params)
         theta = _flatten(params)
         adam = _Adam(theta, self.train_lr)
-        best_theta, best_val = theta, None
-        losses = []
-        for epoch in range(self.n_train_epochs + 1):
+
+        def tracked(theta, best, best_val, val):
             with torch.no_grad():
-                val = self._weighted_loss(unpack_like(theta, params), x_val, lw_val, shard)
-            stepping = epoch < self.n_train_epochs
-            if stepping:
-                loss, g = flat_value_and_grad(
-                    lambda p: self._weighted_loss(p, x_train, lw_train, shard), theta, params)
-                if shard is not None:
-                    both = shard.sum(torch.cat([g, loss.reshape(1), val.reshape(1)]))
-                    g, loss, val = both[:-2], both[-2], both[-1]
-            elif shard is not None:
-                val = shard.sum(val)
+                better = torch.isfinite(val) & (val < best_val)
+                return torch.where(better, theta, best), torch.where(better, val, best_val)
+
+        def epoch(carry, consts, rows):
+            theta, adam, best, best_val = _resume(carry, self.train_lr)
+            x_val, x_train, lw_val, lw_train = consts
             with torch.no_grad():
-                if best_val is None:
-                    best_val = torch.where(torch.isfinite(val), val, math.inf)
-                else:
-                    better = torch.isfinite(val) & (val < best_val)
-                    best_theta = torch.where(better, theta, best_theta)
-                    best_val = torch.where(better, val, best_val)
-                if stepping:
-                    theta = adam.step(theta, g, _finite_update(loss, g))
-                    losses.append(loss)
-        losses = torch.stack(losses) if losses else torch.zeros(0, device=x.device)
-        return unpack_like(best_theta, params), losses
+                val = self._weighted_loss(unpack_like(theta, like), x_val, lw_val, shard)
+            loss, g = flat_value_and_grad(
+                lambda p: self._weighted_loss(p, x_train, lw_train, shard), theta, like)
+            if shard is not None:
+                both = shard.sum(torch.cat([g, loss.reshape(1), val.reshape(1)]))
+                g, loss, val = both[:-2], both[-2], both[-1]
+            best, best_val = tracked(theta, best, best_val, val)
+            with torch.no_grad():
+                theta = adam.step(theta, g, _finite_update(loss, g))
+            return [theta, adam.mu, adam.nu, adam.count, best, best_val], [loss]
+
+        graph_of = None
+        if graphed:
+            graph_of = graphs.replays(self, ("pmc_fit", self.train_lr), epoch,
+                                      [((), torch.float32)], self.n_train_epochs,
+                                      (self.flow.bijection,))
+        # best_val starts at inf: the first epoch then takes the warm-start
+        # val loss where it is finite, as the JAX package's seed does
+        carry = [theta, adam.mu, adam.nu, adam.count, theta,
+                 torch.full((), math.inf, device=x.device)]
+        consts = [x[:n_val], x[n_val:], log_w[:n_val], log_w[n_val:]]
+        carry, _, outs = graphs.iterations(epoch, carry, consts, lambda k: [],
+                                           self.n_train_epochs, graph_of, self.n_train_epochs)
+        theta, _, _, _, best, best_val = carry
+        with torch.no_grad():
+            val = self._weighted_loss(unpack_like(theta, like), consts[0], consts[2], shard)
+        if shard is not None:
+            val = shard.sum(val)
+        best, _ = tracked(theta, best, best_val, val)
+        losses = outs[0] if outs else torch.zeros(0, device=x.device)
+        return unpack_like(best.clone(), params), losses
 
     def train_draws(self, generator: torch.Generator, n: int) -> torch.Tensor:
         return torch.randperm(n, generator=generator, device=generator.device)
@@ -154,41 +183,69 @@ class PreconditionedMonteCarlo:
         x, log_det_inv = self.flow.bijection.inverse_fn(params, z)
         return self.u(x, beta) - log_det_inv
 
-    @torch.no_grad()
     def _sweep(self, params, x, beta, rho_logit, draws, shard=None):
         """The latent pCN sweep at ``beta``: ``(x', rho_logit', mean
         acceptance)``, ``rho_logit`` a 0-d tensor adapted on the device, on
-        the acceptance over every particle (with the particles' ``shard``)."""
+        the acceptance over every particle (with the particles' ``shard``).
+
+        The JAX package jits the sweep as one ``lax.scan`` over its steps
+        (``nfmc_tpu/transport/pmc.py:187-193``). On CUDA, with one rank and
+        a bijection that declares ``graph_capturable``, a pCN step is one
+        replay of a captured graph carrying ``z``, ``u_lat(z)`` and
+        ``rho_logit``, ``beta`` a device scalar among its constants, the
+        step's ``xi`` and uniforms read at its counter; the map into the
+        latent space and back runs eagerly around the replays."""
         xi, uniforms = draws
+        graphed = graphs.transport_captures([self.flow.bijection], x.device, shard)
+        if graphed:  # on one rank the mean over every particle is this rank's
+            shard = None
+        like = _skeleton(params)
+        theta = _flatten(params)
+        beta = as_level(beta, x)
 
         def half_sumsq(z):
             return 0.5 * (z.reshape(z.shape[0], -1) ** 2).sum(-1)
 
-        z, _ = self.flow.bijection.forward_fn(params, x)
-        uz = self._u_lat(params, z, beta)
-        accs = []
-        for i in range(self.n_mcmc_steps):
-            rho = torch.sigmoid(rho_logit)
-            z_prime = torch.sqrt(1.0 - rho ** 2) * z + rho * xi[i]
-            uzp = self._u_lat(params, z_prime, beta)
-            # pCN accept: only the residual Phi(z) = u_lat(z) - ||z||^2/2
-            log_alpha = (uz - half_sumsq(z)) - (uzp - half_sumsq(z_prime))
-            # accept-guard semantics per utils.unevaluable_current_mask: a
-            # NaN current potential would freeze the particle forever, so
-            # it moves to any evaluable proposal (a +inf current already
-            # accepts through log_alpha = +inf); non-finite proposals reject
-            log_alpha = torch.where(torch.isnan(uz), math.inf, log_alpha)
-            log_alpha = torch.where(torch.isfinite(uzp), log_alpha, -math.inf)
-            accept = torch.log(uniforms[i]) < log_alpha
-            mask = accept.reshape(accept.shape + (1,) * (z.dim() - 1))
-            z = torch.where(mask, z_prime, z)
-            uz = torch.where(accept, uzp, uz)
-            acc = chain_mean(accept.to(torch.float32), shard)
-            rho_logit = rho_logit + self.adapt_rate * (acc - self.target_acceptance)
-            accs.append(acc)
-        x, _ = self.flow.bijection.inverse_fn(params, z)
-        acc_mean = torch.stack(accs).mean() if accs else torch.full((), math.nan, device=x.device)
-        return x, rho_logit, acc_mean
+        def step(carry, consts, rows):
+            z, uz, rho_logit = carry
+            theta, beta = consts
+            xi_i, u_i = rows
+            with torch.no_grad():
+                rho = torch.sigmoid(rho_logit)
+                z_prime = torch.sqrt(1.0 - rho ** 2) * z + rho * xi_i
+                uzp = self._u_lat(unpack_like(theta, like), z_prime, beta)
+                # pCN accept: only the residual Phi(z) = u_lat(z) - ||z||^2/2
+                log_alpha = (uz - half_sumsq(z)) - (uzp - half_sumsq(z_prime))
+                # accept-guard semantics per utils.unevaluable_current_mask:
+                # a NaN current potential would freeze the particle forever,
+                # so it moves to any evaluable proposal (a +inf current
+                # already accepts through log_alpha = +inf); non-finite
+                # proposals reject
+                log_alpha = torch.where(torch.isnan(uz), math.inf, log_alpha)
+                log_alpha = torch.where(torch.isfinite(uzp), log_alpha, -math.inf)
+                accept = torch.log(u_i) < log_alpha
+                mask = accept.reshape(accept.shape + (1,) * (z.dim() - 1))
+                z = torch.where(mask, z_prime, z)
+                uz = torch.where(accept, uzp, uz)
+                acc = chain_mean(accept.to(torch.float32), shard)
+                rho_logit = rho_logit + self.adapt_rate * (acc - self.target_acceptance)
+            return [z, uz, rho_logit], [acc]
+
+        with torch.no_grad():
+            z, _ = self.flow.bijection.forward_fn(params, x)
+            uz = self._u_lat(params, z, beta)
+        graph_of = None
+        if graphed:
+            graph_of = graphs.replays(
+                self, ("pmc_sweep", self.adapt_rate, self.target_acceptance), step,
+                [((), torch.float32)], self.n_mcmc_steps, (self.flow.bijection,))
+        (z, _, rho_logit), _, outs = graphs.iterations(
+            step, [z, uz, rho_logit], [theta, beta], graphs.sliced([xi, uniforms]),
+            self.n_mcmc_steps, graph_of, self.n_mcmc_steps)
+        with torch.no_grad():
+            x, _ = self.flow.bijection.inverse_fn(params, z)
+        acc_mean = outs[0].mean() if outs else torch.full((), math.nan, device=x.device)
+        return x, rho_logit.clone(), acc_mean
 
     # ---- adaptive temperature: largest delta keeping ESS at the target ------
     def _choose_delta(self, delta_u: np.ndarray, log_W: np.ndarray, beta: float) -> float:
