@@ -2530,14 +2530,19 @@ class StepReports:
     """For the duration of a ``with`` block, what ``cls``'s steps report
     (their StepInfo's dynamic call and gradient counts, summed on the
     device, and the steps taken), by tuning flag: the run's own account of
-    its work, apart from the statistics' accumulators."""
+    its work, apart from the statistics' accumulators. The steps are
+    counted with ``build.tally``, so that a replayed graph counts the steps
+    its capture recorded (a replay runs no Python); a captured step's
+    dynamic counts are the host's 0."""
 
     def __init__(self, cls):
         self.cls = cls
 
     def __enter__(self):
+        from nfmc_torch.ops import build
+
         cls, rec = self.cls, self
-        self.sums = {}
+        self.sums, self.steps = {}, collections.Counter()
         self._orig = {name: cls.__dict__.get(name) for name in
                       ("_make_step_aux", "_make_step_precomputed")}
 
@@ -2549,8 +2554,9 @@ class StepReports:
 
                 def wrapped(*a):
                     out = step(*a)
-                    s = rec.sums.setdefault(tuning, [0, 0, 0])
-                    s[0], s[1], s[2] = s[0] + out[2].n_calls, s[1] + out[2].n_grads, s[2] + 1
+                    s = rec.sums.setdefault(tuning, [0, 0])
+                    s[0], s[1] = s[0] + out[2].n_calls, s[1] + out[2].n_grads
+                    build.tally(rec.steps, tuning)
                     return out
                 return wrapped
             return factory
@@ -2568,8 +2574,8 @@ class StepReports:
 
     def totals(self, tuning):
         """(calls, grads, steps) the steps of that flag reported."""
-        calls, grads, steps = self.sums.get(tuning, (0, 0, 0))
-        return int(calls), int(grads), steps
+        calls, grads = self.sums.get(tuning, (0, 0))
+        return int(calls), int(grads), self.steps[tuning]
 
 
 class CaptureSampler:
@@ -2607,11 +2613,25 @@ def in_band(what, value, band, jax_range):
     check(band[0] <= value <= band[1], f"{what} {value} outside {band}")
 
 
+def device_copies(t: torch.Tensor):
+    """``on(device)``: ``t`` on ``device``, copied there on first use, as
+    the package's potentials hold their constants (a captured step may not
+    copy from the host)."""
+    copies = {}
+
+    def on(device):
+        if device not in copies:
+            copies[device] = t.to(device)
+        return copies[device]
+
+    return on
+
+
 def residual_nll(sig):
     """The likelihood that turns ESS's N(0, I) prior into N(0, diag(sig^2))
     (tools/run_reference.py's "residual")."""
-    s = torch.as_tensor(sig)
-    return lambda x: 0.5 * ((x / s.to(x.device)) ** 2 - x ** 2).sum(-1)
+    s = device_copies(torch.as_tensor(sig))
+    return lambda x: 0.5 * ((x / s(x.device)) ** 2 - x ** 2).sum(-1)
 
 
 def run_mcmc_phases(dev) -> dict:
@@ -2805,9 +2825,9 @@ def run_mcmc_phases(dev) -> dict:
     for kind, cls in (("ess", ESS), ("nuts", NUTS), ("chees", CheesHMC)):
         kw = {}
         if kind == "ess":
-            m = torch.as_tensor(mu)
+            m = device_copies(torch.as_tensor(mu))
             kw["negative_log_likelihood"] = CallablePotential(
-                lambda x, m=m: (0.5 * m.to(x.device) ** 2 - m.to(x.device) * x).sum(-1), (D,))
+                lambda x, m=m: (0.5 * m(x.device) ** 2 - m(x.device) * x).sum(-1), (D,))
         if kind == "nuts":
             kw["inner_kernel_kwargs"] = {"step_size": JUMP12_NUTS_STEP}
 
@@ -2819,12 +2839,13 @@ def run_mcmc_phases(dev) -> dict:
                                      show_progress=False, **kw)
 
         run(n_outer=2)  # warm
-        redraws = [0]
+        # counted as StepReports counts steps: a replay counts its capture's
+        redraws = collections.Counter()
         orig_resample = ESS.resample_x0_fn
 
-        def counted(self, z, x):
-            redraws[0] += 1
-            return orig_resample(self, z, x)
+        def counted(self, *a):
+            build.tally(redraws, 0)
+            return orig_resample(self, *a)
 
         ESS.resample_x0_fn = counted
         try:
@@ -5203,6 +5224,14 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
 # GRAPH_TESS_ITERS and NeuTra-HMC GRAPH_NEUTRA_ITERS
 GRAPH_OUTER, GRAPH_MCMC_WARM, GRAPH_MCMC_ITERS = 64, 50, 250
 GRAPH_IMH_ITERS, GRAPH_SPLINE_ITERS, GRAPH_TESS_ITERS, GRAPH_NEUTRA_ITERS = 1000, 200, 200, 50
+# the samplers captured since: PT at 13a's sizes, AIES at 13b's walkers and
+# the dense metric at 13's on the correlated target, each GRAPH_MCMC_WARM
+# tuning and GRAPH_MCMC_ITERS sampling iterations; ESS at 12b's target and
+# chains, GRAPH_ESS_ITERS iterations; jump_ess and jump_aies in 12c's
+# setting, GRAPH_OUTER outer iterations. Their eager runs are profiled at
+# 1 / GRAPH_EAGER_PROFILE_CUT of the iterations: the eager loop's launches
+# an iteration are steady, and the profiler's own cost grows with them
+GRAPH_ESS_ITERS, GRAPH_EAGER_PROFILE_CUT = 250, 25
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
@@ -5210,11 +5239,14 @@ GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 def launch_profile(run) -> tuple:
     """``run()`` under torch.profiler: ``(wall s, device busy s, kernel
     launches, graph launches)``, the launches counted from the host's
-    runtime calls."""
+    runtime calls. The CUDA activity alone records those calls and the
+    device's work; the CPU activity would add every operator and autograd
+    node, seconds of the profiler's own time for an eager HMC window, and
+    no count."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -5223,6 +5255,19 @@ def launch_profile(run) -> tuple:
     names = collections.Counter(e.name() for e in events)
     return (wall, device_busy_us(events) / 1e6, sum(names[n] for n in HOST_LAUNCHES),
             sum(names[n] for n in GRAPH_LAUNCHES))
+
+
+def adapted_state(kernel) -> dict:
+    """The adaptation a tempering ladder or a dense metric carries on the
+    host after a run, beside :func:`kernel_state`'s."""
+    state = {k: np.asarray(getattr(kernel, k)) for k in
+             ("betas", "step_sizes", "swap_acceptance_rates", "n_accepted_swaps", "mass_cov",
+              "_resume_i", "_resume_t", "_resume_scalar_mode", "_resume_mu")
+             if getattr(kernel, k, None) is not None}
+    factors = getattr(kernel, "_resume_factors", None)
+    if factors is not None:
+        state["chol"], state["chol_inv"] = (t.cpu().numpy() for t in factors)
+    return state
 
 
 def run_graph_phases(dev) -> dict:
@@ -5240,7 +5285,8 @@ def run_graph_phases(dev) -> dict:
     from nfmc_torch.flows import Flow, RealNVP
     from nfmc_torch.ops import build
     from nfmc_torch.parallel import chain_mesh
-    from nfmc_torch.potentials import DiagonalGaussian1, StandardGaussian
+    from nfmc_torch.potentials import (CallablePotential, DiagonalGaussian, DiagonalGaussian1,
+                                       FullRankGaussian, GaussianMixture, StandardGaussian)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -5287,6 +5333,56 @@ def run_graph_phases(dev) -> dict:
             "neutra_hmc", GRAPH_NEUTRA_ITERS, inner_kernel_kwargs={"step_size": NEUTRA_STEP})),
     }
 
+    # the samplers captured since, each made by ``make(cut)`` with its
+    # iterations divided by ``cut`` (the eager profile's shorter run)
+    means = np.stack([np.full(PT_D, -PT_MODE), np.full(PT_D, PT_MODE)]).astype(np.float32)
+    gm = GaussianMixture(means, sigma=1.0)
+    x0_pt = torch.as_tensor(pt_x0(0), device=dev)
+    corr = FullRankGaussian(np.zeros(D, np.float32), dense_metric_targets()[2])
+    x0_dense = torch.as_tensor(dense_x0("corr", 0), device=dev)
+    x0_aies = torch.as_tensor(dense_x0("corr", 0, n=AIES_C), device=dev)
+    ess_target = DiagonalGaussian(np.zeros(len(ESS_SIG), np.float32), ESS_SIG)
+    misfit = DiagonalGaussian(np.full(D, JUMP12_MU, np.float32), np.float32(1.0))
+    mu12 = device_copies(torch.full((D,), JUMP12_MU))
+    misfit_nll = CallablePotential(
+        lambda x: (0.5 * mu12(x.device) ** 2 - mu12(x.device) * x).sum(-1), (D,))
+
+    def tuned(strategy, target, n_chains, x0, **kw):
+        def make(cut=1):
+            return nfmc_torch.sample(
+                target, strategy=strategy, flow=None, n_chains=n_chains, x0=x0, warmup=True,
+                n_warmup_iterations=GRAPH_MCMC_WARM // cut, n_iterations=GRAPH_MCMC_ITERS // cut,
+                param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False,
+                **kw)
+        return GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, make
+
+    def jump12(strategy, **kw):
+        def make(cut=1):
+            return nfmc_torch.sample(
+                misfit, strategy=strategy, flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H),
+                                                     seed=0),
+                n_chains=C, n_iterations=GRAPH_OUTER // cut,
+                inner_param_kwargs={"n_iterations": JUMP12_INNER},
+                param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False,
+                **kw)
+        return GRAPH_OUTER, make
+
+    def ess(cut=1):
+        return nfmc_torch.sample(ess_target, strategy="ess", flow=None,
+                                 negative_log_likelihood=residual_nll(ESS_SIG), n_chains=ESS_C,
+                                 n_iterations=GRAPH_ESS_ITERS // cut, seed=0, show_progress=False,
+                                 param_kwargs={"store_samples_on_device": True})
+
+    pt_kw = {"kernel_kwargs": {"n_temps": PT_TEMPS, "beta_min": PT_BETA_MIN}}
+    since = {
+        **{s: tuned(s, gm, PT_C, x0_pt, **pt_kw) for s in ("pt_mala", "pt_mh", "pt_hmc")},
+        "aies": tuned("aies", corr, AIES_C, x0_aies),
+        "ess": (GRAPH_ESS_ITERS, ess),
+        **{s: tuned(s, corr, C, x0_dense) for s in ("dense_hmc", "dense_mala")},
+        "jump_ess": jump12("jump_ess", negative_log_likelihood=misfit_nll),
+        "jump_aies": jump12("jump_aies"),
+    }
+
     def measured(run, eager):
         """``run()``'s summary, launches and wall, with graphs or without,
         and the graph cache as the run left it (its samplers still alive)."""
@@ -5300,34 +5396,42 @@ def run_graph_phases(dev) -> dict:
             wall = time.perf_counter() - t0
             cache = graphs.CACHE.describe()
         del cap
-        return (run_summary(out), {w.__name__: w.launches for w in build.WRAPPERS}, wall,
-                cache)
+        summary = run_summary(out)
+        summary["state"].update(adapted_state(out.kernel))
+        return summary, {w.__name__: w.launches for w in build.WRAPPERS}, wall, cache
 
     def same(a, b) -> bool:
         if isinstance(a, dict):
             return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
         return np.array_equal(np.asarray(a), np.asarray(b))
 
-    def compare(label, n_it, run, profiled=True):
+    def compare(label, n_it, run, profiled=True, short=None):
+        """``short = (n, run)``: the eager profile's shorter run."""
+        t_cmp = time.perf_counter()
         eager, l_eager, w_eager, _ = measured(run, eager=True)
         graph, l_graph, w_graph, cache = measured(run, eager=False)
         parts = {k: same(eager[k], graph[k]) for k in ("samples", "counters", "mean", "second",
                                                          "state")}
         parts["launches"] = l_eager == l_graph
         line = (f"20 {label} ({n_it} it): wall without graphs {w_eager:.3f} s, with "
-                f"{w_graph:.3f} s; bit for bit {parts}; launches "
+                f"{w_graph:.3f} s ({w_eager / w_graph:.2f}x); bit for bit {parts}; launches "
                 f"{ {k: v for k, v in l_graph.items() if v} }")
         row = {"wall": (w_eager, w_graph), "same": parts}
         if profiled:
+            n_e, run_e = short or (n_it, run)
+            t_prof = time.perf_counter()
             with graphs.disable_graphs():
-                pe = launch_profile(run)
+                pe = launch_profile(run_e)
             pg = launch_profile(run)
-            row["profile"] = (pe, pg)
-            line += (f"; profiled: kernel launches an iteration {pe[2] / n_it:.1f} without "
-                     f"graphs, {pg[2] / n_it:.1f} with (graph launches {pg[3] / n_it:.1f}), device "
-                     f"busy {100 * pe[1] / pe[0]:.1f}% / {100 * pg[1] / pg[0]:.1f}% of "
-                     f"{pe[0]:.3f} / {pg[0]:.3f} s")
-        print(line + f"; graph cache after the run {cache} ({smi})")
+            t_prof = time.perf_counter() - t_prof
+            row["profile"] = (pe, pg, n_e)
+            line += (f"; profiled: kernel launches an iteration {pe[2] / n_e:.1f} without "
+                     f"graphs ({n_e} it), {pg[2] / n_it:.1f} with (graph launches "
+                     f"{pg[3] / n_it:.2f}), device busy {100 * pe[1] / pe[0]:.1f}% / "
+                     f"{100 * pg[1] / pg[0]:.1f}% of {pe[0]:.3f} / {pg[0]:.3f} s")
+        line += f"; graph cache after the run {cache}; the comparison took " \
+                f"{time.perf_counter() - t_cmp:.1f} s"
+        print(line + (f", its profiles {t_prof:.1f} s" if profiled else "") + f" ({smi})")
         check(all(parts.values()), f"20 {label}: the run with graphs differs from the eager "
                                    f"run: {parts}")
         if profiled:
@@ -5336,6 +5440,13 @@ def run_graph_phases(dev) -> dict:
 
     for label, (n_it, run) in paths.items():
         compare(label, n_it, run, profiled=label != "headline, time limit")
+    t_since = time.perf_counter()
+    for label, (n_it, make) in since.items():
+        compare(label, n_it, make, short=(n_it // GRAPH_EAGER_PROFILE_CUT,
+                                          lambda make=make: make(GRAPH_EAGER_PROFILE_CUT)))
+    res["since_wall"] = time.perf_counter() - t_since
+    print(f"20 PT, AIES, ESS, the dense metric, jump_ess and jump_aies: {res['since_wall']:.1f} s "
+          f"({smi})")
 
     # ---- 20b. the headline on a one-rank NCCL mesh ---------------------------------
     check(not dist.is_initialized(), "20b: a process group is already running")

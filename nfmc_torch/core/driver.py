@@ -306,12 +306,20 @@ class ChunkedScanDriver:
 
     ``capturable`` is the sampler's declaration (:func:`graphs.declared`):
     its runs on CUDA replay one captured iteration ``chunk`` times
-    (:func:`graphs.captures` decides before the run). The graph reads the
+    (:func:`graphs.captures` decides before the run; a ``collective`` step
+    on several ranks runs eagerly). The graph reads the
     carried state, the chunk's draws and precompute output and writes the
     emitted draws at a device counter; the tensors a step closes over (the
     target's, a flow's weights) are read where they lie, so a run that
     changes them passes them as ``constants``, and a new set of tensors
     captures anew.
+
+    A run may pause for eager work on the carried kernel state at
+    iterations the host knows before the run (``pause``: the dense
+    metric's refresh, the JAX package's ``lax.cond`` in the scan step): the
+    chunk ends its replays there, runs the work and goes on replaying from
+    the next row, and the eager loop runs the same work at the same
+    iterations.
 
     With a chain ``shard`` (:mod:`nfmc_torch.core.chains`) ``x0`` holds this
     rank's chains: a chunk's draws are made for the global chains and cut to
@@ -327,7 +335,8 @@ class ChunkedScanDriver:
                  make_step_aux: Optional[Callable] = None,
                  hoist_per_iter: Optional[Callable[[torch.Tensor], int]] = None,
                  data_transform: Optional[Callable] = None,
-                 draw_chain_axes: Optional[Tuple[int, ...]] = None, capturable: bool = False):
+                 draw_chain_axes: Optional[Tuple[int, ...]] = None, capturable: bool = False,
+                 collective: bool = False):
         self.event_shape = tuple(event_shape)
         self.make_step = make_step
         self.make_draws = make_draws
@@ -337,13 +346,15 @@ class ChunkedScanDriver:
         self.data_transform = data_transform or (lambda v: v)
         self.draw_chain_axes = draw_chain_axes
         self.capturable = capturable
+        self.collective = collective
 
-    def _graph(self, tuning, collect, n_draws, flags, spec, leaves, inputs, length, constants):
+    def _graph(self, tuning, mode, collect, n_draws, flags, spec, leaves, inputs, length,
+               constants):
         """The graph of one iteration for this mode and these shapes (made
         and cached on first use); ``inputs`` holds the chunk's ``n_draws``
         draws, then its precompute output, if any."""
         use_aux = len(inputs) > n_draws
-        key = (tuning, collect, n_draws, flags, spec, graphs.signature(leaves),
+        key = (tuning, mode, collect, n_draws, flags, spec, graphs.signature(leaves),
                graphs.signature(t[0] for t in inputs), length, tuple(id(c) for c in constants))
         data_transform = self.data_transform
 
@@ -378,16 +389,21 @@ class ChunkedScanDriver:
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
             tuning: bool = False, collect: bool = True,
             time_limit_seconds: Optional[float] = None, show_progress: bool = False,
-            desc: str = "MCMC", shard=None, constants=()):
+            desc: str = "MCMC", shard=None, constants=(), pause=None, mode=()):
         """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``.
-        ``calls_per_iter`` and ``grads_per_iter`` count the global chains."""
+        ``calls_per_iter`` and ``grads_per_iter`` count the global chains.
+        ``pause = (due, work)``: after the run's k-th iteration (from 1)
+        where ``due(k)``, the carried kernel state becomes ``work(kstate)``,
+        run eagerly. ``mode`` is what ``make_step(tuning)`` bakes in besides
+        the tuning flag (part of a graph's key)."""
         step = self.make_step(tuning)
         data_transform = self.data_transform
         precompute = self.make_precompute(tuning) if self.make_precompute else None
         step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
-        graphed = self.capturable and graphs.captures(device, shard, tuning)
-        st = {"x": x0.clone(), "kstate": kstate,
+        graphed = self.capturable and graphs.captures(device, shard, tuning, self.collective)
+        st = {"x": x0.clone(memory_format=torch.contiguous_format),
+              "kstate": graphs.contiguous(kstate),
               "acc": StatsAccum.zeros(self.event_shape, device, shard)}
         n_chains = x0.shape[0] if shard is None else shard.n_global(x0.shape[0])
         event_elems = int(np.prod(self.event_shape)) if self.event_shape else 1
@@ -418,16 +434,23 @@ class ChunkedScanDriver:
                               for d, a in zip(draws, axes))
             return draws
 
+        def stops(chunk, iters_done):
+            """The chunk's iterations (from 1) after which the run pauses."""
+            if pause is None:
+                return []
+            return [i for i in range(1, chunk + 1) if pause[0](iters_done + i)]
+
         def store(ys):
             if defer_store:
                 deferred.append(ys)
             else:
                 samples.add(ys)
 
-        def dispatch_eager(chunk, _iters_done):
+        def dispatch_eager(chunk, iters_done):
             draws = draw(chunk)
             x, ks, acc = st["x"], st["kstate"], st["acc"]
             ys = torch.empty((chunk, *x.shape), dtype=x.dtype, device=device) if collect else None
+            paused = stops(chunk, iters_done)
             with torch.no_grad():
                 aux = precompute(x, ks, draws) if precompute is not None else None
                 for i in range(chunk):
@@ -439,22 +462,33 @@ class ChunkedScanDriver:
                     acc = acc.add(info, data_transform(x))
                     if collect:
                         ys[i].copy_(x)
+                    if i + 1 in paused:
+                        ks = graphs.contiguous(pause[1](ks))
             st.update(x=x, kstate=ks, acc=acc)
             if collect:
                 store(ys)
 
-        def dispatch_graph(chunk, _iters_done):
+        def dispatch_graph(chunk, iters_done):
             draws = draw(chunk)
             x, ks, acc = st["x"], st["kstate"], st["acc"]
             with torch.no_grad():
                 aux = precompute(x, ks, draws) if precompute is not None else None
             inputs = list(draws) + (list(aux) if aux is not None else [])
             leaves, spec = graphs.flatten((x, ks, dataclasses.replace(acc, div_flags=None)))
-            graph = self._graph(tuning, collect, len(draws), flags, spec, leaves, inputs,
+            graph = self._graph(tuning, mode, collect, len(draws), flags, spec, leaves, inputs,
                                 length, constants)
             graph.load(leaves, inputs)
+            paused, done = stops(chunk, iters_done), 0
             with torch.no_grad():
-                graph.run(chunk)
+                for stop in sorted({*paused, chunk}):
+                    graph.run(stop - done)
+                    done = stop
+                    if stop in paused:
+                        x, ks, a = graphs.unflatten(spec, graph.state)
+                        new_leaves, new_spec = graphs.flatten((x, pause[1](ks), a))
+                        if new_spec != spec:
+                            raise RuntimeError("a pause changed the structure of the state")
+                        graph.set_state(new_leaves)
             x, ks, new_acc = graphs.unflatten(spec, graph.state)
             if flags:
                 acc.div_flags.append(graph.outputs[-1][:chunk].clone())

@@ -103,15 +103,18 @@ def declared(sampler, flows=()) -> bool:
                for obj in (sampler, *(f.bijection for f in flows)))
 
 
-def captures(device: torch.device, shard=None, tuning: bool = False) -> bool:
+def captures(device: torch.device, shard=None, tuning: bool = False,
+             collective: bool = False) -> bool:
     """Whether a run of a declared sampler on ``device`` goes through
     graphs, decided before the run: on CUDA (or anywhere under
     :func:`without_capture`), outside :func:`disable_graphs`. A tuning step
-    on several ranks reduces over them inside the step, so it runs
-    eagerly."""
+    on several ranks reduces over them inside the step, and so does every
+    step of a sampler whose step is ``collective`` (its class's
+    ``collective_step``: PT's swap counts, AIES's partner halves): such a
+    run on several ranks runs eagerly."""
     if getattr(_local, "disabled", 0):
         return False
-    if tuning and shard is not None and shard.size > 1:
+    if (tuning or collective) and shard is not None and shard.size > 1:
         return False
     return device.type == "cuda" or bool(getattr(_local, "uncaptured", 0))
 
@@ -179,6 +182,16 @@ def unflatten(spec, leaves: Sequence[torch.Tensor]):
         return kind(*children)  # a NamedTuple
 
     return build_(spec)
+
+
+def contiguous(tree):
+    """``tree`` with each tensor leaf in row-major layout, as the static
+    buffers hold it. A run starts (and resumes after a pause) from it on
+    either path: a matrix product reads another layout in another order
+    (a Cholesky factor comes column-major), and the eager loop would part
+    from the replays in the last bits."""
+    leaves, spec = flatten(tree)
+    return unflatten(spec, [t.contiguous() for t in leaves])
 
 
 def check_host_counts(info) -> None:
@@ -309,12 +322,18 @@ class IterationGraph:
                 s.copy_(n)
         self.counter.add_(1)
 
-    def load(self, state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> None:
-        """Copy a chunk's carried state (where it is not the static buffer
-        itself) and inputs in, and set the counter to 0."""
+    def set_state(self, state: Sequence[torch.Tensor]) -> None:
+        """Copy carried state in (where it is not the static buffer itself),
+        leaving the counter where it is: a chunk paused for eager work on
+        its state goes on at the next row."""
         for s, t in zip(self.state, state, strict=True):
             if t is not s:
                 s.copy_(t)
+
+    def load(self, state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor]) -> None:
+        """Copy a chunk's carried state and inputs in, and set the counter
+        to 0."""
+        self.set_state(state)
         for b, t in zip(self.inputs, inputs, strict=True):
             b[: t.shape[0]].copy_(t)
         self.counter.zero_()
@@ -491,6 +510,7 @@ def hoist_length(block: int, row_elems: int) -> int:
     return max(1, min(block, RNG_HOIST_ELEMENT_LIMIT // max(1, row_elems)))
 
 
-__all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "declared",
-           "disable_graphs", "fit_captures", "flatten", "hoist_length", "in_body", "iterations",
-           "replays", "signature", "sliced", "transport_captures", "unflatten", "without_capture"]
+__all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "contiguous",
+           "declared", "disable_graphs", "fit_captures", "flatten", "hoist_length", "in_body",
+           "iterations", "replays", "signature", "sliced", "transport_captures", "unflatten",
+           "without_capture"]

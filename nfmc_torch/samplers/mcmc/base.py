@@ -106,6 +106,12 @@ class MCMCSampler(Sampler):
     # the flows the step calls by closure (NeuTra's, through its target and
     # moment transform): their bijections must be capturable too
     graph_flows: tuple = ()
+    collective_step: bool = False
+    """Whether the step, its chains sharded over several ranks, calls a
+    collective every iteration, sampling included (PT's swap counts, AIES's
+    partner halves). Such a run on several ranks runs the eager loop,
+    decided before the run (:func:`nfmc_torch.core.graphs.captures`); on one
+    rank a declared class replays graphs."""
 
     @property
     def name(self) -> str:
@@ -148,6 +154,23 @@ class MCMCSampler(Sampler):
     def _stash_final_carry(self, mstate) -> None:
         """Keeps what a continuation starts from of the run's final carried
         state: nothing here; PT keeps its hot rungs."""
+
+    def _make_chunk_step(self, tuning: bool) -> Optional[Callable]:
+        """The step a chunk runs, eager or captured: ``_make_step_aux``'s,
+        but where a run pauses for eager work (:meth:`_run_pause`), without
+        that work."""
+        return self._make_step_aux(tuning)
+
+    def _run_pause(self, tuning: bool, n_chains: int):
+        """``(due, work)`` for ``ChunkedScanDriver.run``'s ``pause``, or
+        None: eager work on the carried state at iterations the host knows
+        before the run (the dense metric's refresh)."""
+        return None
+
+    def _graph_mode(self, tuning: bool) -> tuple:
+        """What the chunk step bakes in from the kernel's host state, beside
+        the tuning flag (the dense samplers' scalar math)."""
+        return ()
 
     def _make_precompute(self, tuning: bool) -> Optional[Callable]:
         """``(x, state, draws) -> aux`` or None: work of a chunk's steps that
@@ -255,12 +278,13 @@ class MCMCSampler(Sampler):
         return self._cached_driver(
             self._static_config(per_iter),
             lambda: ChunkedScanDriver(
-                self.event_shape, self._make_step_aux,
+                self.event_shape, self._make_chunk_step,
                 lambda generator, prefix, n: self.make_draws()(generator, prefix, n),
                 make_precompute=self._make_precompute, make_step_aux=self._make_step_precomputed,
                 hoist_per_iter=(lambda _x: per_iter) if per_iter else None,
                 data_transform=self.data_transform, draw_chain_axes=self.draw_chain_axes,
-                capturable=graphs.declared(self, self.graph_flows)),
+                capturable=graphs.declared(self, self.graph_flows),
+                collective=self.collective_step),
             keepalive=(self.target, self.data_transform, self.graph_flows))
 
     def _run(self, x0, n_iterations: int, tuning: bool, show_progress: bool,
@@ -276,7 +300,8 @@ class MCMCSampler(Sampler):
             grads_per_iter=self.grads_per_iter(n_chains), tuning=tuning,
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
             show_progress=show_progress, desc=desc, shard=self.chain_shard,
-            constants=self.graph_constants(),
+            constants=self.graph_constants(), pause=self._run_pause(tuning, n_chains),
+            mode=self._graph_mode(tuning),
         )
         self._finish_run()
         self.kernel.sync_from_state(self._extract_mstate(mstate))

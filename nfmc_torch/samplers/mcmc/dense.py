@@ -19,8 +19,17 @@ jitter is off, and a sampling run after such a warmup is built with the
 scalar math (no dense products); it leaves scalar mode when ``r`` recovers
 past ``scalar_recover_r``. The refresh reads its mode decision on the host,
 one synchronisation a refresh, and runs ``eigh`` only for dense factors.
-The refresh's counter is a host integer, as the number of tuning steps is
-known on the host.
+
+The JAX package runs a chunk as one ``lax.scan`` whose step holds the
+refresh under a ``lax.cond`` on ``t % metric_refresh_every`` (and the mode
+under another). Here a chunk's step is the iteration without the refresh:
+the proposal, the accept, the covariance EMAs, ``t + 1`` (a device counter,
+as in JAX) and the dual-averaging step, replayed as a captured CUDA graph
+on CUDA. The refresh runs eagerly on the carried state after the
+iterations where it falls, which the host knows from its own count
+(``_resume_t`` and the tuning iterations run): ``ChunkedScanDriver`` pauses
+the chunk there, in the eager loop as in the replays. A step called
+directly (``_make_step_aux``) refreshes inline, reading ``t`` on the host.
 
 The float32 products assume TF32 off for matrix products on the card
 (PyTorch's default), as the JAX package runs them at
@@ -57,7 +66,7 @@ class DenseMetropolisState:
     chol: torch.Tensor  # (d, d) lower A, A A^T = the shrunk covariance
     chol_inv: torch.Tensor  # (d, d) A^{-1}
     jitter_frac: torch.Tensor  # f32 scalar in [0, 1]
-    t: int  # tuning steps run (the refresh cadence), on the host
+    t: torch.Tensor  # i32 scalar: tuning steps run (the refresh cadence)
     mu: torch.Tensor  # f32 scalar: trace(cov) / d, the scalar metric
     scalar_mode: torch.Tensor  # bool scalar
     r_low_streak: torch.Tensor  # i32: refreshes in a row with r below the gate
@@ -137,7 +146,7 @@ class _DenseCovKernelMixin:
             cov_a=f32(cov_a), cov_b=f32(cov_b), chol=f32(chol), chol_inv=f32(chol_inv),
             # the initial metric is exact: no jitter until a refresh adapts it
             jitter_frac=f32(0.0 if jf is None else jf),
-            t=int(getattr(self, "_resume_t", 0)),
+            t=torch.tensor(int(getattr(self, "_resume_t", 0)), dtype=torch.int32, device=device),
             mu=f32(mu),
             scalar_mode=torch.tensor(bool(getattr(self, "_resume_scalar_mode", False)),
                                      device=device),
@@ -151,15 +160,16 @@ class _DenseCovKernelMixin:
         host = torch.cat([state.step_size.reshape(1), state.mu.reshape(1),
                           state.scalar_mode.reshape(1).to(torch.float32),
                           state.r_low_streak.reshape(1).to(torch.float32),
+                          state.t.reshape(1).to(torch.float32),
                           state.cov.reshape(-1)]).cpu().numpy()
         d = state.cov_a.shape[0]
         self.step_size = float(host[0])
-        self.mass_cov = host[4:].reshape(d, d)
+        self.mass_cov = host[5:].reshape(d, d)
         # the warmup's adaptation carries into the next run: the dual
         # averaging, the refresh counter, the halves, the SHRUNK factors, the
         # jitter gate and the scalar mode; the tensors stay on the device
         self._resume_da = state.da
-        self._resume_t = state.t
+        self._resume_t = int(host[4])
         self._resume_halves = (state.cov_a, state.cov_b)
         self._resume_jitter_frac = state.jitter_frac
         self._resume_factors = (state.chol, state.chol_inv)
@@ -244,22 +254,42 @@ class _DenseMetricMixin:
     def _host_scalar_mode(self) -> bool:
         return bool(getattr(self.kernel, "_resume_scalar_mode", False))
 
-    def _make_step_aux(self, tuning):
+    def _make_step_aux(self, tuning, inline_refresh: bool = True):
         self._build_scalar = (not tuning) and self._host_scalar_mode()
+        self._build_inline_refresh = inline_refresh
         return super()._make_step_aux(tuning)
 
-    def make_update_kernel(self):
+    def _make_chunk_step(self, tuning):
+        return self._make_step_aux(tuning, inline_refresh=False)
+
+    def _graph_mode(self, tuning):
+        return ((not tuning) and self._host_scalar_mode(),)
+
+    def _run_pause(self, tuning, n_chains):
+        """The refresh after each iteration where ``t``, counted on the host
+        from the kernel's ``_resume_t``, reaches a multiple of
+        ``metric_refresh_every`` (a tuning run that adapts the metric of
+        more than one chain counts ``t``)."""
+        if not (tuning and getattr(self.params, "tune_inv_mass_diag", False) and n_chains > 1):
+            return None
+        t0 = int(getattr(self.kernel, "_resume_t", 0))
+        every = max(1, int(self.params.metric_refresh_every))
+        refresh = self._make_refresh()
+
+        def work(state):
+            if isinstance(state, tuple):
+                return (refresh(state[0]), *state[1:])
+            return refresh(state)
+
+        return (lambda k: (t0 + k) % every == 0, work)
+
+    def _make_refresh(self):
+        """``refresh(mstate) -> mstate``: the shrunk factors from the EMA
+        halves and the mode decision, kept where they are finite (the JAX
+        package's ``lax.cond`` branch)."""
         p = self.params
-        tune_metric = getattr(p, "tune_inv_mass_diag", False)
-        tune_step = getattr(p, "tune_step_size", False) and getattr(p, "adjustment", False)
-        alpha = p.metric_adjustment
-        refresh_every = max(1, int(p.metric_refresh_every))
-        ridge = p.metric_ridge
         r_lo, r_hi = float(p.scalar_fallback_r), float(p.scalar_recover_r)
         patience = int(p.scalar_fallback_patience)
-        da_params = getattr(self.kernel, "da_params", None) or DualAveragingParams()
-        shard = self.chain_shard
-        split = shard is not None and shard.size > 1
 
         def refresh(cov_a, cov_b, streak, scalar_mode):
             """The shrunk factors from the halves, and the mode decision."""
@@ -305,6 +335,30 @@ class _DenseMetricMixin:
             finite = torch.isfinite(a).all() & torch.isfinite(a_inv).all()
             return a, a_inv, finite if ok is None else finite & ok, mu, mode2, streak2
 
+        def apply(m: DenseMetropolisState) -> DenseMetropolisState:
+            a, a_inv, ok, mu, mode2, streak2 = refresh(m.cov_a, m.cov_b, m.r_low_streak,
+                                                       m.scalar_mode)
+            # any adapted metric engages the jitter gate
+            return dataclasses.replace(
+                m, chol=torch.where(ok, a, m.chol), chol_inv=torch.where(ok, a_inv, m.chol_inv),
+                jitter_frac=torch.where(ok, torch.ones_like(m.jitter_frac), m.jitter_frac),
+                mu=torch.where(ok, mu, m.mu), scalar_mode=torch.where(ok, mode2, m.scalar_mode),
+                r_low_streak=torch.where(ok, streak2, m.r_low_streak))
+
+        return apply
+
+    def make_update_kernel(self):
+        p = self.params
+        tune_metric = getattr(p, "tune_inv_mass_diag", False)
+        tune_step = getattr(p, "tune_step_size", False) and getattr(p, "adjustment", False)
+        alpha = p.metric_adjustment
+        refresh_every = max(1, int(p.metric_refresh_every))
+        ridge = p.metric_ridge
+        da_params = getattr(self.kernel, "da_params", None) or DualAveragingParams()
+        shard = self.chain_shard
+        split = shard is not None and shard.size > 1
+        refresh = self._make_refresh() if getattr(self, "_build_inline_refresh", True) else None
+
         def update(mstate: DenseMetropolisState, x: torch.Tensor, mask: torch.Tensor):
             n_local = x.shape[0]
             n_chains = self._n_global(n_local)
@@ -341,22 +395,19 @@ class _DenseMetricMixin:
                 cov_a = torch.where(finite, a_new, cov_a)
                 cov_b = torch.where(finite, b_new, cov_b)
                 t = t + 1
-                if t % refresh_every == 0:
-                    a, a_inv, ok, mu, mode2, streak2 = refresh(cov_a, cov_b, streak, scalar_mode)
-                    # any adapted metric engages the jitter gate
-                    chol = torch.where(ok, a, chol)
-                    chol_inv = torch.where(ok, a_inv, chol_inv)
-                    jitter_frac = torch.where(ok, torch.ones_like(jitter_frac), jitter_frac)
-                    mu_c = torch.where(ok, mu, mu_c)
-                    scalar_mode = torch.where(ok, mode2, scalar_mode)
-                    streak = torch.where(ok, streak2, streak)
             da, step_size = mstate.da, mstate.step_size
             if tune_step:
                 da, step_size = da_update_step_size(da, chain_mean(mask.to(torch.float32), shard),
                                                     da_params)
-            return DenseMetropolisState(step_size=step_size, cov_a=cov_a, cov_b=cov_b, chol=chol,
-                                        chol_inv=chol_inv, jitter_frac=jitter_frac, t=t, mu=mu_c,
-                                        scalar_mode=scalar_mode, r_low_streak=streak, da=da)
+            new = DenseMetropolisState(step_size=step_size, cov_a=cov_a, cov_b=cov_b, chol=chol,
+                                       chol_inv=chol_inv, jitter_frac=jitter_frac, t=t, mu=mu_c,
+                                       scalar_mode=scalar_mode, r_low_streak=streak, da=da)
+            # the refresh reads the EMA halves and writes the factors, the
+            # mode and the streak; the dual averaging touches none of them
+            if refresh is not None and tune_metric and n_chains > 1 \
+                    and int(t) % refresh_every == 0:
+                new = refresh(new)
+            return new
 
         return update
 
@@ -365,6 +416,8 @@ class DenseHMC(_DenseMetricMixin, HMC):
     """HMC with a dense metric; see the module docstring."""
 
     multi_rank_chains = True
+    # the iteration without the refresh: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[DenseHMCKernel] = None,
                  params: Optional[DenseHMCParameters] = None, device=None):
@@ -420,6 +473,8 @@ class DenseMALA(_DenseMetricMixin, Langevin):
     U``, noise ``sqrt(2 tau) chol(Sigma) xi``; see the module docstring."""
 
     multi_rank_chains = True
+    # the iteration without the refresh: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[DenseLangevinKernel] = None,
                  params: Optional[DenseLangevinParameters] = None, device=None):

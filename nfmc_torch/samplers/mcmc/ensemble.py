@@ -13,6 +13,14 @@ on the state and come from the run's generator like every other kernel's.
 2 C target calls and no gradients an iteration.
 
 The warmup dual-averages ``log(a - 1)`` toward an acceptance of 0.3.
+
+The JAX package runs a chunk as one ``lax.scan`` of this step. On CUDA with
+one rank a chunk here is replays of one captured CUDA graph of it
+(:mod:`nfmc_torch.core.graphs`): the half moves, the partner gathers and
+the dual-averaging update of ``a`` have static shapes, and ``(state, U)``
+is carried as tensors; ``a`` reaches the host once, after the run. Over
+several ranks every step gathers the halves (``collective_step``), and the
+run is the eager loop.
 """
 from __future__ import annotations
 
@@ -94,6 +102,9 @@ class AIES(MCMCSampler):
 
     multi_rank_chains = True
     draw_chain_axes = (None, None, None, None)
+    # on one rank, chunks replay a CUDA graph of the step
+    graph_capturable = True
+    collective_step = True  # the halves, gathered over the ranks every step
 
     def __init__(self, event_shape, target, kernel: Optional[AIESKernel] = None,
                  params: Optional[AIESParameters] = None, device=None):

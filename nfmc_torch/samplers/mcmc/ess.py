@@ -17,6 +17,14 @@ chains (counterpart of ``nfmc_tpu/samplers/mcmc/ess.py``).
 
 The whitening products run in full float32 (the JAX package asks for
 ``precision="highest"``); nothing in the port enables TF32.
+
+The JAX package runs a chunk as one ``lax.scan`` of the step, its shrink
+loop a ``lax.fori_loop`` of ``max_ess_step_iterations`` trips. Here the
+loop is unrolled in the step, and on CUDA a chunk is replays of one
+captured CUDA graph of it (:mod:`nfmc_torch.core.graphs`), the carried
+``nll`` a tensor and the shrink uniforms hoisted with the chunk's draws.
+The prior redraw of ``sample`` and the warmup's ellipse adaptation run
+outside the chunks.
 """
 from __future__ import annotations
 
@@ -134,6 +142,8 @@ def elliptical_slice_sampling_step(f: torch.Tensor, negative_log_likelihood: Cal
 class ESS(MCMCSampler):
     multi_rank_chains = True
     draw_chain_axes = (0, 0, 0, 1)  # the shrink uniforms hold the shrink steps first
+    # chunks replay a CUDA graph of the step
+    graph_capturable = True
 
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[ESSKernel] = None, params: Optional[ESSParameters] = None,
@@ -167,6 +177,12 @@ class ESS(MCMCSampler):
                                   use_chol)
 
         return draws
+
+    def _static_config(self, per_iter) -> tuple:
+        # the step closes over the likelihood, which the warmup's ellipse
+        # adaptation replaces: the config holds it, so that a new one builds
+        # a new driver (and its graphs) and an old id is never reused
+        return super()._static_config(per_iter) + (self.negative_log_likelihood,)
 
     def hoisted_elements_per_iter(self, x) -> int:
         # z (C d) + u (C) + theta0 (C) + shrink (max_iter C): for small d the
@@ -216,10 +232,13 @@ class ESS(MCMCSampler):
         z = self.resample_x0_draws(generator, (), self._n_global(x0.shape[0]))
         return self.resample_x0_fn(self._chain_rows(z, 0), x0)
 
-    def resample_x0_fn(self, z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def resample_x0_fn(self, z: torch.Tensor, x: torch.Tensor,
+                       state: Optional[ESSState] = None) -> torch.Tensor:
         """A prior draw ``N(0, cov)`` from the raw normals ``z``, shaped as
-        ``x``."""
-        chol = self.kernel.make_state(x.device).chol
+        ``x``, with the Cholesky factor of the carried ``state`` (the jump
+        runner's, which makes no tensor inside its step) or else of the
+        kernel."""
+        chol = (self.kernel.make_state(x.device) if state is None else state).chol
         if chol is None:
             return z.reshape(x.shape)
         return (z @ chol.T).reshape(x.shape)

@@ -9,13 +9,19 @@ accepting with ``log alpha = (beta_i - beta_j) (U(x_i) - U(x_j))``.
 The whole ladder is one batch: positions ``(T, C, *event)`` move in one
 ``(T C)``-row target evaluation an iteration (PT-HMC: one a leapfrog, a
 Python loop of ``n_leapfrog_steps`` fused gradient passes). The swap
-partners are a fixed permutation for each parity; the parity is the
-iteration counter's, a host integer, so choosing it costs no
-synchronisation. The per-rung dual averaging, the Vousden-style ladder
-adaptation (tuning only) and the swap counters are tensors carried on the
-device; the swap counters reach the host in ``sync_from_state``'s one copy.
-The run's chain state is the cold rung: stored draws, moments and
-acceptance are those of ``beta = 1``.
+partners are a fixed permutation for each parity, the two stacked and
+indexed on the device by the parity of the iteration counter ``i``, a 0-d
+int32 tensor carried as the JAX package's is; the ladder's ``kappa`` is
+computed from it on the device too. The per-rung dual averaging, the
+Vousden-style ladder adaptation (tuning only) and the swap counters are
+tensors carried on the device; the swap counters and ``i`` reach the host
+in ``sync_from_state``'s one copy. The run's chain state is the cold rung:
+stored draws, moments and acceptance are those of ``beta = 1``.
+
+The JAX package runs a chunk as one ``lax.scan`` of this step; on CUDA
+with one rank a chunk here is replays of one captured CUDA graph of it
+(:mod:`nfmc_torch.core.graphs`). Over several ranks every step sums the
+swap counts over them (``collective_step``), and the run is the eager loop.
 """
 from __future__ import annotations
 
@@ -38,14 +44,13 @@ from .base import MCMCSampler
 
 @dataclasses.dataclass
 class PTState:
-    """The ladder's state: tensors on the device, and the iteration counter
-    on the host."""
+    """The ladder's state, tensors on the device."""
 
     betas: torch.Tensor  # (T,) descending, betas[0] = 1
     step_sizes: torch.Tensor  # (T,)
     da: DualAveragingState  # leaves of shape (T,)
     inv_mass_diag: torch.Tensor  # (event_size,)
-    i: int  # iterations run (the swap parity, the ladder's kappa)
+    i: torch.Tensor  # i32 scalar: iterations run (the swap parity, the ladder's kappa)
     swap_accepts: torch.Tensor  # (T-1,) i32 accepted swaps an edge
     swap_attempts: torch.Tensor  # (T-1,) i32 attempted swaps an edge
     swap_rate_ema: torch.Tensor  # (T-1,) f32 acceptance EMA an edge
@@ -123,7 +128,7 @@ class PTKernel(MCMCKernel):
             da=da,
             inv_mass_diag=torch.as_tensor(self.inv_mass_diag, dtype=torch.float32, device=device),
             # the counter continues across runs, so the swap parity resumes
-            i=int(getattr(self, "_resume_i", 0)),
+            i=torch.tensor(int(getattr(self, "_resume_i", 0)), dtype=torch.int32, device=device),
             swap_accepts=torch.zeros((T - 1,), dtype=torch.int32, device=device),
             swap_attempts=torch.zeros((T - 1,), dtype=torch.int32, device=device),
             swap_rate_ema=torch.zeros((T - 1,), dtype=torch.float32, device=device),
@@ -134,18 +139,19 @@ class PTKernel(MCMCKernel):
         T, d = state.betas.shape[0], state.inv_mass_diag.shape[0]
         host = torch.cat([state.betas, state.step_sizes, state.inv_mass_diag,
                           state.swap_rate_ema]).to(torch.float64)
-        counts = torch.stack([state.swap_accepts.sum(), state.swap_attempts.sum()])
+        counts = torch.stack([state.swap_accepts.sum(), state.swap_attempts.sum(),
+                              state.i.to(torch.int64)])
         host = torch.cat([host, counts.to(torch.float64)]).cpu().numpy()
         self.betas = host[:T].astype(np.float32)
         self.step_sizes = host[T:2 * T].astype(np.float32)
         self.step_size = float(self.step_sizes[0])
         self.inv_mass_diag = host[2 * T:2 * T + d].astype(np.float32)
-        self.swap_acceptance_rates = host[2 * T + d:-2].astype(np.float32)
-        self.n_accepted_swaps = int(host[-2])
-        self.n_attempted_swaps = int(host[-1])
+        self.swap_acceptance_rates = host[2 * T + d:-3].astype(np.float32)
+        self.n_accepted_swaps = int(host[-3])
+        self.n_attempted_swaps = int(host[-2])
         # each rung's dual averaging continues in a later run
         self._resume_da = state.da
-        self._resume_i = state.i
+        self._resume_i = int(host[-1])
 
     def __repr__(self):
         rates = self.swap_acceptance_rates
@@ -180,6 +186,7 @@ class ParallelTempering(MCMCSampler):
 
     move: str = "mala"  # "mala" (PTMALA), "rwmh" (PTRWMH), "hmc" (PTHMC)
     draw_chain_axes = (1, 1, 1)  # the draws hold the rungs first
+    collective_step = True  # the swap counts, summed over the ranks every step
 
     def __init__(self, event_shape, target, kernel: Optional[PTKernel] = None,
                  params: Optional[PTParameters] = None, device=None):
@@ -272,20 +279,21 @@ class ParallelTempering(MCMCSampler):
         u_and_grad = value_and_batched_grad(target)
         device = self.device
         shard = self.chain_shard
-        # for each parity: the partners, the rung whose swap draw a pair
-        # shares, the rungs that have a partner and the edges swept
-        sweeps = []
-        for offset in (0, 1):
-            partner = _partner_perm(T, offset)
-            active = partner[:-1] == np.arange(1, T)
-            sweeps.append({
-                "partner": torch.as_tensor(partner, device=device),
-                "draw_row": torch.as_tensor(np.minimum(np.arange(T), partner), device=device),
-                "paired": torch.as_tensor(partner != np.arange(T), device=device)[:, None],
-                "edge_active": torch.as_tensor(active, device=device),
-                "attempts": torch.as_tensor(np.where(active, 1, 0), dtype=torch.int32,
-                                            device=device),
-            })
+        # the two parities' tables, stacked: the partners, the rung whose
+        # swap draw a pair shares, the rungs that have a partner, the edges
+        # swept and their attempts; the step picks a row by i % 2
+        rungs = np.arange(T)
+        partners = np.stack([_partner_perm(T, 0), _partner_perm(T, 1)])  # (2, T)
+        active = partners[:, :-1] == rungs[1:]
+        sweeps = {
+            "partner": torch.as_tensor(partners, device=device),
+            "draw_row": torch.as_tensor(np.minimum(rungs, partners), device=device),
+            "paired": torch.as_tensor(partners != rungs, device=device)[:, :, None],
+            "edge_active": torch.as_tensor(active, device=device),
+            "attempts": torch.as_tensor(np.where(active, 1, 0), dtype=torch.int32, device=device),
+        }
+        kappa0 = torch.tensor(p.ladder_kappa0, dtype=torch.float32, device=device)
+        ladder_t0 = torch.tensor(p.ladder_t0, dtype=torch.float32, device=device)
 
         def step(x_cold, state, draws):
             if use_grad:
@@ -360,8 +368,9 @@ class ParallelTempering(MCMCSampler):
             if use_grad:
                 g_all = torch.where(bmask, g_p, g_all)
 
-            # ---- the replica-exchange sweep, its parity known on the host ----
-            sw = sweeps[pts.i % 2]
+            # ---- the replica-exchange sweep, its parity read on the device ----
+            parity = (pts.i % 2).reshape(1).to(torch.int64)
+            sw = {k: v.index_select(0, parity)[0] for k, v in sweeps.items()}
             partner = sw["partner"]
             delta = (beta - beta[partner])[:, None] * (u_all - u_all[partner])
             swap_mask = (log_u_swap[sw["draw_row"]] < delta) & sw["paired"]  # (T, C)
@@ -399,9 +408,8 @@ class ParallelTempering(MCMCSampler):
                 if p.tune_ladder and T >= 3:
                     temps = 1.0 / beta  # ascending
                     s = temps[1:] - temps[:-1]
-                    # float32 as the JAX package's i.astype(f32) / t0
-                    kappa = float(np.float32(p.ladder_kappa0)
-                                  / (np.float32(1.0) + np.float32(pts.i) / np.float32(p.ladder_t0)))
+                    # float32, in the JAX package's order: i.astype(f32) / t0
+                    kappa = kappa0 / (1.0 + pts.i.to(torch.float32) / ladder_t0)
                     adj = torch.cat([ema[:-1] - ema[1:], ema.new_zeros(1)])
                     s = s * torch.exp(kappa * adj)
                     s = s * (temps[-1] - temps[0]) / s.sum()  # anchor the endpoints
@@ -479,6 +487,8 @@ class PTMALA(ParallelTempering):
 
     move = "mala"
     multi_rank_chains = True
+    # on one rank, chunks replay a CUDA graph of the ladder step
+    graph_capturable = True
 
 
 class PTRWMH(ParallelTempering):
@@ -487,6 +497,8 @@ class PTRWMH(ParallelTempering):
 
     move = "rwmh"
     multi_rank_chains = True
+    # on one rank, chunks replay a CUDA graph of the ladder step
+    graph_capturable = True
 
 
 class PTHMC(ParallelTempering):
@@ -496,3 +508,5 @@ class PTHMC(ParallelTempering):
 
     move = "hmc"
     multi_rank_chains = True
+    # on one rank, chunks replay a CUDA graph of the ladder step
+    graph_capturable = True

@@ -11,8 +11,13 @@ front) followed by ``run_chunk(state, draws)``. With a frozen flow
 (``fit_nf=False``) the proposals do not depend on the chain state, so the
 chunk makes every proposal in ONE batched coupling inverse and then loops
 over the iterations with no host synchronisation; for the declared classes
-(MALA, ULA, HMC, UHMC and MH inside) on CUDA the loop is ``chunk`` replays
-of one captured outer iteration (:mod:`nfmc_torch.core.graphs`). With ``fit_nf=True`` and
+(MALA, ULA, HMC, UHMC, MH, ESS and AIES inside) on CUDA the loop is
+``chunk`` replays of one captured outer iteration
+(:mod:`nfmc_torch.core.graphs`), the counterpart of the JAX package's
+compiled ``lax.scan`` over the outer iterations; ESS's prior redraw at the
+start of each outer iteration is inside it, from hoisted draws. An inner
+step that calls a collective every iteration (AIES's) runs the eager loop
+over several ranks. With ``fit_nf=True`` and
 fixed-effort ``flow_fit_kwargs`` each outer iteration from
 ``n_jumps_before_training`` on refits the flow on its inner draws
 (``make_scan_fit``) inside the chunk, and the proposals are made per
@@ -269,8 +274,9 @@ class JumpNFMC(Sampler):
             if resample is not None:
                 # each outer iteration starts from a prior redraw (the
                 # reference's ESS quirk); the carried nll is stale then
-                x = resample(x0_i, x)
-                ks = inner._augment_state(inner._extract_mstate(ks), x)
+                mstate = inner._extract_mstate(ks)
+                x = resample(x0_i, x, mstate)
+                ks = inner._augment_state(mstate, x)
             states, infos = [], []
             for s in range(inner_n):
                 d_s = tuple(d[s] for d in inner_i)
@@ -319,7 +325,8 @@ class JumpNFMC(Sampler):
         inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
         sweep, jump = self._make_outer_steps(inner_aux is not None)
         graphed = (refit is None and graphs.declared(self, (flow,))
-                   and graphs.captures(x.device, self.chain_shard))
+                   and graphs.captures(x.device, self.chain_shard,
+                                       collective=inner.collective_step))
         with torch.no_grad():
             if refit is None:
                 xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
@@ -476,7 +483,7 @@ class JumpNFMC(Sampler):
         defer_store = (store and pipelined and self.params.n_iterations * (inner_n + 1)
                        * n_chains * event_elems <= RNG_HOIST_ELEMENT_LIMIT)
         deferred = []
-        st = {"state": self.init_chunk_state(x0)}
+        st = {"state": graphs.contiguous(self.init_chunk_state(x0))}
         if fit_cfg is not None:
             n_epochs, lr, batch_size, keep_best, shuffle = fit_cfg
             scan_fit = make_scan_fit(
@@ -714,6 +721,9 @@ class JumpESS(JumpNFMC):
     iteration starts from a prior redraw (the reference's ESS quirk)."""
 
     multi_rank_chains = True
+    # the outer iteration without refits, the redraw included: chunks
+    # replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, negative_log_likelihood, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -756,6 +766,9 @@ class JumpAIES(JumpNFMC):
     runner's state refresh after each jump recomputes it."""
 
     multi_rank_chains = True
+    # the outer iteration without refits: on one rank, chunks replay a
+    # CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):

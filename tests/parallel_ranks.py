@@ -514,6 +514,51 @@ def variational_fit(mesh, workdir):
     return {"flow": _flat(flow.params)}
 
 
+DECLINED_ITERS = 6
+
+
+def _graph_iterations(run) -> int:
+    """``run()`` under the capture layer's protocol; the iterations it
+    asked of ``IterationGraph.run``."""
+    from nfmc_torch.core import graphs
+
+    asked = [0]
+    orig = graphs.IterationGraph.run
+
+    def counted(self, n):
+        asked[0] += n
+        return orig(self, n)
+
+    graphs.IterationGraph.run = counted
+    try:
+        with graphs.without_capture():
+            run()
+    finally:
+        graphs.IterationGraph.run = orig
+    return asked[0]
+
+
+def pt_mala_declined(mesh, workdir):
+    """PT-MALA sampling (its step sums the swap counts over the ranks)
+    through the protocol: no graph over several ranks."""
+    from nfmc_torch.samplers.mcmc import PTMALA
+    from nfmc_torch.samplers.mcmc.pt import PTKernel
+
+    s = PTMALA((D,), _target(), kernel=PTKernel(event_size=D, n_temps=4), device="cpu")
+    s.params.n_iterations = DECLINED_ITERS
+    return {"graph_iterations": _graph_iterations(lambda: _entry(s.sample, _x0(23), mesh, seed=3))}
+
+
+def aies_declined(mesh, workdir):
+    """AIES sampling (its step gathers the halves over the ranks) through
+    the protocol: no graph over several ranks."""
+    from nfmc_torch.samplers.mcmc import AIES
+
+    s = AIES((D,), _target(), device="cpu")
+    s.params.n_iterations = DECLINED_ITERS
+    return {"graph_iterations": _graph_iterations(lambda: _entry(s.sample, _x0(24), mesh, seed=4))}
+
+
 SCENARIOS = {f.__name__: f for f in (
     mala, hmc, imh, jump_mala_fused, jump_mala_host, front_door, front_door_checkpoint,
     resumable_shard_fn, mala_divergent, mala_divergent_graphed, jump_divergent_graphed,

@@ -43,7 +43,7 @@ def from_jax_pt_state(js) -> PTState:
         betas=_t(js.betas), step_sizes=_t(js.step_sizes),
         da=DualAveragingState(t=_t(da.t), error_sum=_t(da.error_sum),
                               log_step_averaged=_t(da.log_step_averaged), mu=_t(da.mu)),
-        inv_mass_diag=_t(js.inv_mass_diag), i=int(js.i),
+        inv_mass_diag=_t(js.inv_mass_diag), i=_t(js.i, torch.int32),
         swap_accepts=_t(js.swap_accepts, torch.int32),
         swap_attempts=_t(js.swap_attempts, torch.int32), swap_rate_ema=_t(js.swap_rate_ema))
 
