@@ -5,8 +5,15 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. facts: torch/CUDA versions, the card and its power limit, nvcc, triton;
   2. build the kernels from nfmc_torch/csrc/ with nvcc (the RealNVP coupling
-     forward and backward, the spline coupling forward and backward), one
-     process per source, all at once;
+     forward and backward, the spline coupling forward and backward, and
+     graph_cond.cu, the CUDA graph conditional nodes), one process per
+     source, all at once;
+  2b. the conditional nodes (core/graphs.py's when and loop: IF and WHILE
+     nodes) in one captured iteration replayed with predicates that change
+     between replays, nested, with counted launches and an autograd pass
+     inside, against the same body run eagerly: counters, state and launch
+     counts exactly; the capture's wall and memory, 64 leapfrogs unrolled
+     against a loop of them;
   3. forward kernel vs its plain PyTorch version, both directions, at the
      sampler's shapes (d=100, H=128, L=4 at B=100 and B=218,400; IMH's
      hoisted chunks B=100, 400, ..., 102,400 and, at the chunk cap,
@@ -152,7 +159,10 @@ Phases, in order; any failure exits non-zero before the last line:
      (scripts/mcmc_reference_cpu.py), the counter law (the statistics'
      calls = gradient calls = what the steps reported: the sum of their
      leapfrogs and one evaluation a chain each), the mean and maximum tree
-     depth, it/s, gradients/s, ESS/s and the device busy share;
+     depth, it/s, gradients/s, ESS/s and the device busy share; NUTS, ChEES
+     and their jump and NeuTra forms (12-12d) replay graphs whose
+     trajectories are conditional nodes, each front-door call capturing
+     anew;
   12a. chees_hmc (bench.py:891-936): 1024 chains on DiagonalGaussian1(100),
      341 warmup and 1000 iterations, store_samples=False: the tuned
      trajectory length and step size, leapfrogs an iteration, acceptance and
@@ -314,6 +324,10 @@ Phases, in order; any failure exits non-zero before the last line:
      iteration (the host's runtime calls) and the device's busy share, and
      the graph cache's memory after the run. Every earlier phase runs its
      declared paths with graphs (the launch laws count a replay's launches).
+     Also NUTS (phase 12's width and depth, 50 tuning iterations
+     from the JAX-tuned step and 100), ChEES and NeuTra-ChEES (12a's and
+     12d's, 50 + 250), jump_chees (12c's, 64 outer) and jump_nuts (16
+     outer), with each capture's wall and pool memory.
   21. the flow fits as CUDA graph replays (nfmc_torch.flows.train): the
      headline's warmup fit on phase 5b's own data (4096 rows at batch 256,
      3000 validation rows, early stopping), IMH's reverse-KL warmup fit at
@@ -2528,12 +2542,13 @@ def run_flow_sampler_phases(dev) -> dict:
 
 class StepReports:
     """For the duration of a ``with`` block, what ``cls``'s steps report
-    (their StepInfo's dynamic call and gradient counts, summed on the
-    device, and the steps taken), by tuning flag: the run's own account of
-    its work, apart from the statistics' accumulators. The steps are
-    counted with ``build.tally``, so that a replayed graph counts the steps
-    its capture recorded (a replay runs no Python); a captured step's
-    dynamic counts are the host's 0."""
+    (their StepInfo's dynamic call and gradient counts, and the steps
+    taken), by tuning flag: the run's own account of its work, apart from
+    the statistics' accumulators. A replay runs no Python, so the steps are
+    counted with ``build.tally`` (a replayed graph counts the steps its
+    capture recorded) and the counts are added in place to a device
+    tensor made at the flag's first step (eager: a graph's first iteration
+    runs eagerly), which a replay adds to as the capture found it."""
 
     def __init__(self, cls):
         self.cls = cls
@@ -2554,8 +2569,12 @@ class StepReports:
 
                 def wrapped(*a):
                     out = step(*a)
-                    s = rec.sums.setdefault(tuning, [0, 0])
-                    s[0], s[1] = s[0] + out[2].n_calls, s[1] + out[2].n_grads
+                    if tuning not in rec.sums:
+                        rec.sums[tuning] = torch.zeros(2, dtype=torch.int64,
+                                                       device=out[0].device)
+                    s = rec.sums[tuning]
+                    s[0].add_(out[2].n_calls)
+                    s[1].add_(out[2].n_grads)
                     build.tally(rec.steps, tuning)
                     return out
                 return wrapped
@@ -2574,7 +2593,7 @@ class StepReports:
 
     def totals(self, tuning):
         """(calls, grads, steps) the steps of that flag reported."""
-        calls, grads = self.sums.get(tuning, (0, 0))
+        calls, grads = self.sums[tuning].tolist() if tuning in self.sums else (0, 0)
         return int(calls), int(grads), self.steps[tuning]
 
 
@@ -2743,7 +2762,7 @@ def run_mcmc_phases(dev) -> dict:
     res["chees_grads_per_s"] = st.n_target_gradient_calls / wall_s
     print(f"chees_hmc ({CHEES_C} chains, DiagonalGaussian1({D}), {CHEES_WARM} warmup + "
           f"{CHEES_ITERS} it): wall {wall:.3f} s, of which warmup {ins.inner_s:.3f} s "
-          f"({CHEES_WARM} syncs, one an iteration); sampling {wall_s:.3f} s, "
+          f"(captured: its leapfrogs in scopes, no host read); sampling {wall_s:.3f} s, "
           f"{res['chees_it_per_s']:.2f} it/s, {res['chees_grads_per_s']:.0f} gradient calls/s "
           f"(counted, 2LC), trajectory {k.trajectory_length:.4f}, step {k.step_size:.6f}, "
           f"{lf:.4f} leapfrogs an iteration, acc {st.acceptance_rate:.6f}, max|mean|/sigma "
@@ -5215,6 +5234,120 @@ def run_sharded_phases(dev, known, ranks19b) -> dict:
     return res
 
 
+def run_conditional_probe(dev) -> dict:
+    """Phase 2b: CUDA graph conditional nodes, which NUTS's and ChEES's
+    captured trajectories stand on (``graphs.when``, an IF node, and
+    ``graphs.loop``, a WHILE node). One captured iteration of counters
+    advanced under a true and a false predicate, a scope nested in a
+    scope, a loop whose length changes from one iteration to the next (and
+    one nested in a scope), counted launches in the scopes and an autograd
+    pass in a scope, replayed with predicates that change from one
+    iteration to the next, against the same body run eagerly: the
+    counters, the state and the launch count exactly. Then the capture's
+    wall and memory with 64 leapfrogs of (1024, 100) unrolled against the
+    same as a loop. Raises where CUDA refuses a conditional node."""
+    from nfmc_torch.core import graphs
+    from nfmc_torch.ops import build
+    from nfmc_torch.utils import value_and_batched_grad
+
+    t0 = time.perf_counter()
+    n_it = 9
+    flags = torch.tensor([[i % 2 == 0, i % 3 != 1, i % 4 < 2] for i in range(n_it)],
+                         device=dev)
+    reps = torch.tensor([1 + (3 * i) % 5 for i in range(n_it)], device=dev)
+    u_grad = value_and_batched_grad(lambda x: 0.5 * (x * x).sum(-1) + (x ** 4).sum(-1) / 8)
+
+    class Probe:
+        launches = 0
+
+    def body(state, rows):
+        c, v = state
+        f, r = rows
+
+        def count():
+            build.count_launch(Probe, ("probe",))
+
+        graphs.when(f[0], lambda: c[0:1].add_(1))
+        graphs.when(~f[0], lambda: c[3:4].add_(1))
+
+        def outer():
+            c[1:2].add_(1)
+            graphs.when(f[2], lambda: (c[2:3].add_(1), count()))
+            graphs.loop(4, lambda t: t < r - 1, lambda t: (c[5:6].add_(t), count()), dev)
+        graphs.when(f[1], outer)
+        graphs.loop(6, lambda t: t < r, lambda t: (c[4:5].add_(1), count()), dev)
+
+        def leapfrog():
+            _u, g = u_grad(v)
+            v.copy_(v - 0.01 * g)
+        graphs.when(f[0], leapfrog)
+        w = v * 2.0 + c[0].to(v.dtype)  # made after the scopes, in the main capture
+        return [c, v], [w.sum(-1)]
+
+    v0 = torch.randn((1024, 100), generator=torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    state0 = [torch.zeros(6, dtype=torch.int64, device=dev), v0]
+    ref_state = [t.clone() for t in state0]
+    ref_out = []
+    with torch.no_grad():
+        for i in range(n_it):
+            ref_state, outs = body(ref_state, [flags[i], reps[i]])
+            ref_out.append(outs[0])
+    eager_launches = Probe.launches
+    Probe.launches = 0
+    graph = graphs.IterationGraph(body, state0, [((n_it, 3), torch.bool), ((n_it,), torch.int64)],
+                                  [((n_it, 1024), torch.float32)], dev)
+    graph.load(state0, [flags, reps])
+    with torch.no_grad():
+        graph.run(n_it)
+    torch.cuda.synchronize()
+    check(isinstance(graph.backend, graphs._CudaGraph) and graph.captured,
+          "2b: the probe was not captured")
+    got = graph.state[0].tolist()
+    print(f"2b conditional IF and WHILE nodes (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}): counters {got}, the eager loop's {ref_state[0].tolist()}; "
+          f"launches counted in the scopes {Probe.launches} (eager {eager_launches}); capture "
+          f"{graph.capture_seconds:.3f} s, pool {graph.backend.pool_bytes} B")
+    taken = int(flags[:, 0].sum())
+    check(torch.equal(graph.state[0], ref_state[0]) and got[0] == taken
+          and got[3] == n_it - taken and got[4] == int(reps.sum()),
+          f"2b: the counters {got} differ from the eager loop's {ref_state[0].tolist()}")
+    check(torch.equal(graph.state[1], ref_state[1])
+          and torch.equal(graph.outputs[0], torch.stack(ref_out)),
+          "2b: the state or the outputs differ from the eager loop's")
+    check(Probe.launches == eager_launches > 0, f"2b: {Probe.launches} launches counted, the "
+                                                f"eager loop {eager_launches}")
+
+    # the capture's wall and memory: 64 leapfrogs unrolled against a loop of
+    # 64 runs of one
+    walls = {}
+    for looped in (False, True):
+        def many(state, rows, looped=looped):
+            (v,) = state
+
+            def step(_t=None):
+                _u, g = u_grad(v)
+                v.copy_(v - 0.001 * g)
+            if looped:
+                graphs.loop(64, lambda t: t < rows[0], step, dev)
+            else:
+                for _ in range(64):
+                    step()
+            return [v], []
+
+        g2 = graphs.IterationGraph(many, [v0], [((2,), torch.int64)], [], dev)
+        g2.load([v0], [torch.full((2,), 64, dtype=torch.int64, device=dev)])
+        with torch.no_grad():
+            g2.run(2)
+        torch.cuda.synchronize()
+        walls[looped] = (g2.capture_seconds, g2.backend.pool_bytes)
+        del g2
+    print(f"2b capture of 64 leapfrogs of (1024, 100): unrolled {walls[False][0]:.3f} s, pool "
+          f"{walls[False][1] / 2 ** 20:.1f} MiB; a loop {walls[True][0]:.3f} s, pool "
+          f"{walls[True][1] / 2 ** 20:.1f} MiB; phase 2b {time.perf_counter() - t0:.1f} s")
+    return {"captures": walls}
+
+
 # phase 20: each captured path at full width (d = 100, 100 chains, RealNVP 4 x
 # 128), with its depth cut: the headline GRAPH_OUTER outer iterations,
 # pipelined and under a time limit that never stops it (chunks 1, 4, 16 and
@@ -5232,6 +5365,15 @@ GRAPH_IMH_ITERS, GRAPH_SPLINE_ITERS, GRAPH_TESS_ITERS, GRAPH_NEUTRA_ITERS = 1000
 # 1 / GRAPH_EAGER_PROFILE_CUT of the iterations: the eager loop's launches
 # an iteration are steady, and the profiler's own cost grows with them
 GRAPH_ESS_ITERS, GRAPH_EAGER_PROFILE_CUT = 250, 25
+# NUTS (phase 12's 1024 chains, d = 100, depth 10) GRAPH_DYN_WARM tuning
+# iterations from the JAX package's tuned step (from the default 0.1 the
+# first trees reach depth 10: ~17k eager launches an iteration) and
+# GRAPH_DYN_ITERS sampling iterations; ChEES (12a's 1024 chains on
+# DiagonalGaussian1(100)) and NeuTra-ChEES (12d's) GRAPH_MCMC_WARM and
+# GRAPH_MCMC_ITERS; jump_chees in 12c's setting, GRAPH_OUTER outer
+# iterations, jump_nuts GRAPH_JUMP_NUTS_OUTER (its eager loop takes ~0.2 s
+# an outer iteration)
+GRAPH_DYN_WARM, GRAPH_DYN_ITERS, GRAPH_JUMP_NUTS_OUTER = 50, 100, 16
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
@@ -5356,16 +5498,16 @@ def run_graph_phases(dev) -> dict:
                 **kw)
         return GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, make
 
-    def jump12(strategy, **kw):
+    def jump12(strategy, n_outer=GRAPH_OUTER, **kw):
         def make(cut=1):
             return nfmc_torch.sample(
                 misfit, strategy=strategy, flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H),
                                                      seed=0),
-                n_chains=C, n_iterations=GRAPH_OUTER // cut,
+                n_chains=C, n_iterations=max(1, n_outer // cut),
                 inner_param_kwargs={"n_iterations": JUMP12_INNER},
                 param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False,
                 **kw)
-        return GRAPH_OUTER, make
+        return n_outer, make
 
     def ess(cut=1):
         return nfmc_torch.sample(ess_target, strategy="ess", flow=None,
@@ -5385,7 +5527,8 @@ def run_graph_phases(dev) -> dict:
 
     def measured(run, eager):
         """``run()``'s summary, launches and wall, with graphs or without,
-        and the graph cache as the run left it (its samplers still alive)."""
+        and the graph cache as the run left it (its samplers still alive):
+        its description, and the wall and memory of each capture in it."""
         build.reset_launch_counts()
         torch.cuda.synchronize()
         with CaptureSampler() as cap:
@@ -5395,10 +5538,19 @@ def run_graph_phases(dev) -> dict:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             cache = graphs.CACHE.describe()
+            captures = [(g.capture_seconds, g.backend.pool_bytes)
+                        for g in (w() for _r, w in list(graphs.CACHE._order.values()))
+                        if g is not None and g.captured]
+            summary = run_summary(out)
+            summary["state"].update(adapted_state(out.kernel))
+            for sampler in cap.samplers:
+                inner = getattr(sampler, "inner_sampler", sampler)
+                if hasattr(inner, "tree_depths"):
+                    summary["state"]["tree_depths"] = np.asarray(inner.tree_depths())
+                if hasattr(inner, "leapfrog_total"):
+                    summary["state"]["leapfrog_total"] = np.asarray(inner.leapfrog_total)
         del cap
-        summary = run_summary(out)
-        summary["state"].update(adapted_state(out.kernel))
-        return summary, {w.__name__: w.launches for w in build.WRAPPERS}, wall, cache
+        return summary, {w.__name__: w.launches for w in build.WRAPPERS}, wall, (cache, captures)
 
     def same(a, b) -> bool:
         if isinstance(a, dict):
@@ -5416,7 +5568,8 @@ def run_graph_phases(dev) -> dict:
         line = (f"20 {label} ({n_it} it): wall without graphs {w_eager:.3f} s, with "
                 f"{w_graph:.3f} s ({w_eager / w_graph:.2f}x); bit for bit {parts}; launches "
                 f"{ {k: v for k, v in l_graph.items() if v} }")
-        row = {"wall": (w_eager, w_graph), "same": parts}
+        cache, captures = cache
+        row = {"wall": (w_eager, w_graph), "same": parts, "captures": captures}
         if profiled:
             n_e, run_e = short or (n_it, run)
             t_prof = time.perf_counter()
@@ -5429,8 +5582,9 @@ def run_graph_phases(dev) -> dict:
                      f"graphs ({n_e} it), {pg[2] / n_it:.1f} with (graph launches "
                      f"{pg[3] / n_it:.2f}), device busy {100 * pe[1] / pe[0]:.1f}% / "
                      f"{100 * pg[1] / pg[0]:.1f}% of {pe[0]:.3f} / {pg[0]:.3f} s")
-        line += f"; graph cache after the run {cache}; the comparison took " \
-                f"{time.perf_counter() - t_cmp:.1f} s"
+        line += (f"; graph cache after the run {cache}, its captures (wall s, pool MiB) "
+                 f"{[(round(c, 3), round(b / 2 ** 20, 1)) for c, b in captures]}; the "
+                 f"comparison took {time.perf_counter() - t_cmp:.1f} s")
         print(line + (f", its profiles {t_prof:.1f} s" if profiled else "") + f" ({smi})")
         check(all(parts.values()), f"20 {label}: the run with graphs differs from the eager "
                                    f"run: {parts}")
@@ -5446,6 +5600,46 @@ def run_graph_phases(dev) -> dict:
                                           lambda make=make: make(GRAPH_EAGER_PROFILE_CUT)))
     res["since_wall"] = time.perf_counter() - t_since
     print(f"20 PT, AIES, ESS, the dense metric, jump_ess and jump_aies: {res['since_wall']:.1f} s "
+          f"({smi})")
+
+    # the trajectories of data-dependent length, in scopes on device
+    # predicates (graphs.when): NUTS at phase 12's width and depth, ChEES at
+    # 12a's, the jump forms in 12c's setting and NeuTra-ChEES as 12d
+    def nuts20(cut=1):
+        return nfmc_torch.sample(
+            StandardGaussian((D,)), strategy="nuts", n_chains=NUTS_C, warmup=True,
+            n_warmup_iterations=GRAPH_DYN_WARM // cut, n_iterations=GRAPH_DYN_ITERS // cut,
+            kernel_kwargs={"max_tree_depth": NUTS_DEPTH, "step_size": NUTS_STEP_JAX_MID},
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
+
+    def chees20(cut=1):
+        return nfmc_torch.sample(
+            target, strategy="chees_hmc", n_chains=CHEES_C, warmup=True,
+            n_warmup_iterations=GRAPH_MCMC_WARM // cut, n_iterations=GRAPH_MCMC_ITERS // cut,
+            param_kwargs={"store_samples_on_device": True}, seed=0, show_progress=False)
+
+    def neutra20(cut=1):
+        return nfmc_torch.sample(
+            StandardGaussian((D,)), strategy="neutra_chees", flow=flow(), n_chains=C,
+            warmup=True, n_warmup_iterations=GRAPH_MCMC_WARM // cut,
+            n_iterations=GRAPH_MCMC_ITERS // cut,
+            param_kwargs={"warmup_fit_kwargs": {"n_epochs": 0}, "store_samples_on_device": True},
+            seed=0, show_progress=False)
+
+    dynamic = {
+        "nuts": (GRAPH_DYN_WARM + GRAPH_DYN_ITERS, nuts20),
+        "chees_hmc": (GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, chees20),
+        "jump_nuts": jump12("jump_nuts", GRAPH_JUMP_NUTS_OUTER,
+                            inner_kernel_kwargs={"step_size": JUMP12_NUTS_STEP}),
+        "jump_chees": jump12("jump_chees"),
+        "neutra_chees": (GRAPH_MCMC_WARM + GRAPH_MCMC_ITERS, neutra20),
+    }
+    t_dyn = time.perf_counter()
+    for label, (n_it, make) in dynamic.items():
+        compare(label, n_it, make, short=(max(1, n_it // GRAPH_EAGER_PROFILE_CUT),
+                                          lambda make=make: make(GRAPH_EAGER_PROFILE_CUT)))
+    res["dynamic_wall"] = time.perf_counter() - t_dyn
+    print(f"20 NUTS, ChEES, jump_nuts, jump_chees and NeuTra-ChEES: {res['dynamic_wall']:.1f} s "
           f"({smi})")
 
     # ---- 20b. the headline on a one-rank NCCL mesh ---------------------------------
@@ -5887,13 +6081,15 @@ def main() -> None:
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     build.library("coupling")  # builds and loads every source
+    sources = {**build.SOURCES, **build.HELPERS}
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s, "
-          f"{len(build.SOURCES)} sources in parallel: {', '.join(build.SOURCES)})")
+          f"{len(sources)} sources in parallel: {', '.join(sources)})")
     for ln in build.build_log.splitlines():
         if "registers" in ln or "spill" in ln or ln.startswith("=="):
             print("  ptxas:", ln.strip())
+    run_conditional_probe(dev)
 
-    lap("phases 1-2")
+    lap("phases 1-2b")
 
     # ---- 3. kernel vs plain ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False

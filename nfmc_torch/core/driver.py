@@ -294,9 +294,11 @@ class ChunkedScanDriver:
     accumulators stay on the device.
 
     Work that does not depend on the chain state can be hoisted out of the
-    loop: ``make_precompute(tuning)`` gives ``precompute(x, kstate, draws)
-    -> aux`` (tensors with leading dim ``chunk``, or None to decline, e.g.
-    above a footprint cap) and the iterations then run ``make_step_aux
+    loop: ``make_precompute(tuning, graphed)`` gives ``precompute(x,
+    kstate, draws) -> aux`` (tensors with leading dim ``chunk``, or None to
+    decline, e.g. above a footprint cap; ``graphed`` says whether the run
+    replays graphs, whose inputs the aux tensors then are, or runs the
+    eager loop) and the iterations then run ``make_step_aux
     (tuning)``'s ``step(x, kstate, draws_i, aux_i)``; a chunk whose
     precompute declines runs ``make_step``'s step. ``hoist_per_iter(x)``,
     one iteration's hoisted f32 elements (its draws, and its precompute's
@@ -398,10 +400,10 @@ class ChunkedScanDriver:
         the tuning flag (part of a graph's key)."""
         step = self.make_step(tuning)
         data_transform = self.data_transform
-        precompute = self.make_precompute(tuning) if self.make_precompute else None
-        step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         device = x0.device
         graphed = self.capturable and graphs.captures(device, shard, tuning, self.collective)
+        precompute = self.make_precompute(tuning, graphed) if self.make_precompute else None
+        step_aux = self.make_step_aux(tuning) if self.make_step_aux else None
         st = {"x": x0.clone(memory_format=torch.contiguous_format),
               "kstate": graphs.contiguous(kstate),
               "acc": StatsAccum.zeros(self.event_shape, device, shard)}

@@ -44,15 +44,23 @@ graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
   that caches tensors across calls holds nothing it was given
   (:func:`in_body`): the static buffers change under replays, which bump no
   version counter.
+* A body whose work depends on the data runs it in scopes on device
+  predicates, the counterparts of ``lax.cond`` and ``lax.while_loop``:
+  :func:`when` and :func:`loop`, conditional IF and WHILE nodes under a
+  capture (``csrc/graph_cond.cu`` makes them: PyTorch 2.11 has no Python
+  API for them), a host read of the predicate otherwise. A scope's
+  launches count once for each run of its body (a device tally).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
 import threading
+import time
 import weakref
 from typing import Callable, List, Sequence, Tuple
 
@@ -194,6 +202,216 @@ def contiguous(tree):
     return unflatten(spec, [t.contiguous() for t in leaves])
 
 
+# ---- scopes on device predicates: a conditional and a loop --------------------------------
+
+def when(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """Run ``body()`` where the 0-d bool tensor ``pred`` holds: the
+    counterpart of the JAX package's ``lax.cond`` (a branch that does
+    nothing), e.g. one of NUTS's doublings, which runs while a chain runs.
+
+    * Under a CUDA capture ``body`` is captured into a conditional IF node
+      on ``pred``: a replay reads ``pred`` on the device and runs or skips
+      the body there. Its launches are counted for the replays that take
+      the scope (:class:`nfmc_torch.ops.build.Scope`).
+    * Otherwise (the eager loop, a graph's first, eager iteration and the
+      protocol without capture) ``pred`` is read on the host once and
+      ``body()`` runs or not, as a replay would decide.
+
+    A skipped body writes nothing: state that crosses the scope lives in
+    tensors made before it, and the body writes them in place (a tensor
+    the body makes holds no value after a skipped replay)."""
+    if _capturing(pred.device):
+        _check_pred(pred)
+        _capture_scope(pred.device, pred, lambda: (body(), None)[1], loop=False)
+    else:
+        _eager_scope(pred.device)
+        if _decide(pred):
+            body()
+
+
+def loop(n: int, pred: Callable[[torch.Tensor], torch.Tensor],
+         body: Callable[[torch.Tensor], None], device: torch.device, every: int = 1) -> None:
+    """``body(t)`` for ``t = 0, 1, ...``: the first run always, each next
+    while ``t < n`` and ``pred(t)`` (a 0-d bool tensor) holds after the
+    run before. ``t`` is an int where the host runs the loop, and a 0-d
+    int64 tensor on ``device``, which the loop advances after each run,
+    where the runs are decided as on the device (a capture, and the
+    protocol without capture). The counterpart of the JAX package's
+    ``lax.while_loop`` (NUTS's leaves, ChEES's leapfrogs).
+
+    * Under a CUDA capture the runs are a conditional WHILE node: ``body``
+      and ``pred`` are captured once into its body graph, and a replay
+      runs it as often as ``pred`` decides on the device. Its launches are
+      counted once for each run.
+    * Eagerly ``pred(t)`` is read on the host before the runs ``every``,
+      ``2 every``, ... (the runs between are not tested: they must leave
+      the state as it is where ``pred`` would have stopped the loop, as
+      masked updates do). The protocol without capture tests it before
+      every run, as a replay does.
+
+    The body writes the state it carries in place, as in :func:`when`."""
+    if n < 1:
+        return
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if _capturing(device):
+        t = torch.zeros((), dtype=torch.int64, device=device)
+
+        def run():
+            body(t)
+            t.add_(1)
+            nxt = (t < n) & pred(t)
+            _check_pred(nxt)
+            return nxt
+
+        _capture_scope(device, None, run, loop=True)
+        return
+    _eager_scope(device)
+    t = None
+    if in_body() and getattr(_local, "uncaptured", 0):
+        # as a replay: tested before every run, at a counter on the device
+        t, every = torch.zeros((), dtype=torch.int64, device=device), 1
+    for k in range(n):
+        at = k if t is None else t
+        if k > 0 and k % every == 0 and not _decide(pred(at)):
+            break
+        body(at)
+        if t is not None:
+            t.add_(1)
+
+
+def _capturing(device: torch.device) -> bool:
+    """Whether a scope on ``device`` is captured (a CUDA stream capture is
+    under way on the current stream)."""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _check_pred(pred: torch.Tensor) -> None:
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError(f"a scope's predicate is a 0-d bool tensor, not {pred.dtype} "
+                         f"{tuple(pred.shape)}")
+
+
+def _decide(pred: torch.Tensor) -> bool:
+    """The one host read of a scope's predicate (outside a capture)."""
+    return bool(pred)
+
+
+def _capture_scope(device: torch.device, pred, run: Callable, loop: bool) -> None:
+    """Capture what ``run()`` enqueues into a conditional node of the graph
+    being captured (:func:`_node`): an IF node on ``pred``, or a WHILE node
+    (``loop``) whose first run is unconditional and whose next runs hold
+    where the tensor ``run()`` returns does. The body counts its launches
+    for the runs of the node: a device tally of them, made where the body
+    launches something counted."""
+    with _node(device, pred, loop) as node, build.scope() as sc:
+        node.next = run()
+        if sc is not None and sc.counts_own():
+            sc.tally = _tally(device)
+            sc.tally.add_(1)
+
+
+def _tally(device: torch.device) -> torch.Tensor:
+    """A scope's tally: a slot of the capture's tally buffer, made before
+    the capture (a tensor made in it could share memory with the
+    temporaries the capture frees, which each replay writes again); a
+    tensor of its own for a stand-in node outside a real capture."""
+    cap = getattr(_local, "capture", None)
+    if cap is None:
+        return torch.zeros((), dtype=torch.int64, device=device)
+    if cap.tallies is None or cap.n_tallies == cap.tallies.numel():
+        raise RuntimeError(f"the capture opened more scopes that count launches than the "
+                           f"{0 if cap.tallies is None else cap.tallies.numel()} tallies sized "
+                           f"from the {cap.eager_scopes} scopes of its eager iteration")
+    cap.n_tallies += 1
+    return cap.tallies[cap.n_tallies - 1]
+
+
+class _Node:
+    """A conditional node being captured: ``next`` is a WHILE body's test
+    for its next run (None for an IF node)."""
+
+    next = None
+
+
+@contextlib.contextmanager
+def _node(device: torch.device, pred, loop: bool):
+    """For the ``with`` block, the current stream captures into the body of
+    a new conditional node (``csrc/graph_cond.cu``): a stream of its own,
+    its allocations in the capture's scope pool (a body's capture is not
+    the graph's, whose pool takes none of them). Raises where the node is
+    refused: nothing falls back to a host read."""
+    cap = getattr(_local, "capture", None)
+    streams = _scope_streams.get(str(device))
+    if cap is None or streams is None:
+        raise RuntimeError("a scope is captured only inside an IterationGraph's capture, after "
+                           "the graph's first, eager iteration")
+    depth = cap.scope_depth
+    if depth >= len(streams):
+        raise RuntimeError(f"more than {len(streams)} scopes open at once in a capture")
+    lib = build.library("graph_cond")
+    child = streams[depth]
+    handle = ctypes.c_ulonglong(0)
+    err = lib.nfmc_cond_begin(torch.cuda.current_stream(device).cuda_stream,
+                              None if pred is None else pred.data_ptr(), child.cuda_stream,
+                              int(loop), ctypes.byref(handle))
+    if err:
+        status = [lib.nfmc_cond_status(st.cuda_stream) for st in streams]
+        raise RuntimeError(f"CUDA refused a graph conditional node (cudaError "
+                           f"{err % 10000} at step {err // 10000} of nfmc_cond_begin, at scope "
+                           f"depth {depth}, the scope streams' capture status {status}): NUTS's "
+                           "and ChEES's trajectories cannot be captured")
+    index = device.index
+    if depth == 0:
+        if cap.scope_pool is None:
+            cap.scope_pool = torch.cuda.graph_pool_handle()
+        torch._C._cuda_beginAllocateToPool(index, cap.scope_pool)
+    cap.scope_depth += 1
+    node = _Node()
+    try:
+        with torch.cuda.stream(child):
+            yield node
+    finally:
+        cap.scope_depth -= 1
+        err = lib.nfmc_cond_end(child.cuda_stream, handle,
+                                None if node.next is None else node.next.data_ptr())
+        if depth == 0:
+            torch._C._cuda_endAllocateToPool(index, cap.scope_pool)
+            if cap.holds_pool:
+                torch._C._cuda_releasePool(index, cap.scope_pool)
+            else:
+                # the first scope's reference to the pool is the graph's,
+                # given back when the graph goes (before, the allocator could
+                # free blocks that the graph's bodies use)
+                cap.holds_pool = True
+                weakref.finalize(cap, torch._C._cuda_releasePool, index,
+                                 cap.scope_pool).atexit = False
+    if err:
+        raise RuntimeError(f"a conditional node's body did not capture (cudaError "
+                           f"{err % 10000} at step {err // 10000} of nfmc_cond_end)")
+
+
+def _eager_scope(device: torch.device) -> None:
+    """A scope decided on the host. In a graph's first, eager iteration on
+    CUDA (its capture comes next): count it (the capture's tallies are
+    sized from the count), and, once a process, load the conditional
+    nodes' library and kernel and make the device's body streams."""
+    key = str(device)
+    if device.type != "cuda" or not in_body():
+        return
+    _local.eager_scopes = getattr(_local, "eager_scopes", 0) + 1
+    if key in _scope_streams:
+        return
+    lib = build.library("graph_cond")
+    err = lib.nfmc_cond_warm()
+    if err:
+        raise RuntimeError(f"the conditional nodes' kernel does not load (cudaError {err})")
+    streams = [lib.nfmc_cond_stream() for _ in range(MAX_SCOPE_DEPTH)]
+    if not all(streams):
+        raise RuntimeError("no stream could be made for the conditional nodes' bodies")
+    _scope_streams[key] = [torch.cuda.ExternalStream(s, device=device) for s in streams]
+
+
 def check_host_counts(info) -> None:
     """Raise where a captured step reports a count on the host
     (``StepInfo.n_calls`` / ``n_grads`` as a Python int other than 0): a
@@ -207,14 +425,36 @@ def check_host_counts(info) -> None:
 
 # ---- one captured iteration ---------------------------------------------------------------
 
+# the most scopes (:func:`when`, :func:`loop`) open at once in a capture (a
+# doubling of a NUTS step and its leaves in it)
+MAX_SCOPE_DEPTH = 4
+# the streams that capture the scopes' bodies, one for each depth of open
+# scopes, by device (made by :func:`_eager_scope`)
+_scope_streams: dict = {}
+
+
 class _CudaGraph:
-    """A ``torch.cuda.CUDAGraph`` captured on a stream of its own."""
+    """A ``torch.cuda.CUDAGraph`` captured on a stream of its own, and for
+    a graph with conditional scopes, the pool their allocations come from,
+    which lives as long as the graph, and their tallies."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.graph = None
         self.pool_bytes = 0
+        # made by the first scope: a pool id and no MemPool object (a
+        # MemPool's destructor empties the cache, which the allocator
+        # refuses while any capture is under way, or was left open by a
+        # capture that failed)
+        self.scope_pool = None
+        self.holds_pool = False
+        self.scope_depth = 0
+        # the scopes that the graph's eager iteration entered (set by
+        # IterationGraph.run), and the tallies made from them
+        self.eager_scopes = 0
+        self.tallies = None
+        self.n_tallies = 0
 
     @contextlib.contextmanager
     def side_stream(self):
@@ -226,6 +466,12 @@ class _CudaGraph:
 
     def capture(self, fn: Callable[[], None]) -> None:
         graph = torch.cuda.CUDAGraph()
+        if self.eager_scopes:
+            # a tally for each scope the capture may open: a skipped IF body
+            # hid the scopes nested in it from the eager iteration (NUTS's
+            # doubling holds one loop), so twice those it entered, and 16 more
+            self.tallies = torch.zeros(2 * self.eager_scopes + 16, dtype=torch.int64,
+                                       device=self.device)
         before = torch.cuda.memory_reserved(self.device)
         # a collection inside the capture may free another graph, whose
         # destruction is not permitted while a stream captures
@@ -236,6 +482,7 @@ class _CudaGraph:
                 # thread_local: the NCCL watchdog and the autograd engine's
                 # threads may query events while this thread captures
                 graph.capture_begin(capture_error_mode="thread_local")
+                _local.capture = self
                 try:
                     fn()
                 except BaseException:
@@ -246,6 +493,7 @@ class _CudaGraph:
                     raise
                 graph.capture_end()
         finally:
+            _local.capture = None
             if collecting:
                 gc.enable()
         self.graph = graph
@@ -297,6 +545,7 @@ class IterationGraph:
             backend = _Uncaptured if getattr(_local, "uncaptured", 0) else _CudaGraph
         self.backend = backend(device)
         self.captured = False
+        self.capture_seconds = 0.0  # the capture's wall, on the host
         self.warm = False
         self.events: list = []
         self.replays = 0
@@ -345,13 +594,18 @@ class IterationGraph:
             raise ValueError(f"a chunk of {n} iterations exceeds the static buffers' {self.length}")
         done = 0
         if not self.warm and n > 0:
+            seen = getattr(_local, "eager_scopes", 0)
             with self.backend.side_stream():
                 self._iteration()
+            self.backend.eager_scopes = getattr(_local, "eager_scopes", 0) - seen
             self.warm, done = True, 1
         if done < n and not self.captured:
+            t0 = time.perf_counter()
             with build.recording() as events:
                 self.backend.capture(self._iteration)
+            build.arm(events)
             self.events, self.captured = events, True
+            self.capture_seconds = time.perf_counter() - t0
         for _ in range(n - done):
             self.backend.replay()
         self.replays += n - done
@@ -512,5 +766,5 @@ def hoist_length(block: int, row_elems: int) -> int:
 
 __all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "contiguous",
            "declared", "disable_graphs", "fit_captures", "flatten", "hoist_length", "in_body",
-           "iterations", "replays", "signature", "sliced", "transport_captures", "unflatten",
-           "without_capture"]
+           "iterations", "loop", "replays", "signature", "sliced", "transport_captures",
+           "unflatten", "when", "without_capture"]

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-Each source of ``SOURCES`` is compiled with ``nvcc`` for ``sm_90a`` at first
+Each source of ``SOURCES`` (the flows' kernels) and ``HELPERS`` (the CUDA
+graph conditional nodes) is compiled with ``nvcc`` for ``sm_90a`` at first
 use into its own shared library under ``nfmc_torch/_build/`` (git-ignored),
 keyed by the hash of the source, the shared headers and the flags. All
 ``nvcc`` processes run at once. The libraries have a plain C interface and
@@ -11,8 +12,10 @@ Every kernel wrapper of :mod:`nfmc_torch.ops` registers itself in
 through ``count_launch``, which also tells the ``LISTENERS`` the launch's
 shape; ``reset_launch_counts()`` sets the counts to 0. While a CUDA graph
 captures (``recording``) a launch is recorded instead of counted, and each
-replay of the graph counts what was recorded (``count_replays``). ``tally``
-counts other work the same way (a flow fit's Adam steps and epochs).
+replay of the graph counts what was recorded (``count_replays``), and a
+conditional scope's launches (``scope``) once for each run of its body,
+which a device tally of the scope counts. ``tally`` counts other work the
+same way (a flow fit's Adam steps and epochs).
 """
 from __future__ import annotations
 
@@ -25,12 +28,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 SOURCES = {name: CSRC / f"{name}.cu"
            for name in ("coupling", "coupling_bwd", "spline", "spline_bwd")}
+# the CUDA graph conditional nodes of core/graphs.py (no kernel of a flow)
+HELPERS = {"graph_cond": CSRC / "graph_cond.cu"}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -52,6 +57,13 @@ SIGNATURES = {
     ("spline_bwd", "nfmc_spline_vjp_scratch_floats"): ([_I] * 5, ctypes.c_longlong),
     ("spline", "nfmc_spline_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
     ("spline_bwd", "nfmc_spline_vjp_tile_bytes"): ([_I] * 2, ctypes.c_longlong),
+    # parent stream, predicate, child stream, loop, handle out / child
+    # stream, handle, next predicate
+    ("graph_cond", "nfmc_cond_begin"): ([_P] * 3 + [_I, ctypes.POINTER(ctypes.c_ulonglong)], _I),
+    ("graph_cond", "nfmc_cond_end"): ([_P, ctypes.c_ulonglong, _P], _I),
+    ("graph_cond", "nfmc_cond_warm"): ([], _I),
+    ("graph_cond", "nfmc_cond_status"): ([_P], _I),
+    ("graph_cond", "nfmc_cond_stream"): ([], _P),
 }
 
 _libs = None
@@ -64,8 +76,32 @@ WRAPPERS: List = []
 # spline stack) or "rqs vjp" / "lrs vjp"
 LISTENERS: List[Callable] = []
 # the counts of the iteration a graph is capturing, as (count function,
-# first argument, second argument), None outside a capture
-_recording: Optional[List[Tuple]] = None
+# first argument, second argument) or a Scope, None outside a capture
+_recording: Optional[List] = None
+
+
+class Scope:
+    """A conditional scope of a capture (``core.graphs.when`` or ``loop``):
+    the counts recorded inside it (``events``, as ``recording`` gives them)
+    happen once for each run of its body in the replays. ``tally``, a 0-d
+    int64 tensor on the device that the body advances, counts those runs;
+    it is None where the scope recorded no count of its own (its nested
+    scopes keep their own tallies)."""
+
+    def __init__(self):
+        self.events: List = []
+        self.tally = None
+
+    def counts_own(self) -> bool:
+        return any(not isinstance(e, Scope) for e in self.events)
+
+
+def _scopes(events):
+    """Every scope of ``events``, nested ones included, in order."""
+    for e in events:
+        if isinstance(e, Scope):
+            yield e
+            yield from _scopes(e.events)
 
 
 def register(*wrappers) -> None:
@@ -115,12 +151,59 @@ def recording():
         _recording = None
 
 
+@contextlib.contextmanager
+def scope():
+    """For the ``with`` block, inside a ``recording``, counts are recorded
+    in a new :class:`Scope` (given, else None) nested where the block
+    opens."""
+    global _recording
+    if _recording is None:
+        yield None
+        return
+    outer, sc = _recording, Scope()
+    outer.append(sc)
+    _recording = sc.events
+    try:
+        yield sc
+    finally:
+        _recording = outer
+
+
+def arm(events) -> None:
+    """Set the tallies of ``events``' scopes to 0: once after the capture
+    that recorded them (a capture runs nothing, and each replay adds to
+    them)."""
+    for sc in _scopes(events):
+        if sc.tally is not None:
+            sc.tally.zero_()
+
+
 def count_replays(events, n: int) -> None:
     """Count the launches and tallies ``events`` (a capture's
-    ``recording``) once for each of ``n`` replays."""
-    if n > 0:
-        for count, a, b in events:
+    ``recording``) once for each of ``n`` replays, and those of each scope
+    once for each run the replays made of its body: its tally, read on the
+    host (one read for all of them, only where a scope counts something)
+    and set to 0 again."""
+    if n <= 0:
+        return
+    for e in events:
+        if not isinstance(e, Scope):
+            count, a, b = e
             count(a, b, n)
+    counted = [sc for sc in _scopes(events) if sc.tally is not None]
+    if not counted:
+        return
+    import torch
+
+    tallies = [sc.tally for sc in counted]
+    taken = torch.stack(tallies).tolist()
+    torch._foreach_zero_(tallies)
+    for sc, k in zip(counted, taken):
+        if k > 0:
+            for e in sc.events:
+                if not isinstance(e, Scope):
+                    count, a, b = e
+                    count(a, b, k)
 
 
 def find_nvcc() -> str:
@@ -190,9 +273,9 @@ def load(sources: dict, build_dir: Path = BUILD_DIR) -> dict:
 
 
 def library(name: str):
-    """The loaded kernel library ``name`` (a key of ``SOURCES``); the first
-    call builds and loads them all."""
+    """The loaded library ``name`` (a key of ``SOURCES`` or ``HELPERS``);
+    the first call builds and loads them all."""
     global _libs
     if _libs is None:
-        _libs = load(SOURCES)
+        _libs = load({**SOURCES, **HELPERS})
     return _libs[name]

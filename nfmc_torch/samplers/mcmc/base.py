@@ -172,12 +172,14 @@ class MCMCSampler(Sampler):
         the tuning flag (the dense samplers' scalar math)."""
         return ()
 
-    def _make_precompute(self, tuning: bool) -> Optional[Callable]:
+    def _make_precompute(self, tuning: bool, graphed: bool = False) -> Optional[Callable]:
         """``(x, state, draws) -> aux`` or None: work of a chunk's steps that
         does not depend on the chain state, done in one pass up front (aux
         tensors with the draws' leading dims); the steps then run
         ``_make_step_precomputed``. None (the default) runs
-        ``_make_step_aux``'s step."""
+        ``_make_step_aux``'s step. ``graphed``: the steps run as replays of
+        a captured iteration (the aux tensors are its inputs), else
+        eagerly."""
         return None
 
     def _make_step_precomputed(self, tuning: bool) -> Optional[Callable]:

@@ -11,12 +11,16 @@ ChEES gradient estimated across chains and weighted by the acceptance
 probabilities, clipped to ``[log eps, log(eps max_leapfrog_steps)]``; the
 inverse mass follows the variance EMA.
 
-The leapfrog count is a device scalar that the eager loop needs on the host.
-A tuning step reads it once (one synchronisation an iteration, as its step
-size and ``T`` change every iteration). Without tuning both are fixed, so
-``L`` depends only on the iteration counter or the drawn ``u``: the chunk's
-whole vector of ``L`` is computed up front on the device, in float32
-exactly as the step would, and copied to the host once a chunk.
+The leapfrog count is a device scalar. Without tuning the step size and
+``T`` are fixed, so ``L`` depends only on the iteration counter or the
+drawn ``u``: the chunk's whole vector of ``L`` is computed up front on the
+device, in float32 exactly as the step would; a tuning step computes its
+own. The eager loop reads ``L`` on the host, once an iteration when tuning
+and once a chunk otherwise, and runs ``L`` leapfrogs. A captured iteration
+reads nothing: its leapfrogs are a loop on the device
+(:func:`nfmc_torch.core.graphs.loop`, a WHILE node, the JAX package's
+``lax.while_loop``), each next one while fewer than ``L`` ran. Both run
+the same leapfrogs on the same numbers.
 
 One gradient pass a position (L + 1 an iteration), each one autograd pass
 that also gives U there, so the Hamiltonian's two ends cost no extra call.
@@ -33,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core import graphs
 from ...core.chains import chain_mean
 from ...core.driver import StepInfo
 from ...core.sampler import MCMCKernel, MCMCParameters
@@ -159,6 +164,9 @@ class CheesHMC(MCMCSampler):
 
     multi_rank_chains = True
     draw_chain_axes = (0, 0, None)  # the jitter is one draw an iteration
+    # the trajectory's leapfrogs are a loop on a device predicate
+    # (``graphs.loop``): chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[CheesHMCKernel] = None,
                  params: Optional[CheesHMCParameters] = None, device=None):
@@ -167,9 +175,14 @@ class CheesHMC(MCMCSampler):
         if params is None:
             params = CheesHMCParameters()
         super().__init__(event_shape, target, kernel, params, device=device)
-        # the leapfrog counts of every step taken, summed on the host (each
-        # step has its count there)
-        self.leapfrog_total = 0
+        # the leapfrog counts of every step taken, summed on the device by
+        # the steps in place (a replay adds where the capture found it)
+        self._leapfrogs = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    @property
+    def leapfrog_total(self) -> int:
+        """The leapfrogs of every step this sampler took (one host read)."""
+        return int(self._leapfrogs)
 
     @property
     def name(self):
@@ -199,10 +212,11 @@ class CheesHMC(MCMCSampler):
         n = cs.iter_idx + 1 if offset is None else cs.iter_idx + 1 + offset
         return _van_der_corput(n)
 
-    def _make_precompute(self, tuning: bool):
+    def _make_precompute(self, tuning: bool, graphed: bool = False):
         """Without tuning: the leapfrog counts of the chunk's iterations, in
-        the order they run, as one host tensor with the draws' leading dims
-        (one device-to-host copy)."""
+        the order they run, with the draws' leading dims: on the device
+        where the run replays graphs (a graph input), else copied to the
+        host (one device-to-host copy a chunk)."""
         if tuning:
             return None
         max_steps = self.kernel.max_leapfrog_steps
@@ -213,13 +227,14 @@ class CheesHMC(MCMCSampler):
             prefix = tuple(u_jit.shape)
             offset = torch.arange(u_jit.numel(), dtype=torch.int32, device=u_jit.device)
             u = self._jitter(cs, u_jit.reshape(-1), offset)
-            return (leapfrog_count(u, cs.log_t, cs.step_size, max_steps).cpu().reshape(prefix),)
+            counts = leapfrog_count(u, cs.log_t, cs.step_size, max_steps).reshape(prefix)
+            return (counts,) if graphed else (counts.cpu(),)
 
         return precompute
 
     def _make_step_precomputed(self, tuning: bool):
         step = self._make_step(tuning)
-        return lambda x, state, draws, aux: step(x, state, draws, int(aux[0]))
+        return lambda x, state, draws, aux: step(x, state, draws, aux[0])
 
     def _make_step_aux(self, tuning: bool):
         step = self._make_step(tuning)
@@ -227,7 +242,10 @@ class CheesHMC(MCMCSampler):
 
     def _make_step(self, tuning: bool):
         """``step(x, state, draws, n_leapfrog)``: ``n_leapfrog`` None takes
-        the count from the state on the device (one synchronisation)."""
+        the count from the state on the device. Eagerly the count is read on
+        the host (one synchronisation where it lies on the device); in a
+        graph's body the leapfrogs are a loop that tests it on the
+        device."""
         target = self.target
         event_shape = self.event_shape
         u_and_grad = value_and_batched_grad(target)
@@ -243,28 +261,43 @@ class CheesHMC(MCMCSampler):
         def chain_sum(v):
             return shard.sum(v.sum()) if split else v.sum()
 
+        lf_total = self._leapfrogs
+
         def step(x, cs: CheesState, draws, n_leapfrog):
             p_raw, log_u, u_jit = draws
             u_jit = self._jitter(cs, u_jit)
             n_chains = self._n_global(x.shape[0])
             inv_mass, eps = cs.inv_mass_diag, cs.step_size
             if n_leapfrog is None:
-                n_leapfrog = int(leapfrog_count(u_jit, cs.log_t, eps, max_steps))
+                n_leapfrog = leapfrog_count(u_jit, cs.log_t, eps, max_steps)
+            scoped = graphs.in_body()
+            if not scoped:
+                n_leapfrog = int(n_leapfrog)
 
             def precondition(v):
                 return (flatten_event(v, event_shape) * inv_mass[None]).reshape(v.shape)
 
             p0 = (p_raw / torch.sqrt(inv_mass)[None]).reshape(x.shape)
             u_x, g = u_and_grad(x)
-            xq, pq, u_end = x, p0, u_x
-            for _ in range(n_leapfrog):
-                pq = pq - 0.5 * eps * g
-                xq = xq + eps * precondition(pq)
-                u_end, g = u_and_grad(xq)
-                pq = pq - 0.5 * eps * g
+            h_start = u_x + 0.5 * sum_except_batch(precondition(p0) * p0, event_shape)
+            # the trajectory in tensors made before the loop, which writes
+            # them in place
+            xq, pq, u_end = x.clone(), p0, u_x
+
+            def leapfrog(_t):
+                pq.sub_(0.5 * eps * g)
+                xq.add_(eps * precondition(pq))
+                u_new, g_new = u_and_grad(xq)
+                u_end.copy_(u_new)
+                g.copy_(g_new)
+                pq.sub_(0.5 * eps * g)
+
+            # L >= 1 leapfrogs: in a graph's body up to the longest, each
+            # after the first while fewer than L ran; eagerly L, untested
+            graphs.loop(max_steps if scoped else n_leapfrog, lambda t: t < n_leapfrog, leapfrog,
+                        x.device, every=1 if scoped else n_leapfrog)
 
             finite_prop = torch.isfinite(flatten_event(xq, event_shape)).all(-1)
-            h_start = u_x + 0.5 * sum_except_batch(precondition(p0) * p0, event_shape)
             h_end = u_end + 0.5 * sum_except_batch(precondition(pq) * pq, event_shape)
             log_alpha = h_start - h_end
             finite = finite_prop & torch.isfinite(h_end)
@@ -317,10 +350,16 @@ class CheesHMC(MCMCSampler):
                             diverged=(~finite.all()).to(torch.int32),
                             n_calls=2 * n_leapfrog * n_chains + 2 * n_chains,
                             n_grads=2 * n_leapfrog * n_chains)
-            self.leapfrog_total += n_leapfrog
+            lf_total.add_(n_leapfrog)
             return x_new, cs, info
 
         return step
+
+    def _graph_mode(self, tuning: bool) -> tuple:
+        """A captured trajectory bakes in its longest length and the
+        kernel's fixed settings."""
+        kern = self.kernel
+        return (kern.max_leapfrog_steps, kern.jitter, kern.adam_lr)
 
     # the counts ride StepInfo; nothing is static per iteration
     def calls_per_iter(self, n_chains: int) -> int:

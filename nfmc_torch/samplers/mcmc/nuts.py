@@ -42,15 +42,19 @@ class NUTSParameters(MetropolisParameters):
 class NUTS(MetropolisSampler):
     """Multi-chain NUTS. ``tree_depths()`` gives the mean and the maximum
     tree depth over the chains and the steps this sampler took (summed on
-    the device, read once; with chains sharded over several ranks, summed
-    and maximised over them at the end of each run, so every rank reports
-    the global figures).
+    the device by the steps themselves, read once; with chains sharded
+    over several ranks, summed and maximised over them at the end of each
+    run, so every rank reports the global figures).
 
-    Sharded, each rank builds its own chains' trees: the host's breaks
-    (no chain running) are the rank's, and a rank that stops early leaves
-    its finished chains as the masked updates of the unsharded run would."""
+    Sharded, each rank builds its own chains' trees: its scopes' predicates
+    (a chain still running) are the rank's, and a rank that stops early
+    leaves its finished chains as the masked updates of the unsharded run
+    would."""
 
     multi_rank_chains = True
+    # the trajectory's loops are scopes on device predicates
+    # (``graphs.when``, ``graphs.loop``): chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel: Optional[NUTSKernel] = None,
                  params: Optional[NUTSParameters] = None, device=None):
@@ -59,10 +63,12 @@ class NUTS(MetropolisSampler):
         if params is None:
             params = NUTSParameters()
         super().__init__(event_shape, target, kernel, params, device=device)
-        # (sum and max of the tree depths on the device, trajectories
-        # counted): over every run so far, and the running one's on this rank
+        # (sum and max of the tree depths, trajectories counted) over every
+        # run so far, on the device; the running one's on this rank, an
+        # int64 (3,) tensor the steps add to in place (a replay writes it
+        # where the capture found it)
         self._depths = None
-        self._run_depths = None
+        self._run_depths = torch.zeros(3, dtype=torch.int64, device=self.device)
 
     @property
     def name(self):
@@ -88,14 +94,16 @@ class NUTS(MetropolisSampler):
                                    max_tree_depth=self.kernel.max_tree_depth,
                                    max_delta_energy=self.params.max_delta_energy)
         update_kernel = self.make_update_kernel()
+        run = self._run_depths
 
         def step(x, mstate, draws):
             x_new, moved, diverged, accept_stat, n_leapfrog, depth = nuts_step(
                 x, mstate.step_size, mstate.inv_mass_diag, draws)
             if tuning:
                 mstate = update_kernel(mstate, x_new, accept_stat)
-            self._run_depths = _fold_depths(self._run_depths, (depth.sum(), depth.max(),
-                                                               x.shape[0]))
+            run[0].add_(depth.sum())
+            torch.maximum(run[1], depth.max().to(torch.int64), out=run[1])
+            run[2].add_(x.shape[0])
             total = n_leapfrog.sum() + x.shape[0]
             info = StepInfo(n_accepted=moved.sum().to(torch.int32),
                             diverged=diverged.any().to(torch.int32),
@@ -106,13 +114,13 @@ class NUTS(MetropolisSampler):
 
     def _finish_run(self) -> None:
         """Fold the run's depths into the total, summed (the depths and the
-        trajectories) and maximised over the ranks of the chain shard."""
-        run, self._run_depths = self._run_depths, None
-        if run is None:
-            return
+        trajectories) and maximised over the ranks of the chain shard, and
+        set the run's to 0 in place."""
+        run = self._run_depths.clone()
+        self._run_depths.zero_()
         shard = self.chain_shard
         if shard is not None and shard.size > 1:
-            run = (shard.sum(run[0]), shard.max(run[1]), shard.n_global(run[2]))
+            run = torch.stack([shard.sum(run[0]), shard.max(run[1]), shard.sum(run[2])])
         self._depths = _fold_depths(self._depths, run)
 
     def tree_depths(self):
@@ -122,8 +130,10 @@ class NUTS(MetropolisSampler):
             self._finish_run()  # steps taken outside a run (unsharded)
         if self._depths is None:
             return None
-        d_sum, d_max, n = self._depths
-        return float(d_sum) / n, int(d_max)
+        d_sum, d_max, n = self._depths.tolist()
+        if n == 0:
+            return None
+        return d_sum / n, int(d_max)
 
     def calls_per_iter(self, n_chains: int) -> int:
         return 0  # dynamic: reported per trajectory through StepInfo.n_calls
@@ -134,7 +144,7 @@ class NUTS(MetropolisSampler):
 
 def _fold_depths(total, part):
     """``(depth sum, depth max, trajectories)`` of ``total`` and ``part``
-    together (``total`` None: ``part``)."""
+    together, an int64 (3,) tensor (``total`` None: ``part``)."""
     if total is None:
         return part
-    return total[0] + part[0], torch.maximum(total[1], part[1]), total[2] + part[2]
+    return torch.stack([total[0] + part[0], torch.maximum(total[1], part[1]), total[2] + part[2]])

@@ -196,7 +196,7 @@ class FixedIMH(AbstractIMH):
         per_draw = flow_proposal_footprint_per_draw(flow, self.event_size)
         n_global = self._n_global
 
-        def make_precompute(tuning):
+        def make_precompute(tuning, graphed):
             # the proposals do not depend on the chain state: the chunk's
             # base draws go through ONE batched coupling inverse, and their
             # potential through one target call; declined above the cap

@@ -319,14 +319,14 @@ class JumpNFMC(Sampler):
         inner_draws = draws["inner"]
         chunk, inner_n = inner_draws[0].shape[:2]
         x, ks, acc, jacc = state.x, state.inner_state, state.acc, state.jump_acc
-        # work of the inner steps that does not depend on the chain state
-        # (ChEES's leapfrog counts) for the whole chunk, in one pass
-        precompute = inner._make_precompute(False)
-        inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
-        sweep, jump = self._make_outer_steps(inner_aux is not None)
         graphed = (refit is None and graphs.declared(self, (flow,))
                    and graphs.captures(x.device, self.chain_shard,
                                        collective=inner.collective_step))
+        # work of the inner steps that does not depend on the chain state
+        # (ChEES's leapfrog counts) for the whole chunk, in one pass
+        precompute = inner._make_precompute(False, graphed)
+        inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
+        sweep, jump = self._make_outer_steps(inner_aux is not None)
         with torch.no_grad():
             if refit is None:
                 xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
@@ -373,8 +373,8 @@ class JumpNFMC(Sampler):
         adjustment (the weights ride in the carried state)."""
         inner = self.inner_sampler
         flow = self.kernel.flow
-        return (inner._static_config(None), id(flow), id(flow.bijection), id(self.target),
-                self.params.adjusted_jumps)
+        return (inner._static_config(None), inner._graph_mode(False), id(flow),
+                id(flow.bijection), id(self.target), self.params.adjusted_jumps)
 
     def _run_chunk_graph(self, state: ChunkState, draws: dict, inner_aux, prop, length: int):
         """:meth:`run_chunk` as replays of one captured outer iteration: its
@@ -738,6 +738,9 @@ class JumpNUTS(JumpNFMC):
     are counted through the dynamic channel."""
 
     multi_rank_chains = True
+    # the outer iteration without refits, its inner trajectories in
+    # scopes on device predicates: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):
@@ -752,6 +755,9 @@ class JumpChEES(JumpNFMC):
     in the outer loop; the leapfrog counts are counted dynamically."""
 
     multi_rank_chains = True
+    # the outer iteration without refits, its inner trajectories in
+    # scopes on device predicates: chunks replay a CUDA graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
                  inner_kernel=None, inner_params=None, device=None):

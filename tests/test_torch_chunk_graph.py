@@ -178,17 +178,20 @@ def test_driver_memoised_across_calls():
 
 
 def test_undeclared_and_refitting_paths_stay_eager(monkeypatch):
-    """NUTS, a flow without a declaration and a jump chunk with refits run
-    the eager loop even under ``without_capture``: chosen by declaration.
-    The refits inside that chunk replay their fit's own graph: the first
-    refit's one epoch runs eagerly, the second's is a replay."""
+    """A subclass of NUTS that does not declare itself (a user's), a flow
+    without a declaration and a jump chunk with refits run the eager loop
+    even under ``without_capture``: chosen by declaration. The refits
+    inside that chunk replay their fit's own graph: the first refit's one
+    epoch runs eagerly, the second's is a replay."""
     runs = []
     run = graphs.IterationGraph.run
     monkeypatch.setattr(graphs.IterationGraph, "run",
                         lambda self, n: (runs.append((self, n)), run(self, n))[1])
+    user_nuts = type("UserNUTS", (nfmc_torch.NUTS,), {})
     with graphs.without_capture():
-        nfmc_torch.sample(TARGET, strategy="nuts", n_chains=4, n_iterations=3, seed=0,
-                          show_progress=False, device="cpu")
+        s = user_nuts((4,), TARGET, device="cpu")
+        s.params.n_iterations = 3
+        s.sample(torch.zeros(4, 4), show_progress=False, seed=0)
         nfmc_torch.sample(TARGET, strategy="jump_mala", flow="nice", n_chains=4,
                           n_iterations=3, inner_param_kwargs={"n_iterations": 2}, seed=0,
                           show_progress=False, device="cpu")
@@ -203,7 +206,8 @@ def test_undeclared_and_refitting_paths_stay_eager(monkeypatch):
     assert [n for g, n in runs if (g, n) not in fit_runs] == []
     assert [n for _, n in fit_runs] == [1, 1] and fit_runs[0][0] is fit_runs[1][0]
     assert fit_runs[0][0].replays == 1
-    assert not graphs.declared(nfmc_torch.NUTS((4,), TARGET, device="cpu"))
+    assert not graphs.declared(user_nuts((4,), TARGET, device="cpu"))
+    assert graphs.declared(nfmc_torch.NUTS((4,), TARGET, device="cpu"))
 
 
 # ---- (c) stand-in counters and graphs -------------------------------------------------------
