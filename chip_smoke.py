@@ -48,8 +48,10 @@ Phases, in order; any failure exits non-zero before the last line:
      reshuffle of warmup draws into x0; jump acceptance in [0.010, 0.035],
      MALA acceptance in [0.55, 0.72], the counter and launch laws; ms per
      Adam step (the fit's wall over its steps);
-  5c. fit_nf=True at 10 outer iterations, on the fixed-effort route and on
-     the host route: the interleaving law, the counters, a trained flow;
+  5c. fit_nf=True at 10 outer iterations, on the fixed-effort route (each
+     outer iteration a replay of one captured graph, its refit an IF node)
+     and on the host route: the interleaving law, the counters, a trained
+     flow;
   6. the misfit target N(0.12 * 1, I): jump acceptance in [0.30, 0.50];
   7. the spline forward kernel (RQS and LRS, both directions) vs its plain
      version at d=100, H=128, L=4, K=8 with B=100, 256, 3000 and 50,000, and
@@ -100,8 +102,10 @@ Phases, in order; any failure exits non-zero before the last line:
      extremes of the variance ratio, so that a collapsed dim fails), the
      inverse and backward launches at B=128 one an epoch;
   10c. adaptive_imh through the front door on the same target (100
-     iterations, the reference's quirk): the gradient-call counter quirk,
-     the draws, backward launches at B=64 = the refits' Adam steps; its
+     iterations, the reference's quirk; its fused chunk replays one
+     captured graph): the gradient-call counter quirk, the draws, backward
+     launches at B=64 = the refits' Adam steps; the same call in the eager
+     loop draws the same numbers and records its refits' inputs; its
      first and last refits replayed on the card and run on the CPU from the
      same weights and rows: the gradient agrees to 1e-4 max|g|, and every
      weight more than 1e-4 apart has a gradient within float32 error of 0,
@@ -137,15 +141,17 @@ Phases, in order; any failure exits non-zero before the last line:
   11c. tess (bench.py:641-643): 100 chains, the identity-init flow, 1000
      iterations: acceptance exactly 1 (the flow's base is the target), the
      counters ((5 + 1) B target calls), moments, the launch law, ESS/s; then
-     20 warmup iterations with fixed-effort refits (10 epochs): counters,
-     launches, finite refit weights that moved;
+     20 warmup iterations with fixed-effort refits (10 epochs), each a
+     replay of one captured iteration: counters, launches, finite refit
+     weights that moved;
   11d. jump_hmc (bench.py:682-722): 1024 chains, 5 inner HMC iterations,
      50 outer iterations: the interleaving law, counters, moments, one
      hoisted chunk of 51,200 proposals and one forward at B=1024 a jump;
      leapfrog gradients/s and outer it/s;
   11e. dlmc (bench.py:726-743): 1024 chains, DLMC_ITERS iterations with
-     fixed-effort refits (10 epochs of 11 Adam steps at B=64): the counter
-     contract, the moment error in a JAX band, the launch law; it/s;
+     fixed-effort refits (10 epochs of 11 Adam steps at B=64), each
+     iteration a replay of one captured graph (the epochs a WHILE node): the
+     counter contract, the moment error in a JAX band, the launch law; it/s;
   11f. card against CPU with the same injected draws and weights: one
      NeuTraHMC iteration at d=100 through a perturbed flow (the gradient of
      U~ within 1e-4 max|g|, the end states within 1e-4), one tess_step,
@@ -327,13 +333,18 @@ Phases, in order; any failure exits non-zero before the last line:
      Also NUTS (phase 12's width and depth, 50 tuning iterations
      from the JAX-tuned step and 100), ChEES and NeuTra-ChEES (12a's and
      12d's, 50 + 250), jump_chees (12c's, 64 outer) and jump_nuts (16
-     outer), with each capture's wall and pool memory.
+     outer), with each capture's wall and pool memory. And the refitting
+     chunks, each refit inside its iteration's graph (an IF node where a
+     gate row decides it, its epochs a WHILE node): DLMC (11e's 1024
+     chains, GRAPH_DLMC_ITERS iterations), adaptive_imh (10c's), TESS's
+     fused warmup (11c's) and jump_mala with fixed-effort fit_nf (5c's),
+     with RealNVP and with c-rqnsf.
   21. the flow fits as CUDA graph replays (nfmc_torch.flows.train): the
      headline's warmup fit on phase 5b's own data (4096 rows at batch 256,
      3000 validation rows, early stopping), IMH's reverse-KL warmup fit at
-     phase 10b's size, AdaptiveIMH's refits through the front door (10c),
-     three of DLMC's refits through one make_scan_fit closure at 11e's size
-     and a 20-epoch fit of each coupling spline flow, each with graphs and
+     phase 10b's size, FIT21_IMH_REFITS of AdaptiveIMH's refits through its
+     make_scan_fit closure (10c's size), three of DLMC's through one at 11e's
+     size and a 20-epoch fit of each coupling spline flow, each with graphs and
      under disable_graphs() from one seed, bit for bit: the weights, the
      carried tensors each fit ends with (weights, Adam's moments and count,
      the best weights and loss), the losses the host read, the steps and
@@ -360,6 +371,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import io
 import json
 import multiprocessing
@@ -1301,9 +1313,10 @@ class ShapeLaunches:
 
 class RefitRecorder:
     """For the duration of a ``with`` block, the fits that ``module``'s
-    ``make_scan_fit`` makes record their first and their last call: the
-    weights, the data and the generator's state each was given, and the
-    fitted weights (``packed_flat``)."""
+    ``make_scan_fit`` makes record their first and their last call made
+    from the host (a call under a capture is a graph's, whose replays run
+    no Python): the weights, the data and the rows (the permutations) each
+    was given, and the fitted weights (``packed_flat``)."""
 
     def __init__(self, module):
         self.module, self.first, self.last, self.n = module, None, None, 0
@@ -1314,14 +1327,21 @@ class RefitRecorder:
         def factory(*a, **k):
             fit = make(*a, **k)
 
-            def recording(params, data, generator):
+            def recording(params, data, generator=None, rows=None):
+                if torch.cuda.is_current_stream_capturing():
+                    return fit(params, data, generator, rows)
+                if rows is None:
+                    rows = fit.draw(generator)
                 inputs = ([{k_: [t.detach().clone() for t in v] for k_, v in p.items()}
-                           for p in params], data.clone(), generator.get_state())
-                out = fit(params, data, generator)
+                           for p in params], data.clone(), [r.clone() for r in rows])
+                out = fit(params, data, rows=rows)
                 self.last = (*inputs, packed_flat(out))
                 self.first = self.first or self.last
                 self.n += 1
                 return out
+
+            for attr in ("draw", "draws", "row_elems", "config"):
+                setattr(recording, attr, getattr(fit, attr))
             return recording
 
         self.module.make_scan_fit = factory
@@ -1334,12 +1354,15 @@ class RefitRecorder:
 def cpu_shuffled(scan_fit, seed: int):
     """A ``make_scan_fit(..., shuffle=False)`` fit whose data is shuffled by
     permutations drawn on the CPU from ``seed``, whatever the data's device:
-    the same refits on the card and on the CPU."""
+    the same refits on the card and on the CPU (eagerly: the permutation is
+    drawn at the call)."""
     g = torch.Generator().manual_seed(seed)
 
-    def fit(params, data, generator):
+    def fit(params, data, generator=None, rows=None):
         return scan_fit(params, data[torch.randperm(data.shape[0], generator=g).to(data.device)],
-                        None)
+                        rows=rows)
+
+    fit.draw, fit.draws = scan_fit.draw, scan_fit.draws
     return fit
 
 
@@ -1840,13 +1863,10 @@ def run_fault_checks(dev) -> None:
 
 def check_refit(call, what: str, dev) -> None:
     """Phase 10c's witness at full width: one of AdaptiveIMH's refits
-    (``call`` as ``RefitRecorder`` records it), one Adam step on REFIT_B rows
-    drawn by the recorded generator, held by ``check_adam_step``."""
-    p0, data, gstate, w_card = call
-    g_perm = torch.Generator(device=dev)
-    g_perm.set_state(gstate)
-    rows_ = data[torch.randperm(data.shape[0], generator=g_perm, device=dev)[:REFIT_B]]
-    check_adam_step(p0, rows_, w_card, f"AdaptiveIMH {what}", dev)
+    (``call`` as ``RefitRecorder`` records it), one Adam step on the REFIT_B
+    rows of its recorded permutation, held by ``check_adam_step``."""
+    p0, data, (perms,), w_card = call
+    check_adam_step(p0, data[perms[0][:REFIT_B]], w_card, f"AdaptiveIMH {what}", dev)
 
 
 def check_adam_step(p0, rows_, w_run, what: str, dev) -> None:
@@ -2020,13 +2040,16 @@ def run_imh_phases(dev) -> dict:
         check(lo <= moments[k] <= hi, f"IMH after warmup: {k} {moments[k]} outside [{lo}, {hi}]")
 
     # ---- 10c. AdaptiveIMH through the front door --------------------------------------
-    build.reset_launch_counts()
-    t0 = time.perf_counter()
-    with Instrument() as ins, ShapeLaunches() as shapes, RefitRecorder(imh_mod) as refit:
-        aout = nfmc_torch.sample(target, strategy="adaptive_imh",
+    def adaptive_imh():
+        return nfmc_torch.sample(target, strategy="adaptive_imh",
                                  flow=Flow(RealNVP((D,), n_layers=L, hidden_size=H), seed=0),
                                  n_chains=C, n_iterations=IMH_WARM_ITERS, seed=0,
                                  show_progress=False)
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with Instrument() as ins, ShapeLaunches() as shapes, NewCaptures() as new:
+        aout = adaptive_imh()
         torch.cuda.synchronize()
     nl = counts()
     res["refit_shapes"] = shapes.n
@@ -2034,7 +2057,8 @@ def run_imh_phases(dev) -> dict:
     print(f"adaptive_imh ({aout.samples.shape[0]} it, the reference ignores n_iterations): wall "
           f"{time.perf_counter() - t0:.3f} s, refit Adam steps {ins.steps}, launches {nl}, by "
           f"shape {dict(shapes.n)}, acc {ast.acceptance_rate:.4f}, gradient calls "
-          f"{ast.n_target_gradient_calls}, target calls {ast.n_target_calls}")
+          f"{ast.n_target_gradient_calls}, target calls {ast.n_target_calls}; captures "
+          f"(wall s, pool MiB) {new.describe()}")
     check(tuple(aout.samples.shape) == (100, C, D) and bool(torch.isfinite(aout.samples).all()),
           "adaptive_imh draws")
     check(ast.n_target_gradient_calls == 2 * C * 100 and ast.n_target_calls == 0,
@@ -2042,8 +2066,19 @@ def run_imh_phases(dev) -> dict:
     check(ins.steps > 0 and nl["fused_realnvp_vjp"] == ins.steps
           and shapes.n["vjp", "forward", REFIT_B] == ins.steps,
           f"adaptive_imh: backward launches at B={REFIT_B} != the refits' Adam steps")
-    check(refit.first is not None, "adaptive_imh did not take the fused path")
+    check(len(new.graphs) == 1, "adaptive_imh's fused chunk did not replay one captured graph")
     check(train_mod._adaptive_batch_size(C) == REFIT_B, "the refit batch is not REFIT_B")
+
+    # the refits' inputs, from the same call in the eager loop (a replay
+    # runs no Python), which must draw what the replays drew
+    from nfmc_torch.core import graphs
+
+    with graphs.disable_graphs(), RefitRecorder(imh_mod) as refit:
+        eout = adaptive_imh()
+    check(refit.first is not None, "adaptive_imh did not take the fused path")
+    check(torch.equal(eout.samples, aout.samples) and torch.equal(
+        flat_params(eout.kernel.flow.params), flat_params(aout.kernel.flow.params)),
+          "adaptive_imh: the eager loop drew other numbers than the replays")
 
     # the first refit starts from the identity init, where the gradient of
     # every weight but the conditioners' output layers is exactly 0; the
@@ -2494,17 +2529,15 @@ def run_flow_sampler_phases(dev) -> dict:
     # and replayed whole on the card, then one drift and accept from its
     # weights with the same draws
     check(bs == REFIT_B, "DLMC's refit batch is not REFIT_B")
-    p0, data, gstate, w_first = refit.first
-    g_perm = torch.Generator(device=dev)
-    g_perm.set_state(gstate)
-    xt = data[torch.randperm(DLMC_C, generator=g_perm, device=dev)[:n_batches * bs]]
-    rows_ = xt[torch.randperm(xt.shape[0], generator=g_perm, device=dev)[:bs]]
+    p0, data, perms, w_first = refit.first
+    split, epochs = perms
+    xt = data[split[:n_batches * bs]]
+    rows_ = xt[epochs[0][:bs]]
     check_adam_step(p0, rows_, None, "DLMC first (its first Adam step)", dev)
     flow = identity_flow().to(dev)
     replay = dlmc_mod.make_scan_fit(flow, DLMC_C, n_epochs=10, lr=5e-3, train_pct=0.7,
                                     keep_best_weights=True)
-    g_perm.set_state(gstate)
-    w_replay = packed_flat(replay(p0, data, g_perm))
+    w_replay = packed_flat(replay(p0, data, rows=perms))
     check((w_replay - w_first).abs().max().item() <= 1e-6,
           "DLMC's first refit replayed differs from the run's own")
     fitted = unpack_like(w_first, p0)  # the refit's weights, on the CPU
@@ -2595,6 +2628,36 @@ class StepReports:
         """(calls, grads, steps) the steps of that flag reported."""
         calls, grads = self.sums[tuning].tolist() if tuning in self.sums else (0, 0)
         return int(calls), int(grads), self.steps[tuning]
+
+
+class NewCaptures:
+    """For the duration of a ``with`` block, the graphs
+    (``core.graphs.IterationGraph``) captured in it, in order: the cached
+    ones and those a run keeps for itself (a refitting chunk's)."""
+
+    def __enter__(self):
+        from nfmc_torch.core import graphs
+
+        self._cls, self._orig = graphs.IterationGraph, graphs.IterationGraph.run
+        self.graphs = []
+        orig, made = self._orig, self.graphs
+
+        def run(graph, n):
+            fresh = not graph.captured
+            orig(graph, n)
+            if fresh and graph.captured:
+                made.append(graph)
+
+        graphs.IterationGraph.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run = self._orig
+
+    def describe(self) -> list:
+        """Each capture's (wall s, pool MiB)."""
+        return [(round(g.capture_seconds, 3), round(g.backend.pool_bytes / 2 ** 20, 1))
+                for g in self.graphs]
 
 
 class CaptureSampler:
@@ -5374,6 +5437,13 @@ GRAPH_ESS_ITERS, GRAPH_EAGER_PROFILE_CUT = 250, 25
 # iterations, jump_nuts GRAPH_JUMP_NUTS_OUTER (its eager loop takes ~0.2 s
 # an outer iteration)
 GRAPH_DYN_WARM, GRAPH_DYN_ITERS, GRAPH_JUMP_NUTS_OUTER = 50, 100, 16
+# the refitting chunks, each refit inside its iteration's graph: DLMC at
+# 11e's 1024 chains and refits, GRAPH_DLMC_ITERS iterations; AdaptiveIMH at
+# 10c's setting (its 100 iterations); TESS's fused warmup at 11c's (20
+# iterations, 10-epoch refits); jump_mala's fixed-effort fit_nf at 5c's (10
+# outer iterations, refits of 2 epochs from the third), with RealNVP and
+# with c-rqnsf
+GRAPH_DLMC_ITERS = 5
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 
@@ -5528,19 +5598,21 @@ def run_graph_phases(dev) -> dict:
     def measured(run, eager):
         """``run()``'s summary, launches and wall, with graphs or without,
         and the graph cache as the run left it (its samplers still alive):
-        its description, and the wall and memory of each capture in it."""
+        its description, and the wall and memory of each capture in it. The
+        graphs of runs before it whose owners are gone are freed first: a
+        graph's release synchronises, and must not fall in the wall."""
+        gc.collect()
         build.reset_launch_counts()
         torch.cuda.synchronize()
-        with CaptureSampler() as cap:
+        with CaptureSampler() as cap, NewCaptures() as new:
             t0 = time.perf_counter()
             with (graphs.disable_graphs() if eager else contextlib.nullcontext()):
                 out = run()
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             cache = graphs.CACHE.describe()
-            captures = [(g.capture_seconds, g.backend.pool_bytes)
-                        for g in (w() for _r, w in list(graphs.CACHE._order.values()))
-                        if g is not None and g.captured]
+            captures = [(g.capture_seconds, g.backend.pool_bytes, g.body.__name__)
+                        for g in new.graphs]
             summary = run_summary(out)
             summary["state"].update(adapted_state(out.kernel))
             for sampler in cap.samplers:
@@ -5582,8 +5654,8 @@ def run_graph_phases(dev) -> dict:
                      f"graphs ({n_e} it), {pg[2] / n_it:.1f} with (graph launches "
                      f"{pg[3] / n_it:.2f}), device busy {100 * pe[1] / pe[0]:.1f}% / "
                      f"{100 * pg[1] / pg[0]:.1f}% of {pe[0]:.3f} / {pg[0]:.3f} s")
-        line += (f"; graph cache after the run {cache}, its captures (wall s, pool MiB) "
-                 f"{[(round(c, 3), round(b / 2 ** 20, 1)) for c, b in captures]}; the "
+        line += (f"; graph cache after the run {cache}; the run's captures (wall s, pool MiB, body) "
+                 f"{[(round(c, 3), round(b / 2 ** 20, 1), n) for c, b, n in captures]}; the "
                  f"comparison took {time.perf_counter() - t_cmp:.1f} s")
         print(line + (f", its profiles {t_prof:.1f} s" if profiled else "") + f" ({smi})")
         check(all(parts.values()), f"20 {label}: the run with graphs differs from the eager "
@@ -5642,6 +5714,56 @@ def run_graph_phases(dev) -> dict:
     print(f"20 NUTS, ChEES, jump_nuts, jump_chees and NeuTra-ChEES: {res['dynamic_wall']:.1f} s "
           f"({smi})")
 
+    # the refitting chunks, their refits inside each iteration's graph: the
+    # refit an IF node where a gate row decides it (AdaptiveIMH, fit_nf), its
+    # epochs a WHILE node
+    std = StandardGaussian((D,))
+
+    def dlmc20():
+        return nfmc_torch.sample(
+            std, strategy="dlmc", negative_log_likelihood=std, flow=flow(), n_chains=DLMC_C,
+            n_iterations=GRAPH_DLMC_ITERS, seed=0, show_progress=False,
+            param_kwargs={"flow_fit_kwargs": dict(DLMC_FIT_KWARGS),
+                          "store_samples_on_device": True})
+
+    def adaptive20():
+        return nfmc_torch.sample(target, strategy="adaptive_imh", flow=flow(), n_chains=C, seed=0,
+                                 show_progress=False)
+
+    def tess_warmup20():
+        s = nfmc_torch.create_sampler(std, strategy="tess", negative_log_likelihood=std,
+                                      flow=flow(), device=dev,
+                                      param_kwargs={"n_warmup_iterations": 20,
+                                                    "flow_fit_kwargs": dict(TESS_FIT_KWARGS),
+                                                    "store_samples_on_device": True})
+        return s.warmup(torch.zeros(C, D, device=dev), show_progress=False, seed=0)
+
+    def fit_nf20(name="realnvp"):
+        return nfmc_torch.sample(
+            std, strategy="jump_mala", flow=flow(name), n_chains=C, n_iterations=10,
+            inner_param_kwargs={"n_iterations": INNER_N}, seed=0, show_progress=False,
+            param_kwargs={"fit_nf": True, "flow_fit_kwargs": {"n_epochs": 2},
+                          "n_jumps_before_training": 2, "store_samples_on_device": True})
+
+    refitting = {
+        "dlmc (1024 chains)": (GRAPH_DLMC_ITERS, dlmc20),
+        "adaptive_imh": (100, adaptive20),
+        "tess fused warmup": (20, tess_warmup20),
+        "jump_mala fit_nf": (10, fit_nf20),
+        "jump_mala fit_nf c-rqnsf": (10, lambda: fit_nf20("c-rqnsf")),
+    }
+    t_refit = time.perf_counter()
+    for label, (n_it, run) in refitting.items():
+        compare(label, n_it, run)
+        # one captured iteration; besides it, where the graph's eager first
+        # iteration refits, the fit's own graph of its epochs (``epoch``)
+        bodies = [n for _c, _b, n in res["paths"][label]["captures"]]
+        check(len(bodies) - bodies.count("epoch") == 1 and bodies.count("epoch") <= 1,
+              f"20 {label}: the run did not replay one captured iteration: {bodies}")
+    res["refit_wall"] = time.perf_counter() - t_refit
+    print(f"20 DLMC, AdaptiveIMH, TESS's warmup and fit_nf (the refitting chunks): "
+          f"{res['refit_wall']:.1f} s ({smi})")
+
     # ---- 20b. the headline on a one-rank NCCL mesh ---------------------------------
     check(not dist.is_initialized(), "20b: a process group is already running")
     mesh = chain_mesh()
@@ -5657,6 +5779,10 @@ def run_graph_phases(dev) -> dict:
 
 
 FIT21_SPLINE_EPOCHS, FIT21_PROFILE_EPOCHS, FIT21_VFIT_PROFILE, FIT21_DLMC_REFITS = 20, 10, 50, 3
+# AdaptiveIMH's refit closure (1 epoch on a history row of C draws) called
+# from the host this many times, as the front door refits in its first
+# iterations; the front door's refits run inside its chunk's graph (phase 20)
+FIT21_IMH_REFITS = 100
 
 
 def run_fit_graph_phases(dev, headline_data) -> dict:
@@ -5667,8 +5793,9 @@ def run_fit_graph_phases(dev, headline_data) -> dict:
     the host read, the steps and epochs counted, and each wrapper's launches
     and launches by shape. The fits: the headline's warmup fit on phase 5b's
     own data (``headline_data``), IMH's reverse-KL warmup fit at phase 10b's
-    size, AdaptiveIMH's refits through the front door (phase 10c), DLMC's
-    refit closure at 11e's size, and a fit of each coupling spline flow.
+    size, AdaptiveIMH's refit closure at 10c's size, DLMC's refit closure at
+    11e's size, and a fit of each coupling spline flow (the refitting
+    samplers' own chunks, their refits inside, are phase 20's).
     Prints ms per Adam step both ways, the device busy share of a short
     window of the headline, IMH and DLMC fits both ways (the graph windows
     replay graphs captured before them) and the graph cache's memory."""
@@ -5711,12 +5838,15 @@ def run_fit_graph_phases(dev, headline_data) -> dict:
     def dlmc_closure(fit_flow):
         return train_mod.make_scan_fit(fit_flow, DLMC_C, train_pct=0.7, **DLMC_FIT_KWARGS)
 
-    def adaptive_imh():
-        out = nfmc_torch.sample(target, strategy="adaptive_imh", flow=flow(), n_chains=C,
-                                n_iterations=IMH_WARM_ITERS, seed=0, show_progress=False,
-                                param_kwargs={"store_samples_on_device": True})
-        return torch.cat([out.samples.reshape(-1).cpu(),
-                          flat_params(out.kernel.flow.params)])
+    imh_hist = torch.randn((FIT21_IMH_REFITS, C, D), generator=torch.Generator(
+        device=dev).manual_seed(24), device=dev) * torch.from_numpy(target.sigma).to(dev)
+
+    def imh_refits():
+        fit = train_mod.make_scan_fit(flow(), C, n_epochs=1)  # as AdaptiveIMH makes it
+        params, g = flow().params, torch.Generator(device=dev).manual_seed(25)
+        for k in range(FIT21_IMH_REFITS):
+            params = fit(params, imh_hist[k], g)
+        return flat_params(params)
 
     def fitted(name, call):
         def run():
@@ -5730,7 +5860,7 @@ def run_fit_graph_phases(dev, headline_data) -> dict:
                                                           **jump_fit_kw)),
         "IMH reverse-KL fit": fitted("realnvp", lambda f: f.variational_fit(neg_u, seed=0,
                                                                             **imh_fit_kw)),
-        "AdaptiveIMH refits": adaptive_imh,
+        "AdaptiveIMH refits": imh_refits,
         "DLMC refits": lambda: dlmc_refits(dlmc_closure(flow())),
         **{f"{name} fit": fitted(name, lambda f: f.fit(
             x_train, x_val=x_val, seed=0, n_epochs=FIT21_SPLINE_EPOCHS, batch_size=256))
@@ -5740,7 +5870,9 @@ def run_fit_graph_phases(dev, headline_data) -> dict:
     def measured(run, eager):
         """``run()``'s weights, the carried tensors and host-read losses of
         each fit it made, its counts, launches and wall, with graphs or
-        without."""
+        without (earlier graphs whose owners are gone freed first, as in
+        phase 20)."""
+        gc.collect()
         build.reset_launch_counts()
         before = dict(train_mod.COUNTS)
         carries, rec = [], RecordingNumpy()

@@ -112,6 +112,12 @@ class ChainShard:
         return int(t.item())
 
 
+def all_rows(v: torch.Tensor, shard: Optional[ChainShard] = None, axis: int = 0) -> torch.Tensor:
+    """Every rank's rows of ``v`` along ``axis`` (a refit's batch): ``v``
+    itself on one rank, where a captured chunk gathers nothing."""
+    return v if shard is None or shard.size == 1 else shard.gather(v, axis)
+
+
 def chain_mean(v: torch.Tensor, shard: Optional[ChainShard] = None, dim: int = 0) -> torch.Tensor:
     """Mean over the (global) chain axis ``dim``. On one rank it is
     ``v.mean(dim)``; across ranks, the sum of the ranks' sums over the chain

@@ -316,6 +316,11 @@ class ChunkedScanDriver:
     changes them passes them as ``constants``, and a new set of tensors
     captures anew.
 
+    A step that refits a flow (DLMC's, TESS's fused warmup) takes its
+    refit's rows as a second hoisted draw source (``run(fit_rows=...)``),
+    drawn a chunk at a time from the fit's own generator; such a step
+    gathers the chains, so it is ``collective`` on several ranks.
+
     A run may pause for eager work on the carried kernel state at
     iterations the host knows before the run (``pause``: the dense
     metric's refresh, the JAX package's ``lax.cond`` in the scan step): the
@@ -391,13 +396,17 @@ class ChunkedScanDriver:
             stats, samples=None, calls_per_iter: int = 0, grads_per_iter: int = 0,
             tuning: bool = False, collect: bool = True,
             time_limit_seconds: Optional[float] = None, show_progress: bool = False,
-            desc: str = "MCMC", shard=None, constants=(), pause=None, mode=()):
+            desc: str = "MCMC", shard=None, constants=(), pause=None, mode=(), fit_rows=None):
         """Run the chain; updates ``stats``/``samples``; returns ``(x, kstate)``.
         ``calls_per_iter`` and ``grads_per_iter`` count the global chains.
         ``pause = (due, work)``: after the run's k-th iteration (from 1)
         where ``due(k)``, the carried kernel state becomes ``work(kstate)``,
         run eagerly. ``mode`` is what ``make_step(tuning)`` bakes in besides
-        the tuning flag (part of a graph's key)."""
+        the tuning flag (part of a graph's key). ``fit_rows(chunk)``, the
+        second hoisted draw source of a step that refits a flow: the
+        chunk's refit rows from the fit's own generator (``make_scan_fit``'s
+        ``draws``), kept whole on every rank and given to the step after
+        its draws, on both paths."""
         step = self.make_step(tuning)
         data_transform = self.data_transform
         device = x0.device
@@ -434,6 +443,8 @@ class ChunkedScanDriver:
                 axes = self.draw_chain_axes or (0,) * len(draws)
                 draws = tuple(d if a is None else shard.rows(d, 1 + a)
                               for d, a in zip(draws, axes))
+            if fit_rows is not None:
+                draws = (*draws, *fit_rows(chunk))
             return draws
 
         def stops(chunk, iters_done):
@@ -535,15 +546,19 @@ class ChunkedScanDriver:
 
 
 def hoist_cap(n_chains: int, event_elems: int, inner_n: int, per_proposal: int,
-              store_samples: bool, inner_per_iter: Optional[int] = None) -> int:
-    """Largest chunk whose hoisted inner draws, flow proposals and emitted
-    draw buffer each stay under ``RNG_HOIST_ELEMENT_LIMIT``;
-    ``inner_per_iter`` is an inner iteration's hoisted elements where they
-    exceed the chains' state (NUTS's leaf uniforms)."""
+              store_samples: bool, inner_per_iter: Optional[int] = None,
+              fit_elems: int = 0) -> int:
+    """Largest chunk whose hoisted inner draws, flow proposals (or their
+    base draws), refit rows and emitted draw buffer each stay under
+    ``RNG_HOIST_ELEMENT_LIMIT``; ``inner_per_iter`` is an inner iteration's
+    hoisted elements where they exceed the chains' state (NUTS's leaf
+    uniforms), ``fit_elems`` an outer iteration's refit rows
+    (``make_scan_fit``'s ``row_elems``)."""
     per_inner = max(n_chains * event_elems, int(inner_per_iter or 0))
     caps = [
         RNG_HOIST_ELEMENT_LIMIT // max(1, inner_n * per_inner),
         RNG_HOIST_ELEMENT_LIMIT // max(1, n_chains * per_proposal),
+        RNG_HOIST_ELEMENT_LIMIT // max(1, fit_elems),
     ]
     if store_samples:
         caps.append(RNG_HOIST_ELEMENT_LIMIT // max(1, (inner_n + 1) * n_chains * event_elems))

@@ -50,6 +50,11 @@ graph of the package; nothing else calls ``torch.cuda.CUDAGraph``.
   capture (``csrc/graph_cond.cu`` makes them: PyTorch 2.11 has no Python
   API for them), a host read of the predicate otherwise. A scope's
   launches count once for each run of its body (a device tally).
+  :func:`cond` is ``lax.cond`` over a tree of tensors, its branch's result
+  written into them in place: a refitting chunk's gated refit, whose
+  epochs are a :func:`loop` inside it under the capture. In the graph's
+  eager first iteration (:func:`warming`) the refit replays the fit's own
+  graph instead, and counts the loop's scope (:func:`eager_scope`).
 """
 from __future__ import annotations
 
@@ -101,6 +106,12 @@ def in_body() -> bool:
     """Whether an :class:`IterationGraph`'s body is running in this thread
     (its first, eager iteration or its capture)."""
     return bool(getattr(_local, "body", 0))
+
+
+def warming() -> bool:
+    """Whether an :class:`IterationGraph`'s first, eager iteration is
+    running in this thread (the capture comes next)."""
+    return bool(getattr(_local, "warming", 0))
 
 
 def declared(sampler, flows=()) -> bool:
@@ -224,9 +235,39 @@ def when(pred: torch.Tensor, body: Callable[[], None]) -> None:
         _check_pred(pred)
         _capture_scope(pred.device, pred, lambda: (body(), None)[1], loop=False)
     else:
-        _eager_scope(pred.device)
+        eager_scope(pred.device)
         if _decide(pred):
             body()
+
+
+def cond(pred, fn: Callable, operands):
+    """``fn(operands)`` where ``pred`` holds, else ``operands``: the JAX
+    package's ``lax.cond(pred, fn, lambda a: a, operands)`` over a tree of
+    tensors (a refitting chunk's gated refit). Returns the tree.
+
+    * ``pred`` a host value (a gate the host knows, as the eager loop has
+      it): ``fn`` runs or not, with no read of the device.
+    * ``pred`` a 0-d bool tensor inside a graph's body (a gate row at the
+      counter): :func:`when` on it, ``fn``'s result written into the
+      operands in place, so that a skipped body leaves them as they were.
+      The operands are tensors made before the scope (the carried state,
+      or the iteration's own); under a capture the scope is an IF node and
+      no replay computes a branch only to discard it.
+    * ``pred`` a tensor elsewhere: read on the host once."""
+    if not isinstance(pred, torch.Tensor) or not in_body():
+        return fn(operands) if bool(pred) else operands
+    leaves, spec = flatten(operands)
+
+    def body():
+        new, new_spec = flatten(fn(operands))
+        if new_spec != spec:
+            raise RuntimeError("a conditional branch changed the structure of its operands")
+        for t, v in zip(leaves, new):
+            if v is not t:
+                t.copy_(v)
+
+    when(pred, body)
+    return operands
 
 
 def loop(n: int, pred: Callable[[torch.Tensor], torch.Tensor],
@@ -266,7 +307,7 @@ def loop(n: int, pred: Callable[[torch.Tensor], torch.Tensor],
 
         _capture_scope(device, None, run, loop=True)
         return
-    _eager_scope(device)
+    eager_scope(device)
     t = None
     if in_body() and getattr(_local, "uncaptured", 0):
         # as a replay: tested before every run, at a counter on the device
@@ -391,11 +432,14 @@ def _node(device: torch.device, pred, loop: bool):
                            f"{err % 10000} at step {err // 10000} of nfmc_cond_end)")
 
 
-def _eager_scope(device: torch.device) -> None:
-    """A scope decided on the host. In a graph's first, eager iteration on
-    CUDA (its capture comes next): count it (the capture's tallies are
-    sized from the count), and, once a process, load the conditional
-    nodes' library and kernel and make the device's body streams."""
+def eager_scope(device: torch.device) -> None:
+    """A scope decided on the host, or one that a graph's capture opens
+    where its first, eager iteration does the same work without one (a
+    refit's epochs, there replayed from the fit's own graph). In a graph's
+    first, eager iteration on CUDA (its capture comes next): count it (the
+    capture's tallies are sized from the count), and, once a process, load
+    the conditional nodes' library and kernel and make the device's body
+    streams. A no-op elsewhere."""
     key = str(device)
     if device.type != "cuda" or not in_body():
         return
@@ -426,10 +470,11 @@ def check_host_counts(info) -> None:
 # ---- one captured iteration ---------------------------------------------------------------
 
 # the most scopes (:func:`when`, :func:`loop`) open at once in a capture (a
-# doubling of a NUTS step and its leaves in it)
+# doubling of a NUTS step and its leaves in it; a gated refit and its
+# epochs)
 MAX_SCOPE_DEPTH = 4
 # the streams that capture the scopes' bodies, one for each depth of open
-# scopes, by device (made by :func:`_eager_scope`)
+# scopes, by device (made by :func:`eager_scope`)
 _scope_streams: dict = {}
 
 
@@ -595,8 +640,12 @@ class IterationGraph:
         done = 0
         if not self.warm and n > 0:
             seen = getattr(_local, "eager_scopes", 0)
-            with self.backend.side_stream():
-                self._iteration()
+            _local.warming = getattr(_local, "warming", 0) + 1
+            try:
+                with self.backend.side_stream():
+                    self._iteration()
+            finally:
+                _local.warming -= 1
             self.backend.eager_scopes = getattr(_local, "eager_scopes", 0) - seen
             self.warm, done = True, 1
         if done < n and not self.captured:
@@ -628,14 +677,14 @@ class GraphCache:
         self._order = collections.OrderedDict()
 
     def get(self, owner, key, make: Callable[[], IterationGraph]) -> IterationGraph:
+        self._drop_gone()
         graphs = owner.__dict__.setdefault("_graphs", {})
         slot = (id(owner), key)
         if key in graphs:
             self._order.move_to_end(slot)
             return graphs[key]
         graph = graphs[key] = make()
-        ref = weakref.ref(owner, lambda _r, gone=id(owner): self._forget(gone))
-        self._order[slot] = (ref, weakref.ref(graph))
+        self._order[slot] = (weakref.ref(owner), weakref.ref(graph))
         while len(self._order) > 1 and (len(self._order) > self.max_graphs
                                         or self.nbytes() > self.max_bytes):
             (_owner, old_key), (old_ref, _g) = self._order.popitem(last=False)
@@ -644,17 +693,21 @@ class GraphCache:
                 old_owner.__dict__.get("_graphs", {}).pop(old_key, None)
         return graph
 
-    def _forget(self, owner: int) -> None:
-        # a weakref callback: it may run inside any allocation, so the
-        # loops here iterate over copies
-        for slot in [s for s in list(self._order) if s[0] == owner]:
-            self._order.pop(slot, None)
+    def _drop_gone(self) -> None:
+        # the slots of owners that are gone, dropped here and not from a
+        # weakref callback: a callback runs inside whatever allocation
+        # collects its owner, even one made while the order is iterated
+        # (a key's hash may allocate), and would mutate it there
+        for slot in [s for s, (ref, _g) in self._order.items() if ref() is None]:
+            del self._order[slot]
 
     def nbytes(self) -> int:
-        graphs = [w() for _r, w in list(self._order.values())]
+        self._drop_gone()
+        graphs = [w() for _r, w in self._order.values()]
         return sum(g.nbytes for g in graphs if g is not None)
 
     def __len__(self) -> int:
+        self._drop_gone()
         return len(self._order)
 
     def describe(self) -> str:
@@ -764,7 +817,7 @@ def hoist_length(block: int, row_elems: int) -> int:
     return max(1, min(block, RNG_HOIST_ELEMENT_LIMIT // max(1, row_elems)))
 
 
-__all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "contiguous",
-           "declared", "disable_graphs", "fit_captures", "flatten", "hoist_length", "in_body",
-           "iterations", "loop", "replays", "signature", "sliced", "transport_captures",
-           "unflatten", "when", "without_capture"]
+__all__ = ["CACHE", "GraphCache", "IterationGraph", "captures", "check_host_counts", "cond",
+           "contiguous", "declared", "disable_graphs", "eager_scope", "fit_captures", "flatten",
+           "hoist_length", "in_body", "iterations", "loop", "replays", "signature", "sliced",
+           "transport_captures", "unflatten", "warming", "when", "without_capture"]

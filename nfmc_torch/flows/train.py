@@ -42,7 +42,10 @@ base draws) from the fit's generator in the eager loop's order, and the
 graph reads them at its counter; the host reads a block's losses once, as
 before. The graphs live in :data:`nfmc_torch.core.graphs.CACHE`, owned by
 the flow (``fit``, ``variational_fit``) or by the ``make_scan_fit``
-closure, so a refit of the same shapes replays a graph captured once. A fit
+closure, so a refit of the same shapes replays a graph captured once. A
+``make_scan_fit`` call inside another graph's capture (a refitting
+sampler's iteration) replays no graph of its own: its epochs run inline, a
+WHILE node, on rows the caller hoisted. A fit
 on several ranks, of a flow without the declaration, or under
 :func:`~nfmc_torch.core.graphs.disable_graphs` runs the eager loop, with
 which a replayed fit agrees bit for bit. :data:`COUNTS` holds the MLE Adam
@@ -275,10 +278,11 @@ def _train_epoch(flow, like, theta, adam, xs, ws, loss_fn=_nll, shard=None):
 
 def _start(theta: torch.Tensor, lr: float) -> list:
     """A fit's carried tensors at its start: a fresh Adam, the best loss
-    inf and the best weights ``theta``."""
+    inf and the best weights ``theta`` (made on the device: a tensor of host
+    data cannot be made under a capture)."""
     adam = _Adam(theta, lr)
     return [theta, adam.mu, adam.nu, adam.count, theta,
-            torch.tensor(math.inf, device=theta.device)]
+            torch.full((), math.inf, device=theta.device)]
 
 
 def _resume(carry, lr: float):
@@ -314,7 +318,8 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
                   keep_best_weights: bool = False, train_pct: float = None,
                   max_train_size: int = 4096, max_val_size: int = 4096):
     """Fixed-effort MLE fit with no host synchronisation:
-    ``fit(params, data, generator) -> params`` with ``data: (n_rows, *event)``.
+    ``fit(params, data, generator=None, rows=None) -> params`` with
+    ``data: (n_rows, *event)``.
 
     Mirrors :func:`fit` without host control flow: a fresh Adam per call,
     ``n_epochs`` of minibatch steps, optional per-epoch best-weight tracking
@@ -322,7 +327,23 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
     non-finite loss. With ``train_pct`` set the data shuffles into a
     train/val split (capped at the max sizes) and best weights track the
     val loss. As in the JAX package, the train set truncates to a multiple
-    of the batch size instead of padding the last batch."""
+    of the batch size instead of padding the last batch.
+
+    A call's randomness is its ``rows``: the split's permutation (with
+    ``train_pct``), then each epoch's (with ``shuffle``), as ``fit.draw
+    (generator)`` makes them, in that order; without ``rows`` the call
+    draws them so from ``generator``. ``fit.draws(generator, gate)`` makes
+    the rows of a block of calls up front (the refitting chunks hoist them
+    from the fit's generator), ``fit.row_elems`` counts one call's.
+
+    A call replays a graph of its own epochs (where
+    :func:`nfmc_torch.core.graphs.fit_captures` holds) or runs them
+    eagerly, also in a graph's first, eager iteration. Inside a graph's
+    capture (a refitting chunk's iteration, the JAX package's scan with
+    this fit in its body) it runs inline on hoisted rows: a
+    :func:`graphs.loop` over the epochs (a WHILE node) that reads each
+    epoch's permutation at its counter; no host read, no tensor of host
+    data."""
     event_shape = flow.event_shape
     if train_pct is not None:
         n_train = max(1, min(int(n_rows * train_pct), max_train_size))
@@ -337,14 +358,59 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
     n_eff = max(bs, (n_train // bs) * bs)
     n_batches = n_eff // bs
     keep_best = keep_best_weights and n_val > 0
+    # the rows an epoch's permutation ranges over: the split's train rows,
+    # or all the data
+    n_perm = n_eff if train_pct is not None else n_rows
+    shapes = ([(n_rows,)] if train_pct is not None else []) + (
+        [(n_epochs, n_eff)] if shuffle else [])
 
-    def scan_fit(params, data, generator):
+    def draw(generator):
+        rows = []
+        if train_pct is not None:
+            rows.append(torch.randperm(n_rows, generator=generator, device=generator.device))
+        if shuffle:
+            rows.append(torch.stack([
+                torch.randperm(n_perm, generator=generator, device=generator.device)[:n_eff]
+                for _ in range(n_epochs)]) if n_epochs else
+                torch.empty((0, n_eff), dtype=torch.int64, device=generator.device))
+        return rows
+
+    def draws(generator, gate):
+        """The rows of ``len(gate)`` calls, stacked: drawn in order for the
+        calls where ``gate`` holds (an int: that many calls, all drawn), as
+        many eager calls would draw them; zeros where it does not."""
+        if isinstance(gate, int):
+            gate = [True] * gate
+        if not shapes:
+            return []
+        device = generator.device
+        drawn = [draw(generator) for g in gate if g]
+        out = []
+        for i, shape in enumerate(shapes):
+            if len(drawn) == len(gate):
+                out.append(torch.stack([d[i] for d in drawn]))
+                continue
+            t = torch.zeros((len(gate), *shape), dtype=torch.int64, device=device)
+            if drawn:
+                at = torch.as_tensor(np.flatnonzero(np.asarray(gate, dtype=bool)), device=device)
+                t.index_copy_(0, at, torch.stack([d[i] for d in drawn]))
+            out.append(t)
+        return out
+
+    def scan_fit(params, data, generator=None, rows=None):
+        if rows is None:
+            if graphs.in_body() and shapes:
+                raise RuntimeError("inside a graph's body a fit takes hoisted rows "
+                                   "(fit.draws), not a generator")
+            rows = draw(generator)
+        rows = list(rows)
+        split = rows.pop(0) if train_pct is not None else None
+        perms = rows.pop(0) if shuffle else None
         device = data.device
         with torch.no_grad():
-            if train_pct is not None:
-                perm = torch.randperm(data.shape[0], generator=generator, device=device)
-                xt = data[perm[:n_eff]]
-                xv = data[perm[n_train:n_train + n_val]] if n_val else data[perm[:bs]]
+            if split is not None:
+                xt = data[split[:n_eff]]
+                xv = data[split[n_train:n_train + n_val]] if n_val else data[split[:bs]]
             else:
                 xt = data
                 xv = data[:bs]
@@ -365,24 +431,49 @@ def make_scan_fit(flow, n_rows: int, n_epochs: int, lr: float = 0.005,
                     best = torch.where(better, theta, best)
             return [theta, adam.mu, adam.nu, adam.count, best, best_loss], []
 
-        def draw(k):
-            if not shuffle:
-                return []
-            return [torch.stack([torch.randperm(xt.shape[0], generator=generator,
-                                                device=device)[:n_eff] for _ in range(k)])]
-
-        graph_of, length = None, 1
-        if graphs.fit_captures(flow, device):
-            length = graphs.hoist_length(n_epochs, n_eff)
-            graph_of = _replays(scan_fit, flow, ("make_scan_fit",), epoch, [], length)
-        carry, _, _ = graphs.iterations(epoch, _start(theta0, lr), [xt, xv], draw, n_epochs,
-                                        graph_of, length)
+        if graphs.in_body() and not graphs.warming():
+            carry = _inline_epochs(epoch, _start(theta0, lr), [xt, xv], perms, n_epochs, device)
+        else:
+            # the WHILE node that a capture of the body around this call opens
+            graphs.eager_scope(device)
+            graph_of, length = None, 1
+            if graphs.fit_captures(flow, device):
+                length = graphs.hoist_length(n_epochs, 2 * n_eff if shuffle else 0)
+                graph_of = _replays(scan_fit, flow, ("make_scan_fit",), epoch, [], length)
+            carry, _, _ = graphs.iterations(epoch, _start(theta0, lr), [xt, xv],
+                                            graphs.sliced([perms] if shuffle else []),
+                                            n_epochs, graph_of, length)
         with torch.no_grad():
             fitted = _fitted(carry, keep_best)
             ok = torch.isfinite(_nll(flow, unpack_like(fitted, params), xv))
             return unpack_like(torch.where(ok, fitted, theta0), params)
 
+    scan_fit.draw, scan_fit.draws = draw, draws
+    # a call's rows in float32 elements (int64 rows count twice)
+    scan_fit.row_elems = 2 * sum(int(np.prod(s)) for s in shapes)
+    # what a body that calls the fit bakes in, for a graph's key
+    scan_fit.config = (id(flow), id(flow.bijection), id(flow._base_log_prob_override), n_rows,
+                       n_epochs, float(lr), bs, bool(shuffle), bool(keep_best_weights), train_pct,
+                       max_train_size, max_val_size)
     return scan_fit
+
+
+def _inline_epochs(epoch, carry: list, consts: list, perms, n_epochs: int, device) -> list:
+    """A fit's epochs inside a graph's capture: a :func:`graphs.loop` over
+    them, the carried tensors fresh copies made before it and written in
+    place each epoch (a loop's state crosses its scope so), epoch ``t``'s
+    permutation read at the loop's device counter ``t``."""
+    carry = [t.clone() for t in carry]
+
+    def run(t):
+        rows = [] if perms is None else [perms.index_select(0, t.view(1))[0]]
+        new, _ = epoch(carry, consts, rows)
+        for c, n in zip(carry, new):
+            if n is not c:
+                c.copy_(n)
+
+    graphs.loop(n_epochs, lambda t: t < n_epochs, run, device)
+    return carry
 
 
 def fit(

@@ -15,9 +15,13 @@ estimator (counterpart of ``nfmc_tpu/samplers/nfmc/dlmc.py``).
 With fixed-effort ``flow_fit_kwargs`` (no early stopping, no time limit,
 e.g. ``dict(n_epochs=10)``) the refit is ``make_scan_fit`` with a fresh Adam
 each iteration, and the iterations run through the chunked driver with the
-flow's weights in its carried state; any other ``flow_fit_kwargs`` run the
-host loop (``Flow.fit``, which may stop early). Both paths share one drift
-and one accept.
+flow's weights in its carried state, the refit's permutations hoisted from
+the fit's generator a chunk at a time. On CUDA, on one rank, with a flow
+that declares its kernels capturable, an iteration (refit, drift, accept)
+is one captured graph, replayed (the JAX package's ``lax.scan`` with the
+refit in its body; the refit's epochs a WHILE node). Any other
+``flow_fit_kwargs`` run the host loop (``Flow.fit``, which may stop early).
+Both paths share one drift and one accept.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Optional
 
 import torch
 
+from ...core import graphs
+from ...core.chains import all_rows
 from ...core.driver import ChunkedScanDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
@@ -35,6 +41,7 @@ from ...flows.train import fixed_effort_fit_config, make_scan_fit
 from ...utils import (
     Progress,
     batched_grad,
+    event_size_of,
     metropolis_acceptance_log_ratio,
     unevaluable_current_mask,
 )
@@ -52,6 +59,10 @@ class DLMCParameters(NFMCParameters):
 
 class DLMC(Sampler):
     multi_rank_chains = True
+    # the fused iteration (refit, drift, accept): static shapes, the refit's
+    # randomness hoisted, no host read; on one rank its chunks replay a CUDA
+    # graph
+    graph_capturable = True
 
     def __init__(self, event_shape, target, negative_log_likelihood,
                  kernel: Optional[DLMCKernel] = None, params: Optional[DLMCParameters] = None,
@@ -162,9 +173,32 @@ class DLMC(Sampler):
         out.kernel = self.kernel
         return out
 
+    def _make_fused_step(self, fit):
+        """``make_step(tuning)`` of the fused iteration: ``step(x, params,
+        (z, log_u, *rows))`` refits the flow with ``fit`` on all the
+        particles (``rows`` its hoisted permutations), then drifts and
+        accepts with the new weights (the JAX package's
+        ``_make_fused_step``)."""
+        shard = self.chain_shard
+        drift, accept = self._make_drift_accept()
+
+        def make_step(tuning):
+            def step(x, params, draws):
+                z, log_u, *rows = draws
+                # every rank refits on all the particles, to the same weights
+                params = fit(params, all_rows(x, shard), rows=rows)
+                x, mask, diverged = accept(params, drift(params, x), (z, log_u))
+                return x, params, StepInfo(n_accepted=mask.sum().to(torch.int32),
+                                           diverged=diverged)
+
+            return step
+
+        return make_step
+
     def _sample_fused(self, x, out, generator, fit_cfg, show_progress, time_limit_seconds):
         """Refit, drift and accept as one iteration of the chunked driver,
-        the flow's weights its carried state."""
+        the flow's weights its carried state and the refit's rows its second
+        draw source."""
         flow = self.kernel.flow
         shard = self.chain_shard
         n_chains = self._n_global(x.shape[0])
@@ -176,24 +210,16 @@ class DLMC(Sampler):
                             max_val_size=self.params.max_val_size)
         (fit_seed,) = self._sub_seeds(generator, 1)
         fit_generator = torch.Generator(device=self.device).manual_seed(fit_seed)
-        drift, accept = self._make_drift_accept()
-
-        def make_step(tuning):
-            def step(x, params, draws):
-                # every rank refits on all the particles, to the same weights
-                params = fit(params, x if shard is None else shard.gather(x, 0), fit_generator)
-                x, mask, diverged = accept(params, drift(params, x), draws)
-                return x, params, StepInfo(n_accepted=mask.sum().to(torch.int32),
-                                           diverged=diverged)
-
-            return step
-
-        driver = ChunkedScanDriver(self.event_shape, make_step, self.make_draws)
+        per_iter = n_chains * (event_size_of(self.event_shape) + 1) + fit.row_elems
+        driver = ChunkedScanDriver(self.event_shape, self._make_fused_step(fit), self.make_draws,
+                                   hoist_per_iter=lambda _x: per_iter,
+                                   capturable=graphs.declared(self, (flow,)), collective=True)
         _x, params = driver.run(
             x, flow.params, generator, self.params.n_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=3 * n_chains, grads_per_iter=n_chains,
             collect=self.params.store_samples, time_limit_seconds=time_limit_seconds,
-            show_progress=show_progress, desc="DLMC sampling", shard=shard)
+            show_progress=show_progress, desc="DLMC sampling", shard=shard,
+            fit_rows=lambda chunk: fit.draws(fit_generator, chunk))
         flow.params = params
 
     def _sample_host(self, x, out, generator, show_progress, time_limit_seconds):

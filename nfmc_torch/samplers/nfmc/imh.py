@@ -14,11 +14,16 @@
   chosen by ``train_distribution``. With a draw history under
   ``history_element_limit`` elements the history stays on the device and the
   refit is ``make_scan_fit`` (the fused path); above it the loop runs on the
-  host with ``Flow.fit`` and a weight rollback. Counter quirk kept for
-  parity: the accept step's 2 C evaluations are counted as gradient calls.
+  host with ``Flow.fit`` and a weight rollback. On CUDA, on one rank, with
+  a flow that declares its kernels capturable, the fused path's iterations
+  are replays of one captured graph: the host schedule enters it as two
+  rows, the refit gate (an IF node, the JAX package's ``lax.cond``) and the
+  stored batch's index. Counter quirk kept for parity: the accept step's
+  2 C evaluations are counted as gradient calls.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ...core import graphs
+from ...core.chains import all_rows
 from ...core.driver import (
     RNG_HOIST_ELEMENT_LIMIT,
     ChunkedScanDriver,
@@ -34,6 +40,7 @@ from ...core.driver import (
     StepInfo,
     flow_proposal_footprint_per_draw,
     hoisted_flow_proposals,
+    plan_chunks,
     run_chunk_loop,
     synchronize,
 )
@@ -274,6 +281,10 @@ class AdaptiveIMH(AbstractIMH):
     the run's generator, the same on every rank."""
 
     multi_rank_chains = True
+    # the fused path's iteration (accept, history write, gated refit and
+    # rescore): static shapes, its schedule and refit rows hoisted, no host
+    # read; on one rank its chunks replay a CUDA graph
+    graph_capturable = True
     # footprint cap (f32 elements) of the fused path's draw history on the
     # device; its own knob, so that the proposal limit cannot switch paths
     history_element_limit: int = RNG_HOIST_ELEMENT_LIMIT
@@ -434,36 +445,110 @@ class AdaptiveIMH(AbstractIMH):
                                         device=x0.device),
                     "acc": StatsAccum.zeros(self.event_shape, x0.device, self.chain_shard)}
 
-    def run_fused_chunk(self, st: dict, i0: int, draws, do_fit, k_idx, scan_fit,
-                        fit_generator) -> dict:
-        """Iterations ``[i0, i0 + chunk)`` of the fused path on state ``st``
-        with injected ``draws`` (``make_draws``'s, leading dim ``chunk``) and
-        schedule: each iteration accepts, writes its state into the history
-        and, where ``do_fit`` says, refits the flow for one epoch on history
-        row ``k_idx`` and rescores the current state."""
+    def _make_fused_iteration(self, scan_fit):
+        """``iteration(carried, hist, draws, do_fit, k, at, rows) ->
+        carried``: one iteration of the fused path, which its eager loop and
+        its graph's body both run. It accepts (``draws`` the iteration's
+        ``(z, log_u)``), writes the new state into history row ``at``, and
+        where ``do_fit`` holds refits the flow for one epoch on history row
+        ``k`` (every rank's rows of it; ``rows`` the refit's hoisted
+        permutations) and rescores the current state, whose cached flow
+        log-prob is stale after a refit. ``carried`` is ``(params, x, flp,
+        u, acc)``; the gate and the indices are host values in the eager
+        loop, 0-d device tensors at the counter in the body."""
         flow = self.kernel.flow
-        accept_step = self._make_accept_step()
         shard = self.chain_shard
-        params, x, flp, u, hist, acc = (st[k] for k in ("params", "x", "flp", "u", "hist", "acc"))
+        accept_step = self._make_accept_step()
+
+        def iteration(carried, hist, draws, do_fit, k, at, rows):
+            params, x, flp, u, acc = carried
+            x, flp, u, mask, diverged = accept_step(params, x, flp, u, draws)
+            if isinstance(at, int):
+                hist[at].copy_(x)
+            else:
+                hist.index_copy_(0, at.view(1), x.unsqueeze(0))
+
+            def refit(ops):
+                data = hist[k] if isinstance(k, int) else hist.index_select(0, k.view(1))[0]
+                fitted = scan_fit(ops[0], all_rows(data, shard), rows=rows)
+                return fitted, flow.log_prob_fn(fitted, x)
+
+            params, flp = graphs.cond(do_fit, refit, (params, flp))
+            acc = acc.add(StepInfo(n_accepted=mask.sum().to(torch.int32), diverged=diverged), x)
+            return params, x, flp, u, acc
+
+        return iteration
+
+    def run_fused_chunk(self, st: dict, i0: int, draws, do_fit, k_idx, scan_fit,
+                        fit_generator=None, fit_rows=None) -> dict:
+        """Iterations ``[i0, i0 + chunk)`` of the fused path's eager loop on
+        state ``st`` with injected ``draws`` (``make_draws``'s, leading dim
+        ``chunk``) and schedule ``do_fit`` / ``k_idx``
+        (:meth:`_make_fused_iteration`). The refits' rows are ``fit_rows``
+        (``scan_fit.draws``'s, leading dim ``chunk``), or drawn so from
+        ``fit_generator`` up front."""
+        if fit_rows is None:
+            fit_rows = scan_fit.draws(fit_generator, do_fit)
+        iteration = self._make_fused_iteration(scan_fit)
+        carried = tuple(st[k] for k in _CARRIED)
         with torch.no_grad():
             for j in range(len(do_fit)):
-                x, flp, u, mask, diverged = accept_step(params, x, flp, u,
-                                                        tuple(d[j] for d in draws))
-                hist[i0 + j].copy_(x)
-                if do_fit[j]:
-                    data = hist[int(k_idx[j])]
-                    params = scan_fit(params, data if shard is None else shard.gather(data, 0),
-                                      fit_generator)
-                    flp = flow.log_prob_fn(params, x)
-                acc = acc.add(StepInfo(n_accepted=mask.sum().to(torch.int32), diverged=diverged),
-                              x)
-        return {**st, "params": params, "x": x, "flp": flp, "u": u, "acc": acc}
+                carried = iteration(carried, st["hist"], tuple(d[j] for d in draws),
+                                    bool(do_fit[j]), int(k_idx[j]), i0 + j,
+                                    [r[j] for r in fit_rows])
+        return {**st, **dict(zip(_CARRIED, carried))}
+
+    def fused_graph_runner(self, st: dict, scan_fit, length: int):
+        """``run(st, i0, draws, do_fit, k_idx, fit_rows) -> st``:
+        :meth:`run_fused_chunk`'s iterations as replays of one graph of the
+        fused path's iteration (made at the first chunk), over static
+        buffers: the carried weights, chains, flow log-probs, potentials and
+        accumulators; each iteration's draws, refit gate (an IF node under
+        a capture), stored batch index, history row and refit rows at the
+        counter, ``length`` iterations of them. The history is the run's own
+        buffer ``st["hist"]``, which the body writes and reads where it
+        lies, so the graph lives as long as the runner, not in the cache."""
+        iteration = self._make_fused_iteration(scan_fit)
+        hist = st["hist"]
+        leaves, spec = graphs.flatten(_carried(st))
+        made = []
+
+        def body(state, rows):
+            z, log_u, do_fit, k, at, *fit_rows = rows
+            carried = iteration(graphs.unflatten(spec, state), hist, (z, log_u), do_fit, k, at,
+                                fit_rows)
+            new_leaves, new_spec = graphs.flatten(carried)
+            if new_spec != spec:
+                raise RuntimeError("a captured iteration changed the structure of its state")
+            return new_leaves, []
+
+        def run(st, i0, draws, do_fit, k_idx, fit_rows):
+            device = hist.device
+            chunk = len(do_fit)
+            inputs = [*draws, torch.as_tensor(np.asarray(do_fit, dtype=bool), device=device),
+                      torch.as_tensor(np.asarray(k_idx), dtype=torch.int64, device=device),
+                      torch.arange(i0, i0 + chunk, device=device), *fit_rows]
+            if not made:
+                made.append(graphs.IterationGraph(
+                    body, leaves, [((length, *t.shape[1:]), t.dtype) for t in inputs], [],
+                    device))
+            graph = made[0]
+            graph.load(graphs.flatten(_carried(st))[0], inputs)
+            with torch.no_grad():
+                graph.run(chunk)
+            return {**st, **dict(zip(_CARRIED, graphs.unflatten(spec, graph.state)))}
+
+        return run
 
     def _sample_fused(self, x0, generator, rng, fit_generator, show_progress,
                       time_limit_seconds, offset) -> MCMCOutput:
         """The history on the device, the schedule drawn per chunk on the
         host in the host loop's order, and the refit ``make_scan_fit``
-        (1 epoch, a fresh Adam, rollback on a non-finite loss)."""
+        (1 epoch, a fresh Adam, rollback on a non-finite loss), its rows
+        drawn a chunk at a time for the refitting iterations. On CUDA, on
+        one rank (a refit gathers the chains), with a flow that declares its
+        kernels capturable, each chunk is replays of one captured iteration
+        (:meth:`fused_graph_runner`)."""
         flow = self.kernel.flow
         shard = self.chain_shard
         n_chains = self._n_global(x0.shape[0])
@@ -471,17 +556,27 @@ class AdaptiveIMH(AbstractIMH):
         out = MCMCOutput(self.event_shape, store_samples=True,
                          on_device=self.params.store_samples_on_device)
         scan_fit = make_scan_fit(flow, n_chains, n_epochs=1)
+        pipelined = time_limit_seconds is None and not show_progress
 
         t0 = time.time()
         st = self.make_fused_state(x0, n_total)
         out.statistics.update_elapsed_time(time.time() - t0)
+        replayed = None
+        if graphs.declared(self, (flow,)) and graphs.captures(self.device, shard,
+                                                             collective=True):
+            replayed = self.fused_graph_runner(st, scan_fit,
+                                               max(plan_chunks(n_total, pipelined, 256), default=1))
 
         def dispatch(chunk, iters_done):
             do_fit, k_idx = self._adaptation_schedule(rng, iters_done, chunk, offset=offset)
             draws = tuple(self._chain_rows(d, 1)
                           for d in self.make_draws(generator, (chunk,), n_chains))
-            st.update(self.run_fused_chunk(st, iters_done, draws, do_fit, k_idx, scan_fit,
-                                           fit_generator))
+            fit_rows = scan_fit.draws(fit_generator, do_fit)
+            if replayed is None:
+                st.update(self.run_fused_chunk(st, iters_done, draws, do_fit, k_idx, scan_fit,
+                                               fit_rows=fit_rows))
+            else:
+                st.update(replayed(st, iters_done, draws, do_fit, k_idx, fit_rows))
 
         def flush(iters):
             acc = st["acc"]
@@ -513,3 +608,14 @@ class AdaptiveIMH(AbstractIMH):
         flow.params = st["params"]
         out.kernel = self.kernel
         return out
+
+
+# the fused path's carried state, in the order its iteration takes it
+_CARRIED = ("params", "x", "flp", "u", "acc")
+
+
+def _carried(st: dict) -> tuple:
+    """What the fused path's graph carries of its state ``st``: the
+    weights, chains, flow log-probs, potentials and accumulators (the
+    history stays where it lies)."""
+    return (*(st[k] for k in _CARRIED[:-1]), dataclasses.replace(st["acc"], div_flags=None))

@@ -20,10 +20,13 @@ step that calls a collective every iteration (AIES's) runs the eager loop
 over several ranks. With ``fit_nf=True`` and
 fixed-effort ``flow_fit_kwargs`` each outer iteration from
 ``n_jumps_before_training`` on refits the flow on its inner draws
-(``make_scan_fit``) inside the chunk, and the proposals are made per
-iteration; any other ``flow_fit_kwargs`` run the outer loop on the host
-(``_sample_host``), calling ``inner_sampler.sample`` and ``Flow.fit`` each
-iteration.
+(``make_scan_fit``, its permutations hoisted from the fit's generator for
+the refitting iterations) inside the chunk, and the proposals are made per
+iteration from the refitted weights; for the declared classes on CUDA, on
+one rank, that outer iteration is one captured graph too, the refit under
+its gate row (an IF node, the JAX package's ``lax.cond``). Any other
+``flow_fit_kwargs`` run the outer loop on the host (``_sample_host``),
+calling ``inner_sampler.sample`` and ``Flow.fit`` each iteration.
 
 ``warmup`` tunes the inner sampler, then fits the flow by maximum
 likelihood on the tuning draws (70/30 train/val split), rolling the weights
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from ...core import graphs
+from ...core.chains import all_rows
 from ...core.driver import (
     RNG_HOIST_ELEMENT_LIMIT,
     StatsAccum,
@@ -303,14 +307,16 @@ class JumpNFMC(Sampler):
         ``(chunk * (inner_n + 1), C, *event)``, or None when
         ``params.store_samples`` is off.
 
-        ``refit = (scan_fit, generator, gate)``: outer iteration i refits the
-        flow on its inner draws when ``gate[i]`` is set and then jumps with
-        the refitted params, so its proposal is made after the refit.
+        ``refit = (scan_fit, gate, rows)``: outer iteration i refits the
+        flow on its inner draws with ``scan_fit`` (``rows``' row i its
+        hoisted permutations, ``scan_fit.draws``) when ``gate[i]`` is set
+        and then jumps with the refitted params, so its proposal is made
+        after the refit.
 
-        Without a refit, a declared class on CUDA runs the outer iterations
-        as replays of one captured iteration (:mod:`~nfmc_torch.core.graphs`)
-        whose static buffers hold ``length`` iterations (the chunk's own
-        length when None)."""
+        A declared class on CUDA (on one rank where a refit gathers the
+        chains) runs the outer iterations as replays of one captured
+        iteration (:mod:`~nfmc_torch.core.graphs`) whose static buffers hold
+        ``length`` iterations (the chunk's own length when None)."""
         collect = self.params.store_samples
         inner = self.inner_sampler
         flow = self.kernel.flow
@@ -319,53 +325,71 @@ class JumpNFMC(Sampler):
         inner_draws = draws["inner"]
         chunk, inner_n = inner_draws[0].shape[:2]
         x, ks, acc, jacc = state.x, state.inner_state, state.acc, state.jump_acc
-        graphed = (refit is None and graphs.declared(self, (flow,))
+        graphed = (graphs.declared(self, (flow,))
                    and graphs.captures(x.device, self.chain_shard,
-                                       collective=inner.collective_step))
+                                       collective=inner.collective_step or refit is not None))
         # work of the inner steps that does not depend on the chain state
         # (ChEES's leapfrog counts) for the whole chunk, in one pass
         precompute = inner._make_precompute(False, graphed)
         inner_aux = precompute(x, ks, inner_draws) if precompute is not None else None
         sweep, jump = self._make_outer_steps(inner_aux is not None)
         with torch.no_grad():
+            prop = None
             if refit is None:
-                xp, flp, up = hoisted_flow_proposals(flow, params, draws["z"], target=target)
+                prop = hoisted_flow_proposals(flow, params, draws["z"], target=target)
             if graphed:
-                return self._run_chunk_graph(state, draws, inner_aux, (xp, flp, up),
-                                             length or chunk)
+                return self._run_chunk_graph(state, draws, inner_aux, prop, length or chunk,
+                                             refit)
             ys = None
             if collect:
                 ys = torch.empty((chunk * (inner_n + 1), *x.shape), dtype=x.dtype,
                                  device=x.device)
             if refit is not None:
-                inner_ys = torch.empty((inner_n, *x.shape), dtype=x.dtype, device=x.device)
+                scan_fit, gate, rows = refit
+                refit_step = self._make_refit(scan_fit)
             row = 0
             for i in range(chunk):
                 x, ks, acc, states, _infos = sweep(
                     x, ks, acc, tuple(d[i] for d in inner_draws),
                     None if inner_aux is None else tuple(a[i] for a in inner_aux),
                     draws["x0"][i] if "x0" in draws else None)
-                for s, x_s in enumerate(states):
-                    if collect:
+                if collect:
+                    for x_s in states:
                         ys[row].copy_(x_s)
                         row += 1
-                    if refit is not None:
-                        inner_ys[s].copy_(x_s)
                 if refit is None:
-                    prop = (xp[i], flp[i], up[i])
+                    p_i = tuple(t[i] for t in prop)
                 else:
-                    scan_fit, generator, gate = refit
-                    if gate[i]:
-                        data = inner_ys if self.chain_shard is None else self.chain_shard.gather(
-                            inner_ys, axis=1)
-                        params = scan_fit(params, data.reshape(-1, *self.event_shape), generator)
-                    prop = tuple(t[0] for t in hoisted_flow_proposals(
-                        flow, params, draws["z"][i:i + 1], target=target))
-                x, ks, jacc = jump(params, x, ks, jacc, prop, draws["jump_log_u"][i])
+                    params = graphs.cond(bool(gate[i]),
+                                         lambda p: refit_step(p, states, [r[i] for r in rows]),
+                                         params)
+                    p_i = self._proposal(params, draws["z"][i])
+                x, ks, jacc = jump(params, x, ks, jacc, p_i, draws["jump_log_u"][i])
                 if collect:
                     ys[row].copy_(x)
                     row += 1
         return ChunkState(x=x, inner_state=ks, acc=acc, jump_acc=jacc, flow_params=params), ys
+
+    def _make_refit(self, scan_fit):
+        """``refit(params, states, rows) -> params'``: ``scan_fit`` on an
+        outer iteration's inner states (every rank's chains of them),
+        ``rows`` its hoisted permutations."""
+        shard = self.chain_shard
+        event_shape = self.event_shape
+
+        def refit(params, states, rows):
+            data = all_rows(torch.stack(states), shard, axis=1)
+            return scan_fit(params, data.reshape(-1, *event_shape), rows=rows)
+
+        return refit
+
+    def _proposal(self, params, z):
+        """One outer iteration's flow proposal ``(x', log q(x'), U(x'))``
+        from its base draws ``z`` ``(C, *event)``: one coupling inverse at
+        B = C with the current weights."""
+        target = self.target if self.params.adjusted_jumps else None
+        return tuple(t[0] for t in hoisted_flow_proposals(self.kernel.flow, params, z[None],
+                                                          target=target))
 
     def _graph_config(self) -> tuple:
         """What the captured outer iteration bakes in: the inner sampler's
@@ -376,9 +400,11 @@ class JumpNFMC(Sampler):
         return (inner._static_config(None), inner._graph_mode(False), id(flow),
                 id(flow.bijection), id(self.target), self.params.adjusted_jumps)
 
-    def _run_chunk_graph(self, state: ChunkState, draws: dict, inner_aux, prop, length: int):
+    def _run_chunk_graph(self, state: ChunkState, draws: dict, inner_aux, prop, length: int,
+                         refit=None):
         """:meth:`run_chunk` as replays of one captured outer iteration: its
-        inner draws, precompute output, proposal, jump uniform and prior
+        inner draws, precompute output, proposal (with a refit: its base
+        draws and gate, and the refit's rows), jump uniform and prior
         redraw at the counter; it emits the iteration's ``inner_n + 1``
         states (and, on several ranks, its steps' divergence flags)."""
         collect = self.params.store_samples
@@ -387,28 +413,46 @@ class JumpNFMC(Sampler):
         shard = self.chain_shard
         flags = shard is not None and shard.size > 1
         n_inner, n_aux = len(inner_draws), len(inner_aux or ())
-        inputs = [*inner_draws, *(inner_aux or ()), *prop, draws["jump_log_u"]]
-        if "x0" in draws:
+        if refit is None:
+            head, fit_rows, fit_config = list(prop), [], None
+        else:
+            scan_fit, gate, fit_rows = refit
+            head = [draws["z"], torch.as_tensor(np.asarray(gate, dtype=bool),
+                                                device=state.x.device)]
+            fit_config = scan_fit.config
+        n_head, n_rows = len(head), len(fit_rows)
+        inputs = [*inner_draws, *(inner_aux or ()), *head, draws["jump_log_u"], *fit_rows]
+        has_x0 = "x0" in draws
+        if has_x0:
             inputs.append(draws["x0"])
         acc = state.acc
         leaves, spec = graphs.flatten((state.x, state.inner_state,
                                        dataclasses.replace(acc, div_flags=None), state.jump_acc,
                                        state.flow_params))
-        key = ("outer", self._graph_config(), collect, flags, n_aux, spec,
+        key = ("outer", self._graph_config(), collect, flags, n_aux, fit_config, spec,
                graphs.signature(leaves), graphs.signature(t[0] for t in inputs), length)
 
         def make():
             sweep, jump = self._make_outer_steps(n_aux > 0)
+            refit_step = None if refit is None else self._make_refit(refit[0])
 
             def body(state_leaves, rows):
                 x, ks, acc_, jacc, params = graphs.unflatten(spec, state_leaves)
                 k = n_inner + n_aux
                 x, ks, acc_, states, infos = sweep(x, ks, acc_, rows[:n_inner],
                                                    rows[n_inner:k] if n_aux else None,
-                                                   rows[k + 4] if len(rows) > k + 4 else None)
+                                                   rows[-1] if has_x0 else None)
                 for info in infos:
                     graphs.check_host_counts(info)
-                x, ks, jacc = jump(params, x, ks, jacc, rows[k:k + 3], rows[k + 3])
+                head_i, log_u = rows[k:k + n_head], rows[k + n_head]
+                if refit_step is None:
+                    p_i = head_i
+                else:
+                    z, gate_i = head_i
+                    rows_i = rows[k + n_head + 1:k + n_head + 1 + n_rows]
+                    params = graphs.cond(gate_i, lambda p: refit_step(p, states, rows_i), params)
+                    p_i = self._proposal(params, z)
+                x, ks, jacc = jump(params, x, ks, jacc, p_i, log_u)
                 new_leaves, new_spec = graphs.flatten((x, ks, acc_, jacc, params))
                 if new_spec != spec:
                     raise RuntimeError("a captured outer iteration changed the structure of "
@@ -421,8 +465,11 @@ class JumpNFMC(Sampler):
             x = state.x
             outputs = ([((length, inner_n + 1, *x.shape), x.dtype)] if collect else []) + (
                 [((length, inner_n), torch.int32)] if flags else [])
-            return graphs.IterationGraph(body, leaves, [((length, *t.shape[1:]), t.dtype)
-                                                        for t in inputs], outputs, x.device)
+            graph = graphs.IterationGraph(body, leaves, [((length, *t.shape[1:]), t.dtype)
+                                                         for t in inputs], outputs, x.device)
+            # the refit's closure, whose config the key holds
+            graph.constants = () if refit is None else (refit[0],)
+            return graph
 
         graph = graphs.CACHE.get(self, key, make)
         graph.load(leaves, inputs)
@@ -493,11 +540,13 @@ class JumpNFMC(Sampler):
                 max_val_size=self.params.max_val_size)
             fit_generator = torch.Generator(device=self.device)
             fit_generator.manual_seed(self._sub_seeds(generator, 1)[0])
-        # refits make their proposals per iteration: only the draws are hoisted
-        per_proposal = 0 if fit_cfg is not None else flow_proposal_footprint_per_draw(
+        # refits make their proposals per iteration: their base draws and the
+        # refits' rows are hoisted
+        per_proposal = event_elems if fit_cfg is not None else flow_proposal_footprint_per_draw(
             self.kernel.flow, event_elems)
         cap = hoist_cap(n_chains, event_elems, inner_n, per_proposal, store,
-                        self.inner_sampler.hoisted_elements_per_iter(x0))
+                        self.inner_sampler.hoisted_elements_per_iter(x0),
+                        fit_elems=0 if fit_cfg is None else scan_fit.row_elems)
         # a captured iteration's static buffers hold the run's longest chunk
         length = max(plan_chunks(self.params.n_iterations, pipelined, 256, cap), default=1)
 
@@ -505,9 +554,10 @@ class JumpNFMC(Sampler):
             draws = self._shard_chunk_draws(self.make_chunk_draws(generator, chunk, n_chains))
             refit = None
             if fit_cfg is not None:
-                # gated by the absolute outer index
+                # gated by the absolute outer index; rows drawn for the
+                # refitting iterations, in the order their eager calls would
                 gate = [iters_done + i >= self.params.n_jumps_before_training for i in range(chunk)]
-                refit = (scan_fit, fit_generator, gate)
+                refit = (scan_fit, gate, scan_fit.draws(fit_generator, gate))
             st["state"], ys = self.run_chunk(st["state"], draws, refit, length)
             if store:
                 if defer_store:
@@ -658,7 +708,8 @@ class JumpNFMC(Sampler):
 
 class JumpMALA(JumpNFMC):
     multi_rank_chains = True
-    # the outer iteration without refits: chunks replay a CUDA graph
+    # the outer iteration, with or without its gated refit: chunks replay a
+    # CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -670,7 +721,8 @@ class JumpMALA(JumpNFMC):
 
 class JumpULA(JumpNFMC):
     multi_rank_chains = True
-    # the outer iteration without refits: chunks replay a CUDA graph
+    # the outer iteration, with or without its gated refit: chunks replay a
+    # CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -682,7 +734,8 @@ class JumpULA(JumpNFMC):
 
 class JumpHMC(JumpNFMC):
     multi_rank_chains = True
-    # the outer iteration without refits: chunks replay a CUDA graph
+    # the outer iteration, with or without its gated refit: chunks replay a
+    # CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -694,7 +747,8 @@ class JumpHMC(JumpNFMC):
 
 class JumpUHMC(JumpNFMC):
     multi_rank_chains = True
-    # the outer iteration without refits: chunks replay a CUDA graph
+    # the outer iteration, with or without its gated refit: chunks replay a
+    # CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -706,7 +760,8 @@ class JumpUHMC(JumpNFMC):
 
 class JumpMH(JumpNFMC):
     multi_rank_chains = True
-    # the outer iteration without refits: chunks replay a CUDA graph
+    # the outer iteration, with or without its gated refit: chunks replay a
+    # CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -721,7 +776,7 @@ class JumpESS(JumpNFMC):
     iteration starts from a prior redraw (the reference's ESS quirk)."""
 
     multi_rank_chains = True
-    # the outer iteration without refits, the redraw included: chunks
+    # the outer iteration, the redraw and the gated refit included: chunks
     # replay a CUDA graph
     graph_capturable = True
 
@@ -738,8 +793,8 @@ class JumpNUTS(JumpNFMC):
     are counted through the dynamic channel."""
 
     multi_rank_chains = True
-    # the outer iteration without refits, its inner trajectories in
-    # scopes on device predicates: chunks replay a CUDA graph
+    # the outer iteration, its inner trajectories in scopes on device
+    # predicates, with or without its gated refit: chunks replay a CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -755,8 +810,8 @@ class JumpChEES(JumpNFMC):
     in the outer loop; the leapfrog counts are counted dynamically."""
 
     multi_rank_chains = True
-    # the outer iteration without refits, its inner trajectories in
-    # scopes on device predicates: chunks replay a CUDA graph
+    # the outer iteration, its inner trajectories in scopes on device
+    # predicates, with or without its gated refit: chunks replay a CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,
@@ -772,8 +827,8 @@ class JumpAIES(JumpNFMC):
     runner's state refresh after each jump recomputes it."""
 
     multi_rank_chains = True
-    # the outer iteration without refits: on one rank, chunks replay a
-    # CUDA graph
+    # the outer iteration, with or without its gated refit: on one rank,
+    # chunks replay a CUDA graph
     graph_capturable = True
 
     def __init__(self, event_shape, target, kernel=None, params=None,

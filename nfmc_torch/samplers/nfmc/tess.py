@@ -18,8 +18,10 @@
 * warmup (20 iterations) alternates a step and a maximum-likelihood refit
   of the flow on the produced ``x``, from ``u ~ N(0, I)``, storing latent
   draws; with fixed-effort ``flow_fit_kwargs`` the refit is
-  ``make_scan_fit`` inside the chunk (a fresh Adam each iteration), else a
-  host loop with ``Flow.fit``;
+  ``make_scan_fit`` inside the chunk (a fresh Adam each iteration, its
+  permutations hoisted from the fit's generator), on CUDA on one rank a
+  replay of one captured iteration with the refit in it, else a host loop
+  with ``Flow.fit``;
 * ``sample`` treats ``x0`` as the latent start and stores data-space draws;
 * counters: ``(max_ess_step_iterations + 1) B`` target calls an iteration,
   no gradient call.
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ...core import graphs
+from ...core.chains import all_rows
 from ...core.driver import ChunkedScanDriver, StepInfo
 from ...core.output import MCMCOutput
 from ...core.sampler import NFMCKernel, NFMCParameters, Sampler
@@ -151,8 +154,8 @@ def _info(accepted, u_new):
 
 class TESS(Sampler):
     multi_rank_chains = True
-    # the sampling run's step: static shapes, a fixed number of bracket
-    # rounds, no host read (the warmup refits and is not captured)
+    # the sampling run's step and the fused warmup's (its refit's rows
+    # hoisted): static shapes, a fixed number of bracket rounds, no host read
     graph_capturable = True
 
     def __init__(self, event_shape, target, negative_log_likelihood,
@@ -254,14 +257,37 @@ class TESS(Sampler):
             bar.update(1)
         bar.close()
 
+    def _make_warmup_step(self, scan_fit):
+        """``make_step(tuning)`` of the fused warmup: ``step(u, params,
+        (*tess draws, *rows))`` re-derives ``(log pi^(u), f^{-1}(u))`` under
+        the current weights, steps, then refits the flow with ``scan_fit``
+        on all the chains' data-space draws (``rows`` its hoisted
+        permutations)."""
+        shard = self.chain_shard
+        tess_init, tess_step, _draws = self._make_tess_step()
+        n_tess = len(TESS_DRAW_AXES)
+
+        def make_step(tuning):
+            def step(u, params, draws):
+                lp_u, x_u = tess_init(params, u)
+                x, u_new, _lp, accepted = tess_step(params, u, lp_u, x_u, draws[:n_tess])
+                # every rank refits on all the chains, to the same weights
+                params = scan_fit(params, all_rows(x, shard), rows=draws[n_tess:])
+                return u_new, params, _info(accepted, u_new)
+
+            return step
+
+        return make_step
+
     def _warmup_fused(self, u0, out, generator, fit_cfg, show_progress, time_limit_seconds):
         """The step and the refit as one iteration of the chunked driver,
-        the latent ``u`` its position and the flow's weights its state."""
+        the latent ``u`` its position, the flow's weights its state and the
+        refit's rows its second draw source."""
         flow = self.kernel.flow
         shard = self.chain_shard
         n_chains = self._n_global(u0.shape[0])
         n_epochs, lr, batch_size, keep_best_weights, shuffle = fit_cfg
-        tess_init, tess_step, tess_draws = self._make_tess_step()
+        _init, _step, tess_draws = self._make_tess_step()
         scan_fit = make_scan_fit(flow, n_chains, n_epochs=n_epochs, lr=lr, batch_size=batch_size,
                                  shuffle=shuffle, keep_best_weights=keep_best_weights,
                                  train_pct=self.params.train_pct,
@@ -269,28 +295,18 @@ class TESS(Sampler):
                                  max_val_size=self.params.max_val_size)
         (fit_seed,) = self._sub_seeds(generator, 1)
         fit_generator = torch.Generator(device=self.device).manual_seed(fit_seed)
-
-        def make_step(tuning):
-            def step(u, params, draws):
-                lp_u, x_u = tess_init(params, u)
-                x, u_new, _lp, accepted = tess_step(params, u, lp_u, x_u, draws)
-                # every rank refits on all the chains, to the same weights
-                params = scan_fit(params, x if shard is None else shard.gather(x, 0),
-                                  fit_generator)
-                return u_new, params, _info(accepted, u_new)
-
-            return step
-
-        # a refit inside the step draws from its generator: never captured
-        driver = ChunkedScanDriver(self.event_shape, make_step, tess_draws,
-                                   hoist_per_iter=self._hoist_per_iter,
-                                   draw_chain_axes=TESS_DRAW_AXES)
+        driver = ChunkedScanDriver(self.event_shape, self._make_warmup_step(scan_fit), tess_draws,
+                                   hoist_per_iter=lambda x: (self._hoist_per_iter(x)
+                                                             + scan_fit.row_elems),
+                                   draw_chain_axes=TESS_DRAW_AXES,
+                                   capturable=graphs.declared(self, (flow,)), collective=True)
         _u, params = driver.run(
             u0, flow.params, generator, self.params.n_warmup_iterations, stats=out.statistics,
             samples=out.running_samples, calls_per_iter=self._calls_per_iter(n_chains),
             grads_per_iter=0, collect=self.params.store_samples,
             time_limit_seconds=time_limit_seconds, show_progress=show_progress,
-            desc="[Warmup] TESS", shard=shard)
+            desc="[Warmup] TESS", shard=shard,
+            fit_rows=lambda chunk: scan_fit.draws(fit_generator, chunk))
         flow.params = params
 
     def _get_driver(self) -> ChunkedScanDriver:

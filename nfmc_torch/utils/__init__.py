@@ -62,7 +62,8 @@ def tree_unflatten(like, leaves) -> object:
             return next(it)
         if _is_mlp(node):
             pairs = [(next(it), next(it)) for _ in node["w"]]
-            return {"w": [w for w, _ in pairs], "b": [b for _, b in pairs]}
+            built = {"w": [w for w, _ in pairs], "b": [b for _, b in pairs]}
+            return {k: built[k] for k in node}  # the keys in ``like``'s order
         if isinstance(node, dict):
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}

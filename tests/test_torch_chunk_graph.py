@@ -178,34 +178,39 @@ def test_driver_memoised_across_calls():
 
 
 def test_undeclared_and_refitting_paths_stay_eager(monkeypatch):
-    """A subclass of NUTS that does not declare itself (a user's), a flow
-    without a declaration and a jump chunk with refits run the eager loop
-    even under ``without_capture``: chosen by declaration. The refits
-    inside that chunk replay their fit's own graph: the first refit's one
-    epoch runs eagerly, the second's is a replay."""
+    """A subclass of NUTS that does not declare itself (a user's) and a flow
+    without a declaration run the eager loop even under
+    ``without_capture``, a jump chunk with refits of such a flow too:
+    chosen by declaration. A jump chunk with refits of a declared flow is
+    replays of one captured outer iteration, its refits inline in the
+    body (no fit graph of their own), the gated refit a scope."""
     runs = []
     run = graphs.IterationGraph.run
     monkeypatch.setattr(graphs.IterationGraph, "run",
                         lambda self, n: (runs.append((self, n)), run(self, n))[1])
+    gates = []
+    when = graphs.when
+    monkeypatch.setattr(graphs, "when", lambda pred, body: (gates.append(pred), when(pred, body)))
     user_nuts = type("UserNUTS", (nfmc_torch.NUTS,), {})
+    refits = {"fit_nf": True, "n_jumps_before_training": 1, "flow_fit_kwargs": {"n_epochs": 1}}
     with graphs.without_capture():
         s = user_nuts((4,), TARGET, device="cpu")
         s.params.n_iterations = 3
         s.sample(torch.zeros(4, 4), show_progress=False, seed=0)
-        nfmc_torch.sample(TARGET, strategy="jump_mala", flow="nice", n_chains=4,
-                          n_iterations=3, inner_param_kwargs={"n_iterations": 2}, seed=0,
-                          show_progress=False, device="cpu")
+        for params in ({}, refits):
+            nfmc_torch.sample(TARGET, strategy="jump_mala", flow="nice", n_chains=4,
+                              n_iterations=3, inner_param_kwargs={"n_iterations": 2}, seed=0,
+                              param_kwargs=params, show_progress=False, device="cpu")
         assert runs == []
+        gates.clear()  # NUTS's doublings are scopes in its eager loop too
         nfmc_torch.sample(TARGET, strategy="jump_mala",
                           flow=Flow(RealNVP((4,), n_layers=2, hidden_size=8), seed=0),
                           n_chains=4, n_iterations=3, inner_param_kwargs={"n_iterations": 2},
-                          param_kwargs={"fit_nf": True, "n_jumps_before_training": 1,
-                                        "flow_fit_kwargs": {"n_epochs": 1}},
-                          seed=0, show_progress=False, device="cpu")
-    fit_runs = [(g, n) for g, n in runs if g.body.__module__ == "nfmc_torch.flows.train"]
-    assert [n for g, n in runs if (g, n) not in fit_runs] == []
-    assert [n for _, n in fit_runs] == [1, 1] and fit_runs[0][0] is fit_runs[1][0]
-    assert fit_runs[0][0].replays == 1
+                          param_kwargs=refits, seed=0, show_progress=False, device="cpu")
+    assert [n for _, n in runs] == [3]
+    assert all(g.body.__module__ != "nfmc_torch.flows.train" for g, _ in runs)
+    # one gate an outer iteration, a row of the graph's input
+    assert len(gates) == 3 and all(isinstance(p, torch.Tensor) and p.dim() == 0 for p in gates)
     assert not graphs.declared(user_nuts((4,), TARGET, device="cpu"))
     assert graphs.declared(nfmc_torch.NUTS((4,), TARGET, device="cpu"))
 
@@ -303,6 +308,30 @@ def test_cache_keeps_its_bound():
     del o
     gc.collect()
     assert len(small) == 0 and small.nbytes() == 0
+
+
+class _CollectingKey:
+    """A key whose hash collects garbage, as a hash that allocates may."""
+
+    def __hash__(self):
+        gc.collect()
+        return 7
+
+    def __eq__(self, other):
+        return isinstance(other, _CollectingKey)
+
+
+def test_cache_survives_an_owner_collected_while_it_is_iterated():
+    cache = graphs.GraphCache(max_graphs=10, max_bytes=1 << 30)
+    keep, gone, last = _Owner(), _Owner(), _Owner()
+    gone.cycle = gone  # freed only by the collector, inside the key's hash
+    for owner, key in ((keep, _CollectingKey()), (gone, "k"), (last, "k")):
+        cache.get(owner, key, _small_graph)
+    del gone
+    assert cache.nbytes() == 2 * last._graphs["k"].nbytes
+    assert len(cache) == 2
+    cache.get(_Owner(), "k", _small_graph)
+    assert len(cache) == 2  # that owner is already gone
 
 
 def test_declared_step_with_a_host_count_raises():
